@@ -1,0 +1,22 @@
+"""Config registry: ``get_config("<arch-id>")`` for the architectures the
+port serves (moonshot-v1-16b-a3b so far)."""
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      RWKVConfig, SSMConfig, reduced)
+from repro_torch.configs import moonshot_v1_16b_a3b
+from repro_torch.configs.paper import PAPER_CONFIGS, TOKEN_SWEEP, PaperMoE
+
+REGISTRY = {m.CONFIG.name: m.CONFIG for m in (moonshot_v1_16b_a3b,)}
+ARCH_NAMES = tuple(REGISTRY)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig",
+    "reduced", "REGISTRY", "ARCH_NAMES", "get_config",
+    "PAPER_CONFIGS", "TOKEN_SWEEP", "PaperMoE",
+]

@@ -1,0 +1,37 @@
+"""Single-device MoE dispatch, the paper's end-to-end pipeline (counterpart
+of ``repro.core.dispatch``):
+
+    router logits -> gating/top-k -> schedule -> permute
+      -> fused gate+up grouped GEMM -> down grouped GEMM (folded combine)
+      -> unpermute
+
+``moe_ffn`` is ``plan_dispatch`` + ``execute`` on ``cfg.executor``."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.execution import execute, plan_dispatch
+
+
+class MoEDispatchConfig(NamedTuple):
+    n_experts: int
+    top_k: int
+    block_m: int = 128
+    executor: str = "cuda"           # any registered repro_torch backend
+    fuse_gate_up: bool = True
+    fold_combine: bool = True
+    gating: str = "softmax"
+    norm_topk: bool = False
+    routed_scale: float = 1.0
+    schedule_policy: str = "fixed"   # any registered repro_torch policy
+
+
+def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoEDispatchConfig):
+    """Full dispatch pipeline.  x: (T, d) -> (y: (T, d), aux dict)."""
+    plan = plan_dispatch(x, w_router, cfg)
+    y = execute(plan, x, {"w_gate": w_gate, "w_up": w_up, "w_down": w_down},
+                cfg)
+    return y.to(x.dtype), plan.aux

@@ -1,0 +1,140 @@
+"""Plan/execute split for MoE dispatch: ``DispatchPlan`` + executor registry
+(counterpart of ``repro.execution.base``).
+
+* **Plan**: ``plan_dispatch(x, w_router, cfg)`` runs the router projection
+  (an fp32 ``torch.matmul``, outside any kernel, as the reference leaves it
+  to XLA), the executor's gating/top-k, the configured ``BlockSchedule``, the
+  combine-scale rows and the router aux losses, once per batch.
+* **Execute**: an ``Executor`` turns a plan into the layer output through
+  its phase methods (``permute`` / ``expert_ffn`` / ``unpermute``).
+
+Nothing here synchronises the host with the card: no ``.item()``, no
+``.nonzero()``, no boolean-mask indexing, no ``one_hot`` (which validates
+its input on the host).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.scheduling import (BlockSchedule, build_schedule,
+                                    policy_config_kwargs)
+
+
+class DispatchPlan(NamedTuple):
+    """Everything per-batch and routing-dependent, built once by
+    ``plan_dispatch``."""
+
+    weights: torch.Tensor                   # (T, k) f32 combine weights
+    indices: torch.Tensor                   # (T, k) i32 expert assignment
+    logits: torch.Tensor                    # (T, E) f32 router logits
+    schedule: BlockSchedule
+    combine_scale: Optional[torch.Tensor]   # (capacity,) f32 epilogue rows
+    aux: dict                               # lb/z losses
+
+
+def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg):
+    """Load-balance + router-z losses.  The expert frequencies come from a
+    ``scatter_add_`` count, equal to the reference's one-hot mean."""
+    probs = torch.softmax(logits, dim=-1)
+    E = cfg.n_experts
+    flat = indices.reshape(-1).long()
+    frac = torch.zeros(E, dtype=torch.float32, device=logits.device)
+    frac = frac.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    frac = frac / flat.numel()
+    mean_prob = probs.mean(dim=0)
+    lb = E * torch.sum(frac * mean_prob)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return {"lb_loss": lb, "router_z": z}
+
+
+def combine_scale_rows(sched: BlockSchedule, weights: torch.Tensor):
+    """Scatter the (T, k) combine weights onto padded rows for the fused
+    down-projection epilogue; padding rows get 0.  The reference's drop-
+    scatter writes rows at or past capacity into an overflow slot here."""
+    cap = sched.capacity
+    rows = sched.pos.reshape(-1)
+    slot = torch.where(rows < cap, rows, torch.full_like(rows, cap)).long()
+    scale = torch.zeros(cap + 1, dtype=torch.float32, device=weights.device)
+    return scale.scatter_(0, slot, weights.reshape(-1).float())[:cap]
+
+
+def plan_schedule(indices: torch.Tensor, cfg) -> BlockSchedule:
+    kw = policy_config_kwargs(cfg.schedule_policy, cfg)
+    return build_schedule(indices, cfg.n_experts, cfg.block_m,
+                          policy=cfg.schedule_policy, **kw)
+
+
+class Executor:
+    """Backend contract for the grouped expert compute.  ``w`` is the
+    expert-weight mapping {"w_gate", "w_up", "w_down"} of (E, K, N)
+    tensors."""
+
+    name: str = "?"
+
+    def route(self, logits: torch.Tensor, cfg):
+        """(T, E) f32 logits -> (weights (T, k) f32, indices (T, k) i32)."""
+        raise NotImplementedError(f"executor {self.name!r} has no route")
+
+    def permute(self, x, sched: BlockSchedule, cfg):
+        raise NotImplementedError(f"executor {self.name!r} has no permute")
+
+    def expert_ffn(self, xp, w: dict, sched: BlockSchedule, cfg,
+                   row_scale=None):
+        raise NotImplementedError(f"executor {self.name!r} has no expert_ffn")
+
+    def unpermute(self, y, sched: BlockSchedule, weights, cfg):
+        raise NotImplementedError(f"executor {self.name!r} has no unpermute")
+
+    def run(self, x, w: dict, plan: DispatchPlan, cfg):
+        """x: (T, d) -> y: (T, d) under the plan's routing + schedule."""
+        sched = plan.schedule
+        xp = self.permute(x, sched, cfg)
+        scale = plan.combine_scale if cfg.fold_combine else None
+        y = self.expert_ffn(xp, w, sched, cfg, row_scale=scale)
+        return self.unpermute(
+            y, sched, None if cfg.fold_combine else plan.weights, cfg)
+
+
+_EXECUTORS: Dict[str, Executor] = {}
+
+
+def register_executor(name: str) -> Callable[[type], type]:
+    """Class decorator: instantiate and register an Executor under ``name``."""
+    def deco(cls: type) -> type:
+        cls.name = name
+        _EXECUTORS[name] = cls()
+        return cls
+    return deco
+
+
+def get_executor(name: str) -> Executor:
+    try:
+        return _EXECUTORS[name]
+    except KeyError:
+        raise ValueError(f"unknown executor {name!r}; "
+                         f"available: {available_executors()}") from None
+
+
+def available_executors():
+    return sorted(_EXECUTORS)
+
+
+def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
+                  ) -> DispatchPlan:
+    """Phase 1: route + schedule + combine rows + aux, once per batch."""
+    ex = get_executor(cfg.executor)
+    logits = torch.matmul(x.float(), w_router.float())
+    weights, indices = ex.route(logits, cfg)
+    aux = router_aux_losses(logits, indices, cfg)
+    sched = plan_schedule(indices, cfg)
+    combine = combine_scale_rows(sched, weights) if cfg.fold_combine else None
+    return DispatchPlan(weights=weights, indices=indices, logits=logits,
+                        schedule=sched, combine_scale=combine, aux=aux)
+
+
+def execute(plan: DispatchPlan, x: torch.Tensor, w: dict, cfg
+            ) -> torch.Tensor:
+    """Phase 2: run a plan through ``cfg.executor``."""
+    return get_executor(cfg.executor).run(x, w, plan, cfg)

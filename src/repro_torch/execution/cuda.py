@@ -1,0 +1,40 @@
+"""``cuda`` executor: the paper's technique as hand-written CUDA kernels
+(counterpart of ``repro.execution.pallas``).
+
+It composes the five kernels phase for phase: ``router_topk`` ->
+``permute`` -> ``fused_gate_up`` (or, unfused, two ``grouped_gemm`` calls
+and an fp32 SiLU product) -> ``grouped_gemm`` down projection with the
+folded combine weights -> ``unpermute``.  The schedule arrays are kernel
+arguments read by each thread block, so there is no host round trip.  On
+CPU tensors every wrapper runs its plain version."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.execution.base import Executor, register_executor
+from repro_torch.kernels import ops
+
+
+@register_executor("cuda")
+class CudaExecutor(Executor):
+
+    def route(self, logits, cfg):
+        return ops.router_topk(logits, top_k=cfg.top_k, gating=cfg.gating,
+                               norm_topk=cfg.norm_topk,
+                               routed_scale=cfg.routed_scale)
+
+    def permute(self, x, sched, cfg):
+        return ops.permute(x, sched)
+
+    def expert_ffn(self, xp, w, sched, cfg, row_scale=None):
+        if cfg.fuse_gate_up:
+            h = ops.fused_gate_up(xp, w["w_gate"], w["w_up"], sched)
+        else:
+            g = ops.grouped_gemm(xp, w["w_gate"], sched)
+            u = ops.grouped_gemm(xp, w["w_up"], sched)
+            gf = g.float()
+            h = ((gf * torch.sigmoid(gf)) * u.float()).to(xp.dtype)
+        return ops.grouped_gemm(h, w["w_down"], sched, row_scale=row_scale)
+
+    def unpermute(self, y, sched, weights, cfg):
+        return ops.unpermute(y, sched, weights)

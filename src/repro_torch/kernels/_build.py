@@ -1,0 +1,166 @@
+"""Build and bind the CUDA kernels in ``repro_torch/csrc``.
+
+At first use the ``.cu`` sources are compiled for Hopper (``sm_90a``) with
+one ``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface under ``build/kernels/`` at the
+root of the checkout.  The library's name carries a hash of the sources, so
+an edited source is never served by a stale build.  It is loaded with
+ctypes; every pointer and the stream are passed as ``c_void_p``.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises if that is not 0.  ``LAUNCHES`` counts launches per kernel:
+each wrapper adds one where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
+           "fused_gate_up")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "moe_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "moe_permute": [_P, _P, _P, _I, _I, _P],
+    "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "moe_grouped_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_fused_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""          # nvcc's output (register and shared-memory use)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources (in parallel) and link the library; returns its
+    path.  A library already built from identical sources is reused."""
+    global build_log
+    target = BUILD_DIR / f"libmoe_kernels-{_digest()}.so"
+    if target.exists():
+        return target
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in cu:
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp_lib = pathlib.Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, target)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_ptr(device) -> int:
+    """The current stream of ``device``, which must be the current device
+    (the C entry points launch on the calling thread's device)."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {device}, current device "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    """The C interface's dtype code (csrc/common.cuh MoeDtype)."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
+
+
+def require(cond: bool, msg: str) -> None:
+    """Raise on an input the kernel does not take."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def on_cuda(*tensors) -> bool:
+    """True when the tensors lie on a CUDA device (the kernel runs); False
+    when they lie on the CPU (the plain version runs).  Anything else, or a
+    mix, raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
+                     "CUDA tensors and the plain versions CPU tensors")

@@ -1,0 +1,47 @@
+"""Plain PyTorch oracles for every kernel, on a ``BlockSchedule``
+(counterpart of ``repro.kernels.ref``).
+
+Each is the plain version that sits beside its kernel
+(``router_topk_plain``, ``permute_plain``, ...), called on any device: the
+CPU tests hold them against ``repro.kernels.ref`` and the interpret-mode
+Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.fused_gate_up import fused_gate_up_plain
+from repro_torch.kernels.grouped_gemm import grouped_gemm_plain
+from repro_torch.kernels.permute import permute_plain
+from repro_torch.kernels.router_topk import router_topk_plain
+from repro_torch.kernels.unpermute import unpermute_plain
+from repro_torch.scheduling import BlockSchedule
+
+
+def router_ref(logits: torch.Tensor, top_k: int, *, gating: str = "softmax",
+               norm_topk: bool = False, routed_scale: float = 1.0):
+    return router_topk_plain(logits, top_k, gating=gating,
+                             norm_topk=norm_topk, routed_scale=routed_scale)
+
+
+def permute_ref(x: torch.Tensor, sched: BlockSchedule) -> torch.Tensor:
+    return permute_plain(x, sched.src_tok)
+
+
+def unpermute_ref(y: torch.Tensor, sched: BlockSchedule,
+                  weights: Optional[torch.Tensor]) -> torch.Tensor:
+    return unpermute_plain(y, sched.pos, weights)
+
+
+def grouped_gemm_ref(x: torch.Tensor, w: torch.Tensor, sched: BlockSchedule,
+                     row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return grouped_gemm_plain(x, w, sched.block_expert, sched.block_active,
+                              block_m=sched.block_m, row_scale=row_scale)
+
+
+def fused_gate_up_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, sched: BlockSchedule) -> torch.Tensor:
+    return fused_gate_up_plain(x, w_gate, w_up, sched.block_expert,
+                               sched.block_active, block_m=sched.block_m)

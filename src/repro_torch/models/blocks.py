@@ -1,0 +1,62 @@
+"""Shared building blocks: RMSNorm, rotary embeddings, parameter init
+(counterpart of ``repro.models.blocks``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """An inference-only parameter."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def normal_init(gen: torch.Generator, shape, scale: float, dtype, device
+                ) -> nn.Parameter:
+    """``N(0, 1) * scale`` drawn from ``gen`` on ``device``, cast to dtype."""
+    t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return frozen((t * scale).to(dtype))
+
+
+def dense_init(gen, shape, dtype, device) -> nn.Parameter:
+    """The reference's ``dense_init``: fan-in scaled normal."""
+    fan_in = shape[0] if len(shape) == 2 else shape[-2]
+    return normal_init(gen, shape, fan_in ** -0.5, dtype, device)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm in the ``(1 + scale)`` form; ``scale`` starts at zero."""
+
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = frozen(torch.zeros(d, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        return apply_norm(self.scale, x, eps)
+
+
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """Computed in fp32, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotate-half rotary embedding.  x: (B, S, H, D); positions: (S,) or
+    (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None] * freqs                 # (..., S, half)
+    if ang.dim() == 2:
+        ang = ang[None]                                        # (1, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

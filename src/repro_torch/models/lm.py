@@ -1,0 +1,245 @@
+"""Language model for the ``moe`` family (counterpart of ``repro.models.lm``,
+cut to the served path: prefill and decode over a contiguous KV cache).
+
+The reference stacks its body layers and scans them (``lax.scan``); here
+the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
+``first_dense_layers`` dense-FFN blocks (``moe_dense``) then MoE blocks
+(``moe``).  Every ``(in, out)`` matrix keeps the reference's layout.
+
+The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
+Hkv, D) tensors per layer, updated in place (the reference returns a new
+cache; the port writes the rows it changes, which saves a copy of the
+cache per step)."""
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe_layer import apply_moe, dispatch_config
+from repro_torch.models.attention import (Attention, attention, project_qkv,
+                                          write_decode_rows)
+from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
+from repro_torch.models.ffn import SwiGLU
+
+
+class RunConfig(NamedTuple):
+    """Execution options orthogonal to the architecture.  The port's
+    defaults are the ``cuda`` executor and the paper's ``fixed`` schedule."""
+    compute_dtype: torch.dtype = torch.float32
+    executor: str = "cuda"
+    schedule_policy: str = "fixed"
+    fuse_gate_up: bool = True
+    fold_combine: bool = True
+
+
+def group_structure(cfg: ModelConfig):
+    """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds); the port
+    builds the moe family: prefix ``moe_dense``, then body ``moe``."""
+    if not cfg.is_moe or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the moe family without MLA so far")
+    nd = cfg.moe.first_dense_layers
+    return ["moe_dense"] * nd, ["moe"], cfg.n_layers - nd, []
+
+
+class SharedExperts(nn.Module):
+    def __init__(self, d: int, fs: int, gen, dtype, device):
+        super().__init__()
+        self.w_gate = normal_init(gen, (d, fs), d ** -0.5, dtype, device)
+        self.w_up = normal_init(gen, (d, fs), d ** -0.5, dtype, device)
+        self.w_down = normal_init(gen, (fs, d), fs ** -0.5, dtype, device)
+
+
+class MoE(nn.Module):
+    """Routed experts (E, in, out) stacks, an fp32 router and the optional
+    shared experts."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
+        moe, d = cfg.moe, cfg.d_model
+        E, f = moe.n_experts, moe.d_ff_expert
+        s = d ** -0.5
+        self.router = normal_init(gen, (d, E), s, torch.float32, device)
+        self.w_gate = normal_init(gen, (E, d, f), s, dtype, device)
+        self.w_up = normal_init(gen, (E, d, f), s, dtype, device)
+        self.w_down = normal_init(gen, (E, f, d), f ** -0.5, dtype, device)
+        self.shared = (SharedExperts(d, moe.n_shared_experts * f, gen, dtype,
+                                     device)
+                       if moe.n_shared_experts else None)
+
+    def params(self) -> dict:
+        p = {"router": self.router, "w_gate": self.w_gate, "w_up": self.w_up,
+             "w_down": self.w_down}
+        if self.shared is not None:
+            sh = self.shared
+            p["shared"] = {"w_gate": sh.w_gate, "w_up": sh.w_up,
+                           "w_down": sh.w_down}
+        return p
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, kind: str, gen, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.kind = kind
+        self.norm1 = RMSNorm(d, device)
+        self.norm2 = RMSNorm(d, device)
+        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              gen, dtype, device)
+        if kind == "moe":
+            self.moe = MoE(cfg, gen, dtype, device)
+        else:
+            self.ffn = SwiGLU(d, cfg.moe.d_ff_dense or 4 * d, gen, dtype,
+                              device)
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
+        prefix, body, n_groups, _ = group_structure(cfg)
+        d = cfg.d_model
+        self.embed = normal_init(gen, (cfg.vocab_size, d), 0.02, dtype, device)
+        self.head = dense_init(gen, (d, cfg.vocab_size), dtype, device)
+        self.final_norm = RMSNorm(d, device)
+        kinds = prefix + body * n_groups
+        self.layers = nn.ModuleList(
+            [Block(cfg, kind, gen, dtype, device) for kind in kinds])
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                param_dtype: torch.dtype = torch.float32,
+                device="cuda") -> LM:
+    """Random weights from a seeded ``torch.Generator`` on ``device``
+    (reference scales; the reference's JAX draws are not reproduced: tests
+    carry JAX weights over with ``repro_torch.weights.from_jax_params``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        return LM(cfg, gen, param_dtype, dev)
+
+
+# ----------------------------------------------------------------------
+# Cache
+# ----------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype=torch.float32, device="cuda") -> List[dict]:
+    dev = resolve_device(device)
+    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def slice_cache_slots(cache, start: int, n: int):
+    """Views of ``n`` consecutive slot rows; writes through them land in
+    the full cache."""
+    return [{k: t.narrow(0, start, n) for k, t in layer.items()}
+            for layer in cache]
+
+
+def update_cache_slots(cache, sub, start: int):
+    """Write an n-slot sub-cache back into the full cache at ``start`` (a
+    no-op for the views ``slice_cache_slots`` hands out)."""
+    for layer, sl in zip(cache, sub):
+        for k, t in layer.items():
+            dst = t.narrow(0, start, sl[k].shape[0])
+            if dst.data_ptr() != sl[k].data_ptr():
+                dst.copy_(sl[k])
+    return cache
+
+
+def swap_cache_slots(cache, i: int, j: int):
+    """Exchange two slot rows in place (engine compaction)."""
+    for layer in cache:
+        for t in layer.values():
+            tmp = t[i].clone()
+            t[i] = t[j]
+            t[j] = tmp
+    return cache
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
+def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
+                *, positions, mode: str, cache=None, cache_pos=None):
+    """Returns (x, aux).  Writes the block's K/V rows into ``cache`` in
+    place (prefill: rows [0, S); decode: row ``cache_pos[b]`` of slot b)."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    h = blk.norm1(x)
+    q, k, v = project_qkv(blk.attn, h, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if mode == "decode":
+        write_decode_rows(cache["k"], k, cache_pos)
+        write_decode_rows(cache["v"], v, cache_pos)
+        o = attention(q, cache["k"].to(dt), cache["v"].to(dt), causal=False,
+                      kv_limit=cache_pos)
+    else:
+        o = attention(q, k, v, causal=cfg.causal)
+        if cache is not None:
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    o = torch.matmul(o.reshape(B, S, -1), blk.attn.wo.to(dt))
+    x = x + o.to(dt)
+
+    h = blk.norm2(x)
+    aux = {}
+    if blk.kind == "moe":
+        dcfg = dispatch_config(cfg.moe, executor=rc.executor,
+                               fuse_gate_up=rc.fuse_gate_up,
+                               fold_combine=rc.fold_combine,
+                               schedule_policy=rc.schedule_policy)
+        o, aux = apply_moe(blk.moe.params(), h, dcfg)
+    else:
+        o = blk.ffn(h)
+    return x + o.to(dt), aux
+
+
+@torch.no_grad()
+def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
+            mode: str = "prefill", cache=None, pos=None):
+    """Returns (logits (B, V) f32, cache, aux).
+
+    prefill: ``batch["tokens"]`` (B, S); writes the prompt's K/V into rows
+             [0, S) of ``cache`` (when given); logits of the last position.
+    decode:  ``batch["tokens"]`` (B, 1); ``pos`` a (B,) tensor (or an int
+             shared by every row) of cache positions; writes each row's K/V
+             at its position and attends to positions <= it.
+    """
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
+    dt = rc.compute_dtype
+    tokens = batch["tokens"]
+    x = model.embed[tokens].to(dt)
+    B, S = x.shape[:2]
+    if mode == "decode":
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        pos = pos.expand(B) if pos.dim() == 0 else pos
+        positions = pos[:, None]
+        cache_pos = pos
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        cache_pos = None
+    aux_acc: dict = {}
+    for i, blk in enumerate(model.layers):
+        c = cache[i] if cache is not None else None
+        x, aux = apply_block(blk, x, cfg, rc, positions=positions, mode=mode,
+                             cache=c, cache_pos=cache_pos)
+        for key, val in aux.items():
+            aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
+    x = model.final_norm(x)
+    x_last = x[:, -1] if mode == "prefill" else x[:, 0]
+    logits = torch.matmul(x_last, model.head.to(dt)).float()
+    return logits, cache, aux_acc
+
+
+def n_moe_layers(cfg: ModelConfig) -> int:
+    return group_structure(cfg)[2]

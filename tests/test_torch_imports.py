@@ -1,0 +1,61 @@
+"""Import isolation: the port imports neither JAX nor the JAX package.
+
+A subprocess imports every module of ``repro_torch`` and checks that
+``jax`` and every ``repro`` / ``repro.*`` module stay out of
+``sys.modules``; a static scan checks the port's sources and
+``chip_smoke.py`` for such imports (whole module names, so ``repro_torch``
+passes)."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
+    r"|from\s+repro(\.|\s))", re.M)
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25, out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_has_no_jax_or_reference_import(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+def test_scan_catches_what_it_must():
+    for bad in ("import jax", "from jax import numpy", "import repro.kernels",
+                "from repro.kernels import ops", "from repro import x",
+                "import repro"):
+        assert FORBIDDEN.search(bad), bad
+    for good in ("import repro_torch", "from repro_torch.kernels import ops",
+                 "import jaxlib_like_name_in_text = 1"):
+        assert not FORBIDDEN.search(good), good
