@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``repro_torch.kernels.grouped_gemm`` <-> ``repro.kernels.grouped_gemm``)
-and imports nothing of it, nor of JAX.  The MoE dispatch kernels are
-hand-written CUDA C++ for Hopper (``csrc/``), built with nvcc at first use
+and imports nothing of it, nor of JAX.  The MoE dispatch kernels and the
+paged decode-attention kernel are hand-written CUDA C++ for Hopper
+(``csrc/``), built with nvcc at first use
 and bound through ctypes (``kernels/_build.py``).  Each kernel wrapper runs
 its plain PyTorch version only for tensors on the CPU; on a CUDA tensor it
 launches the kernel or raises.

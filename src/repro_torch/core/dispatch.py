@@ -26,6 +26,7 @@ class MoEDispatchConfig(NamedTuple):
     norm_topk: bool = False
     routed_scale: float = 1.0
     schedule_policy: str = "fixed"   # any registered repro_torch policy
+    block_m_min: int = 8             # the dynamic policy's sub-block floor
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,

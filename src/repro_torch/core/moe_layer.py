@@ -12,13 +12,14 @@ from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 
 def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
                     fuse_gate_up: bool = True, fold_combine: bool = True,
-                    schedule_policy: str = "fixed") -> MoEDispatchConfig:
+                    schedule_policy: str = "fixed",
+                    block_m_min: int = 8) -> MoEDispatchConfig:
     return MoEDispatchConfig(
         n_experts=moe.n_experts, top_k=moe.top_k, block_m=moe.block_m,
         executor=executor, fuse_gate_up=fuse_gate_up,
         fold_combine=fold_combine, gating=moe.gating,
         norm_topk=moe.norm_topk, routed_scale=moe.routed_scale,
-        schedule_policy=schedule_policy)
+        schedule_policy=schedule_policy, block_m_min=block_m_min)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):

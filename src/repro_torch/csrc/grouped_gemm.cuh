@@ -5,13 +5,19 @@
 // out[rows of schedule block m] = x[rows] @ W[block_expert[m]], (capacity, K)
 // x (E, K, N) -> (capacity, N), fp32 accumulation.
 //
-// Grid: one thread block per (BM-row tile, 64-column tile).  The tile's
-// schedule block is m = row0 / block_m; the block reads block_expert[m] and
-// block_active[m] from device memory itself, the Hopper form of the TPU's
-// scalar prefetch.  An inactive block writes zeros and returns without
-// touching the weights.  BM = 128 when block_m is a multiple of 128 (the
-// main path: each weight tile is then read once per schedule block), else
-// 16.  K and N must be multiples of 16 (checked by the wrapper).
+// Grid: one thread block per (ROWS-row tile, 64-column tile).  The tile
+// height ROWS always divides block_m, so a tile never spans two schedule
+// blocks: its schedule block is m = row0 / block_m, and the block reads
+// block_expert[m] and block_active[m] from device memory itself, the Hopper
+// form of the TPU's scalar prefetch.  An inactive block writes zeros and
+// returns without touching the weights.  ROWS = 128 when block_m is a
+// multiple of 128 (the fixed policy: each weight tile is then read once per
+// schedule block), 16 when it is a multiple of 16, else 8 (the dynamic
+// policy's 8-row sub-blocks).  An 8-row tile runs the 16-row kernel (BM =
+// 16) with rows 8-15 zero-filled in shared memory and never stored; with
+// 8-row blocks a heavy expert's weights are read once per 8-row block.
+// block_m must be a multiple of 8, K and N multiples of 16 (checked by the
+// wrapper).
 //
 // bf16: a 4-deep cp.async ring of shared-memory A and B tiles over K
 // (BK = 32), nvcuda::wmma 16x16x16 __nv_bfloat16 fragments with fp32
@@ -20,7 +26,8 @@
 // element-wise on the accumulator fragments (both sets share one layout)
 // before staging through shared memory for the store.
 // fp32: the same tiling with CUDA-core fmaf (never TF32), each thread owning
-// a (BM/16) x 4 micro-tile, so the result keeps full fp32 precision.
+// a (BM/16) x 4 micro-tile (rows past ROWS are zero and never stored), so
+// the result keeps full fp32 precision.
 // Epilogue in fp32 (row_scale multiply or SiLU product), one cast, one
 // store.
 #pragma once
@@ -87,7 +94,7 @@ struct Bf16Tiles {
 // launch bound asks for two blocks per SM: it holds the fused variant at
 // 128 registers (167 unbounded), so the active blocks of a decode step fit
 // in one wave.
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, 2)
 gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                  const bf16* __restrict__ w1, const int* __restrict__ block_expert,
@@ -101,14 +108,15 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   constexpr int LDA = C::LDA, LDB = C::LDB, LDC = C::LDC;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   constexpr int FM = WM / 16, FN = WN / 16;
+  static_assert(ROWS <= BM && BM % 16 == 0, "tile rows");
   extern __shared__ __align__(128) unsigned char smem[];
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * ROWS;
   const int mb = m0 / block_m;
   if (block_active[mb] == 0) {
-    store_zero_tile<bf16, BM, THREADS>(out, m0, n0, N);
+    store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
     return;
   }
   const size_t e = (size_t)block_expert[mb];
@@ -124,7 +132,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     bf16* Bs1 = Bs0 + C::B_BYTES / 2;
     for (int v = tid; v < BM * (BK / 8); v += THREADS) {
       const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      const bool ok = k0 + c < K;
+      const bool ok = r < ROWS && k0 + c < K;   // rows past ROWS: zeros
       cp_async16(As + r * LDA + c,
                  ok ? x + (size_t)(m0 + r) * K + k0 + c : x, ok);
     }
@@ -200,7 +208,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                               acc0[i][j], LDC, wmma::mem_row_major);
     }
   __syncthreads();
-  for (int v = tid; v < BM * (BN / 8); v += THREADS) {
+  for (int v = tid; v < ROWS * (BN / 8); v += THREADS) {
     const int r = v / (BN / 8), cc = (v % (BN / 8)) * 8;
     if (n0 + cc >= N) continue;
     const float s = (row_scale != nullptr) ? row_scale[m0 + r] : 1.0f;
@@ -216,13 +224,13 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   }
 }
 
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS>
 inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
                         const bf16* w0, const bf16* w1, const int* be,
                         const int* ba, const float* rs, bf16* out, int K,
                         int N, int block_m) {
   constexpr int smem = Bf16Tiles<BM, FUSED>::SMEM;
-  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED>;
+  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED, ROWS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
@@ -231,7 +239,7 @@ inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
 }
 
 // ------------------------------------------------------------------ fp32
-template <int BM, bool FUSED>
+template <int BM, bool FUSED, int ROWS>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                 const float* __restrict__ w1, const int* __restrict__ block_expert,
@@ -241,15 +249,16 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   constexpr int THREADS = 256, BK = 16;
   constexpr int TM = BM / 16, TN = BN / 16;
   constexpr int LDA = BK + 4, LDB = BN + 4;
+  static_assert(ROWS <= BM && BM % 16 == 0, "tile rows");
   __shared__ __align__(16) float As[BM * LDA];
   __shared__ __align__(16) float Bs0[BK * LDB];
   __shared__ __align__(16) float Bs1[FUSED ? BK * LDB : 4];
 
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * ROWS;
   const int mb = m0 / block_m;
   if (block_active[mb] == 0) {
-    store_zero_tile<float, BM, THREADS>(out, m0, n0, N);
+    store_zero_tile<float, ROWS, THREADS>(out, m0, n0, N);
     return;
   }
   const size_t e = (size_t)block_expert[mb];
@@ -271,7 +280,8 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
     for (int v = tid; v < BM * (BK / 4); v += THREADS) {
       const int r = v / (BK / 4), c = (v % (BK / 4)) * 4;
       *reinterpret_cast<float4*>(As + r * LDA + c) =
-          *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c);
+          r < ROWS ? *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c)
+                   : z;
     }
     for (int v = tid; v < BK * (BN / 4); v += THREADS) {
       const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
@@ -306,6 +316,7 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
+    if (ty + 16 * i >= ROWS) continue;
     const int r = m0 + ty + 16 * i;
     const float s = (row_scale != nullptr) ? row_scale[r] : 1.0f;
 #pragma unroll
@@ -326,29 +337,33 @@ inline int launch(const void* x, const void* w0, const void* w1,
                   const void* row_scale, void* out, int capacity, int K, int N,
                   int block_m, int dtype, void* stream) {
   if (capacity == 0 || N == 0) return moe_last_error();
-  if (block_m % 16 != 0 || K % 16 != 0 || N % 16 != 0)
+  if (block_m % 8 != 0 || K % 16 != 0 || N % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool big = block_m % 128 == 0;
-  const int bm = big ? 128 : 16;
-  dim3 grid((N + BN - 1) / BN, capacity / bm);
+  // tile height: the largest of 128, 16, 8 that divides block_m
+  const int rows = block_m % 128 == 0 ? 128 : (block_m % 16 == 0 ? 16 : 8);
+  dim3 grid((N + BN - 1) / BN, capacity / rows);
   const int* be = (const int*)block_expert;
   const int* ba = (const int*)block_active;
   const float* rs = (const float*)row_scale;
   if (dtype == kBF16) {
     const bf16 *xb = (const bf16*)x, *a = (const bf16*)w0, *b = (const bf16*)w1;
     bf16* o = (bf16*)out;
-    if (big)
-      launch_bf16<128, 4, 2, FUSED>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
+    if (rows == 128)
+      launch_bf16<128, 4, 2, FUSED, 128>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
+    else if (rows == 16)
+      launch_bf16<16, 1, 4, FUSED, 16>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
     else
-      launch_bf16<16, 1, 4, FUSED>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
+      launch_bf16<16, 1, 4, FUSED, 8>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
   } else {
     const float *xf = (const float*)x, *a = (const float*)w0, *b = (const float*)w1;
     float* o = (float*)out;
-    if (big)
-      gemm_f32_kernel<128, FUSED><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
+    if (rows == 128)
+      gemm_f32_kernel<128, FUSED, 128><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
+    else if (rows == 16)
+      gemm_f32_kernel<16, FUSED, 16><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
     else
-      gemm_f32_kernel<16, FUSED><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
+      gemm_f32_kernel<16, FUSED, 8><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
   }
   return moe_last_error();
 }

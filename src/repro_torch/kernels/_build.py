@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
-           "fused_gate_up")
+           "fused_gate_up", "paged_attention")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +40,7 @@ _SIGNATURES = {
     "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "moe_grouped_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "moe_fused_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

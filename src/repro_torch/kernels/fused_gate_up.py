@@ -17,9 +17,9 @@ def fused_gate_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
                         block_active: torch.Tensor, *, block_m: int
                         ) -> torch.Tensor:
     """x: (capacity, K); w_gate/w_up: (E, K, F) -> (capacity, F)."""
-    g, u = _block_products(x, [w_gate, w_up], block_expert, block_m)
+    g, u = _block_products(x, [w_gate, w_up], block_expert, block_active,
+                           block_m)
     out = (g * torch.sigmoid(g)) * u
-    out = out * block_active[:, None, None].float()
     return out.reshape(x.shape[0], -1).to(x.dtype)
 
 

@@ -3,7 +3,8 @@ dense weight format; kernel in ``csrc/grouped_gemm.cu``).
 
 ``out[block m] = x[block m] @ w[block_expert[m]]`` with fp32 accumulation,
 an optional ``row_scale`` epilogue (the folded combine weights), and zeros
-for inactive blocks."""
+for inactive blocks.  ``block_m`` is any multiple of 8: the ``fixed``
+policy's 128-row blocks and the ``dynamic`` policy's 8-row sub-blocks."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,12 +14,24 @@ import torch
 from repro_torch.kernels import _build
 
 
-def _block_products(x, ws, block_expert, block_m):
-    """fp32 ``x[block] @ w[expert(block)]`` for each weight in ``ws``."""
+def _block_products(x, ws, block_expert, block_active, block_m):
+    """fp32 ``x[block] @ w[expert(block)]`` for each weight in ``ws``, as
+    (num_blocks, block_m, N): computed for the active blocks only (their
+    expert weights gathered once per block), exact zeros for the others.
+    Finding the active blocks reads ``block_active`` on the host, which the
+    plain version may do: the kernels never do."""
     cap, K = x.shape
-    xb = x.reshape(cap // block_m, block_m, K).float()
-    idx = block_expert.long()
-    return [torch.bmm(xb, w.index_select(0, idx).float()) for w in ws]
+    nb = cap // block_m
+    act = torch.nonzero(block_active).reshape(-1)
+    xa = x.reshape(nb, block_m, K).index_select(0, act).float()
+    idx = block_expert.index_select(0, act).long()
+    outs = []
+    for w in ws:
+        out = torch.zeros((nb, block_m, w.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        outs.append(out.index_copy_(
+            0, act, torch.bmm(xa, w.index_select(0, idx).float())))
+    return outs
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -28,8 +41,7 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                        ) -> torch.Tensor:
     """x: (capacity, K); w: (E, K, N); row_scale: (capacity,) f32 or None
     -> (capacity, N) in x's dtype."""
-    (out,) = _block_products(x, [w], block_expert, block_m)
-    out = out * block_active[:, None, None].float()
+    (out,) = _block_products(x, [w], block_expert, block_active, block_m)
     out = out.reshape(x.shape[0], -1)
     if row_scale is not None:
         out = out * row_scale[:, None].float()
@@ -52,8 +64,8 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m):
     _build.require(K % 16 == 0 and N % 16 == 0,
                    f"grouped GEMM takes K and N multiples of 16 (K={K}, "
                    f"N={N})")
-    _build.require(block_m % 16 == 0 and cap % block_m == 0,
-                   f"grouped GEMM takes block_m a multiple of 16 dividing "
+    _build.require(block_m % 8 == 0 and cap % block_m == 0,
+                   f"grouped GEMM takes block_m a multiple of 8 dividing "
                    f"capacity (block_m={block_m}, capacity={cap})")
     nb = cap // block_m
     for t in (block_expert, block_active):

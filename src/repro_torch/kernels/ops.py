@@ -3,8 +3,9 @@
 arguments.  Block sizes are the kernels' own (csrc/); nothing here carries
 the TPU's (8, 128) tiling over.
 
-``LAUNCHES`` holds one launch counter per kernel (the wrappers increment
-it where they launch); ``reset_launches`` sets them all to 0."""
+``LAUNCHES`` holds one launch counter per kernel, the paged-attention
+kernel's too (the wrappers increment it where they launch);
+``reset_launches`` sets them all to 0."""
 from __future__ import annotations
 
 from typing import Optional

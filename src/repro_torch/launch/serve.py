@@ -1,6 +1,8 @@
 """Serving launcher: random weights from a seed, then greedy requests through
-the contiguous continuous-batching engine on the ``cuda`` executor with the
-``fixed`` schedule.
+the continuous-batching engine on the ``cuda`` executor.  By default the
+engine is paged (blocks of 16, chunked prefill, prefix cache) with the
+``dynamic`` schedule; ``--kv-block 0 --policy fixed`` gives the contiguous
+engine with the paper's ``fixed`` schedule.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --layers 4 --requests 4 --max-new 16 \\
@@ -20,6 +22,7 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 def main(argv=None):
     from repro_torch.configs import ARCH_NAMES, get_config
     from repro_torch.models.lm import RunConfig, init_params
+    from repro_torch.scheduling import available_policies
     from repro_torch.serve.engine import Request, ServeEngine
 
     ap = argparse.ArgumentParser()
@@ -32,6 +35,16 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-block", type=int, default=16,
+                    help="KV block size of the paged engine; 0 = contiguous")
+    ap.add_argument("--policy", default="dynamic",
+                    choices=available_policies(), help="schedule policy")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens per slot per paged step")
+    ap.add_argument("--paged-attn", default="auto",
+                    choices=("auto", "fused", "gather"),
+                    help="paged read: fused kernel (auto on cuda) or "
+                         "gather + attention")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -45,11 +58,16 @@ def main(argv=None):
                     max_new=args.max_new)
             for i in range(args.requests)]
     capacity = max(len(r.prompt) for r in reqs) + args.max_new + 1
+    rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
+                   paged_attn=args.paged_attn)
     engine = ServeEngine(cfg, model, slots=args.slots, capacity=capacity,
-                         rc=RunConfig(compute_dtype=dt),
-                         device=args.device)
+                         rc=rc, kv_block_size=args.kv_block,
+                         prefill_chunk=args.prefill_chunk, device=args.device)
+    cache = (f"paged KV cache (blocks of {args.kv_block}, prefill chunks of "
+             f"{engine.prefill_chunk}, {args.paged_attn} read)"
+             if engine.paged else "contiguous KV cache")
     print(f"{cfg.name}: {cfg.n_layers} layers at full width, {args.dtype}, "
-          f"contiguous KV cache, fixed schedule, cuda executor, "
+          f"{cache}, {args.policy} schedule, cuda executor, "
           f"{args.slots} slots x {capacity} tokens")
     t0 = time.perf_counter()
     done = engine.run(reqs)

@@ -1,5 +1,6 @@
 """Language model for the ``moe`` family (counterpart of ``repro.models.lm``,
-cut to the served path: prefill and decode over a contiguous KV cache).
+cut to the served path: prefill and decode over a contiguous KV cache, and
+decode rows over a paged KV block pool).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
@@ -9,7 +10,8 @@ the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
 The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
 Hkv, D) tensors per layer, updated in place (the reference returns a new
 cache; the port writes the rows it changes, which saves a copy of the
-cache per step)."""
+cache per step).  The paged pool (``serve/kv_cache.py``) has the same form
+with (n_blocks, block_size) in place of (slots, capacity)."""
 from __future__ import annotations
 
 from typing import List, NamedTuple
@@ -20,20 +22,28 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
-from repro_torch.models.attention import (Attention, attention, project_qkv,
-                                          write_decode_rows)
+from repro_torch.models.attention import (Attention, attention, paged_decode,
+                                          project_qkv, write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
 from repro_torch.models.ffn import SwiGLU
 
 
 class RunConfig(NamedTuple):
     """Execution options orthogonal to the architecture.  The port's
-    defaults are the ``cuda`` executor and the paper's ``fixed`` schedule."""
+    defaults are the ``cuda`` executor and the paper's ``fixed`` schedule
+    (the serving engine defaults to ``dynamic``)."""
     compute_dtype: torch.dtype = torch.float32
     executor: str = "cuda"
     schedule_policy: str = "fixed"
     fuse_gate_up: bool = True
     fold_combine: bool = True
+    block_m_min: int = 8             # the dynamic policy's sub-block floor
+    paged_attn: str = "auto"         # paged decode read path:
+                                     # auto   = fused kernel iff the executor
+                                     #          is cuda, else gather
+                                     # fused  = the paged-attention kernel
+                                     # gather = gather_block_kv + attention
+                                     #          (the oracle)
 
 
 def group_structure(cfg: ModelConfig):
@@ -165,10 +175,22 @@ def swap_cache_slots(cache, i: int, j: int):
 # ----------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------
+def paged_fused(rc: RunConfig) -> bool:
+    """Whether the paged read runs the fused kernel (``rc.paged_attn``)."""
+    if rc.paged_attn not in ("auto", "fused", "gather"):
+        raise ValueError(f"RunConfig.paged_attn={rc.paged_attn!r}; "
+                         "expected auto | fused | gather")
+    return rc.paged_attn == "fused" or (rc.paged_attn == "auto"
+                                        and rc.executor == "cuda")
+
+
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
-                *, positions, mode: str, cache=None, cache_pos=None):
+                *, positions, mode: str, cache=None, cache_pos=None,
+                block_tables=None, fused: bool = False):
     """Returns (x, aux).  Writes the block's K/V rows into ``cache`` in
-    place (prefill: rows [0, S); decode: row ``cache_pos[b]`` of slot b)."""
+    place (prefill: rows [0, S); decode: row ``cache_pos[b]`` of slot b, or
+    with ``block_tables`` position ``cache_pos[b]`` of row b's blocks in
+    the pool, read by the fused kernel when ``fused``)."""
     dt = x.dtype
     B, S, _ = x.shape
     h = blk.norm1(x)
@@ -177,13 +199,17 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if mode == "decode":
+    softcap = cfg.attn_logit_softcap
+    if mode == "decode" and block_tables is not None:
+        o = paged_decode(q, k, v, cache, block_tables, cache_pos,
+                         fused=fused, logit_softcap=softcap)
+    elif mode == "decode":
         write_decode_rows(cache["k"], k, cache_pos)
         write_decode_rows(cache["v"], v, cache_pos)
         o = attention(q, cache["k"].to(dt), cache["v"].to(dt), causal=False,
-                      kv_limit=cache_pos)
+                      kv_limit=cache_pos, logit_softcap=softcap)
     else:
-        o = attention(q, k, v, causal=cfg.causal)
+        o = attention(q, k, v, causal=cfg.causal, logit_softcap=softcap)
         if cache is not None:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
@@ -196,7 +222,8 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
         dcfg = dispatch_config(cfg.moe, executor=rc.executor,
                                fuse_gate_up=rc.fuse_gate_up,
                                fold_combine=rc.fold_combine,
-                               schedule_policy=rc.schedule_policy)
+                               schedule_policy=rc.schedule_policy,
+                               block_m_min=rc.block_m_min)
         o, aux = apply_moe(blk.moe.params(), h, dcfg)
     else:
         o = blk.ffn(h)
@@ -205,7 +232,7 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
 
 @torch.no_grad()
 def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
-            mode: str = "prefill", cache=None, pos=None):
+            mode: str = "prefill", cache=None, pos=None, block_tables=None):
     """Returns (logits (B, V) f32, cache, aux).
 
     prefill: ``batch["tokens"]`` (B, S); writes the prompt's K/V into rows
@@ -213,9 +240,18 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     decode:  ``batch["tokens"]`` (B, 1); ``pos`` a (B,) tensor (or an int
              shared by every row) of cache positions; writes each row's K/V
              at its position and attends to positions <= it.
+
+    ``block_tables`` (B, nb) int32, decode only: ``cache`` is the paged
+    pool and row b is one token of a serving step (a decode token or one
+    token of a prompt chunk) at its own position, written and read through
+    its slot's table row; logits for every row.
     """
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
+    if block_tables is not None and mode != "decode":
+        raise ValueError("block_tables is decode-only (chunked prefill "
+                         "feeds prompt tokens through decode rows)")
+    fused = paged_fused(rc)
     dt = rc.compute_dtype
     tokens = batch["tokens"]
     x = model.embed[tokens].to(dt)
@@ -232,7 +268,8 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     for i, blk in enumerate(model.layers):
         c = cache[i] if cache is not None else None
         x, aux = apply_block(blk, x, cfg, rc, positions=positions, mode=mode,
-                             cache=c, cache_pos=cache_pos)
+                             cache=c, cache_pos=cache_pos,
+                             block_tables=block_tables, fused=fused)
         for key, val in aux.items():
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     x = model.final_norm(x)

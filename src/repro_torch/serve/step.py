@@ -1,13 +1,17 @@
-"""Slot steps over the batched contiguous serving cache, greedy (counterpart
-of the slot steps in ``repro.serve.step``).
+"""Serving steps, greedy (counterpart of the slot and paged steps in
+``repro.serve.step``).
 
 * ``slot_prefill`` zeroes slot ``slot``'s cache rows, prefills one prompt
   into them and takes the first token's argmax on the device.
 * ``slot_decode`` advances the active-slot prefix [0, n) by one token in
   one forward (every MoE layer dispatches the n decode tokens together);
   argmax and the EOS comparison stay on the device.
+* ``paged_step`` runs one forward over a paged step's token rows (decode
+  tokens and prompt-chunk tokens together, each at its own position through
+  its slot's block-table row), with the same on-device argmax and EOS
+  comparison.
 
-Neither copies anything to the host: the engine makes one transfer per
+None copies anything to the host: the engine makes one transfer per
 step."""
 from __future__ import annotations
 
@@ -43,3 +47,16 @@ def slot_decode(model: LM, cfg: ModelConfig, rc: RunConfig, cache,
     update_cache_slots(cache, sub, 0)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     return tok, tok == eos, cache, aux
+
+
+def paged_step(model: LM, cfg: ModelConfig, rc: RunConfig, pools,
+               tokens: torch.Tensor, pos: torch.Tensor, tables: torch.Tensor,
+               eos: torch.Tensor):
+    """tokens: (T, 1); pos, eos: (T,) int32; tables: (T, nb) int32 ->
+    (tok (T,), eos_hit (T,), pools, aux), all on the device.  Every MoE
+    layer builds one dispatch plan over all T rows."""
+    logits, pools, aux = forward(model, cfg, rc, {"tokens": tokens},
+                                 mode="decode", cache=pools, pos=pos,
+                                 block_tables=tables)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return tok, tok == eos, pools, aux

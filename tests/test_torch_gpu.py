@@ -1,5 +1,8 @@
-"""On the card: the port's CUDA kernels against their plain PyTorch versions,
-the MoE layer without a host sync, and the engine's launch counts.
+"""On the card: the port's CUDA kernels against their plain PyTorch versions
+(the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
+paged decode-attention kernel over its masks), the MoE layer without a host
+sync under both policies, and the contiguous and paged engines' launch
+counts.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -14,7 +17,9 @@ import torch
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.execution import combine_scale_rows
 from repro_torch.kernels import ops, ref
-from repro_torch.scheduling import build_fixed_schedule
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                  paged_decode_attention_plain)
+from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
@@ -82,13 +87,75 @@ def test_wrapper_refuses_shapes_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_moe_ffn_makes_no_host_sync(cuda):
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [2, 4, 64])
+def test_gemms_on_dynamic_8_row_blocks_match_plain(cuda, T, dtype):
+    E, k, d, f = 64, 6, 256, 192
+    logits, x, wg, wu, wd = layer(cuda, T, E, k, d, f, DTYPES[dtype], seed=T)
+    w, idx = ref.router_ref(logits, k, gating="sigmoid", norm_topk=True,
+                            routed_scale=2.446)
+    sched = build_dynamic_schedule(idx, E, 128)
+    assert sched.block_m == 8
+    xp = ops.permute(x, sched)
+    h = ops.fused_gate_up(xp, wg, wu, sched)
+    torch.testing.assert_close(
+        h.float(), ref.fused_gate_up_ref(xp, wg, wu, sched).float(),
+        **TOL[dtype])
+    scale = combine_scale_rows(sched, w)
+    y = ops.grouped_gemm(h, wd, sched, row_scale=scale)
+    torch.testing.assert_close(
+        y.float(), ref.grouped_gemm_ref(h, wd, sched, scale).float(),
+        **TOL[dtype])
+    dead = (sched.block_active == 0).repeat_interleave(8)
+    assert torch.equal(h[dead], torch.zeros_like(h[dead]))
+    assert torch.equal(y[dead], torch.zeros_like(y[dead]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Hkv,G,D,Dv,bs,nb", [(2, 16, 1, 128, 128, 16, 8),
+                                                (64, 16, 1, 128, 128, 16, 8),
+                                                (5, 8, 4, 128, 128, 16, 6),
+                                                (3, 2, 2, 16, 32, 4, 5)])
+def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, G, D, Dv, bs, nb,
+                                              dtype):
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda).manual_seed(B)
+    n_blocks = B * nb + 3
+    kp = torch.randn(n_blocks, bs, Hkv, D, generator=g, device=cuda).to(dt)
+    vp = torch.randn(n_blocks, bs, Hkv, Dv, generator=g, device=cuda).to(dt)
+    q = torch.randn(B, Hkv, G, D, generator=g, device=cuda).to(dt)
+    tables = torch.randperm(n_blocks, generator=g, device=cuda)[:B * nb]
+    tables = tables.reshape(B, nb).to(torch.int32).contiguous()
+    lim = torch.randint(0, nb * bs, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    qpos = torch.clamp(lim - 2, min=0)
+    for kw in (dict(), dict(q_pos=qpos, causal=True, window=5),
+               dict(logit_softcap=8.0), dict(scale=0.3)):
+        out = paged_decode_attention(q, kp, vp, tables, lim, **kw)
+        want = paged_decode_attention_plain(q, kp, vp, tables, lim, **kw)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    # whole blocks past kv_limit are never read: NaN there leaks nothing
+    lim1 = torch.full((B,), bs - 1, dtype=torch.int32, device=cuda)
+    base = paged_decode_attention(q, kp, vp, tables, lim1)
+    past = tables[:, 1:].reshape(-1).long()
+    kp[past] = float("nan")
+    vp[past] = float("nan")
+    assert torch.equal(paged_decode_attention(q, kp, vp, tables, lim1), base)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+def test_moe_ffn_makes_no_host_sync(cuda, policy):
     T, E, k, d, f = 8, 64, 6, 256, 192
     logits, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
     router = torch.randn((d, E), device=cuda)
     cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
                             executor="cuda", gating="sigmoid",
-                            norm_topk=True, routed_scale=2.446)
+                            norm_topk=True, routed_scale=2.446,
+                            schedule_policy=policy)
     moe_ffn(x, router, wg, wu, wd, cfg)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -107,7 +174,7 @@ def test_engine_launches_each_kernel_once_per_moe_layer_forward(cuda):
     cfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, block_m=16))
     model = init_params(cfg, 0, param_dtype=torch.bfloat16)
-    eng = ServeEngine(cfg, model, slots=2, capacity=40,
+    eng = ServeEngine(cfg, model, slots=2, capacity=40, kv_block_size=0,
                       rc=RunConfig(compute_dtype=torch.bfloat16))
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
@@ -117,4 +184,37 @@ def test_engine_launches_each_kernel_once_per_moe_layer_forward(cuda):
     done = eng.run(reqs)
     assert len(done) == 3 and all(len(r.out) == 4 for r in done)
     expect = n_moe_layers(cfg) * eng.n_forwards
-    assert all(n == expect for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    launches = dict(ops.LAUNCHES)
+    assert launches.pop("paged_attention") == 0
+    assert all(n == expect for n in launches.values()), ops.LAUNCHES
+
+
+@pytest.mark.gpu
+def test_paged_engine_launches_attention_per_layer_forward(cuda):
+    """The paged engine (dynamic, fused read): the paged-attention kernel
+    runs once per layer per forward, the MoE kernels once per MoE layer per
+    forward, and a shared prompt prefix hits the cache."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params, n_moe_layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, model, slots=2, capacity=48, kv_block_size=8,
+                      prefill_chunk=8,
+                      rc=RunConfig(compute_dtype=torch.bfloat16,
+                                   schedule_policy="dynamic"))
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 20)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               if i != 1 else rng.integers(0, cfg.vocab_size, 9)
+               for i, n in enumerate((3, 0, 5))]
+    reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new=4)
+            for i, p in enumerate(prompts)]
+    ops.reset_launches()
+    done = eng.run(reqs)
+    assert len(done) == 3 and all(len(r.out) == 4 for r in done)
+    launches = dict(ops.LAUNCHES)
+    assert launches.pop("paged_attention") == cfg.n_layers * eng.n_forwards
+    expect = n_moe_layers(cfg) * eng.n_forwards
+    assert all(n == expect for n in launches.values()), ops.LAUNCHES
+    assert eng.kv.stats()["prefix_hit_tokens"] >= 16

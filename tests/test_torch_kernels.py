@@ -2,7 +2,8 @@
 five against ``repro.kernels.ref`` and against the Pallas kernels in
 interpret mode (``repro.kernels.ops``), over the shape and dtype grid of
 tests/test_kernels.py, with its tolerances (fp32 2e-5, bf16 2e-2).  Router
-indices must be equal exactly.  (The CUDA kernels themselves are held
+indices must be equal exactly.  The GEMMs are also held on the ``dynamic``
+policy's 8-row schedules.  (The CUDA kernels themselves are held
 against these plain versions on the card: test_torch_gpu.py.)"""
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ from repro.kernels import ref as jref
 from repro_torch.execution import combine_scale_rows
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.scheduling import build_fixed_schedule
+from repro.scheduling.dynamic import build_dynamic_schedule as jax_dynamic  # noqa: E402
+from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
 
 CASES = [
     # (T, E, k, d, f, block_m), as tests/test_kernels.py
@@ -181,3 +183,46 @@ def test_wrappers_refuse_devices_they_do_not_serve():
         tops.permute(x, build_fixed_schedule(
             torch.zeros((4, 1), dtype=torch.int32), 2, 8)._replace(
                 src_tok=src))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,E,k,d,f,M", [(2, 64, 6, 32, 48, 128),
+                                         (64, 16, 4, 64, 64, 32),
+                                         (128, 8, 2, 32, 48, 128)])
+def test_gemms_plain_on_dynamic_8_row_blocks(T, E, k, d, f, M, dtype):
+    """fused_gate_up and grouped_gemm (with the folded combine rows) on the
+    dynamic policy's 8-row sub-blocks, against the reference oracles and
+    the Pallas kernels; inactive blocks' rows are exactly zero."""
+    from repro.core.dispatch import combine_scale_rows as jax_combine_rows
+    logits, x, wg, wu, wd = make_inputs(T, E, k, d, f, seed=T)
+    w, idx = jref.router_ref(jnp.asarray(logits), k)
+    js = jax_dynamic(idx, E, M, block_m_min=8)
+    ts = build_dynamic_schedule(torch.from_numpy(np.array(idx)), E, M)
+    assert js.block_m == ts.block_m == 8
+    xj, xt = both(x, dtype)
+    (wgj, wgt), (wuj, wut), (wdj, wdt) = (both(wg, dtype), both(wu, dtype),
+                                          both(wd, dtype))
+    xpj, xpt = jref.permute_ref(xj, js), tops.permute(xt, ts)
+    np.testing.assert_array_equal(np32(xpt), np32(xpj))
+    h_t = tops.fused_gate_up(xpt, wgt, wut, ts)
+    np.testing.assert_allclose(
+        np32(h_t), np32(jref.fused_gate_up_ref(xpj, wgj, wuj, js)),
+        **tol(dtype))
+    hj = jops.fused_gate_up(xpj, wgj, wuj, js, block_n=min(f, 128),
+                            block_k=min(d, 128))
+    np.testing.assert_allclose(np32(h_t), np32(hj), **tol(dtype))
+    ht = torch.from_numpy(np32(hj)).to(TDT[dtype])
+    sj = jax_combine_rows(js, w)
+    st = combine_scale_rows(ts, torch.from_numpy(np.array(w)))
+    y_t = tops.grouped_gemm(ht, wdt, ts, row_scale=st)
+    np.testing.assert_allclose(
+        np32(y_t), np32(jref.grouped_gemm_ref(hj, wdj, js, row_scale=sj)),
+        **tol(dtype))
+    np.testing.assert_allclose(
+        np32(y_t), np32(jops.grouped_gemm(hj, wdj, js, row_scale=sj,
+                                          block_n=min(d, 128),
+                                          block_k=min(f, 128))),
+        **tol(dtype))
+    dead = (ts.block_active == 0).repeat_interleave(8)
+    assert not np32(h_t)[dead.numpy()].any()
+    assert not np32(y_t)[dead.numpy()].any()

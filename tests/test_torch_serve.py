@@ -1,13 +1,18 @@
 """Greedy tokens from the port's ``ServeEngine`` must be identical to
 ``repro.serve.engine.ServeEngine`` on reduced moonshot-v1-16b-a3b (3
-layers), contiguous cache (``kv_block_size=0``), fixed policy, fp32: five
-requests of mixed prompt lengths on two slots, so slot reuse and
-compaction run.
+layers, fp32), five requests of mixed prompt lengths on two slots, so slot
+reuse and compaction run:
+
+* contiguous cache (``kv_block_size=0``) with the ``fixed`` policy;
+* the paged engine (blocks of 4, ``prefill_chunk`` 4, ``dynamic``) with
+  prompts that share a prefix (prefix hits > 0) and take several chunks,
+  through the fused paged read and the gather read.
 
 The JAX side uses ``executor="xla"`` for speed: JAX's own tests hold xla ==
 pallas (tests/test_execution.py, rtol = atol = 2e-4), and the port's
 kernels are held against the pallas executor in test_torch_dispatch.py and
-test_torch_model.py."""
+test_torch_model.py.  One small paged case runs the reference's fused
+Pallas read in interpret mode."""
 import numpy as np
 import pytest
 import torch
@@ -30,12 +35,29 @@ LENGTHS = (5, 17, 3, 11, 8)
 MAX_NEW = (6, 4, 7, 5, 3)
 
 
-def test_greedy_tokens_identical_to_reference_engine():
+@pytest.fixture(scope="module")
+def reduced_moonshot():
     jcfg = jax_reduced(jax_get_config("moonshot-v1-16b-a3b"), layers=3)
     tcfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
     params = jax_init_params(jcfg, jax.random.key(0))
     model = from_jax_params(tcfg, jax.tree.map(np.asarray, params),
                             device="cpu")
+    return jcfg, tcfg, params, model
+
+
+def shared_prefix_prompts(vocab):
+    """Requests 0, 2 and 4 share a 9-token prefix (two full 4-token
+    blocks); the later ones are admitted after request 0's blocks are
+    registered, so they hit the prefix cache."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, 9)
+    return [(np.concatenate([shared, rng.integers(0, vocab, n)])
+             if i % 2 == 0 else rng.integers(0, vocab, n + 3)
+             ).astype(np.int32) for i, n in enumerate((2, 6, 4, 1, 5))]
+
+
+def test_greedy_tokens_identical_to_reference_engine(reduced_moonshot):
+    jcfg, tcfg, params, model = reduced_moonshot
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
                for n in LENGTHS]
@@ -49,7 +71,8 @@ def test_greedy_tokens_identical_to_reference_engine():
              for i, (p, m) in enumerate(zip(prompts, MAX_NEW))]
     jeng.run(jreqs, max_steps=64)
 
-    teng = ServeEngine(tcfg, model, slots=2, capacity=48, device="cpu")
+    teng = ServeEngine(tcfg, model, slots=2, capacity=48, kv_block_size=0,
+                       rc=RunConfig(schedule_policy="fixed"), device="cpu")
     treqs = [Request(rid=i, prompt=p, max_new=m)
              for i, (p, m) in enumerate(zip(prompts, MAX_NEW))]
     done = teng.run(treqs, max_steps=64)
@@ -60,17 +83,92 @@ def test_greedy_tokens_identical_to_reference_engine():
     assert teng.n_active == 0
 
 
-def test_engine_refuses_configurations_it_does_not_serve():
+def test_paged_greedy_tokens_identical_to_reference_engine(reduced_moonshot):
+    jcfg, tcfg, params, model = reduced_moonshot
+    prompts = shared_prefix_prompts(tcfg.vocab_size)
+    jeng = JaxServeEngine(jcfg, params, slots=2, capacity=32,
+                          rc=JaxRunConfig(executor="xla",
+                                          schedule_policy="dynamic",
+                                          q_chunk=64, kv_chunk=64),
+                          kv_block_size=4, prefill_chunk=4)
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(zip(prompts, MAX_NEW))]
+    jeng.run(jreqs, max_steps=128)
+    assert all(r.done for r in jreqs)
+    for read in ("fused", "gather"):
+        teng = ServeEngine(tcfg, model, slots=2, capacity=32,
+                           kv_block_size=4, prefill_chunk=4,
+                           rc=RunConfig(schedule_policy="dynamic",
+                                        paged_attn=read), device="cpu")
+        treqs = [Request(rid=i, prompt=p, max_new=m)
+                 for i, (p, m) in enumerate(zip(prompts, MAX_NEW))]
+        done = teng.run(treqs, max_steps=128)
+        assert len(done) == len(treqs) and teng.n_active == 0
+        assert [r.out for r in treqs] == [r.out for r in jreqs], read
+        for tr, jr in zip(treqs, jreqs):
+            for key in ("serve/prefix_hit_tokens", "serve/prefill_forwards",
+                        "serve/decode_batch"):
+                assert tr.stats[key] == jr.stats[key], (read, key)
+        st = teng.kv.stats()
+        assert st["prefix_hit_tokens"] > 0 and st["blocks_in_use"] == 0
+        assert st == {k: jeng.kv.stats()[k] for k in st}
+        assert max(tr.stats["serve/prefill_forwards"] for tr in treqs) > 1
+
+
+def test_paged_tokens_identical_to_reference_fused_interpret(
+        reduced_moonshot):
+    """The reference's fused Pallas paged read (interpret mode) on a small
+    case: two requests, the second hits the first's prefix."""
+    jcfg, tcfg, params, model = reduced_moonshot
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, tcfg.vocab_size, 5)
+    prompts = [np.concatenate([shared, rng.integers(0, tcfg.vocab_size, n)]
+                              ).astype(np.int32) for n in (1, 2)]
+    jeng = JaxServeEngine(jcfg, params, slots=1, capacity=16,
+                          rc=JaxRunConfig(executor="xla",
+                                          schedule_policy="dynamic",
+                                          paged_attn="fused",
+                                          q_chunk=64, kv_chunk=64),
+                          kv_block_size=4, prefill_chunk=4)
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new=3)
+             for i, p in enumerate(prompts)]
+    jeng.run(jreqs, max_steps=32)
+    teng = ServeEngine(tcfg, model, slots=1, capacity=16, kv_block_size=4,
+                       prefill_chunk=4, device="cpu")
+    assert teng.rc.schedule_policy == "dynamic"       # the engine default
+    treqs = [Request(rid=i, prompt=p, max_new=3)
+             for i, p in enumerate(prompts)]
+    teng.run(treqs, max_steps=32)
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+    assert teng.kv.stats()["prefix_hit_tokens"] == 4
+
+
+def test_engine_serves_paged_dynamic_and_refuses_the_rest():
+    """The engine serves blocks of 16 and the dynamic policy by default
+    (paged wherever the model allows it); kv_block_size=0 keeps the
+    contiguous engine; non-greedy sampling, other admission policies and a
+    missing card raise."""
     tcfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=2)
     from repro_torch.models.lm import init_params
     model = init_params(tcfg, 0, device="cpu")
-    with pytest.raises(ValueError, match="contiguous"):
-        ServeEngine(tcfg, model, kv_block_size=16, device="cpu")
+    eng = ServeEngine(tcfg, model, device="cpu")
+    assert eng.paged and eng.kv_block_size == 16 and eng.cache is None
+    assert eng.rc.schedule_policy == "dynamic" and eng.prefill_chunk == 32
+    eng = ServeEngine(tcfg, model, kv_block_size=16,
+                      rc=RunConfig(schedule_policy="dynamic"), device="cpu")
+    assert eng.kv.block_size == 16
+    done = eng.run([Request(rid=0, prompt=np.arange(20, dtype=np.int32),
+                            max_new=2)])
+    assert len(done) == 1 and len(done[0].out) == 2
+    eng = ServeEngine(tcfg, model, kv_block_size=0, device="cpu")
+    assert not eng.paged and eng.kv is None
     with pytest.raises(ValueError, match="greedy"):
         ServeEngine(tcfg, model, sampling="top_p", device="cpu")
-    with pytest.raises(ValueError, match="fixed"):
-        ServeEngine(tcfg, model, rc=RunConfig(schedule_policy="dynamic"),
-                    device="cpu")
+    with pytest.raises(ValueError, match="first-come"):
+        ServeEngine(tcfg, model, admission="slo", device="cpu")
+    with pytest.raises(ValueError, match="capacity"):
+        ServeEngine(tcfg, model, capacity=8, device="cpu").admit(
+            Request(rid=0, prompt=np.zeros(9, np.int32)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(tcfg, model)
@@ -82,8 +180,15 @@ def test_launcher_serves_on_cpu_when_asked(capsys, monkeypatch):
     import repro_torch.configs as configs
     small = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
     monkeypatch.setattr(configs, "get_config", lambda name: small)
-    done = launch_main(["--arch", "moonshot-v1-16b-a3b", "--layers", "2",
-                        "--requests", "3", "--max-new", "2", "--slots", "2",
-                        "--dtype", "fp32", "--device", "cpu"])
-    assert len(done) == 3 and all(len(r.out) == 2 for r in done)
-    assert "3/3 requests completed" in capsys.readouterr().out
+    for extra, kind in (([], "paged KV cache (blocks of 16,"),
+                        (["--kv-block", "0", "--policy", "fixed"],
+                         "contiguous KV cache"),
+                        (["--kv-block", "8", "--prefill-chunk", "8",
+                          "--paged-attn", "gather"], "blocks of 8")):
+        done = launch_main(["--arch", "moonshot-v1-16b-a3b", "--layers", "2",
+                            "--requests", "3", "--max-new", "2", "--slots",
+                            "2", "--dtype", "fp32", "--device", "cpu",
+                            *extra])
+        assert len(done) == 3 and all(len(r.out) == 2 for r in done)
+        out = capsys.readouterr().out
+        assert "3/3 requests completed" in out and kind in out, out
