@@ -1,0 +1,182 @@
+"""A/B of the dense grouped-GEMM kernels of this checkout against those of
+another source tree, on one NVIDIA GPU.
+
+    python3 chip_gemm_ab.py --other DIR [--replays 20]
+
+DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
+dense-only C interface of the GEMMs (``moe_grouped_gemm`` and
+``moe_fused_gate_up`` without the weight-format arguments), e.g. the parent
+commit unpacked with ``git archive``.  Both trees' sources are compiled with
+the same nvcc flags.  On moonshot-v1-16b-a3b's MoE layer (E=64, k=6,
+d=2048, f=1408) at decode T=2 (dynamic and fixed) and prefill T=64
+(dynamic), bf16 and fp32, it holds ``fused_gate_up`` and ``grouped_gemm``
+(with the folded combine rows) of the two trees bitwise equal, then times
+the bf16 ones in turns (other, this, this, other): device time per call from
+CUDA-graph replays between CUDA events.  Prints one JSON line per shape and
+a last line ``{"ok": true, ...}``; exits non-zero on any difference."""
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parent
+MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
+                norm_topk=True, routed_scale=2.446)
+SHAPES = (("dynamic", 2), ("fixed", 2), ("dynamic", 64))
+
+
+def build_other(csrc: pathlib.Path, flags) -> ctypes.CDLL:
+    """Compile the other tree's kernels (one nvcc per source, in parallel)
+    into a shared library under build/ab/ and load it."""
+    from repro_torch.kernels import _build
+    nvcc = _build._nvcc()
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs, objs = [], []
+        for src in sorted(csrc.glob("*.cu")):
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *flags, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on the other tree:\n{out}")
+        lib_path = out_dir / "libmoe_kernels_other.so"
+        subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
+                        str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up):
+        fn.argtypes = [P] * 6 + [I] * 5 + [P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def device_ms(fn, per_graph: int = 10, replays: int = 20) -> float:
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+def layer(policy: str, T: int, dtype, seed: int):
+    import torch
+    from repro_torch.execution import combine_scale_rows
+    from repro_torch.kernels import ref
+    from repro_torch.scheduling import build_schedule
+    s = MOONSHOT
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+    logits = torch.randn((T, s["E"]), generator=g, device="cuda")
+    x = randn(T, s["d"])
+    wg = randn(s["E"], s["d"], s["f"], scale=s["d"] ** -0.5)
+    wu = randn(s["E"], s["d"], s["f"], scale=s["d"] ** -0.5)
+    wd = randn(s["E"], s["f"], s["d"], scale=s["f"] ** -0.5)
+    w, idx = ref.router_ref(logits, s["k"], gating=s["gating"],
+                            norm_topk=s["norm_topk"],
+                            routed_scale=s["routed_scale"])
+    sched = build_schedule(idx, s["E"], s["M"], policy=policy)
+    xp = ref.permute_ref(x, sched)
+    h = ref.fused_gate_up_ref(xp, wg, wu, sched)
+    return xp, h, wg, wu, wd, sched, combine_scale_rows(sched, w)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, type=pathlib.Path)
+    ap.add_argument("--replays", type=int, default=20)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_gemm_ab: CUDA is not available")
+    from repro_torch.kernels import _build, ops
+    this = _build.library()
+    other = build_other(args.other / "src" / "repro_torch" / "csrc",
+                        _build.NVCC_FLAGS)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    for policy, T in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            xp, h, wg, wu, wd, sched, scale = layer(policy, T, dtype,
+                                                    seed=T)
+            cap, code = sched.capacity, _build.dtype_code(dtype)
+            K, F, D = wg.shape[1], wg.shape[2], wd.shape[2]
+            be, ba, M = sched.block_expert, sched.block_active, sched.block_m
+            o_fgu = torch.empty((cap, F), dtype=dtype, device="cuda")
+            o_gg = torch.empty((cap, D), dtype=dtype, device="cuda")
+
+            def other_fgu():
+                other.moe_fused_gate_up(
+                    xp.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                    be.data_ptr(), ba.data_ptr(), o_fgu.data_ptr(), cap, K,
+                    F, M, code, torch.cuda.current_stream().cuda_stream)
+                return o_fgu
+
+            def other_gg():
+                other.moe_grouped_gemm(
+                    h.data_ptr(), wd.data_ptr(), be.data_ptr(),
+                    ba.data_ptr(), scale.data_ptr(), o_gg.data_ptr(), cap,
+                    F, D, M, code, torch.cuda.current_stream().cuda_stream)
+                return o_gg
+
+            def this_fgu():
+                return ops.fused_gate_up(xp, wg, wu, sched)
+
+            def this_gg():
+                return ops.grouped_gemm(h, wd, sched, row_scale=scale)
+            row = {"policy": policy, "T": T,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "block_m": M, "card": smi}
+            for name, a, b in (("fused_gate_up", other_fgu, this_fgu),
+                               ("grouped_gemm", other_gg, this_gg)):
+                out_b = b()
+                out_a = a()
+                torch.cuda.synchronize()
+                if not torch.equal(out_a, out_b):
+                    sys.exit(f"chip_gemm_ab: {name} {row} differs: max abs "
+                             f"{(out_a.float() - out_b.float()).abs().max()}")
+                row[f"{name}_bitwise_equal"] = True
+                if dtype == torch.bfloat16:
+                    t = [device_ms(f, replays=args.replays)
+                         for f in (a, b, b, a)]
+                    row[f"{name}_us"] = {
+                        "other": [t[0] * 1e3, t[3] * 1e3],
+                        "this": [t[1] * 1e3, t[2] * 1e3]}
+            print(json.dumps(row))
+            del xp, h, wg, wu, wd
+            torch.cuda.empty_cache()
+    del this
+    print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -25,10 +25,17 @@ result line):
    version and a one-call PyTorch yardstick where one exists, at the
    serving shapes: device time from CUDA-graph replays between CUDA events,
    and the eager per-call time beside it; and prints the dynamic
-   schedule's padding beside the fixed one's;
+   schedule's padding beside the fixed one's.  The int8 and int4 weight
+   formats of fused_gate_up and grouped_gemm (schemes int8_expert,
+   int8_channel, int4_packed) at moonshot's width at decode T=2 (fixed and
+   dynamic) and prefill T=64 (dynamic), bf16 and fp32, with the same
+   tolerances, NaN poisoning and zero checks, each timed against its
+   compressed-byte bound (payload + scales + activations in + output
+   written);
 4. MoE layer: ``moe_ffn`` on the ``cuda`` executor at moonshot width under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
-   layer), with the ``fixed`` and the ``dynamic`` policy;
+   layer), with the ``fixed`` and the ``dynamic`` policy, on bf16 experts
+   and on int8_expert and int4_packed ones;
 5. serving, paged (the engine's default): moonshot-v1-16b-a3b at full
    width, depth cut to 4 layers (1 dense + 3 MoE; ``--layers 48`` serves
    the whole depth), random bf16 weights from a seeded generator, the
@@ -45,7 +52,15 @@ result line):
    torch.profiler;
 6. serving, contiguous + fixed (``kv_block_size=0``): 3 requests as before
    the paged engine existed, with the same launch, logits and profile
-   checks.
+   checks;
+7. serving, paged, quantized experts: the served model's routed experts
+   quantized in place under ``int8_expert`` by the engine (``rc.quant``),
+   and a copy of its first 4 layers under ``int4_packed``; the same 4
+   requests each.  The int8 (int4) GEMM kernels' launches must equal MoE
+   layers x forwards and the dense GEMMs' 0; the first paged step's fp32
+   logits through the fused read and the kernels against the gather read
+   and the plain versions within rtol = atol = 1e-3; prints the routed
+   experts' stored bytes and the peak device memory.
 
 The last lines are the kernel report ``{"kernels": [...]}``, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -88,8 +103,16 @@ SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:100"),
 }
+for _k, _fmt in (("fused_gate_up", "int8"), ("fused_gate_up", "int4"),
+                 ("grouped_gemm", "int8"), ("grouped_gemm", "int4")):
+    SOURCES[f"{_k}_{_fmt}"] = SOURCES[_k]
 MOE_KERNELS = ("router_topk", "permute", "fused_gate_up", "grouped_gemm",
                "unpermute")
+QUANT_SCHEMES = ("int8_expert", "int8_channel", "int4_packed")
+# the (policy, T) shapes the quantized GEMMs are held and timed at
+QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("dynamic", 64))
+# the scheme that stands for each format in the kernel report
+REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
 
 
 def fail(msg: str, code: int = 1):
@@ -421,6 +444,106 @@ def padding_share(c: Case) -> dict:
             * s["f"] * es / 1e6}
 
 
+class QuantCase:
+    """A ``Case``'s expert stacks quantized under ``scheme`` (payloads and
+    scales on the card), and the gate+up output of its plain version on
+    them, which feeds the down projection."""
+
+    def __init__(self, c: Case, scheme: str):
+        from repro_torch.kernels import ref
+        from repro_torch.quantization import get_scheme
+        sch = get_scheme(scheme)
+        self.c, self.scheme, self.fmt = c, scheme, sch.kernel_format
+        self.qg, self.qu, self.qd = (sch.quantize(w)
+                                     for w in (c.wg, c.wu, c.wd))
+        self.h = ref.fused_gate_up_ref(c.xp, self.qg, self.qu, c.sched)
+
+    def label(self) -> str:
+        return f"{self.c.label()} {self.scheme}"
+
+    def work(self, name: str):
+        """(bytes, flops) as ``Case.work``, with the compressed weights: the
+        payload and the scales of the experts this routing uses."""
+        c = self.c
+        s, es = c.shape, c.x.element_size()
+        d, f, M = s["d"], s["f"], c.sched.block_m
+        cap, nb, used = c.sched.capacity, c.sched.capacity // M, \
+            c.n_experts_used
+        rows = c.n_active_blocks * M
+
+        def expert_bytes(qt):        # one expert's payload and scales
+            return (qt.q[0].numel() * qt.q.element_size()
+                    + qt.s[0].numel() * qt.s.element_size())
+        if name == "fused_gate_up":
+            return (rows * d * es + used * (expert_bytes(self.qg)
+                                            + expert_bytes(self.qu))
+                    + nb * 8 + cap * f * es, 2 * 2 * rows * d * f)
+        if name == "grouped_gemm":
+            return (rows * f * es + used * expert_bytes(self.qd) + nb * 8
+                    + cap * 4 + cap * d * es, 2 * rows * f * d)
+        raise KeyError(name)
+
+    def calls(self):
+        """name -> (kernel call, plain call, output numel, output dtype)."""
+        from repro_torch.kernels import ops, ref
+        c, sched = self.c, self.c.sched
+        return {
+            "fused_gate_up": (
+                lambda: ops.fused_gate_up(c.xp, self.qg, self.qu, sched),
+                lambda: ref.fused_gate_up_ref(c.xp, self.qg, self.qu, sched),
+                sched.capacity * c.shape["f"], c.dtype),
+            "grouped_gemm": (
+                lambda: ops.grouped_gemm(self.h, self.qd, sched,
+                                         row_scale=c.scale),
+                lambda: ref.grouped_gemm_ref(self.h, self.qd, sched,
+                                             c.scale),
+                sched.capacity * c.shape["d"], c.dtype),
+        }
+
+
+def check_quant_case(qc: QuantCase, errs: dict) -> None:
+    """The quantized GEMM kernels against their plain versions: no NaN after
+    poisoning the allocator, inactive rows exactly zero, within TOL."""
+    import torch
+    tol = TOL[str(qc.c.dtype).replace("torch.", "")]
+    for name, (kern, plain, numel, odt) in qc.calls().items():
+        got = poisoned(kern, numel, odt)
+        want = plain()
+        torch.cuda.synchronize()
+        if torch.isnan(got).any():
+            raise AssertionError(f"{name}: NaN in output ({qc.label()})")
+        dead = got[qc.c.inactive_rows]
+        if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
+            raise AssertionError(f"{name}: inactive rows not zero "
+                                 f"({qc.label()})")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs().max().item()
+        key = f"{name}_{qc.fmt}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        print(f"  {key:18s} {qc.label():49s} max_abs_err {err:.3e}")
+
+
+def time_quant_case(qc: QuantCase) -> dict:
+    """Kernel and plain times of the quantized GEMMs beside their
+    compressed-byte bounds, as ``time_case`` does for the dense ones."""
+    import torch
+    out = {}
+    reason = ("no single PyTorch call computes a grouped product on "
+              f"{qc.fmt} weights with per-channel dequantization "
+              "(_weight_int8pack_mm is one matrix, not grouped)")
+    for name, (kern, plain, _, _) in qc.calls().items():
+        n_bytes, flops = qc.work(name)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        out[name] = {
+            "ms": device_ms(kern, 10), "eager_ms": time_ms(kern, 50),
+            "plain_ms": time_ms(plain, 5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "library": None,
+            "library_null_reason": reason, "bytes": n_bytes,
+            "flops": flops}
+        torch.cuda.synchronize()
+    return out
+
+
 class PagedCase:
     """Paged decode-attention inputs: ``slots`` slots of ``nb`` blocks in a
     pool of slots * nb blocks (tables a seeded permutation), and one query
@@ -583,6 +706,9 @@ def register_plain_executor():
     from repro_torch.kernels import ref
 
     class PlainExecutor(Executor):
+        def prepare_weights(self, w, cfg):
+            return w        # the plain GEMMs dequantize gathered blocks
+
         def route(self, logits, cfg):
             return ref.router_ref(logits, cfg.top_k, gating=cfg.gating,
                                   norm_topk=cfg.norm_topk,
@@ -671,6 +797,22 @@ def drive(engine, reqs) -> dict:
             "run_s": time.perf_counter() - t_run, "admit_s": admit_s,
             "prompt_steps": prompt_steps, "decode_steps": decode_steps,
             "decode_tokens": decode_tokens}
+
+
+def check_launches(launches: dict, moe: int, attn: int, fmt: str) -> None:
+    """The MoE kernels ran ``moe`` times each, the GEMMs in format ``fmt``
+    only, and the paged-attention kernel ``attn`` times."""
+    for name, n in launches.items():
+        if name == "paged_attention":
+            want = attn
+        elif name.startswith(("fused_gate_up", "grouped_gemm")):
+            gemm_fmt = name.rsplit("_", 1)[1] if name.endswith(
+                ("_int8", "_int4")) else "dense"
+            want = moe if gemm_fmt == fmt else 0
+        else:
+            want = moe
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches, expected {want}")
 
 
 def check_requests(reqs, vocab: int) -> None:
@@ -767,6 +909,7 @@ def main() -> None:
     print("[kernels] CUDA kernel vs plain PyTorch version on the card")
     errs: dict = {}
     timings = {}                      # (policy, T) -> per-kernel times
+    qtimings = {}                     # (scheme, policy, T) -> GEMM times
     padding = []
     for shape, policies, Ts in ((MOONSHOT, ("fixed", "dynamic"), (2, 4, 64)),
                                 (MIXTRAL, ("fixed",), (512,))):
@@ -779,6 +922,14 @@ def main() -> None:
                         if T in (SERVE_SLOTS, 64):
                             timings[policy, T] = time_case(c)
                         padding.append(padding_share(c))
+                    if shape is MOONSHOT and (policy, T) in QUANT_SHAPES:
+                        for scheme in QUANT_SCHEMES:
+                            qc = QuantCase(c, scheme)
+                            check_quant_case(qc, errs)
+                            if dtype == torch.bfloat16:
+                                qtimings[scheme, policy, T] = \
+                                    time_quant_case(qc)
+                            del qc
                     del c
                     torch.cuda.empty_cache()
     check_paged(errs)
@@ -800,6 +951,13 @@ def main() -> None:
         print(f"[times] moonshot bf16 T={T} {policy}: " + "; ".join(
             f"{n} {t[n]['ms'] * 1e3:.1f} us (bound {t[n]['bound_ms'] * 1e3:.2f},"
             f" plain {t[n]['plain_ms'] * 1e3:.1f})" for n in MOE_KERNELS))
+    for (scheme, policy, T), t in sorted(qtimings.items()):
+        print(f"[times] moonshot bf16 T={T} {policy} {scheme}: " + "; ".join(
+            f"{n} {t[n]['ms'] * 1e3:.1f} us (eager "
+            f"{t[n]['eager_ms'] * 1e3:.1f}, bound "
+            f"{t[n]['bound_ms'] * 1e3:.2f} for {t[n]['bytes'] / 1e6:.2f} MB, "
+            f"plain {t[n]['plain_ms'] * 1e3:.1f})"
+            for n in ("fused_gate_up", "grouped_gemm")))
     for step_kind, t in paged_t.items():
         print(f"[times] paged_attention moonshot bf16 {step_kind} "
               f"B={t['rows']} ({t['kv_positions_read']} KV positions read, "
@@ -814,30 +972,37 @@ def main() -> None:
     # 4. MoE layer without a host sync -----------------------------------
     from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
     register_plain_executor()
-    for policy in ("fixed", "dynamic"):
+    from repro_torch.quantization import get_scheme
+    for policy, scheme in (("fixed", "none"), ("dynamic", "none"),
+                           ("dynamic", "int8_expert"),
+                           ("dynamic", "int4_packed")):
         for T in (4, 64):
             c = Case(MOONSHOT, T, torch.bfloat16, seed=100 + T)
+            ws = (c.wg, c.wu, c.wd)
+            if scheme != "none":
+                ws = tuple(get_scheme(scheme).quantize(w) for w in ws)
             router = torch.randn((MOONSHOT["d"], MOONSHOT["E"]), device="cuda")
             kw = dict(n_experts=MOONSHOT["E"], top_k=MOONSHOT["k"],
                       block_m=MOONSHOT["M"], gating=MOONSHOT["gating"],
                       norm_topk=True, routed_scale=MOONSHOT["routed_scale"],
                       schedule_policy=policy)
             cfg = MoEDispatchConfig(executor="cuda", **kw)
-            moe_ffn(c.x, router, c.wg, c.wu, c.wd, cfg)     # warm
+            moe_ffn(c.x, router, *ws, cfg)     # warm
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                y, _ = moe_ffn(c.x, router, c.wg, c.wu, c.wd, cfg)
+                y, _ = moe_ffn(c.x, router, *ws, cfg)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            y_p, _ = moe_ffn(c.x, router, c.wg, c.wu, c.wd,
+            y_p, _ = moe_ffn(c.x, router, *ws,
                              cfg._replace(executor="plain"))
             torch.testing.assert_close(y.float(), y_p.float(),
                                        **TOL["bfloat16"])
-            print(f"[moe_ffn] moonshot T={T} bf16 {policy}: no host sync "
-                  f"under set_sync_debug_mode('error'); max_abs_err vs plain "
+            print(f"[moe_ffn] moonshot T={T} bf16 {policy} experts "
+                  f"{scheme}: no host sync under set_sync_debug_mode"
+                  f"('error'); max_abs_err vs plain "
                   f"{(y.float() - y_p.float()).abs().max().item():.3e}")
-            del c
+            del c, ws
     torch.cuda.empty_cache()
 
     # 5. serving, paged --------------------------------------------------
@@ -890,10 +1055,7 @@ def main() -> None:
           f"{paged['run_s']:.3f} s; launches {json.dumps(paged['launches'])};"
           f" expected {expect_moe} per MoE kernel, {expect_attn} "
           f"paged_attention")
-    for name, n in paged["launches"].items():
-        want = expect_attn if name == "paged_attention" else expect_moe
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches, expected {want}")
+    check_launches(paged["launches"], expect_moe, expect_attn, "dense")
     check_requests(reqs, V)
     hit = sum(r.stats["serve/prefix_hit_tokens"] for r in reqs)
     if hit <= 0:
@@ -964,10 +1126,7 @@ def main() -> None:
           f"{contig['run_s']:.3f} s; launches "
           f"{json.dumps(contig['launches'])}; expected {expect_moe} per MoE "
           f"kernel, 0 paged_attention")
-    for name, n in contig["launches"].items():
-        want = 0 if name == "paged_attention" else expect_moe
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches, expected {want}")
+    check_launches(contig["launches"], expect_moe, 0, "dense")
     check_requests(reqs_c, V)
     contig_summary = summarize("serve contiguous", contig, reqs_c, layers)
     first = torch.as_tensor(reqs_c[0].prompt.astype(np.int64),
@@ -993,14 +1152,83 @@ def main() -> None:
                    "decode": profile_window(
                        lambda: [engine.step() for _ in range(5)])}
     print_profile("serve contiguous", "2 prefills of 48 tokens", contig_prof)
-    print(json.dumps({"serve": {"paged": paged_summary,
-                                "contiguous": contig_summary}}))
-    print(json.dumps({"profile": {"paged": paged_prof,
-                                  "contiguous": contig_prof}}))
-    del model, engine
+    del engine
     torch.cuda.empty_cache()
 
-    # 7. report ------------------------------------------------------------
+    # 7. serving, paged, quantized experts -------------------------------
+    # the served model under int8_expert (quantized in place by the engine)
+    # and a copy of its first CHECK_LAYERS layers under int4_packed, taken
+    # first, while the model is still bf16
+    from repro_torch.quantization import routed_expert_bytes
+    int4_model = copy.deepcopy(truncated(model, n_check))
+    quant = {}
+    for scheme, qmodel, qcfg in (("int8_expert", model, cfg),
+                                 ("int4_packed", int4_model, cfg_check)):
+        fmt = get_scheme(scheme).kernel_format
+        dense_bytes = routed_expert_bytes(qmodel)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = ServeEngine(qcfg, qmodel, slots=SERVE_SLOTS,
+                             capacity=capacity,
+                             rc=rc._replace(quant=scheme), **paged_kw)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        peak_load = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reqs_q = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                  for i, p in enumerate(prompts)]
+        engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
+            np.int32), max_new=3)])                # warm-up request
+        res = drive(engine, reqs_q)
+        peak_serve = torch.cuda.max_memory_allocated()
+        expect_moe = n_moe_layers(qcfg) * res["forwards"]
+        print(f"[serve {scheme}] {qcfg.n_layers} layers, routed experts "
+              f"{engine.quant_expert_bytes / 1e9:.3f} GB stored ("
+              f"{dense_bytes / 1e9:.3f} GB bf16), quantized in "
+              f"{quantize_s:.2f} s; peak device memory "
+              f"{peak_load / 1e9:.2f} GB while quantizing, "
+              f"{peak_serve / 1e9:.2f} GB while serving; "
+              f"{res['forwards']} forwards, launches "
+              f"{json.dumps(res['launches'])}; expected {expect_moe} per MoE "
+              f"kernel ({fmt} GEMMs), "
+              f"{qcfg.n_layers * res['forwards']} paged_attention")
+        check_launches(res["launches"], expect_moe,
+                       qcfg.n_layers * res["forwards"], fmt)
+        check_requests(reqs_q, V)
+        summary = summarize(f"serve paged {scheme}", res, reqs_q,
+                            qcfg.n_layers)
+        summary.update({"expert_bytes": engine.quant_expert_bytes,
+                        "dense_expert_bytes": dense_bytes,
+                        "quantize_s": quantize_s,
+                        "peak_bytes_quantizing": peak_load,
+                        "peak_bytes_serving": peak_serve,
+                        "launches": res["launches"]})
+        del engine
+        torch.cuda.empty_cache()
+        head32 = copy.deepcopy(truncated(qmodel, n_check)).float()
+        logits, logits_p, n_rows = first_step_logits(
+            head32, cfg_check, rc32, prompts, capacity, paged_kw)
+        torch.testing.assert_close(logits, logits_p, **LOGIT_TOL_FP32)
+        err = (logits - logits_p).abs().max().item()
+        print(f"[serve {scheme}] first paged step ({n_rows} prompt rows, "
+              f"{n_check} layers, fp32) fused read + {fmt} kernels vs "
+              f"gather read + plain versions: max_abs_err {err:.3e} "
+              f"(|logits| max {logits_p.abs().max().item():.2f}; tolerance "
+              f"rtol=atol={LOGIT_TOL_FP32['atol']:g}); argmax equal: "
+              f"{bool((logits.argmax(-1) == logits_p.argmax(-1)).all())}")
+        summary["first_step_fp32_max_abs_err"] = err
+        quant[scheme] = summary
+        del head32
+        torch.cuda.empty_cache()
+    print(json.dumps({"serve": {"paged": paged_summary,
+                                "contiguous": contig_summary, **quant}}))
+    print(json.dumps({"profile": {"paged": paged_prof,
+                                  "contiguous": contig_prof}}))
+    del model, int4_model
+    torch.cuda.empty_cache()
+
+    # 8. report ------------------------------------------------------------
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     report = []
@@ -1009,7 +1237,31 @@ def main() -> None:
                  "replaces": replaces,
                  "launches": paged["launches"][name],
                  "max_abs_err": errs[name]}
-        if name == "paged_attention":
+        fmt = name.rsplit("_", 1)[1] if name.endswith(("_int8", "_int4")) \
+            else None
+        if fmt is not None:
+            kname, scheme = name[:-len(fmt) - 1], REPORT_SCHEME[fmt]
+            run = quant[scheme]
+            entry["launches"] = run["launches"][name]
+            d = qtimings[scheme, "dynamic", SERVE_SLOTS][kname]
+            extra = {
+                "shape": f"moonshot-v1-16b-a3b bf16 decode T={SERVE_SLOTS}, "
+                         f"dynamic schedule (8-row blocks), {scheme} experts",
+                "launches_run": f"paged serving under {scheme}, "
+                                f"{run['layers']} layers",
+                "bound_counts": "compressed payload + scales + activations "
+                                "in + output written",
+                "prefill_T64": {k: qtimings[scheme, "dynamic", 64][kname][k]
+                                for k in keys},
+                "fixed": {f"T{SERVE_SLOTS}": {
+                    k: qtimings[scheme, "fixed", SERVE_SLOTS][kname][k]
+                    for k in keys}}}
+            if fmt == "int8":
+                extra["int8_channel"] = {
+                    f"{policy}_T{T}": {
+                        k: qtimings["int8_channel", policy, T][kname][k]
+                        for k in keys} for policy, T in QUANT_SHAPES}
+        elif name == "paged_attention":
             d, extra = paged_t["decode"], {
                 "shape": "moonshot-v1-16b-a3b bf16 paged decode B=2 "
                          "(kv_limit 100 and 77, blocks of 16)",

@@ -29,9 +29,10 @@ class MoEDispatchConfig(NamedTuple):
     block_m_min: int = 8             # the dynamic policy's sub-block floor
 
 
-def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
-            w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoEDispatchConfig):
-    """Full dispatch pipeline.  x: (T, d) -> (y: (T, d), aux dict)."""
+def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
+            cfg: MoEDispatchConfig):
+    """Full dispatch pipeline.  x: (T, d) -> (y: (T, d), aux dict).  The
+    expert stacks are (E, K, N) tensors of x's dtype or ``QuantTensor``s."""
     plan = plan_dispatch(x, w_router, cfg)
     y = execute(plan, x, {"w_gate": w_gate, "w_up": w_up, "w_down": w_down},
                 cfg)

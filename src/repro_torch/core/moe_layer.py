@@ -8,6 +8,8 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
+from repro_torch.execution import get_executor
+from repro_torch.quantization import expert_weights, params_scheme
 
 
 def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
@@ -23,14 +25,24 @@ def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):
-    """params: mapping with "router", "w_gate", "w_up", "w_down" and
-    optionally "shared" {"w_gate", "w_up", "w_down"}.
-    x: (..., d) -> (y, aux); leading dims are flattened for dispatch."""
+    """params: mapping with "router", "w_gate", "w_up", "w_down" (dense
+    stacks or ``QuantTensor``s under one scheme) and optionally "shared"
+    {"w_gate", "w_up", "w_down"}.
+    x: (..., d) -> (y, aux); leading dims are flattened for dispatch.
+
+    Quantized params go through the executor's capability contract:
+    ``supports_scheme`` gates them, and the routed stacks are retargeted to
+    x's dtype without a copy (``expert_weights``)."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    dt = x.dtype
-    y, aux = moe_ffn(x2, params["router"], params["w_gate"].to(dt),
-                     params["w_up"].to(dt), params["w_down"].to(dt), cfg)
+    scheme = params_scheme(params)
+    if not get_executor(cfg.executor).supports_scheme(scheme):
+        raise ValueError(
+            f"executor {cfg.executor!r} does not support quant scheme "
+            f"{scheme!r}; requantize the params or pick another backend")
+    w = expert_weights(params, x.dtype)
+    y, aux = moe_ffn(x2, params["router"], w["w_gate"], w["w_up"],
+                     w["w_down"], cfg)
     if "shared" in params:
         sh = params["shared"]
         xf = x2.float()

@@ -20,7 +20,7 @@
 // wrapper).
 //
 // bf16: a 4-deep cp.async ring of shared-memory A and B tiles over K
-// (BK = 32), nvcuda::wmma 16x16x16 __nv_bfloat16 fragments with fp32
+// (BK = 32 dense), nvcuda::wmma 16x16x16 __nv_bfloat16 fragments with fp32
 // accumulators.  The fused variant keeps
 // two accumulator sets fed by the same A fragment, and forms g*sigmoid(g)*u
 // element-wise on the accumulator fragments (both sets share one layout)
@@ -30,9 +30,27 @@
 // the result keeps full fp32 precision.
 // Epilogue in fp32 (row_scale multiply or SiLU product), one cast, one
 // store.
+//
+// Weight formats (the compile-time parameter FMT; the dense instantiation
+// is the code above, unchanged): kInt8, an (E, K, N) int8 payload, and
+// kInt4, an (E, K/2, N) int8 payload whose byte r holds logical K rows 2r
+// (low nibble) and 2r+1 (high nibble), sign-extended; both with fp32 scales
+// scale[e * s_e + n * s_n] (s_n = 0 for per-expert scales).  Each thread
+// block dequantizes its own expert's weight tiles on chip, as the
+// reference's dequant_weight_block does: float(q) * scale in fp32, rounded
+// once to the compute dtype, then the same wmma (bf16) or fmaf (fp32)
+// product.  bf16: the cp.async ring carries the compressed tile (per operand
+// and stage of 64 K rows in the 16-row kernel: 4 KB int8 or 2 KB int4,
+// against 4 KB for 32 dense rows); after the wait the block expands it into
+// one bf16 (BK, BN) shared tile per operand, with the block's 64 column
+// scales staged once in shared memory, behind one more __syncthreads.  Only the compressed bytes cross device memory; no dense
+// stack exists.  Inactive blocks still write zeros and read neither weights
+// nor scales.
 #pragma once
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -40,6 +58,23 @@ namespace moe_gemm {
 
 using bf16 = __nv_bfloat16;
 constexpr int BN = 64;
+enum WFormat { kDense = 0, kInt8 = 1, kInt4 = 2 };
+
+// payload K rows per BK logical rows, and the payload's K extent
+template <int FMT>
+__host__ __device__ constexpr int payload_rows(int k) {
+  return FMT == kInt4 ? k / 2 : k;
+}
+
+// the block's BN column scales of expert e into shared memory (zeros past
+// N); read only by active blocks
+template <int THREADS>
+__device__ __forceinline__ void stage_scales(float* Ss, const float* s,
+                                             size_t e, int n0, int N,
+                                             int s_e, int s_n) {
+  for (int c = threadIdx.x; c < BN; c += THREADS)
+    Ss[c] = n0 + c < N ? s[e * s_e + (size_t)(n0 + c) * s_n] : 0.f;
+}
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return g * (1.0f / (1.0f + expf(-g))) * u;
@@ -75,16 +110,82 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-template <int BM, bool FUSED>
+// Shared-memory layout: STAGES ring stages of (A, W[, W2]) tiles, where W is
+// the bf16 tile (dense) or the compressed payload tile (Q_BYTES: QROWS rows
+// of BN bytes); for int8/int4 then the expanded bf16 tile(s) and the column
+// scales.  The epilogue reuses the start as the fp32 C tile.
+// K depth per stage: 32 for dense tiles.  A compressed stage of 32 rows
+// carries half (int8) or a quarter (int4) of a dense stage's bytes for the
+// same count of ring steps, barriers and expand passes, so the 16-row
+// (decode) kernel takes 64 rows per stage in int8 and int4: twice the
+// bytes in flight per step and half the steps.  The 128-row kernel keeps
+// 32 (its A tile would grow to 18 KB per stage).
+template <int BM, bool FUSED, int FMT>
 struct Bf16Tiles {
-  static constexpr int BK = 32, STAGES = 4;
+  static constexpr int BK = (FMT != kDense && BM == 16) ? 64 : 32;
+  static constexpr int STAGES = 4, NW = FUSED ? 2 : 1;
   static constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 2, B_BYTES = BK * LDB * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + (FUSED ? 2 : 1) * B_BYTES;
-  static constexpr int PIPE_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int QROWS = payload_rows<FMT>(BK), Q_BYTES = QROWS * BN;
+  static constexpr int W_BYTES = FMT == kDense ? B_BYTES : Q_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + NW * W_BYTES;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int X_OFF = RING_BYTES;                  // expanded tiles
+  static constexpr int S_OFF = X_OFF + NW * B_BYTES;        // column scales
+  static constexpr int PIPE_BYTES =
+      FMT == kDense ? RING_BYTES : S_OFF + NW * BN * 4;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 };
+
+// sign-extended byte j (0-3) of a 32-bit word
+__device__ __forceinline__ int sext8(unsigned word, int j) {
+  return (int)(word << (24 - 8 * j)) >> 24;
+}
+// sign-extended low and high nibbles of byte j of a 32-bit word
+__device__ __forceinline__ int nib_lo(unsigned word, int j) {
+  const int lo = (int)(word >> (8 * j)) & 0xF;
+  return lo - ((lo & 0x8) << 1);
+}
+__device__ __forceinline__ int nib_hi(unsigned word, int j) {
+  const int hi = (int)(word >> (8 * j + 4)) & 0xF;
+  return hi - ((hi & 0x8) << 1);
+}
+
+// Expand one compressed (QROWS, BN) payload tile into the bf16 (BK, BN)
+// tile Xs: w = bf16(float(q) * scale[n]).  Each thread takes 8 columns of
+// one payload row (8 bytes: 8 weights in int8, 16 in int4).
+template <int FMT, int THREADS, int LDB, int BK>
+__device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
+                                                 const unsigned char* Qs,
+                                                 const float* Ss) {
+  constexpr int QROWS = payload_rows<FMT>(BK), GROUPS = BN / 8;
+  for (int v = threadIdx.x; v < QROWS * GROUPS; v += THREADS) {
+    const int r = v / GROUPS, c = (v % GROUPS) * 8;
+    const uint2 q = *reinterpret_cast<const uint2*>(Qs + r * BN + c);
+    const float4 s0 = *reinterpret_cast<const float4*>(Ss + c);
+    const float4 s1 = *reinterpret_cast<const float4*>(Ss + c + 4);
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    alignas(16) bf16 lo[8];
+    alignas(16) bf16 hi[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned word = j < 4 ? q.x : q.y;
+      if (FMT == kInt8) {
+        lo[j] = __float2bfloat16_rn((float)sext8(word, j & 3) * s[j]);
+      } else {
+        lo[j] = __float2bfloat16_rn((float)nib_lo(word, j & 3) * s[j]);
+        hi[j] = __float2bfloat16_rn((float)nib_hi(word, j & 3) * s[j]);
+      }
+    }
+    const int row = FMT == kInt4 ? 2 * r : r;
+    *reinterpret_cast<uint4*>(Xs + row * LDB + c) =
+        *reinterpret_cast<const uint4*>(lo);
+    if (FMT == kInt4)
+      *reinterpret_cast<uint4*>(Xs + (row + 1) * LDB + c) =
+          *reinterpret_cast<const uint4*>(hi);
+  }
+}
 
 // bf16 GEMM with a STAGES-deep cp.async ring of (A, B[, B2]) K tiles: the
 // loads of the next STAGES-1 tiles are in flight while the tensor cores
@@ -93,16 +194,20 @@ struct Bf16Tiles {
 // bound with few active blocks per SM).  Shared memory is dynamic.  The
 // launch bound asks for two blocks per SM: it holds the fused variant at
 // 128 registers (167 unbounded), so the active blocks of a decode step fit
-// in one wave.
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS>
+// in one wave.  For int8/int4 the ring carries the compressed tiles and
+// each is expanded into Xs before its products (see the header).
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, 2)
-gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                 const bf16* __restrict__ w1, const int* __restrict__ block_expert,
+gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
+                 const void* __restrict__ w1, const float* __restrict__ s0,
+                 const float* __restrict__ s1,
+                 const int* __restrict__ block_expert,
                  const int* __restrict__ block_active,
                  const float* __restrict__ row_scale, bf16* __restrict__ out,
-                 int K, int N, int block_m) {
+                 int K, int N, int block_m, int s_e, int s_n) {
   using namespace nvcuda;
-  using C = Bf16Tiles<BM, FUSED>;
+  using C = Bf16Tiles<BM, FUSED, FMT>;
+  constexpr bool QUANT = FMT != kDense;
   constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   constexpr int BK = C::BK, STAGES = C::STAGES;
   constexpr int LDA = C::LDA, LDB = C::LDB, LDC = C::LDC;
@@ -120,28 +225,52 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     return;
   }
   const size_t e = (size_t)block_expert[mb];
-  const bf16* W0 = w0 + e * K * N;
-  const bf16* W1 = FUSED ? w1 + e * K * N : nullptr;
+  const int KQ = payload_rows<FMT>(K);             // payload rows of W[e]
+  using WT = typename std::conditional<QUANT, unsigned char, bf16>::type;
+  const WT* W0 = reinterpret_cast<const WT*>(w0) + e * KQ * N;
+  const WT* W1 = FUSED ? reinterpret_cast<const WT*>(w1) + e * KQ * N
+                       : nullptr;
+  bf16* Xs0 = reinterpret_cast<bf16*>(smem + C::X_OFF);
+  bf16* Xs1 = Xs0 + C::B_BYTES / 2;
+  float* Ss0 = reinterpret_cast<float*>(smem + C::S_OFF);
+  float* Ss1 = Ss0 + BN;
+  if constexpr (QUANT) {      // visible after the main loop's first barrier
+    stage_scales<THREADS>(Ss0, s0, e, n0, N, s_e, s_n);
+    if (FUSED) stage_scales<THREADS>(Ss1, s1, e, n0, N, s_e, s_n);
+  }
 
   const int tid = threadIdx.x, wid = tid / 32;
   const int wm = wid / WARPS_N, wn = wid % WARPS_N;
 
   auto load_stage = [&](int slot, int k0) {
     bf16* As = reinterpret_cast<bf16*>(smem + slot * C::STAGE_BYTES);
-    bf16* Bs0 = reinterpret_cast<bf16*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
-    bf16* Bs1 = Bs0 + C::B_BYTES / 2;
+    WT* Bs0 = reinterpret_cast<WT*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
+    WT* Bs1 = reinterpret_cast<WT*>(smem + slot * C::STAGE_BYTES + C::A_BYTES
+                                    + C::W_BYTES);
     for (int v = tid; v < BM * (BK / 8); v += THREADS) {
       const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
       const bool ok = r < ROWS && k0 + c < K;   // rows past ROWS: zeros
       cp_async16(As + r * LDA + c,
                  ok ? x + (size_t)(m0 + r) * K + k0 + c : x, ok);
     }
-    for (int v = tid; v < BK * (BN / 8); v += THREADS) {
-      const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-      const bool ok = (k0 + r < K) && (n0 + c < N);
-      const size_t off = ok ? (size_t)(k0 + r) * N + n0 + c : 0;
-      cp_async16(Bs0 + r * LDB + c, W0 + off, ok);
-      if (FUSED) cp_async16(Bs1 + r * LDB + c, W1 + off, ok);
+    if constexpr (!QUANT) {
+      for (int v = tid; v < BK * (BN / 8); v += THREADS) {
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+        const bool ok = (k0 + r < K) && (n0 + c < N);
+        const size_t off = ok ? (size_t)(k0 + r) * N + n0 + c : 0;
+        cp_async16(Bs0 + r * LDB + c, W0 + off, ok);
+        if (FUSED) cp_async16(Bs1 + r * LDB + c, W1 + off, ok);
+      }
+    } else {
+      // the compressed tile: QROWS payload rows of BN bytes, 16 per copy
+      const int kq0 = payload_rows<FMT>(k0);
+      for (int v = tid; v < C::QROWS * (BN / 16); v += THREADS) {
+        const int r = v / (BN / 16), c = (v % (BN / 16)) * 16;
+        const bool ok = (kq0 + r < KQ) && (n0 + c < N);
+        const size_t off = ok ? (size_t)(kq0 + r) * N + n0 + c : 0;
+        cp_async16(Bs0 + r * BN + c, W0 + off, ok);
+        if (FUSED) cp_async16(Bs1 + r * BN + c, W1 + off, ok);
+      }
     }
   };
 
@@ -165,9 +294,31 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     cp_async_wait<STAGES - 2>();     // tile kt has landed
     __syncthreads();                 // ... for every thread; slot kt-1 is free
     const int slot = kt % STAGES;
+    const int nxt = kt + STAGES - 1;
+    if constexpr (QUANT) {
+      // issue the next stage's loads before the expand pass, so their
+      // latency overlaps it (slot nxt % STAGES was last read in kt-1)
+      if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
+      cp_async_commit();
+    }
     const bf16* As = reinterpret_cast<const bf16*>(smem + slot * C::STAGE_BYTES);
-    const bf16* Bs0 = reinterpret_cast<const bf16*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
-    const bf16* Bs1 = Bs0 + C::B_BYTES / 2;
+    const bf16* Bs0;
+    const bf16* Bs1;
+    if constexpr (QUANT) {
+      // expand the compressed tile(s) of this slot into Xs; the barrier at
+      // the top of this iteration ended every read of Xs by the last one
+      const unsigned char* Qs =
+          smem + slot * C::STAGE_BYTES + C::A_BYTES;
+      expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs0, Qs, Ss0);
+      if (FUSED)
+        expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs1, Qs + C::W_BYTES, Ss1);
+      __syncthreads();
+      Bs0 = Xs0;
+      Bs1 = Xs1;
+    } else {
+      Bs0 = reinterpret_cast<const bf16*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
+      Bs1 = Bs0 + C::B_BYTES / 2;
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
@@ -187,9 +338,10 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
         }
       }
     }
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
-    cp_async_commit();
+    if constexpr (!QUANT) {
+      if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
   __syncthreads();                   // the ring is free: reuse it as Cs
@@ -224,35 +376,42 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   }
 }
 
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
-                        const bf16* w0, const bf16* w1, const int* be,
-                        const int* ba, const float* rs, bf16* out, int K,
-                        int N, int block_m) {
-  constexpr int smem = Bf16Tiles<BM, FUSED>::SMEM;
-  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED, ROWS>;
+                        const void* w0, const void* w1, const float* s0,
+                        const float* s1, const int* be, const int* ba,
+                        const float* rs, bf16* out, int K, int N, int block_m,
+                        int s_e, int s_n) {
+  constexpr int smem = Bf16Tiles<BM, FUSED, FMT>::SMEM;
+  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
-  kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(x, w0, w1, be, ba, rs,
-                                                     out, K, N, block_m);
+  kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(
+      x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, s_e, s_n);
 }
 
 // ------------------------------------------------------------------ fp32
-template <int BM, bool FUSED, int ROWS>
+// int8/int4: the B tile is loaded from the compressed payload (4 bytes per
+// thread and load) and dequantized to fp32 on its way into shared memory.
+template <int BM, bool FUSED, int ROWS, int FMT>
 __global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                const float* __restrict__ w1, const int* __restrict__ block_expert,
+gemm_f32_kernel(const float* __restrict__ x, const void* __restrict__ w0,
+                const void* __restrict__ w1, const float* __restrict__ s0,
+                const float* __restrict__ s1,
+                const int* __restrict__ block_expert,
                 const int* __restrict__ block_active,
                 const float* __restrict__ row_scale, float* __restrict__ out,
-                int K, int N, int block_m) {
+                int K, int N, int block_m, int s_e, int s_n) {
   constexpr int THREADS = 256, BK = 16;
   constexpr int TM = BM / 16, TN = BN / 16;
   constexpr int LDA = BK + 4, LDB = BN + 4;
+  constexpr bool QUANT = FMT != kDense;
   static_assert(ROWS <= BM && BM % 16 == 0, "tile rows");
   __shared__ __align__(16) float As[BM * LDA];
   __shared__ __align__(16) float Bs0[BK * LDB];
   __shared__ __align__(16) float Bs1[FUSED ? BK * LDB : 4];
+  __shared__ __align__(16) float Ss[QUANT ? (FUSED ? 2 : 1) * BN : 4];
 
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * ROWS;
@@ -262,9 +421,44 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
     return;
   }
   const size_t e = (size_t)block_expert[mb];
-  const float* W0 = w0 + e * K * N;
-  const float* W1 = FUSED ? w1 + e * K * N : nullptr;
+  const int KQ = payload_rows<FMT>(K);
+  using WT = typename std::conditional<QUANT, unsigned char, float>::type;
+  const WT* W0 = reinterpret_cast<const WT*>(w0) + e * KQ * N;
+  const WT* W1 = FUSED ? reinterpret_cast<const WT*>(w1) + e * KQ * N
+                       : nullptr;
+  if constexpr (QUANT) {
+    stage_scales<THREADS>(Ss, s0, e, n0, N, s_e, s_n);
+    if (FUSED) stage_scales<THREADS>(Ss + BN, s1, e, n0, N, s_e, s_n);
+    __syncthreads();
+  }
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  // dequantize 4 columns (c..c+3) of payload row pr of W into Bs: int8 one
+  // row, int4 rows 2pr and 2pr+1
+  auto load_quant = [&](float* Bs, const WT* W, const float* S, int k0,
+                        int pr, int c) {
+    const bool ok = n0 + c < N;
+    const unsigned word =
+        ok ? *reinterpret_cast<const unsigned*>(
+                 W + (size_t)(payload_rows<FMT>(k0) + pr) * N + n0 + c)
+           : 0u;
+    float lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (FMT == kInt8) {
+        lo[j] = (float)sext8(word, j) * S[c + j];
+      } else {
+        lo[j] = (float)nib_lo(word, j) * S[c + j];
+        hi[j] = (float)nib_hi(word, j) * S[c + j];
+      }
+    }
+    const int row = FMT == kInt4 ? 2 * pr : pr;
+    *reinterpret_cast<float4*>(Bs + row * LDB + c) =
+        make_float4(lo[0], lo[1], lo[2], lo[3]);
+    if (FMT == kInt4)
+      *reinterpret_cast<float4*>(Bs + (row + 1) * LDB + c) =
+          make_float4(hi[0], hi[1], hi[2], hi[3]);
+  };
 
   float acc0[TM][TN], acc1[TM][TN];  // acc1 unused unless FUSED
 #pragma unroll
@@ -283,15 +477,23 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
           r < ROWS ? *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + c)
                    : z;
     }
-    for (int v = tid; v < BK * (BN / 4); v += THREADS) {
-      const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
-      const bool ok = n0 + c < N;
-      const size_t off = (size_t)(k0 + r) * N + n0 + c;
-      *reinterpret_cast<float4*>(Bs0 + r * LDB + c) =
-          ok ? *reinterpret_cast<const float4*>(W0 + off) : z;
-      if (FUSED)
-        *reinterpret_cast<float4*>(Bs1 + r * LDB + c) =
-            ok ? *reinterpret_cast<const float4*>(W1 + off) : z;
+    if constexpr (!QUANT) {
+      for (int v = tid; v < BK * (BN / 4); v += THREADS) {
+        const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
+        const bool ok = n0 + c < N;
+        const size_t off = (size_t)(k0 + r) * N + n0 + c;
+        *reinterpret_cast<float4*>(Bs0 + r * LDB + c) =
+            ok ? *reinterpret_cast<const float4*>(W0 + off) : z;
+        if (FUSED)
+          *reinterpret_cast<float4*>(Bs1 + r * LDB + c) =
+              ok ? *reinterpret_cast<const float4*>(W1 + off) : z;
+      }
+    } else {
+      for (int v = tid; v < payload_rows<FMT>(BK) * (BN / 4); v += THREADS) {
+        const int pr = v / (BN / 4), c = (v % (BN / 4)) * 4;
+        load_quant(Bs0, W0, Ss, k0, pr, c);
+        if (FUSED) load_quant(Bs1, W1, Ss + BN, k0, pr, c);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -331,13 +533,47 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 }
 
 // ---------------------------------------------------------------- launch
+template <bool FUSED, int FMT>
+inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
+                       const void* w0, const void* w1, const float* s0,
+                       const float* s1, const int* be, const int* ba,
+                       const float* rs, void* out, int K, int N, int block_m,
+                       int dtype, int s_e, int s_n) {
+  if (dtype == kBF16) {
+    const bf16* xb = (const bf16*)x;
+    bf16* o = (bf16*)out;
+    if (rows == 128)
+      launch_bf16<128, 4, 2, FUSED, 128, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    else if (rows == 16)
+      launch_bf16<16, 1, 4, FUSED, 16, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    else
+      launch_bf16<16, 1, 4, FUSED, 8, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+  } else {
+    const float* xf = (const float*)x;
+    float* o = (float*)out;
+    if (rows == 128)
+      gemm_f32_kernel<128, FUSED, 128, FMT><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    else if (rows == 16)
+      gemm_f32_kernel<16, FUSED, 16, FMT><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    else
+      gemm_f32_kernel<16, FUSED, 8, FMT><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+  }
+}
+
+// w_format: 0 dense, 1 int8, 2 int4 (WFormat); the scales (int8/int4 only)
+// are read at scale[e * s_e + n * s_n]
 template <bool FUSED>
 inline int launch(const void* x, const void* w0, const void* w1,
+                  const void* scale0, const void* scale1,
                   const void* block_expert, const void* block_active,
                   const void* row_scale, void* out, int capacity, int K, int N,
-                  int block_m, int dtype, void* stream) {
+                  int block_m, int dtype, int w_format, int s_e, int s_n,
+                  void* stream) {
   if (capacity == 0 || N == 0) return moe_last_error();
   if (block_m % 8 != 0 || K % 16 != 0 || N % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (w_format != kDense && (scale0 == nullptr || (FUSED && scale1 == nullptr)
+                             || s_e < 0 || s_n < 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // tile height: the largest of 128, 16, 8 that divides block_m
@@ -346,25 +582,16 @@ inline int launch(const void* x, const void* w0, const void* w1,
   const int* be = (const int*)block_expert;
   const int* ba = (const int*)block_active;
   const float* rs = (const float*)row_scale;
-  if (dtype == kBF16) {
-    const bf16 *xb = (const bf16*)x, *a = (const bf16*)w0, *b = (const bf16*)w1;
-    bf16* o = (bf16*)out;
-    if (rows == 128)
-      launch_bf16<128, 4, 2, FUSED, 128>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
-    else if (rows == 16)
-      launch_bf16<16, 1, 4, FUSED, 16>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
-    else
-      launch_bf16<16, 1, 4, FUSED, 8>(grid, s, xb, a, b, be, ba, rs, o, K, N, block_m);
-  } else {
-    const float *xf = (const float*)x, *a = (const float*)w0, *b = (const float*)w1;
-    float* o = (float*)out;
-    if (rows == 128)
-      gemm_f32_kernel<128, FUSED, 128><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
-    else if (rows == 16)
-      gemm_f32_kernel<16, FUSED, 16><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
-    else
-      gemm_f32_kernel<16, FUSED, 8><<<grid, 256, 0, s>>>(xf, a, b, be, ba, rs, o, K, N, block_m);
-  }
+  const float* s0 = (const float*)scale0;
+  const float* s1 = (const float*)scale1;
+  if (w_format == kDense)
+    launch_fmt<FUSED, kDense>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
+  else if (w_format == kInt8)
+    launch_fmt<FUSED, kInt8>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
+  else if (w_format == kInt4)
+    launch_fmt<FUSED, kInt4>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
+  else
+    return (int)cudaErrorInvalidValue;
   return moe_last_error();
 }
 

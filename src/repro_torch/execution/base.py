@@ -69,9 +69,24 @@ def plan_schedule(indices: torch.Tensor, cfg) -> BlockSchedule:
 class Executor:
     """Backend contract for the grouped expert compute.  ``w`` is the
     expert-weight mapping {"w_gate", "w_up", "w_down"} of (E, K, N)
-    tensors."""
+    tensors or scheme-tagged ``QuantTensor``s.
+
+    Quantization is part of the contract, as in the reference:
+    ``supports_scheme`` says which registered schemes the backend takes,
+    and ``prepare_weights``, called once per plan execution, adapts the
+    mapping.  The default materializes QuantTensors to dense stacks; a
+    backend that dequantizes inside its kernels passes them through."""
 
     name: str = "?"
+
+    def supports_scheme(self, scheme: str) -> bool:
+        from repro_torch.quantization import available_schemes
+        return scheme in available_schemes()
+
+    def prepare_weights(self, w: dict, cfg) -> dict:
+        from repro_torch.quantization import QuantTensor
+        return {k: (v.materialize() if isinstance(v, QuantTensor) else v)
+                for k, v in w.items()}
 
     def route(self, logits: torch.Tensor, cfg):
         """(T, E) f32 logits -> (weights (T, k) f32, indices (T, k) i32)."""
@@ -90,6 +105,7 @@ class Executor:
     def run(self, x, w: dict, plan: DispatchPlan, cfg):
         """x: (T, d) -> y: (T, d) under the plan's routing + schedule."""
         sched = plan.schedule
+        w = self.prepare_weights(w, cfg)
         xp = self.permute(x, sched, cfg)
         scale = plan.combine_scale if cfg.fold_combine else None
         y = self.expert_ffn(xp, w, sched, cfg, row_scale=scale)

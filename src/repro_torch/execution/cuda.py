@@ -6,7 +6,11 @@ It composes the five kernels phase for phase: ``router_topk`` ->
 and an fp32 SiLU product) -> ``grouped_gemm`` down projection with the
 folded combine weights -> ``unpermute``.  The schedule arrays are kernel
 arguments read by each thread block, so there is no host round trip.  On
-CPU tensors every wrapper runs its plain version."""
+CPU tensors every wrapper runs its plain version.
+
+Quantized expert weights pass through ``prepare_weights`` untouched: the
+GEMM kernels take the compressed payload and its per-channel scales and
+dequantize each weight tile on chip, so no dense stack is ever built."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +21,9 @@ from repro_torch.kernels import ops
 
 @register_executor("cuda")
 class CudaExecutor(Executor):
+
+    def prepare_weights(self, w, cfg):
+        return w            # in-kernel dequant: ops splits payload + scales
 
     def route(self, logits, cfg):
         return ops.router_topk(logits, top_k=cfg.top_k, gating=cfg.gating,

@@ -31,15 +31,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
            "fused_gate_up", "paged_attention")
-LAUNCHES = {name: 0 for name in KERNELS}
+# B1 and B2 compile once per weight format; each format counts on its own
+QUANT_KERNELS = ("grouped_gemm_int8", "grouped_gemm_int4",
+                 "fused_gate_up_int8", "fused_gate_up_int4")
+LAUNCHES = {name: 0 for name in KERNELS + QUANT_KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "moe_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "moe_permute": [_P, _P, _P, _I, _I, _P],
     "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "moe_grouped_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "moe_fused_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "moe_grouped_gemm": [_P] * 7 + [_I] * 8 + [_P],
+    "moe_fused_gate_up": [_P] * 8 + [_I] * 8 + [_P],
     "moe_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
 }
 

@@ -1,10 +1,18 @@
-"""Block-scheduled grouped GEMM (counterpart of ``repro.kernels.grouped_gemm``,
-dense weight format; kernel in ``csrc/grouped_gemm.cu``).
+"""Block-scheduled grouped GEMM (counterpart of ``repro.kernels.grouped_gemm``;
+kernel in ``csrc/grouped_gemm.cu``).
 
 ``out[block m] = x[block m] @ w[block_expert[m]]`` with fp32 accumulation,
 an optional ``row_scale`` epilogue (the folded combine weights), and zeros
 for inactive blocks.  ``block_m`` is any multiple of 8: the ``fixed``
-policy's 128-row blocks and the ``dynamic`` policy's 8-row sub-blocks."""
+policy's 128-row blocks and the ``dynamic`` policy's 8-row sub-blocks.
+
+Weight formats (``w_format``), as the reference's: ``"dense"`` (w of x's
+dtype), ``"int8"`` (w an (E, K, N) int8 payload) and ``"int4"`` (w an
+(E, K/2, N) int8 payload, two nibbles per byte along K), the last two with
+(E, N) f32 per-channel scales ``w_scale``.  Each gathered weight block is
+dequantized as ``dequant_weight_block`` does: ``(q.float() * s).to(x's
+dtype)``, so the kernel and the plain version differ only in the order of
+summation."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,55 +20,106 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.quantization.schemes import unpack_int4
+
+W_FORMATS = ("dense", "int8", "int4")
 
 
-def _block_products(x, ws, block_expert, block_active, block_m):
+def launch_key(kernel: str, w_format: str) -> str:
+    """The launch counter of ``kernel`` in ``w_format``: each format is its
+    own compiled kernel and has its own count."""
+    return kernel if w_format == "dense" else f"{kernel}_{w_format}"
+
+
+def dequant_weight_block(wq: torch.Tensor, ws: Optional[torch.Tensor],
+                         w_format: str, dtype) -> torch.Tensor:
+    """Expand gathered weight blocks to ``dtype``: wq (..., K, N) dense,
+    (..., K, N) int8 or (..., K/2, N) nibble-packed int8; ws (..., 1, N) f32
+    per-output-channel scales (None for dense)."""
+    if w_format == "dense":
+        return wq
+    if w_format == "int4":
+        wq = unpack_int4(wq)
+    return (wq.float() * ws).to(dtype)
+
+
+def _block_products(x, ws, block_expert, block_active, block_m,
+                    scales=None, w_format="dense"):
     """fp32 ``x[block] @ w[expert(block)]`` for each weight in ``ws``, as
     (num_blocks, block_m, N): computed for the active blocks only (their
-    expert weights gathered once per block), exact zeros for the others.
-    Finding the active blocks reads ``block_active`` on the host, which the
-    plain version may do: the kernels never do."""
+    expert weights gathered, and dequantized, once per block), exact zeros
+    for the others.  Finding the active blocks reads ``block_active`` on the
+    host, which the plain version may do: the kernels never do."""
     cap, K = x.shape
     nb = cap // block_m
     act = torch.nonzero(block_active).reshape(-1)
     xa = x.reshape(nb, block_m, K).index_select(0, act).float()
     idx = block_expert.index_select(0, act).long()
     outs = []
-    for w in ws:
+    for i, w in enumerate(ws):
+        ws_i = None if scales is None else \
+            scales[i].index_select(0, idx)[:, None, :]
+        wb = dequant_weight_block(w.index_select(0, idx), ws_i, w_format,
+                                  x.dtype)
         out = torch.zeros((nb, block_m, w.shape[-1]), dtype=torch.float32,
                           device=x.device)
-        outs.append(out.index_copy_(
-            0, act, torch.bmm(xa, w.index_select(0, idx).float())))
+        outs.append(out.index_copy_(0, act, torch.bmm(xa, wb.float())))
     return outs
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                        block_expert: torch.Tensor, block_active: torch.Tensor,
                        *, block_m: int,
-                       row_scale: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """x: (capacity, K); w: (E, K, N); row_scale: (capacity,) f32 or None
-    -> (capacity, N) in x's dtype."""
-    (out,) = _block_products(x, [w], block_expert, block_active, block_m)
+                       row_scale: Optional[torch.Tensor] = None,
+                       w_scale: Optional[torch.Tensor] = None,
+                       w_format: str = "dense") -> torch.Tensor:
+    """x: (capacity, K); w: (E, K, N) or its payload; row_scale: (capacity,)
+    f32 or None; w_scale: (E, N) f32 or None -> (capacity, N) in x's
+    dtype."""
+    (out,) = _block_products(x, [w], block_expert, block_active, block_m,
+                             None if w_scale is None else [w_scale], w_format)
     out = out.reshape(x.shape[0], -1)
     if row_scale is not None:
         out = out * row_scale[:, None].float()
     return out.to(x.dtype)
 
 
-def check_gemm_operands(x, ws, block_expert, block_active, block_m):
-    """Shape, type and layout checks shared with fused_gate_up."""
+def check_gemm_operands(x, ws, block_expert, block_active, block_m,
+                        w_format="dense", scales=None):
+    """Shape, type and layout checks shared with fused_gate_up.  A dense
+    weight has x's dtype; an int8 payload is (E, K, N) and an int4 one
+    (E, K/2, N), each with (E, N) f32 scales, which may have any
+    non-negative strides (per-expert scales come with a zero stride over
+    N).  Returns (dtype code, capacity, K, N, format code)."""
     code = _build.dtype_code(x.dtype)
+    _build.require(w_format in W_FORMATS,
+                   f"grouped GEMM weight format {w_format!r} not in "
+                   f"{W_FORMATS}")
     _build.require(x.dim() == 2 and x.is_contiguous(),
                    "grouped GEMM takes a contiguous (capacity, K) x")
     cap, K = x.shape
     N = ws[0].shape[-1]
+    rows = K // 2 if w_format == "int4" else K
+    wdt = x.dtype if w_format == "dense" else torch.int8
     for w in ws:
-        _build.require(w.dim() == 3 and w.dtype == x.dtype
-                       and w.is_contiguous() and w.shape[1] == K
+        _build.require(w.dim() == 3 and w.dtype == wdt
+                       and w.is_contiguous() and w.shape[1] == rows
                        and w.shape == ws[0].shape,
-                       f"grouped GEMM takes contiguous (E, {K}, N) weights "
-                       f"of x's dtype {x.dtype}")
+                       f"grouped GEMM ({w_format}) takes contiguous (E, "
+                       f"{rows}, N) weights of dtype {wdt}")
+    E = ws[0].shape[0]
+    if w_format == "dense":
+        _build.require(scales is None, "dense weights take no w_scale")
+    else:
+        _build.require(scales is not None and len(scales) == len(ws)
+                       and all(s is not None for s in scales),
+                       f"{w_format} weights need their (E, N) w_scale")
+        for s in scales:
+            _build.require(s.dtype == torch.float32 and s.shape == (E, N)
+                           and min(s.stride()) >= 0
+                           and s.stride() == scales[0].stride(),
+                           f"grouped GEMM takes float32 ({E}, {N}) w_scale "
+                           "of one layout")
     _build.require(K % 16 == 0 and N % 16 == 0,
                    f"grouped GEMM takes K and N multiples of 16 (K={K}, "
                    f"N={N})")
@@ -73,18 +132,32 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m):
                        and t.is_contiguous(),
                        f"grouped GEMM takes contiguous int32 ({nb},) "
                        "schedule arrays")
-    return code, cap, K, N
+    return code, cap, K, N, W_FORMATS.index(w_format)
+
+
+def scale_args(scales):
+    """(pointer, stride over E, stride over N) of the first scale operand
+    (all share one layout), or (None, 0, 0) for dense weights."""
+    if scales is None:
+        return None, 0, 0
+    s = scales[0]
+    return s.data_ptr(), s.stride(0), s.stride(1)
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                  block_active: torch.Tensor, *, block_m: int,
-                 row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_scale: Optional[torch.Tensor] = None,
+                 w_scale: Optional[torch.Tensor] = None,
+                 w_format: str = "dense") -> torch.Tensor:
     """CPU tensors run the plain version; CUDA tensors the kernel."""
-    if not _build.on_cuda(x, w, block_expert, block_active, row_scale):
+    if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
+                          w_scale):
         return grouped_gemm_plain(x, w, block_expert, block_active,
-                                  block_m=block_m, row_scale=row_scale)
-    code, cap, K, N = check_gemm_operands(x, [w], block_expert, block_active,
-                                          block_m)
+                                  block_m=block_m, row_scale=row_scale,
+                                  w_scale=w_scale, w_format=w_format)
+    scales = None if w_scale is None else [w_scale]
+    code, cap, K, N, fmt = check_gemm_operands(
+        x, [w], block_expert, block_active, block_m, w_format, scales)
     if row_scale is not None:
         _build.require(row_scale.dtype == torch.float32
                        and row_scale.shape == (cap,)
@@ -93,11 +166,14 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                        "row_scale")
     lib = _build.library()
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
+    s_ptr, s_e, s_n = scale_args(scales)
     err = lib.moe_grouped_gemm(
-        x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
+        x.data_ptr(), w.data_ptr(), s_ptr, block_expert.data_ptr(),
         block_active.data_ptr(),
         None if row_scale is None else row_scale.data_ptr(), out.data_ptr(),
-        cap, K, N, block_m, code, _build.stream_ptr(x.device))
-    _build.check(err, "grouped_gemm")
-    _build.LAUNCHES["grouped_gemm"] += 1
+        cap, K, N, block_m, code, fmt, s_e, s_n,
+        _build.stream_ptr(x.device))
+    key = launch_key("grouped_gemm", w_format)
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 1
     return out

@@ -1,7 +1,9 @@
 """Schedule-level wrappers for the five MoE kernels (counterpart of
 ``repro.kernels.ops``): each adapts a ``BlockSchedule`` to its kernel's
 arguments.  Block sizes are the kernels' own (csrc/); nothing here carries
-the TPU's (8, 128) tiling over.
+the TPU's (8, 128) tiling over.  The GEMM wrappers take an expert stack as
+a dense tensor or a ``QuantTensor``; ``_weight_operands`` splits the latter
+into the payload, its (E, N) channel scales and the kernel's weight format.
 
 ``LAUNCHES`` holds one launch counter per kernel, the paged-attention
 kernel's too (the wrappers increment it where they launch);
@@ -18,6 +20,7 @@ from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import permute as _perm
 from repro_torch.kernels import router_topk as _router
 from repro_torch.kernels import unpermute as _unperm
+from repro_torch.quantization import QuantTensor, get_scheme
 from repro_torch.scheduling import BlockSchedule
 
 LAUNCHES = _build.LAUNCHES
@@ -39,13 +42,40 @@ def unpermute(y: torch.Tensor, sched: BlockSchedule,
     return _unperm.unpermute(y, sched.pos, weights)
 
 
-def grouped_gemm(x: torch.Tensor, w: torch.Tensor, sched: BlockSchedule,
+def _weight_operands(w):
+    """An expert stack -> (weights, (E, N) f32 scales or None, format).
+
+    A dense tensor passes as is.  A ``QuantTensor`` gives its payload and
+    its scheme's channel scales, a view of its own scales (per-expert ones
+    with a zero stride over N), so nothing is built per call.  A padded
+    layout (int4 with an odd K) has no in-kernel path and is materialized,
+    as in the reference."""
+    if isinstance(w, QuantTensor):
+        if w.meta:
+            return w.materialize(), None, "dense"
+        sch = get_scheme(w.scheme)
+        return w.q, sch.channel_scales(w), sch.kernel_format
+    return w, None, "dense"
+
+
+def grouped_gemm(x: torch.Tensor, w, sched: BlockSchedule,
                  row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return _gg.grouped_gemm(x, w, sched.block_expert, sched.block_active,
-                            block_m=sched.block_m, row_scale=row_scale)
+    """``w``: an (E, K, N) tensor or a QuantTensor (in-kernel dequant)."""
+    wq, ws, fmt = _weight_operands(w)
+    return _gg.grouped_gemm(x, wq, sched.block_expert, sched.block_active,
+                            block_m=sched.block_m, row_scale=row_scale,
+                            w_scale=ws, w_format=fmt)
 
 
-def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+def fused_gate_up(x: torch.Tensor, w_gate, w_up,
                   sched: BlockSchedule) -> torch.Tensor:
-    return _fgu.fused_gate_up(x, w_gate, w_up, sched.block_expert,
-                              sched.block_active, block_m=sched.block_m)
+    """``w_gate``/``w_up``: (E, K, F) tensors or QuantTensors under one
+    scheme."""
+    wgq, wsg, fmt = _weight_operands(w_gate)
+    wuq, wsu, fmt_u = _weight_operands(w_up)
+    if fmt != fmt_u:
+        raise ValueError(f"fused_gate_up takes both weights in one format, "
+                         f"not {fmt!r} and {fmt_u!r}")
+    return _fgu.fused_gate_up(x, wgq, wuq, sched.block_expert,
+                              sched.block_active, block_m=sched.block_m,
+                              wg_scale=wsg, wu_scale=wsu, w_format=fmt)

@@ -5,7 +5,8 @@ Each is the plain version that sits beside its kernel
 (``router_topk_plain``, ``permute_plain``, ...), called on any device: the
 CPU tests hold them against ``repro.kernels.ref`` and the interpret-mode
 Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel against them on
-the card."""
+the card.  The GEMM helpers take dense stacks or ``QuantTensor``s, split as
+the kernels' wrappers split them (``ops._weight_operands``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels.fused_gate_up import fused_gate_up_plain
 from repro_torch.kernels.grouped_gemm import grouped_gemm_plain
+from repro_torch.kernels.ops import _weight_operands
 from repro_torch.kernels.permute import permute_plain
 from repro_torch.kernels.router_topk import router_topk_plain
 from repro_torch.kernels.unpermute import unpermute_plain
@@ -35,13 +37,18 @@ def unpermute_ref(y: torch.Tensor, sched: BlockSchedule,
     return unpermute_plain(y, sched.pos, weights)
 
 
-def grouped_gemm_ref(x: torch.Tensor, w: torch.Tensor, sched: BlockSchedule,
+def grouped_gemm_ref(x: torch.Tensor, w, sched: BlockSchedule,
                      row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return grouped_gemm_plain(x, w, sched.block_expert, sched.block_active,
-                              block_m=sched.block_m, row_scale=row_scale)
+    wq, ws, fmt = _weight_operands(w)
+    return grouped_gemm_plain(x, wq, sched.block_expert, sched.block_active,
+                              block_m=sched.block_m, row_scale=row_scale,
+                              w_scale=ws, w_format=fmt)
 
 
-def fused_gate_up_ref(x: torch.Tensor, w_gate: torch.Tensor,
-                      w_up: torch.Tensor, sched: BlockSchedule) -> torch.Tensor:
-    return fused_gate_up_plain(x, w_gate, w_up, sched.block_expert,
-                               sched.block_active, block_m=sched.block_m)
+def fused_gate_up_ref(x: torch.Tensor, w_gate, w_up,
+                      sched: BlockSchedule) -> torch.Tensor:
+    wgq, wsg, fmt = _weight_operands(w_gate)
+    wuq, wsu, _ = _weight_operands(w_up)
+    return fused_gate_up_plain(x, wgq, wuq, sched.block_expert,
+                               sched.block_active, block_m=sched.block_m,
+                               wg_scale=wsg, wu_scale=wsu, w_format=fmt)

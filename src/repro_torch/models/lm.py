@@ -26,6 +26,7 @@ from repro_torch.models.attention import (Attention, attention, paged_decode,
                                           project_qkv, write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
 from repro_torch.models.ffn import SwiGLU
+from repro_torch.quantization import EXPERT_MATS, QuantTensor
 
 
 class RunConfig(NamedTuple):
@@ -38,6 +39,9 @@ class RunConfig(NamedTuple):
     fuse_gate_up: bool = True
     fold_combine: bool = True
     block_m_min: int = 8             # the dynamic policy's sub-block floor
+    quant: str = "none"              # expert-weight QuantScheme for serving
+                                     # (repro_torch.quantization registry;
+                                     # the engine quantizes at load)
     paged_attn: str = "auto"         # paged decode read path:
                                      # auto   = fused kernel iff the executor
                                      #          is cuda, else gather
@@ -66,7 +70,13 @@ class SharedExperts(nn.Module):
 
 class MoE(nn.Module):
     """Routed experts (E, in, out) stacks, an fp32 router and the optional
-    shared experts."""
+    shared experts.
+
+    A routed stack is a parameter while dense.  ``set_expert_weight``
+    replaces it with a ``QuantTensor``: the parameter is dropped, the
+    payload and scales become the buffers ``<name>_q`` and ``<name>_s`` (so
+    ``.to()`` and ``state_dict`` see them), and ``expert_weight`` rebuilds
+    the ``QuantTensor`` around the current buffers."""
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
@@ -80,10 +90,28 @@ class MoE(nn.Module):
         self.shared = (SharedExperts(d, moe.n_shared_experts * f, gen, dtype,
                                      device)
                        if moe.n_shared_experts else None)
+        self._quant: dict = {}       # name -> (dtype, scheme, meta)
+
+    def expert_weight(self, name: str):
+        """The routed stack ``name``: a dense parameter or a QuantTensor."""
+        if name in self._quant:
+            dtype, scheme, meta = self._quant[name]
+            return QuantTensor(getattr(self, f"{name}_q"),
+                               getattr(self, f"{name}_s"), dtype, scheme,
+                               meta)
+        return getattr(self, name)
+
+    def set_expert_weight(self, name: str, qt: QuantTensor) -> None:
+        """Store the routed stack ``name`` as ``qt``; the dense parameter is
+        released."""
+        self._parameters.pop(name, None)
+        self.register_buffer(f"{name}_q", qt.q)
+        self.register_buffer(f"{name}_s", qt.s)
+        self._quant[name] = (qt.dtype, qt.scheme, qt.meta)
 
     def params(self) -> dict:
-        p = {"router": self.router, "w_gate": self.w_gate, "w_up": self.w_up,
-             "w_down": self.w_down}
+        p = {"router": self.router}
+        p.update({name: self.expert_weight(name) for name in EXPERT_MATS})
         if self.shared is not None:
             sh = self.shared
             p["shared"] = {"w_gate": sh.w_gate, "w_up": sh.w_up,

@@ -24,6 +24,9 @@ slots in one forward; a retired slot is filled by swapping the last active
 slot's cache row into it.
 
 Both make one host transfer per step (the tokens and their EOS flags).
+With ``rc.quant`` set to a scheme, the engine quantizes the routed experts
+of the model it is given, in place, at construction (idempotent under the
+same scheme) and records their stored bytes in ``quant_expert_bytes``.
 Defaults follow the reference: the ``dynamic`` schedule policy when no
 ``rc`` is given, ``prefill_chunk=32`` and the prefix cache on.  Admission
 is first-come first-served; other admission policies, preemption,
@@ -40,6 +43,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import LM, RunConfig, init_cache, swap_cache_slots
+from repro_torch.quantization import quantize_model, routed_expert_bytes
 from repro_torch.serve.kv_cache import PagedKVCache, paged_supported
 from repro_torch.serve.step import paged_step, slot_decode, slot_prefill
 
@@ -88,6 +92,14 @@ class ServeEngine:
             raise ValueError(f"model on {model.embed.device}, engine on "
                              f"{self.device}")
         self.cfg = cfg
+        self.quant_expert_bytes = None
+        if self.rc.quant != "none" and cfg.is_moe:
+            # load-time transform, in place and one stack at a time; a
+            # model already quantized under the scheme is left as it is
+            quantize_model(model, self.rc.quant)
+            # the counterpart of the reference's serve/quant_expert_bytes
+            # gauge: the compressed bytes the routed experts hold
+            self.quant_expert_bytes = routed_expert_bytes(model)
         self.model = model
         self.slots = slots
         self.capacity = capacity

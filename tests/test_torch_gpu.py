@@ -1,8 +1,9 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions
 (the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
-paged decode-attention kernel over its masks), the MoE layer without a host
-sync under both policies, and the contiguous and paged engines' launch
-counts.
+int8 and int4 formats of the two GEMMs, the paged decode-attention kernel
+over its masks), the MoE layer without a host sync under both policies and
+on quantized weights, and the contiguous and paged engines' launch counts
+(dense and int8 experts).
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -17,6 +18,7 @@ import torch
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.execution import combine_scale_rows
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels._build import QUANT_KERNELS
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                   paged_decode_attention_plain)
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
@@ -186,6 +188,7 @@ def test_engine_launches_each_kernel_once_per_moe_layer_forward(cuda):
     expect = n_moe_layers(cfg) * eng.n_forwards
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == 0
+    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
     assert all(n == expect for n in launches.values()), ops.LAUNCHES
 
 
@@ -215,6 +218,159 @@ def test_paged_engine_launches_attention_per_layer_forward(cuda):
     assert len(done) == 3 and all(len(r.out) == 4 for r in done)
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == cfg.n_layers * eng.n_forwards
+    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
     expect = n_moe_layers(cfg) * eng.n_forwards
     assert all(n == expect for n in launches.values()), ops.LAUNCHES
     assert eng.kv.stats()["prefix_hit_tokens"] >= 16
+
+
+def quantized_layer(dev, T, E, k, d, f, dtype, scheme, seed=0):
+    from repro_torch.quantization import get_scheme
+    logits, x, wg, wu, wd = layer(dev, T, E, k, d, f, dtype, seed=seed)
+    sch = get_scheme(scheme)
+    return logits, x, sch.quantize(wg), sch.quantize(wu), sch.quantize(wd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scheme", ["int8_expert", "int8_channel",
+                                    "int4_packed"])
+def test_quantized_gemms_match_plain(cuda, scheme, dtype, policy):
+    """The int8 and int4 formats of fused_gate_up and grouped_gemm (the
+    folded combine rows too) against their plain versions; inactive rows
+    exactly zero after NaN in the allocator; each format counts its own
+    launches."""
+    from repro_torch.kernels.grouped_gemm import launch_key
+    T, E, k, d, f = 16, 64, 6, 256, 192
+    logits, x, qg, qu, qd = quantized_layer(cuda, T, E, k, d, f,
+                                            DTYPES[dtype], scheme, seed=3)
+    w, idx = ref.router_ref(logits, k, gating="sigmoid", norm_topk=True,
+                            routed_scale=2.446)
+    build = build_fixed_schedule if policy == "fixed" \
+        else build_dynamic_schedule
+    sched = build(idx, E, 128)
+    xp = ops.permute(x, sched)
+    fmt = "int4" if scheme == "int4_packed" else "int8"
+    ops.reset_launches()
+    junk = torch.full((sched.capacity * d,), float("nan"), device=cuda)
+    del junk
+    h = ops.fused_gate_up(xp, qg, qu, sched)
+    torch.testing.assert_close(
+        h.float(), ref.fused_gate_up_ref(xp, qg, qu, sched).float(),
+        **TOL[dtype])
+    scale = combine_scale_rows(sched, w)
+    y = ops.grouped_gemm(h, qd, sched, row_scale=scale)
+    torch.testing.assert_close(
+        y.float(), ref.grouped_gemm_ref(h, qd, sched, scale).float(),
+        **TOL[dtype])
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    assert torch.equal(h[dead], torch.zeros_like(h[dead]))
+    assert torch.equal(y[dead], torch.zeros_like(y[dead]))
+    assert ops.LAUNCHES[launch_key("fused_gate_up", fmt)] == 1
+    assert ops.LAUNCHES[launch_key("grouped_gemm", fmt)] == 1
+    assert ops.LAUNCHES["fused_gate_up"] == ops.LAUNCHES["grouped_gemm"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_m", [8, 16, 128])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("scheme", ["int8_expert", "int8_channel",
+                                    "int4_packed"])
+def test_quantized_gemm_dequantizes_bitwise(cuda, scheme, dtype, block_m):
+    """One-hot activation rows pick single weight rows: the product of a
+    row with one 1.0 is exact, so the kernel's output must equal the plain
+    dequantization bf16/fp32(q * s) bit for bit, in every tile height and
+    over partial K stages (K = 176)."""
+    from repro_torch.kernels.ops import _weight_operands
+    from repro_torch.quantization import get_scheme
+    E, K, N, nb = 4, 176, 192, 6
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((E, K, N), generator=g, device=cuda)
+    w = (w * torch.logspace(-3, 2, N, device=cuda)).to(DTYPES[dtype])
+    qt = get_scheme(scheme).quantize(w)
+    cap = nb * block_m
+    be = torch.tensor([i % E for i in range(nb)], dtype=torch.int32,
+                      device=cuda)
+    ba = torch.ones(nb, dtype=torch.int32, device=cuda)
+    rows = torch.arange(cap, device=cuda)
+    k_of_row = (rows * 37 + 5) % K
+    x = torch.zeros((cap, K), dtype=DTYPES[dtype], device=cuda)
+    x[rows, k_of_row] = 1.0
+    wq, ws, fmt = _weight_operands(qt)
+    out = ops._gg.grouped_gemm(x, wq, be, ba, block_m=block_m, w_scale=ws,
+                               w_format=fmt)
+    want = qt.materialize()[be.long()[rows // block_m], k_of_row]
+    assert torch.equal(out, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_quantized_wrapper_refuses_mismatched_operands(cuda):
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
+    x = torch.zeros((16, 32), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((2, 32, 32), dtype=torch.int8, device=cuda)
+    s = torch.ones((2, 32), device=cuda)
+    be = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="w_scale"):
+        grouped_gemm(x, q, be, be, block_m=16, w_format="int8")
+    with pytest.raises(ValueError, match=r"\(E, 16, N\)"):
+        grouped_gemm(x, q, be, be, block_m=16, w_scale=s, w_format="int4")
+    out = grouped_gemm(x, q, be, be, block_m=16, w_scale=s, w_format="int8")
+    assert torch.equal(out, torch.zeros_like(out))      # inactive block
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["int8_expert", "int4_packed"])
+def test_quantized_moe_ffn_makes_no_host_sync(cuda, scheme):
+    from repro_torch.quantization import QuantTensor
+    T, E, k, d, f = 8, 64, 6, 256, 192
+    _, x, qg, qu, qd = quantized_layer(cuda, T, E, k, d, f, torch.bfloat16,
+                                       scheme)
+    assert isinstance(qg, QuantTensor)
+    router = torch.randn((d, E), device=cuda)
+    cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                            executor="cuda", gating="sigmoid",
+                            norm_topk=True, routed_scale=2.446,
+                            schedule_policy="dynamic")
+    moe_ffn(x, router, qg, qu, qd, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = moe_ffn(x, router, qg, qu, qd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert y.shape == (T, d) and not torch.isnan(y).any()
+
+
+@pytest.mark.gpu
+def test_paged_engine_serves_int8_experts_through_int8_kernels(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params, n_moe_layers
+    from repro_torch.quantization import routed_expert_bytes
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16)
+    dense = routed_expert_bytes(model)
+    eng = ServeEngine(cfg, model, slots=2, capacity=48, kv_block_size=8,
+                      prefill_chunk=8,
+                      rc=RunConfig(compute_dtype=torch.bfloat16,
+                                   schedule_policy="dynamic",
+                                   quant="int8_expert"))
+    assert eng.quant_expert_bytes < dense * 0.51
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new=4) for i, n in enumerate(
+                        (9, 20, 5))]
+    ops.reset_launches()
+    done = eng.run(reqs)
+    assert len(done) == 3 and all(len(r.out) == 4 for r in done)
+    expect = n_moe_layers(cfg) * eng.n_forwards
+    launches = dict(ops.LAUNCHES)
+    assert launches.pop("paged_attention") == cfg.n_layers * eng.n_forwards
+    for name in ("fused_gate_up_int8", "grouped_gemm_int8", "router_topk",
+                 "permute", "unpermute"):
+        assert launches.pop(name) == expect, (name, ops.LAUNCHES)
+    assert all(n == 0 for n in launches.values()), ops.LAUNCHES
