@@ -138,23 +138,30 @@ struct Bf16Tiles {
   static constexpr int SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 };
 
-// sign-extended byte j (0-3) of a 32-bit word
-__device__ __forceinline__ int sext8(unsigned word, int j) {
-  return (int)(word << (24 - 8 * j)) >> 24;
+// float(v) of a byte or nibble without the conversion unit (which runs at
+// a fraction of the ALU rate, and the decode kernel converts every weight
+// it reads): v, biased into [0, 255], is placed in the mantissa of 2^23
+// and the bias subtracted, exactly.
+__device__ __forceinline__ float int8_value(unsigned word, int j) {
+  // byte j of word: (b ^ 0x80) = b + 128
+  return __uint_as_float(__byte_perm(word ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 | j)) - 8388736.0f;
 }
-// sign-extended low and high nibbles of byte j of a 32-bit word
-__device__ __forceinline__ int nib_lo(unsigned word, int j) {
-  const int lo = (int)(word >> (8 * j)) & 0xF;
-  return lo - ((lo & 0x8) << 1);
+__device__ __forceinline__ float int4_value(unsigned word, int i) {
+  // nibble i (0-7) of word: (n ^ 8) = v + 8
+  return __uint_as_float(0x4B000000u | (((word ^ 0x88888888u) >> (4 * i))
+                                        & 0xFu)) - 8388616.0f;
 }
-__device__ __forceinline__ int nib_hi(unsigned word, int j) {
-  const int hi = (int)(word >> (8 * j + 4)) & 0xF;
-  return hi - ((hi & 0x8) << 1);
+// two weights rounded to bf16 (nearest even) by one packed conversion
+__device__ __forceinline__ unsigned bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 // Expand one compressed (QROWS, BN) payload tile into the bf16 (BK, BN)
-// tile Xs: w = bf16(float(q) * scale[n]).  Each thread takes 8 columns of
-// one payload row (8 bytes: 8 weights in int8, 16 in int4).
+// tile Xs: w = bf16(float(q) * scale[n]), the product in fp32 rounded once.
+// Each thread takes 8 columns of one payload row (8 bytes: 8 weights in
+// int8, 16 in int4).
 template <int FMT, int THREADS, int LDB, int BK>
 __device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
                                                  const unsigned char* Qs,
@@ -166,24 +173,25 @@ __device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
     const float4 s0 = *reinterpret_cast<const float4*>(Ss + c);
     const float4 s1 = *reinterpret_cast<const float4*>(Ss + c + 4);
     const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-    alignas(16) bf16 lo[8];
-    alignas(16) bf16 hi[8];
+    float lo[8], hi[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const unsigned word = j < 4 ? q.x : q.y;
       if (FMT == kInt8) {
-        lo[j] = __float2bfloat16_rn((float)sext8(word, j & 3) * s[j]);
+        lo[j] = int8_value(word, j & 3) * s[j];
       } else {
-        lo[j] = __float2bfloat16_rn((float)nib_lo(word, j & 3) * s[j]);
-        hi[j] = __float2bfloat16_rn((float)nib_hi(word, j & 3) * s[j]);
+        lo[j] = int4_value(word, 2 * (j & 3)) * s[j];
+        hi[j] = int4_value(word, 2 * (j & 3) + 1) * s[j];
       }
     }
     const int row = FMT == kInt4 ? 2 * r : r;
-    *reinterpret_cast<uint4*>(Xs + row * LDB + c) =
-        *reinterpret_cast<const uint4*>(lo);
+    *reinterpret_cast<uint4*>(Xs + row * LDB + c) = make_uint4(
+        bf16x2_bits(lo[0], lo[1]), bf16x2_bits(lo[2], lo[3]),
+        bf16x2_bits(lo[4], lo[5]), bf16x2_bits(lo[6], lo[7]));
     if (FMT == kInt4)
-      *reinterpret_cast<uint4*>(Xs + (row + 1) * LDB + c) =
-          *reinterpret_cast<const uint4*>(hi);
+      *reinterpret_cast<uint4*>(Xs + (row + 1) * LDB + c) = make_uint4(
+          bf16x2_bits(hi[0], hi[1]), bf16x2_bits(hi[2], hi[3]),
+          bf16x2_bits(hi[4], hi[5]), bf16x2_bits(hi[6], hi[7]));
   }
 }
 
@@ -446,10 +454,10 @@ gemm_f32_kernel(const float* __restrict__ x, const void* __restrict__ w0,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (FMT == kInt8) {
-        lo[j] = (float)sext8(word, j) * S[c + j];
+        lo[j] = int8_value(word, j) * S[c + j];
       } else {
-        lo[j] = (float)nib_lo(word, j) * S[c + j];
-        hi[j] = (float)nib_hi(word, j) * S[c + j];
+        lo[j] = int4_value(word, 2 * j) * S[c + j];
+        hi[j] = int4_value(word, 2 * j + 1) * S[c + j];
       }
     }
     const int row = FMT == kInt4 ? 2 * pr : pr;
