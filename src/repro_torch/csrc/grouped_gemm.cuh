@@ -204,15 +204,14 @@ __device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
 // 128 registers (167 unbounded), so the active blocks of a decode step fit
 // in one wave.  For int8/int4 the ring carries the compressed tiles and
 // each is expanded into Xs before its products (see the header).
+// One active (ROWS, BN) output tile at (m0, n0) of expert e.
 template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
-__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, 2)
-gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
-                 const void* __restrict__ w1, const float* __restrict__ s0,
-                 const float* __restrict__ s1,
-                 const int* __restrict__ block_expert,
-                 const int* __restrict__ block_active,
-                 const float* __restrict__ row_scale, bf16* __restrict__ out,
-                 int K, int N, int block_m, int s_e, int s_n) {
+__device__ __forceinline__ void
+gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
+               const void* __restrict__ w1, const float* __restrict__ s0,
+               const float* __restrict__ s1,
+               const float* __restrict__ row_scale, bf16* __restrict__ out,
+               int K, int N, int s_e, int s_n, int m0, int n0, size_t e) {
   using namespace nvcuda;
   using C = Bf16Tiles<BM, FUSED, FMT>;
   constexpr bool QUANT = FMT != kDense;
@@ -225,14 +224,6 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
   extern __shared__ __align__(128) unsigned char smem[];
   float* Cs = reinterpret_cast<float*>(smem);
 
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * ROWS;
-  const int mb = m0 / block_m;
-  if (block_active[mb] == 0) {
-    store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
-    return;
-  }
-  const size_t e = (size_t)block_expert[mb];
   const int KQ = payload_rows<FMT>(K);             // payload rows of W[e]
   using WT = typename std::conditional<QUANT, unsigned char, bf16>::type;
   const WT* W0 = reinterpret_cast<const WT*>(w0) + e * KQ * N;
@@ -384,6 +375,65 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
   }
 }
 
+// Row tiles per thread block: 1, except in the quantized 16-row (decode)
+// kernel, whose blocks take TPC row tiles strided by gridDim.y.  At decode
+// nearly every row tile is inactive (1,029 of 1,040 at T=2), and each
+// inactive tile's block lives for one dependent load of its flag; the
+// quantized kernel fits fewer blocks per SM than the dense one (shared
+// memory and registers of the expand pass), so it loads the flags of TPC
+// tiles together and writes their zeros in one block.  The stride keeps
+// the schedule's leading (active) tiles in separate blocks.
+template <int BM, int FMT>
+__host__ __device__ constexpr int tiles_per_block() {
+  return (FMT != kDense && BM == 16) ? 4 : 1;
+}
+
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
+__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, 2)
+gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
+                 const void* __restrict__ w1, const float* __restrict__ s0,
+                 const float* __restrict__ s1,
+                 const int* __restrict__ block_expert,
+                 const int* __restrict__ block_active,
+                 const float* __restrict__ row_scale, bf16* __restrict__ out,
+                 int K, int N, int block_m, int s_e, int s_n, int n_tiles) {
+  constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  constexpr int TPC = tiles_per_block<BM, FMT>();
+  const int n0 = blockIdx.x * BN;
+  if constexpr (TPC == 1) {
+    const int m0 = blockIdx.y * ROWS;
+    const int mb = m0 / block_m;
+    if (block_active[mb] == 0) {
+      store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
+      return;
+    }
+    gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>(
+        x, w0, w1, s0, s1, row_scale, out, K, N, s_e, s_n, m0, n0,
+        (size_t)block_expert[mb]);
+  } else {
+    int act[TPC], ex[TPC];
+#pragma unroll
+    for (int t = 0; t < TPC; ++t) {       // independent loads, one latency
+      const int tile = blockIdx.y + t * gridDim.y;
+      const int mb = tile < n_tiles ? tile * ROWS / block_m : 0;
+      act[t] = tile < n_tiles ? block_active[mb] : -1;
+      ex[t] = tile < n_tiles ? block_expert[mb] : 0;
+    }
+#pragma unroll
+    for (int t = 0; t < TPC; ++t) {
+      const int m0 = (blockIdx.y + t * gridDim.y) * ROWS;
+      if (act[t] == 0) {
+        store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
+      } else if (act[t] > 0) {
+        gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>(
+            x, w0, w1, s0, s1, row_scale, out, K, N, s_e, s_n, m0, n0,
+            (size_t)ex[t]);
+        __syncthreads();                  // shared memory is reused
+      }
+    }
+  }
+}
+
 template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
                         const void* w0, const void* w1, const float* s0,
@@ -395,8 +445,11 @@ inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
-  kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(
-      x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, s_e, s_n);
+  constexpr int tpc = tiles_per_block<BM, FMT>();
+  const int n_tiles = (int)grid.y;
+  const dim3 g(grid.x, (n_tiles + tpc - 1) / tpc);
+  kernel<<<g, 32 * WARPS_M * WARPS_N, smem, s>>>(
+      x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, s_e, s_n, n_tiles);
 }
 
 // ------------------------------------------------------------------ fp32
