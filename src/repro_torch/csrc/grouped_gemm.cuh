@@ -42,10 +42,12 @@
 // product.  bf16: the cp.async ring carries the compressed tile (per operand
 // and stage of 64 K rows in the 16-row kernel: 4 KB int8 or 2 KB int4,
 // against 4 KB for 32 dense rows); after the wait the block expands it into
-// one bf16 (BK, BN) shared tile per operand, with the block's 64 column
-// scales staged once in shared memory, behind one more __syncthreads.  Only the compressed bytes cross device memory; no dense
-// stack exists.  Inactive blocks still write zeros and read neither weights
-// nor scales.
+// one bf16 (BK, BN) shared tile per operand, with the tile's 64 column
+// scales staged in shared memory, behind one more __syncthreads.  Only the
+// compressed bytes cross device memory; no dense stack exists.  Inactive
+// tiles still get zeros, with neither weights nor scales read; the
+// quantized 16-row kernel's blocks take several row tiles each
+// (tiles_per_block).
 #pragma once
 
 #include <mma.h>
