@@ -6,7 +6,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles the six kernels from src/repro_torch/csrc with nvcc for
+2. build: compiles the kernels from src/repro_torch/csrc with nvcc for
    sm_90a (one process per source, in parallel, into build/kernels/) and
    prints the build time;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
@@ -31,11 +31,23 @@ result line):
    dynamic) and prefill T=64 (dynamic), bf16 and fp32, with the same
    tolerances, NaN poisoning and zero checks, each timed against its
    compressed-byte bound (payload + scales + activations in + output
-   written);
-4. MoE layer: ``moe_ffn`` on the ``cuda`` executor at moonshot width under
+   written).  The five MoE kernels again at deepseek-v2-236b's MoE layer
+   (E=160, k=6, d=5120, f=1536, softmax, no renorm, routed_scale 16) at
+   decode T=2 and prefill T=64 on both policies, bf16 and fp32, timed in
+   bf16, with its padding, and its int8_expert GEMMs on ``dynamic``.  The
+   MLA form of the paged decode-attention kernel (second score operand q2
+   against the rope-key pool, the latent pool as key and value) at
+   deepseek's shape (128 heads, latent 512, rope key 64, blocks of 16) at
+   decode (B=2) and at the 64-row chunk step, and with 120 heads (not a
+   multiple of its 16-head tile), bf16 and fp32, vector and scalar
+   kv_limit, blocks past kv_limit poisoned as above; timed beside its
+   bound (bytes and tensor-core operations, each named), its plain version
+   and scaled_dot_product_attention over the contiguous concatenated view;
+4. MoE layer: ``moe_ffn`` on the ``cuda`` executor under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
-   layer), with the ``fixed`` and the ``dynamic`` policy, on bf16 experts
-   and on int8_expert and int4_packed ones;
+   layer), with the ``fixed`` and the ``dynamic`` policy: at moonshot width
+   on bf16 experts and on int8_expert and int4_packed ones, and at
+   deepseek's on bf16 experts;
 5. serving, paged (the engine's default): moonshot-v1-16b-a3b at full
    width, depth cut to 4 layers (1 dense + 3 MoE; ``--layers 48`` serves
    the whole depth), random bf16 weights from a seeded generator, the
@@ -60,7 +72,21 @@ result line):
    layers x forwards and the dense GEMMs' 0; the first paged step's fp32
    logits through the fused read and the kernels against the gather read
    and the plain versions within rtol = atol = 1e-3; prints the routed
-   experts' stored bytes and the peak device memory.
+   experts' stored bytes and the peak device memory;
+8. serving deepseek-v2-236b (MLA), built once moonshot's models are
+   freed: full width, depth cut 60 -> 4 (1 dense + 3 MoE, 13.3 B
+   parameters, random bf16 weights; ``--layers`` does not change it).  The
+   paged engine as in 5 (4 requests, three sharing a 40-token prefix): the
+   MLA kernel's launches must equal layers x forwards, the GQA kernel's 0,
+   the MoE kernels' MoE layers x forwards; peak memory, prefix hits,
+   prefill and decode times, a profile of 2 chunk steps and 5 decode
+   steps.  The first paged step's logits through the MLA and MoE kernels
+   against the gather read and the plain versions, and the first prompt's
+   prefill logits against the plain versions, in fp32 through the first 2
+   layers (rtol = atol = 1e-3).  Then the contiguous engine (``fixed``, 3
+   requests, neither attention kernel), and the paged engine again with
+   the routed experts quantized in place under ``int8_expert``, printing
+   their stored bytes and the peak memory.
 
 The last lines are the kernel report ``{"kernels": [...]}``, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -84,6 +110,12 @@ CONTIG_REQUESTS = 3
 KV_BLOCK, PREFILL_CHUNK, SHARED_PREFIX = 16, 32, 40
 ATTN = dict(Hkv=16, G=1, D=128, bs=16)          # moonshot's attention
 ATTN_GQA = dict(Hkv=8, G=4, D=128, bs=16)       # mixtral-8x7b's
+# deepseek-v2-236b's absorbed MLA decode: one latent KV head of 512 and a
+# rope key of 64 for 128 query heads; and its MoE layer
+MLA_ATTN = dict(Hkv=1, G=128, D=512, D2=64, bs=16)
+DEEPSEEK = dict(E=160, k=6, d=5120, f=1536, M=128, gating="softmax",
+                norm_topk=False, routed_scale=16.0)
+DEEPSEEK_LAYERS, DEEPSEEK_CHECK_LAYERS = 4, 2
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)   # bf16 through CHECK_LAYERS layers
@@ -102,6 +134,8 @@ SOURCES = {
                   "src/repro/kernels/unpermute.py:45"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:100"),
+    "paged_attention_mla": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:100"),
 }
 for _k, _fmt in (("fused_gate_up", "int8"), ("fused_gate_up", "int4"),
                  ("grouped_gemm", "int8"), ("grouped_gemm", "int4")):
@@ -431,7 +465,8 @@ def padding_share(c: Case) -> dict:
     written = {"permute": cap * s["d"] * es, "fused_gate_up": cap * s["f"] * es,
                "grouped_gemm": cap * s["d"] * es}
     pad = {k: v * (cap - useful) / cap for k, v in written.items()}
-    return {"T": c.T, "policy": c.policy, "block_m": M, "capacity": cap,
+    return {"E": s["E"], "T": c.T, "policy": c.policy, "block_m": M,
+            "capacity": cap,
             "blocks": cap // M, "active_blocks": c.n_active_blocks,
             "computed_rows": computed,
             "computed_padding_share": (computed - useful) / computed,
@@ -575,6 +610,13 @@ class PagedCase:
         return (f"B={self.q.shape[0]} Hkv={a['Hkv']} G={a['G']} "
                 f"{str(self.dtype).replace('torch.', '')}")
 
+    def run(self, fn, lim=None, **kw):
+        return fn(self.q, self.k, self.v, self.tables,
+                  self.lim if lim is None else lim, **kw)
+
+    def pools(self):
+        return (self.k, self.v)
+
     def kv_positions_read(self) -> int:
         """Distinct pool positions the rows' tables reach up to each row's
         kv_limit: a block that several rows of one slot reach counts once,
@@ -609,53 +651,60 @@ def paged_rows(kind: str):
     return [(s, p) for s in range(2) for p in range(32, 64)]
 
 
-def check_paged(errs: dict) -> None:
-    """The paged-attention kernel against its plain version."""
+def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
+    """Kernel ``name`` (``paged_attention`` or ``paged_attention_mla``)
+    against its plain version on case ``c``: each (label, kw) of
+    ``variants``, then whole blocks past kv_limit poisoned, with 1e4 against
+    the plain version and with NaN against the kernel's own clean output,
+    bitwise (the kernel never reads them)."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention as kern, paged_decode_attention_plain as plain)
 
-    def compare(c, label, **kw):
-        lim = kw.pop("lim", c.lim)
-        got = poisoned(lambda: kern(c.q, c.k, c.v, c.tables, lim, **kw),
-                       c.q.numel(), c.dtype)
-        want = plain(c.q, c.k, c.v, c.tables, lim, **kw)
+    def compare(tag, lim=None, **kw):
+        got = poisoned(lambda: c.run(kern, lim, **kw), c.q.numel(), c.dtype)
+        want = c.run(plain, lim, **kw)
         torch.cuda.synchronize()
         if torch.isnan(got).any():
-            raise AssertionError(f"paged_attention: NaN ({label})")
+            raise AssertionError(f"{name}: NaN ({label} {tag})")
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[str(c.dtype).replace("torch.", "")])
         err = (got.float() - want.float()).abs().max().item()
-        errs["paged_attention"] = max(errs.get("paged_attention", 0.0), err)
-        print(f"  paged_attention {label:44s} max_abs_err {err:.3e}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  {name} {label + ' ' + tag:50s} max_abs_err {err:.3e}")
         return got
 
+    for tag, kw in variants:
+        compare(tag, **kw)
+    short = torch.full_like(c.lim, 2 * c.attn["bs"] - 1)
+    clean = compare("blocks 0-1 only", lim=short)
+    past = c.tables[:, 2:].reshape(-1).long()
+    for pool in c.pools():
+        pool[past] = 1e4
+    compare("poisoned 1e4 past kv_limit", lim=short)
+    for pool in c.pools():
+        pool[past] = float("nan")
+    got = c.run(kern, short)
+    torch.cuda.synchronize()
+    if not torch.equal(got, clean):
+        raise AssertionError(f"{name}: blocks past kv_limit reach the output "
+                             f"({label})")
+
+
+def check_paged(errs: dict) -> None:
+    """The GQA paged-attention kernel at moonshot's and mixtral's attention,
+    decode and chunk rows, over its masks."""
+    import torch
     for dtype in (torch.bfloat16, torch.float32):
         for attn, kind in ((ATTN, "decode"), (ATTN, "chunk"),
                            (ATTN_GQA, "decode")):
             c = PagedCase(attn, paged_rows(kind), dtype, seed=7)
-            compare(c, f"{c.label()} {kind}")
-            compare(c, f"{c.label()} {kind} scalar kv_limit", lim=60)
-            compare(c, f"{c.label()} {kind} causal+window",
-                    q_pos=torch.clamp(c.lim - 3, min=0), causal=True,
-                    window=40)
-            compare(c, f"{c.label()} {kind} softcap 30", logit_softcap=30.0)
-            # whole blocks past kv_limit: 1e4 against the plain version,
-            # then NaN against the kernel's own clean output
-            bs = attn["bs"]
-            short = torch.full_like(c.lim, 2 * bs - 1)
-            clean = compare(c, f"{c.label()} {kind} blocks 0-1 only",
-                            lim=short)
-            past = c.tables[:, 2:].reshape(-1).long()
-            c.k[past], c.v[past] = 1e4, 1e4
-            compare(c, f"{c.label()} {kind} poisoned 1e4 past kv_limit",
-                    lim=short)
-            c.k[past], c.v[past] = float("nan"), float("nan")
-            got = kern(c.q, c.k, c.v, c.tables, short)
-            torch.cuda.synchronize()
-            if not torch.equal(got, clean):
-                raise AssertionError("paged_attention: blocks past kv_limit "
-                                     f"reach the output ({c.label()})")
+            qpos = torch.clamp(c.lim - 3, min=0)
+            check_attention("paged_attention", c, f"{c.label()} {kind}", errs,
+                            (("", {}), ("scalar kv_limit", dict(lim=60)),
+                             ("causal+window", dict(q_pos=qpos, causal=True,
+                                                    window=40)),
+                             ("softcap 30", dict(logit_softcap=30.0))))
             del c
 
 
@@ -692,6 +741,134 @@ def time_paged(kind: str) -> dict:
                    "each row's length (excludes the gather)",
         "library_null_reason": None, "bytes": n_bytes, "flops": flops,
         "rows": B, "kv_positions_read": c.kv_positions_read(),
+        "row_kv_positions": sum(p + 1 for p in c.lims),
+    }
+    torch.cuda.synchronize()
+    return out
+
+
+class MLACase(PagedCase):
+    """MLA paged decode inputs (deepseek-v2's absorbed decode): a latent pool
+    (n_blocks, bs, 1, D) that is both key and value, a rope-key pool
+    (n_blocks, bs, 1, D2), and per row q (1, G, D) and q2 (1, G, D2);
+    tables and limits as ``PagedCase``."""
+
+    def __init__(self, attn: dict, rows, dtype, seed: int, nb: int = 8,
+                 slots: int = 2):
+        import torch
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        G, D, D2, bs = attn["G"], attn["D"], attn["D2"], attn["bs"]
+        self.attn, self.dtype, self.nb = attn, dtype, nb
+        n_blocks = slots * nb
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        self.k = randn(n_blocks, bs, 1, D)
+        self.k2 = randn(n_blocks, bs, 1, D2)
+        perm = torch.randperm(n_blocks, generator=g, device="cuda")
+        slot_tables = perm.reshape(slots, nb).to(torch.int32)
+        slot_ids = torch.tensor([s for s, _ in rows], device="cuda")
+        self.tables = slot_tables[slot_ids].contiguous()
+        self.lim = torch.tensor([p for _, p in rows], dtype=torch.int32,
+                                device="cuda")
+        self.lims = [p for _, p in rows]
+        self.q = randn(len(rows), 1, G, D)
+        self.q2 = randn(len(rows), 1, G, D2)
+        self.scale = (D + D2) ** -0.5            # the model's (r + dr)^-0.5
+
+    def label(self) -> str:
+        return (f"B={self.q.shape[0]} G={self.attn['G']} "
+                f"{str(self.dtype).replace('torch.', '')}")
+
+    def run(self, fn, lim=None, **kw):
+        return fn(self.q, self.k, self.k, self.tables,
+                  self.lim if lim is None else lim, scale=self.scale,
+                  q2=self.q2, k2_pool=self.k2, **kw)
+
+    def pools(self):
+        return (self.k, self.k2)
+
+    def work(self):
+        """(bytes, flops): the latent and rope-key positions the tables
+        reach, each read once; q, q2 and the table entries read once; out
+        written once.  Scores (D + D2) and PV (D) per row position and
+        head, two operations per multiply-add."""
+        a, es, bs = self.attn, self.q.element_size(), self.attn["bs"]
+        B, G, D, D2 = self.q.shape[0], a["G"], a["D"], a["D2"]
+        kv = self.kv_positions_read() * (D + D2) * es
+        qo = B * G * (D + D2 + D) * es
+        meta = 4 * sum(p // bs + 2 for p in self.lims)
+        row_positions = sum(p + 1 for p in self.lims)
+        return kv + qo + meta, row_positions * G * 2 * (D + D2 + D)
+
+
+def check_mla(errs: dict) -> None:
+    """The MLA kernel at deepseek's shape: decode (B=2) and the 64-row chunk
+    step, 128 heads and 120 (not a multiple of the kernel's head tiles),
+    vector and scalar kv_limit, poisoned blocks."""
+    import torch
+    for dtype in (torch.bfloat16, torch.float32):
+        for G, kind in ((128, "decode"), (128, "chunk"), (120, "decode")):
+            c = MLACase(dict(MLA_ATTN, G=G), paged_rows(kind), dtype,
+                        seed=17 + G)
+            check_attention("paged_attention_mla", c, f"{c.label()} {kind}",
+                            errs, (("", {}),
+                                   ("scalar kv_limit", dict(lim=60))))
+            del c
+
+
+def mla_library_call(c: MLACase):
+    """scaled_dot_product_attention over the contiguous concatenated view
+    (q 576 = [q | q2], k 576 = [ckv | kr], v 512 = ckv, one KV head for the
+    128 query heads through ``enable_gqa``, a boolean mask per row); the
+    gather a paged cache needs first is excluded.  -> (call, name) or
+    (None, reason)."""
+    import torch
+    import torch.nn.functional as F
+    B, G = c.q.shape[0], c.attn["G"]
+    S = max(c.lims) + 1
+    g = torch.Generator(device="cuda").manual_seed(21)
+    Dq = c.attn["D"] + c.attn["D2"]
+    qs = torch.randn((B, G, 1, Dq), generator=g, device="cuda").to(c.dtype)
+    ks = torch.randn((B, 1, S, Dq), generator=g, device="cuda").to(c.dtype)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= c.lim[:, None])[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qs, ks, ks[..., :c.attn["D"]], attn_mask=mask, scale=c.scale,
+            enable_gqa=True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"SDPA refused Dv != D with one KV head: {str(e)[:80]}"
+    return call, ("scaled_dot_product_attention over a contiguous [ckv | kr] "
+                  "view, one KV head (enable_gqa), excludes the gather")
+
+
+def time_mla(kind: str) -> dict:
+    """Kernel, plain and SDPA-yardstick times of the MLA kernel (bf16,
+    deepseek's shape), with both halves of the bound."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention as kern, paged_decode_attention_plain as plain)
+    c = MLACase(MLA_ATTN, paged_rows(kind), torch.bfloat16, seed=19)
+    n_bytes, flops = c.work()
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    lib, lib_name = mla_library_call(c)
+    out = {
+        "ms": device_ms(lambda: c.run(kern), 50),
+        "eager_ms": time_ms(lambda: c.run(kern), 200),
+        "plain_ms": device_ms(lambda: c.run(plain), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
+        "library_ms": device_ms(lib, 50) if lib is not None else None,
+        "library": lib_name if lib is not None else None,
+        "library_null_reason": None if lib is not None else lib_name,
+        "bytes": n_bytes, "flops": flops, "rows": c.q.shape[0],
+        "kv_positions_read": c.kv_positions_read(),
         "row_kv_positions": sum(p + 1 for p in c.lims),
     }
     torch.cuda.synchronize()
@@ -799,12 +976,14 @@ def drive(engine, reqs) -> dict:
             "decode_tokens": decode_tokens}
 
 
-def check_launches(launches: dict, moe: int, attn: int, fmt: str) -> None:
+def check_launches(launches: dict, moe: int, attn: int, fmt: str,
+                   attn_kernel: str = "paged_attention") -> None:
     """The MoE kernels ran ``moe`` times each, the GEMMs in format ``fmt``
-    only, and the paged-attention kernel ``attn`` times."""
+    only, the paged-attention kernel ``attn_kernel`` (the GQA or the MLA
+    one) ``attn`` times and the other one never."""
     for name, n in launches.items():
-        if name == "paged_attention":
-            want = attn
+        if name in ("paged_attention", "paged_attention_mla"):
+            want = attn if name == attn_kernel else 0
         elif name.startswith(("fused_gate_up", "grouped_gemm")):
             gemm_fmt = name.rsplit("_", 1)[1] if name.endswith(
                 ("_int8", "_int4")) else "dense"
@@ -821,6 +1000,34 @@ def check_requests(reqs, vocab: int) -> None:
                 or not all(0 <= t < vocab for t in r.out):
             raise AssertionError(f"request {r.rid} incomplete: {r.out}")
         print(f"  req {r.rid}: {len(r.prompt)} prompt tokens -> {r.out}")
+
+
+def serve_and_check(tag: str, engine, reqs, rng, fmt: str = "dense",
+                    attn_kernel: str = "paged_attention") -> dict:
+    """One warm-up request, then ``reqs`` through ``drive``; checks that the
+    MoE kernels ran once per MoE layer per forward (their GEMMs in format
+    ``fmt``), that on the paged engine ``attn_kernel`` ran once per layer
+    per forward and the other attention kernel never, and that every
+    request completed."""
+    import numpy as np
+    from repro_torch.models.lm import n_moe_layers
+    from repro_torch.serve.engine import Request
+    cfg, V = engine.cfg, engine.cfg.vocab_size
+    engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
+        np.int32), max_new=3)])
+    res = drive(engine, reqs)
+    n = res["forwards"]
+    moe, attn = n_moe_layers(cfg) * n, (cfg.n_layers * n if engine.paged
+                                        else 0)
+    print(f"[{tag}] {n} forwards ({len(res['prompt_steps'])} with prompt "
+          f"rows, {len(res['admit_s'])} admissions, "
+          f"{len(res['decode_steps'])} decode-only) in {res['run_s']:.3f} s;"
+          f" launches {json.dumps(res['launches'])}; expected {moe} per MoE "
+          f"kernel ({fmt} GEMMs), {attn} {attn_kernel}, 0 of the other "
+          f"attention kernel")
+    check_launches(res["launches"], moe, attn, fmt, attn_kernel)
+    check_requests(reqs, V)
+    return res
 
 
 def summarize(tag: str, res: dict, reqs, layers: int) -> dict:
@@ -865,6 +1072,166 @@ def print_profile(tag: str, prefill_label: str, prof: dict) -> None:
             print(f"    device {ms:9.3f} ms {calls:5d}x  {name[:70]}")
         for name, calls, ms in p["top_cpu"]:
             print(f"    host   {ms:9.3f} ms {calls:5d}x  {name[:70]}")
+
+
+def serve_deepseek(rng) -> dict:
+    """deepseek-v2-236b at full width, cut to DEEPSEEK_LAYERS layers (1 dense
+    + 3 MoE), random bf16 weights: the paged engine (its attention through
+    the MLA kernel), the first paged step's logits in fp32 through the first
+    DEEPSEEK_CHECK_LAYERS layers against the plain versions and the gather
+    read, the contiguous engine, then the paged engine again on routed
+    experts quantized in place under int8_expert.  Returns the summaries."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import (RunConfig, forward, init_params,
+                                       n_moe_layers)
+    from repro_torch.quantization import routed_expert_bytes
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("deepseek-v2-236b").replace(n_layers=DEEPSEEK_LAYERS)
+    V, n_moe, mla, moe = cfg.vocab_size, n_moe_layers(cfg), cfg.mla, cfg.moe
+    print(f"[serve deepseek] {cfg.name} at full width (d_model="
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {mla.q_lora_rank}"
+          f" / kv_lora {mla.kv_lora_rank} / rope {mla.qk_rope_head_dim}, "
+          f"{moe.n_experts} experts top-{moe.top_k} + {moe.n_shared_experts}"
+          f" shared, d_ff_expert={moe.d_ff_expert}, vocab={V}); reduced: "
+          f"n_layers 60 -> {cfg.n_layers} (1 dense + {n_moe} MoE); random "
+          f"bf16 weights, seed 0")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve deepseek] {n_params / 1e9:.3f} B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shared = rng.integers(0, V, SHARED_PREFIX)
+    prompts = [(rng.integers(0, V, int(rng.integers(16, 65))) if i == 1
+                else np.concatenate([shared, rng.integers(
+                    0, V, int(rng.integers(1, 25)))])).astype(np.int32)
+               for i in range(SERVE_REQUESTS)]
+    capacity = max(48, *(len(p) for p in prompts)) + SERVE_MAX_NEW + 1
+    rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
+    paged_kw = dict(kv_block_size=KV_BLOCK, prefill_chunk=PREFILL_CHUNK)
+
+    # paged ------------------------------------------------------------
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                         rc=rc, **paged_kw)
+    print(f"[serve deepseek paged] dynamic schedule, blocks of {KV_BLOCK}, "
+          f"prefill chunks of {PREFILL_CHUNK}, fused paged read (MLA "
+          f"kernel), {SERVE_SLOTS} slots x {capacity} tokens; prompts of "
+          f"{[len(p) for p in prompts]} tokens, requests 0, 2, 3 share "
+          f"{SHARED_PREFIX}")
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    paged = serve_and_check("serve deepseek paged", engine, reqs, rng,
+                            attn_kernel="paged_attention_mla")
+    peak = torch.cuda.max_memory_allocated()
+    hit = sum(r.stats["serve/prefix_hit_tokens"] for r in reqs)
+    if hit <= 0:
+        raise AssertionError("deepseek: the prefix cache never hit")
+    print(f"[serve deepseek paged] prefix-hit tokens {hit:.0f} "
+          f"({json.dumps(engine.kv.stats())}); peak device memory "
+          f"{peak / 1e9:.2f} GB (load and serving)")
+    summary = summarize("serve deepseek paged", paged, reqs, cfg.n_layers)
+    summary.update({"n_params": n_params, "peak_bytes": peak,
+                    "prefix_hit_tokens": hit, "launches": paged["launches"]})
+    for i in range(SERVE_SLOTS):
+        engine.admit(Request(rid=100 + i, prompt=rng.integers(
+            0, V, 48).astype(np.int32), max_new=16))
+    summary["profile"] = {
+        "prefill": profile_window(lambda: [engine.step() for _ in range(2)]),
+        "decode": profile_window(lambda: [engine.step() for _ in range(5)])}
+    print_profile("serve deepseek paged",
+                  "2 chunk steps, 2 x 48 prompt tokens", summary["profile"])
+    out = {"paged": summary}
+    del engine
+    torch.cuda.empty_cache()
+
+    # the first paged step (its prompt-chunk rows) in fp32 through the first
+    # layers and the head: kernels + MLA kernel vs plain versions + gather
+    # read; and the first prompt's prefill (decompressed MLA) vs the plain
+    # versions
+    n_check = DEEPSEEK_CHECK_LAYERS
+    cfg_check = cfg.replace(n_layers=n_check)
+    head32 = copy.deepcopy(truncated(model, n_check)).float()
+    rc32 = rc._replace(compute_dtype=torch.float32)
+    logits, logits_p, n_rows = first_step_logits(head32, cfg_check, rc32,
+                                                 prompts, capacity, paged_kw)
+    torch.testing.assert_close(logits, logits_p, **LOGIT_TOL_FP32)
+    err = (logits - logits_p).abs().max().item()
+    print(f"[serve deepseek paged] first paged step ({n_rows} prompt rows, "
+          f"{n_check} layers, fp32) MLA kernel + MoE kernels vs gather read "
+          f"+ plain versions: max_abs_err {err:.3e} (|logits| max "
+          f"{logits_p.abs().max().item():.2f}; tolerance rtol=atol="
+          f"{LOGIT_TOL_FP32['atol']:g}); argmax equal: "
+          f"{bool((logits.argmax(-1) == logits_p.argmax(-1)).all())}")
+    out["paged"]["first_step_fp32_max_abs_err"] = err
+    first = torch.as_tensor(prompts[0].astype(np.int64), device="cuda")[None]
+    rc32c = rc32._replace(schedule_policy="fixed")
+    logits, _, _ = forward(head32, cfg_check, rc32c, {"tokens": first},
+                           mode="prefill")
+    logits_p, _, _ = forward(head32, cfg_check,
+                             rc32c._replace(executor="plain"),
+                             {"tokens": first}, mode="prefill")
+    torch.testing.assert_close(logits, logits_p, **LOGIT_TOL_FP32)
+    print(f"[serve deepseek contiguous] first prefill ({len(prompts[0])} "
+          f"tokens, {n_check} layers, fp32, fixed) kernels vs plain "
+          f"versions: max_abs_err "
+          f"{(logits - logits_p).abs().max().item():.3e}")
+    del head32, logits, logits_p
+    torch.cuda.empty_cache()
+
+    # contiguous + fixed -----------------------------------------------------
+    rc_c = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="fixed")
+    reqs_c = [Request(rid=i, prompt=rng.integers(
+                  0, V, int(rng.integers(16, 65))).astype(np.int32),
+                      max_new=SERVE_MAX_NEW) for i in range(CONTIG_REQUESTS)]
+    capacity_c = max(48, *(len(r.prompt) for r in reqs_c)) \
+        + SERVE_MAX_NEW + 1
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity_c,
+                         rc=rc_c, kv_block_size=0)
+    contig = serve_and_check("serve deepseek contiguous", engine, reqs_c,
+                             rng)
+    out["contiguous"] = summarize("serve deepseek contiguous", contig,
+                                  reqs_c, cfg.n_layers)
+    del engine
+    torch.cuda.empty_cache()
+
+    # paged on int8_expert experts, quantized in place by the engine -------
+    dense_bytes = routed_expert_bytes(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                         rc=rc._replace(quant="int8_expert"), **paged_kw)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    peak_load = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reqs_q = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+              for i, p in enumerate(prompts)]
+    res = serve_and_check("serve deepseek int8_expert", engine, reqs_q, rng,
+                          "int8", "paged_attention_mla")
+    peak_serve = torch.cuda.max_memory_allocated()
+    print(f"[serve deepseek int8_expert] {cfg.n_layers} layers, routed "
+          f"experts {engine.quant_expert_bytes / 1e9:.3f} GB stored "
+          f"({dense_bytes / 1e9:.3f} GB bf16), quantized in "
+          f"{quantize_s:.2f} s; peak device memory {peak_load / 1e9:.2f} GB "
+          f"while quantizing, {peak_serve / 1e9:.2f} GB while serving")
+    summary = summarize("serve deepseek paged int8_expert", res, reqs_q,
+                        cfg.n_layers)
+    summary.update({"expert_bytes": engine.quant_expert_bytes,
+                    "dense_expert_bytes": dense_bytes,
+                    "quantize_s": quantize_s,
+                    "peak_bytes_quantizing": peak_load,
+                    "peak_bytes_serving": peak_serve,
+                    "launches": res["launches"]})
+    out["int8_expert"] = summary
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -932,10 +1299,28 @@ def main() -> None:
                             del qc
                     del c
                     torch.cuda.empty_cache()
+    # B1-B5 at deepseek-v2's MoE layer (E=160, d=5120, f=1536, softmax)
+    ds_timings = {}                   # (policy, T) -> per-kernel times
+    for policy in ("fixed", "dynamic"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for T in (SERVE_SLOTS, 64):
+                c = Case(DEEPSEEK, T, dtype, seed=200 + T, policy=policy)
+                check_case(c, errs)
+                if dtype == torch.bfloat16:
+                    ds_timings[policy, T] = time_case(c)
+                    padding.append(padding_share(c))
+                    if policy == "dynamic":
+                        qc = QuantCase(c, "int8_expert")
+                        check_quant_case(qc, errs)
+                        del qc
+                del c
+                torch.cuda.empty_cache()
     check_paged(errs)
     paged_t = {k: time_paged(k) for k in ("decode", "chunk")}
+    check_mla(errs)
+    mla_t = {k: time_mla(k) for k in ("decode", "chunk")}
     for p in padding:
-        print(f"[padding] moonshot bf16 T={p['T']} {p['policy']}: block_m "
+        print(f"[padding] E={p['E']} bf16 T={p['T']} {p['policy']}: block_m "
               f"{p['block_m']}, capacity {p['capacity']} rows "
               f"({p['blocks']} blocks, {p['active_blocks']} active); GEMM "
               f"rows computed {p['computed_rows']} (padding share "
@@ -946,11 +1331,16 @@ def main() -> None:
               f"{p['expert_weight_MB_read']:.1f} MB once per expert, "
               f"{p['weights_read_by_blocks_MB']:.1f} MB once per active "
               f"block")
-    for policy, T in sorted(timings):
-        t = timings[policy, T]
-        print(f"[times] moonshot bf16 T={T} {policy}: " + "; ".join(
-            f"{n} {t[n]['ms'] * 1e3:.1f} us (bound {t[n]['bound_ms'] * 1e3:.2f},"
-            f" plain {t[n]['plain_ms'] * 1e3:.1f})" for n in MOE_KERNELS))
+    for arch, tm in (("moonshot", timings), ("deepseek", ds_timings)):
+        for policy, T in sorted(tm):
+            t = tm[policy, T]
+            print(f"[times] {arch} bf16 T={T} {policy}: " + "; ".join(
+                f"{n} {t[n]['ms'] * 1e3:.1f} us (bound "
+                f"{t[n]['bound_ms'] * 1e3:.2f}, plain "
+                f"{t[n]['plain_ms'] * 1e3:.1f}, library "
+                + ("null" if t[n]['library_ms'] is None
+                   else f"{t[n]['library_ms'] * 1e3:.1f}") + ")"
+                for n in MOE_KERNELS))
     for (scheme, policy, T), t in sorted(qtimings.items()):
         print(f"[times] moonshot bf16 T={T} {policy} {scheme}: " + "; ".join(
             f"{n} {t[n]['ms'] * 1e3:.1f} us (eager "
@@ -968,23 +1358,49 @@ def main() -> None:
               f"{t['plain_ms'] * 1e3:.1f} us, SDPA yardstick "
               f"{t['library_ms'] * 1e3:.1f} us (contiguous cache, excludes "
               f"the gather)")
+    for step_kind, t in mla_t.items():
+        lib = ("null: " + t["library_null_reason"] if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3:.1f} us ({t['library']})")
+        print(f"[times] paged_attention_mla deepseek bf16 {step_kind} "
+              f"B={t['rows']} ({t['kv_positions_read']} latent positions "
+              f"read, {t['row_kv_positions']} over the rows): "
+              f"{t['ms'] * 1e3:.1f} us (eager {t['eager_ms'] * 1e3:.1f}), "
+              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}; bytes "
+              f"{t['bound_bytes_ms'] * 1e3:.2f} us for "
+              f"{t['bytes'] / 1e6:.3f} MB, tensor-core operations "
+              f"{t['bound_ops_ms'] * 1e3:.2f} us for {t['flops'] / 1e9:.3f} "
+              f"GFLOP), plain {t['plain_ms'] * 1e3:.1f} us, SDPA yardstick "
+              f"{lib}")
 
     # 4. MoE layer without a host sync -----------------------------------
     from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
     register_plain_executor()
     from repro_torch.quantization import get_scheme
-    for policy, scheme in (("fixed", "none"), ("dynamic", "none"),
-                           ("dynamic", "int8_expert"),
-                           ("dynamic", "int4_packed")):
-        for T in (4, 64):
-            c = Case(MOONSHOT, T, torch.bfloat16, seed=100 + T)
+    # deepseek's layer is held in fp32: with routed_scale 16 a one-ulp
+    # difference of a bf16 intermediate is several ulps of the output
+    for arch, shape, policy, scheme, Ts, dtype in (
+            ("moonshot", MOONSHOT, "fixed", "none", (4, 64), torch.bfloat16),
+            ("moonshot", MOONSHOT, "dynamic", "none", (4, 64),
+             torch.bfloat16),
+            ("moonshot", MOONSHOT, "dynamic", "int8_expert", (4, 64),
+             torch.bfloat16),
+            ("moonshot", MOONSHOT, "dynamic", "int4_packed", (4, 64),
+             torch.bfloat16),
+            ("deepseek", DEEPSEEK, "fixed", "none", (SERVE_SLOTS, 64),
+             torch.float32),
+            ("deepseek", DEEPSEEK, "dynamic", "none", (SERVE_SLOTS, 64),
+             torch.float32)):
+        dt_name = str(dtype).replace("torch.", "")
+        for T in Ts:
+            c = Case(shape, T, dtype, seed=100 + T)
             ws = (c.wg, c.wu, c.wd)
             if scheme != "none":
                 ws = tuple(get_scheme(scheme).quantize(w) for w in ws)
-            router = torch.randn((MOONSHOT["d"], MOONSHOT["E"]), device="cuda")
-            kw = dict(n_experts=MOONSHOT["E"], top_k=MOONSHOT["k"],
-                      block_m=MOONSHOT["M"], gating=MOONSHOT["gating"],
-                      norm_topk=True, routed_scale=MOONSHOT["routed_scale"],
+            router = torch.randn((shape["d"], shape["E"]), device="cuda")
+            kw = dict(n_experts=shape["E"], top_k=shape["k"],
+                      block_m=shape["M"], gating=shape["gating"],
+                      norm_topk=shape["norm_topk"],
+                      routed_scale=shape["routed_scale"],
                       schedule_policy=policy)
             cfg = MoEDispatchConfig(executor="cuda", **kw)
             moe_ffn(c.x, router, *ws, cfg)     # warm
@@ -997,13 +1413,13 @@ def main() -> None:
             y_p, _ = moe_ffn(c.x, router, *ws,
                              cfg._replace(executor="plain"))
             torch.testing.assert_close(y.float(), y_p.float(),
-                                       **TOL["bfloat16"])
-            print(f"[moe_ffn] moonshot T={T} bf16 {policy} experts "
+                                       **TOL[dt_name])
+            print(f"[moe_ffn] {arch} T={T} {dt_name} {policy} experts "
                   f"{scheme}: no host sync under set_sync_debug_mode"
                   f"('error'); max_abs_err vs plain "
                   f"{(y.float() - y_p.float()).abs().max().item():.3e}")
             del c, ws
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
     # 5. serving, paged --------------------------------------------------
     from repro_torch.configs import get_config
@@ -1044,19 +1460,7 @@ def main() -> None:
           f"{SHARED_PREFIX}")
     reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
             for i, p in enumerate(prompts)]
-    engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
-        np.int32), max_new=3)])                    # warm-up request
-    paged = drive(engine, reqs)
-    expect_moe = n_moe_layers(cfg) * paged["forwards"]
-    expect_attn = cfg.n_layers * paged["forwards"]
-    print(f"[serve paged] {paged['forwards']} forwards ("
-          f"{len(paged['prompt_steps'])} with prompt rows, "
-          f"{len(paged['decode_steps'])} decode-only) in "
-          f"{paged['run_s']:.3f} s; launches {json.dumps(paged['launches'])};"
-          f" expected {expect_moe} per MoE kernel, {expect_attn} "
-          f"paged_attention")
-    check_launches(paged["launches"], expect_moe, expect_attn, "dense")
-    check_requests(reqs, V)
+    paged = serve_and_check("serve paged", engine, reqs, rng)
     hit = sum(r.stats["serve/prefix_hit_tokens"] for r in reqs)
     if hit <= 0:
         raise AssertionError("the prefix cache never hit")
@@ -1116,18 +1520,7 @@ def main() -> None:
         + SERVE_MAX_NEW + 1
     engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity_c,
                          rc=rc_c, kv_block_size=0)
-    engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
-        np.int32), max_new=3)])                    # warm-up request
-    contig = drive(engine, reqs_c)
-    expect_moe = n_moe_layers(cfg) * contig["forwards"]
-    print(f"[serve contiguous] fixed schedule, {contig['forwards']} forwards"
-          f" ({len(contig['admit_s'])} prefills, "
-          f"{len(contig['decode_steps'])} decode steps) in "
-          f"{contig['run_s']:.3f} s; launches "
-          f"{json.dumps(contig['launches'])}; expected {expect_moe} per MoE "
-          f"kernel, 0 paged_attention")
-    check_launches(contig["launches"], expect_moe, 0, "dense")
-    check_requests(reqs_c, V)
+    contig = serve_and_check("serve contiguous", engine, reqs_c, rng)
     contig_summary = summarize("serve contiguous", contig, reqs_c, layers)
     first = torch.as_tensor(reqs_c[0].prompt.astype(np.int64),
                             device="cuda")[None]
@@ -1178,24 +1571,14 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         reqs_q = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
                   for i, p in enumerate(prompts)]
-        engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
-            np.int32), max_new=3)])                # warm-up request
-        res = drive(engine, reqs_q)
+        res = serve_and_check(f"serve {scheme}", engine, reqs_q, rng, fmt)
         peak_serve = torch.cuda.max_memory_allocated()
-        expect_moe = n_moe_layers(qcfg) * res["forwards"]
         print(f"[serve {scheme}] {qcfg.n_layers} layers, routed experts "
               f"{engine.quant_expert_bytes / 1e9:.3f} GB stored ("
               f"{dense_bytes / 1e9:.3f} GB bf16), quantized in "
               f"{quantize_s:.2f} s; peak device memory "
               f"{peak_load / 1e9:.2f} GB while quantizing, "
-              f"{peak_serve / 1e9:.2f} GB while serving; "
-              f"{res['forwards']} forwards, launches "
-              f"{json.dumps(res['launches'])}; expected {expect_moe} per MoE "
-              f"kernel ({fmt} GEMMs), "
-              f"{qcfg.n_layers * res['forwards']} paged_attention")
-        check_launches(res["launches"], expect_moe,
-                       qcfg.n_layers * res["forwards"], fmt)
-        check_requests(reqs_q, V)
+              f"{peak_serve / 1e9:.2f} GB while serving")
         summary = summarize(f"serve paged {scheme}", res, reqs_q,
                             qcfg.n_layers)
         summary.update({"expert_bytes": engine.quant_expert_bytes,
@@ -1228,7 +1611,11 @@ def main() -> None:
     del model, int4_model
     torch.cuda.empty_cache()
 
-    # 8. report ------------------------------------------------------------
+    # 8. serving deepseek-v2-236b (MLA), once moonshot's models are freed --
+    deepseek = serve_deepseek(rng)
+    print(json.dumps({"serve_deepseek": deepseek}))
+
+    # 9. report ------------------------------------------------------------
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     report = []
@@ -1266,6 +1653,18 @@ def main() -> None:
                 "shape": "moonshot-v1-16b-a3b bf16 paged decode B=2 "
                          "(kv_limit 100 and 77, blocks of 16)",
                 "chunk_B64": {k: paged_t["chunk"][k] for k in keys}}
+        elif name == "paged_attention_mla":
+            entry["launches"] = deepseek["paged"]["launches"][name]
+            mkeys = keys + ("bound_bytes_ms", "bound_ops_ms")
+            d, extra = mla_t["decode"], {
+                "shape": "deepseek-v2-236b bf16 paged MLA decode B=2 "
+                         "(kv_limit 100 and 77, blocks of 16; q 128 x 512 "
+                         "+ 128 x 64, latent 512 + rope key 64)",
+                "launches_run": f"deepseek-v2-236b paged serving, "
+                                f"{DEEPSEEK_LAYERS} layers",
+                "bound_bytes_ms": mla_t["decode"]["bound_bytes_ms"],
+                "bound_ops_ms": mla_t["decode"]["bound_ops_ms"],
+                "chunk_B64": {k: mla_t["chunk"][k] for k in mkeys}}
         else:
             d = timings["dynamic", SERVE_SLOTS][name]
             extra = {
@@ -1276,7 +1675,11 @@ def main() -> None:
                                 for k in keys},
                 "fixed": {f"T{T}": {k: timings["fixed", T][name][k]
                                     for k in keys}
-                          for T in (SERVE_SLOTS, 64)}}
+                          for T in (SERVE_SLOTS, 64)},
+                "deepseek": {f"{policy}_T{T}": {
+                    k: ds_timings[policy, T][name][k] for k in keys}
+                    for policy, T in sorted(ds_timings)},
+                "launches_deepseek": deepseek["paged"]["launches"][name]}
         entry.update({k: d[k] for k in keys})
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})

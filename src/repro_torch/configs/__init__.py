@@ -1,11 +1,12 @@
 """Config registry: ``get_config("<arch-id>")`` for the architectures the
-port serves (moonshot-v1-16b-a3b so far)."""
+port serves: moonshot-v1-16b-a3b and deepseek-v2-236b (MLA)."""
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       RWKVConfig, SSMConfig, reduced)
-from repro_torch.configs import moonshot_v1_16b_a3b
+from repro_torch.configs import deepseek_v2_236b, moonshot_v1_16b_a3b
 from repro_torch.configs.paper import PAPER_CONFIGS, TOKEN_SWEEP, PaperMoE
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (moonshot_v1_16b_a3b,)}
+REGISTRY = {m.CONFIG.name: m.CONFIG
+            for m in (moonshot_v1_16b_a3b, deepseek_v2_236b)}
 ARCH_NAMES = tuple(REGISTRY)
 
 

@@ -29,7 +29,7 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek-V2 multi-head latent attention (not served by the port yet)."""
+    """DeepSeek-V2 multi-head latent attention."""
 
     q_lora_rank: int = 1536
     kv_lora_rank: int = 512

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
-           "fused_gate_up", "paged_attention")
+           "fused_gate_up", "paged_attention", "paged_attention_mla")
 # B1 and B2 compile once per weight format; each format counts on its own
 QUANT_KERNELS = ("grouped_gemm_int8", "grouped_gemm_int4",
                  "fused_gate_up_int8", "fused_gate_up_int4")
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "moe_grouped_gemm": [_P] * 7 + [_I] * 8 + [_P],
     "moe_fused_gate_up": [_P] * 8 + [_I] * 8 + [_P],
     "moe_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
+    "moe_paged_attention_mla": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,10 @@ engine with the paper's ``fixed`` schedule.
         --arch moonshot-v1-16b-a3b --layers 4 --requests 4 --max-new 16 \\
         --slots 2 --dtype bf16 --seed 0
 
-Widths are the architecture's own; ``--layers`` cuts depth.  ``--quant
+``--arch deepseek-v2-236b`` serves the MLA model (latent KV cache; the
+paged read runs the MLA form of the paged-attention kernel).  Widths are
+the architecture's own; ``--layers`` cuts depth (deepseek-v2 at 4 layers
+holds 13.3 B parameters, 26.6 GB in bf16).  ``--quant
 {none,int8_expert,int8_channel,int4_packed}`` serves the routed experts
 compressed under that scheme (quantized at load, one stack at a time; the
 kernels dequantize on chip); ``--quant-experts`` is its deprecated alias

@@ -1,6 +1,7 @@
-"""Language model for the ``moe`` family (counterpart of ``repro.models.lm``,
-cut to the served path: prefill and decode over a contiguous KV cache, and
-decode rows over a paged KV block pool).
+"""Language model for the ``moe`` family, with multi-head or latent (MLA)
+attention (counterpart of ``repro.models.lm``, cut to the served path:
+prefill and decode over a contiguous KV cache, and decode rows over a paged
+KV block pool).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
@@ -8,10 +9,12 @@ the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
 (``moe``).  Every ``(in, out)`` matrix keeps the reference's layout.
 
 The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
-Hkv, D) tensors per layer, updated in place (the reference returns a new
-cache; the port writes the rows it changes, which saves a copy of the
-cache per step).  The paged pool (``serve/kv_cache.py``) has the same form
-with (n_blocks, block_size) in place of (slots, capacity)."""
+Hkv, D) tensors per layer, or with MLA one ``{"ckv", "kr"}`` pair of
+(slots, capacity, kv_lora_rank) and (slots, capacity, qk_rope_head_dim)
+latent rows, updated in place (the reference returns a new cache; the port
+writes the rows it changes, which saves a copy of the cache per step).  The
+paged pool (``serve/kv_cache.py``) has the same form with (n_blocks,
+block_size) in place of (slots, capacity)."""
 from __future__ import annotations
 
 from typing import List, NamedTuple
@@ -26,6 +29,7 @@ from repro_torch.models.attention import (Attention, attention, paged_decode,
                                           project_qkv, write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
 from repro_torch.models.ffn import SwiGLU
+from repro_torch.models.mla import MLA, mla_block, prefill_mla_cache
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
 
 
@@ -52,10 +56,11 @@ class RunConfig(NamedTuple):
 
 def group_structure(cfg: ModelConfig):
     """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds); the port
-    builds the moe family: prefix ``moe_dense``, then body ``moe``."""
-    if not cfg.is_moe or cfg.mla is not None:
+    builds the moe family (with or without MLA): prefix ``moe_dense``, then
+    body ``moe``."""
+    if not cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the moe family without MLA so far")
+            f"{cfg.name}: the port serves the moe family so far")
     nd = cfg.moe.first_dense_layers
     return ["moe_dense"] * nd, ["moe"], cfg.n_layers - nd, []
 
@@ -126,8 +131,10 @@ class Block(nn.Module):
         self.kind = kind
         self.norm1 = RMSNorm(d, device)
         self.norm2 = RMSNorm(d, device)
-        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                              gen, dtype, device)
+        self.attn = (MLA(d, cfg.n_heads, cfg.mla, gen, dtype, device)
+                     if cfg.mla is not None else
+                     Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               gen, dtype, device))
         if kind == "moe":
             self.moe = MoE(cfg, gen, dtype, device)
         else:
@@ -166,10 +173,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.float32, device="cuda") -> List[dict]:
     dev = resolve_device(device)
-    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.n_layers)]
+    if cfg.mla is not None:
+        shapes = {"ckv": (batch, capacity, cfg.mla.kv_lora_rank),
+                  "kr": (batch, capacity, cfg.mla.qk_rope_head_dim)}
+    else:
+        shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return [{key: torch.zeros(shape, dtype=dtype, device=dev)
+             for key, shape in shapes.items()} for _ in range(cfg.n_layers)]
 
 
 def slice_cache_slots(cache, start: int, n: int):
@@ -215,15 +226,43 @@ def paged_fused(rc: RunConfig) -> bool:
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                 *, positions, mode: str, cache=None, cache_pos=None,
                 block_tables=None, fused: bool = False):
-    """Returns (x, aux).  Writes the block's K/V rows into ``cache`` in
-    place (prefill: rows [0, S); decode: row ``cache_pos[b]`` of slot b, or
-    with ``block_tables`` position ``cache_pos[b]`` of row b's blocks in
-    the pool, read by the fused kernel when ``fused``)."""
+    """Returns (x, aux).  Writes the block's K/V (or MLA latent) rows into
+    ``cache`` in place (prefill: rows [0, S); decode: row ``cache_pos[b]``
+    of slot b, or with ``block_tables`` position ``cache_pos[b]`` of row
+    b's blocks in the pool, read by the fused kernel when ``fused``)."""
     dt = x.dtype
-    B, S, _ = x.shape
     h = blk.norm1(x)
-    q, k, v = project_qkv(blk.attn, h, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim)
+    if cfg.mla is not None:
+        o = _mla_attention(blk.attn, h, cfg, positions=positions, mode=mode,
+                           cache=cache, cache_pos=cache_pos,
+                           block_tables=block_tables, fused=fused)
+    else:
+        o = _attention(blk.attn, h, cfg, positions=positions, mode=mode,
+                       cache=cache, cache_pos=cache_pos,
+                       block_tables=block_tables, fused=fused)
+    x = x + o.to(dt)
+
+    h = blk.norm2(x)
+    aux = {}
+    if blk.kind == "moe":
+        dcfg = dispatch_config(cfg.moe, executor=rc.executor,
+                               fuse_gate_up=rc.fuse_gate_up,
+                               fold_combine=rc.fold_combine,
+                               schedule_policy=rc.schedule_policy,
+                               block_m_min=rc.block_m_min)
+        o, aux = apply_moe(blk.moe.params(), h, dcfg)
+    else:
+        o = blk.ffn(h)
+    return x + o.to(dt), aux
+
+
+def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig, *,
+               positions, mode: str, cache, cache_pos, block_tables,
+               fused: bool) -> torch.Tensor:
+    """Multi-head attention sub-block, output projection included."""
+    dt = h.dtype
+    B, S, _ = h.shape
+    q, k, v = project_qkv(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -241,21 +280,23 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
         if cache is not None:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
-    o = torch.matmul(o.reshape(B, S, -1), blk.attn.wo.to(dt))
-    x = x + o.to(dt)
+    return torch.matmul(o.reshape(B, S, -1), p.wo.to(dt))
 
-    h = blk.norm2(x)
-    aux = {}
-    if blk.kind == "moe":
-        dcfg = dispatch_config(cfg.moe, executor=rc.executor,
-                               fuse_gate_up=rc.fuse_gate_up,
-                               fold_combine=rc.fold_combine,
-                               schedule_policy=rc.schedule_policy,
-                               block_m_min=rc.block_m_min)
-        o, aux = apply_moe(blk.moe.params(), h, dcfg)
-    else:
-        o = blk.ffn(h)
-    return x + o.to(dt), aux
+
+def _mla_attention(p: MLA, h: torch.Tensor, cfg: ModelConfig, *, positions,
+                   mode: str, cache, cache_pos, block_tables,
+                   fused: bool) -> torch.Tensor:
+    """MLA sub-block (the reference's ``apply_block`` MLA branch): prefill
+    decompressed, then the prompt's latent rows written; decode absorbed
+    over the contiguous rows or the pools."""
+    kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, positions=positions)
+    if mode == "decode":
+        return mla_block(p, h, **kw, cache=cache, cache_pos=cache_pos,
+                         block_tables=block_tables, paged_fused=fused)
+    o = mla_block(p, h, **kw)
+    if cache is not None:
+        prefill_mla_cache(p, h, cfg.mla, cache, positions)
+    return o
 
 
 @torch.no_grad()

@@ -57,8 +57,10 @@ def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
     for i, (blk, ref) in enumerate(zip(model.layers, _jax_layers(cfg, tree))):
         names = dict(blk.named_parameters())
         if set(names) != set(ref):
-            raise ValueError(f"layer {i}: port parameters {sorted(names)} "
-                             f"!= reference leaves {sorted(ref)}")
+            raise ValueError(
+                f"layer {i}: reference leaves missing from the port: "
+                f"{sorted(set(ref) - set(names))}; port parameters with no "
+                f"reference leaf: {sorted(set(names) - set(ref))}")
         for name, param in names.items():
             load(param, ref[name], f"layers.{i}.{name}")
     return model

@@ -1,9 +1,9 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions
 (the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
 int8 and int4 formats of the two GEMMs, the paged decode-attention kernel
-over its masks), the MoE layer without a host sync under both policies and
-on quantized weights, and the contiguous and paged engines' launch counts
-(dense and int8 experts).
+over its masks, and its MLA form), the MoE layer without a host sync under
+both policies and on quantized weights, and the contiguous and paged
+engines' launch counts (dense and int8 experts; MLA).
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -149,6 +149,89 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, G, D, Dv, bs, nb,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,G,D,D2,bs,nb", [(2, 128, 512, 64, 16, 8),
+                                            (20, 128, 512, 64, 16, 3),
+                                            (5, 20, 512, 64, 16, 4),
+                                            (3, 4, 32, 8, 4, 5),
+                                            (4, 20, 64, 16, 32, 3)])
+def test_paged_attention_mla_kernel_matches_plain(cuda, B, G, D, D2, bs, nb,
+                                                  dtype):
+    """The MLA kernel (q2 against the rope-key pool, the latent pool as key
+    and value) against its plain version: head counts that are and are not
+    multiples of its 8- and 16-head tiles (B=20 x 128 heads fills the card
+    with 16-head tiles; the rest take 8), vector and scalar kv_limit,
+    masks, and NaN in whole blocks past kv_limit leaking nothing."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda).manual_seed(G + D)
+    n_blocks = B * nb + 3
+    ckv = torch.randn(n_blocks, bs, 1, D, generator=g, device=cuda).to(dt)
+    kr = torch.randn(n_blocks, bs, 1, D2, generator=g, device=cuda).to(dt)
+    q = torch.randn(B, 1, G, D, generator=g, device=cuda).to(dt)
+    q2 = torch.randn(B, 1, G, D2, generator=g, device=cuda).to(dt)
+    tables = torch.randperm(n_blocks, generator=g, device=cuda)[:B * nb]
+    tables = tables.reshape(B, nb).to(torch.int32).contiguous()
+    lim = torch.randint(0, nb * bs, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    qpos = torch.clamp(lim - 2, min=0)
+    sc = (D + D2) ** -0.5
+    for lim_, kw in ((lim, dict(scale=sc)), (nb * bs // 2, dict(scale=sc)),
+                     (lim, dict(q_pos=qpos, causal=True, window=5)),
+                     (lim, dict(logit_softcap=8.0))):
+        out = paged_decode_attention(q, ckv, ckv, tables, lim_, q2=q2,
+                                     k2_pool=kr, **kw)
+        want = paged_decode_attention_plain(q, ckv, ckv, tables, lim_, q2=q2,
+                                            k2_pool=kr, **kw)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    lim1 = torch.full((B,), bs - 1, dtype=torch.int32, device=cuda)
+    base = paged_decode_attention(q, ckv, ckv, tables, lim1, q2=q2,
+                                  k2_pool=kr)
+    past = tables[:, 1:].reshape(-1).long()
+    ckv[past] = float("nan")
+    kr[past] = float("nan")
+    assert torch.equal(paged_decode_attention(q, ckv, ckv, tables, lim1,
+                                              q2=q2, k2_pool=kr), base)
+    with pytest.raises(ValueError, match="v_pool must be k_pool"):
+        paged_decode_attention(q, ckv, ckv.clone(), tables, lim1, q2=q2,
+                               k2_pool=kr)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_paged_engine_serves_mla_through_the_mla_kernel(cuda):
+    """Reduced deepseek-v2 on the paged engine: the MLA kernel runs once per
+    layer per forward and the GQA one never; the MoE kernels once per MoE
+    layer per forward; the contiguous engine runs neither attention
+    kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params, n_moe_layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("deepseek-v2-236b"), layers=3)
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 20)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               .astype(np.int32) for n in (3, 5, 1)]
+    for kv_block, policy in ((8, "dynamic"), (0, "fixed")):
+        eng = ServeEngine(cfg, model, slots=2, capacity=48,
+                          kv_block_size=kv_block, prefill_chunk=8,
+                          rc=RunConfig(compute_dtype=torch.bfloat16,
+                                       schedule_policy=policy))
+        reqs = [Request(rid=i, prompt=p, max_new=4)
+                for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        done = eng.run(reqs)
+        assert len(done) == 3 and all(len(r.out) == 4 for r in done)
+        launches = dict(ops.LAUNCHES)
+        assert launches.pop("paged_attention") == 0
+        assert launches.pop("paged_attention_mla") == \
+            (cfg.n_layers * eng.n_forwards if kv_block else 0)
+        assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
+        expect = n_moe_layers(cfg) * eng.n_forwards
+        assert all(n == expect for n in launches.values()), ops.LAUNCHES
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("policy", ["fixed", "dynamic"])
 def test_moe_ffn_makes_no_host_sync(cuda, policy):
     T, E, k, d, f = 8, 64, 6, 256, 192
@@ -188,6 +271,7 @@ def test_engine_launches_each_kernel_once_per_moe_layer_forward(cuda):
     expect = n_moe_layers(cfg) * eng.n_forwards
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == 0
+    assert launches.pop("paged_attention_mla") == 0
     assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
     assert all(n == expect for n in launches.values()), ops.LAUNCHES
 
@@ -218,6 +302,7 @@ def test_paged_engine_launches_attention_per_layer_forward(cuda):
     assert len(done) == 3 and all(len(r.out) == 4 for r in done)
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == cfg.n_layers * eng.n_forwards
+    assert launches.pop("paged_attention_mla") == 0
     assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
     expect = n_moe_layers(cfg) * eng.n_forwards
     assert all(n == expect for n in launches.values()), ops.LAUNCHES

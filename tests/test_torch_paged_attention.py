@@ -5,8 +5,10 @@ tensor runs) against ``repro.kernels.paged_attention.paged_decode_attention``
 in interpret mode, over the cases of tests/test_paged_attention.py: masks
 (kv_limit vector and scalar, causal, sliding window), softcap, the
 block-size grid, GQA, Dv != D, unallocated table entries over poisoned
-blocks, and physical-block permutation.  fp32 within atol = rtol = 2e-5
-(the reference's own tolerance), bf16 within 2e-2.
+blocks, and physical-block permutation; and the MLA second score operand
+(``q2``, ``k2_pool``, the latent pool as the value) over block sizes, vector
+and scalar kv_limit, masks and poisoned blocks.  fp32 within atol = rtol =
+2e-5 (the reference's own tolerance), bf16 within 2e-2.
 
 Model level: the paged write and read (``scatter_block_rows``,
 ``gather_block_kv``) equal the reference's, and the paged forward's per-row
@@ -145,10 +147,106 @@ def test_physical_block_permutation_invariance():
 
 def test_wrapper_refuses_what_it_does_not_serve():
     q, k, v, tables, lim = (torch.from_numpy(a) for a in case(9))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        paged_decode_attention(q, k, v, tables, lim, q2=q, k2_pool=k)
+    with pytest.raises(ValueError, match="both q2 and k2_pool"):
+        paged_decode_attention(q, k, v, tables, lim, q2=q)
+    with pytest.raises(ValueError, match="second score operand"):
+        paged_decode_attention(q, k, v, tables, lim, q2=q[:, :, :1],
+                               k2_pool=k)
     with pytest.raises(ValueError, match="q_pos"):
         paged_decode_attention(q, k, v, tables, lim, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# The MLA second score operand: s = q . k + q2 . k2, the latent as value
+# ---------------------------------------------------------------------------
+def mla_case(seed=0, *, B=3, nb=3, bs=4, G=4, D=32, D2=8):
+    """MLA-shaped inputs (one KV head, G query heads): the latent pool
+    doubles as the value, the rope-key pool is the second operand."""
+    rng = np.random.default_rng(seed)
+    n_blocks = B * nb + 2
+    ckv = rng.standard_normal((n_blocks, bs, 1, D)).astype(np.float32)
+    kr = rng.standard_normal((n_blocks, bs, 1, D2)).astype(np.float32)
+    q = rng.standard_normal((B, 1, G, D)).astype(np.float32)
+    q2 = rng.standard_normal((B, 1, G, D2)).astype(np.float32)
+    tables = rng.permutation(n_blocks)[:B * nb].reshape(B, nb).astype(np.int32)
+    lim = rng.integers(0, nb * bs, B).astype(np.int32)
+    return q, q2, ckv, kr, tables, lim
+
+
+def run_mla(inputs, dtype="float32", lim=None, **kw):
+    q, q2, ckv, kr, tables, lim0 = inputs
+    lim = lim0 if lim is None else lim
+    jq, jq2, jckv, jkr = (jnp.asarray(a, JDT[dtype]) for a in (q, q2, ckv, kr))
+    tq, tq2, tckv, tkr = (torch.from_numpy(a).to(TDT[dtype])
+                          for a in (q, q2, ckv, kr))
+    want = jax_paged(jq, jckv, jckv, jnp.asarray(tables), jnp.asarray(lim),
+                     q2=jq2, k2_pool=jkr, interpret=True, **kw)
+    got = paged_decode_attention(tq, tckv, tckv, torch.from_numpy(tables),
+                                 torch.as_tensor(lim), q2=tq2, k2_pool=tkr,
+                                 **kw)
+    assert got.dtype == TDT[dtype] and got.shape == tuple(want.shape)
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs,nb", [(2, 5), (4, 3), (16, 2)])
+def test_mla_operand_plain_matches_pallas(dtype, bs, nb):
+    """deepseek's absorbed-decode scale (r + dr)^-0.5 applied to q and q2
+    in their own dtype, vector kv_limit, several block sizes."""
+    got, want = run_mla(mla_case(20 + bs, bs=bs, nb=nb), dtype,
+                        scale=40 ** -0.5)
+    np.testing.assert_allclose(got, want, **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_operand_scalar_kv_limit_and_default_scale(dtype):
+    """A scalar kv_limit; with no scale, q and q2 both take D^-0.5 of q."""
+    got, want = run_mla(mla_case(31), dtype, lim=np.int32(6))
+    np.testing.assert_allclose(got, want, **tol(dtype))
+
+
+def test_mla_operand_masks_and_separate_value():
+    """Causal and window masks, softcap, and a value pool of its own
+    (several KV heads): the plain version keeps the reference's generality."""
+    q, k, v, tables, lim = case(32, Hkv=2, G=3, D=16, Dv=24, n_blocks=9,
+                                nb=3)
+    rng = np.random.default_rng(33)
+    q2 = rng.standard_normal((3, 2, 3, 8)).astype(np.float32)
+    k2 = rng.standard_normal((9, 4, 2, 8)).astype(np.float32)
+    q_pos = np.asarray([2, 5, 9], np.int32)
+    want = jax_paged(*(jnp.asarray(a) for a in (q, k, v, tables, lim)),
+                     q2=jnp.asarray(q2), k2_pool=jnp.asarray(k2),
+                     q_pos=jnp.asarray(q_pos), causal=True, window=4,
+                     logit_softcap=5.0, interpret=True)
+    got = paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, tables, lim)),
+        q2=torch.from_numpy(q2), k2_pool=torch.from_numpy(k2),
+        q_pos=torch.from_numpy(q_pos), causal=True, window=4,
+        logit_softcap=5.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **tol("float32"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_operand_poisoned_blocks_past_kv_limit(dtype):
+    """Table entries past kv_limit over poisoned blocks: 1e4 in both pools,
+    then NaN in the rope-key pool, leak nothing.  (NaN in the latent pool,
+    the value, reaches the reference's p @ V as 0 * NaN; the card's kernel
+    skips those blocks, and tests/test_torch_gpu.py holds it to that.)"""
+    q, q2, ckv, kr, tables, _ = mla_case(34)
+    lim = np.asarray([3, 3, 3], np.int32)          # only block 0 attended
+    clean, want = run_mla((q, q2, ckv, kr, tables, lim), dtype)
+    np.testing.assert_allclose(clean, want, **tol(dtype))
+    past = tables[:, 1:].reshape(-1)
+    ckv1, kr1 = ckv.copy(), kr.copy()
+    ckv1[past], kr1[past] = 1e4, 1e4
+    got, want = run_mla((q, q2, ckv1, kr1, tables, lim), dtype)
+    assert np.array_equal(got, clean)
+    np.testing.assert_allclose(got, want, **tol(dtype))
+    kr1[past] = np.nan
+    got, want = run_mla((q, q2, ckv1, kr1, tables, lim), dtype)
+    assert np.array_equal(got, clean)
+    np.testing.assert_allclose(got, want, **tol(dtype))
 
 
 def test_gather_and_scatter_equal_reference():
