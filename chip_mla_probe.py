@@ -2,14 +2,15 @@
 
     python3 chip_mla_probe.py
 
-Builds the kernels, prints ptxas's register and spill lines of the MLA
-kernels, holds the MLA kernel against its plain version at deepseek-v2's
-shape (``chip_smoke.check_mla``), times it at decode B=2 and at the 64-row
-chunk step beside its plain version, bound and SDPA yardstick
-(``chip_smoke.time_mla``) and the GQA kernel at moonshot's decode, then
-times one row of 16 heads eagerly over kv_limit 15-255 (1-16 pool
-blocks), whose slope is the cost of one pool block.  It needs one CUDA
-device and exits non-zero without one.
+Builds the kernels (printing ptxas's register and spill lines of the MLA
+kernels when this call compiles them), holds the MLA kernel against its
+plain version at deepseek-v2's shape (``chip_smoke.check_mla``), times it
+at decode B=2 and at the 64-row chunk step beside its plain version, bound
+and SDPA yardstick (``chip_smoke.time_mla``) and the GQA kernel at
+moonshot's decode, then times one row of 16 heads over kv_limit 15-255
+(1-16 pool blocks), eagerly and on the device (CUDA-graph replays), whose
+slope is the cost of one pool block.  It needs one CUDA device and exits
+non-zero without one.
 """
 import pathlib
 import sys
@@ -53,10 +54,14 @@ def main() -> None:
     tables = torch.arange(nb, dtype=torch.int32, device="cuda")[None]
     for lim in (15, 31, 63, 127, 255):
         lim_t = torch.full((1,), lim, dtype=torch.int32, device="cuda")
-        ms = cs.time_ms(lambda: paged_decode_attention(
-            q, ckv, ckv, tables, lim_t, scale=576 ** -0.5, q2=q2,
-            k2_pool=kr), 50)
-        print(f"one row, {G} heads, kv_limit {lim}: eager {ms * 1e3:.1f} us")
+
+        def call():
+            return paged_decode_attention(q, ckv, ckv, tables, lim_t,
+                                          scale=576 ** -0.5, q2=q2,
+                                          k2_pool=kr)
+        print(f"one row, {G} heads, kv_limit {lim}: eager "
+              f"{cs.time_ms(call, 50) * 1e3:.1f} us, device "
+              f"{cs.device_ms(call, 50) * 1e3:.1f} us")
 
 
 if __name__ == "__main__":
