@@ -4,12 +4,13 @@ another source tree, on one NVIDIA GPU.
     python3 chip_gemm_ab.py --other DIR [--replays 20]
 
 DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
-dense-only C interface of the GEMMs (``moe_grouped_gemm`` and
-``moe_fused_gate_up`` without the weight-format arguments), e.g. the parent
-commit unpacked with ``git archive``.  Both trees' sources are compiled with
-the same nvcc flags.  On moonshot-v1-16b-a3b's MoE layer (E=64, k=6,
-d=2048, f=1408) at decode T=2 (dynamic and fixed) and prefill T=64
-(dynamic), bf16 and fp32, it holds ``fused_gate_up`` and ``grouped_gemm``
+same C interface of the GEMMs (``moe_grouped_gemm`` and
+``moe_fused_gate_up`` with the weight-format arguments, as since the int8
+and int4 formats came in), e.g. the parent commit unpacked with ``git
+archive``.  Both trees' sources are compiled with the same nvcc flags.  On
+moonshot-v1-16b-a3b's MoE layer (E=64, k=6, d=2048, f=1408) at decode T=2
+(dynamic and fixed), prefill T=64 (dynamic) and training's T=4096 (fixed),
+bf16 and fp32, it holds the dense ``fused_gate_up`` and ``grouped_gemm``
 (with the folded combine rows) of the two trees bitwise equal, then times
 the bf16 ones in turns (other, this, this, other): device time per call from
 CUDA-graph replays between CUDA events.  Prints one JSON line per shape and
@@ -25,7 +26,7 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent
 MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
                 norm_topk=True, routed_scale=2.446)
-SHAPES = (("dynamic", 2), ("fixed", 2), ("dynamic", 64))
+SHAPES = (("dynamic", 2), ("fixed", 2), ("dynamic", 64), ("fixed", 4096))
 
 
 def build_other(csrc: pathlib.Path, flags) -> ctypes.CDLL:
@@ -52,8 +53,9 @@ def build_other(csrc: pathlib.Path, flags) -> ctypes.CDLL:
                         str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
+    lib.moe_grouped_gemm.argtypes = [P] * 7 + [I] * 8 + [P]
+    lib.moe_fused_gate_up.argtypes = [P] * 8 + [I] * 8 + [P]
     for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up):
-        fn.argtypes = [P] * 6 + [I] * 5 + [P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -135,17 +137,21 @@ def main() -> None:
             o_gg = torch.empty((cap, D), dtype=dtype, device="cuda")
 
             def other_fgu():
-                other.moe_fused_gate_up(
-                    xp.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                err = other.moe_fused_gate_up(
+                    xp.data_ptr(), wg.data_ptr(), wu.data_ptr(), None, None,
                     be.data_ptr(), ba.data_ptr(), o_fgu.data_ptr(), cap, K,
-                    F, M, code, torch.cuda.current_stream().cuda_stream)
+                    F, M, code, 0, 0, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(err, "other fused_gate_up")
                 return o_fgu
 
             def other_gg():
-                other.moe_grouped_gemm(
-                    h.data_ptr(), wd.data_ptr(), be.data_ptr(),
+                err = other.moe_grouped_gemm(
+                    h.data_ptr(), wd.data_ptr(), None, be.data_ptr(),
                     ba.data_ptr(), scale.data_ptr(), o_gg.data_ptr(), cap,
-                    F, D, M, code, torch.cuda.current_stream().cuda_stream)
+                    F, D, M, code, 0, 0, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(err, "other grouped_gemm")
                 return o_gg
 
             def this_fgu():

@@ -42,7 +42,21 @@ result line):
    multiple of its 16-head tile), bf16 and fp32, vector and scalar
    kv_limit, blocks past kv_limit poisoned as above; timed beside its
    bound (bytes and tensor-core operations, each named), its plain version
-   and scaled_dot_product_attention over the contiguous concatenated view;
+   and scaled_dot_product_attention over the contiguous concatenated view.
+   The five MoE kernels at moonshot's training shape (T = 8 x 512 = 4096
+   tokens, capacity 32,768 rows on ``fixed``), bf16, both policies.  The
+   backward's two kernels at that shape for moonshot's MoE layer and
+   deepseek-v2's (E=160), on both policies, bf16 and fp32, in both
+   orientations the layer's backward runs (gate/up: x (capacity, d), dy
+   (capacity, f), W (E, d, f); down: x = h (capacity, f), dy the scaled
+   output gradient (capacity, d), W_down (E, f, d)): the grouped weight
+   gradient B7 (x, dy -> dW f32: within 1e-4, exact zeros for experts with
+   no tokens, every element written after NaN poisoning) and B1 with its
+   weight read transposed (the dX product: within the GEMM tolerances,
+   inactive rows zero); timed in
+   bf16 beside their bounds (bytes and tensor-core operations), their plain
+   versions and ``torch._grouped_mm`` (2-D x 2-D for B7, 2-D x 3-D for
+   B1^T; timed only);
 4. MoE layer: ``moe_ffn`` on the ``cuda`` executor under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    layer), with the ``fixed`` and the ``dynamic`` policy: at moonshot width
@@ -86,7 +100,22 @@ result line):
    layers (rtol = atol = 1e-3).  Then the contiguous engine (``fixed``, 3
    requests, neither attention kernel), and the paged engine again with
    the routed experts quantized in place under ``int8_expert``, printing
-   their stored bytes and the peak memory.
+   their stored bytes and the peak memory;
+9. training, built once deepseek's model is freed: ``moe_ffn`` forward
+   and backward at moonshot's training shape (T=4096, bf16) under
+   ``set_sync_debug_mode("error")`` on both policies; one step's loss and
+   every gradient of moonshot at full width cut to 2 layers, fp32
+   parameters, on the kernels against autograd through the plain versions,
+   in fp32 compute (loss within 1e-5, each gradient within 1e-3 of its
+   largest plain magnitude) and in bf16 compute (``TRAIN_CHECK_TOL``); then
+   the trainer on moonshot at full width cut to 4 layers (2.521 B
+   parameters, fp32 with fp32 AdamW moments, bf16 compute, ``fixed``;
+   ``--layers`` does not change it): 5 steps of batch 8 x seq 512 on the
+   reference's Markov tokens, each step's loss, grad_norm, time, peak
+   memory and launches printed (per step and MoE layer: B7 and B1^T 3
+   each, permute and unpermute 2 each; every loss finite), one step under
+   the profiler, then 4 steps on the first batch again at a constant rate
+   from fresh moments, whose loss must fall.
 
 The last lines are the kernel report ``{"kernels": [...]}``, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -121,6 +150,21 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)   # bf16 through CHECK_LAYERS layers
 LOGIT_TOL_FP32 = dict(rtol=1e-3, atol=1e-3)
 CHECK_LAYERS = 4
+# B7's fp32 output: both sides sum exact products of the inputs in fp32
+WGRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# training: moonshot's full-width step (T = 4096 tokens), and the fp32
+# check of one step's gradients against the plain versions
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 512, 5, 4
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+# one step on the kernels against the plain versions: the loss (relative)
+# and each gradient (relative to its largest plain magnitude).  Measured on
+# an H100: fp32 0 and 1.7e-6; bf16 2.5e-5 and 1.3e-2 (embed; the expert
+# stacks 3.5e-3 to 6.0e-3)
+TRAIN_CHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-3),
+                   "bfloat16": dict(loss=1e-3, grad=5e-2)}
+# the full-width model then fits one batch: TRAIN_FIT_STEPS steps on it at
+# a constant learning rate, from fresh AdamW moments; its loss must fall
+TRAIN_FIT_STEPS, TRAIN_FIT_LR = 4, 1e-5
 SOURCES = {
     "router_topk": ("src/repro_torch/csrc/router_topk.cu",
                     "src/repro/kernels/router_topk.py:60"),
@@ -137,6 +181,10 @@ SOURCES = {
     "paged_attention_mla": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:100"),
 }
+SOURCES["grouped_gemm_t"] = ("src/repro_torch/csrc/grouped_gemm.cu",
+                             "src/repro/kernels/grouped_gemm.py:83")
+SOURCES["grouped_wgrad"] = ("src/repro_torch/csrc/grouped_wgrad.cu",
+                            "src/repro/kernels/grouped_wgrad.py:62")
 for _k, _fmt in (("fused_gate_up", "int8"), ("fused_gate_up", "int4"),
                  ("grouped_gemm", "int8"), ("grouped_gemm", "int4")):
     SOURCES[f"{_k}_{_fmt}"] = SOURCES[_k]
@@ -221,9 +269,15 @@ def poisoned(fn, numel: int, dtype):
 
 def profile_window(fn, top: int = 8) -> dict:
     """Host wall time of ``fn`` (ending in a synchronise) under
-    torch.profiler, the device's busy time in it (sum of kernel self
-    times), and the top entries by device and by host self time."""
+    torch.profiler, the device's busy time in it, and the top kernels by
+    device time and host entries by self time.  Busy time is the union of
+    the device-side activity intervals (kernels, copies, sets): summing the
+    per-op averages would count each kernel twice, once under its own name
+    and once under the aten op that launched it.  "Command Buffer Full" is
+    a launch-queue stall on the host, not device work."""
+    import collections
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -232,19 +286,27 @@ def profile_window(fn, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-
-    def dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    device_ms = sum(dev(e) for e in avgs)
-    by_dev = sorted(avgs, key=dev, reverse=True)[:top]
-    by_cpu = sorted(avgs, key=lambda e: e.self_cpu_time_total,
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name != "Command Buffer Full"]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in dev):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        per_kernel[e.name][0] += 1
+        per_kernel[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
+    by_dev = sorted(per_kernel.items(), key=lambda kv: kv[1][1],
                     reverse=True)[:top]
-    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
-            "busy_share": device_ms / (wall * 1e3),
-            "top_device": [(e.key[:90], e.count, dev(e)) for e in by_dev],
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    by_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:top]
+    return {"wall_ms": wall * 1e3, "device_ms": busy / 1e3,
+            "busy_share": busy / 1e3 / (wall * 1e3),
+            "kernel_ms": sum(v[1] for v in per_kernel.values()),
+            "top_device": [(k[:90], n, ms) for k, (n, ms) in by_dev],
             "top_cpu": [(e.key[:90], e.count, e.self_cpu_time_total / 1e3)
                         for e in by_cpu]}
 
@@ -576,6 +638,180 @@ def time_quant_case(qc: QuantCase) -> dict:
             "library_null_reason": reason, "bytes": n_bytes,
             "flops": flops}
         torch.cuda.synchronize()
+    return out
+
+
+# ------------------------------------------------------- backward kernels
+class TrainCase:
+    """One MoE layer's backward operands at a training shape (``T``
+    tokens), in the schedule's padded layout (padding rows zero, as permute
+    writes them), in one of the two orientations the layer's backward runs:
+
+    * ``gate_up`` (dWg, dWu and their dX): x the routed rows (capacity, d),
+      dy the gate's or up's gradient (capacity, f), W (E, d, f);
+    * ``down``: x the activation h (capacity, f), B7's dy the output
+      gradient times the combine scale of its row (capacity, d), W_down
+      (E, f, d), and B1^T's input the unscaled output gradient.
+
+    B7 takes (x, dy) -> dW (E, K, N) f32; B1 with the weight read transposed
+    takes (dy, W) -> (capacity, K), the dX product."""
+
+    def __init__(self, shape: dict, T: int, dtype, seed: int, policy: str,
+                 orient: str = "gate_up"):
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.scheduling import build_schedule, combine_scale_rows
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        E, d, f = shape["E"], shape["d"], shape["f"]
+        self.shape, self.T, self.dtype, self.policy = shape, T, dtype, policy
+        self.orient = orient
+        self.K, self.N = (d, f) if orient == "gate_up" else (f, d)
+
+        def randn(*s, scale=1.0):
+            return (torch.randn(s, generator=g, device="cuda") * scale
+                    ).to(dtype)
+        logits = torch.randn((T, E), generator=g, device="cuda")
+        wts, idx = ref.router_ref(logits, shape["k"], gating=shape["gating"],
+                                  norm_topk=shape["norm_topk"],
+                                  routed_scale=shape["routed_scale"])
+        self.sched = build_schedule(idx, E, shape["M"], policy=policy)
+        self.x = ref.permute_ref(randn(T, self.K), self.sched)
+        self.dout = ref.permute_ref(randn(T, self.N), self.sched)
+        if orient == "gate_up":
+            self.dy = self.dout
+        else:
+            scale = combine_scale_rows(self.sched, wts)
+            self.dy = (self.dout.float() * scale[:, None]).to(dtype)
+        self.w = randn(E, self.K, self.N, scale=self.K ** -0.5)
+        active = self.sched.block_active.bool().cpu()
+        self.inactive_rows = (~active).repeat_interleave(
+            self.sched.block_m).cuda()
+        self.n_active_blocks = int(active.sum())
+        self.empty_experts = (self.sched.counts == 0)
+        self.n_experts_used = int((~self.empty_experts).sum())
+
+    def label(self) -> str:
+        dt = str(self.dtype).replace("torch.", "")
+        return (f"E={self.shape['E']} K={self.K} N={self.N} T={self.T} {dt} "
+                f"{self.policy} {self.orient}")
+
+    def work(self, name: str):
+        """(bytes, flops) of this routing: the active blocks' rows read
+        once, B7's fp32 (E, K, N) written once, B1^T's used experts'
+        weights read once and its whole (capacity, K) output written."""
+        s, M = self.shape, self.sched.block_m
+        E, K, N = s["E"], self.K, self.N
+        es = self.x.element_size()
+        cap = self.sched.capacity
+        rows, nb = self.n_active_blocks * M, cap // M
+        if name == "grouped_wgrad":
+            return (rows * (K + N) * es + E * K * N * 4 + nb * 8 + E * 4,
+                    2 * rows * K * N)
+        if name == "grouped_gemm_t":
+            return (rows * N * es + self.n_experts_used * K * N * es + nb * 8
+                    + cap * K * es, 2 * rows * K * N)
+        raise KeyError(name)
+
+    def calls(self):
+        """name -> (kernel call, plain call, output numel, output dtype)."""
+        import torch
+        from repro_torch.kernels import ops, ref
+        E, cap = self.shape["E"], self.sched.capacity
+        return {
+            "grouped_wgrad": (
+                lambda: ops.grouped_wgrad(self.x, self.dy, self.sched, E),
+                lambda: ref.grouped_wgrad_ref(self.x, self.dy, self.sched, E),
+                E * self.K * self.N, torch.float32),
+            "grouped_gemm_t": (
+                lambda: ops.grouped_gemm_t(self.dout, self.w, self.sched),
+                lambda: ref.grouped_gemm_t_ref(self.dout, self.w, self.sched),
+                cap * self.K, self.dtype),
+        }
+
+
+def check_train_case(c: TrainCase, errs: dict) -> None:
+    """B7 and B1^T against their plain versions: no NaN after poisoning the
+    allocator; B7 exactly zero for experts with no tokens and within
+    WGRAD_TOL (an fp32 output summing exact products in fp32 on both
+    sides); B1^T zero on inactive rows and within TOL."""
+    import torch
+    for name, (kern, plain, numel, odt) in c.calls().items():
+        got = poisoned(kern, numel, odt)
+        want = plain()
+        torch.cuda.synchronize()
+        if torch.isnan(got).any():
+            raise AssertionError(f"{name}: NaN in output ({c.label()})")
+        dead = got[c.empty_experts] if name == "grouped_wgrad" \
+            else got[c.inactive_rows]
+        if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
+            raise AssertionError(f"{name}: rows with no tokens not zero "
+                                 f"({c.label()})")
+        tol = WGRAD_TOL if name == "grouped_wgrad" \
+            else TOL[str(c.dtype).replace("torch.", "")]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs().max().item()
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  {name:14s} {c.label():50s} max_abs_err {err:.3e} "
+              f"(|max| {want.abs().max().item():.2f})")
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def train_library_call(name: str, c: TrainCase):
+    """``torch._grouped_mm`` computing the same function, bf16, timed only
+    (its groups follow the schedule's packing order; in ``dynamic`` that is
+    decreasing load, and the weights are put in that order once, outside
+    the timed call), or (None, reason)."""
+    import torch
+    if c.dtype != torch.bfloat16 or not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent or not bf16"
+    offs = c.sched.group_offsets[1:].contiguous()
+    if name == "grouped_wgrad":
+        # 2-D x 2-D: x^T (d, capacity) and dy (capacity, f), split along
+        # the rows by offs -> (E, d, f)
+        xt = c.x.t()
+        call = lambda: torch._grouped_mm(xt, c.dy, offs=offs)   # noqa: E731
+        note = "2-D x 2-D, x^T a transposed view"
+    else:
+        w = c.w
+        if c.policy == "dynamic":
+            order = torch.argsort(-c.sched.counts, stable=True)
+            w = c.w[order].contiguous()
+        wt = w.transpose(1, 2)
+        call = lambda: torch._grouped_mm(c.dout, wt, offs=offs)  # noqa: E731
+        note = "2-D x 3-D, W^T a transposed view"
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"torch._grouped_mm refused: {str(e)[:120]}"
+    return call, f"torch._grouped_mm ({note}; timed only)"
+
+
+def time_train_case(c: TrainCase) -> dict:
+    """Kernel (CUDA-graph replays), eager, plain and library times with the
+    bound, per kernel.  The plain versions read ``block_active`` on the
+    host and are timed eagerly."""
+    import torch
+    out = {}
+    for name, (kern, plain, _, _) in c.calls().items():
+        n_bytes, flops = c.work(name)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        lib, lib_name = train_library_call(name, c)
+        out[name] = {
+            "ms": device_ms(kern, 5), "eager_ms": time_ms(kern, 10),
+            "plain_ms": time_ms(plain, 3), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
+            "library_ms": device_ms(lib, 5) if lib is not None else None,
+            "library": lib_name if lib is not None else None,
+            "library_null_reason": None if lib is not None else lib_name,
+            "bytes": n_bytes, "flops": flops,
+            "active_blocks": c.n_active_blocks,
+            "block_m": c.sched.block_m}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -979,11 +1215,15 @@ def drive(engine, reqs) -> dict:
 def check_launches(launches: dict, moe: int, attn: int, fmt: str,
                    attn_kernel: str = "paged_attention") -> None:
     """The MoE kernels ran ``moe`` times each, the GEMMs in format ``fmt``
-    only, the paged-attention kernel ``attn_kernel`` (the GQA or the MLA
-    one) ``attn`` times and the other one never."""
+    only, the backward's kernels never, the paged-attention kernel
+    ``attn_kernel`` (the GQA or the MLA one) ``attn`` times and the other
+    one never."""
+    from repro_torch.kernels._build import BACKWARD_KERNELS
     for name, n in launches.items():
         if name in ("paged_attention", "paged_attention_mla"):
             want = attn if name == attn_kernel else 0
+        elif name in BACKWARD_KERNELS:
+            want = 0                      # training's backward only
         elif name.startswith(("fused_gate_up", "grouped_gemm")):
             gemm_fmt = name.rsplit("_", 1)[1] if name.endswith(
                 ("_int8", "_int4")) else "dense"
@@ -1234,6 +1474,241 @@ def serve_deepseek(rng) -> dict:
     return out
 
 
+def moe_layer_backward_no_sync(policy: str) -> dict:
+    """``moe_ffn`` forward and backward at moonshot's training shape (T =
+    TRAIN_BATCH x TRAIN_SEQ, bf16 experts and activations) under
+    ``set_sync_debug_mode("error")``: no host sync anywhere in the layer's
+    backward.  Returns the launches of the synced run."""
+    import torch
+    from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
+    from repro_torch.kernels import ops
+    s, T = MOONSHOT, TRAIN_BATCH * TRAIN_SEQ
+    E, d, f = s["E"], s["d"], s["f"]
+    g = torch.Generator(device="cuda").manual_seed(400)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype).requires_grad_(True)
+    args = (randn(T, d), randn(d, E, scale=d ** -0.5, dtype=torch.float32),
+            randn(E, d, f, scale=d ** -0.5), randn(E, d, f, scale=d ** -0.5),
+            randn(E, f, d, scale=f ** -0.5))
+    proj = torch.randn((T, d), generator=g, device="cuda")
+    cfg = MoEDispatchConfig(n_experts=E, top_k=s["k"], block_m=s["M"],
+                            executor="cuda", gating=s["gating"],
+                            norm_topk=s["norm_topk"],
+                            routed_scale=s["routed_scale"],
+                            schedule_policy=policy)
+
+    def step():
+        y, aux = moe_ffn(*args, cfg)
+        loss = ((y.float() * proj).sum() + 0.01 * aux["lb_loss"]
+                + 1e-4 * aux["router_z"])
+        return torch.autograd.grad(loss, args)
+    step()                                   # warm
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if not all(torch.isfinite(gr).all() for gr in grads):
+        raise AssertionError(f"moe_ffn backward ({policy}): non-finite grad")
+    print(f"[train moe_ffn] moonshot T={T} bf16 {policy}: forward + backward"
+          f" with no host sync under set_sync_debug_mode('error'); launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def train_grads_vs_plain(compute: str) -> dict:
+    """One step's loss and gradients of moonshot at full width cut to
+    TRAIN_CHECK_LAYERS layers (1 dense + 1 MoE), fp32 parameters and
+    ``compute`` ("float32" or "bfloat16") compute, ``fixed``, batch
+    TRAIN_CHECK_BATCH x TRAIN_CHECK_SEQ: on the kernels (the ``cuda``
+    executor's autograd Functions) against autograd through the plain
+    versions (this script's ``plain`` executor).  The loss within
+    TRAIN_CHECK_TOL[compute]'s relative ``loss``; each parameter's gradient
+    within its ``grad`` times the largest magnitude of its plain gradient.
+    In bf16 the two sides round their bf16 intermediates (h, dg, du, the
+    dX products, dW cast to the bf16 expert copy) after sums taken in other
+    orders, so they differ by bf16 ulps that the backward carries on."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    tol = TRAIN_CHECK_TOL[compute]
+    cfg = get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=TRAIN_CHECK_LAYERS)
+    model = init_params(cfg, 0, device="cuda").requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = device_batch(make_batch(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                                    step=0, seed=1), "cuda")
+    rc = RunConfig(compute_dtype=getattr(torch, compute),
+                   loss_chunk=LOSS_CHUNK)
+    out = {}
+    for ex in ("cuda", "plain"):
+        loss, _ = loss_fn(model, cfg, rc._replace(executor=ex), batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[ex] = (loss.detach(), grads)
+        del loss
+    (loss, grads), (loss_p, grads_p) = out["cuda"], out["plain"]
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    if loss_err > tol["loss"]:
+        raise AssertionError(f"train loss ({compute}): {float(loss):.6f} on "
+                             f"the kernels, {float(loss_p):.6f} plain")
+    rel = {}
+    for name, g, gp in zip(params, grads, grads_p):
+        scale = gp.abs().max().item()
+        err = (g - gp).abs().max().item()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train grads ({compute}): {name} not finite")
+        if err > tol["grad"] * scale:
+            raise AssertionError(f"train grads ({compute}): {name} differs by "
+                                 f"{err:.3e} (largest plain magnitude "
+                                 f"{scale:.3e})")
+        rel[name] = err / scale if scale > 0 else 0.0
+    worst_name = max(rel, key=rel.get)
+    print(f"[train check] {cfg.name} full width, {cfg.n_layers} layers, "
+          f"fp32 parameters, {compute} compute, fixed, batch "
+          f"{TRAIN_CHECK_BATCH} x seq {TRAIN_CHECK_SEQ}: loss "
+          f"{float(loss):.6f} on the kernels, {float(loss_p):.6f} through "
+          f"the plain versions (relative {loss_err:.3e}; tolerance "
+          f"{tol['loss']:g}); {len(params)} gradients, worst max|diff| / "
+          f"max|plain| {rel[worst_name]:.3e} ({worst_name}; tolerance "
+          f"{tol['grad']:g}); per parameter: "
+          + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()))
+    res = {"compute": compute, "loss": float(loss),
+           "loss_plain": float(loss_p), "loss_rel_err": loss_err,
+           "worst_rel_grad_err": rel[worst_name], "worst_param": worst_name,
+           "rel_grad_err": rel}
+    del model, params, grads, grads_p, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_train_launches(launches: dict, n_moe: int) -> None:
+    """One training step, per MoE layer: router and fused_gate_up once;
+    permute and unpermute twice (each is the other's backward); the dense
+    grouped_gemm three times (the down projection and the backward's
+    recompute of g and u); B1^T and B7 three times each; nothing else."""
+    want = {"router_topk": n_moe, "permute": 2 * n_moe,
+            "unpermute": 2 * n_moe, "fused_gate_up": n_moe,
+            "grouped_gemm": 3 * n_moe,
+            "grouped_gemm_t": 3 * n_moe, "grouped_wgrad": 3 * n_moe}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"training step: {name} launched {n} "
+                                 f"times, expected {want.get(name, 0)}")
+
+
+def train_full_width(layers: int) -> dict:
+    """moonshot at full width cut to ``layers`` layers: TRAIN_STEPS steps of
+    batch TRAIN_BATCH x seq TRAIN_SEQ through the port's trainer (fp32
+    parameters and AdamW moments, bf16 compute, ``fixed``), one more step
+    under the profiler, then TRAIN_FIT_STEPS steps on the first batch again,
+    whose loss must fall."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        train_state)
+    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=layers)
+    n_moe = n_moe_layers(cfg)
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK)
+    opt = OptConfig(total_steps=TRAIN_STEPS + 1, warmup_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, 0, rc, device="cuda")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"[train] {cfg.name} at full width (d_model={cfg.d_model}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff_expert="
+          f"{cfg.moe.d_ff_expert}, vocab={cfg.vocab_size}); reduced: n_layers"
+          f" 48 -> {layers} (1 dense + {n_moe} MoE); {n_params / 1e9:.3f} B "
+          f"parameters, fp32 with fp32 AdamW moments, bf16 compute, fixed "
+          f"schedule, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, loss in strided "
+          f"chunks (loss_chunk {LOSS_CHUNK}); random weights, seed 0; "
+          f"the reference's Markov tokens")
+    step_fn = make_train_step(cfg, rc, opt)
+    batches = [device_batch(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i,
+                                       seed=1), "cuda")
+               for i in range(TRAIN_STEPS + 1)]
+    rows = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        check_train_launches(launches, n_moe)
+        row = {"step": i, **{k: float(v) for k, v in m.items()}, "ms": ms,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "grouped_wgrad_launches": launches["grouped_wgrad"],
+               "grouped_gemm_t_launches": launches["grouped_gemm_t"]}
+        rows.append(row)
+        print(f"[train] step {i}: loss {row['loss']:.4f} (ce {row['ce']:.4f})"
+              f" grad_norm {row['grad_norm']:.4f} lr {row['lr']:.3e}; "
+              f"{ms:.1f} ms ({row['tokens_per_s']:.0f} tokens/s); peak "
+              f"memory {row['peak_bytes'] / 1e9:.2f} GB; B7 launches "
+              f"{row['grouped_wgrad_launches']}, B1^T "
+              f"{row['grouped_gemm_t_launches']}")
+        if not all(np.isfinite(row[k]) for k in ("loss", "ce", "grad_norm")):
+            raise AssertionError(f"training step {i}: non-finite loss")
+    launches = dict(ops.LAUNCHES)
+    prof = profile_window(lambda: step_fn(state, batches[TRAIN_STEPS]),
+                          top=16)
+    steady = [r["ms"] for r in rows[1:]]
+    summary = {"layers": layers, "n_params": n_params, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "steps": rows, "launches": launches,
+               "step_ms_median_after_first": float(np.median(steady)),
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+               / float(np.median(steady)) * 1e3,
+               "peak_bytes": max(r["peak_bytes"] for r in rows),
+               "profile": prof}
+    print(f"[train] {TRAIN_STEPS} steps: median step after the first "
+          f"{summary['step_ms_median_after_first']:.1f} ms, "
+          f"{summary['tokens_per_s']:.0f} tokens/s, peak device memory "
+          f"{summary['peak_bytes'] / 1e9:.2f} GB; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    print(f"[profile train] one step: wall {prof['wall_ms']:.2f} ms, device "
+          f"busy {prof['device_ms']:.2f} ms (share {prof['busy_share']:.3f})")
+    for name, calls, ms in prof["top_device"]:
+        print(f"    device {ms:9.3f} ms {calls:5d}x  {name[:70]}")
+    for name, calls, ms in prof["top_cpu"]:
+        print(f"    host   {ms:9.3f} ms {calls:5d}x  {name[:70]}")
+    # the model then fits one batch: fresh moments, a constant rate
+    model = state["params"]
+    del state
+    state = train_state(model)
+    fit_fn = make_train_step(cfg, rc, OptConfig(
+        lr=TRAIN_FIT_LR, warmup_steps=0, total_steps=10 ** 9))
+    fit = []
+    for i in range(TRAIN_FIT_STEPS):
+        state, m = fit_fn(state, batches[0])
+        fit.append(float(m["loss"]))
+    summary["fit_one_batch"] = {"lr": TRAIN_FIT_LR, "losses": fit}
+    print(f"[train fit] the same batch {TRAIN_FIT_STEPS} times at lr "
+          f"{TRAIN_FIT_LR:g} from fresh moments: loss before each step "
+          + " -> ".join(f"{v:.4f}" for v in fit))
+    if not fit[-1] < fit[0]:
+        raise AssertionError("training does not lower the loss of the batch "
+                             "it steps on")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1315,6 +1790,29 @@ def main() -> None:
                         del qc
                 del c
                 torch.cuda.empty_cache()
+    # B1-B5 at the training shape (T = 4096 tokens, bf16): the forward that
+    # each training step runs
+    for policy in ("fixed", "dynamic"):
+        c = Case(MOONSHOT, TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16,
+                 seed=TRAIN_BATCH * TRAIN_SEQ, policy=policy)
+        check_case(c, errs)
+        del c
+        torch.cuda.empty_cache()
+    # the backward's B7 and B1^T at the training shape (T = 4096 tokens):
+    # moonshot's MoE layer and deepseek-v2's (E=160), both policies, in both
+    # orientations the layer's backward runs (gate/up and down)
+    train_t = {}              # (arch, policy, orient) -> per-kernel times
+    for arch, shape in (("moonshot", MOONSHOT), ("deepseek", DEEPSEEK)):
+        for policy in ("fixed", "dynamic"):
+            for orient in ("gate_up", "down"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    c = TrainCase(shape, TRAIN_BATCH * TRAIN_SEQ, dtype,
+                                  seed=500, policy=policy, orient=orient)
+                    check_train_case(c, errs)
+                    if dtype == torch.bfloat16:
+                        train_t[arch, policy, orient] = time_train_case(c)
+                    del c
+                    torch.cuda.empty_cache()
     check_paged(errs)
     paged_t = {k: time_paged(k) for k in ("decode", "chunk")}
     check_mla(errs)
@@ -1341,6 +1839,21 @@ def main() -> None:
                 + ("null" if t[n]['library_ms'] is None
                    else f"{t[n]['library_ms'] * 1e3:.1f}") + ")"
                 for n in MOE_KERNELS))
+    for (arch, policy, orient), tm in sorted(train_t.items()):
+        for n, t in tm.items():
+            lib = ("null: " + t["library_null_reason"]
+                   if t["library_ms"] is None
+                   else f"{t['library_ms'] * 1e3:.1f} us ({t['library']})")
+            print(f"[times] {n} {arch} bf16 T={TRAIN_BATCH * TRAIN_SEQ} "
+                  f"{policy} {orient} ({t['active_blocks']} active blocks of "
+                  f"{t['block_m']}): {t['ms'] * 1e3:.1f} us (eager "
+                  f"{t['eager_ms'] * 1e3:.1f}), bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}; bytes "
+                  f"{t['bound_bytes_ms'] * 1e3:.2f} us for "
+                  f"{t['bytes'] / 1e6:.1f} MB, tensor-core operations "
+                  f"{t['bound_ops_ms'] * 1e3:.2f} us for "
+                  f"{t['flops'] / 1e9:.1f} GFLOP), plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, library {lib}")
     for (scheme, policy, T), t in sorted(qtimings.items()):
         print(f"[times] moonshot bf16 T={T} {policy} {scheme}: " + "; ".join(
             f"{n} {t[n]['ms'] * 1e3:.1f} us (eager "
@@ -1615,7 +2128,18 @@ def main() -> None:
     deepseek = serve_deepseek(rng)
     print(json.dumps({"serve_deepseek": deepseek}))
 
-    # 9. report ------------------------------------------------------------
+    # 9. training: the MoE layer's backward without a host sync, one fp32
+    # step's gradients against the plain versions, then the full-width
+    # trainer ----------------------------------------------------------------
+    train_sync = {p: moe_layer_backward_no_sync(p)
+                  for p in ("fixed", "dynamic")}
+    train_check = {c: train_grads_vs_plain(c)
+                   for c in ("float32", "bfloat16")}
+    train = train_full_width(TRAIN_LAYERS)
+    print(json.dumps({"train": {"moe_ffn_no_sync_launches": train_sync,
+                                "check_vs_plain": train_check, **train}}))
+
+    # 10. report -----------------------------------------------------------
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     report = []
@@ -1648,6 +2172,37 @@ def main() -> None:
                     f"{policy}_T{T}": {
                         k: qtimings["int8_channel", policy, T][kname][k]
                         for k in keys} for policy, T in QUANT_SHAPES}
+        elif name in _build.BACKWARD_KERNELS:
+            entry["launches"] = train["launches"][name]
+            tkeys = keys + ("bound_bytes_ms", "bound_ops_ms")
+            d = train_t["moonshot", "fixed", "gate_up"][name]
+            extra = {
+                "shape": (f"moonshot-v1-16b-a3b bf16 training, T="
+                          f"{TRAIN_BATCH * TRAIN_SEQ} (batch {TRAIN_BATCH} x "
+                          f"seq {TRAIN_SEQ}), fixed schedule, gate/up "
+                          "orientation; "
+                          + ("x (capacity, 2048), dy (capacity, 1408) -> "
+                             "dW (64, 2048, 1408) f32"
+                             if name == "grouped_wgrad" else
+                             "dy (capacity, 1408) x W (64, 2048, 1408) "
+                             "read transposed -> (capacity, 2048)")),
+                "launches_run": f"moonshot-v1-16b-a3b training, "
+                                f"{TRAIN_LAYERS} layers, {TRAIN_STEPS} "
+                                "steps (2 of each 3 per MoE layer in the "
+                                "gate/up orientation, 1 in the down one)",
+                "bound_bytes_ms": d["bound_bytes_ms"],
+                "bound_ops_ms": d["bound_ops_ms"],
+                **{f"{policy}_{orient}": {
+                    k: train_t["moonshot", policy, orient][name][k]
+                    for k in tkeys}
+                   for policy in ("fixed", "dynamic")
+                   for orient in ("gate_up", "down")
+                   if (policy, orient) != ("fixed", "gate_up")},
+                "deepseek": {f"{policy}_{orient}": {
+                    k: train_t["deepseek", policy, orient][name][k]
+                    for k in tkeys}
+                    for policy in ("fixed", "dynamic")
+                    for orient in ("gate_up", "down")}}
         elif name == "paged_attention":
             d, extra = paged_t["decode"], {
                 "shape": "moonshot-v1-16b-a3b bf16 paged decode B=2 "

@@ -19,6 +19,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.scheduling import (BlockSchedule, build_schedule,
+                                    combine_scale_rows,
                                     policy_config_kwargs)
 
 
@@ -47,17 +48,6 @@ def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg):
     lb = E * torch.sum(frac * mean_prob)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"lb_loss": lb, "router_z": z}
-
-
-def combine_scale_rows(sched: BlockSchedule, weights: torch.Tensor):
-    """Scatter the (T, k) combine weights onto padded rows for the fused
-    down-projection epilogue; padding rows get 0.  The reference's drop-
-    scatter writes rows at or past capacity into an overflow slot here."""
-    cap = sched.capacity
-    rows = sched.pos.reshape(-1)
-    slot = torch.where(rows < cap, rows, torch.full_like(rows, cap)).long()
-    scale = torch.zeros(cap + 1, dtype=torch.float32, device=weights.device)
-    return scale.scatter_(0, slot, weights.reshape(-1).float())[:cap]
 
 
 def plan_schedule(indices: torch.Tensor, cfg) -> BlockSchedule:

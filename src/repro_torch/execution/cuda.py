@@ -10,13 +10,18 @@ CPU tensors every wrapper runs its plain version.
 
 Quantized expert weights pass through ``prepare_weights`` untouched: the
 GEMM kernels take the compressed payload and its per-channel scales and
-dequantize each weight tile on chip, so no dense stack is ever built."""
+dequantize each weight tile on chip, so no dense stack is ever built.
+
+Each phase goes through ``kernels.autograd``: where an input needs a
+gradient (training), the backward runs on the kernels as well (B1 with its
+weight read transposed for dX, B7 for every expert weight gradient);
+otherwise the call is the plain ``ops`` wrapper, as when serving."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.execution.base import Executor, register_executor
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd as ag
 
 
 @register_executor("cuda")
@@ -26,22 +31,22 @@ class CudaExecutor(Executor):
         return w            # in-kernel dequant: ops splits payload + scales
 
     def route(self, logits, cfg):
-        return ops.router_topk(logits, top_k=cfg.top_k, gating=cfg.gating,
-                               norm_topk=cfg.norm_topk,
-                               routed_scale=cfg.routed_scale)
+        return ag.router_topk(logits, top_k=cfg.top_k, gating=cfg.gating,
+                              norm_topk=cfg.norm_topk,
+                              routed_scale=cfg.routed_scale)
 
     def permute(self, x, sched, cfg):
-        return ops.permute(x, sched)
+        return ag.permute(x, sched)
 
     def expert_ffn(self, xp, w, sched, cfg, row_scale=None):
         if cfg.fuse_gate_up:
-            h = ops.fused_gate_up(xp, w["w_gate"], w["w_up"], sched)
+            h = ag.fused_gate_up(xp, w["w_gate"], w["w_up"], sched)
         else:
-            g = ops.grouped_gemm(xp, w["w_gate"], sched)
-            u = ops.grouped_gemm(xp, w["w_up"], sched)
+            g = ag.grouped_gemm(xp, w["w_gate"], sched)
+            u = ag.grouped_gemm(xp, w["w_up"], sched)
             gf = g.float()
             h = ((gf * torch.sigmoid(gf)) * u.float()).to(xp.dtype)
-        return ops.grouped_gemm(h, w["w_down"], sched, row_scale=row_scale)
+        return ag.grouped_gemm(h, w["w_down"], sched, row_scale=row_scale)
 
     def unpermute(self, y, sched, weights, cfg):
-        return ops.unpermute(y, sched, weights)
+        return ag.unpermute(y, sched, weights)

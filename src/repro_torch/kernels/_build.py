@@ -30,7 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
-           "fused_gate_up", "paged_attention", "paged_attention_mla")
+           "fused_gate_up", "paged_attention", "paged_attention_mla",
+           "grouped_gemm_t", "grouped_wgrad")
+# the kernels that only training's backward launches (B1 with the weight
+# read transposed, and B7)
+BACKWARD_KERNELS = ("grouped_gemm_t", "grouped_wgrad")
 # B1 and B2 compile once per weight format; each format counts on its own
 QUANT_KERNELS = ("grouped_gemm_int8", "grouped_gemm_int4",
                  "fused_gate_up_int8", "fused_gate_up_int4")
@@ -43,6 +47,8 @@ _SIGNATURES = {
     "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "moe_grouped_gemm": [_P] * 7 + [_I] * 8 + [_P],
     "moe_fused_gate_up": [_P] * 8 + [_I] * 8 + [_P],
+    "moe_grouped_gemm_t": [_P] * 5 + [_I] * 5 + [_P],
+    "moe_grouped_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     "moe_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
     "moe_paged_attention_mla": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
 }

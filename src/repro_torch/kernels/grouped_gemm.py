@@ -43,27 +43,41 @@ def dequant_weight_block(wq: torch.Tensor, ws: Optional[torch.Tensor],
     return (wq.float() * ws).to(dtype)
 
 
+def active_block_chunks(block_active: torch.Tensor, block_bytes: int,
+                        budget: int = 1 << 30):
+    """The indices of the active blocks, in order, cut into chunks whose
+    gathered per-block operands (``block_bytes`` each) stay within
+    ``budget`` bytes: the plain versions gather one weight matrix per
+    block, which at a training shape on 8-row blocks would otherwise take
+    tens of GB.  Reads ``block_active`` on the host, which the plain
+    versions may do."""
+    act = torch.nonzero(block_active).reshape(-1)
+    step = max(1, budget // max(block_bytes, 1))
+    return act.split(step)
+
+
 def _block_products(x, ws, block_expert, block_active, block_m,
                     scales=None, w_format="dense"):
     """fp32 ``x[block] @ w[expert(block)]`` for each weight in ``ws``, as
     (num_blocks, block_m, N): computed for the active blocks only (their
-    expert weights gathered, and dequantized, once per block), exact zeros
-    for the others.  Finding the active blocks reads ``block_active`` on the
-    host, which the plain version may do: the kernels never do."""
+    expert weights gathered, and dequantized, once per block, a chunk of
+    blocks at a time), exact zeros for the others.  Finding the active
+    blocks reads ``block_active`` on the host, which the plain version may
+    do: the kernels never do."""
     cap, K = x.shape
     nb = cap // block_m
-    act = torch.nonzero(block_active).reshape(-1)
-    xa = x.reshape(nb, block_m, K).index_select(0, act).float()
-    idx = block_expert.index_select(0, act).long()
-    outs = []
-    for i, w in enumerate(ws):
-        ws_i = None if scales is None else \
-            scales[i].index_select(0, idx)[:, None, :]
-        wb = dequant_weight_block(w.index_select(0, idx), ws_i, w_format,
-                                  x.dtype)
-        out = torch.zeros((nb, block_m, w.shape[-1]), dtype=torch.float32,
-                          device=x.device)
-        outs.append(out.index_copy_(0, act, torch.bmm(xa, wb.float())))
+    xb = x.reshape(nb, block_m, K)
+    outs = [torch.zeros((nb, block_m, w.shape[-1]), dtype=torch.float32,
+                        device=x.device) for w in ws]
+    for act in active_block_chunks(block_active, K * ws[0].shape[-1] * 4):
+        xa = xb.index_select(0, act).float()
+        idx = block_expert.index_select(0, act).long()
+        for i, w in enumerate(ws):
+            ws_i = None if scales is None else \
+                scales[i].index_select(0, idx)[:, None, :]
+            wb = dequant_weight_block(w.index_select(0, idx), ws_i, w_format,
+                                      x.dtype)
+            outs[i].index_copy_(0, act, torch.bmm(xa, wb.float()))
     return outs
 
 
@@ -82,6 +96,25 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     if row_scale is not None:
         out = out * row_scale[:, None].float()
     return out.to(x.dtype)
+
+
+def grouped_gemm_t_plain(x: torch.Tensor, w: torch.Tensor,
+                         block_expert: torch.Tensor,
+                         block_active: torch.Tensor, *,
+                         block_m: int) -> torch.Tensor:
+    """The backward's dX product: ``out[block m] = x[block m] @
+    w[block_expert[m]]^T`` in fp32, zeros for inactive blocks.  x:
+    (capacity, K); w: (E, N, K), the forward's (E, in, out) stack -> (capacity,
+    N) in x's dtype."""
+    cap, K = x.shape
+    nb, N = cap // block_m, w.shape[1]
+    xb = x.reshape(nb, block_m, K)
+    out = torch.zeros((nb, block_m, N), dtype=torch.float32, device=x.device)
+    for idx in active_block_chunks(block_active, N * K * 4):
+        wb = w.index_select(0, block_expert.index_select(0, idx).long())
+        out.index_copy_(0, idx, torch.bmm(xb.index_select(0, idx).float(),
+                                          wb.float().transpose(1, 2)))
+    return out.reshape(cap, N).to(x.dtype)
 
 
 def check_gemm_operands(x, ws, block_expert, block_active, block_m,
@@ -176,4 +209,45 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     key = launch_key("grouped_gemm", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
+    return out
+
+
+def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
+                   block_expert: torch.Tensor, block_active: torch.Tensor, *,
+                   block_m: int) -> torch.Tensor:
+    """``x @ w[e]^T`` per schedule block (``grouped_gemm_t_plain``), w
+    dense (E, N, K) in x's dtype.  CPU tensors run the plain version; CUDA
+    tensors the kernel (B1 with its weight read transposed in place)."""
+    if not _build.on_cuda(x, w, block_expert, block_active):
+        return grouped_gemm_t_plain(x, w, block_expert, block_active,
+                                    block_m=block_m)
+    code = _build.dtype_code(x.dtype)
+    _build.require(x.dim() == 2 and x.is_contiguous(),
+                   "grouped_gemm_t takes a contiguous (capacity, K) x")
+    cap, K = x.shape
+    _build.require(w.dim() == 3 and w.dtype == x.dtype and w.is_contiguous()
+                   and w.shape[2] == K,
+                   f"grouped_gemm_t takes a contiguous (E, N, {K}) weight "
+                   f"of dtype {x.dtype}")
+    N = w.shape[1]
+    _build.require(K % 16 == 0 and N % 16 == 0,
+                   f"grouped_gemm_t takes K and N multiples of 16 (K={K}, "
+                   f"N={N})")
+    _build.require(block_m % 8 == 0 and cap % block_m == 0,
+                   f"grouped_gemm_t takes block_m a multiple of 8 dividing "
+                   f"capacity (block_m={block_m}, capacity={cap})")
+    nb = cap // block_m
+    for t in (block_expert, block_active):
+        _build.require(t.dtype == torch.int32 and t.shape == (nb,)
+                       and t.is_contiguous(),
+                       f"grouped_gemm_t takes contiguous int32 ({nb},) "
+                       "schedule arrays")
+    lib = _build.library()
+    out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
+    err = lib.moe_grouped_gemm_t(
+        x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
+        block_active.data_ptr(), out.data_ptr(), cap, K, N, block_m, code,
+        _build.stream_ptr(x.device))
+    _build.check(err, "grouped_gemm_t")
+    _build.LAUNCHES["grouped_gemm_t"] += 1
     return out

@@ -1,6 +1,7 @@
-"""Schedule-level wrappers for the five MoE kernels (counterpart of
+"""Schedule-level wrappers for the MoE kernels (counterpart of
 ``repro.kernels.ops``): each adapts a ``BlockSchedule`` to its kernel's
-arguments.  Block sizes are the kernels' own (csrc/); nothing here carries
+arguments.  The forward's five, and the backward's two: ``grouped_gemm_t``
+(B1 with the weight read transposed) and ``grouped_wgrad`` (B7).  Block sizes are the kernels' own (csrc/); nothing here carries
 the TPU's (8, 128) tiling over.  The GEMM wrappers take an expert stack as
 a dense tensor or a ``QuantTensor``; ``_weight_operands`` splits the latter
 into the payload, its (E, N) channel scales and the kernel's weight format.
@@ -17,6 +18,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_gate_up as _fgu
 from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.kernels import grouped_wgrad as _wg
 from repro_torch.kernels import permute as _perm
 from repro_torch.kernels import router_topk as _router
 from repro_torch.kernels import unpermute as _unperm
@@ -79,3 +81,23 @@ def fused_gate_up(x: torch.Tensor, w_gate, w_up,
     return _fgu.fused_gate_up(x, wgq, wuq, sched.block_expert,
                               sched.block_active, block_m=sched.block_m,
                               wg_scale=wsg, wu_scale=wsu, w_format=fmt)
+
+
+def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
+                   sched: BlockSchedule) -> torch.Tensor:
+    """The dX product ``x[block] @ w[e]^T``: x (capacity, N) against the
+    forward's dense (E, K, N) stack -> (capacity, K)."""
+    return _gg.grouped_gemm_t(x, w, sched.block_expert, sched.block_active,
+                              block_m=sched.block_m)
+
+
+def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, sched: BlockSchedule,
+                  n_experts: int) -> torch.Tensor:
+    """Training-backward tgmm: ``dW[e] = x_e^T dy_e`` over the padded
+    layout, (E, K, N) fp32, exact zeros for experts with no rows."""
+    if sched.seg_start is None:
+        raise ValueError("grouped_wgrad walks each expert's blocks from the "
+                         "schedule's seg_start, which this schedule lacks")
+    return _wg.grouped_wgrad(x, dy, sched.seg_start, sched.block_expert,
+                             sched.block_active, block_m=sched.block_m,
+                             n_experts=n_experts)

@@ -14,7 +14,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.fused_gate_up import fused_gate_up_plain
-from repro_torch.kernels.grouped_gemm import grouped_gemm_plain
+from repro_torch.kernels.grouped_gemm import (grouped_gemm_plain,
+                                              grouped_gemm_t_plain)
+from repro_torch.kernels.grouped_wgrad import grouped_wgrad_plain
 from repro_torch.kernels.ops import _weight_operands
 from repro_torch.kernels.permute import permute_plain
 from repro_torch.kernels.router_topk import router_topk_plain
@@ -52,3 +54,15 @@ def fused_gate_up_ref(x: torch.Tensor, w_gate, w_up,
     return fused_gate_up_plain(x, wgq, wuq, sched.block_expert,
                                sched.block_active, block_m=sched.block_m,
                                wg_scale=wsg, wu_scale=wsu, w_format=fmt)
+
+
+def grouped_gemm_t_ref(x: torch.Tensor, w: torch.Tensor,
+                       sched: BlockSchedule) -> torch.Tensor:
+    return grouped_gemm_t_plain(x, w, sched.block_expert, sched.block_active,
+                                block_m=sched.block_m)
+
+
+def grouped_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
+                      sched: BlockSchedule, n_experts: int) -> torch.Tensor:
+    return grouped_wgrad_plain(x, dy, sched.block_expert, sched.block_active,
+                               block_m=sched.block_m, n_experts=n_experts)

@@ -1,7 +1,8 @@
 """Language model for the ``moe`` family, with multi-head or latent (MLA)
-attention (counterpart of ``repro.models.lm``, cut to the served path:
-prefill and decode over a contiguous KV cache, and decode rows over a paged
-KV block pool).
+attention (counterpart of ``repro.models.lm``): the served path (prefill
+and decode over a contiguous KV cache, and decode rows over a paged KV
+block pool) and, for multi-head attention, the training path (``train``
+mode, ``chunked_ce``, ``loss_fn``).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
@@ -17,10 +18,11 @@ paged pool (``serve/kv_cache.py``) has the same form with (n_blocks,
 block_size) in place of (slots, capacity)."""
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -38,11 +40,13 @@ class RunConfig(NamedTuple):
     defaults are the ``cuda`` executor and the paper's ``fixed`` schedule
     (the serving engine defaults to ``dynamic``)."""
     compute_dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = torch.float32   # master weights: fp32 only
     executor: str = "cuda"
     schedule_policy: str = "fixed"
     fuse_gate_up: bool = True
     fold_combine: bool = True
     block_m_min: int = 8             # the dynamic policy's sub-block floor
+    loss_chunk: int = 1024           # chunked_ce's chunk length (train)
     quant: str = "none"              # expert-weight QuantScheme for serving
                                      # (repro_torch.quantization registry;
                                      # the engine quantizes at load)
@@ -299,13 +303,17 @@ def _mla_attention(p: MLA, h: torch.Tensor, cfg: ModelConfig, *, positions,
     return o
 
 
-@torch.no_grad()
 def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
             mode: str = "prefill", cache=None, pos=None, block_tables=None):
-    """Returns (logits (B, V) f32, cache, aux).
+    """Returns (out, cache, aux).
 
+    train:   ``batch["tokens"]`` (B, S); out = the final hidden states (B,
+             S, d) in the compute dtype, causal over the whole sequence, no
+             cache; autograd records it (the other modes run under
+             ``torch.no_grad``).  Multi-head attention only.
     prefill: ``batch["tokens"]`` (B, S); writes the prompt's K/V into rows
-             [0, S) of ``cache`` (when given); logits of the last position.
+             [0, S) of ``cache`` (when given); out = the logits (B, V) f32
+             of the last position.
     decode:  ``batch["tokens"]`` (B, 1); ``pos`` a (B,) tensor (or an int
              shared by every row) of cache positions; writes each row's K/V
              at its position and attends to positions <= it.
@@ -315,11 +323,39 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     token of a prompt chunk) at its own position, written and read through
     its slot's table row; logits for every row.
     """
+    if mode == "train":
+        if cache is not None or pos is not None or block_tables is not None:
+            raise ValueError("train mode takes no cache, pos or block_tables")
+        if cfg.mla is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training with latent attention (MLA) is not "
+                "ported yet (ROADMAP)")
+        return _forward_train(model, cfg, rc, batch)
     if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
+        raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
+                         "decode")
     if block_tables is not None and mode != "decode":
         raise ValueError("block_tables is decode-only (chunked prefill "
                          "feeds prompt tokens through decode rows)")
+    return _forward_serve(model, cfg, rc, batch, mode, cache, pos,
+                          block_tables)
+
+
+def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
+    x = model.embed[batch["tokens"]].to(rc.compute_dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_acc: dict = {}
+    for blk in model.layers:
+        x, aux = apply_block(blk, x, cfg, rc, positions=positions,
+                             mode="train")
+        for key, val in aux.items():
+            aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
+    return model.final_norm(x), None, aux_acc
+
+
+@torch.no_grad()
+def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
+                   mode: str, cache, pos, block_tables):
     fused = paged_fused(rc)
     dt = rc.compute_dtype
     tokens = batch["tokens"]
@@ -349,3 +385,59 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
 
 def n_moe_layers(cfg: ModelConfig) -> int:
     return group_structure(cfg)[2]
+
+
+# ----------------------------------------------------------------------
+# Loss (chunked over the sequence; the logits never exist whole)
+# ----------------------------------------------------------------------
+def _chunk_ce(xc: torch.Tensor, w_head: torch.Tensor, yc: torch.Tensor,
+              vc: torch.Tensor, final_cap: Optional[float]) -> torch.Tensor:
+    logits = torch.matmul(xc, w_head).float()
+    if final_cap is not None:
+        logits = final_cap * torch.tanh(logits / final_cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, yc.long()[..., None])[..., 0]
+    return torch.where(vc, lse - gold, torch.zeros_like(lse)).sum()
+
+
+def chunked_ce(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+               valid: torch.Tensor, *, chunk: int,
+               final_cap: Optional[float] = None):
+    """x: (B, S, d); labels/valid: (B, S).  Returns (sum_ce f32, n_valid).
+
+    The reference's STRIDED chunks (token s goes to chunk s % nc, with the
+    chunk length the largest divisor of S that is <= ``chunk``), each
+    recomputed in the backward (``torch.utils.checkpoint``), so only one
+    chunk's (B, S/nc, V) logits exist at a time."""
+    B, S, d = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    nc = S // c
+    xs, ys = x.reshape(B, c, nc, d), labels.reshape(B, c, nc)
+    vs = valid.reshape(B, c, nc)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(nc):
+        tot = tot + checkpoint(_chunk_ce, xs[:, :, j], w_head, ys[:, :, j],
+                               vs[:, :, j], final_cap, use_reentrant=False)
+    return tot, valid.sum()
+
+
+def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
+    """Next-token CE over ``batch["tokens"]`` (B, S), plus the MoE layers'
+    aux losses (0.01 load balance, 1e-4 router z).  Returns (loss,
+    metrics), every value a device tensor."""
+    h, _, aux = forward(model, cfg, rc, batch, mode="train")
+    w_head = model.head.to(h.dtype)
+    labels = batch["tokens"][:, 1:]
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    tot, n = chunked_ce(h[:, :-1], w_head, labels, valid,
+                        chunk=rc.loss_chunk,
+                        final_cap=cfg.final_logit_softcap)
+    loss = tot / torch.clamp(n, min=1)
+    metrics = {"ce": loss, "tokens": n.float()}
+    if aux:
+        metrics.update(aux)
+        loss = loss + 0.01 * aux.get("lb_loss", 0.0) \
+            + 1e-4 * aux.get("router_z", 0.0)
+    return loss, metrics

@@ -79,3 +79,14 @@ def build_schedule(indices: torch.Tensor, n_experts: int, block_m: int,
     """Construct a block schedule under the named policy.
     indices: (T, k) int expert assignment per token."""
     return get_policy(policy)(indices, n_experts, block_m, **kwargs)
+
+
+def combine_scale_rows(sched: BlockSchedule, weights: torch.Tensor):
+    """Scatter the (T, k) combine weights onto padded rows for the fused
+    down-projection epilogue; padding rows get 0.  The reference's drop-
+    scatter writes rows at or past capacity into an overflow slot here."""
+    cap = sched.capacity
+    rows = sched.pos.reshape(-1)
+    slot = torch.where(rows < cap, rows, torch.full_like(rows, cap)).long()
+    scale = torch.zeros(cap + 1, dtype=torch.float32, device=weights.device)
+    return scale.scatter_(0, slot, weights.reshape(-1).float())[:cap]

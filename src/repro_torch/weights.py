@@ -4,8 +4,10 @@
 (``repro.models.lm.init_params`` layout) with every leaf already a numpy
 array (the caller runs ``jax.tree.map(np.asarray, params)``; this module
 does not import JAX) and returns the port's ``LM`` holding the same
-weights.  The stacked ``body`` leaves are unstacked along axis 0 into one
-layer each; every ``(in, out)`` matrix keeps its layout."""
+weights; ``from_jax_tree`` maps any tree of that layout (gradients,
+updated parameters) onto the port's parameter names.  The stacked
+``body`` leaves are unstacked along axis 0 into one layer each; every
+``(in, out)`` matrix keeps its layout."""
 from __future__ import annotations
 
 import numpy as np
@@ -38,29 +40,36 @@ def _jax_layers(cfg: ModelConfig, tree: dict):
     return layers
 
 
+def from_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
+    """A tree of the reference's parameter layout (the parameters, their
+    gradients or updated parameters; numpy leaves) as ``{name: array}``
+    under the port's ``LM.named_parameters()`` names."""
+    flat = {"embed": tree["embed"], "head": tree["head"],
+            "final_norm.scale": tree["final_norm"]["scale"]}
+    for i, layer in enumerate(_jax_layers(cfg, tree)):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
 def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
     """The port's fp32 model with the reference tree's weights."""
     model = init_params(cfg, 0, device=device)
-
-    def load(param: torch.Tensor, arr, name: str) -> None:
-        arr = np.array(arr, dtype=np.float32)
+    ref = from_jax_tree(cfg, tree)
+    names = dict(model.named_parameters())
+    for i in range(len(model.layers)):
+        pre = f"layers.{i}."
+        mine = {n[len(pre):] for n in names if n.startswith(pre)}
+        theirs = {n[len(pre):] for n in ref if n.startswith(pre)}
+        if mine != theirs:
+            raise ValueError(
+                f"layer {i}: reference leaves missing from the port: "
+                f"{sorted(theirs - mine)}; port parameters with no "
+                f"reference leaf: {sorted(mine - theirs)}")
+    for name, param in names.items():
+        arr = np.array(ref[name], dtype=np.float32)
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {arr.shape}, port "
                              f"shape {tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(torch.from_numpy(arr).to(param.dtype))
-
-    load(model.embed, tree["embed"], "embed")
-    load(model.head, tree["head"], "head")
-    load(model.final_norm.scale, tree["final_norm"]["scale"],
-         "final_norm.scale")
-    for i, (blk, ref) in enumerate(zip(model.layers, _jax_layers(cfg, tree))):
-        names = dict(blk.named_parameters())
-        if set(names) != set(ref):
-            raise ValueError(
-                f"layer {i}: reference leaves missing from the port: "
-                f"{sorted(set(ref) - set(names))}; port parameters with no "
-                f"reference leaf: {sorted(set(names) - set(ref))}")
-        for name, param in names.items():
-            load(param, ref[name], f"layers.{i}.{name}")
     return model

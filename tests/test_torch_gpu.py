@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.execution import combine_scale_rows
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels._build import QUANT_KERNELS
+from repro_torch.kernels._build import BACKWARD_KERNELS, QUANT_KERNELS
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                   paged_decode_attention_plain)
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
@@ -226,7 +226,8 @@ def test_paged_engine_serves_mla_through_the_mla_kernel(cuda):
         assert launches.pop("paged_attention") == 0
         assert launches.pop("paged_attention_mla") == \
             (cfg.n_layers * eng.n_forwards if kv_block else 0)
-        assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
+        assert all(launches.pop(k) == 0 for k in QUANT_KERNELS
+                   + BACKWARD_KERNELS), ops.LAUNCHES
         expect = n_moe_layers(cfg) * eng.n_forwards
         assert all(n == expect for n in launches.values()), ops.LAUNCHES
 
@@ -272,7 +273,8 @@ def test_engine_launches_each_kernel_once_per_moe_layer_forward(cuda):
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == 0
     assert launches.pop("paged_attention_mla") == 0
-    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
+    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS
+               + BACKWARD_KERNELS), ops.LAUNCHES
     assert all(n == expect for n in launches.values()), ops.LAUNCHES
 
 
@@ -303,7 +305,8 @@ def test_paged_engine_launches_attention_per_layer_forward(cuda):
     launches = dict(ops.LAUNCHES)
     assert launches.pop("paged_attention") == cfg.n_layers * eng.n_forwards
     assert launches.pop("paged_attention_mla") == 0
-    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS), ops.LAUNCHES
+    assert all(launches.pop(k) == 0 for k in QUANT_KERNELS
+               + BACKWARD_KERNELS), ops.LAUNCHES
     expect = n_moe_layers(cfg) * eng.n_forwards
     assert all(n == expect for n in launches.values()), ops.LAUNCHES
     assert eng.kv.stats()["prefix_hit_tokens"] >= 16
@@ -459,3 +462,146 @@ def test_paged_engine_serves_int8_experts_through_int8_kernels(cuda):
                  "permute", "unpermute"):
         assert launches.pop(name) == expect, (name, ops.LAUNCHES)
     assert all(n == 0 for n in launches.values()), ops.LAUNCHES
+
+
+# ---------------------------------------------------------------- backward
+def routed_pair(dev, T, E, k, d, f, dtype, policy, experts=None, seed=0):
+    """A schedule of T tokens (routed to ``experts`` only, when given) and
+    x, dy in its padded layout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((T, E), generator=g, device=dev)
+    if experts is not None:
+        keep = torch.zeros(E, dtype=torch.bool, device=dev)
+        keep[list(experts)] = True
+        logits = torch.where(keep, logits, torch.full_like(logits, -1e4))
+    _, idx = ref.router_ref(logits, k)
+    sched = (build_fixed_schedule(idx, E, 128) if policy == "fixed"
+             else build_dynamic_schedule(idx, E, 128))
+    x = ops.permute(torch.randn((T, d), generator=g, device=dev).to(dtype),
+                    sched)
+    dy = ops.permute(torch.randn((T, f), generator=g, device=dev).to(dtype),
+                     sched)
+    return sched, x, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,E,k,d,f,experts", [
+    (512, 8, 2, 128, 192, None),
+    (64, 16, 4, 80, 48, None),          # K and N not multiples of 64
+    (96, 16, 2, 128, 64, (0, 3, 7, 15))])   # 12 experts with no tokens
+def test_grouped_wgrad_kernel_matches_plain(cuda, T, E, k, d, f, experts,
+                                            dtype, policy):
+    """B7 against its plain version: fp32 output, both sides sum exact
+    products in fp32 (1e-4); every element written (the allocator is
+    poisoned with NaN first); exact zeros for experts with no tokens."""
+    sched, x, dy = routed_pair(cuda, T, E, k, d, f, DTYPES[dtype], policy,
+                               experts)
+    junk = torch.full((E * d * f,), float("nan"), device=cuda)
+    del junk
+    ops.reset_launches()
+    dw = ops.grouped_wgrad(x, dy, sched, E)
+    assert ops.LAUNCHES["grouped_wgrad"] == 1
+    want = ref.grouped_wgrad_ref(x, dy, sched, E)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32 and dw.shape == (E, d, f)
+    assert not torch.isnan(dw).any()
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4)
+    empty = sched.counts == 0
+    assert torch.equal(dw[empty], torch.zeros_like(dw[empty]))
+    if experts is not None:
+        assert int(empty.sum()) == E - len(experts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,E,k,d,f", [(512, 8, 2, 128, 192),
+                                       (64, 16, 4, 80, 48)])
+def test_grouped_gemm_t_kernel_matches_plain(cuda, T, E, k, d, f, dtype,
+                                             policy):
+    """B1 with its weight read transposed: dy (capacity, f) against the
+    forward's (E, d, f) stack -> (capacity, d); zeros on inactive blocks."""
+    sched, _, dy = routed_pair(cuda, T, E, k, d, f, DTYPES[dtype], policy)
+    w = (torch.randn((E, d, f), device=cuda) * f ** -0.5).to(DTYPES[dtype])
+    ops.reset_launches()
+    out = ops.grouped_gemm_t(dy, w, sched)
+    assert ops.LAUNCHES["grouped_gemm_t"] == 1
+    want = ref.grouped_gemm_t_ref(dy, w, sched)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+def plain_moe(x, router, wg, wu, wd, cfg):
+    """The MoE layer composed of the kernels' plain versions, for autograd
+    to differentiate (torch's own backward of each plain op)."""
+    from repro_torch.execution import plan_schedule, router_aux_losses
+    logits = torch.matmul(x.float(), router.float())
+    w, idx = ref.router_ref(logits, cfg.top_k, gating=cfg.gating,
+                            norm_topk=cfg.norm_topk,
+                            routed_scale=cfg.routed_scale)
+    sched = plan_schedule(idx, cfg)
+    xp = ref.permute_ref(x, sched)
+    h = ref.fused_gate_up_ref(xp, wg, wu, sched)
+    y = ref.grouped_gemm_ref(h, wd, sched, combine_scale_rows(sched, w))
+    return ref.unpermute_ref(y, sched, None), router_aux_losses(logits, idx,
+                                                                cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+def test_moe_backward_on_kernels_matches_autograd_through_plain(cuda, policy,
+                                                                fuse):
+    """fp32 (1e-4): the layer's gradients with respect to x, the router and
+    the three stacks, on the kernels (B7 three times, B1^T three times)
+    against autograd through the plain versions."""
+    T, E, k, d, f = 96, 16, 4, 128, 96
+    _, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.float32, seed=3)
+    router = torch.randn((d, E), device=cuda) * d ** -0.5
+    proj = torch.randn((T, d), device=cuda)
+    cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                            executor="cuda", gating="sigmoid",
+                            norm_topk=True, routed_scale=2.446,
+                            fuse_gate_up=fuse, schedule_policy=policy)
+    grads = []
+    for fn in (moe_ffn, plain_moe):
+        args = [t.clone().requires_grad_(True)
+                for t in (x, router, wg, wu, wd)]
+        ops.reset_launches()
+        y, aux = fn(*args, cfg)
+        loss = ((y * proj).sum() + 0.01 * aux["lb_loss"]
+                + 1e-4 * aux["router_z"])
+        loss.backward()
+        grads.append([a.grad for a in args])
+        if fn is moe_ffn:
+            assert ops.LAUNCHES["grouped_wgrad"] == 3
+            assert ops.LAUNCHES["grouped_gemm_t"] == 3
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+def test_moe_backward_makes_no_host_sync(cuda, policy):
+    T, E, k, d, f = 64, 64, 6, 256, 192
+    _, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
+    args = [t.requires_grad_(True) for t in
+            (x, torch.randn((d, E), device=cuda), wg, wu, wd)]
+    cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                            executor="cuda", gating="sigmoid",
+                            norm_topk=True, routed_scale=2.446,
+                            schedule_policy=policy)
+    y, _ = moe_ffn(*args, cfg)
+    y.float().sum().backward()                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_ffn(*args, cfg)
+        (y.float().sum() + aux["lb_loss"]).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(a.grad).all() for a in args)
