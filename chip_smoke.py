@@ -8,7 +8,10 @@ result line):
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles the kernels from src/repro_torch/csrc with nvcc for
    sm_90a (one process per source, in parallel, into build/kernels/) and
-   prints the build time;
+   prints the build time, each source's, and ptxas's registers per kernel;
+   then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+   the SASS of the backward's Hopper kernels (``cuobjdump -sass`` on the
+   built library) and fails if either count of any of them is 0;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    bf16 and fp32.  The five MoE kernels at moonshot-v1-16b-a3b's full width
    (decode T=2 and T=4, prefill T=64) on the ``fixed`` schedule and on the
@@ -44,19 +47,22 @@ result line):
    bound (bytes and tensor-core operations, each named), its plain version
    and scaled_dot_product_attention over the contiguous concatenated view.
    The five MoE kernels at moonshot's training shape (T = 8 x 512 = 4096
-   tokens, capacity 32,768 rows on ``fixed``), bf16, both policies.  The
-   backward's two kernels at that shape for moonshot's MoE layer and
-   deepseek-v2's (E=160), on both policies, bf16 and fp32, in both
-   orientations the layer's backward runs (gate/up: x (capacity, d), dy
-   (capacity, f), W (E, d, f); down: x = h (capacity, f), dy the scaled
-   output gradient (capacity, d), W_down (E, f, d)): the grouped weight
-   gradient B7 (x, dy -> dW f32: within 1e-4, exact zeros for experts with
-   no tokens, every element written after NaN poisoning) and B1 with its
-   weight read transposed (the dX product: within the GEMM tolerances,
-   inactive rows zero); timed in
-   bf16 beside their bounds (bytes and tensor-core operations), their plain
-   versions and ``torch._grouped_mm`` (2-D x 2-D for B7, 2-D x 3-D for
-   B1^T; timed only);
+   tokens, capacity 32,768 rows on ``fixed``), bf16, both policies, held
+   and timed (B1 and B2 beside their bounds and B1 beside
+   ``torch._grouped_mm``).  The backward's two kernels at that shape for
+   moonshot's MoE layer and deepseek-v2's (E=160), on both policies, bf16
+   and fp32, in both orientations the layer's backward runs (gate/up: x
+   (capacity, d), dy (capacity, f), W (E, d, f); down: x = h (capacity,
+   f), dy the scaled output gradient (capacity, d), W_down (E, f, d)): the
+   grouped weight gradient B7 (x, dy -> dW) with fp32 output (within 1e-4)
+   and with bf16 output (the form training launches; within the bf16
+   tolerance), exact zeros for experts with no tokens, every element
+   written after NaN poisoning, bitwise equal across two calls; and B1 with
+   its weight read transposed (the dX product: within the GEMM
+   tolerances, inactive rows zero); timed in bf16 beside their bounds
+   (bytes and tensor-core operations), their plain versions and
+   ``torch._grouped_mm`` (2-D x 2-D for B7, 2-D x 3-D for B1^T; timed
+   only);
 4. MoE layer: ``moe_ffn`` on the ``cuda`` executor under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    layer), with the ``fixed`` and the ``dynamic`` policy: at moonshot width
@@ -113,7 +119,8 @@ result line):
    ``--layers`` does not change it): 5 steps of batch 8 x seq 512 on the
    reference's Markov tokens, each step's loss, grad_norm, time, peak
    memory and launches printed (per step and MoE layer: B7 and B1^T 3
-   each, permute and unpermute 2 each; every loss finite), one step under
+   each, B7 writing the bf16 expert copy's gradient directly, permute and
+   unpermute 2 each; every loss finite), one step under
    the profiler, then 4 steps on the first batch again at a constant rate
    from fresh moments, whose loss must fall.
 
@@ -181,7 +188,7 @@ SOURCES = {
     "paged_attention_mla": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:100"),
 }
-SOURCES["grouped_gemm_t"] = ("src/repro_torch/csrc/grouped_gemm.cu",
+SOURCES["grouped_gemm_t"] = ("src/repro_torch/csrc/grouped_gemm_t.cu",
                              "src/repro/kernels/grouped_gemm.py:83")
 SOURCES["grouped_wgrad"] = ("src/repro_torch/csrc/grouped_wgrad.cu",
                             "src/repro/kernels/grouped_wgrad.py:62")
@@ -195,11 +202,38 @@ QUANT_SCHEMES = ("int8_expert", "int8_channel", "int4_packed")
 QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("dynamic", 64))
 # the scheme that stands for each format in the kernel report
 REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
+# the backward's Hopper kernels (wgmma + TMA): report name -> the mangled
+# name's stem of each instantiation in the built library
+HOPPER_KERNELS = {"grouped_wgrad": "wgrad_hopper_kernel",
+                  "grouped_gemm_t": "gemm_t_hopper_kernel"}
 
 
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(code)
+
+
+def sass_counts(lib_path) -> dict:
+    """Per instantiation of the backward's Hopper kernels in the built
+    library: its count of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions, from ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if any(stem in name for stem in
+                             HOPPER_KERNELS.values()) else None
+            if fn is not None:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    counts[fn][op] += 1
+    return counts
 
 
 def smi_line() -> str:
@@ -704,8 +738,9 @@ class TrainCase:
         es = self.x.element_size()
         cap = self.sched.capacity
         rows, nb = self.n_active_blocks * M, cap // M
-        if name == "grouped_wgrad":
-            return (rows * (K + N) * es + E * K * N * 4 + nb * 8 + E * 4,
+        if name.startswith("grouped_wgrad"):
+            out_es = 2 if name == "grouped_wgrad_bf16" else 4
+            return (rows * (K + N) * es + E * K * N * out_es + nb * 8 + E * 4,
                     2 * rows * K * N)
         if name == "grouped_gemm_t":
             return (rows * N * es + self.n_experts_used * K * N * es + nb * 8
@@ -713,15 +748,23 @@ class TrainCase:
         raise KeyError(name)
 
     def calls(self):
-        """name -> (kernel call, plain call, output numel, output dtype)."""
+        """name -> (kernel call, plain call, output numel, output dtype);
+        ``grouped_wgrad_bf16`` is B7 writing bf16, as training runs it."""
         import torch
         from repro_torch.kernels import ops, ref
         E, cap = self.shape["E"], self.sched.capacity
+        bf16 = torch.bfloat16
         return {
             "grouped_wgrad": (
                 lambda: ops.grouped_wgrad(self.x, self.dy, self.sched, E),
                 lambda: ref.grouped_wgrad_ref(self.x, self.dy, self.sched, E),
                 E * self.K * self.N, torch.float32),
+            "grouped_wgrad_bf16": (
+                lambda: ops.grouped_wgrad(self.x, self.dy, self.sched, E,
+                                          out_dtype=bf16),
+                lambda: ref.grouped_wgrad_ref(self.x, self.dy, self.sched, E,
+                                              out_dtype=bf16),
+                E * self.K * self.N, bf16),
             "grouped_gemm_t": (
                 lambda: ops.grouped_gemm_t(self.dout, self.w, self.sched),
                 lambda: ref.grouped_gemm_t_ref(self.dout, self.w, self.sched),
@@ -732,22 +775,28 @@ class TrainCase:
 def check_train_case(c: TrainCase, errs: dict) -> None:
     """B7 and B1^T against their plain versions: no NaN after poisoning the
     allocator; B7 exactly zero for experts with no tokens and within
-    WGRAD_TOL (an fp32 output summing exact products in fp32 on both
-    sides); B1^T zero on inactive rows and within TOL."""
+    WGRAD_TOL with fp32 output (both sides sum exact products in fp32),
+    within the bf16 TOL with bf16 output (both round that sum once); B1^T
+    zero on inactive rows and within TOL; each bitwise equal across two
+    calls (one fixed order of summation, no atomics)."""
     import torch
     for name, (kern, plain, numel, odt) in c.calls().items():
         got = poisoned(kern, numel, odt)
+        again = kern()
         want = plain()
         torch.cuda.synchronize()
         if torch.isnan(got).any():
             raise AssertionError(f"{name}: NaN in output ({c.label()})")
-        dead = got[c.empty_experts] if name == "grouped_wgrad" \
-            else got[c.inactive_rows]
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two calls differ ({c.label()})")
+        del again
+        wgrad = name.startswith("grouped_wgrad")
+        dead = got[c.empty_experts] if wgrad else got[c.inactive_rows]
         if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
             raise AssertionError(f"{name}: rows with no tokens not zero "
                                  f"({c.label()})")
         tol = WGRAD_TOL if name == "grouped_wgrad" \
-            else TOL[str(c.dtype).replace("torch.", "")]
+            else TOL[str(odt).replace("torch.", "")]
         torch.testing.assert_close(got.float(), want.float(), **tol)
         err = (got.float() - want.float()).abs().max().item()
         errs[name] = max(errs.get(name, 0.0), err)
@@ -766,7 +815,7 @@ def train_library_call(name: str, c: TrainCase):
     if c.dtype != torch.bfloat16 or not hasattr(torch, "_grouped_mm"):
         return None, "torch._grouped_mm absent or not bf16"
     offs = c.sched.group_offsets[1:].contiguous()
-    if name == "grouped_wgrad":
+    if name.startswith("grouped_wgrad"):
         # 2-D x 2-D: x^T (d, capacity) and dy (capacity, f), split along
         # the rows by offs -> (E, d, f)
         xt = c.x.t()
@@ -1738,7 +1787,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc, sm_90a) into {_build.BUILD_DIR.relative_to(ROOT)}")
+          f"(nvcc, sm_90a) into {_build.BUILD_DIR.relative_to(ROOT)}; per "
+          "source (in parallel): " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())))
     entry = None
     for line in _build.build_log.splitlines():      # ptxas -v, per kernel
         if "Compiling entry function" in line:
@@ -1746,6 +1797,14 @@ def main() -> None:
         elif "Used" in line and entry is not None:
             print(f"  ptxas {entry[:64]}: {line.split(':', 1)[1].strip()}")
             entry = None
+    sass = sass_counts(_build.build())
+    for fn, n in sass.items():
+        print(f"  SASS {fn[:72]}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}")
+    for name, stem in HOPPER_KERNELS.items():
+        found = [n for fn, n in sass.items() if stem in fn]
+        if not found or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0
+                            for n in found):
+            fail(f"{name}: no wgmma or no TMA load in the SASS of {stem}")
 
     # 3. kernels against plain versions, then times ---------------------------
     print("[kernels] CUDA kernel vs plain PyTorch version on the card")
@@ -1791,11 +1850,12 @@ def main() -> None:
                 del c
                 torch.cuda.empty_cache()
     # B1-B5 at the training shape (T = 4096 tokens, bf16): the forward that
-    # each training step runs
+    # each training step runs, held and timed
     for policy in ("fixed", "dynamic"):
         c = Case(MOONSHOT, TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16,
                  seed=TRAIN_BATCH * TRAIN_SEQ, policy=policy)
         check_case(c, errs)
+        timings[policy, TRAIN_BATCH * TRAIN_SEQ] = time_case(c)
         del c
         torch.cuda.empty_cache()
     # the backward's B7 and B1^T at the training shape (T = 4096 tokens):
@@ -2175,14 +2235,29 @@ def main() -> None:
         elif name in _build.BACKWARD_KERNELS:
             entry["launches"] = train["launches"][name]
             tkeys = keys + ("bound_bytes_ms", "bound_ops_ms")
-            d = train_t["moonshot", "fixed", "gate_up"][name]
+            # B7's entry is its bf16-output form, the one training launches
+            tname = "grouped_wgrad_bf16" if name == "grouped_wgrad" else name
+            d = train_t["moonshot", "fixed", "gate_up"][tname]
+
+            def cells(tn, skip=("fixed", "gate_up")):
+                return {**{f"{policy}_{orient}": {
+                    k: train_t["moonshot", policy, orient][tn][k]
+                    for k in tkeys}
+                    for policy in ("fixed", "dynamic")
+                    for orient in ("gate_up", "down")
+                    if (policy, orient) != skip},
+                    "deepseek": {f"{policy}_{orient}": {
+                        k: train_t["deepseek", policy, orient][tn][k]
+                        for k in tkeys}
+                        for policy in ("fixed", "dynamic")
+                        for orient in ("gate_up", "down")}}
             extra = {
                 "shape": (f"moonshot-v1-16b-a3b bf16 training, T="
                           f"{TRAIN_BATCH * TRAIN_SEQ} (batch {TRAIN_BATCH} x "
                           f"seq {TRAIN_SEQ}), fixed schedule, gate/up "
                           "orientation; "
                           + ("x (capacity, 2048), dy (capacity, 1408) -> "
-                             "dW (64, 2048, 1408) f32"
+                             "dW (64, 2048, 1408) bf16"
                              if name == "grouped_wgrad" else
                              "dy (capacity, 1408) x W (64, 2048, 1408) "
                              "read transposed -> (capacity, 2048)")),
@@ -2192,17 +2267,14 @@ def main() -> None:
                                 "gate/up orientation, 1 in the down one)",
                 "bound_bytes_ms": d["bound_bytes_ms"],
                 "bound_ops_ms": d["bound_ops_ms"],
-                **{f"{policy}_{orient}": {
-                    k: train_t["moonshot", policy, orient][name][k]
-                    for k in tkeys}
-                   for policy in ("fixed", "dynamic")
-                   for orient in ("gate_up", "down")
-                   if (policy, orient) != ("fixed", "gate_up")},
-                "deepseek": {f"{policy}_{orient}": {
-                    k: train_t["deepseek", policy, orient][name][k]
-                    for k in tkeys}
-                    for policy in ("fixed", "dynamic")
-                    for orient in ("gate_up", "down")}}
+                "sass": {fn: n for fn, n in sass.items()
+                         if HOPPER_KERNELS[name] in fn},
+                **cells(tname)}
+            if name == "grouped_wgrad":
+                entry["max_abs_err"] = errs["grouped_wgrad_bf16"]
+                extra.update({"out_dtype": "bfloat16",
+                              "max_abs_err_fp32_out": errs[name],
+                              "fp32_out": cells(name, skip=None)})
         elif name == "paged_attention":
             d, extra = paged_t["decode"], {
                 "shape": "moonshot-v1-16b-a3b bf16 paged decode B=2 "
@@ -2234,7 +2306,10 @@ def main() -> None:
                 "deepseek": {f"{policy}_T{T}": {
                     k: ds_timings[policy, T][name][k] for k in keys}
                     for policy, T in sorted(ds_timings)},
-                "launches_deepseek": deepseek["paged"]["launches"][name]}
+                "launches_deepseek": deepseek["paged"]["launches"][name],
+                "training_T4096": {policy: {
+                    k: timings[policy, TRAIN_BATCH * TRAIN_SEQ][name][k]
+                    for k in keys} for policy in ("fixed", "dynamic")}}
         entry.update({k: d[k] for k in keys})
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})

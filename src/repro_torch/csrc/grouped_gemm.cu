@@ -31,22 +31,3 @@ MOE_API int moe_grouped_gemm(const void* x, const void* w,
                                  capacity, K, N, block_m, dtype, w_format,
                                  s_e, s_n, stream);
 }
-
-// The backward's dX product with the weight read transposed in place:
-// out[block m] = x[block m] @ W[block_expert[m]]^T, W (E, N, K) as stored
-// for the forward (E, in, out), x (capacity, K) -> (capacity, N), no
-// epilogue.  Dense only.  What bounds it is what bounds the forward at the
-// same shapes: at training's full blocks (fixed policy, T = 4096) the
-// tensor cores; the design reads each weight tile once per 128-row
-// schedule block from the forward's own layout, so no transposed copy of
-// an expert stack (369 MB per bf16 matrix at moonshot's width) is built.
-MOE_API int moe_grouped_gemm_t(const void* x, const void* w,
-                               const void* block_expert,
-                               const void* block_active, void* out,
-                               int capacity, int K, int N, int block_m,
-                               int dtype, void* stream) {
-  return moe_gemm::launch<false, true>(x, w, nullptr, nullptr, nullptr,
-                                       block_expert, block_active, nullptr,
-                                       out, capacity, K, N, block_m, dtype,
-                                       moe_gemm::kDense, 0, 0, stream);
-}

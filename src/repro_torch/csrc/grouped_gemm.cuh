@@ -49,16 +49,15 @@
 // quantized 16-row kernel's blocks take several row tiles each
 // (tiles_per_block).
 //
-// Weight layout (the compile-time parameter TRANS, dense only; the
-// instantiations with TRANS = false are the code above, unchanged): TRANS
-// reads W[e] transposed in place, out[block m] = x[block m] @ W[e]^T, for
-// the backward's dX products.  Here K is the reduction (W's last axis) and
-// N the output width (W's middle axis), so W[e] is (N, K) row-major.  bf16:
-// each ring stage holds the B tile as BN rows of BK contiguous K values
-// (16-byte cp.async copies along K) and the tensor cores read it as a
-// col_major matrix_b fragment; fp32: each thread loads 4 K values of one
-// column and stores them down the (BK, BN) shared tile.  No transposed copy
-// of the weights is ever built.
+// Weight layout (the compile-time parameter TRANS of the fp32 kernel,
+// dense only; the instantiations with TRANS = false are the code above,
+// unchanged): TRANS reads W[e] transposed in place, out[block m] = x[block
+// m] @ W[e]^T, the backward's dX product in fp32 (grouped_gemm_t.cu; its
+// bf16 form is a Hopper kernel of its own there).  Here K is the reduction
+// (W's last axis) and N the output width (W's middle axis), so W[e] is (N,
+// K) row-major: each thread loads 4 K values of one column and stores them
+// down the (BK, BN) shared tile.  No transposed copy of the weights is ever
+// built.
 #pragma once
 
 #include <mma.h>
@@ -133,14 +132,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // (decode) kernel takes 64 rows per stage in int8 and int4: twice the
 // bytes in flight per step and half the steps.  The 128-row kernel keeps
 // 32 (its A tile would grow to 18 KB per stage).
-template <int BM, bool FUSED, int FMT, bool TRANS = false>
+template <int BM, bool FUSED, int FMT>
 struct Bf16Tiles {
   static constexpr int BK = (FMT != kDense && BM == 16) ? 64 : 32;
   static constexpr int STAGES = 4, NW = FUSED ? 2 : 1;
   static constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-  static constexpr int LDBT = BK + 8;          // TRANS: (BN, BK) B tile pitch
   static constexpr int A_BYTES = BM * LDA * 2;
-  static constexpr int B_BYTES = TRANS ? BN * LDBT * 2 : BK * LDB * 2;
+  static constexpr int B_BYTES = BK * LDB * 2;
   static constexpr int QROWS = payload_rows<FMT>(BK), Q_BYTES = QROWS * BN;
   static constexpr int W_BYTES = FMT == kDense ? B_BYTES : Q_BYTES;
   static constexpr int STAGE_BYTES = A_BYTES + NW * W_BYTES;
@@ -220,8 +218,7 @@ __device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
 // in one wave.  For int8/int4 the ring carries the compressed tiles and
 // each is expanded into Xs before its products (see the header).
 // One active (ROWS, BN) output tile at (m0, n0) of expert e.
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT,
-          bool TRANS>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 __device__ __forceinline__ void
 gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
                const void* __restrict__ w1, const float* __restrict__ s0,
@@ -229,12 +226,11 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
                const float* __restrict__ row_scale, bf16* __restrict__ out,
                int K, int N, int s_e, int s_n, int m0, int n0, size_t e) {
   using namespace nvcuda;
-  using C = Bf16Tiles<BM, FUSED, FMT, TRANS>;
+  using C = Bf16Tiles<BM, FUSED, FMT>;
   constexpr bool QUANT = FMT != kDense;
-  static_assert(!(TRANS && (QUANT || FUSED)), "TRANS: dense, one operand");
   constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   constexpr int BK = C::BK, STAGES = C::STAGES;
-  constexpr int LDA = C::LDA, LDB = C::LDB, LDC = C::LDC, LDBT = C::LDBT;
+  constexpr int LDA = C::LDA, LDB = C::LDB, LDC = C::LDC;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   constexpr int FM = WM / 16, FN = WN / 16;
   static_assert(ROWS <= BM && BM % 16 == 0, "tile rows");
@@ -269,15 +265,7 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
       cp_async16(As + r * LDA + c,
                  ok ? x + (size_t)(m0 + r) * K + k0 + c : x, ok);
     }
-    if constexpr (TRANS) {
-      // W[e] is (N, K): BN rows of BK contiguous K values, 16 bytes a copy
-      for (int v = tid; v < BN * (BK / 8); v += THREADS) {
-        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-        const bool ok = (n0 + r < N) && (k0 + c < K);
-        const size_t off = ok ? (size_t)(n0 + r) * K + k0 + c : 0;
-        cp_async16(Bs0 + r * LDBT + c, W0 + off, ok);
-      }
-    } else if constexpr (!QUANT) {
+    if constexpr (!QUANT) {
       for (int v = tid; v < BK * (BN / 8); v += THREADS) {
         const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
         const bool ok = (k0 + r < K) && (n0 + c < N);
@@ -349,27 +337,16 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(a[i], As + (wm * WM + i * 16) * LDA + kk, LDA);
-      if constexpr (TRANS) {
 #pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, Bs0 + (wn * WN + j * 16) * LDBT + kk,
-                                 LDBT);
+      for (int j = 0; j < FN; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, Bs0 + kk * LDB + wn * WN + j * 16, LDB);
 #pragma unroll
-          for (int i = 0; i < FM; ++i) wmma::mma_sync(acc0[i][j], a[i], b, acc0[i][j]);
-        }
-      } else {
+        for (int i = 0; i < FM; ++i) wmma::mma_sync(acc0[i][j], a[i], b, acc0[i][j]);
+        if (FUSED) {
+          wmma::load_matrix_sync(b, Bs1 + kk * LDB + wn * WN + j * 16, LDB);
 #pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs0 + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-          for (int i = 0; i < FM; ++i) wmma::mma_sync(acc0[i][j], a[i], b, acc0[i][j]);
-          if (FUSED) {
-            wmma::load_matrix_sync(b, Bs1 + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-            for (int i = 0; i < FM; ++i) wmma::mma_sync(acc1[i][j], a[i], b, acc1[i][j]);
-          }
+          for (int i = 0; i < FM; ++i) wmma::mma_sync(acc1[i][j], a[i], b, acc1[i][j]);
         }
       }
     }
@@ -424,8 +401,7 @@ __host__ __device__ constexpr int tiles_per_block() {
   return (FMT != kDense && BM == 16) ? 4 : 1;
 }
 
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT,
-          bool TRANS>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, 2)
 gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
                  const void* __restrict__ w1, const float* __restrict__ s0,
@@ -444,7 +420,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
       store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
       return;
     }
-    gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT, TRANS>(
+    gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>(
         x, w0, w1, s0, s1, row_scale, out, K, N, s_e, s_n, m0, n0,
         (size_t)block_expert[mb]);
   } else {
@@ -462,7 +438,7 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
       if (act[t] == 0) {
         store_zero_tile<bf16, ROWS, THREADS>(out, m0, n0, N);
       } else if (act[t] > 0) {
-        gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT, TRANS>(
+        gemm_bf16_tile<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>(
             x, w0, w1, s0, s1, row_scale, out, K, N, s_e, s_n, m0, n0,
             (size_t)ex[t]);
         __syncthreads();                  // shared memory is reused
@@ -471,16 +447,14 @@ gemm_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ w0,
   }
 }
 
-template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT,
-          bool TRANS>
+template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 inline void launch_bf16(dim3 grid, cudaStream_t s, const bf16* x,
                         const void* w0, const void* w1, const float* s0,
                         const float* s1, const int* be, const int* ba,
                         const float* rs, bf16* out, int K, int N, int block_m,
                         int s_e, int s_n) {
-  constexpr int smem = Bf16Tiles<BM, FUSED, FMT, TRANS>::SMEM;
-  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT,
-                                  TRANS>;
+  constexpr int smem = Bf16Tiles<BM, FUSED, FMT>::SMEM;
+  auto* kernel = gemm_bf16_kernel<BM, WARPS_M, WARPS_N, FUSED, ROWS, FMT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
@@ -647,7 +621,7 @@ gemm_f32_kernel(const float* __restrict__ x, const void* __restrict__ w0,
 }
 
 // ---------------------------------------------------------------- launch
-template <bool FUSED, int FMT, bool TRANS = false>
+template <bool FUSED, int FMT>
 inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
                        const void* w0, const void* w1, const float* s0,
                        const float* s1, const int* be, const int* ba,
@@ -657,27 +631,26 @@ inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
     const bf16* xb = (const bf16*)x;
     bf16* o = (bf16*)out;
     if (rows == 128)
-      launch_bf16<128, 4, 2, FUSED, 128, FMT, TRANS>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      launch_bf16<128, 4, 2, FUSED, 128, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
     else if (rows == 16)
-      launch_bf16<16, 1, 4, FUSED, 16, FMT, TRANS>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      launch_bf16<16, 1, 4, FUSED, 16, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
     else
-      launch_bf16<16, 1, 4, FUSED, 8, FMT, TRANS>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      launch_bf16<16, 1, 4, FUSED, 8, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
   } else {
     const float* xf = (const float*)x;
     float* o = (float*)out;
     if (rows == 128)
-      gemm_f32_kernel<128, FUSED, 128, FMT, TRANS><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      gemm_f32_kernel<128, FUSED, 128, FMT, false><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
     else if (rows == 16)
-      gemm_f32_kernel<16, FUSED, 16, FMT, TRANS><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      gemm_f32_kernel<16, FUSED, 16, FMT, false><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
     else
-      gemm_f32_kernel<16, FUSED, 8, FMT, TRANS><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      gemm_f32_kernel<16, FUSED, 8, FMT, false><<<grid, 256, 0, s>>>(xf, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
   }
 }
 
 // w_format: 0 dense, 1 int8, 2 int4 (WFormat); the scales (int8/int4 only)
-// are read at scale[e * s_e + n * s_n].  TRANS (dense only): W read as
-// (E, N, K), see the header.
-template <bool FUSED, bool TRANS = false>
+// are read at scale[e * s_e + n * s_n].
+template <bool FUSED>
 inline int launch(const void* x, const void* w0, const void* w1,
                   const void* scale0, const void* scale1,
                   const void* block_expert, const void* block_active,
@@ -700,9 +673,7 @@ inline int launch(const void* x, const void* w0, const void* w1,
   const float* s0 = (const float*)scale0;
   const float* s1 = (const float*)scale1;
   if (w_format == kDense)
-    launch_fmt<FUSED, kDense, TRANS>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
-  else if (TRANS)
-    return (int)cudaErrorInvalidValue;
+    launch_fmt<FUSED, kDense>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
   else if (w_format == kInt8)
     launch_fmt<FUSED, kInt8>(grid, s, rows, x, w0, w1, s0, s1, be, ba, rs, out, K, N, block_m, dtype, s_e, s_n);
   else if (w_format == kInt4)

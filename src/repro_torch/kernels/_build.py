@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
 
@@ -47,8 +48,9 @@ _SIGNATURES = {
     "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "moe_grouped_gemm": [_P] * 7 + [_I] * 8 + [_P],
     "moe_fused_gate_up": [_P] * 8 + [_I] * 8 + [_P],
-    "moe_grouped_gemm_t": [_P] * 5 + [_I] * 5 + [_P],
-    "moe_grouped_wgrad": [_P] * 6 + [_I] * 6 + [_P],
+    "moe_grouped_gemm_t": [_P] * 7 + [_I] * 6 + [_P],
+    "moe_grouped_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    "moe_expert_tiles": [_P] * 4 + [_I] * 3 + [_P],
     "moe_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
     "moe_paged_attention_mla": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
 }
@@ -56,6 +58,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_log = ""          # nvcc's output (register and shared-memory use)
+build_seconds = {}      # source name -> seconds its nvcc took
 
 
 def reset_launches() -> None:
@@ -95,16 +98,26 @@ def build() -> pathlib.Path:
     cu, _ = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in cu:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
+            log = open(pathlib.Path(tmp) / (src.stem + ".log"), "w+")
+            procs.append((src, log, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=log, stderr=subprocess.STDOUT, text=True)))
+        running = list(procs)
+        while running:                  # each source's own build time
+            for item in list(running):
+                if item[2].poll() is not None:
+                    build_seconds[item[0].name] = time.perf_counter() - t0
+                    running.remove(item)
+            time.sleep(0.05)
         logs, failed = [], []
-        for src, p in procs:
-            out, _ = p.communicate()
-            logs.append(f"== {src.name}\n{out}")
+        for src, log, p in procs:
+            log.seek(0)
+            logs.append(f"== {src.name}\n{log.read()}")
+            log.close()
             if p.returncode != 0:
                 failed.append(src.name)
         build_log = "\n".join(logs)
@@ -162,6 +175,12 @@ def require(cond: bool, msg: str) -> None:
     """Raise on an input the kernel does not take."""
     if not cond:
         raise ValueError(msg)
+
+
+def aligned(*tensors) -> bool:
+    """True when every tensor starts on a 16-byte boundary (what TMA
+    takes)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def on_cuda(*tensors) -> bool:

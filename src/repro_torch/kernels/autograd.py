@@ -12,7 +12,8 @@ kernel and whose backward is built from the kernels too.
   gradient ``<dout[t], y[pos[t, c]]>`` in torch.
 * ``grouped_gemm`` (optional ``row_scale``): ``g = B1^T(dout, W)``,
   ``dx = row_scale * g``, ``d_row_scale = rowsum(x * g)`` (no recompute, no
-  divide by a zero scale), ``dW = B7(x, row_scale * dout)``.
+  divide by a zero scale), ``dW = B7(x, row_scale * dout)``, written by B7
+  in W's dtype (its fp32 sum rounded once, no separate cast pass).
 * ``fused_gate_up``: recompute ``g = B1(x, Wg)`` and ``u = B1(x, Wu)``;
   ``dg = dh u silu'(g)`` and ``du = dh silu(g)`` in fp32; ``dWg = B7(x,
   dg)``, ``dWu = B7(x, du)``, ``dx = B1^T(dg, Wg) + B1^T(du, Wu)``.
@@ -153,7 +154,8 @@ class _GroupedGemm(torch.autograd.Function):
         if need_w:
             dy = dout if rs is None \
                 else (dout.float() * rs[:, None]).to(dout.dtype)
-            dw = ops.grouped_wgrad(x, dy, sched, w.shape[0]).to(w.dtype)
+            dw = ops.grouped_wgrad(x, dy, sched, w.shape[0],
+                                   out_dtype=w.dtype)
         return dx, dw, drs, None
 
 
@@ -179,9 +181,11 @@ class _FusedGateUp(torch.autograd.Function):
             dx = (ops.grouped_gemm_t(dg, wg, sched).float()
                   + ops.grouped_gemm_t(du, wu, sched).float()).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dwg = ops.grouped_wgrad(x, dg, sched, wg.shape[0]).to(wg.dtype)
+            dwg = ops.grouped_wgrad(x, dg, sched, wg.shape[0],
+                                    out_dtype=wg.dtype)
         if ctx.needs_input_grad[2]:
-            dwu = ops.grouped_wgrad(x, du, sched, wu.shape[0]).to(wu.dtype)
+            dwu = ops.grouped_wgrad(x, du, sched, wu.shape[0],
+                                    out_dtype=wu.dtype)
         return dx, dwg, dwu, None
 
 

@@ -1,0 +1,103 @@
+"""The work lists of the backward's Hopper GEMMs (kernel in
+``csrc/expert_tiles.cu``, launched by B7 and B1^T before their own kernel):
+from a block schedule, each expert's run of rows and the tiles over those
+runs.
+
+* ``runs`` (E, 2) int32: ``[first row, end row)`` of expert e's active
+  blocks, from block ``seg_start[e] // block_m`` to the last consecutive
+  active block of e; ``[start, start)`` for an expert with none.
+* ``tiles`` (n, 3) int32: ``(e, row0, rows)``, the ``TILE_ROWS``-row slices
+  of each run in expert order, then ``(-1, row0, rows)`` slices of the rows
+  past the active blocks (the kernels store zeros there).  Every row of the
+  schedule is in exactly one tile and no tile spans two experts; ``n`` is at
+  most ``max_tiles(capacity, E)``.
+
+The schedule's contract (both ported policies): the active blocks are a
+prefix, and each expert's active blocks are one run starting at block
+``seg_start[e] // block_m``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+TILE_ROWS = 256          # hopper_gemm.cuh TILE_ROWS
+MAX_EXPERTS = 1024       # one thread of expert_tiles_kernel per expert
+
+
+def max_tiles(capacity: int, n_experts: int) -> int:
+    """The most tiles a schedule of ``capacity`` rows can give
+    (hopper_gemm.cuh ``max_tiles``): one partial slice per expert, and one
+    for the zero rows."""
+    return -(-capacity // TILE_ROWS) + n_experts + 1
+
+
+def expert_tiles_plain(seg_start: torch.Tensor, block_expert: torch.Tensor,
+                       block_active: torch.Tensor, *, block_m: int,
+                       capacity: int):
+    """(runs (E, 2), tiles (n, 3)) int32, as the kernel builds them."""
+    E, nb = seg_start.numel(), block_expert.numel()
+    be = block_expert.long()
+    act = block_active != 0
+    nxt_act = torch.cat([act[1:], act.new_zeros(1)])
+    nxt_be = torch.cat([be[1:], be.new_full((1,), -1)])
+    last = act & ~(nxt_act & (nxt_be == be))
+    idx = torch.arange(nb, device=be.device)
+    ends = torch.full((E,), -1, dtype=torch.long, device=be.device)
+    ends[be[last]] = (idx[last] + 1) * block_m
+    b0 = seg_start.long() // block_m
+    start = b0 * block_m
+    b0c = b0.clamp(0, max(nb - 1, 0))
+    ok = (b0 >= 0) & (b0 < nb) & (ends > start)
+    if nb:
+        ok &= act[b0c] & (be[b0c] == torch.arange(E, device=be.device))
+    end = torch.where(ok, ends, start)
+    runs = torch.stack([start, end], 1).to(torch.int32)
+    tiles = []
+    for e, (s, t) in enumerate(runs.tolist()):
+        tiles += [(e, r, min(TILE_ROWS, t - r))
+                  for r in range(s, t, TILE_ROWS)]
+    active = torch.nonzero(act).reshape(-1)
+    active_end = (int(active[-1]) + 1) * block_m if active.numel() else 0
+    tiles += [(-1, r, min(TILE_ROWS, capacity - r))
+              for r in range(active_end, capacity, TILE_ROWS)]
+    return runs, torch.tensor(tiles, dtype=torch.int32).reshape(-1, 3)
+
+
+def scratch(capacity: int, n_experts: int, device) -> torch.Tensor:
+    """The kernels' int32 scratch for the lists (hopper_gemm.cuh
+    ``work_lists``: the tiles as int4, the runs as int2, the count)."""
+    _build.require(0 < n_experts <= MAX_EXPERTS,
+                   f"the backward's Hopper GEMMs take 1 to {MAX_EXPERTS} "
+                   f"experts, not {n_experts}")
+    words = 4 * max_tiles(capacity, n_experts) + 2 * n_experts + 4
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def expert_tiles(seg_start: torch.Tensor, block_expert: torch.Tensor,
+                 block_active: torch.Tensor, *, block_m: int, capacity: int):
+    """CPU tensors run the plain version; CUDA tensors the kernel, whose
+    lists are read back (the count on the host: for the tests, never on
+    the training path, where the GEMMs read the lists on the device)."""
+    if not _build.on_cuda(seg_start, block_expert, block_active):
+        return expert_tiles_plain(seg_start, block_expert, block_active,
+                                  block_m=block_m, capacity=capacity)
+    E = seg_start.numel()
+    nb = capacity // block_m
+    for t, n in ((block_expert, nb), (block_active, nb), (seg_start, E)):
+        _build.require(t.dtype == torch.int32 and t.shape == (n,)
+                       and t.is_contiguous(),
+                       f"expert_tiles takes contiguous int32 schedule "
+                       f"arrays ({n},)")
+    buf = scratch(capacity, E, seg_start.device)
+    lib = _build.library()
+    err = lib.moe_expert_tiles(seg_start.data_ptr(), block_expert.data_ptr(),
+                               block_active.data_ptr(), buf.data_ptr(),
+                               capacity, E, block_m,
+                               _build.stream_ptr(seg_start.device))
+    _build.check(err, "expert_tiles")
+    nt = max_tiles(capacity, E)
+    count = int(buf[4 * nt + 2 * E])
+    runs = buf[4 * nt:4 * nt + 2 * E].reshape(E, 2)
+    tiles = buf[:4 * nt].reshape(nt, 4)[:count, :3]
+    return runs.clone(), tiles.clone()

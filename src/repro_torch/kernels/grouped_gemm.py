@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import expert_tiles as _tiles
 from repro_torch.quantization.schemes import unpack_int4
 
 W_FORMATS = ("dense", "int8", "int4")
@@ -212,13 +213,15 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     return out
 
 
-def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
+def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor, seg_start: torch.Tensor,
                    block_expert: torch.Tensor, block_active: torch.Tensor, *,
                    block_m: int) -> torch.Tensor:
     """``x @ w[e]^T`` per schedule block (``grouped_gemm_t_plain``), w
     dense (E, N, K) in x's dtype.  CPU tensors run the plain version; CUDA
-    tensors the kernel (B1 with its weight read transposed in place)."""
-    if not _build.on_cuda(x, w, block_expert, block_active):
+    tensors the kernel: in bf16 a Hopper kernel over tiles of each expert's
+    run of rows (from ``seg_start``, see ``expert_tiles``), in fp32 B1's
+    template with the weight read transposed in place."""
+    if not _build.on_cuda(x, w, seg_start, block_expert, block_active):
         return grouped_gemm_t_plain(x, w, block_expert, block_active,
                                     block_m=block_m)
     code = _build.dtype_code(x.dtype)
@@ -229,7 +232,9 @@ def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
                    and w.shape[2] == K,
                    f"grouped_gemm_t takes a contiguous (E, N, {K}) weight "
                    f"of dtype {x.dtype}")
-    N = w.shape[1]
+    _build.require(_build.aligned(x, w),
+                   "grouped_gemm_t takes x and w on 16-byte boundaries")
+    E, N = w.shape[0], w.shape[1]
     _build.require(K % 16 == 0 and N % 16 == 0,
                    f"grouped_gemm_t takes K and N multiples of 16 (K={K}, "
                    f"N={N})")
@@ -237,16 +242,18 @@ def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
                    f"grouped_gemm_t takes block_m a multiple of 8 dividing "
                    f"capacity (block_m={block_m}, capacity={cap})")
     nb = cap // block_m
-    for t in (block_expert, block_active):
-        _build.require(t.dtype == torch.int32 and t.shape == (nb,)
+    for t, n in ((block_expert, nb), (block_active, nb), (seg_start, E)):
+        _build.require(t.dtype == torch.int32 and t.shape == (n,)
                        and t.is_contiguous(),
-                       f"grouped_gemm_t takes contiguous int32 ({nb},) "
-                       "schedule arrays")
+                       f"grouped_gemm_t takes contiguous int32 schedule "
+                       f"arrays ({n},)")
     lib = _build.library()
+    buf = _tiles.scratch(cap, E, x.device)
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
     err = lib.moe_grouped_gemm_t(
-        x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
-        block_active.data_ptr(), out.data_ptr(), cap, K, N, block_m, code,
+        x.data_ptr(), w.data_ptr(), seg_start.data_ptr(),
+        block_expert.data_ptr(), block_active.data_ptr(), buf.data_ptr(),
+        out.data_ptr(), cap, K, N, E, block_m, code,
         _build.stream_ptr(x.device))
     _build.check(err, "grouped_gemm_t")
     _build.LAUNCHES["grouped_gemm_t"] += 1

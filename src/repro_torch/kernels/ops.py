@@ -83,21 +83,28 @@ def fused_gate_up(x: torch.Tensor, w_gate, w_up,
                               wg_scale=wsg, wu_scale=wsu, w_format=fmt)
 
 
+def _seg_start(sched: BlockSchedule, kernel: str) -> torch.Tensor:
+    if sched.seg_start is None:
+        raise ValueError(f"{kernel} walks each expert's blocks from the "
+                         "schedule's seg_start, which this schedule lacks")
+    return sched.seg_start
+
+
 def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor,
                    sched: BlockSchedule) -> torch.Tensor:
     """The dX product ``x[block] @ w[e]^T``: x (capacity, N) against the
     forward's dense (E, K, N) stack -> (capacity, K)."""
-    return _gg.grouped_gemm_t(x, w, sched.block_expert, sched.block_active,
+    return _gg.grouped_gemm_t(x, w, _seg_start(sched, "grouped_gemm_t"),
+                              sched.block_expert, sched.block_active,
                               block_m=sched.block_m)
 
 
 def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, sched: BlockSchedule,
-                  n_experts: int) -> torch.Tensor:
+                  n_experts: int, out_dtype=torch.float32) -> torch.Tensor:
     """Training-backward tgmm: ``dW[e] = x_e^T dy_e`` over the padded
-    layout, (E, K, N) fp32, exact zeros for experts with no rows."""
-    if sched.seg_start is None:
-        raise ValueError("grouped_wgrad walks each expert's blocks from the "
-                         "schedule's seg_start, which this schedule lacks")
-    return _wg.grouped_wgrad(x, dy, sched.seg_start, sched.block_expert,
-                             sched.block_active, block_m=sched.block_m,
-                             n_experts=n_experts)
+    layout, (E, K, N) summed in fp32 and rounded once to ``out_dtype``,
+    exact zeros for experts with no rows."""
+    return _wg.grouped_wgrad(x, dy, _seg_start(sched, "grouped_wgrad"),
+                             sched.block_expert, sched.block_active,
+                             block_m=sched.block_m, n_experts=n_experts,
+                             out_dtype=out_dtype)

@@ -63,6 +63,8 @@ def grouped_gemm_t_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def grouped_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
-                      sched: BlockSchedule, n_experts: int) -> torch.Tensor:
+                      sched: BlockSchedule, n_experts: int,
+                      out_dtype=torch.float32) -> torch.Tensor:
     return grouped_wgrad_plain(x, dy, sched.block_expert, sched.block_active,
-                               block_m=sched.block_m, n_experts=n_experts)
+                               block_m=sched.block_m,
+                               n_experts=n_experts).to(out_dtype)

@@ -535,6 +535,120 @@ def test_grouped_gemm_t_kernel_matches_plain(cuda, T, E, k, d, f, dtype,
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
+# the backward's Hopper kernels (wgmma + TMA over per-expert work lists) at
+# shapes that stress their tiling: K and N multiples of 16 but not of 64,
+# experts with no rows and with one, block_m 8, 16 and 128 (runs ending
+# inside a 64-row stage), the dynamic policy's 8-row blocks
+COUNTS = (1, 0, 37, 130, 0, 9, 300, 64)    # tokens per expert (E = 8)
+TILE_SHAPES = [("fixed", 8), ("fixed", 16), ("fixed", 128), ("dynamic", 128)]
+
+
+def counted_pair(dev, K, N, dtype, policy, M, seed=0):
+    """A top-1 schedule giving expert e COUNTS[e] tokens (in shuffled
+    order), and x (capacity, K), dy (capacity, N) in its padded layout."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(np.repeat(np.arange(len(COUNTS)), COUNTS))
+    idx = torch.as_tensor(idx[:, None].astype(np.int32), device=dev)
+    E = len(COUNTS)
+    sched = (build_fixed_schedule(idx, E, M) if policy == "fixed"
+             else build_dynamic_schedule(idx, E, M))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T = idx.shape[0]
+    x = ops.permute(torch.randn((T, K), generator=g, device=dev).to(dtype),
+                    sched)
+    dy = ops.permute(torch.randn((T, N), generator=g, device=dev).to(dtype),
+                     sched)
+    return sched, x, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+def test_expert_tiles_kernel_matches_plain(cuda, policy, M):
+    from repro_torch.kernels.expert_tiles import expert_tiles, expert_tiles_plain
+    sched, _, _ = counted_pair(cuda, 16, 16, torch.float32, policy, M)
+    args = (sched.seg_start, sched.block_expert, sched.block_active)
+    kw = dict(block_m=sched.block_m, capacity=sched.capacity)
+    runs, tiles = expert_tiles(*args, **kw)
+    runs_p, tiles_p = expert_tiles_plain(*(a.cpu() for a in args), **kw)
+    assert torch.equal(runs.cpu(), runs_p) and torch.equal(tiles.cpu(),
+                                                           tiles_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+def test_grouped_wgrad_tiling_matches_plain(cuda, policy, M, dtype,
+                                            out_dtype):
+    """B7 at K=176, N=192: within 1e-4 (fp32 output) or the bf16
+    tolerance (bf16 output, both sides round the fp32 sum once); every
+    element written (NaN-poisoned allocator); exact zeros for the experts
+    with no rows; bitwise equal across two calls."""
+    K, N, E = 176, 192, len(COUNTS)
+    odt = DTYPES[out_dtype]
+    sched, x, dy = counted_pair(cuda, K, N, DTYPES[dtype], policy, M)
+    junk = torch.full((E * K * N,), float("nan"), device=cuda, dtype=odt)
+    del junk
+    ops.reset_launches()
+    dw = ops.grouped_wgrad(x, dy, sched, E, out_dtype=odt)
+    again = ops.grouped_wgrad(x, dy, sched, E, out_dtype=odt)
+    assert ops.LAUNCHES["grouped_wgrad"] == 2
+    want = ref.grouped_wgrad_ref(x, dy, sched, E, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert dw.dtype == odt and dw.shape == (E, K, N)
+    assert not torch.isnan(dw).any()
+    assert torch.equal(dw, again)
+    tol = dict(rtol=1e-4, atol=1e-4) if odt == torch.float32 \
+        else TOL["bfloat16"]
+    torch.testing.assert_close(dw.float(), want.float(), **tol)
+    empty = torch.as_tensor([c == 0 for c in COUNTS], device=cuda)
+    assert torch.equal(dw[empty], torch.zeros_like(dw[empty]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+def test_grouped_gemm_t_tiling_matches_plain(cuda, policy, M, dtype):
+    """B1^T at K=176 (the reduction), N=192: within TOL, every element
+    written (NaN-poisoned allocator), zeros on inactive rows, bitwise equal
+    across two calls."""
+    K, N, E = 176, 192, len(COUNTS)
+    sched, dy, _ = counted_pair(cuda, K, N, DTYPES[dtype], policy, M)
+    w = (torch.randn((E, N, K), device=cuda) * K ** -0.5).to(DTYPES[dtype])
+    junk = torch.full((sched.capacity * N,), float("nan"), device=cuda,
+                      dtype=DTYPES[dtype])
+    del junk
+    out = ops.grouped_gemm_t(dy, w, sched)
+    again = ops.grouped_gemm_t(dy, w, sched)
+    want = ref.grouped_gemm_t_ref(dy, w, sched)
+    torch.cuda.synchronize()
+    assert out.shape == (sched.capacity, N) and not torch.isnan(out).any()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+@pytest.mark.gpu
+def test_backward_kernels_refuse_misaligned_views(cuda):
+    """TMA takes 16-byte-aligned tensors: a view that starts one element
+    into its buffer is refused by the wrappers, not launched."""
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_t
+    from repro_torch.kernels.grouped_wgrad import grouped_wgrad
+    K, N, E = 176, 192, len(COUNTS)
+    sched, x, dy = counted_pair(cuda, K, N, torch.bfloat16, "fixed", 128)
+    cap = sched.capacity
+    buf = torch.zeros(cap * K + 8, dtype=torch.bfloat16, device=cuda)
+    bad = buf[1:1 + cap * K].view(cap, K)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    arrays = (sched.seg_start, sched.block_expert, sched.block_active)
+    with pytest.raises(ValueError, match="16-byte"):
+        grouped_wgrad(bad, dy, *arrays, block_m=sched.block_m, n_experts=E)
+    w = torch.zeros((E, N, K), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        grouped_gemm_t(bad, w, *arrays, block_m=sched.block_m)
+
+
 def plain_moe(x, router, wg, wu, wd, cfg):
     """The MoE layer composed of the kernels' plain versions, for autograd
     to differentiate (torch's own backward of each plain op)."""

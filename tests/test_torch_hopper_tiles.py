@@ -1,0 +1,173 @@
+"""The backward's Hopper GEMMs on the CPU: their work lists and B7's
+``out_dtype``.
+
+* ``expert_tiles_plain`` (the plain version of csrc/expert_tiles.cu's work
+  lists) on the port's and the reference's ``fixed`` and ``dynamic``
+  schedules of the same routing: every row of the schedule lies in exactly
+  one tile; an expert's tiles hold only its active rows, the zero tiles
+  only inactive rows; no tile is longer than ``TILE_ROWS``; the count is
+  within ``max_tiles``, the kernel's scratch and grid bound; each expert's
+  run is its active rows from ``seg_start``; both schedules give the same
+  lists.
+* ``grouped_wgrad(..., out_dtype=torch.bfloat16)`` against the reference's
+  Pallas ``grouped_wgrad(..., out_dtype=jnp.bfloat16, interpret=True)``
+  with experts that received no tokens zeroed as
+  ``repro.kernels.ops.grouped_wgrad`` zeroes them: both round an fp32 sum
+  once, in another order, so within one bf16 ulp (rtol 2**-7) of each
+  other; and bitwise ``.to(bfloat16)`` of the fp32 result.
+(The device lists and the bf16-output kernel are held against these on the
+card: test_torch_gpu.py and chip_smoke.py.)"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")      # the reference side; absent on the card
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.schedule import build_schedule as jax_fixed  # noqa: E402
+from repro.kernels import grouped_wgrad as jwg  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.scheduling.dynamic import build_dynamic_schedule as jax_dynamic  # noqa: E402
+from repro_torch.kernels import expert_tiles as et
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+
+# (T, E, k, block_m): tests/test_torch_grouped_wgrad.py's sizes, and runs
+# long enough for several tiles an expert
+CASES = [(32, 4, 1, 8), (64, 8, 2, 8), (128, 16, 4, 16), (512, 4, 2, 128)]
+
+
+def routed(T, E, k, seed, skew=False):
+    """(T, k) distinct experts per token from a seeded permutation; with
+    ``skew`` half the tokens go to expert 0 first."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    if skew:
+        for t in np.flatnonzero(rng.random(T) < 0.5):
+            idx[t] = np.concatenate([[0], rng.permutation(np.arange(1, E))
+                                     [:k - 1]])
+    return idx.astype(np.int32)
+
+
+def both_schedules(idx, E, M, policy):
+    """The port's schedule and the reference's, as int32 torch arrays:
+    (seg_start, block_expert, block_active, block_m, capacity)."""
+    if policy == "fixed":
+        st = build_fixed_schedule(torch.from_numpy(idx), E, M)
+        sj = jax_fixed(jnp.asarray(idx), E, M)
+    else:
+        st = build_dynamic_schedule(torch.from_numpy(idx), E, M,
+                                    block_m_min=8)
+        sj = jax_dynamic(jnp.asarray(idx), E, M, block_m_min=8)
+    seg_j = sj.seg_start if sj.seg_start is not None else \
+        sj.group_offsets[:-1]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32))
+    return ((st.seg_start, st.block_expert, st.block_active, st.block_m,
+             st.capacity),
+            (t(seg_j), t(sj.block_expert), t(sj.block_active), sj.block_m,
+             sj.capacity))
+
+
+def check_lists(runs, tiles, be, ba, block_m, capacity):
+    E = runs.shape[0]
+    be, ba = be.numpy(), ba.numpy()
+    row_expert = np.repeat(np.where(ba != 0, be, -1), block_m)
+    assert tiles.shape[0] <= et.max_tiles(capacity, E)
+    cover = np.zeros(capacity, np.int64)
+    experts_seen = []
+    for e, r0, n in tiles.tolist():
+        assert 0 < n <= et.TILE_ROWS and r0 + n <= capacity
+        cover[r0:r0 + n] += 1
+        assert np.all(row_expert[r0:r0 + n] == e), (e, r0, n)
+        experts_seen.append(e)
+    assert np.all(cover == 1)
+    live = [e for e in experts_seen if e >= 0]
+    assert live == sorted(live)                   # expert order ...
+    assert experts_seen == live + [-1] * (len(experts_seen) - len(live))
+    for e, (s, t) in enumerate(runs.tolist()):    # ... then the zero tiles
+        rows = np.flatnonzero(row_expert == e)
+        if rows.size:
+            assert (s, t) == (rows[0], rows[-1] + 1) and t - s == rows.size
+        else:
+            assert s == t
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("T,E,k,M", CASES)
+def test_work_lists_cover_the_schedule_once(T, E, k, M, policy, skew):
+    idx = routed(T, E, k, seed=T + E, skew=skew)
+    lists = []
+    for seg, be, ba, bm, cap in both_schedules(idx, E, M, policy):
+        runs, tiles = et.expert_tiles_plain(seg, be, ba, block_m=bm,
+                                            capacity=cap)
+        check_lists(runs, tiles, be, ba, bm, cap)
+        got = et.expert_tiles(seg, be, ba, block_m=bm, capacity=cap)
+        assert torch.equal(got[0], runs) and torch.equal(got[1], tiles)
+        lists.append((runs, tiles))
+    (runs_t, tiles_t), (runs_j, tiles_j) = lists
+    assert torch.equal(runs_t, runs_j) and torch.equal(tiles_t, tiles_j)
+
+
+def test_experts_with_no_rows_get_empty_runs():
+    """Everything routed to experts {1, 2}: the other experts' runs are
+    empty and the rows past the two runs are zero tiles."""
+    E, M = 6, 8
+    idx = np.random.default_rng(0).choice([1, 2], (40, 1)).astype(np.int32)
+    for policy in ("fixed", "dynamic"):
+        (seg, be, ba, bm, cap), _ = both_schedules(idx, E, M, policy)
+        runs, tiles = et.expert_tiles_plain(seg, be, ba, block_m=bm,
+                                            capacity=cap)
+        check_lists(runs, tiles, be, ba, bm, cap)
+        lengths = (runs[:, 1] - runs[:, 0]).tolist()
+        assert [e for e in range(E) if lengths[e]] == [1, 2]
+        assert int((tiles[:, 0] < 0).sum()) >= 1
+
+
+def padded_pair(T, d, f, sched_t, sched_j, seed):
+    """bf16 x and dy in the padded layout (padding rows zero), both sides."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((T, d)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((T, f)).astype(np.float32)
+    xt = tref.permute_ref(torch.from_numpy(x).to(torch.bfloat16), sched_t)
+    dyt = tref.permute_ref(torch.from_numpy(dy).to(torch.bfloat16), sched_t)
+    xj = jref.permute_ref(jnp.asarray(x, jnp.bfloat16), sched_j)
+    dyj = jref.permute_ref(jnp.asarray(dy, jnp.bfloat16), sched_j)
+    return xt, dyt, xj, dyj
+
+
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("T,E,k,d,f,M", [(32, 4, 1, 16, 32, 8),
+                                         (64, 8, 2, 32, 48, 8)])
+def test_grouped_wgrad_bf16_out_matches_pallas(T, E, k, d, f, M, policy):
+    rng = np.random.default_rng(T)
+    idx = np.stack([rng.permutation(E)[:k] for _ in range(T)]).astype(
+        np.int32)
+    idx[idx == E - 1] = 0                  # expert E-1 gets no tokens
+    if policy == "fixed":
+        sched_t = build_fixed_schedule(torch.from_numpy(idx), E, M)
+        sched_j = jax_fixed(jnp.asarray(idx), E, M)
+    else:
+        sched_t = build_dynamic_schedule(torch.from_numpy(idx), E, M,
+                                         block_m_min=8)
+        sched_j = jax_dynamic(jnp.asarray(idx), E, M, block_m_min=8)
+    xt, dyt, xj, dyj = padded_pair(T, d, f, sched_t, sched_j, seed=k)
+    want = jwg.grouped_wgrad(xj, dyj, sched_j.block_expert,
+                             sched_j.block_active, n_experts=E,
+                             block_m=sched_j.block_m, block_k=min(d, 128),
+                             block_n=min(f, 128), interpret=True,
+                             out_dtype=jnp.bfloat16)
+    want = jnp.where((sched_j.counts > 0)[:, None, None], want, 0.0)
+    got = tops.grouped_wgrad(xt, dyt, sched_t, E, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (E, d, f)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-4)
+    assert torch.all(got[E - 1] == 0)
+    f32 = tops.grouped_wgrad(xt, dyt, sched_t, E)
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    assert torch.equal(tref.grouped_wgrad_ref(xt, dyt, sched_t, E,
+                                              out_dtype=torch.bfloat16), got)
