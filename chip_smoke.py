@@ -10,15 +10,17 @@ result line):
    sm_90a (one process per source, in parallel, into build/kernels/) and
    prints the build time, each source's, and ptxas's registers per kernel;
    then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-   the SASS of the backward's Hopper kernels (``cuobjdump -sass`` on the
+   the SASS of the Hopper kernels (the forward's B1 and B2 in bf16 on
+   dense weights, the backward's B7 and B1^T; ``cuobjdump -sass`` on the
    built library) and fails if either count of any of them is 0;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    bf16 and fp32.  The five MoE kernels at moonshot-v1-16b-a3b's full width
-   (decode T=2 and T=4, prefill T=64) on the ``fixed`` schedule and on the
-   ``dynamic`` schedule's 8-row blocks, and at mixtral-8x7b's (T=512):
+   (decode T=2 and T=4, prefill T=64) and at mixtral-8x7b's (T=512), on
+   the ``fixed`` schedule and on the ``dynamic`` schedule's 8-row blocks:
    router indices and permute exactly equal, GEMMs and unpermute within
    fp32 1e-4 / bf16 2e-2, rows of inactive blocks exactly zero and no NaN
-   (the allocator is poisoned with NaN just before each call).  The paged
+   (the allocator is poisoned with NaN just before each call), the two
+   GEMMs bitwise equal across two calls.  The paged
    decode-attention kernel at moonshot's attention shape (16 KV heads of
    128, blocks of 16) at decode (B=2) and at a prefill-chunk step (B=64),
    at a GQA shape (mixtral's 8 KV heads x 4), with vector and scalar
@@ -37,7 +39,9 @@ result line):
    written).  The five MoE kernels again at deepseek-v2-236b's MoE layer
    (E=160, k=6, d=5120, f=1536, softmax, no renorm, routed_scale 16) at
    decode T=2 and prefill T=64 on both policies, bf16 and fp32, timed in
-   bf16, with its padding, and its int8_expert GEMMs on ``dynamic``.  The
+   bf16, with its padding, and its int8_expert GEMMs on ``dynamic``; and
+   at its training shape T=4096 on both policies in bf16, held and timed
+   (B1 and B2 beside their bounds, B1 beside ``torch._grouped_mm``).  The
    MLA form of the paged decode-attention kernel (second score operand q2
    against the rope-key pool, the latent pool as key and value) at
    deepseek's shape (128 heads, latent 512, rope key 64, blocks of 16) at
@@ -202,9 +206,12 @@ QUANT_SCHEMES = ("int8_expert", "int8_channel", "int4_packed")
 QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("dynamic", 64))
 # the scheme that stands for each format in the kernel report
 REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
-# the backward's Hopper kernels (wgmma + TMA): report name -> the mangled
-# name's stem of each instantiation in the built library
-HOPPER_KERNELS = {"grouped_wgrad": "wgrad_hopper_kernel",
+# the Hopper kernels (wgmma + TMA): report name -> the mangled name's stem
+# of each instantiation in the built library (the forward's kernel is one
+# template: FUSED false is B1, true B2)
+HOPPER_KERNELS = {"grouped_gemm": "fwd_hopper_kernelILb0E",
+                  "fused_gate_up": "fwd_hopper_kernelILb1E",
+                  "grouped_wgrad": "wgrad_hopper_kernel",
                   "grouped_gemm_t": "gemm_t_hopper_kernel"}
 
 
@@ -214,8 +221,7 @@ def fail(msg: str, code: int = 1):
 
 
 def sass_counts(lib_path) -> dict:
-    """Per instantiation of the backward's Hopper kernels in the built
-    library: its count of HGMMA (wgmma) and UTMALDG (TMA load)
+    """Per instantiation of the Hopper kernels in the built library: its count of HGMMA (wgmma) and UTMALDG (TMA load)
     instructions, from ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -492,7 +498,9 @@ def library_call(name: str, c: Case):
 
 
 def check_case(c: Case, errs: dict) -> None:
-    """Every kernel against its plain version on this case's inputs."""
+    """Every kernel against its plain version on this case's inputs; the
+    two GEMMs also bitwise equal across two calls (one fixed order of
+    summation)."""
     import torch
     tol = TOL[str(c.dtype).replace("torch.", "")]
     for name, (kern, plain, numel, odt) in kernel_calls(c).items():
@@ -510,6 +518,10 @@ def check_case(c: Case, errs: dict) -> None:
                 raise AssertionError(f"{name}: NaN in output ({c.label()})")
             if name == "permute" and not torch.equal(got, want):
                 raise AssertionError(f"permute not bitwise ({c.label()})")
+            if name in ("fused_gate_up", "grouped_gemm") \
+                    and not torch.equal(got, kern()):
+                raise AssertionError(f"{name}: two calls differ "
+                                     f"({c.label()})")
             if name in ("permute", "fused_gate_up", "grouped_gemm"):
                 dead = got[c.inactive_rows]
                 if dead.numel() and not torch.equal(dead,
@@ -1813,7 +1825,7 @@ def main() -> None:
     qtimings = {}                     # (scheme, policy, T) -> GEMM times
     padding = []
     for shape, policies, Ts in ((MOONSHOT, ("fixed", "dynamic"), (2, 4, 64)),
-                                (MIXTRAL, ("fixed",), (512,))):
+                                (MIXTRAL, ("fixed", "dynamic"), (512,))):
         for policy in policies:
             for dtype in (torch.bfloat16, torch.float32):
                 for T in Ts:
@@ -1850,14 +1862,15 @@ def main() -> None:
                 del c
                 torch.cuda.empty_cache()
     # B1-B5 at the training shape (T = 4096 tokens, bf16): the forward that
-    # each training step runs, held and timed
-    for policy in ("fixed", "dynamic"):
-        c = Case(MOONSHOT, TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16,
-                 seed=TRAIN_BATCH * TRAIN_SEQ, policy=policy)
-        check_case(c, errs)
-        timings[policy, TRAIN_BATCH * TRAIN_SEQ] = time_case(c)
-        del c
-        torch.cuda.empty_cache()
+    # each training step runs, held and timed; and at deepseek-v2's layer
+    for shape, tm in ((MOONSHOT, timings), (DEEPSEEK, ds_timings)):
+        for policy in ("fixed", "dynamic"):
+            c = Case(shape, TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16,
+                     seed=TRAIN_BATCH * TRAIN_SEQ, policy=policy)
+            check_case(c, errs)
+            tm[policy, TRAIN_BATCH * TRAIN_SEQ] = time_case(c)
+            del c
+            torch.cuda.empty_cache()
     # the backward's B7 and B1^T at the training shape (T = 4096 tokens):
     # moonshot's MoE layer and deepseek-v2's (E=160), both policies, in both
     # orientations the layer's backward runs (gate/up and down)
@@ -2310,6 +2323,11 @@ def main() -> None:
                 "training_T4096": {policy: {
                     k: timings[policy, TRAIN_BATCH * TRAIN_SEQ][name][k]
                     for k in keys} for policy in ("fixed", "dynamic")}}
+            if name in HOPPER_KERNELS:
+                # B1 and B2: bf16 on dense weights runs the Hopper kernel
+                # (one work-list build inside each call)
+                extra["sass"] = {fn: n for fn, n in sass.items()
+                                 if HOPPER_KERNELS[name] in fn}
         entry.update({k: d[k] for k in keys})
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})

@@ -1,5 +1,5 @@
-// The work lists of the backward's Hopper GEMMs (hopper_gemm.cuh), built on
-// the device from the block schedule, so that no host sync is needed:
+// The work lists of the Hopper GEMMs (hopper_gemm.cuh), built on the device
+// from the block schedule, so that no host sync is needed:
 //
 //   runs[e]  = [first row, end row) of expert e's active schedule blocks;
 //   tiles[i] = (e, row0, rows): the TILE_ROWS-row slices of each expert's
@@ -7,10 +7,10 @@
 //              rows past the active blocks (the kernels write zeros there);
 //   count    = the number of tiles.
 //
-// B7 reads the runs (each dW tile reduces its expert's run); B1^T walks the
-// tiles (each output tile covers at most 256 rows of one expert), so on the
-// dynamic policy's 8-row blocks a heavy expert's weights are read once per
-// 256 rows, not once per 8-row block.
+// B7 reads the runs (each dW tile reduces its expert's run); B1^T and the
+// forward's B1 and B2 walk the tiles (each output tile covers at most 256
+// rows of one expert), so on the dynamic policy's 8-row blocks a heavy
+// expert's weights are read once per 256 rows, not once per 8-row block.
 //
 // The schedule's contract (both ported policies): the active blocks are a
 // prefix of the schedule, and each expert's active blocks are one

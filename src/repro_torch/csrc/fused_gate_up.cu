@@ -1,33 +1,63 @@
 // Fused gate+up grouped GEMM with the SiLU product in the epilogue:
-// out[block m] = silu(x @ Wg[e]) * (x @ Wu[e]),  e = block_expert[m].
+// out[rows of expert e] = silu(x[rows] @ Wg[e]) * (x[rows] @ Wu[e]), zeros
+// on the rows of inactive blocks.
 //
 // Replaces: src/repro/kernels/fused_gate_up.py, fused_gate_up (its Pallas
 // _kernel), in the dense, int8 and int4 weight formats: the paper's key
 // fusion (§3.3).
 //
-// What bounds it on the H100: at decode, weight bytes.  Each active schedule
-// block reads two (K, F) expert matrices (2 x 2048 x 1408 bf16 = 11.5 MB for
-// moonshot) for at most 128 useful rows.  At prefill with full blocks
-// (mixtral-8x7b, T=512) it is compute bound.
+// What bounds it on the H100: at decode, weight bytes (two 2048 x 1408
+// bf16 matrices, 11.5 MB, per used moonshot expert, for a few rows each).
+// At training's T = 4096 (moonshot: 28,672 active rows) the tensor cores:
+// 331 GFLOP, 0.33 ms, against 0.33 ms for the bytes.
 //
-// What the design does about it: one A tile in shared memory feeds both
-// products, each weight tile is read once per 128-row schedule block,
-// inactive blocks skip the weights, and the gate and up products live only
-// in fp32 registers: the SiLU product is formed there and stored once, so
-// neither intermediate reaches device memory.  int8 and int4 weights are
-// read compressed and expanded tile by tile on chip.  The template is in
-// grouped_gemm.cuh.
+// What the design does about it.  bf16 with dense weights: the Hopper
+// kernel of grouped_gemm_hopper.cuh over tiles of at most 256 rows of one
+// expert's run, each weight tile read once per 256 rows on either policy.
+// A stage holds x's rows and the gate's and up's 64 columns of the same K
+// slice, so one wgmma m64n128k16 computes both products from one A tile;
+// silu(g) * u is formed in fp32 registers and stored once in bf16: neither
+// g nor u reaches device memory.  fp32 (CUDA-core fmaf) and int8/int4
+// (read compressed, expanded tile by tile on chip): the block-tiled
+// template of grouped_gemm.cuh, the same A tile feeding both products.
 #include "grouped_gemm.cuh"
 
+// x (capacity, K), w_gate and w_up (E, K, N) in x's dtype or their
+// int8/int4 payloads with their scales, the schedule's (E,) seg_start and
+// block arrays, the work lists' scratch (bf16 dense only) -> out
+// (capacity, N), every element written.
 MOE_API int moe_fused_gate_up(const void* x, const void* w_gate,
                               const void* w_up, const void* wg_scale,
-                              const void* wu_scale, const void* block_expert,
-                              const void* block_active, void* out,
-                              int capacity, int K, int N, int block_m,
-                              int dtype, int w_format, int s_e, int s_n,
-                              void* stream) {
+                              const void* wu_scale, const void* seg_start,
+                              const void* block_expert,
+                              const void* block_active, void* scratch,
+                              void* out, int capacity, int K, int N,
+                              int n_experts, int block_m, int dtype,
+                              int w_format, int s_e, int s_n, void* stream) {
   return moe_gemm::launch<true>(x, w_gate, w_up, wg_scale, wu_scale,
-                                block_expert, block_active, nullptr, out,
-                                capacity, K, N, block_m, dtype, w_format, s_e,
-                                s_n, stream);
+                                seg_start, block_expert, block_active,
+                                nullptr, scratch, out, capacity, K, N,
+                                n_experts, block_m, dtype, w_format, s_e, s_n,
+                                stream);
+}
+
+// B2 in bf16 on dense weights on the other tile shape (WideStage), with the
+// interface of moe_fused_gate_up less the formats: for chip_gate_up_tiles.py
+MOE_API int moe_fused_gate_up_wide(const void* x, const void* w_gate,
+                                   const void* w_up, const void* seg_start,
+                                   const void* block_expert,
+                                   const void* block_active, void* scratch,
+                                   void* out, int capacity, int K, int N,
+                                   int n_experts, int block_m, void* stream) {
+  if (capacity == 0 || N == 0 || K == 0) return moe_last_error();
+  cudaStream_t s = (cudaStream_t)stream;
+  const hopper::WorkLists lists =
+      hopper::work_lists(scratch, capacity, n_experts);
+  const int err = hopper::launch_expert_tiles(
+      (const int*)seg_start, (const int*)block_expert,
+      (const int*)block_active, capacity / block_m, block_m, n_experts,
+      capacity, lists, true, s);
+  if (err != 0) return err;
+  return moe_fwd::launch_wide(x, w_gate, w_up, lists, out, capacity, K, N,
+                              n_experts, s);
 }

@@ -1,33 +1,47 @@
 // Block-scheduled grouped GEMM with an optional per-row scale epilogue:
-// out[block m] = (x[block m] @ W[block_expert[m]]) * row_scale[rows].
+// out[rows of expert e] = (x[rows] @ W[e]) * row_scale[rows], zeros on the
+// rows of inactive blocks.
 //
 // Replaces: src/repro/kernels/grouped_gemm.py, grouped_gemm (its Pallas
 // _kernel and dequant_weight_block), in the dense, int8 and int4 weight
 // formats.  On the main path it is the MoE down projection with the top-k
-// combine weights folded into its epilogue.
+// combine weights folded into its epilogue (and, in training's backward,
+// the recompute of the gate and up products).
 //
-// What bounds it on the H100: at decode, weight bytes.  Each active schedule
-// block reads one expert's whole (K, N) matrix (1408 x 2048 bf16 = 5.8 MB
-// for moonshot) for at most 128 useful rows, far below the ~295 FLOP/byte
-// the card needs to be compute bound.  At prefill with every block full
-// (mixtral-8x7b, T=512) the product is compute bound.
+// What bounds it on the H100: at decode, weight bytes (each used expert's
+// 1408 x 2048 bf16 = 5.8 MB for moonshot, for a few rows each, far below
+// the ~295 FLOP/byte the card needs to be compute bound) and the zeros of
+// the rows past the active blocks.  At training's T = 4096 (moonshot:
+// 28,672 active rows) the tensor cores and the bytes alike: 165 GFLOP, 0.17
+// ms, against 0.17 ms for the rows, the weights and the output.
 //
-// What the design does about it: a block's expert weights are read exactly
-// once per 128-row schedule block (BM = block_m = 128), inactive blocks never
-// touch the weights, and the combine weight is applied in the fp32 epilogue
-// so the unscaled product never reaches device memory.  int8 and int4
-// weights move 1/2 and 1/4 of the bytes: the compressed tiles are expanded
-// on chip (grouped_gemm.cuh).  The template is in grouped_gemm.cuh.
+// What the design does about it.  bf16 with dense weights: the Hopper
+// kernel of grouped_gemm_hopper.cuh (TMA, wgmma, persistent blocks) over
+// tiles of at most 256 rows of one expert's run (expert_tiles.cu, built on
+// the device), so each weight tile crosses device memory once per 256 rows
+// on either policy, not once per schedule block; the weights are read
+// MN-major as stored; the combine weight is applied to the fp32
+// accumulators, so the unscaled product never reaches device memory; zero
+// tiles load nothing.  fp32 (CUDA-core fmaf, never TF32) and the int8 and
+// int4 weights (1/2 and 1/4 of the bytes, the compressed tiles expanded on
+// chip to bf16 wmma tiles): the block-tiled template of grouped_gemm.cuh,
+// one thread block per (schedule-block row tile, 64 columns).
 #include "grouped_gemm.cuh"
 
+// x (capacity, K) of dtype `dtype` (MoeDtype), w (E, K, N) in x's dtype or
+// its int8/int4 payload with w_scale, the schedule's (E,) seg_start and
+// (capacity / block_m,) block arrays, row_scale (capacity,) f32 or null,
+// the work lists' scratch (hopper_gemm.cuh work_lists; bf16 dense only)
+// -> out (capacity, N), every element written.
 MOE_API int moe_grouped_gemm(const void* x, const void* w,
-                             const void* w_scale, const void* block_expert,
+                             const void* w_scale, const void* seg_start,
+                             const void* block_expert,
                              const void* block_active, const void* row_scale,
-                             void* out, int capacity, int K, int N,
-                             int block_m, int dtype, int w_format, int s_e,
-                             int s_n, void* stream) {
-  return moe_gemm::launch<false>(x, w, nullptr, w_scale, nullptr,
-                                 block_expert, block_active, row_scale, out,
-                                 capacity, K, N, block_m, dtype, w_format,
-                                 s_e, s_n, stream);
+                             void* scratch, void* out, int capacity, int K,
+                             int N, int n_experts, int block_m, int dtype,
+                             int w_format, int s_e, int s_n, void* stream) {
+  return moe_gemm::launch<false>(x, w, nullptr, w_scale, nullptr, seg_start,
+                                 block_expert, block_active, row_scale,
+                                 scratch, out, capacity, K, N, n_experts,
+                                 block_m, dtype, w_format, s_e, s_n, stream);
 }

@@ -1,6 +1,8 @@
 // Block-scheduled grouped GEMM template shared by grouped_gemm.cu (one B
 // operand, optional row_scale epilogue) and fused_gate_up.cu (two B
-// operands, SiLU(g) * u epilogue).
+// operands, SiLU(g) * u epilogue), for fp32 inputs and for bf16 inputs on
+// int8/int4 weights.  bf16 on dense weights is the Hopper kernel of
+// grouped_gemm_hopper.cuh, which launch() at the end of this file calls.
 //
 // out[rows of schedule block m] = x[rows] @ W[block_expert[m]], (capacity, K)
 // x (E, K, N) -> (capacity, N), fp32 accumulation.
@@ -14,25 +16,24 @@
 // multiple of 128 (the fixed policy: each weight tile is then read once per
 // schedule block), 16 when it is a multiple of 16, else 8 (the dynamic
 // policy's 8-row sub-blocks).  An 8-row tile runs the 16-row kernel (BM =
-// 16) with rows 8-15 zero-filled in shared memory and never stored; with
-// 8-row blocks a heavy expert's weights are read once per 8-row block.
+// 16) with rows 8-15 zero-filled in shared memory and never stored.
 // block_m must be a multiple of 8, K and N multiples of 16 (checked by the
 // wrapper).
 //
-// bf16: a 4-deep cp.async ring of shared-memory A and B tiles over K
-// (BK = 32 dense), nvcuda::wmma 16x16x16 __nv_bfloat16 fragments with fp32
-// accumulators.  The fused variant keeps
-// two accumulator sets fed by the same A fragment, and forms g*sigmoid(g)*u
-// element-wise on the accumulator fragments (both sets share one layout)
-// before staging through shared memory for the store.
+// bf16 (int8/int4 weights): a 4-deep cp.async ring of shared-memory A and
+// compressed B tiles over K, nvcuda::wmma 16x16x16 __nv_bfloat16 fragments
+// with fp32 accumulators.  The fused variant keeps two accumulator sets fed
+// by the same A fragment, and forms g*sigmoid(g)*u element-wise on the
+// accumulator fragments (both sets share one layout) before staging
+// through shared memory for the store.
 // fp32: the same tiling with CUDA-core fmaf (never TF32), each thread owning
 // a (BM/16) x 4 micro-tile (rows past ROWS are zero and never stored), so
 // the result keeps full fp32 precision.
 // Epilogue in fp32 (row_scale multiply or SiLU product), one cast, one
 // store.
 //
-// Weight formats (the compile-time parameter FMT; the dense instantiation
-// is the code above, unchanged): kInt8, an (E, K, N) int8 payload, and
+// Weight formats (the compile-time parameter FMT; kDense in fp32 only):
+// kInt8, an (E, K, N) int8 payload, and
 // kInt4, an (E, K/2, N) int8 payload whose byte r holds logical K rows 2r
 // (low nibble) and 2r+1 (high nibble), sign-extended; both with fp32 scales
 // scale[e * s_e + n * s_n] (s_n = 0 for per-expert scales).  Each thread
@@ -65,6 +66,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "grouped_gemm_hopper.cuh"
 
 namespace moe_gemm {
 
@@ -86,10 +88,6 @@ __device__ __forceinline__ void stage_scales(float* Ss, const float* s,
                                              int s_e, int s_n) {
   for (int c = threadIdx.x; c < BN; c += THREADS)
     Ss[c] = n0 + c < N ? s[e * s_e + (size_t)(n0 + c) * s_n] : 0.f;
-}
-
-__device__ __forceinline__ float silu_mul(float g, float u) {
-  return g * (1.0f / (1.0f + expf(-g))) * u;
 }
 
 // ---------------------------------------------------------------- zeros
@@ -122,31 +120,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Shared-memory layout: STAGES ring stages of (A, W[, W2]) tiles, where W is
-// the bf16 tile (dense) or the compressed payload tile (Q_BYTES: QROWS rows
-// of BN bytes); for int8/int4 then the expanded bf16 tile(s) and the column
-// scales.  The epilogue reuses the start as the fp32 C tile.
-// K depth per stage: 32 for dense tiles.  A compressed stage of 32 rows
-// carries half (int8) or a quarter (int4) of a dense stage's bytes for the
-// same count of ring steps, barriers and expand passes, so the 16-row
-// (decode) kernel takes 64 rows per stage in int8 and int4: twice the
-// bytes in flight per step and half the steps.  The 128-row kernel keeps
-// 32 (its A tile would grow to 18 KB per stage).
+// Shared-memory layout (int8/int4 only: the bf16 dense path is the Hopper
+// kernel of grouped_gemm_hopper.cuh): STAGES ring stages of (A, W[, W2])
+// tiles, where W is the compressed payload tile (Q_BYTES: QROWS rows of BN
+// bytes); then the expanded bf16 tile(s) and the column scales.  The
+// epilogue reuses the start as the fp32 C tile.
+// K depth per stage: a compressed stage of 32 rows carries half (int8) or
+// a quarter (int4) of a dense stage's bytes for the same count of ring
+// steps, barriers and expand passes, so the 16-row (decode) kernel takes
+// 64 rows per stage: twice the bytes in flight per step and half the
+// steps.  The 128-row kernel keeps 32 (its A tile would grow to 18 KB per
+// stage).
 template <int BM, bool FUSED, int FMT>
 struct Bf16Tiles {
-  static constexpr int BK = (FMT != kDense && BM == 16) ? 64 : 32;
+  static_assert(FMT != kDense, "bf16 dense: grouped_gemm_hopper.cuh");
+  static constexpr int BK = BM == 16 ? 64 : 32;
   static constexpr int STAGES = 4, NW = FUSED ? 2 : 1;
   static constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
   static constexpr int A_BYTES = BM * LDA * 2;
   static constexpr int B_BYTES = BK * LDB * 2;
   static constexpr int QROWS = payload_rows<FMT>(BK), Q_BYTES = QROWS * BN;
-  static constexpr int W_BYTES = FMT == kDense ? B_BYTES : Q_BYTES;
-  static constexpr int STAGE_BYTES = A_BYTES + NW * W_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + NW * Q_BYTES;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   static constexpr int X_OFF = RING_BYTES;                  // expanded tiles
   static constexpr int S_OFF = X_OFF + NW * B_BYTES;        // column scales
-  static constexpr int PIPE_BYTES =
-      FMT == kDense ? RING_BYTES : S_OFF + NW * BN * 4;
+  static constexpr int PIPE_BYTES = S_OFF + NW * BN * 4;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
 };
@@ -208,16 +206,15 @@ __device__ __forceinline__ void expand_tile_bf16(bf16* Xs,
   }
 }
 
-// bf16 GEMM with a STAGES-deep cp.async ring of (A, B[, B2]) K tiles: the
-// loads of the next STAGES-1 tiles are in flight while the tensor cores
-// work on the current one, so each block keeps several weight tiles of
-// device-memory traffic outstanding (the decode regime is weight-bandwidth
-// bound with few active blocks per SM).  Shared memory is dynamic.  The
-// launch bound asks for two blocks per SM: it holds the fused variant at
-// 128 registers (167 unbounded), so the active blocks of a decode step fit
-// in one wave.  For int8/int4 the ring carries the compressed tiles and
-// each is expanded into Xs before its products (see the header).
-// One active (ROWS, BN) output tile at (m0, n0) of expert e.
+// bf16 GEMM on int8/int4 weights with a STAGES-deep cp.async ring of (A,
+// Q[, Q2]) K tiles: the loads of the next STAGES-1 tiles are in flight
+// while the tensor cores work on the current one, so each block keeps
+// several weight tiles of device-memory traffic outstanding (the decode
+// regime is weight-bandwidth bound with few active blocks per SM).  Shared
+// memory is dynamic.  The launch bound asks for two blocks per SM, so the
+// active blocks of a decode step fit in one wave.  The ring carries the
+// compressed tiles and each is expanded into Xs before its products (see
+// the header).  One active (ROWS, BN) output tile at (m0, n0) of expert e.
 template <int BM, int WARPS_M, int WARPS_N, bool FUSED, int ROWS, int FMT>
 __device__ __forceinline__ void
 gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
@@ -227,7 +224,6 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
                int K, int N, int s_e, int s_n, int m0, int n0, size_t e) {
   using namespace nvcuda;
   using C = Bf16Tiles<BM, FUSED, FMT>;
-  constexpr bool QUANT = FMT != kDense;
   constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   constexpr int BK = C::BK, STAGES = C::STAGES;
   constexpr int LDA = C::LDA, LDB = C::LDB, LDC = C::LDC;
@@ -238,7 +234,7 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int KQ = payload_rows<FMT>(K);             // payload rows of W[e]
-  using WT = typename std::conditional<QUANT, unsigned char, bf16>::type;
+  using WT = unsigned char;
   const WT* W0 = reinterpret_cast<const WT*>(w0) + e * KQ * N;
   const WT* W1 = FUSED ? reinterpret_cast<const WT*>(w1) + e * KQ * N
                        : nullptr;
@@ -246,10 +242,9 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
   bf16* Xs1 = Xs0 + C::B_BYTES / 2;
   float* Ss0 = reinterpret_cast<float*>(smem + C::S_OFF);
   float* Ss1 = Ss0 + BN;
-  if constexpr (QUANT) {      // visible after the main loop's first barrier
-    stage_scales<THREADS>(Ss0, s0, e, n0, N, s_e, s_n);
-    if (FUSED) stage_scales<THREADS>(Ss1, s1, e, n0, N, s_e, s_n);
-  }
+  // visible after the main loop's first barrier
+  stage_scales<THREADS>(Ss0, s0, e, n0, N, s_e, s_n);
+  if (FUSED) stage_scales<THREADS>(Ss1, s1, e, n0, N, s_e, s_n);
 
   const int tid = threadIdx.x, wid = tid / 32;
   const int wm = wid / WARPS_N, wn = wid % WARPS_N;
@@ -258,31 +253,21 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
     bf16* As = reinterpret_cast<bf16*>(smem + slot * C::STAGE_BYTES);
     WT* Bs0 = reinterpret_cast<WT*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
     WT* Bs1 = reinterpret_cast<WT*>(smem + slot * C::STAGE_BYTES + C::A_BYTES
-                                    + C::W_BYTES);
+                                    + C::Q_BYTES);
     for (int v = tid; v < BM * (BK / 8); v += THREADS) {
       const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
       const bool ok = r < ROWS && k0 + c < K;   // rows past ROWS: zeros
       cp_async16(As + r * LDA + c,
                  ok ? x + (size_t)(m0 + r) * K + k0 + c : x, ok);
     }
-    if constexpr (!QUANT) {
-      for (int v = tid; v < BK * (BN / 8); v += THREADS) {
-        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-        const bool ok = (k0 + r < K) && (n0 + c < N);
-        const size_t off = ok ? (size_t)(k0 + r) * N + n0 + c : 0;
-        cp_async16(Bs0 + r * LDB + c, W0 + off, ok);
-        if (FUSED) cp_async16(Bs1 + r * LDB + c, W1 + off, ok);
-      }
-    } else {
-      // the compressed tile: QROWS payload rows of BN bytes, 16 per copy
-      const int kq0 = payload_rows<FMT>(k0);
-      for (int v = tid; v < C::QROWS * (BN / 16); v += THREADS) {
-        const int r = v / (BN / 16), c = (v % (BN / 16)) * 16;
-        const bool ok = (kq0 + r < KQ) && (n0 + c < N);
-        const size_t off = ok ? (size_t)(kq0 + r) * N + n0 + c : 0;
-        cp_async16(Bs0 + r * BN + c, W0 + off, ok);
-        if (FUSED) cp_async16(Bs1 + r * BN + c, W1 + off, ok);
-      }
+    // the compressed tile: QROWS payload rows of BN bytes, 16 per copy
+    const int kq0 = payload_rows<FMT>(k0);
+    for (int v = tid; v < C::QROWS * (BN / 16); v += THREADS) {
+      const int r = v / (BN / 16), c = (v % (BN / 16)) * 16;
+      const bool ok = (kq0 + r < KQ) && (n0 + c < N);
+      const size_t off = ok ? (size_t)(kq0 + r) * N + n0 + c : 0;
+      cp_async16(Bs0 + r * BN + c, W0 + off, ok);
+      if (FUSED) cp_async16(Bs1 + r * BN + c, W1 + off, ok);
     }
   };
 
@@ -307,30 +292,20 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
     __syncthreads();                 // ... for every thread; slot kt-1 is free
     const int slot = kt % STAGES;
     const int nxt = kt + STAGES - 1;
-    if constexpr (QUANT) {
-      // issue the next stage's loads before the expand pass, so their
-      // latency overlaps it (slot nxt % STAGES was last read in kt-1)
-      if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
-      cp_async_commit();
-    }
+    // issue the next stage's loads before the expand pass, so their latency
+    // overlaps it (slot nxt % STAGES was last read in kt-1)
+    if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
+    cp_async_commit();
     const bf16* As = reinterpret_cast<const bf16*>(smem + slot * C::STAGE_BYTES);
-    const bf16* Bs0;
-    const bf16* Bs1;
-    if constexpr (QUANT) {
-      // expand the compressed tile(s) of this slot into Xs; the barrier at
-      // the top of this iteration ended every read of Xs by the last one
-      const unsigned char* Qs =
-          smem + slot * C::STAGE_BYTES + C::A_BYTES;
-      expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs0, Qs, Ss0);
-      if (FUSED)
-        expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs1, Qs + C::W_BYTES, Ss1);
-      __syncthreads();
-      Bs0 = Xs0;
-      Bs1 = Xs1;
-    } else {
-      Bs0 = reinterpret_cast<const bf16*>(smem + slot * C::STAGE_BYTES + C::A_BYTES);
-      Bs1 = Bs0 + C::B_BYTES / 2;
-    }
+    // expand the compressed tile(s) of this slot into Xs; the barrier at
+    // the top of this iteration ended every read of Xs by the last one
+    const unsigned char* Qs = smem + slot * C::STAGE_BYTES + C::A_BYTES;
+    expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs0, Qs, Ss0);
+    if (FUSED)
+      expand_tile_bf16<FMT, THREADS, LDB, BK>(Xs1, Qs + C::Q_BYTES, Ss1);
+    __syncthreads();
+    const bf16* Bs0 = Xs0;
+    const bf16* Bs1 = Xs1;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
@@ -349,10 +324,6 @@ gemm_bf16_tile(const bf16* __restrict__ x, const void* __restrict__ w0,
           for (int i = 0; i < FM; ++i) wmma::mma_sync(acc1[i][j], a[i], b, acc1[i][j]);
         }
       }
-    }
-    if constexpr (!QUANT) {
-      if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
-      cp_async_commit();
     }
   }
   cp_async_wait<0>();
@@ -621,6 +592,8 @@ gemm_f32_kernel(const float* __restrict__ x, const void* __restrict__ w0,
 }
 
 // ---------------------------------------------------------------- launch
+// fp32 in any weight format, and bf16 on int8/int4 weights (the bf16 dense
+// path is launch() below, on the Hopper kernel)
 template <bool FUSED, int FMT>
 inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
                        const void* w0, const void* w1, const float* s0,
@@ -628,14 +601,16 @@ inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
                        const float* rs, void* out, int K, int N, int block_m,
                        int dtype, int s_e, int s_n) {
   if (dtype == kBF16) {
-    const bf16* xb = (const bf16*)x;
-    bf16* o = (bf16*)out;
-    if (rows == 128)
-      launch_bf16<128, 4, 2, FUSED, 128, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
-    else if (rows == 16)
-      launch_bf16<16, 1, 4, FUSED, 16, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
-    else
-      launch_bf16<16, 1, 4, FUSED, 8, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    if constexpr (FMT != kDense) {
+      const bf16* xb = (const bf16*)x;
+      bf16* o = (bf16*)out;
+      if (rows == 128)
+        launch_bf16<128, 4, 2, FUSED, 128, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      else if (rows == 16)
+        launch_bf16<16, 1, 4, FUSED, 16, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+      else
+        launch_bf16<16, 1, 4, FUSED, 8, FMT>(grid, s, xb, w0, w1, s0, s1, be, ba, rs, o, K, N, block_m, s_e, s_n);
+    }
   } else {
     const float* xf = (const float*)x;
     float* o = (float*)out;
@@ -649,27 +624,46 @@ inline void launch_fmt(dim3 grid, cudaStream_t s, int rows, const void* x,
 }
 
 // w_format: 0 dense, 1 int8, 2 int4 (WFormat); the scales (int8/int4 only)
-// are read at scale[e * s_e + n * s_n].
+// are read at scale[e * s_e + n * s_n].  bf16 with dense weights runs the
+// Hopper kernel (grouped_gemm_hopper.cuh) over the work lists that
+// expert_tiles.cu builds into `scratch` from seg_start and the block
+// arrays: both must be given; the other paths read neither.
 template <bool FUSED>
 inline int launch(const void* x, const void* w0, const void* w1,
                   const void* scale0, const void* scale1,
-                  const void* block_expert, const void* block_active,
-                  const void* row_scale, void* out, int capacity, int K, int N,
-                  int block_m, int dtype, int w_format, int s_e, int s_n,
-                  void* stream) {
+                  const void* seg_start, const void* block_expert,
+                  const void* block_active, const void* row_scale,
+                  void* scratch, void* out, int capacity, int K, int N,
+                  int n_experts, int block_m, int dtype, int w_format,
+                  int s_e, int s_n, void* stream) {
   if (capacity == 0 || N == 0) return moe_last_error();
-  if (block_m % 8 != 0 || K % 16 != 0 || N % 16 != 0)
+  if (block_m <= 0 || block_m % 8 != 0 || capacity % block_m != 0
+      || K % 16 != 0 || N % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (w_format != kDense && (scale0 == nullptr || (FUSED && scale1 == nullptr)
                              || s_e < 0 || s_n < 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // tile height: the largest of 128, 16, 8 that divides block_m
-  const int rows = block_m % 128 == 0 ? 128 : (block_m % 16 == 0 ? 16 : 8);
-  dim3 grid((N + BN - 1) / BN, capacity / rows);
   const int* be = (const int*)block_expert;
   const int* ba = (const int*)block_active;
   const float* rs = (const float*)row_scale;
+  if (dtype == kBF16 && w_format == kDense) {
+    if (seg_start == nullptr || scratch == nullptr || n_experts <= 0)
+      return (int)cudaErrorInvalidValue;
+    if (K == 0)
+      return (int)cudaMemsetAsync(out, 0, (size_t)capacity * N * 2, s);
+    const hopper::WorkLists lists =
+        hopper::work_lists(scratch, capacity, n_experts);
+    const int err = hopper::launch_expert_tiles(
+        (const int*)seg_start, be, ba, capacity / block_m, block_m,
+        n_experts, capacity, lists, true, s);
+    if (err != 0) return err;
+    return moe_fwd::launch_hopper<FUSED>(x, w0, w1, rs, lists, out,
+                                         capacity, K, N, n_experts, s);
+  }
+  // tile height: the largest of 128, 16, 8 that divides block_m
+  const int rows = block_m % 128 == 0 ? 128 : (block_m % 16 == 0 ? 16 : 8);
+  dim3 grid((N + BN - 1) / BN, capacity / rows);
   const float* s0 = (const float*)scale0;
   const float* s1 = (const float*)scale1;
   if (w_format == kDense)

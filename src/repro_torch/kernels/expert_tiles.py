@@ -1,7 +1,7 @@
-"""The work lists of the backward's Hopper GEMMs (kernel in
-``csrc/expert_tiles.cu``, launched by B7 and B1^T before their own kernel):
-from a block schedule, each expert's run of rows and the tiles over those
-runs.
+"""The work lists of the Hopper GEMMs (kernel in ``csrc/expert_tiles.cu``,
+launched before their own kernel by the forward's B1 and B2 in bf16 on
+dense weights, and by the backward's B7 and B1^T): from a block schedule,
+each expert's run of rows and the tiles over those runs.
 
 * ``runs`` (E, 2) int32: ``[first row, end row)`` of expert e's active
   blocks, from block ``seg_start[e] // block_m`` to the last consecutive
@@ -68,7 +68,7 @@ def scratch(capacity: int, n_experts: int, device) -> torch.Tensor:
     """The kernels' int32 scratch for the lists (hopper_gemm.cuh
     ``work_lists``: the tiles as int4, the runs as int2, the count)."""
     _build.require(0 < n_experts <= MAX_EXPERTS,
-                   f"the backward's Hopper GEMMs take 1 to {MAX_EXPERTS} "
+                   f"the Hopper GEMMs take 1 to {MAX_EXPERTS} "
                    f"experts, not {n_experts}")
     words = 4 * max_tiles(capacity, n_experts) + 2 * n_experts + 4
     return torch.empty(words, dtype=torch.int32, device=device)

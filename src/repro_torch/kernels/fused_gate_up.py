@@ -3,7 +3,8 @@
 ``csrc/fused_gate_up.cu``): ``silu(x @ w_gate[e]) * (x @ w_up[e])`` per
 schedule block, zeros for inactive blocks.  Weight formats as in
 ``grouped_gemm``: both operands in one format, with ``wg_scale`` and
-``wu_scale`` for int8 and int4."""
+``wu_scale`` for int8 and int4.  In bf16 with dense weights a CUDA call
+needs the schedule's ``seg_start``, as ``grouped_gemm``'s does."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,9 +12,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.grouped_gemm import (_block_products,
+from repro_torch.kernels.grouped_gemm import (_block_products, _ptr,
                                               check_gemm_operands,
-                                              launch_key, scale_args)
+                                              launch_key, scale_args,
+                                              work_list_args)
 
 
 def fused_gate_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
@@ -35,10 +37,13 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   block_expert: torch.Tensor, block_active: torch.Tensor, *,
                   block_m: int, wg_scale: Optional[torch.Tensor] = None,
                   wu_scale: Optional[torch.Tensor] = None,
-                  w_format: str = "dense") -> torch.Tensor:
-    """CPU tensors run the plain version; CUDA tensors the kernel."""
+                  w_format: str = "dense",
+                  seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CPU tensors run the plain version (``seg_start`` unused); CUDA
+    tensors the kernel, which in bf16 on dense weights needs the
+    schedule's ``seg_start``."""
     if not _build.on_cuda(x, w_gate, w_up, block_expert, block_active,
-                          wg_scale, wu_scale):
+                          wg_scale, wu_scale, seg_start):
         return fused_gate_up_plain(x, w_gate, w_up, block_expert,
                                    block_active, block_m=block_m,
                                    wg_scale=wg_scale, wu_scale=wu_scale,
@@ -48,15 +53,21 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     code, cap, K, F, fmt = check_gemm_operands(
         x, [w_gate, w_up], block_expert, block_active, block_m, w_format,
         scales)
+    E = w_gate.shape[0]
+    seg, buf = work_list_args(x, seg_start, E, w_format, "fused_gate_up")
+    if buf is not None:
+        _build.require(_build.aligned(x, w_gate, w_up),
+                       "fused_gate_up takes x and the weights on 16-byte "
+                       "boundaries")
     lib = _build.library()
     out = torch.empty((cap, F), dtype=x.dtype, device=x.device)
     _, s_e, s_n = scale_args(scales)
     err = lib.moe_fused_gate_up(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
         None if scales is None else wg_scale.data_ptr(),
-        None if scales is None else wu_scale.data_ptr(),
-        block_expert.data_ptr(), block_active.data_ptr(), out.data_ptr(),
-        cap, K, F, block_m, code, fmt, s_e, s_n,
+        None if scales is None else wu_scale.data_ptr(), _ptr(seg),
+        block_expert.data_ptr(), block_active.data_ptr(), _ptr(buf),
+        out.data_ptr(), cap, K, F, E, block_m, code, fmt, s_e, s_n,
         _build.stream_ptr(x.device))
     key = launch_key("fused_gate_up", w_format)
     _build.check(err, key)

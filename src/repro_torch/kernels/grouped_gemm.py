@@ -5,6 +5,9 @@ kernel in ``csrc/grouped_gemm.cu``).
 an optional ``row_scale`` epilogue (the folded combine weights), and zeros
 for inactive blocks.  ``block_m`` is any multiple of 8: the ``fixed``
 policy's 128-row blocks and the ``dynamic`` policy's 8-row sub-blocks.
+In bf16 with dense weights the kernel is a Hopper one over tiles of each
+expert's run of rows, found from the schedule's ``seg_start`` (see
+``expert_tiles``), which a CUDA call must then pass.
 
 Weight formats (``w_format``), as the reference's: ``"dense"`` (w of x's
 dtype), ``"int8"`` (w an (E, K, N) int8 payload) and ``"int4"`` (w an
@@ -169,6 +172,29 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m,
     return code, cap, K, N, W_FORMATS.index(w_format)
 
 
+def work_list_args(x, seg_start, n_experts: int, w_format: str, kernel: str):
+    """(seg_start, scratch) for the C call: the schedule's seg_start and
+    the work lists' scratch when the Hopper kernel runs (bf16, dense
+    weights), which refuses a call without seg_start or with an operand
+    off a 16-byte boundary; (None, None) on the other paths.  The weights
+    are checked by the caller (``aligned``)."""
+    if x.dtype != torch.bfloat16 or w_format != "dense":
+        return None, None
+    _build.require(seg_start is not None,
+                   f"{kernel} in bf16 on dense weights walks each expert's "
+                   "run of rows from the schedule's seg_start: pass it")
+    _build.require(seg_start.dtype == torch.int32
+                   and seg_start.shape == (n_experts,)
+                   and seg_start.is_contiguous(),
+                   f"{kernel} takes a contiguous int32 ({n_experts},) "
+                   "seg_start")
+    return seg_start, _tiles.scratch(x.shape[0], n_experts, x.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def scale_args(scales):
     """(pointer, stride over E, stride over N) of the first scale operand
     (all share one layout), or (None, 0, 0) for dense weights."""
@@ -182,10 +208,13 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                  block_active: torch.Tensor, *, block_m: int,
                  row_scale: Optional[torch.Tensor] = None,
                  w_scale: Optional[torch.Tensor] = None,
-                 w_format: str = "dense") -> torch.Tensor:
-    """CPU tensors run the plain version; CUDA tensors the kernel."""
+                 w_format: str = "dense",
+                 seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CPU tensors run the plain version (``seg_start`` unused); CUDA
+    tensors the kernel, which in bf16 on dense weights needs the
+    schedule's ``seg_start``."""
     if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
-                          w_scale):
+                          w_scale, seg_start):
         return grouped_gemm_plain(x, w, block_expert, block_active,
                                   block_m=block_m, row_scale=row_scale,
                                   w_scale=w_scale, w_format=w_format)
@@ -198,15 +227,19 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                        and row_scale.is_contiguous(),
                        f"grouped GEMM takes a contiguous float32 ({cap},) "
                        "row_scale")
+    E = w.shape[0]
+    seg, buf = work_list_args(x, seg_start, E, w_format, "grouped_gemm")
+    if buf is not None:
+        _build.require(_build.aligned(x, w),
+                       "grouped_gemm takes x and w on 16-byte boundaries")
     lib = _build.library()
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
     s_ptr, s_e, s_n = scale_args(scales)
     err = lib.moe_grouped_gemm(
-        x.data_ptr(), w.data_ptr(), s_ptr, block_expert.data_ptr(),
-        block_active.data_ptr(),
-        None if row_scale is None else row_scale.data_ptr(), out.data_ptr(),
-        cap, K, N, block_m, code, fmt, s_e, s_n,
-        _build.stream_ptr(x.device))
+        x.data_ptr(), w.data_ptr(), s_ptr, _ptr(seg),
+        block_expert.data_ptr(), block_active.data_ptr(), _ptr(row_scale),
+        _ptr(buf), out.data_ptr(), cap, K, N, E, block_m, code, fmt, s_e,
+        s_n, _build.stream_ptr(x.device))
     key = launch_key("grouped_gemm", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1

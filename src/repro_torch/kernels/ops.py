@@ -1,8 +1,10 @@
 """Schedule-level wrappers for the MoE kernels (counterpart of
 ``repro.kernels.ops``): each adapts a ``BlockSchedule`` to its kernel's
 arguments.  The forward's five, and the backward's two: ``grouped_gemm_t``
-(B1 with the weight read transposed) and ``grouped_wgrad`` (B7).  Block sizes are the kernels' own (csrc/); nothing here carries
-the TPU's (8, 128) tiling over.  The GEMM wrappers take an expert stack as
+(B1 with the weight read transposed) and ``grouped_wgrad`` (B7).  The four
+GEMMs pass the schedule's ``seg_start``, from which their Hopper kernels
+find each expert's run of rows.  Block sizes are the kernels' own (csrc/);
+nothing here carries the TPU's (8, 128) tiling over.  The GEMM wrappers take an expert stack as
 a dense tensor or a ``QuantTensor``; ``_weight_operands`` splits the latter
 into the payload, its (E, N) channel scales and the kernel's weight format.
 
@@ -66,7 +68,8 @@ def grouped_gemm(x: torch.Tensor, w, sched: BlockSchedule,
     wq, ws, fmt = _weight_operands(w)
     return _gg.grouped_gemm(x, wq, sched.block_expert, sched.block_active,
                             block_m=sched.block_m, row_scale=row_scale,
-                            w_scale=ws, w_format=fmt)
+                            w_scale=ws, w_format=fmt,
+                            seg_start=sched.seg_start)
 
 
 def fused_gate_up(x: torch.Tensor, w_gate, w_up,
@@ -80,7 +83,8 @@ def fused_gate_up(x: torch.Tensor, w_gate, w_up,
                          f"not {fmt!r} and {fmt_u!r}")
     return _fgu.fused_gate_up(x, wgq, wuq, sched.block_expert,
                               sched.block_active, block_m=sched.block_m,
-                              wg_scale=wsg, wu_scale=wsu, w_format=fmt)
+                              wg_scale=wsg, wu_scale=wsu, w_format=fmt,
+                              seg_start=sched.seg_start)
 
 
 def _seg_start(sched: BlockSchedule, kernel: str) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions
 (the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
-int8 and int4 formats of the two GEMMs, the paged decode-attention kernel
+forward's and the backward's Hopper GEMMs at shapes that stress their
+tiling, the int8 and int4 formats of the two GEMMs, the paged decode-attention kernel
 over its masks, and its MLA form), the MoE layer without a host sync under
 both policies and on quantized weights, and the contiguous and paged
 engines' launch counts (dense and int8 experts; MLA).
@@ -647,6 +648,106 @@ def test_backward_kernels_refuse_misaligned_views(cuda):
     w = torch.zeros((E, N, K), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         grouped_gemm_t(bad, w, *arrays, block_m=sched.block_m)
+
+
+# the forward's Hopper kernels (B1 and B2 in bf16 on dense weights, over
+# the same work lists), at the tiling stresses of the backward's; fp32 runs
+# the block-tiled kernels on the same inputs
+def forward_pair(dev, K, N, dtype, policy, M, seed=0):
+    """counted_pair's schedule and x, the stacks W, Wg, Wu (E, K, N), and a
+    distinct row_scale per row (a wrong row map shows)."""
+    sched, x, _ = counted_pair(dev, K, N, dtype, policy, M, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    E = len(COUNTS)
+    w, wg, wu = ((torch.randn((E, K, N), generator=g, device=dev)
+                  * K ** -0.5).to(dtype) for _ in range(3))
+    rs = torch.linspace(0.25, 2.0, sched.capacity, device=dev)
+    rs = rs[torch.randperm(sched.capacity, generator=g, device=dev)]
+    return sched, x, w, wg, wu, rs
+
+
+@pytest.mark.gpu
+def test_forward_gemms_one_item_match_plain(cuda):
+    """One expert whose run is one 64-row slice, N = 128: B1 is one work
+    item (and a zero tile), the MN-major weight read and the row_scale
+    epilogue held against the plain versions before anything else."""
+    T, K, N = 64, 64, 128
+    idx = torch.zeros((T, 1), dtype=torch.int32, device=cuda)
+    sched = build_fixed_schedule(idx, 1, 64)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = ops.permute(torch.randn((T, K), generator=g, device=cuda)
+                    .to(torch.bfloat16), sched)
+    w, wu = ((torch.randn((1, K, N), generator=g, device=cuda) * 0.125)
+             .to(torch.bfloat16) for _ in range(2))
+    rs = torch.linspace(0.5, 1.5, sched.capacity, device=cuda)
+    y = ops.grouped_gemm(x, w, sched, row_scale=rs)
+    h = ops.fused_gate_up(x, w, wu, sched)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        y.float(), ref.grouped_gemm_ref(x, w, sched, rs).float(),
+        **TOL["bfloat16"])
+    torch.testing.assert_close(
+        h.float(), ref.fused_gate_up_ref(x, w, wu, sched).float(),
+        **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+def test_forward_gemms_tiling_match_plain(cuda, policy, M, dtype):
+    """B1 (with a distinct row_scale per row) and B2 at K=176, N=192,
+    experts with 0 and 1 rows: within TOL, every element written
+    (NaN-poisoned allocator), exact zeros on the rows past the active
+    blocks, bitwise equal across two calls, one launch counted each."""
+    K, N = 176, 192
+    sched, x, w, wg, wu, rs = forward_pair(cuda, K, N, DTYPES[dtype],
+                                           policy, M)
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    for name, kern, plain in (
+            ("grouped_gemm",
+             lambda: ops.grouped_gemm(x, w, sched, row_scale=rs),
+             lambda: ref.grouped_gemm_ref(x, w, sched, rs)),
+            ("fused_gate_up", lambda: ops.fused_gate_up(x, wg, wu, sched),
+             lambda: ref.fused_gate_up_ref(x, wg, wu, sched))):
+        junk = torch.full((sched.capacity * N,), float("nan"), device=cuda,
+                          dtype=DTYPES[dtype])
+        del junk
+        ops.reset_launches()
+        out = kern()
+        again = kern()
+        assert ops.LAUNCHES[name] == 2
+        want = plain()
+        torch.cuda.synchronize()
+        assert out.shape == (sched.capacity, N)
+        assert not torch.isnan(out).any(), name
+        assert torch.equal(out, again), name
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+        assert torch.equal(out[dead], torch.zeros_like(out[dead])), name
+
+
+@pytest.mark.gpu
+def test_forward_gemms_refuse_missing_seg_start_and_misaligned_views(cuda):
+    """In bf16 on dense weights the kernels walk each expert's run from
+    seg_start: a call without it is refused, never sent another route;
+    so is a view off a 16-byte boundary (TMA)."""
+    K, N = 176, 192
+    sched, x, w, wg, wu, _ = forward_pair(cuda, K, N, torch.bfloat16,
+                                          "fixed", 128)
+    arrays = (sched.block_expert, sched.block_active)
+    kw = dict(block_m=sched.block_m)
+    with pytest.raises(ValueError, match="seg_start"):
+        ops._gg.grouped_gemm(x, w, *arrays, **kw)
+    with pytest.raises(ValueError, match="seg_start"):
+        ops._fgu.fused_gate_up(x, wg, wu, *arrays, **kw)
+    cap = sched.capacity
+    buf = torch.zeros(cap * K + 8, dtype=torch.bfloat16, device=cuda)
+    bad = buf[1:1 + cap * K].view(cap, K)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._gg.grouped_gemm(bad, w, *arrays, seg_start=sched.seg_start, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._fgu.fused_gate_up(bad, wg, wu, *arrays,
+                               seg_start=sched.seg_start, **kw)
 
 
 def plain_moe(x, router, wg, wu, wd, cfg):

@@ -1,14 +1,22 @@
-"""The backward's Hopper GEMMs on the CPU: their work lists and B7's
-``out_dtype``.
+"""The Hopper GEMMs on the CPU: their work lists, the forward's walk over
+them, and B7's ``out_dtype``.
 
 * ``expert_tiles_plain`` (the plain version of csrc/expert_tiles.cu's work
   lists) on the port's and the reference's ``fixed`` and ``dynamic``
-  schedules of the same routing: every row of the schedule lies in exactly
-  one tile; an expert's tiles hold only its active rows, the zero tiles
-  only inactive rows; no tile is longer than ``TILE_ROWS``; the count is
-  within ``max_tiles``, the kernel's scratch and grid bound; each expert's
-  run is its active rows from ``seg_start``; both schedules give the same
-  lists.
+  schedules of the same routing, at small training-like shapes and at the
+  serving shapes the forward walks (E=64 and 160, T=2, 4 and 64: nearly
+  every block inactive): every row of the schedule lies in exactly one
+  tile; an expert's tiles hold only its active rows, the zero tiles only
+  inactive rows; no tile is longer than ``TILE_ROWS``; the count is within
+  ``max_tiles``, the kernel's scratch and grid bound; each expert's run is
+  its active rows from ``seg_start``; both schedules give the same lists.
+* A tile-walk oracle (``tile_walk``): the forward's B1 and B2 computed from
+  those lists the way grouped_gemm_hopper.cuh walks them (per tile, x's
+  rows against the tile's expert in fp32, row_scale on the stored rows or
+  the SiLU product, zeros on zero tiles), held against
+  ``grouped_gemm_plain`` and ``fused_gate_up_plain`` (which walk the
+  schedule's blocks) at fp32 tolerance, on both sides' schedules, with a
+  distinct row_scale per row and experts with 0 and 1 tokens.
 * ``grouped_wgrad(..., out_dtype=torch.bfloat16)`` against the reference's
   Pallas ``grouped_wgrad(..., out_dtype=jnp.bfloat16, interpret=True)``
   with experts that received no tokens zeroed as
@@ -29,13 +37,19 @@ from repro.kernels import grouped_wgrad as jwg  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.scheduling.dynamic import build_dynamic_schedule as jax_dynamic  # noqa: E402
 from repro_torch.kernels import expert_tiles as et
+from repro_torch.kernels import fused_gate_up as fgu
+from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
 
-# (T, E, k, block_m): tests/test_torch_grouped_wgrad.py's sizes, and runs
-# long enough for several tiles an expert
-CASES = [(32, 4, 1, 8), (64, 8, 2, 8), (128, 16, 4, 16), (512, 4, 2, 128)]
+# (T, E, k, block_m): tests/test_torch_grouped_wgrad.py's sizes, runs long
+# enough for several tiles an expert, and the serving schedules the
+# forward walks: moonshot's (E=64) and deepseek-v2's (E=160) decode T=2
+# and 4 and prefill T=64, k=6 (dynamic: 8-row blocks)
+CASES = [(32, 4, 1, 8), (64, 8, 2, 8), (128, 16, 4, 16), (512, 4, 2, 128),
+         (2, 64, 6, 128), (4, 64, 6, 128), (64, 64, 6, 128),
+         (2, 160, 6, 128), (4, 160, 6, 128), (64, 160, 6, 128)]
 
 
 def routed(T, E, k, seed, skew=False):
@@ -125,6 +139,60 @@ def test_experts_with_no_rows_get_empty_runs():
         lengths = (runs[:, 1] - runs[:, 0]).tolist()
         assert [e for e in range(E) if lengths[e]] == [1, 2]
         assert int((tiles[:, 0] < 0).sum()) >= 1
+
+
+def tile_walk(x, ws, tiles, row_scale=None):
+    """The forward from the work list, as the Hopper kernel walks it: per
+    tile (e, row0, rows), ``x[row0:row0 + rows] @ W[e]`` in fp32 for each
+    weight in ``ws``; with one weight (B1) times ``row_scale`` of the
+    stored rows, with two (B2) ``silu(g) * u``; zeros on zero tiles and
+    wherever no tile reaches.  Returns fp32 (capacity, N)."""
+    out = torch.zeros((x.shape[0], ws[0].shape[-1]), dtype=torch.float32)
+    for e, r0, n in tiles.tolist():
+        if e < 0:
+            continue
+        xs = x[r0:r0 + n].float()
+        prods = [xs @ w[e].float() for w in ws]
+        if len(prods) == 2:
+            g, u = prods
+            out[r0:r0 + n] = g * torch.sigmoid(g) * u
+        else:
+            y = prods[0]
+            out[r0:r0 + n] = y if row_scale is None \
+                else y * row_scale[r0:r0 + n, None]
+    return out
+
+
+# tokens per expert (E = 8): experts with 0 and 1 tokens, runs shorter and
+# longer than a 256-row tile
+COUNTS = (1, 0, 37, 130, 0, 9, 300, 64)
+
+
+@pytest.mark.parametrize("side", ["port", "reference"])
+@pytest.mark.parametrize("policy,M", [("fixed", 8), ("fixed", 16),
+                                      ("fixed", 128), ("dynamic", 128)])
+def test_tile_walk_matches_the_plain_forward_gemms(policy, M, side):
+    rng = np.random.default_rng(M)
+    idx = rng.permutation(np.repeat(np.arange(len(COUNTS)), COUNTS))
+    idx = idx[:, None].astype(np.int32)
+    E, K, N = len(COUNTS), 48, 32
+    sched = both_schedules(idx, E, M, policy)[side == "reference"]
+    seg, be, ba, bm, cap = sched
+    _, tiles = et.expert_tiles_plain(seg, be, ba, block_m=bm, capacity=cap)
+    x = torch.from_numpy(rng.standard_normal((cap, K)).astype(np.float32))
+    w, wg, wu = (torch.from_numpy((rng.standard_normal((E, K, N))
+                                   * K ** -0.5).astype(np.float32))
+                 for _ in range(3))
+    rs = torch.from_numpy(rng.permutation(np.linspace(0.25, 2.0, cap))
+                          .astype(np.float32))
+    want_b1 = gg.grouped_gemm_plain(x, w, be, ba, block_m=bm, row_scale=rs)
+    want_b2 = fgu.fused_gate_up_plain(x, wg, wu, be, ba, block_m=bm)
+    torch.testing.assert_close(tile_walk(x, [w], tiles, rs), want_b1,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tile_walk(x, [wg, wu], tiles), want_b2,
+                               rtol=1e-5, atol=1e-5)
+    rows = np.repeat(np.where(ba.numpy() != 0, be.numpy(), -1), bm)
+    assert (rows == 0).sum() >= 1 and not (rows == 1).any()
 
 
 def padded_pair(T, d, f, sched_t, sched_j, seed):
