@@ -221,8 +221,9 @@ def fail(msg: str, code: int = 1):
 
 
 def sass_counts(lib_path) -> dict:
-    """Per instantiation of the Hopper kernels in the built library: its count of HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions, from ``cuobjdump -sass``."""
+    """Per instantiation of the Hopper kernels in the built library: its
+    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions, from
+    ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,

@@ -40,24 +40,3 @@ MOE_API int moe_fused_gate_up(const void* x, const void* w_gate,
                                 n_experts, block_m, dtype, w_format, s_e, s_n,
                                 stream);
 }
-
-// B2 in bf16 on dense weights on the other tile shape (WideStage), with the
-// interface of moe_fused_gate_up less the formats: for chip_gate_up_tiles.py
-MOE_API int moe_fused_gate_up_wide(const void* x, const void* w_gate,
-                                   const void* w_up, const void* seg_start,
-                                   const void* block_expert,
-                                   const void* block_active, void* scratch,
-                                   void* out, int capacity, int K, int N,
-                                   int n_experts, int block_m, void* stream) {
-  if (capacity == 0 || N == 0 || K == 0) return moe_last_error();
-  cudaStream_t s = (cudaStream_t)stream;
-  const hopper::WorkLists lists =
-      hopper::work_lists(scratch, capacity, n_experts);
-  const int err = hopper::launch_expert_tiles(
-      (const int*)seg_start, (const int*)block_expert,
-      (const int*)block_active, capacity / block_m, block_m, n_experts,
-      capacity, lists, true, s);
-  if (err != 0) return err;
-  return moe_fwd::launch_wide(x, w_gate, w_up, lists, out, capacity, K, N,
-                              n_experts, s);
-}

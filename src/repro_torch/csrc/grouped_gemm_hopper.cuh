@@ -289,187 +289,6 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
   }
 }
 
-// B2 on the other tile shape, for the comparison of chip_gate_up_tiles.py:
-// items of at most 128 rows (each list tile split in two halves) x 128
-// output columns; a stage holds x's 128 rows, then Wg's 128 columns and
-// Wu's 128; each consumer warpgroup takes one 64-row slab with one
-// m64n256k16 accumulator (gate in registers 0-63, up in 64-127).
-struct WideStage {
-  static constexpr int BN = 128;
-  static constexpr int A_BYTES = 2 * SUB;
-  static constexpr int B_BYTES = 4 * SUB;
-  static constexpr int BYTES = A_BYTES + B_BYTES;
-  static constexpr int EPI_WG = 64 * BN * 2;
-  using R = hopper::Ring<BYTES, 2 * EPI_WG>;
-};
-
-template <bool WIDE>
-__global__ void __launch_bounds__(hopper::THREADS, 1)
-gate_up_wide_kernel(const __grid_constant__ CUtensorMap x128,
-                    const __grid_constant__ CUtensorMap x64,
-                    const __grid_constant__ CUtensorMap wg_map,
-                    const __grid_constant__ CUtensorMap wu_map,
-                    const __grid_constant__ CUtensorMap out64,
-                    const __grid_constant__ CUtensorMap out8,
-                    const int4* __restrict__ tiles,
-                    const int* __restrict__ n_tiles, int K, int N) {
-  using namespace hopper;
-  using St = WideStage;
-  constexpr int S = St::R::STAGES, STAGE = St::BYTES, BN = St::BN;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  const uint32_t ring = smem_addr(smem);
-  const uint32_t full = ring + St::R::BAR_OFF, empty = full + 8 * S;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMERS);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const int n_nt = (N + BN - 1) / BN, n_k = (K + BK - 1) / BK;
-  const int items = *n_tiles * 2 * n_nt;
-  const int wg = threadIdx.x / 128;
-
-  if (wg == 2) {                                   // producer
-    reg_dealloc<40>();
-    if (threadIdx.x != 2 * 128) return;
-    tma_prefetch(&x128); tma_prefetch(&x64);
-    tma_prefetch(&wg_map); tma_prefetch(&wu_map);
-    PipeState p;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int4 tile = tiles[it / (2 * n_nt)];
-      const int half = (it / n_nt) & 1;
-      if (tile.x < 0 || 128 * half >= tile.z) continue;
-      const int n0 = (it % n_nt) * BN, row0 = tile.y + 128 * half;
-      const bool big = tile.z - 128 * half > 64;
-      const uint32_t bytes = (big ? 2 : 1) * SUB + St::B_BYTES;
-      for (int kt = 0; kt < n_k; ++kt) {
-        mbar_wait(empty + 8 * p.stage, p.phase ^ 1u);
-        const uint32_t fb = full + 8 * p.stage;
-        const uint32_t a = ring + p.stage * STAGE, b = a + St::A_BYTES;
-        mbar_expect_tx(fb, bytes);
-        tma_load_2d(a, big ? &x128 : &x64, fb, kt * BK, row0);
-        tma_load_3d(b, &wg_map, fb, n0, kt * BK, tile.x);
-        tma_load_3d(b + SUB, &wg_map, fb, n0 + 64, kt * BK, tile.x);
-        tma_load_3d(b + 2 * SUB, &wu_map, fb, n0, kt * BK, tile.x);
-        tma_load_3d(b + 3 * SUB, &wu_map, fb, n0 + 64, kt * BK, tile.x);
-        p.advance<S>();
-      }
-    }
-  } else {                                         // consumers
-    reg_alloc<232>();
-    PipeState p;
-    unsigned char* epi = smem + St::R::EPI_OFF + wg * St::EPI_WG;
-    bool zeros_staged = false;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int4 tile = tiles[it / (2 * n_nt)];
-      const int half = (it / n_nt) & 1;
-      if (128 * half >= tile.z) continue;
-      const int n0 = (it % n_nt) * BN, row0 = tile.y + 128 * half;
-      const int rows = min(128, tile.z - 128 * half), r0 = 64 * wg;
-      if (tile.x < 0) {
-        if (!zeros_staged) {
-          float z[64];
-#pragma unroll
-          for (int i = 0; i < 64; ++i) z[i] = 0.f;
-          epilogue_begin(wg);
-          stage_tile<bf16>(z, epi);
-          epilogue_staged(wg);
-          zeros_staged = true;
-        }
-        if (threadIdx.x % 128 == 0) {
-          if (r0 < rows)
-            store_staged<BN>(&out64, &out8, epi, n0, row0 + r0,
-                             min(64, rows - r0));
-          bulk_commit();
-        }
-        continue;
-      }
-      zeros_staged = false;
-      const bool on = r0 < rows;
-      float acc[128];
-#pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-      if (!on) {
-        for (int kt = 0; kt < n_k; ++kt) {
-          mbar_wait(full + 8 * p.stage, p.phase);
-          mbar_arrive(empty + 8 * p.stage);
-          p.advance<S>();
-        }
-        continue;
-      }
-      int prev = -1;
-      for (int kt = 0; kt < n_k; ++kt) {
-        mbar_wait(full + 8 * p.stage, p.phase);
-        const uint32_t st = ring + p.stage * STAGE;
-        const uint32_t a = st + wg * SUB, b = st + St::A_BYTES;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks)
-          wgmma_m64n256k16<0, 1>(acc, make_desc(a + 32 * ks, 16, 1024),
-                                 make_desc(b + 2048 * ks, SUB, 1024));
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_acc(acc);
-        if (prev >= 0) mbar_arrive(empty + 8 * prev);
-        prev = p.stage;
-        p.advance<S>();
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (prev >= 0) mbar_arrive(empty + 8 * prev);
-#pragma unroll
-      for (int j = 0; j < 64; ++j) acc[j] = silu_mul(acc[j], acc[j + 64]);
-      epilogue_begin(wg);
-      stage_tile<bf16>(*reinterpret_cast<float(*)[64]>(acc), epi);
-      epilogue_staged(wg);
-      if (threadIdx.x % 128 == 0) {
-        store_staged<BN>(&out64, &out8, epi, n0, row0 + r0,
-                         min(64, rows - r0));
-        bulk_commit();
-      }
-    }
-    if (threadIdx.x % 128 == 0) bulk_wait<false>();
-  }
-}
-
-template <bool WIDE = true>
-int launch_wide(const void* x, const void* wg, const void* wu,
-                       hopper::WorkLists lists, void* out, int capacity,
-                       int K, int N, int E, cudaStream_t s) {
-  using St = WideStage;
-  CUtensorMap x128, x64, wm0, wm1, out64, out8;
-  const uint64_t dx[2] = {(uint64_t)K, (uint64_t)capacity};
-  const uint64_t sx[1] = {(uint64_t)K * 2};
-  const uint32_t bx128[2] = {64, 128}, bx64[2] = {64, 64};
-  const uint64_t dw[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
-  const uint64_t sw[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
-  const uint32_t bw[3] = {64, 64, 1};
-  const uint64_t dout[2] = {(uint64_t)N, (uint64_t)capacity};
-  const uint64_t sout[1] = {(uint64_t)N * 2};
-  const uint32_t bout64[2] = {64, 64}, bout8[2] = {64, 8};
-  if (!hopper::tensor_map(&x128, x, 2, dx, sx, bx128)
-      || !hopper::tensor_map(&x64, x, 2, dx, sx, bx64)
-      || !hopper::tensor_map(&wm0, wg, 3, dw, sw, bw)
-      || !hopper::tensor_map(&wm1, wu, 3, dw, sw, bw)
-      || !hopper::tensor_map(&out64, out, 2, dout, sout, bout64)
-      || !hopper::tensor_map(&out8, out, 2, dout, sout, bout8))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = St::R::SMEM;
-  const int most = 2 * hopper::max_tiles(capacity, E) * ((N + St::BN - 1) / St::BN);
-  const int grid = most < hopper::num_sms() ? most : hopper::num_sms();
-  auto* kernel = gate_up_wide_kernel<WIDE>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  (void)attr;
-  kernel<<<grid, hopper::THREADS, smem, s>>>(x128, x64, wm0, wm1, out64, out8,
-                                             lists.tiles, lists.count, K, N);
-  return moe_last_error();
-}
-
 // x (capacity, K), the (E, K, N) weight(s) w0 (and w1 when FUSED), the
 // work lists (built) -> out (capacity, N), every element written
 template <bool FUSED>

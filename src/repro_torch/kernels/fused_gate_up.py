@@ -53,12 +53,8 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     code, cap, K, F, fmt = check_gemm_operands(
         x, [w_gate, w_up], block_expert, block_active, block_m, w_format,
         scales)
-    E = w_gate.shape[0]
-    seg, buf = work_list_args(x, seg_start, E, w_format, "fused_gate_up")
-    if buf is not None:
-        _build.require(_build.aligned(x, w_gate, w_up),
-                       "fused_gate_up takes x and the weights on 16-byte "
-                       "boundaries")
+    seg, buf = work_list_args(x, [w_gate, w_up], seg_start, w_format,
+                              "fused_gate_up")
     lib = _build.library()
     out = torch.empty((cap, F), dtype=x.dtype, device=x.device)
     _, s_e, s_n = scale_args(scales)
@@ -67,8 +63,8 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         None if scales is None else wg_scale.data_ptr(),
         None if scales is None else wu_scale.data_ptr(), _ptr(seg),
         block_expert.data_ptr(), block_active.data_ptr(), _ptr(buf),
-        out.data_ptr(), cap, K, F, E, block_m, code, fmt, s_e, s_n,
-        _build.stream_ptr(x.device))
+        out.data_ptr(), cap, K, F, w_gate.shape[0], block_m, code, fmt, s_e,
+        s_n, _build.stream_ptr(x.device))
     key = launch_key("fused_gate_up", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1

@@ -172,23 +172,24 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m,
     return code, cap, K, N, W_FORMATS.index(w_format)
 
 
-def work_list_args(x, seg_start, n_experts: int, w_format: str, kernel: str):
-    """(seg_start, scratch) for the C call: the schedule's seg_start and
-    the work lists' scratch when the Hopper kernel runs (bf16, dense
-    weights), which refuses a call without seg_start or with an operand
-    off a 16-byte boundary; (None, None) on the other paths.  The weights
-    are checked by the caller (``aligned``)."""
+def work_list_args(x, ws, seg_start, w_format: str, kernel: str):
+    """(seg_start, scratch) for the C call when the Hopper kernel runs (bf16
+    on dense weights ``ws``): the schedule's seg_start, from which it finds
+    each expert's run, and the work lists' scratch.  It refuses a call
+    without seg_start, or with x or a weight off a 16-byte boundary (TMA).
+    (None, None) on the other paths, which read neither."""
     if x.dtype != torch.bfloat16 or w_format != "dense":
         return None, None
+    E = ws[0].shape[0]
     _build.require(seg_start is not None,
                    f"{kernel} in bf16 on dense weights walks each expert's "
                    "run of rows from the schedule's seg_start: pass it")
     _build.require(seg_start.dtype == torch.int32
-                   and seg_start.shape == (n_experts,)
-                   and seg_start.is_contiguous(),
-                   f"{kernel} takes a contiguous int32 ({n_experts},) "
-                   "seg_start")
-    return seg_start, _tiles.scratch(x.shape[0], n_experts, x.device)
+                   and seg_start.shape == (E,) and seg_start.is_contiguous(),
+                   f"{kernel} takes a contiguous int32 ({E},) seg_start")
+    _build.require(_build.aligned(x, *ws),
+                   f"{kernel} takes x and the weights on 16-byte boundaries")
+    return seg_start, _tiles.scratch(x.shape[0], E, x.device)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -227,19 +228,15 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                        and row_scale.is_contiguous(),
                        f"grouped GEMM takes a contiguous float32 ({cap},) "
                        "row_scale")
-    E = w.shape[0]
-    seg, buf = work_list_args(x, seg_start, E, w_format, "grouped_gemm")
-    if buf is not None:
-        _build.require(_build.aligned(x, w),
-                       "grouped_gemm takes x and w on 16-byte boundaries")
+    seg, buf = work_list_args(x, [w], seg_start, w_format, "grouped_gemm")
     lib = _build.library()
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
     s_ptr, s_e, s_n = scale_args(scales)
     err = lib.moe_grouped_gemm(
         x.data_ptr(), w.data_ptr(), s_ptr, _ptr(seg),
         block_expert.data_ptr(), block_active.data_ptr(), _ptr(row_scale),
-        _ptr(buf), out.data_ptr(), cap, K, N, E, block_m, code, fmt, s_e,
-        s_n, _build.stream_ptr(x.device))
+        _ptr(buf), out.data_ptr(), cap, K, N, w.shape[0], block_m, code, fmt,
+        s_e, s_n, _build.stream_ptr(x.device))
     key = launch_key("grouped_gemm", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
