@@ -24,9 +24,4 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// silu(g) * u in fp32: the SiLU product of B2's epilogue
-__device__ __forceinline__ float silu_mul(float g, float u) {
-  return g * (1.0f / (1.0f + expf(-g))) * u;
-}
-
 static inline int moe_last_error() { return (int)cudaGetLastError(); }

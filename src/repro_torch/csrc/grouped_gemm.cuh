@@ -90,6 +90,10 @@ __device__ __forceinline__ void stage_scales(float* Ss, const float* s,
     Ss[c] = n0 + c < N ? s[e * s_e + (size_t)(n0 + c) * s_n] : 0.f;
 }
 
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return g * (1.0f / (1.0f + expf(-g))) * u;
+}
+
 // ---------------------------------------------------------------- zeros
 template <typename T, int BM, int THREADS>
 __device__ __forceinline__ void store_zero_tile(T* out, int m0, int n0, int N) {

@@ -58,6 +58,15 @@ struct FwdStage {
   using R = hopper::Ring<BYTES, 2 * EPI_WG>;
 };
 
+// silu(g) * u with the special-function unit's exp and reciprocal: a few
+// fp32 ulps from an IEEE expf and division, below bf16's rounding
+// (B2's outputs differ from that form's by at most one bf16 ulp), and 7 %
+// of B2 at moonshot's T = 4096, where the epilogue holds up both consumer
+// warpgroups
+__device__ __forceinline__ float silu_mul_sfu(float g, float u) {
+  return __fdividef(g, 1.0f + __expf(-g)) * u;
+}
+
 // The x rows a slice of `rows` rows loads: a 256-, 128- or 64-row box
 __device__ __forceinline__ int a_rows(int rows) {
   return rows > 128 ? 256 : (rows > 64 ? 128 : 64);
@@ -153,7 +162,7 @@ __device__ __forceinline__ void store_slab(float (&d)[64],
   if constexpr (FUSED) {
     float h[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) h[j] = silu_mul(d[j], d[j + 32]);
+    for (int j = 0; j < 32; ++j) h[j] = silu_mul_sfu(d[j], d[j + 32]);
     stage_tile<bf16>(h, epi);
   } else {
     if (row_scale != nullptr) {

@@ -27,8 +27,13 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -fvisibility=hidden: only the C entry points (MOE_API) are exported, so
+# two builds loaded into one process (chip_gemm_ab.py) keep their own
+# template statics, such as each launcher's cudaFuncSetAttribute, which
+# the dynamic linker would otherwise share between them
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xcompiler", "-fvisibility=hidden",
+              "-Xptxas", "-v"]
 
 KERNELS = ("router_topk", "permute", "unpermute", "grouped_gemm",
            "fused_gate_up", "paged_attention", "paged_attention_mla",
