@@ -8,7 +8,8 @@ result line):
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles the kernels from src/repro_torch/csrc with nvcc for
    sm_90a (one process per source, in parallel, into build/kernels/) and
-   prints the build time, each source's, and ptxas's registers per kernel;
+   prints the build time, each source's, and ptxas's registers and spills
+   per kernel;
    then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
    the SASS of the Hopper kernels (the forward's B1 and B2 in bf16 on
    dense weights, the backward's B7 and B1^T; ``cuobjdump -sass`` on the
@@ -21,12 +22,16 @@ result line):
    fp32 1e-4 / bf16 2e-2, rows of inactive blocks exactly zero and no NaN
    (the allocator is poisoned with NaN just before each call), the two
    GEMMs bitwise equal across two calls.  The paged
-   decode-attention kernel at moonshot's attention shape (16 KV heads of
-   128, blocks of 16) at decode (B=2) and at a prefill-chunk step (B=64),
-   at a GQA shape (mixtral's 8 KV heads x 4), with vector and scalar
-   kv_limit, causal + window against q_pos, softcap, and whole blocks past
+   decode-attention kernel (GQA: split over the block pool, then merged in
+   split order) at moonshot's attention shape (16 KV heads of 128, blocks
+   of 16) at decode (B=2), at a prefill-chunk step (B=64), at long context
+   (B=2 at kv_limit 8191 and 6143, tables of 512 blocks) and batched (32
+   rows at kv_limit 2047), and at mixtral's GQA decode (8 KV heads x 4),
+   with vector and scalar kv_limit, causal + window against q_pos,
+   softcap, each bitwise equal across two calls, and whole blocks past
    kv_limit poisoned (1e4 against the plain version; NaN against the
-   kernel's own clean output, bitwise).  Then times each kernel, its plain
+   kernel's own clean output, bitwise; blocks that later splits would
+   take).  Then times each kernel, its plain
    version and a one-call PyTorch yardstick where one exists, at the
    serving shapes: device time from CUDA-graph replays between CUDA events,
    and the eager per-call time beside it; and prints the dynamic
@@ -241,6 +246,14 @@ def sass_counts(lib_path) -> dict:
                 if op in line:
                     counts[fn][op] += 1
     return counts
+
+
+def kernel_name(mangled: str, width: int = 72) -> str:
+    """A kernel's mangled name without the anonymous namespace's prefix
+    (``_ZN..._GLOBAL__N__<hash>_<file>_cu_<hash>``), cut to ``width``."""
+    import re
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
+                  mangled)[:width]
 
 
 def smi_line() -> str:
@@ -949,12 +962,26 @@ def paged_rows(kind: str):
     return [(s, p) for s in range(2) for p in range(32, 64)]
 
 
+# the GQA kernel's held and timed shapes: name -> (attention, (slot,
+# position) rows, table width nb, slots).  long: two rows of 8,192 and
+# 6,144 positions in tables of 512 blocks; batched: 32 rows of 2,048
+PAGED_SHAPES = {
+    "decode": (ATTN, paged_rows("decode"), 8, 2),
+    "chunk": (ATTN, paged_rows("chunk"), 8, 2),
+    "long": (ATTN, [(0, 8191), (1, 6143)], 512, 2),
+    "batched": (ATTN, [(s, 2047) for s in range(32)], 128, 32),
+    "gqa_decode": (ATTN_GQA, paged_rows("decode"), 8, 2),
+}
+
+
 def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
     """Kernel ``name`` (``paged_attention`` or ``paged_attention_mla``)
     against its plain version on case ``c``: each (label, kw) of
-    ``variants``, then whole blocks past kv_limit poisoned, with 1e4 against
-    the plain version and with NaN against the kernel's own clean output,
-    bitwise (the kernel never reads them)."""
+    ``variants``, each bitwise equal across two calls, then whole blocks
+    past kv_limit poisoned (blocks 2 on: with the GQA kernel's plans they
+    include later splits' ranges), with 1e4 against the plain version and
+    with NaN against the kernel's own clean output, bitwise (the kernel
+    never reads them)."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention as kern, paged_decode_attention_plain as plain)
@@ -962,9 +989,12 @@ def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
     def compare(tag, lim=None, **kw):
         got = poisoned(lambda: c.run(kern, lim, **kw), c.q.numel(), c.dtype)
         want = c.run(plain, lim, **kw)
+        again = c.run(kern, lim, **kw)
         torch.cuda.synchronize()
         if torch.isnan(got).any():
             raise AssertionError(f"{name}: NaN ({label} {tag})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two calls differ ({label} {tag})")
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[str(c.dtype).replace("torch.", "")])
         err = (got.float() - want.float()).abs().max().item()
@@ -990,13 +1020,13 @@ def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
 
 
 def check_paged(errs: dict) -> None:
-    """The GQA paged-attention kernel at moonshot's and mixtral's attention,
-    decode and chunk rows, over its masks."""
+    """The GQA paged-attention kernel at each of PAGED_SHAPES (moonshot's
+    decode, chunk, long-context and batched rows; mixtral's GQA decode),
+    over its masks."""
     import torch
     for dtype in (torch.bfloat16, torch.float32):
-        for attn, kind in ((ATTN, "decode"), (ATTN, "chunk"),
-                           (ATTN_GQA, "decode")):
-            c = PagedCase(attn, paged_rows(kind), dtype, seed=7)
+        for kind, (attn, rows, nb, slots) in PAGED_SHAPES.items():
+            c = PagedCase(attn, rows, dtype, seed=7, nb=nb, slots=slots)
             qpos = torch.clamp(c.lim - 3, min=0)
             check_attention("paged_attention", c, f"{c.label()} {kind}", errs,
                             (("", {}), ("scalar kv_limit", dict(lim=60)),
@@ -1004,44 +1034,57 @@ def check_paged(errs: dict) -> None:
                                                     window=40)),
                              ("softcap 30", dict(logit_softcap=30.0))))
             del c
+            torch.cuda.empty_cache()
 
 
 def time_paged(kind: str) -> dict:
-    """Kernel, plain and SDPA-yardstick times of paged attention (bf16,
-    moonshot's shape).  The yardstick is scaled_dot_product_attention over a
-    contiguous cache of each row's length (a boolean mask per row): it
-    excludes the gather that a paged cache would need first."""
+    """Kernel, plain and SDPA-yardstick times of paged attention at
+    PAGED_SHAPES[kind] (bf16).  The yardstick is
+    scaled_dot_product_attention over a contiguous cache of each row's
+    length (a boolean mask per row; ``enable_gqa`` for a group of several
+    query heads): it excludes the gather that a paged cache would need
+    first."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention as kern, paged_decode_attention_plain as plain)
-    c = PagedCase(ATTN, paged_rows(kind), torch.bfloat16, seed=11)
-    B, H, D = c.q.shape[0], ATTN["Hkv"] * ATTN["G"], ATTN["D"]
+        paged_decode_attention as kern, paged_decode_attention_plain as plain,
+        split_plan)
+    attn, rows, nb, slots = PAGED_SHAPES[kind]
+    c = PagedCase(attn, rows, torch.bfloat16, seed=11, nb=nb, slots=slots)
+    B, Hkv, G, D = c.q.shape
     S = max(c.lims) + 1
+    big = B * S > 4096                 # long rows: fewer calls a graph
     g = torch.Generator(device="cuda").manual_seed(12)
-    qs = torch.randn((B, H, 1, D), generator=g, device="cuda").to(c.dtype)
-    ks = torch.randn((B, H, S, D), generator=g, device="cuda").to(c.dtype)
-    vs = torch.randn((B, H, S, D), generator=g, device="cuda").to(c.dtype)
+    qs = torch.randn((B, Hkv * G, 1, D), generator=g,
+                     device="cuda").to(c.dtype)
+    ks = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(c.dtype)
+    vs = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(c.dtype)
     mask = (torch.arange(S, device="cuda")[None, :]
             <= c.lim[:, None])[:, None, None, :]
     n_bytes, flops = c.work()
     b_ms, b_by = bound_ms(n_bytes, flops)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, per = split_plan(B, Hkv, nb, sms)
     out = {
-        "ms": device_ms(lambda: kern(c.q, c.k, c.v, c.tables, c.lim), 50),
-        "eager_ms": time_ms(lambda: kern(c.q, c.k, c.v, c.tables, c.lim),
-                            200),
-        "plain_ms": device_ms(lambda: plain(c.q, c.k, c.v, c.tables, c.lim),
-                              10),
+        "ms": device_ms(lambda: c.run(kern), 20 if big else 50),
+        "eager_ms": time_ms(lambda: c.run(kern), 50 if big else 200),
+        "plain_ms": device_ms(lambda: c.run(plain), 3 if big else 10),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask), 50),
+            qs, ks, vs, attn_mask=mask, enable_gqa=G > 1),
+            20 if big else 50),
         "library": "scaled_dot_product_attention over a contiguous cache of "
-                   "each row's length (excludes the gather)",
+                   "each row's length (excludes the gather)"
+                   + (", enable_gqa" if G > 1 else ""),
         "library_null_reason": None, "bytes": n_bytes, "flops": flops,
-        "rows": B, "kv_positions_read": c.kv_positions_read(),
+        "rows": B, "Hkv": Hkv, "G": G, "nb": nb,
+        "kv_positions_read": c.kv_positions_read(),
         "row_kv_positions": sum(p + 1 for p in c.lims),
+        "n_split": n_split, "per_split": per,
     }
+    del c, qs, ks, vs
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1803,12 +1846,15 @@ def main() -> None:
           f"(nvcc, sm_90a) into {_build.BUILD_DIR.relative_to(ROOT)}; per "
           "source (in parallel): " + ", ".join(
               f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())))
-    entry = None
+    entry, spill = None, ""
     for line in _build.build_log.splitlines():      # ptxas -v, per kernel
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, spill = line.split("'")[1], ""
+        elif "spill stores" in line and entry is not None:
+            spill = "; " + line.strip()
         elif "Used" in line and entry is not None:
-            print(f"  ptxas {entry[:64]}: {line.split(':', 1)[1].strip()}")
+            print(f"  ptxas {kernel_name(entry)}: "
+                  f"{line.split(':', 1)[1].strip()}{spill}")
             entry = None
     sass = sass_counts(_build.build())
     for fn, n in sass.items():
@@ -1888,7 +1934,7 @@ def main() -> None:
                     del c
                     torch.cuda.empty_cache()
     check_paged(errs)
-    paged_t = {k: time_paged(k) for k in ("decode", "chunk")}
+    paged_t = {k: time_paged(k) for k in PAGED_SHAPES}
     check_mla(errs)
     mla_t = {k: time_mla(k) for k in ("decode", "chunk")}
     for p in padding:
@@ -1936,10 +1982,13 @@ def main() -> None:
             f"plain {t[n]['plain_ms'] * 1e3:.1f})"
             for n in ("fused_gate_up", "grouped_gemm")))
     for step_kind, t in paged_t.items():
-        print(f"[times] paged_attention moonshot bf16 {step_kind} "
-              f"B={t['rows']} ({t['kv_positions_read']} KV positions read, "
-              f"{t['row_kv_positions']} over the rows): "
-              f"{t['ms'] * 1e3:.1f} us "
+        arch = "mixtral-8x7b" if t["G"] > 1 else "moonshot"
+        print(f"[times] paged_attention {arch} bf16 {step_kind} "
+              f"B={t['rows']} Hkv={t['Hkv']} G={t['G']} nb={t['nb']} "
+              f"({t['n_split']} splits of {t['per_split']} entries; "
+              f"{t['kv_positions_read']} KV positions read, "
+              f"{t['row_kv_positions']} over the rows, "
+              f"{t['bytes'] / 1e6:.3f} MB): {t['ms'] * 1e3:.1f} us "
               f"(eager {t['eager_ms'] * 1e3:.1f}), bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), plain "
               f"{t['plain_ms'] * 1e3:.1f} us, SDPA yardstick "
@@ -2290,10 +2339,23 @@ def main() -> None:
                               "max_abs_err_fp32_out": errs[name],
                               "fp32_out": cells(name, skip=None)})
         elif name == "paged_attention":
+            pkeys = keys + ("n_split", "per_split", "bytes")
             d, extra = paged_t["decode"], {
                 "shape": "moonshot-v1-16b-a3b bf16 paged decode B=2 "
                          "(kv_limit 100 and 77, blocks of 16)",
-                "chunk_B64": {k: paged_t["chunk"][k] for k in keys}}
+                "n_split": paged_t["decode"]["n_split"],
+                "chunk_B64": {k: paged_t["chunk"][k] for k in pkeys},
+                "long_context_B2": {
+                    "shape": "moonshot bf16, kv_limit 8191 and 6143, nb 512",
+                    **{k: paged_t["long"][k] for k in pkeys}},
+                "batched_B32": {
+                    "shape": "moonshot bf16, 32 rows at kv_limit 2047, "
+                             "nb 128",
+                    **{k: paged_t["batched"][k] for k in pkeys}},
+                "mixtral_gqa_decode_B2": {
+                    "shape": "mixtral-8x7b bf16 (Hkv 8, G 4), kv_limit 100 "
+                             "and 77, nb 8",
+                    **{k: paged_t["gqa_decode"][k] for k in pkeys}}}
         elif name == "paged_attention_mla":
             entry["launches"] = deepseek["paged"]["launches"][name]
             mkeys = keys + ("bound_bytes_ms", "bound_ops_ms")

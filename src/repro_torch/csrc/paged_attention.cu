@@ -2,36 +2,58 @@
 //
 // Replaces: src/repro/kernels/paged_attention.py, paged_decode_attention
 // (its Pallas _kernel), with and without its second score operand: the
-// GQA kernel below serves q alone, the MLA kernel further down q and q2.
+// GQA kernels below serve q alone, the MLA kernel further down q and q2.
 //
 // out[b, h, g, :] = softmax_k(q[b, h, g, :] . K[k, h, :]) V[k, h, :] over
 // the positions k <= kv_limit[b] (and, when asked, k <= q_pos[b] and
 // k > q_pos[b] - window) of row b, whose keys and values sit in the pool
 // blocks tables[b, 0..nb) in logical order: position k lives in block
 // tables[b, k / bs] at offset k % bs.  Pools are (n_blocks, bs, Hkv, D)
-// and (n_blocks, bs, Hkv, Dv); q (B, Hkv, G, D) arrives already scaled in
-// its own dtype; out is (B, Hkv, G, Dv) in q's dtype.
+// and (n_blocks, bs, Hkv, Dv); out is (B, Hkv, G, Dv) in q's dtype.
 //
-// What bounds it on the H100: bytes.  Each row reads its K and V up to
-// kv_limit once (moonshot: 16 KV heads x 128 x 2 bytes x 2 = 8 KB per
+// GQA.  What bounds it on the H100: bytes.  Each row reads its K and V up
+// to kv_limit once (moonshot: 16 KV heads x 128 x 2 bytes x 2 = 8 KB per
 // position in bf16) and does 4 * G * (D + Dv) flops per position: far
-// below the card's ~295 flop/byte.  At decode the batch is a few rows, so
-// the grid is small and the launch itself is a large part of the time.
+// below the card's ~295 flop/byte.  A row of 8,192 positions is 64 MB, 20
+// us at 3.35 TB/s; at decode (two rows of about 100 positions) the 1.4 MB
+// take 0.4 us and the time is the launch and a few dependent loads.
 //
-// What the design does about it: one thread block per (row b, KV head h);
-// a loop over the row's table entries takes the place of the TPU kernel's
-// sequential grid axis.  Each (bs, D) K tile and (bs, Dv) V tile is loaded
-// into shared memory once, with 16-byte vectors, and serves all G query
-// heads of the group; the gathered view never exists in device memory.
-// Scores (G x bs), the running max, sum and the (G, Dv) accumulator stay
-// in fp32 in shared memory.  Blocks that start past kv_limit are skipped:
-// they would contribute p = 0 and a correction of 1, so skipping is exact,
-// and table entries past kv_limit may name any block.
+// What the design does about it: the work is cut across the card, not
+// walked by one block per (row, KV head).  The host cuts each row's nb
+// table entries into n_split contiguous ranges of per_split entries
+// (split_plan in kernels/paged_attention.py: from B, Hkv, nb and the SM
+// count, never from kv_limit, so the call stays free of host syncs), as
+// many as fill the card's block slots in whole rounds.  The grid is (row
+// b, group of four KV heads x head tile, split); each warp of a block
+// takes one KV head of the group (fewer warps where four rings of a wide
+// fp32 head would not fit in 227 KB), so the block reads each position's
+// row of four heads, 1 KB at moonshot, together.  A split whose range
+// starts past the block holding kv_limit exits at once, so blocks past
+// kv_limit are never read.  A warp walks its split's entries on its own:
+// a two-stage ring of (bs, D) K and (bs, Dv) V tiles in shared memory, the
+// next pool block's tiles streaming in with cp.async (and the table entry
+// after it read one block ahead) while this one is consumed, with
+// __syncwarp and no block barrier anywhere.  A lane holds the pairs
+// 2(l + 32i) of each of its warp's query heads (one, or four: a K/V tile
+// serves all G heads of the group) and of their accumulators in
+// registers; a warp scores 16 positions at once (each lane its fp32 fmaf
+// share of the 16 dot products, then a transposing butterfly of 16
+// shuffles that leaves position k's score in lanes 2k and 2k + 1), and the
+// online softmax runs in the warp.  The warp writes its (m, l,
+// acc) as the split's fp32 partial, or, where one split covers the row (a
+// chunk step of many rows), the output directly.  A second small kernel
+// merges the live splits of each (row, head, query) in split order, with
+// the same rules, so the output is bitwise the same from call to call (no
+// atomics anywhere).  q arrives unscaled: each lane rounds q * scale to
+// q's dtype as it loads it, as the reference does.
 //
 // Semantics held from the reference, line for line: masked scores are
 // -1e30 (not -inf) and p is re-masked to 0; p is cast to V's dtype before
 // the PV product (bf16 rounding), while the running sum uses the unrounded
-// p; the final divide is l > 0 ? acc / max(l, 1e-30) : 0.
+// p; the final divide is l > 0 ? acc / max(l, 1e-30) : 0.  Skipping a pool
+// block (or a split) whose positions are all masked is exact: it would
+// contribute p = 0 and a correction of 1.  A row whose positions are all
+// masked has l = 0 in every split and comes out as exact zeros.
 //
 // MLA (deepseek-v2's absorbed decode): s = q . ckv[k] + q2 . kr[k] and the
 // value is ckv[k] itself.  Shapes: q (B, 1, 128, 512), q2 (B, 1, 128, 64),
@@ -41,9 +63,9 @@
 // 0.2 us at 3.35 TB/s, while the grid has 16 blocks; at a 64-row chunk
 // step the 17.8 MB of q and out (5 us), before the 0.86 GFLOP of the
 // scores and PV (0.9 us on tensor cores, far longer on CUDA cores, which
-// this kernel uses).  The GQA kernel's layout cannot hold it: a (G, D)
-// fp32 query and accumulator for 128 heads of 512 are 256 KB each, beyond
-// a block's shared memory.  So the MLA kernel tiles the query heads over
+// this kernel uses).  The GQA kernels cannot serve it: they take no
+// second operand, read K and V as two tiles, and hold at most 256 columns
+// of a head (4 pairs a lane).  So the MLA kernel tiles the query heads over
 // a third grid axis (eight warps of two heads, 16 a block; or of one head
 // where 16-head tiles would leave most SMs idle, as at decode) and keeps
 // each head's query share and accumulator in registers: lane l holds the
@@ -61,7 +83,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float as_value_dtype(float p, float) { return p; }
@@ -76,150 +97,6 @@ __device__ __forceinline__ bool attended(int kpos, int lim, int qp, int causal,
   if (has_window) ok = ok && kpos > qp - window;
   return ok;
 }
-
-// Copy one (bs, width) tile of a pool block for head h into shared memory.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ pool,
-                                          size_t blk, int h, int Hkv, int bs,
-                                          int width) {
-  constexpr int EPV = 16 / sizeof(T);
-  const int vpr = width / EPV;                  // vectors per tile row
-  for (int v = threadIdx.x; v < bs * vpr; v += THREADS) {
-    const int kk = v / vpr, c = (v % vpr) * EPV;
-    const T* src = pool + ((blk * bs + kk) * Hkv + h) * (size_t)width + c;
-    *reinterpret_cast<uint4*>(dst + kk * width + c) =
-        *reinterpret_cast<const uint4*>(src);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ kv_limit,
-                       const int* __restrict__ q_pos, T* __restrict__ out,
-                       int Hkv, int G, int D, int Dv, int bs, int nb,
-                       int causal, int has_window, int window, float softcap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);                   // (bs, D)
-  T* sV = sK + bs * D;                                  // (bs, Dv)
-  float* sQ = reinterpret_cast<float*>(sV + bs * Dv);   // (G, D)
-  float* sP = sQ + G * D;                               // (G, bs) scores, then p
-  float* sAcc = sP + G * bs;                            // (G, Dv)
-  float* sM = sAcc + G * Dv;                            // (G,) running max
-  float* sL = sM + G;                                   // (G,) running sum
-  float* sCorr = sL + G;                                // (G,) this block's correction
-
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int lim = kv_limit[b];
-  const int qp = (causal || has_window) ? q_pos[b] : 0;
-
-  const T* qb = q + ((size_t)b * Hkv + h) * G * D;
-  for (int i = tid; i < G * D; i += THREADS) sQ[i] = to_f32(qb[i]);
-  for (int i = tid; i < G * Dv; i += THREADS) sAcc[i] = 0.f;
-  for (int g = tid; g < G; g += THREADS) {
-    sM[g] = kNegInf;
-    sL[g] = 0.f;
-  }
-
-  // blocks past the one holding kv_limit contribute nothing
-  const int n_used = lim < 0 ? 0 : min(nb, lim / bs + 1);
-  for (int j = 0; j < n_used; ++j) {
-    const size_t blk = (size_t)tables[(size_t)b * nb + j];
-    __syncthreads();                   // the previous block is consumed
-    load_tile(sK, k_pool, blk, h, Hkv, bs, D);
-    load_tile(sV, v_pool, blk, h, Hkv, bs, Dv);
-    __syncthreads();
-
-    // scores: one warp per (g, kk), the lanes split D, fp32 sums
-    for (int pr = warp; pr < G * bs; pr += THREADS / 32) {
-      const int g = pr / bs, kk = pr % bs;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(sQ[g * D + d], to_f32(sK[kk * D + d]), acc);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) {
-        float s = acc;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const bool ok = attended(j * bs + kk, lim, qp, causal, has_window,
-                                 window);
-        sP[pr] = ok ? s : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online-softmax statistics, one thread per query head of the group
-    for (int g = tid; g < G; g += THREADS) {
-      const float m_prev = sM[g];
-      float m_new = m_prev;
-      for (int kk = 0; kk < bs; ++kk) m_new = fmaxf(m_new, sP[g * bs + kk]);
-      float sum = 0.f;
-      for (int kk = 0; kk < bs; ++kk) {
-        const bool ok = attended(j * bs + kk, lim, qp, causal, has_window,
-                                 window);
-        const float p = ok ? expf(sP[g * bs + kk] - m_new) : 0.f;
-        sP[g * bs + kk] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - m_new);
-      sCorr[g] = corr;
-      sM[g] = m_new;
-      sL[g] = corr * sL[g] + sum;
-    }
-    __syncthreads();
-
-    // acc = corr * acc + p @ V, p rounded to V's dtype; each thread owns
-    // the same accumulator entries in every iteration
-    for (int i = tid; i < G * Dv; i += THREADS) {
-      const int g = i / Dv, dv = i % Dv;
-      float pv = 0.f;
-      for (int kk = 0; kk < bs; ++kk)
-        pv = fmaf(as_value_dtype(sP[g * bs + kk], T{}), to_f32(sV[kk * Dv + dv]),
-                  pv);
-      sAcc[i] = sCorr[g] * sAcc[i] + pv;
-    }
-  }
-  __syncthreads();
-
-  T* ob = out + ((size_t)b * Hkv + h) * G * Dv;
-  for (int i = tid; i < G * Dv; i += THREADS) {
-    const float l = sL[i / Dv];
-    ob[i] = from_f32<T>(l > 0.f ? sAcc[i] / fmaxf(l, 1e-30f) : 0.f);
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* kv_limit, const void* q_pos,
-           void* out, int B, int Hkv, int G, int D, int Dv, int bs, int nb,
-           int causal, int has_window, int window, float softcap,
-           cudaStream_t s) {
-  const size_t smem = (size_t)bs * (D + Dv) * sizeof(T) +
-                      ((size_t)G * (D + bs + Dv) + 3 * G) * sizeof(float);
-  auto* kernel = paged_attention_kernel<T>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);   // a refusal surfaces as the launch's error
-  kernel<<<dim3(B, Hkv), THREADS, smem, s>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)tables,
-      (const int*)kv_limit, (const int*)q_pos, (T*)out, Hkv, G, D, Dv, bs, nb,
-      causal, has_window, window, softcap);
-  return moe_last_error();
-}
-
-
-// ---------------------------------------------------------------------------
-// MLA: the second score operand, the latent pool as key and value
-// ---------------------------------------------------------------------------
-constexpr int MLA_WARPS = 8;
-constexpr int MLA_THREADS = MLA_WARPS * 32;
-constexpr int MLA_QP = 9;    // pairs of [q | q2] per lane: D + D2 <= 576
-constexpr int MLA_VP = 8;    // pairs of the accumulator per lane: D <= 512
-constexpr int MLA_MAX_BS = 32;                  // one position per lane
 
 template <typename T> struct Pair;
 template <> struct Pair<float> {
@@ -267,6 +144,379 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// The pair of tile row ``row`` at column c, with c clamped into the row so
+// that every load is unconditional; zeros past ``width``
+template <typename T>
+__device__ __forceinline__ float2 row_pair(const T* row, int c, int width) {
+  const float2 v = Pair<T>::load(row + min(c, width - 2));
+  return c < width ? v : make_float2(0.f, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// GQA: split-KV over the block pool, then a merge of the splits in order
+// ---------------------------------------------------------------------------
+constexpr int GQA_WARPS = 4;       // KV heads a block (fewer: rings too big)
+constexpr int GQA_THREADS = GQA_WARPS * 32;
+constexpr int GQA_STAGES = 2;      // each warp's ring of (K, V) tiles
+constexpr int GQA_MAX_WIDTH = 256; // D, Dv: 4 pairs a lane
+constexpr int GQA_CHUNK = 16;      // positions a warp scores at once
+constexpr int COMBINE_THREADS = 128;
+
+// One step of transpose_sum: trade the upper or the lower HALF of v[0,
+// 2 HALF) with the lane O apart, keeping the half this lane's bit O selects
+template <int HALF, int O>
+__device__ __forceinline__ void transpose_step(float (&v)[GQA_CHUNK],
+                                               int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// v[k] is this lane's share of position k's dot product, k < 16.  Returns
+// the warp's sum for position lane / 2: four steps halve the values a lane
+// holds (lanes 16, 8, 4, 2 apart) and the last adds the neighbour's: 16
+// shuffles where a reduction per position would take 80.
+__device__ __forceinline__ float transpose_sum(float (&v)[GQA_CHUNK],
+                                               int lane) {
+  static_assert(GQA_CHUNK == 16, "four steps over lanes 16, 8, 4, 2");
+  transpose_step<8, 16>(v, lane);
+  transpose_step<4, 8>(v, lane);
+  transpose_step<2, 4>(v, lane);
+  transpose_step<1, 2>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// Start copying pool block blk's (bs, D) K rows and (bs, Dv) V rows for
+// head h into one warp's (K | V) tile, 16 bytes a copy; the caller
+// commits the group and waits for it.  A lane's copies step through the
+// tile 32 vectors at a time, with no division in the loop.
+template <typename T>
+__device__ __forceinline__ void issue_kv_tile(T* dst,
+                                              const T* __restrict__ pool,
+                                              size_t blk, int h, int Hkv,
+                                              int bs, int width, int lane) {
+  constexpr int EPV = 16 / sizeof(T);
+  const int vpr = width / EPV;                 // vectors per tile row
+  const int d_row = 32 / vpr, d_col = 32 % vpr;
+  int kk = lane / vpr, c = lane % vpr;
+  const T* src = pool + (blk * bs * Hkv + h) * (size_t)width;
+  const size_t stride = (size_t)Hkv * width;   // from one position to the next
+  while (kk < bs) {
+    cp_async16(dst + kk * width + c * EPV, src + kk * stride + c * EPV);
+    kk += d_row;
+    c += d_col;
+    if (c >= vpr) {
+      c -= vpr;
+      ++kk;
+    }
+  }
+}
+
+// Grid (B, ceil(Hkv / warps) * head tiles, n_split), blockDim.x / 32
+// warps: warp w of a block takes KV head (blockIdx.y / head tiles) * warps
+// + w and walks every entry of the block's split.  QP pairs of q and of the
+// accumulator a lane (D, Dv <= 64 * QP); HPW query heads a warp.
+template <typename T, int QP, int HPW>
+__global__ void __launch_bounds__(GQA_THREADS)
+paged_attention_split_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k_pool,
+                             const T* __restrict__ v_pool,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ kv_limit,
+                             const int* __restrict__ q_pos,
+                             T* __restrict__ out, float* __restrict__ part_ml,
+                             float* __restrict__ part_acc, float scale,
+                             int Hkv, int G, int D, int Dv, int bs, int nb,
+                             int per_split, int n_split, int causal,
+                             int has_window, int window, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_gt = (G + HPW - 1) / HPW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  const int b = blockIdx.x, h = (blockIdx.y / n_gt) * n_warps + warp;
+  const int g0 = (blockIdx.y % n_gt) * HPW, split = blockIdx.z;
+  if (h >= Hkv) return;                  // past the last group's heads
+  // the split's first table entries and this lane's pairs of each of the
+  // warp's heads (q * scale rounded to q's dtype; heads past G and columns
+  // past D hold zeros) are read before kv_limit is known: none depends on it
+  const int j0 = split * per_split;      // < nb
+  const int* trow = tables + (size_t)b * nb;
+  int first[GQA_STAGES];
+#pragma unroll
+  for (int p = 0; p < GQA_STAGES; ++p)
+    first[p] = j0 + p < nb ? trow[j0 + p] : 0;
+  const size_t row0 = ((size_t)b * Hkv + h) * G;
+  float2 qr[HPW][QP];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    const int g = g0 + j;
+    const T* qg = q + (row0 + min(g, G - 1)) * D;
+#pragma unroll
+    for (int i = 0; i < QP; ++i) {
+      const int c = 2 * (lane + 32 * i);
+      const float2 v = Pair<T>::load(qg + min(c, D - 2));
+      qr[j][i] = (g < G && c < D)
+          ? make_float2(as_value_dtype(v.x * scale, T{}),
+                        as_value_dtype(v.y * scale, T{}))
+          : make_float2(0.f, 0.f);
+    }
+  }
+  const int lim = kv_limit[b];
+  // blocks past the one holding kv_limit contribute nothing
+  const int n_used = lim < 0 ? 0 : min(nb, lim / bs + 1);
+  const int j1 = min(n_used, j0 + per_split);
+  if (j0 >= j1 && n_split > 1) return;   // the merge skips this split
+  const int qp = (causal || has_window) ? q_pos[b] : 0;
+  const int tile = bs * (D + Dv);
+  T* ring = reinterpret_cast<T*>(smem) + (size_t)warp * GQA_STAGES * tile;
+  // this warp's ring; the first GQA_STAGES - 1 tiles start streaming in,
+  // and one (possibly empty) copy group is committed per tile
+  const int n_mine = max(0, j1 - j0);
+#pragma unroll
+  for (int p = 0; p < GQA_STAGES - 1; ++p) {
+    if (p < n_mine) {
+      issue_kv_tile(ring + p * tile, k_pool, (size_t)first[p], h, Hkv, bs, D,
+                    lane);
+      issue_kv_tile(ring + p * tile + bs * D, v_pool, (size_t)first[p], h,
+                    Hkv, bs, Dv, lane);
+    }
+    cp_async_commit();
+  }
+  int blk_next = first[GQA_STAGES - 1];
+
+  float2 acc[HPW][QP];
+  float m[HPW], l[HPW];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < QP; ++i) acc[j][i] = make_float2(0.f, 0.f);
+  }
+
+  for (int it = 0; it < n_mine; ++it) {
+    const int jb = j0 + it;
+    const T* tK = ring + (it % GQA_STAGES) * tile;
+    const T* tV = tK + bs * D;
+    // the tiles GQA_STAGES - 1 ahead stream in while these are consumed;
+    // the table entry after them is read one block ahead
+    if (it + GQA_STAGES - 1 < n_mine) {
+      T* nxt = ring + ((it + GQA_STAGES - 1) % GQA_STAGES) * tile;
+      issue_kv_tile(nxt, k_pool, (size_t)blk_next, h, Hkv, bs, D, lane);
+      issue_kv_tile(nxt + bs * D, v_pool, (size_t)blk_next, h, Hkv, bs, Dv,
+                    lane);
+      blk_next = it + GQA_STAGES < n_mine ? trow[jb + GQA_STAGES] : 0;
+    }
+    cp_async_commit();
+    cp_async_wait<GQA_STAGES - 1>();  // this tile's group has landed
+    __syncwarp();                      // ... for every lane's copies
+
+    for (int c0 = 0; c0 < bs; c0 += GQA_CHUNK) {
+      const int nc = min(GQA_CHUNK, bs - c0);
+      // scores: each lane forms its share of the chunk's dot products
+      // (rows past the tile clamped to its last), then a transposing
+      // butterfly leaves position lane / 2's score in lanes 2k and 2k + 1
+      float part[HPW][GQA_CHUNK];
+#pragma unroll
+      for (int kk = 0; kk < GQA_CHUNK; ++kk) {
+        const T* krow = tK + min(c0 + kk, bs - 1) * D;
+        float2 kv[QP];
+#pragma unroll
+        for (int i = 0; i < QP; ++i)
+          kv[i] = row_pair(krow, 2 * (lane + 32 * i), D);
+#pragma unroll
+        for (int j = 0; j < HPW; ++j) {
+          float ax = 0.f, ay = 0.f;
+#pragma unroll
+          for (int i = 0; i < QP; ++i) {
+            ax = fmaf(qr[j][i].x, kv[i].x, ax);
+            ay = fmaf(qr[j][i].y, kv[i].y, ay);
+          }
+          part[j][kk] = ax + ay;
+        }
+      }
+      float s_pos[HPW];
+#pragma unroll
+      for (int j = 0; j < HPW; ++j) s_pos[j] = transpose_sum(part[j], lane);
+
+      // online softmax over this chunk, in the warp
+      const int pos = lane / 2;
+      const bool ok = pos < nc && attended(jb * bs + c0 + pos, lim, qp,
+                                           causal, has_window, window);
+      float p_pos[HPW];
+#pragma unroll
+      for (int j = 0; j < HPW; ++j) {
+        float s = s_pos[j];
+        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+        s = ok ? s : kNegInf;
+        const float m_new = fmaxf(m[j], warp_max(s));
+        const float p = ok ? expf(s - m_new) : 0.f;
+        const float corr = expf(m[j] - m_new);
+        l[j] = corr * l[j] + warp_sum(lane & 1 ? 0.f : p);   // once a position
+        m[j] = m_new;
+        p_pos[j] = as_value_dtype(p, T{});
+#pragma unroll
+        for (int i = 0; i < QP; ++i) {
+          acc[j][i].x *= corr;
+          acc[j][i].y *= corr;
+        }
+      }
+      // acc += p @ V; p rounded to V's dtype
+#pragma unroll 2
+      for (int kk = 0; kk < nc; ++kk) {
+        const T* vrow = tV + (c0 + kk) * Dv;
+        float2 v[QP];
+#pragma unroll
+        for (int i = 0; i < QP; ++i)
+          v[i] = row_pair(vrow, 2 * (lane + 32 * i), Dv);
+#pragma unroll
+        for (int j = 0; j < HPW; ++j) {
+          const float pk = __shfl_sync(0xffffffffu, p_pos[j], 2 * kk);
+#pragma unroll
+          for (int i = 0; i < QP; ++i) {
+            acc[j][i].x = fmaf(pk, v[i].x, acc[j][i].x);
+            acc[j][i].y = fmaf(pk, v[i].y, acc[j][i].y);
+          }
+        }
+      }
+    }
+    __syncwarp();                      // these tiles are consumed
+  }
+
+  // the split's partial, or the output where one split covers the row
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    const int g = g0 + j;
+    if (g >= G) continue;
+    const size_t row = row0 + g;
+    const float den = fmaxf(l[j], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < QP; ++i) {
+      const int c = 2 * (lane + 32 * i);
+      if (c >= Dv) continue;
+      if (n_split == 1) {
+        Pair<T>::store(out + row * Dv + c,
+                       l[j] > 0.f ? acc[j][i].x / den : 0.f,
+                       l[j] > 0.f ? acc[j][i].y / den : 0.f);
+      } else {
+        const size_t pr = row * n_split + split;
+        *reinterpret_cast<float2*>(part_acc + pr * Dv + c) = acc[j][i];
+        if (c == 0) {
+          part_ml[2 * pr] = m[j];
+          part_ml[2 * pr + 1] = l[j];
+        }
+      }
+    }
+  }
+}
+
+// One block per (row, KV head): each (query head, column pair) merges the
+// live splits -- those that start below the block holding kv_limit -- in
+// split order; a row with none comes out as zeros.
+template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_attention_combine_kernel(const float* __restrict__ part_ml,
+                               const float* __restrict__ part_acc,
+                               const int* __restrict__ kv_limit,
+                               T* __restrict__ out, int Hkv, int G, int Dv,
+                               int bs, int nb, int per_split, int n_split) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int lim = kv_limit[b];
+  const int n_used = lim < 0 ? 0 : min(nb, lim / bs + 1);
+  const int n_live = (n_used + per_split - 1) / per_split;
+  const size_t row0 = ((size_t)b * Hkv + h) * G;
+  const int pairs = Dv / 2;
+  // every split's partial is loaded, without waiting for kv_limit; those
+  // of dead splits (never written) are selected away, never multiplied
+  for (int e = threadIdx.x; e < G * pairs; e += COMBINE_THREADS) {
+    const int g = e / pairs, c = 2 * (e % pairs);
+    const size_t pr = (row0 + g) * n_split;
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s) {
+      const float m = part_ml[2 * (pr + s)];
+      M = s < n_live ? fmaxf(M, m) : M;
+    }
+    float L = 0.f, ax = 0.f, ay = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float2 ml =
+          *reinterpret_cast<const float2*>(part_ml + 2 * (pr + s));
+      const float2 a = *reinterpret_cast<const float2*>(part_acc +
+                                                        (pr + s) * Dv + c);
+      if (s < n_live) {
+        const float f = expf(ml.x - M);
+        L += ml.y * f;
+        ax += a.x * f;
+        ay += a.y * f;
+      }
+    }
+    const float den = fmaxf(L, 1e-30f);
+    Pair<T>::store(out + (row0 + g) * Dv + c, L > 0.f ? ax / den : 0.f,
+                   L > 0.f ? ay / den : 0.f);
+  }
+}
+
+template <typename T, int QP, int HPW>
+int launch_split(const void* q, const void* k_pool, const void* v_pool,
+                 const void* tables, const void* kv_limit, const void* q_pos,
+                 void* out, void* part_ml, void* part_acc, float scale, int B,
+                 int Hkv, int G, int D, int Dv, int bs, int nb, int per_split,
+                 int n_split, int warps, int causal, int has_window,
+                 int window, float softcap, cudaStream_t s) {
+  const size_t smem = (size_t)warps * GQA_STAGES * bs * (D + Dv) * sizeof(T);
+  auto* kernel = paged_attention_split_kernel<T, QP, HPW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return moe_last_error();
+  }
+  const dim3 grid(B, ((Hkv + warps - 1) / warps) * ((G + HPW - 1) / HPW),
+                  n_split);
+  kernel<<<grid, warps * 32, smem, s>>>(
+      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)tables,
+      (const int*)kv_limit, (const int*)q_pos, (T*)out, (float*)part_ml,
+      (float*)part_acc, scale, Hkv, G, D, Dv, bs, nb, per_split, n_split,
+      causal, has_window, window, softcap);
+  const int err = moe_last_error();
+  if (err != 0 || n_split == 1) return err;
+  paged_attention_combine_kernel<T><<<dim3(B, Hkv), COMBINE_THREADS, 0, s>>>(
+      (const float*)part_ml, (const float*)part_acc, (const int*)kv_limit,
+      (T*)out, Hkv, G, Dv, bs, nb, per_split, n_split);
+  return moe_last_error();
+}
+
+// One head a warp where the group is one head (moonshot); four where it is
+// larger (mixtral's G = 4), so that a K/V tile serves the whole group
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* tables, const void* kv_limit, const void* q_pos,
+           void* out, void* part_ml, void* part_acc, float scale, int B,
+           int Hkv, int G, int D, int Dv, int bs, int nb, int per_split,
+           int n_split, int warps, int causal, int has_window, int window,
+           float softcap, cudaStream_t s) {
+#define MOE_GQA_LAUNCH(QP, HPW)                                              \
+  launch_split<T, QP, HPW>(q, k_pool, v_pool, tables, kv_limit, q_pos, out,  \
+                           part_ml, part_acc, scale, B, Hkv, G, D, Dv, bs,   \
+                           nb, per_split, n_split, warps, causal,            \
+                           has_window, window, softcap, s)
+  if (D <= 128 && Dv <= 128)
+    return G == 1 ? MOE_GQA_LAUNCH(2, 1) : MOE_GQA_LAUNCH(2, 4);
+  return G == 1 ? MOE_GQA_LAUNCH(4, 1) : MOE_GQA_LAUNCH(4, 4);
+#undef MOE_GQA_LAUNCH
+}
+
+// ---------------------------------------------------------------------------
+// MLA: the second score operand, the latent pool as key and value
+// ---------------------------------------------------------------------------
+constexpr int MLA_WARPS = 8;
+constexpr int MLA_THREADS = MLA_WARPS * 32;
+constexpr int MLA_QP = 9;    // pairs of [q | q2] per lane: D + D2 <= 576
+constexpr int MLA_VP = 8;    // pairs of the accumulator per lane: D <= 512
+constexpr int MLA_MAX_BS = 32;                  // one position per lane
+
 // Start copying pool block blk's (bs, D) latent rows and (bs, D2) rope keys
 // for head h into one (bs, D + D2) shared tile, 16 bytes a copy; the
 // caller commits the group and waits for it.
@@ -282,14 +532,6 @@ __device__ __forceinline__ void issue_latent_tile(
     cp_async16(dst + kk * Dt + c, c < D ? kv_pool + row * D + c
                                         : k2_pool + row * D2 + (c - D));
   }
-}
-
-// The pair of tile row ``row`` at column c, with c clamped into the row so
-// that every load is unconditional; zeros past ``width``
-template <typename T>
-__device__ __forceinline__ float2 row_pair(const T* row, int c, int width) {
-  const float2 v = Pair<T>::load(row + min(c, width - 2));
-  return c < width ? v : make_float2(0.f, 0.f);
 }
 
 // HPW query heads per warp, MLA_WARPS * HPW per thread block
@@ -495,22 +737,34 @@ int launch_mla(const void* q, const void* q2, const void* kv_pool,
 MOE_API int moe_paged_attention(const void* q, const void* k_pool,
                                 const void* v_pool, const void* tables,
                                 const void* kv_limit, const void* q_pos,
-                                void* out, int B, int Hkv, int G, int D,
-                                int Dv, int bs, int nb, int causal,
+                                void* out, void* part_ml, void* part_acc,
+                                float scale, int B, int Hkv, int G, int D,
+                                int Dv, int bs, int nb, int per_split,
+                                int n_split, int warps, int causal,
                                 int has_window, int window, float softcap,
                                 int dtype, void* stream) {
   if (B == 0 || Hkv == 0 || G == 0) return moe_last_error();
-  if (D % 8 != 0 || Dv % 8 != 0 || bs <= 0 || nb <= 0)
+  if (D <= 0 || Dv <= 0 || D % 8 != 0 || Dv % 8 != 0 ||
+      D > GQA_MAX_WIDTH || Dv > GQA_MAX_WIDTH || bs <= 0 || nb <= 0)
     return (int)cudaErrorInvalidValue;
+  // the splits cover the table entries, each split at least one of them
+  if (per_split <= 0 || n_split <= 0 || n_split > 65535 ||
+      (long)per_split * n_split < nb || (long)per_split * (n_split - 1) >= nb)
+    return (int)cudaErrorInvalidValue;
+  if (n_split > 1 && (part_ml == nullptr || part_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > GQA_WARPS) return (int)cudaErrorInvalidValue;
   if ((causal || has_window) && q_pos == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, kv_limit, q_pos,
-                                 out, B, Hkv, G, D, Dv, bs, nb, causal,
-                                 has_window, window, softcap, s);
-  return launch<float>(q, k_pool, v_pool, tables, kv_limit, q_pos, out, B,
-                       Hkv, G, D, Dv, bs, nb, causal, has_window, window,
+                                 out, part_ml, part_acc, scale, B, Hkv, G, D,
+                                 Dv, bs, nb, per_split, n_split, warps,
+                                 causal, has_window, window, softcap, s);
+  return launch<float>(q, k_pool, v_pool, tables, kv_limit, q_pos, out,
+                       part_ml, part_acc, scale, B, Hkv, G, D, Dv, bs, nb,
+                       per_split, n_split, warps, causal, has_window, window,
                        softcap, s);
 }
 

@@ -9,6 +9,12 @@ the causal and sliding-window terms against ``q_pos[b]``), with an optional
 logit softcap.  ``gather_block_kv`` reassembles a row's contiguous view for
 the plain version and for the gather path of the model (the oracle).
 
+On the card the GQA form splits each row's table entries into contiguous
+ranges (``split_plan``, from the shapes alone: the wrapper never reads
+``kv_limit`` on the host), walks the ranges in parallel and merges them in
+split order; ``paged_decode_attention_walk`` is a plain model of that walk
+for the tests.
+
 The query is scaled by ``scale`` (default ``D**-0.5``) in its own dtype
 before the kernel sees it, as in the reference: in bf16 that product
 rounds, and the plain version rounds the same way.
@@ -21,6 +27,7 @@ latent pool is both ``k_pool`` and ``v_pool``.  ``q2`` is scaled by the same
 tile once as key and value."""
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,6 +35,19 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30          # finite -inf stand-in, as in the reference
+# the GQA kernel (csrc/paged_attention.cu): a block of up to GQA_WARPS
+# warps takes as many KV heads, a warp one, with a ring of GQA_STAGES (K, V)
+# tiles each in the GQA_SMEM_BYTES of shared memory a block may have; a warp
+# scores a pool block GQA_CHUNK positions at a time (each ends in two
+# lanes); a lane holds at most GQA_MAX_WIDTH / 64 pairs of a head's q and
+# accumulator
+GQA_WARPS, GQA_STAGES, GQA_CHUNK, GQA_MAX_WIDTH = 4, 2, 16, 256
+GQA_SMEM_BYTES = 232448            # the H100's opt-in limit a block
+# the split plan's model of the card: the block slots it fills an SM (three
+# blocks of bf16 heads of 128 fit, 64 KB of rings each, but fewer and
+# longer splits measured faster on the H100: PERF.md), a block's fixed cost
+# and the merge launch's, each in the time of one pool block's walk
+SPLIT_SLOTS_PER_SM, SPLIT_BLOCK_COST, SPLIT_MERGE_COST = 2, 3, 2
 
 
 def gather_block_kv(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -49,9 +69,13 @@ def scale_q(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
     """``q * scale`` with the scale rounded to q's dtype first and the
     product rounded once, as the reference's ``q * asarray(scale,
     q.dtype)`` (default scale ``D**-0.5``)."""
+    return q * _scale_value(q, scale)
+
+
+def _scale_value(q: torch.Tensor, scale: Optional[float]) -> float:
+    """The scale rounded to q's dtype, on the host."""
     s = q.shape[-1] ** -0.5 if scale is None else scale
-    s = torch.tensor(s, dtype=q.dtype).item()       # host-side rounding
-    return q * s
+    return torch.tensor(s, dtype=q.dtype).item()
 
 
 def _require_rows(tables: torch.Tensor, lim: torch.Tensor, q_pos,
@@ -111,6 +135,121 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.to(q.dtype)
 
 
+@functools.lru_cache(maxsize=1024)
+def split_plan(B: int, Hkv: int, nb: int, sms: int) -> tuple:
+    """The GQA kernel's cut of each row's ``nb`` table entries -> (n_split,
+    per_split): split s takes entries [s * per_split, min(nb, (s + 1) *
+    per_split)), no split empty.  The cut that minimises the model time
+    rounds x (per_split + SPLIT_BLOCK_COST) (+ SPLIT_MERGE_COST where there
+    is more than one split), where rounds = ceil(blocks / (SPLIT_SLOTS_PER_SM
+    x sms)) over the B x ceil(Hkv / GQA_WARPS) x n_split blocks: few long
+    splits where the rows fill the card, as many as fill its slots once
+    where they do not.  It reads the shapes only, never ``kv_limit``: the
+    call stays free of host syncs."""
+    units = B * -(-Hkv // GQA_WARPS)
+    slots = SPLIT_SLOTS_PER_SM * sms
+    best = None
+    for n0 in range(1, nb + 1):
+        per = -(-nb // n0)
+        n = -(-nb // per)
+        cost = -(-units * n // slots) * (per + SPLIT_BLOCK_COST) \
+            + (SPLIT_MERGE_COST if n > 1 else 0)
+        if best is None or cost < best[0]:
+            best = (cost, n, per)
+    return best[1], best[2]
+
+
+def gqa_warps(bs: int, D: int, Dv: int, itemsize: int) -> int:
+    """Warps a block of the GQA kernel: GQA_WARPS, or as many as have
+    room for their rings (0: one ring does not fit)."""
+    ring = GQA_STAGES * bs * (D + Dv) * itemsize
+    return min(GQA_WARPS, GQA_SMEM_BYTES // ring)
+
+
+def _online_step(state, s, ok, v):
+    """One online-softmax step of a warp over a chunk of positions: s (B,
+    Hkv, G, n) fp32 scores, ok their mask, v (B, n, Hkv, Dv) in V's
+    dtype."""
+    m, l, acc = state
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.where(ok, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+    corr = torch.exp(m - m_new)
+    pv = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
+    return m_new, corr * l + p.sum(-1), corr[..., None] * acc + pv
+
+
+def paged_decode_attention_walk(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, tables: torch.Tensor,
+                                kv_limit, *, scale: Optional[float] = None,
+                                q_pos: Optional[torch.Tensor] = None,
+                                causal: bool = False,
+                                window: Optional[int] = None,
+                                logit_softcap: Optional[float] = None,
+                                sms: int = 132) -> torch.Tensor:
+    """A plain model of the GQA kernel's walk, for the tests: the split
+    plan for ``sms`` SMs; in each split, each (row, KV head)'s warp runs
+    the online softmax over the split's entries below the block holding
+    kv_limit, in order, GQA_CHUNK positions at a time (fp32 statistics, p
+    rounded to V's dtype before PV); the live splits (those that start
+    below that block) merge in split order; l > 0 ? acc / max(l, 1e-30) :
+    0.  Entries past that block are never read: poison there stays out."""
+    B, Hkv, G, D = q.shape
+    dev = q.device
+    bs, nb, Dv = k_pool.shape[1], tables.shape[1], v_pool.shape[-1]
+    n_split, per = split_plan(B, Hkv, nb, sms)
+    lim = _row_vector(kv_limit, B, dev).long()
+    qp = (_row_vector(q_pos, B, dev).long() if causal or window is not None
+          else None)
+    n_used = torch.where(lim < 0, torch.zeros_like(lim),
+                         torch.clamp(lim // bs + 1, max=nb))
+    qs = scale_q(q, scale).float()
+    splits = []
+    for s in range(n_split):
+        j0 = s * per
+        state = (torch.full((B, Hkv, G), NEG_INF, device=dev),
+                 torch.zeros((B, Hkv, G), device=dev),
+                 torch.zeros((B, Hkv, G, Dv), device=dev))
+        for j in range(j0, min(nb, j0 + per)):
+            taken = j < n_used                                 # (B,)
+            blk = torch.where(taken, tables[:, j].long(),
+                              torch.zeros_like(lim))
+            keep = taken[:, None, None, None]
+            kt = k_pool[blk].float()                           # (B, bs, Hkv, D)
+            kt = torch.where(keep, kt, torch.zeros_like(kt))
+            vt = v_pool[blk]
+            vt = torch.where(keep, vt, torch.zeros_like(vt))
+            for c0 in range(0, bs, GQA_CHUNK):
+                c1 = min(bs, c0 + GQA_CHUNK)
+                sc = torch.einsum("bhgd,bkhd->bhgk", qs, kt[:, c0:c1])
+                if logit_softcap is not None:
+                    sc = logit_softcap * torch.tanh(sc / logit_softcap)
+                kpos = j * bs + torch.arange(c0, c1, device=dev)[None]
+                ok = (kpos <= lim[:, None]) & taken[:, None]
+                if causal:
+                    ok = ok & (kpos <= qp[:, None])
+                if window is not None:
+                    ok = ok & (kpos > qp[:, None] - window)
+                state = _online_step(state, sc, ok[:, None, None, :],
+                                     vt[:, c0:c1])
+        splits.append(((j0 < n_used)[:, None, None], state))
+    # the merge, in split order: splits that start past the block holding
+    # kv_limit are left out (the kernel writes no partial for them)
+    M = torch.full((B, Hkv, G), NEG_INF, device=dev)
+    for live, (m, _, _) in splits:
+        M = torch.where(live, torch.maximum(M, m), M)
+    L = torch.zeros_like(M)
+    acc = torch.zeros((B, Hkv, G, Dv), device=dev)
+    for live, (m, l, a) in splits:
+        f = torch.where(live, torch.exp(m - M), torch.zeros_like(M))
+        L = L + l * f
+        acc = acc + a * f[..., None]
+    out = torch.where(L[..., None] > 0,
+                      acc / torch.clamp(L[..., None], min=1e-30),
+                      torch.zeros_like(acc))
+    return out.to(q.dtype)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            kv_limit, *, scale: Optional[float] = None,
@@ -128,7 +267,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     q's dtype.
 
     CPU tensors run the plain version; CUDA tensors the kernel (with
-    ``q2``, the MLA kernel, which takes ``v_pool`` to be ``k_pool``)."""
+    ``q2``, the MLA kernel, which takes ``v_pool`` to be ``k_pool``).
+    Without ``q2`` the kernel walks each row's table in ``split_plan``'s
+    ranges in parallel, a warp a (row, KV head, split), and, where there is
+    more than one range, merges them in a second launch, in split order."""
     if (q2 is None) != (k2_pool is None):
         raise ValueError("the second score operand needs both q2 and "
                          "k2_pool")
@@ -167,19 +309,37 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                    f"paged attention takes (n_blocks, bs, {Hkv}, D) pools")
     _build.require(k_pool.is_contiguous() and v_pool.is_contiguous(),
                    "paged attention takes contiguous pools")
-    _build.require(D % 8 == 0 and Dv % 8 == 0,
-                   f"paged attention loads 16-byte vectors: D={D} and "
-                   f"Dv={Dv} must be multiples of 8")
+    _build.require(D % 8 == 0 and Dv % 8 == 0 and 0 < D <= GQA_MAX_WIDTH
+                   and 0 < Dv <= GQA_MAX_WIDTH,
+                   f"paged attention loads 16-byte vectors and holds at most "
+                   f"{GQA_MAX_WIDTH} columns a head: D={D} and Dv={Dv} must "
+                   f"be multiples of 8 up to {GQA_MAX_WIDTH}")
+    warps = min(Hkv, gqa_warps(bs, D, Dv, q.element_size()))
+    _build.require(warps > 0, f"paged attention keeps two (bs, D + Dv) "
+                   f"tiles a warp in {GQA_SMEM_BYTES} bytes: bs={bs}, "
+                   f"D={D}, Dv={Dv} in {q.dtype} do not fit")
     _require_rows(tables, lim, qp, B)
-    qs = scale_q(q, scale).contiguous()
+    qc = q.contiguous()            # the kernel scales it in q's dtype
     out = torch.empty((B, Hkv, G, Dv), dtype=q.dtype, device=q.device)
+    n_split, per = split_plan(
+        B, Hkv, nb, torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
+    part_ml = part_acc = None
+    if n_split > 1:                      # each split's fp32 (m, l) and acc
+        part_ml = torch.empty((B, Hkv, G, n_split, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((B, Hkv, G, n_split, Dv),
+                               dtype=torch.float32, device=q.device)
     lib = _build.library()
     err = lib.moe_paged_attention(
-        qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lim.data_ptr(),
         None if qp is None else qp.data_ptr(), out.data_ptr(),
-        B, Hkv, G, D, Dv, bs, nb, int(causal), int(window is not None),
-        0 if window is None else int(window),
+        None if part_ml is None else part_ml.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(),
+        _scale_value(q, scale),
+        B, Hkv, G, D, Dv, bs, nb, per, n_split, warps, int(causal),
+        int(window is not None), 0 if window is None else int(window),
         0.0 if logit_softcap is None else float(logit_softcap), code,
         _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")

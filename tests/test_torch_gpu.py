@@ -20,8 +20,9 @@ from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.execution import combine_scale_rows
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import BACKWARD_KERNELS, QUANT_KERNELS
-from repro_torch.kernels.paged_attention import (paged_decode_attention,
-                                                  paged_decode_attention_plain)
+from repro_torch.kernels.paged_attention import (
+    paged_decode_attention, paged_decode_attention_plain,
+    paged_decode_attention_walk)
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -115,31 +116,50 @@ def test_gemms_on_dynamic_8_row_blocks_match_plain(cuda, T, dtype):
     torch.cuda.synchronize()
 
 
+def paged_inputs(dev, B, Hkv, G, D, Dv, bs, nb, dt):
+    g = torch.Generator(device=dev).manual_seed(B)
+    n_blocks = B * nb + 3
+    kp = torch.randn(n_blocks, bs, Hkv, D, generator=g, device=dev).to(dt)
+    vp = torch.randn(n_blocks, bs, Hkv, Dv, generator=g, device=dev).to(dt)
+    q = torch.randn(B, Hkv, G, D, generator=g, device=dev).to(dt)
+    tables = torch.randperm(n_blocks, generator=g, device=dev)[:B * nb]
+    tables = tables.reshape(B, nb).to(torch.int32).contiguous()
+    lim = torch.randint(0, nb * bs, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return q, kp, vp, tables, lim
+
+
+# moonshot decode and chunk steps, mixtral's GQA, a narrow odd shape, and
+# tables of 512 entries (long context: 32 splits at B=2, Hkv=16), where
+# most splits start past a short row's kv_limit
+PAGED_SHAPES = [(2, 16, 1, 128, 128, 16, 8), (64, 16, 1, 128, 128, 16, 8),
+                (5, 8, 4, 128, 128, 16, 6), (3, 2, 2, 16, 32, 4, 5),
+                (2, 16, 1, 128, 128, 16, 512), (3, 8, 4, 128, 128, 16, 512),
+                (4, 2, 3, 64, 32, 16, 100), (2, 4, 1, 256, 256, 32, 40)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,Hkv,G,D,Dv,bs,nb", [(2, 16, 1, 128, 128, 16, 8),
-                                                (64, 16, 1, 128, 128, 16, 8),
-                                                (5, 8, 4, 128, 128, 16, 6),
-                                                (3, 2, 2, 16, 32, 4, 5)])
+@pytest.mark.parametrize("B,Hkv,G,D,Dv,bs,nb", PAGED_SHAPES)
 def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, G, D, Dv, bs, nb,
                                               dtype):
-    dt = DTYPES[dtype]
-    g = torch.Generator(device=cuda).manual_seed(B)
-    n_blocks = B * nb + 3
-    kp = torch.randn(n_blocks, bs, Hkv, D, generator=g, device=cuda).to(dt)
-    vp = torch.randn(n_blocks, bs, Hkv, Dv, generator=g, device=cuda).to(dt)
-    q = torch.randn(B, Hkv, G, D, generator=g, device=cuda).to(dt)
-    tables = torch.randperm(n_blocks, generator=g, device=cuda)[:B * nb]
-    tables = tables.reshape(B, nb).to(torch.int32).contiguous()
-    lim = torch.randint(0, nb * bs, (B,), generator=g, device=cuda,
-                        dtype=torch.int32)
+    q, kp, vp, tables, lim = paged_inputs(cuda, B, Hkv, G, D, Dv, bs, nb,
+                                          DTYPES[dtype])
     qpos = torch.clamp(lim - 2, min=0)
-    for kw in (dict(), dict(q_pos=qpos, causal=True, window=5),
-               dict(logit_softcap=8.0), dict(scale=0.3)):
-        out = paged_decode_attention(q, kp, vp, tables, lim, **kw)
-        want = paged_decode_attention_plain(q, kp, vp, tables, lim, **kw)
+    short = lim.clone()
+    short[0] = bs + 3                  # row 0: one split live of many
+    for kv, kw in ((lim, dict()), (lim, dict(q_pos=qpos, causal=True,
+                                              window=5)),
+                   (lim, dict(logit_softcap=8.0)), (lim, dict(scale=0.3)),
+                   (short, dict())):
+        out = paged_decode_attention(q, kp, vp, tables, kv, **kw)
+        want = paged_decode_attention_plain(q, kp, vp, tables, kv, **kw)
         torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
-    # whole blocks past kv_limit are never read: NaN there leaks nothing
+        # fixed-order merges, no atomics: bitwise equal across two calls
+        assert torch.equal(paged_decode_attention(q, kp, vp, tables, kv,
+                                                  **kw), out)
+    # whole blocks past kv_limit are never read: NaN there, in blocks that
+    # later splits would take, leaks nothing
     lim1 = torch.full((B,), bs - 1, dtype=torch.int32, device=cuda)
     base = paged_decode_attention(q, kp, vp, tables, lim1)
     past = tables[:, 1:].reshape(-1).long()
@@ -147,6 +167,47 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, G, D, Dv, bs, nb,
     vp[past] = float("nan")
     assert torch.equal(paged_decode_attention(q, kp, vp, tables, lim1), base)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Hkv,G,D,Dv,bs,nb", PAGED_SHAPES[::2])
+def test_paged_attention_kernel_matches_walk(cuda, B, Hkv, G, D, Dv, bs, nb,
+                                             dtype):
+    """The kernel against the plain model of its own walk (the card's SM
+    count, the same split plan): fp32 within 1e-5, bf16 within TOL; a row
+    with every position masked is exact zeros."""
+    q, kp, vp, tables, lim = paged_inputs(cuda, B, Hkv, G, D, Dv, bs, nb,
+                                          DTYPES[dtype])
+    lim[-1] = -1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = paged_decode_attention(q, kp, vp, tables, lim)
+    want = paged_decode_attention_walk(q, kp, vp, tables, lim, sms=sms)
+    tol = TOL[dtype] if dtype == "bfloat16" else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+@pytest.mark.gpu
+def test_paged_attention_no_host_sync(cuda):
+    """The wrapper and its two launches (the splits, then their merge) run
+    under set_sync_debug_mode("error"): the split plan reads shapes only."""
+    q, kp, vp, tables, lim = paged_inputs(cuda, 2, 16, 1, 128, 128, 16, 512,
+                                          torch.bfloat16)
+    qpos = torch.clamp(lim - 1, min=0)
+    paged_decode_attention(q, kp, vp, tables, lim)          # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged_decode_attention(q, kp, vp, tables, lim, q_pos=qpos,
+                                     causal=True, window=100,
+                                     logit_softcap=30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = paged_decode_attention_plain(q, kp, vp, tables, lim, q_pos=qpos,
+                                        causal=True, window=100,
+                                        logit_softcap=30.0)
+    torch.testing.assert_close(out.float(), want.float(), **TOL["bfloat16"])
 
 
 @pytest.mark.gpu
