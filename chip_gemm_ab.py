@@ -1,26 +1,30 @@
-"""A/B of the dense grouped-GEMM kernels of this checkout against those of
-another source tree, on one NVIDIA GPU.
+"""A/B of the grouped-GEMM kernels (B1 and B2) of this checkout against
+those of another source tree, on one NVIDIA GPU.
 
-    python3 chip_gemm_ab.py --other DIR [--replays 20]
+    python3 chip_gemm_ab.py --other DIR [--replays 20] [--arms dense,quant]
 
 DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
 weight-format C interface of the GEMMs (``moe_grouped_gemm`` and
 ``moe_fused_gate_up``, as since the int8 and int4 formats came in), with or
 without the schedule's ``seg_start`` and the work lists' scratch (read from
 DIR's ``grouped_gemm.cu``), e.g. the parent commit unpacked with ``git
-archive``.  Both trees' sources are compiled with the same nvcc flags.  On
-moonshot-v1-16b-a3b's MoE layer (E=64, k=6, d=2048, f=1408) at decode T=2
-(dynamic and fixed), prefill T=64 (dynamic) and training's T=4096 (both),
-it runs the dense ``fused_gate_up`` and ``grouped_gemm`` (with the folded
-combine rows) of both trees.  fp32 (the CUDA-core kernels): the two trees
-must be bitwise equal.  bf16: each tree's kernel may sum in its own order
-(the Hopper kernels of grouped_gemm_hopper.cuh do), so the script prints
-the max abs difference between the trees and holds this tree within the
-bf16 tolerance of the plain version; then it times both in turns (other,
-this, this, other): device time per call from CUDA-graph replays between
-CUDA events.  Prints one JSON line per shape and a last line ``{"ok":
-true, ...}``; exits non-zero on an fp32 difference or a bf16 output out of
-tolerance."""
+archive``.  Both trees' sources are compiled with the same nvcc flags.
+
+Arms.  ``dense``: moonshot-v1-16b-a3b's MoE layer (E=64, k=6, d=2048,
+f=1408) at decode T=2 (dynamic and fixed), prefill T=64 (dynamic) and
+training's T=4096 (both), on bf16 stacks.  ``quant``: the same layer's
+stacks quantized under int8_expert, int8_channel and int4_packed at T=2
+(dynamic and fixed) and T=64 (dynamic), and deepseek-v2-236b's (E=160,
+k=6, d=5120, f=1536) under int8_expert at T=2 and T=64 (dynamic).  Each
+runs ``fused_gate_up`` and ``grouped_gemm`` (with the folded combine rows)
+of both trees in fp32 and bf16.  fp32 (the CUDA-core kernels, every
+format): the two trees must be bitwise equal.  bf16: each tree's kernel
+may sum in its own order, so the script prints the max abs difference
+between the trees and holds this tree within the bf16 tolerance of the
+plain version; then it times both in turns (other, this, this, other):
+device time per call from CUDA-graph replays between CUDA events.  Prints
+one JSON line per shape and a last line ``{"ok": true, ...}``; exits
+non-zero on an fp32 difference or a bf16 output out of tolerance."""
 import argparse
 import ctypes
 import json
@@ -32,11 +36,23 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent
 MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
                 norm_topk=True, routed_scale=2.446)
-SHAPES = (("dynamic", 2), ("fixed", 2), ("dynamic", 64), ("fixed", 4096),
-          ("dynamic", 4096))
+DEEPSEEK = dict(E=160, k=6, d=5120, f=1536, M=128, gating="softmax",
+                norm_topk=False, routed_scale=16.0)
+# (arch, scheme or None, policy, T) per arm
+ARMS = {
+    "dense": tuple(("moonshot", None, policy, T) for policy, T in (
+        ("dynamic", 2), ("fixed", 2), ("dynamic", 64), ("fixed", 4096),
+        ("dynamic", 4096))),
+    "quant": tuple(("moonshot", scheme, policy, T)
+                   for scheme in ("int8_expert", "int8_channel",
+                                  "int4_packed")
+                   for policy, T in (("dynamic", 2), ("fixed", 2),
+                                     ("dynamic", 64)))
+    + (("deepseek", "int8_expert", "dynamic", 2),
+       ("deepseek", "int8_expert", "dynamic", 64)),
+}
+SHAPES = {"moonshot": MOONSHOT, "deepseek": DEEPSEEK}
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)     # chip_smoke.py's bf16 TOL
-
-
 def build_other(csrc: pathlib.Path, flags):
     """Compile the other tree's kernels (one nvcc per source, in parallel)
     into a shared library under build/ab/ and load it; returns it and
@@ -99,12 +115,16 @@ def device_ms(fn, per_graph: int = 10, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * per_graph)
 
 
-def layer(policy: str, T: int, dtype, seed: int):
+def layer(arch: str, scheme, policy: str, T: int, dtype, seed: int):
+    """The layer's routed rows xp, the gate+up output h (the plain version's,
+    which feeds B1), the stacks (quantized under ``scheme`` unless None),
+    the schedule and the folded combine rows."""
     import torch
     from repro_torch.execution import combine_scale_rows
     from repro_torch.kernels import ref
+    from repro_torch.quantization import get_scheme
     from repro_torch.scheduling import build_schedule
-    s = MOONSHOT
+    s = SHAPES[arch]
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -115,6 +135,8 @@ def layer(policy: str, T: int, dtype, seed: int):
     wg = randn(s["E"], s["d"], s["f"], scale=s["d"] ** -0.5)
     wu = randn(s["E"], s["d"], s["f"], scale=s["d"] ** -0.5)
     wd = randn(s["E"], s["f"], s["d"], scale=s["f"] ** -0.5)
+    if scheme is not None:
+        wg, wu, wd = (get_scheme(scheme).quantize(t) for t in (wg, wu, wd))
     w, idx = ref.router_ref(logits, s["k"], gating=s["gating"],
                             norm_topk=s["norm_topk"],
                             routed_scale=s["routed_scale"])
@@ -124,10 +146,28 @@ def layer(policy: str, T: int, dtype, seed: int):
     return xp, h, wg, wu, wd, sched, combine_scale_rows(sched, w)
 
 
+def c_operands(w):
+    """(weights, scales or None, format code, s_e, s_n) of an expert stack
+    for the C interface; the caller keeps the tensors alive while their
+    pointers are in use (the scales may be a fresh view)."""
+    from repro_torch.kernels.grouped_gemm import W_FORMATS
+    from repro_torch.kernels.ops import _weight_operands
+    q, sc, fmt = _weight_operands(w)
+    if sc is None:
+        return q, None, 0, 0, 0
+    return q, sc, W_FORMATS.index(fmt), sc.stride(0), sc.stride(1)
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=pathlib.Path)
     ap.add_argument("--replays", type=int, default=20)
+    ap.add_argument("--arms", default="dense,quant",
+                    help="comma-separated arms: dense, quant")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -142,31 +182,37 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    for policy, T in SHAPES:
+    shapes = [sh for arm in args.arms.split(",") for sh in ARMS[arm]]
+    for arch, scheme, policy, T in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            xp, h, wg, wu, wd, sched, scale = layer(policy, T, dtype,
-                                                    seed=T)
+            xp, h, wg, wu, wd, sched, scale = layer(arch, scheme, policy, T,
+                                                    dtype, seed=T)
             cap, code = sched.capacity, _build.dtype_code(dtype)
-            K, F, D = wg.shape[1], wg.shape[2], wd.shape[2]
+            K, F, D = xp.shape[1], h.shape[1], xp.shape[1]
             be, ba, M = sched.block_expert, sched.block_active, sched.block_m
             o_fgu = torch.empty((cap, F), dtype=dtype, device="cuda")
             o_gg = torch.empty((cap, D), dtype=dtype, device="cuda")
-            E = wg.shape[0]
+            E = SHAPES[arch]["E"]
             buf = _tiles.scratch(cap, E, "cuda")
+            gq, gs, fmt, s_e, s_n = c_operands(wg)
+            uq, us, _, _, _ = c_operands(wu)
+            dq, ds, _, d_e, d_n = c_operands(wd)
 
             def other_fgu():
                 stream = torch.cuda.current_stream().cuda_stream
                 if other_lists:
                     err = other.moe_fused_gate_up(
-                        xp.data_ptr(), wg.data_ptr(), wu.data_ptr(), None,
-                        None, sched.seg_start.data_ptr(), be.data_ptr(),
-                        ba.data_ptr(), buf.data_ptr(), o_fgu.data_ptr(), cap,
-                        K, F, E, M, code, 0, 0, 0, stream)
+                        xp.data_ptr(), gq.data_ptr(), uq.data_ptr(),
+                        ptr(gs), ptr(us), sched.seg_start.data_ptr(),
+                        be.data_ptr(), ba.data_ptr(), buf.data_ptr(),
+                        o_fgu.data_ptr(), cap, K, F, E, M, code, fmt, s_e,
+                        s_n, stream)
                 else:
                     err = other.moe_fused_gate_up(
-                        xp.data_ptr(), wg.data_ptr(), wu.data_ptr(), None,
-                        None, be.data_ptr(), ba.data_ptr(), o_fgu.data_ptr(),
-                        cap, K, F, M, code, 0, 0, 0, stream)
+                        xp.data_ptr(), gq.data_ptr(), uq.data_ptr(),
+                        ptr(gs), ptr(us), be.data_ptr(), ba.data_ptr(),
+                        o_fgu.data_ptr(), cap, K, F, M, code, fmt, s_e, s_n,
+                        stream)
                 _build.check(err, "other fused_gate_up")
                 return o_fgu
 
@@ -174,16 +220,16 @@ def main() -> None:
                 stream = torch.cuda.current_stream().cuda_stream
                 if other_lists:
                     err = other.moe_grouped_gemm(
-                        h.data_ptr(), wd.data_ptr(), None,
+                        h.data_ptr(), dq.data_ptr(), ptr(ds),
                         sched.seg_start.data_ptr(), be.data_ptr(),
                         ba.data_ptr(), scale.data_ptr(), buf.data_ptr(),
-                        o_gg.data_ptr(), cap, F, D, E, M, code, 0, 0, 0,
-                        stream)
+                        o_gg.data_ptr(), cap, F, D, E, M, code, fmt, d_e,
+                        d_n, stream)
                 else:
                     err = other.moe_grouped_gemm(
-                        h.data_ptr(), wd.data_ptr(), None, be.data_ptr(),
+                        h.data_ptr(), dq.data_ptr(), ptr(ds), be.data_ptr(),
                         ba.data_ptr(), scale.data_ptr(), o_gg.data_ptr(),
-                        cap, F, D, M, code, 0, 0, 0, stream)
+                        cap, F, D, M, code, fmt, d_e, d_n, stream)
                 _build.check(err, "other grouped_gemm")
                 return o_gg
 
@@ -192,7 +238,8 @@ def main() -> None:
 
             def this_gg():
                 return ops.grouped_gemm(h, wd, sched, row_scale=scale)
-            row = {"policy": policy, "T": T,
+            row = {"arch": arch, "scheme": scheme or "none",
+                   "policy": policy, "T": T,
                    "dtype": str(dtype).replace("torch.", ""),
                    "block_m": M, "card": smi}
             plains = {"fused_gate_up":
@@ -226,7 +273,7 @@ def main() -> None:
                     row[f"{name}_us"] = {
                         "other": [t[0] * 1e3, t[3] * 1e3],
                         "this": [t[1] * 1e3, t[2] * 1e3]}
-            print(json.dumps(row))
+            print(json.dumps(row), flush=True)
             del xp, h, wg, wu, wd
             torch.cuda.empty_cache()
     del this

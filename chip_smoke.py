@@ -12,8 +12,9 @@ result line):
    per kernel;
    then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
    the SASS of the Hopper kernels (the forward's B1 and B2 in bf16 on
-   dense weights, the backward's B7 and B1^T; ``cuobjdump -sass`` on the
-   built library) and fails if either count of any of them is 0;
+   dense, int8 and int4 weights, the backward's B7 and B1^T; ``cuobjdump
+   -sass`` on the built library) and fails if either count of any of them
+   is 0;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    bf16 and fp32.  The five MoE kernels at moonshot-v1-16b-a3b's full width
    (decode T=2 and T=4, prefill T=64) and at mixtral-8x7b's (T=512), on
@@ -37,14 +38,19 @@ result line):
    and the eager per-call time beside it; and prints the dynamic
    schedule's padding beside the fixed one's.  The int8 and int4 weight
    formats of fused_gate_up and grouped_gemm (schemes int8_expert,
-   int8_channel, int4_packed) at moonshot's width at decode T=2 (fixed and
-   dynamic) and prefill T=64 (dynamic), bf16 and fp32, with the same
-   tolerances, NaN poisoning and zero checks, each timed against its
-   compressed-byte bound (payload + scales + activations in + output
-   written).  The five MoE kernels again at deepseek-v2-236b's MoE layer
-   (E=160, k=6, d=5120, f=1536, softmax, no renorm, routed_scale 16) at
-   decode T=2 and prefill T=64 on both policies, bf16 and fp32, timed in
-   bf16, with its padding, and its int8_expert GEMMs on ``dynamic``; and
+   int8_channel, int4_packed) at moonshot's width at decode T=2 and
+   prefill T=64 (fixed and dynamic), bf16 and fp32, with the same
+   tolerances, NaN poisoning, zero and two-call checks, each timed in bf16
+   against its compressed-byte bound (payload + scales + activations in +
+   output written), in turns with the dense bf16 kernel of the same GEMM,
+   beside ``torch._grouped_mm`` over the dequantized bf16 stack (B1; B2's
+   gate and up stacks side by side, no SiLU; timed only, as the dense
+   library time).  The five MoE
+   kernels again at deepseek-v2-236b's MoE layer (E=160, k=6, d=5120,
+   f=1536, softmax, no renorm, routed_scale 16) at decode T=2 and prefill
+   T=64 on both policies, bf16 and fp32, timed in bf16, with its padding,
+   and its int8_expert GEMMs on ``dynamic`` (held in bf16 and fp32, timed
+   in bf16 as moonshot's); and
    at its training shape T=4096 on both policies in bf16, held and timed
    (B1 and B2 beside their bounds, B1 beside ``torch._grouped_mm``).  The
    MLA form of the paged decode-attention kernel (second score operand q2
@@ -98,10 +104,11 @@ result line):
    quantized in place under ``int8_expert`` by the engine (``rc.quant``),
    and a copy of its first 4 layers under ``int4_packed``; the same 4
    requests each.  The int8 (int4) GEMM kernels' launches must equal MoE
-   layers x forwards and the dense GEMMs' 0; the first paged step's fp32
-   logits through the fused read and the kernels against the gather read
-   and the plain versions within rtol = atol = 1e-3; prints the routed
-   experts' stored bytes and the peak device memory;
+   layers x forwards and the dense GEMMs' 0; five decode steps under
+   torch.profiler (the busy share beside the bf16 engine's); the first
+   paged step's fp32 logits through the fused read and the kernels against
+   the gather read and the plain versions within rtol = atol = 1e-3;
+   prints the routed experts' stored bytes and the peak device memory;
 8. serving deepseek-v2-236b (MLA), built once moonshot's models are
    freed: full width, depth cut 60 -> 4 (1 dense + 3 MoE, 13.3 B
    parameters, random bf16 weights; ``--layers`` does not change it).  The
@@ -208,14 +215,19 @@ MOE_KERNELS = ("router_topk", "permute", "fused_gate_up", "grouped_gemm",
                "unpermute")
 QUANT_SCHEMES = ("int8_expert", "int8_channel", "int4_packed")
 # the (policy, T) shapes the quantized GEMMs are held and timed at
-QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("dynamic", 64))
+QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("fixed", 64), ("dynamic", 64))
 # the scheme that stands for each format in the kernel report
 REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
 # the Hopper kernels (wgmma + TMA): report name -> the mangled name's stem
-# of each instantiation in the built library (the forward's kernel is one
-# template: FUSED false is B1, true B2)
+# of each instantiation in the built library (the forward's kernels are
+# templates: FUSED false is B1, true B2; the quantized one's FMT 1 is int8,
+# 2 int4)
 HOPPER_KERNELS = {"grouped_gemm": "fwd_hopper_kernelILb0E",
                   "fused_gate_up": "fwd_hopper_kernelILb1E",
+                  "grouped_gemm_int8": "fwd_quant_kernelILb0ELi1E",
+                  "grouped_gemm_int4": "fwd_quant_kernelILb0ELi2E",
+                  "fused_gate_up_int8": "fwd_quant_kernelILb1ELi1E",
+                  "fused_gate_up_int4": "fwd_quant_kernelILb1ELi2E",
                   "grouped_wgrad": "wgrad_hopper_kernel",
                   "grouped_gemm_t": "gemm_t_hopper_kernel"}
 
@@ -468,6 +480,36 @@ def kernel_calls(c: Case):
     }
 
 
+def grouped_mm_call(c: Case, x, w, want):
+    """``torch._grouped_mm(x, w)`` over the schedule's row groups, checked
+    against ``want`` (B1's output, which carries row_scale; None: not
+    checked), or (None, reason).  Row groups in the schedule's packing
+    order (group_offsets): expert order for fixed; decreasing load for
+    dynamic, whose weights are put in that order once, outside the timed
+    call."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent"
+    offs = c.sched.group_offsets[1:].contiguous()
+    note = "no row_scale epilogue"
+    if c.policy == "dynamic":
+        w = w[torch.argsort(-c.sched.counts, stable=True)].contiguous()
+        note += "; weights permuted to the packing order outside it"
+
+    def call():
+        return torch._grouped_mm(x, w, offs=offs)
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"torch._grouped_mm refused: {str(e)[:80]}"
+    n = int(c.sched.group_offsets[-1])   # the same products, scaled
+    if want is not None:
+        torch.testing.assert_close(out[:n].float() * c.scale[:n, None],
+                                   want[:n].float(), **TOL["bfloat16"])
+    return call, f"torch._grouped_mm ({note})"
+
+
 def library_call(name: str, c: Case):
     """One PyTorch call computing the same function, or (None, reason)."""
     import torch
@@ -477,29 +519,8 @@ def library_call(name: str, c: Case):
         src = torch.clamp(c.sched.src_tok, min=0).long()
         out = torch.zeros((c.T, c.shape["d"]), dtype=c.dtype, device="cuda")
         return (lambda: out.index_add_(0, src, c.y)), "index_add_"
-    if name == "grouped_gemm" and c.dtype == torch.bfloat16 \
-            and hasattr(torch, "_grouped_mm"):
-        # row groups in the schedule's packing order (group_offsets): expert
-        # order for fixed; decreasing load for dynamic, whose weights are
-        # put in that order once, outside the timed call
-        offs = c.sched.group_offsets[1:].contiguous()
-        wd, note = c.wd, "no row_scale epilogue"
-        if c.policy == "dynamic":
-            order = torch.argsort(-c.sched.counts, stable=True)
-            wd = c.wd[order].contiguous()
-            note += "; weights permuted to the packing order outside it"
-
-        def call():
-            return torch._grouped_mm(c.h, wd, offs=offs)
-        try:
-            out = call()
-            torch.cuda.synchronize()
-        except (RuntimeError, TypeError, ValueError) as e:
-            return None, f"torch._grouped_mm refused: {str(e)[:80]}"
-        n = int(c.sched.group_offsets[-1])   # the same products, scaled
-        torch.testing.assert_close(out[:n].float() * c.scale[:n, None],
-                                   c.y[:n].float(), **TOL["bfloat16"])
-        return call, f"torch._grouped_mm ({note})"
+    if name == "grouped_gemm" and c.dtype == torch.bfloat16:
+        return grouped_mm_call(c, c.h, c.wd, c.y)
     reasons = {
         "router_topk": "no single PyTorch call gates, selects by iterative "
                        "argmax and renormalises",
@@ -614,6 +635,7 @@ class QuantCase:
         self.qg, self.qu, self.qd = (sch.quantize(w)
                                      for w in (c.wg, c.wu, c.wd))
         self.h = ref.fused_gate_up_ref(c.xp, self.qg, self.qu, c.sched)
+        self.y = ref.grouped_gemm_ref(self.h, self.qd, c.sched, c.scale)
 
     def label(self) -> str:
         return f"{self.c.label()} {self.scheme}"
@@ -660,7 +682,8 @@ class QuantCase:
 
 def check_quant_case(qc: QuantCase, errs: dict) -> None:
     """The quantized GEMM kernels against their plain versions: no NaN after
-    poisoning the allocator, inactive rows exactly zero, within TOL."""
+    poisoning the allocator, inactive rows exactly zero, bitwise equal
+    across two calls, within TOL."""
     import torch
     tol = TOL[str(qc.c.dtype).replace("torch.", "")]
     for name, (kern, plain, numel, odt) in qc.calls().items():
@@ -669,6 +692,8 @@ def check_quant_case(qc: QuantCase, errs: dict) -> None:
         torch.cuda.synchronize()
         if torch.isnan(got).any():
             raise AssertionError(f"{name}: NaN in output ({qc.label()})")
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"{name}: two calls differ ({qc.label()})")
         dead = got[qc.c.inactive_rows]
         if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
             raise AssertionError(f"{name}: inactive rows not zero "
@@ -682,21 +707,40 @@ def check_quant_case(qc: QuantCase, errs: dict) -> None:
 
 def time_quant_case(qc: QuantCase) -> dict:
     """Kernel and plain times of the quantized GEMMs beside their
-    compressed-byte bounds, as ``time_case`` does for the dense ones."""
+    compressed-byte bounds, as ``time_case`` does for the dense ones, and
+    beside the dense bf16 kernel of the same GEMM on the case's bf16 stacks
+    (the time the format has to beat), timed in turns with it.  No one
+    PyTorch call takes the compressed weights (library_ms null);
+    ``torch._grouped_mm`` over the dequantized bf16 stack (B1; B2's gate
+    and up stacks side by side, two products without the SiLU) is timed
+    beside them as the dense library time."""
     import torch
-    out = {}
+    c = qc.c
+    dense = {name: calls[0] for name, calls in kernel_calls(c).items()}
     reason = ("no single PyTorch call computes a grouped product on "
               f"{qc.fmt} weights with per-channel dequantization "
               "(_weight_int8pack_mm is one matrix, not grouped)")
+    out = {}
     for name, (kern, plain, _, _) in qc.calls().items():
         n_bytes, flops = qc.work(name)
         b_ms, b_by = bound_ms(n_bytes, flops)
+        t = [device_ms(f, 10) for f in (kern, dense[name], dense[name],
+                                        kern)]
+        if name == "grouped_gemm":
+            gmm, _ = grouped_mm_call(c, qc.h, qc.qd.materialize(), qc.y)
+        else:
+            wgu = torch.cat([qc.qg.materialize(), qc.qu.materialize()], -1)
+            gmm, _ = grouped_mm_call(c, c.xp, wgu, None)
         out[name] = {
-            "ms": device_ms(kern, 10), "eager_ms": time_ms(kern, 50),
+            "ms": (t[0] + t[3]) / 2, "eager_ms": time_ms(kern, 50),
+            "dense_ms": (t[1] + t[2]) / 2, "turns_ms": t,
             "plain_ms": time_ms(plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "library": None,
-            "library_null_reason": reason, "bytes": n_bytes,
-            "flops": flops}
+            "library_null_reason": reason,
+            "grouped_mm_dequantized_ms":
+                device_ms(gmm, 10) if gmm is not None else None,
+            "bytes": n_bytes, "flops": flops}
+        del gmm
         torch.cuda.synchronize()
     return out
 
@@ -1894,6 +1938,7 @@ def main() -> None:
                     torch.cuda.empty_cache()
     # B1-B5 at deepseek-v2's MoE layer (E=160, d=5120, f=1536, softmax)
     ds_timings = {}                   # (policy, T) -> per-kernel times
+    ds_qtimings = {}                  # T -> int8_expert GEMM times (dynamic)
     for policy in ("fixed", "dynamic"):
         for dtype in (torch.bfloat16, torch.float32):
             for T in (SERVE_SLOTS, 64):
@@ -1902,10 +1947,12 @@ def main() -> None:
                 if dtype == torch.bfloat16:
                     ds_timings[policy, T] = time_case(c)
                     padding.append(padding_share(c))
-                    if policy == "dynamic":
-                        qc = QuantCase(c, "int8_expert")
-                        check_quant_case(qc, errs)
-                        del qc
+                if policy == "dynamic":
+                    qc = QuantCase(c, "int8_expert")
+                    check_quant_case(qc, errs)
+                    if dtype == torch.bfloat16:
+                        ds_qtimings[T] = time_quant_case(qc)
+                    del qc
                 del c
                 torch.cuda.empty_cache()
     # B1-B5 at the training shape (T = 4096 tokens, bf16): the forward that
@@ -1974,13 +2021,22 @@ def main() -> None:
                   f"{t['bound_ops_ms'] * 1e3:.2f} us for "
                   f"{t['flops'] / 1e9:.1f} GFLOP), plain "
                   f"{t['plain_ms'] * 1e3:.1f} us, library {lib}")
-    for (scheme, policy, T), t in sorted(qtimings.items()):
-        print(f"[times] moonshot bf16 T={T} {policy} {scheme}: " + "; ".join(
+    for arch, scheme, policy, T, t in (
+            [("moonshot", *k, v) for k, v in sorted(qtimings.items())]
+            + [("deepseek", "int8_expert", "dynamic", T, v)
+               for T, v in sorted(ds_qtimings.items())]):
+        print(f"[times] {arch} bf16 T={T} {policy} {scheme}: " + "; ".join(
             f"{n} {t[n]['ms'] * 1e3:.1f} us (eager "
             f"{t[n]['eager_ms'] * 1e3:.1f}, bound "
             f"{t[n]['bound_ms'] * 1e3:.2f} for {t[n]['bytes'] / 1e6:.2f} MB, "
-            f"plain {t[n]['plain_ms'] * 1e3:.1f})"
-            for n in ("fused_gate_up", "grouped_gemm")))
+            f"dense bf16 kernel {t[n]['dense_ms'] * 1e3:.1f}, in turns "
+            + "/".join(f"{v * 1e3:.1f}" for v in t[n]["turns_ms"])
+            + f", plain {t[n]['plain_ms'] * 1e3:.1f}, grouped_mm over the "
+            + ("dequantized stack " if n == "grouped_gemm" else
+               "dequantized gate|up stacks ")
+            + ("null" if t[n]["grouped_mm_dequantized_ms"] is None
+               else f"{t[n]['grouped_mm_dequantized_ms'] * 1e3:.1f}")
+            + ")" for n in ("fused_gate_up", "grouped_gemm")))
     for step_kind, t in paged_t.items():
         arch = "mixtral-8x7b" if t["G"] > 1 else "moonshot"
         print(f"[times] paged_attention {arch} bf16 {step_kind} "
@@ -2223,6 +2279,20 @@ def main() -> None:
                         "peak_bytes_quantizing": peak_load,
                         "peak_bytes_serving": peak_serve,
                         "launches": res["launches"]})
+        # five decode steps under the profiler, as the bf16 engine's
+        for i in range(SERVE_SLOTS):
+            engine.admit(Request(rid=100 + i, prompt=rng.integers(
+                0, V, 48).astype(np.int32), max_new=16))
+        for _ in range(2):
+            engine.step()                  # the two prompt-chunk steps
+        prof = profile_window(lambda: [engine.step() for _ in range(5)])
+        print(f"[profile serve paged {scheme}] decode x5, 2 slots: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f}"
+              f" ms (share {prof['busy_share']:.3f}; bf16 experts "
+              f"{paged_prof['decode']['busy_share']:.3f})")
+        for name, calls, ms in prof["top_device"]:
+            print(f"    device {ms:9.3f} ms {calls:5d}x  {name[:70]}")
+        summary["decode_profile"] = prof
         del engine
         torch.cuda.empty_cache()
         head32 = copy.deepcopy(truncated(qmodel, n_check)).float()
@@ -2278,6 +2348,7 @@ def main() -> None:
             run = quant[scheme]
             entry["launches"] = run["launches"][name]
             d = qtimings[scheme, "dynamic", SERVE_SLOTS][kname]
+            qkeys = keys + ("dense_ms", "grouped_mm_dequantized_ms")
             extra = {
                 "shape": f"moonshot-v1-16b-a3b bf16 decode T={SERVE_SLOTS}, "
                          f"dynamic schedule (8-row blocks), {scheme} experts",
@@ -2285,16 +2356,24 @@ def main() -> None:
                                 f"{run['layers']} layers",
                 "bound_counts": "compressed payload + scales + activations "
                                 "in + output written",
+                "dense_ms": d["dense_ms"],
+                "grouped_mm_dequantized_ms": d["grouped_mm_dequantized_ms"],
                 "prefill_T64": {k: qtimings[scheme, "dynamic", 64][kname][k]
-                                for k in keys},
-                "fixed": {f"T{SERVE_SLOTS}": {
-                    k: qtimings[scheme, "fixed", SERVE_SLOTS][kname][k]
-                    for k in keys}}}
+                                for k in qkeys},
+                "fixed": {f"T{T}": {
+                    k: qtimings[scheme, "fixed", T][kname][k]
+                    for k in qkeys} for T in (SERVE_SLOTS, 64)},
+                "sass": {fn: n for fn, n in sass.items()
+                         if HOPPER_KERNELS[name] in fn}}
             if fmt == "int8":
                 extra["int8_channel"] = {
                     f"{policy}_T{T}": {
                         k: qtimings["int8_channel", policy, T][kname][k]
-                        for k in keys} for policy, T in QUANT_SHAPES}
+                        for k in qkeys} for policy, T in QUANT_SHAPES}
+                extra["deepseek_int8_expert"] = {
+                    f"dynamic_T{T}": {k: ds_qtimings[T][kname][k]
+                                      for k in qkeys}
+                    for T in sorted(ds_qtimings)}
         elif name in _build.BACKWARD_KERNELS:
             entry["launches"] = train["launches"][name]
             tkeys = keys + ("bound_bytes_ms", "bound_ops_ms")

@@ -12,8 +12,9 @@
 
 #define MOE_API extern "C" __attribute__((visibility("default")))
 
-// dtype codes shared with the Python wrappers
+// dtype and weight-format codes shared with the Python wrappers
 enum MoeDtype : int { kF32 = 0, kBF16 = 1 };
+enum WFormat : int { kDense = 0, kInt8 = 1, kInt4 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -11,20 +11,24 @@
 // At training's T = 4096 (moonshot: 28,672 active rows) the tensor cores:
 // 331 GFLOP, 0.33 ms, against 0.33 ms for the bytes.
 //
-// What the design does about it.  bf16 with dense weights: the Hopper
-// kernel of grouped_gemm_hopper.cuh over tiles of at most 256 rows of one
-// expert's run, each weight tile read once per 256 rows on either policy.
-// A stage holds x's rows and the gate's and up's 64 columns of the same K
-// slice, so one wgmma m64n128k16 computes both products from one A tile;
-// silu(g) * u is formed in fp32 registers and stored once in bf16: neither
-// g nor u reaches device memory.  fp32 (CUDA-core fmaf) and int8/int4
-// (read compressed, expanded tile by tile on chip): the block-tiled
-// template of grouped_gemm.cuh, the same A tile feeding both products.
+// What the design does about it.  bf16: the Hopper kernels over tiles of
+// one expert's run of rows, each weight tile read once per slice of its
+// expert's rows on either policy (dense weights: grouped_gemm_hopper.cuh,
+// up to 256 rows; int8/int4: grouped_gemm_hopper_quant.cuh, up to 128
+// rows, the compressed tiles brought by TMA and expanded in registers under
+// the products of the stage before).  Dense: a stage holds x's rows and
+// the gate's and up's 64 columns of the same K slice, so one wgmma
+// m64n128k16 computes both products from one A tile; int8/int4: each
+// consumer thread expands the same columns of gate and up and multiplies
+// both by the same x tile.  silu(g) * u is formed in fp32 registers and
+// stored once in bf16: neither g nor u reaches device memory.  fp32
+// (CUDA-core fmaf, every format): the block-tiled template of
+// grouped_gemm.cuh, the same A tile feeding both products.
 #include "grouped_gemm.cuh"
 
 // x (capacity, K), w_gate and w_up (E, K, N) in x's dtype or their
 // int8/int4 payloads with their scales, the schedule's (E,) seg_start and
-// block arrays, the work lists' scratch (bf16 dense only) -> out
+// block arrays, the work lists' scratch (bf16 only) -> out
 // (capacity, N), every element written.
 MOE_API int moe_fused_gate_up(const void* x, const void* w_gate,
                               const void* w_up, const void* wg_scale,

@@ -15,23 +15,27 @@
 // 28,672 active rows) the tensor cores and the bytes alike: 165 GFLOP, 0.17
 // ms, against 0.17 ms for the rows, the weights and the output.
 //
-// What the design does about it.  bf16 with dense weights: the Hopper
-// kernel of grouped_gemm_hopper.cuh (TMA, wgmma, persistent blocks) over
-// tiles of at most 256 rows of one expert's run (expert_tiles.cu, built on
-// the device), so each weight tile crosses device memory once per 256 rows
-// on either policy, not once per schedule block; the weights are read
-// MN-major as stored; the combine weight is applied to the fp32
+// What the design does about it.  bf16: the Hopper kernels (TMA, wgmma,
+// persistent blocks) over tiles of one expert's run of rows
+// (expert_tiles.cu, built on the device), so each weight tile crosses
+// device memory once per slice of its expert's rows on either policy, not
+// once per schedule block; the combine weight is applied to the fp32
 // accumulators, so the unscaled product never reaches device memory; zero
-// tiles load nothing.  fp32 (CUDA-core fmaf, never TF32) and the int8 and
-// int4 weights (1/2 and 1/4 of the bytes, the compressed tiles expanded on
-// chip to bf16 wmma tiles): the block-tiled template of grouped_gemm.cuh,
-// one thread block per (schedule-block row tile, 64 columns).
+// tiles load nothing.  Dense weights (grouped_gemm_hopper.cuh): read
+// MN-major as stored, slices of up to 256 rows.  int8 and int4 weights
+// (grouped_gemm_hopper_quant.cuh; 1/2 and 1/4 of the bytes): TMA brings the
+// compressed tiles, and the consumer threads expand them in registers into
+// wgmma's A operand of the transposed product (x's rows the N side: 16 at
+// decode), each stage's expand under the products of the stage before;
+// slices of up to 128 rows.  fp32 (CUDA-core fmaf, never TF32):
+// the block-tiled template of grouped_gemm.cuh, one thread block per
+// (schedule-block row tile, 64 columns), in every format.
 #include "grouped_gemm.cuh"
 
 // x (capacity, K) of dtype `dtype` (MoeDtype), w (E, K, N) in x's dtype or
 // its int8/int4 payload with w_scale, the schedule's (E,) seg_start and
 // (capacity / block_m,) block arrays, row_scale (capacity,) f32 or null,
-// the work lists' scratch (hopper_gemm.cuh work_lists; bf16 dense only)
+// the work lists' scratch (hopper_gemm.cuh work_lists; bf16 only)
 // -> out (capacity, N), every element written.
 MOE_API int moe_grouped_gemm(const void* x, const void* w,
                              const void* w_scale, const void* seg_start,

@@ -187,6 +187,32 @@ __device__ __forceinline__ void store_slab(float (&d)[64],
   }
 }
 
+// A zero tile (past the active blocks): this warpgroup's 64-row slabs
+// are 2 s + wg.  It stages a zero slab in epi once (`staged` says epi holds
+// one already) and stores it wherever one is due; nothing is loaded.
+template <int BN>
+__device__ __forceinline__ void store_zeros(const CUtensorMap* out64,
+                                            const CUtensorMap* out8,
+                                            unsigned char* epi, int wg,
+                                            int n0, int4 tile, bool& staged) {
+  using namespace hopper;
+  if (!staged) {
+    float z[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) z[i] = 0.f;
+    epilogue_begin(wg);
+    stage_tile<bf16>(z, epi);
+    epilogue_staged(wg);
+    staged = true;
+  }
+  if (threadIdx.x % 128 == 0) {
+    for (int r0 = 64 * wg; r0 < tile.z; r0 += 128)
+      store_staged<BN>(out64, out8, epi, n0, tile.y + r0,
+                       min(64, tile.z - r0));
+    bulk_commit();
+  }
+}
+
 // The kernel of B1 (FUSED false: w1 unused, row_scale or nullptr) and B2
 // (FUSED true: w0 the gate, w1 the up weight, no row_scale)
 template <bool FUSED>
@@ -256,22 +282,7 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
       const int4 tile = tiles[it / n_nt];
       const int n0 = (it % n_nt) * BN;
       if (tile.x < 0) {
-        // a zero tile: this warpgroup's 64-row slabs are 2 s + wg
-        if (!zeros_staged) {
-          float z[BN / 2];
-#pragma unroll
-          for (int i = 0; i < BN / 2; ++i) z[i] = 0.f;
-          epilogue_begin(wg);
-          stage_tile<bf16>(z, epi);
-          epilogue_staged(wg);
-          zeros_staged = true;
-        }
-        if (threadIdx.x % 128 == 0) {
-          for (int r0 = 64 * wg; r0 < tile.z; r0 += 128)
-            store_staged<BN>(&out64, &out8, epi, n0, tile.y + r0,
-                             min(64, tile.z - r0));
-          bulk_commit();
-        }
+        store_zeros<BN>(&out64, &out8, epi, wg, n0, tile, zeros_staged);
         continue;
       }
       zeros_staged = false;

@@ -241,7 +241,6 @@ inline void launch_f32(const float* x, const void* w, const int* be,
                        const int* ba, float* out, int capacity, int K, int N,
                        int block_m, cudaStream_t s) {
   using moe_gemm::gemm_f32_kernel;
-  using moe_gemm::kDense;
   const int rows = block_m % 128 == 0 ? 128 : (block_m % 16 == 0 ? 16 : 8);
   const dim3 grid((N + moe_gemm::BN - 1) / moe_gemm::BN, capacity / rows);
   if (rows == 128)

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the grouped GEMMs in bf16: the
-// forward's B1 and B2 on dense weights (grouped_gemm_hopper.cuh), and the
-// backward's B7, the grouped weight gradient (grouped_wgrad.cu), and B1
-// with its weight read transposed, the dX product (grouped_gemm_t.cu).
+// forward's B1 and B2 on dense weights (grouped_gemm_hopper.cuh) and on
+// int8/int4 ones (grouped_gemm_hopper_quant.cuh), and the backward's B7,
+// the grouped weight gradient (grouped_wgrad.cu), and B1 with its weight
+// read transposed, the dX product (grouped_gemm_t.cu).
 //
 // The shape of the kernels (the "usual shape of a fast kernel" on this
 // card): persistent thread blocks, one per SM, each walking a list of work
@@ -316,23 +317,30 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map of `rank` (2 or 3) dimensions, innermost first (dims in
 // elements, the outer strides in bytes), moved in boxes of `box` elements
-// with the 128-byte swizzle; bf16 unless `fp32`; false if CUDA refuses
-// it
-inline bool tensor_map(CUtensorMap* map, const void* base, int rank,
+// of type `type` with swizzle `swizzle`; false if CUDA refuses it
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       CUtensorMapSwizzle swizzle, const void* base, int rank,
                        const uint64_t* dims, const uint64_t* strides,
-                       const uint32_t* box, bool fp32 = false) {
+                       const uint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t d[3], s[2];
   cuuint32_t b[3], es[3] = {1, 1, 1};
   for (int i = 0; i < rank; ++i) { d[i] = dims[i]; b[i] = box[i]; }
   for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
-  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-            const_cast<void*>(base), d, s, b, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// the same with the 128-byte swizzle, bf16 unless `fp32`
+inline bool tensor_map(CUtensorMap* map, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box, bool fp32 = false) {
+  return encode_map(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                    box);
 }
 
 // SMs of the current device (cached per device)

@@ -1,6 +1,7 @@
 """The work lists of the Hopper GEMMs (kernel in ``csrc/expert_tiles.cu``,
-launched before their own kernel by the forward's B1 and B2 in bf16 on
-dense weights, and by the backward's B7 and B1^T): from a block schedule,
+launched before their own kernel by the forward's B1 and B2 in bf16, in
+every weight format, and by the backward's B7 and B1^T): from a block
+schedule,
 each expert's run of rows and the tiles over those runs.
 
 * ``runs`` (E, 2) int32: ``[first row, end row)`` of expert e's active

@@ -3,8 +3,8 @@
 ``csrc/fused_gate_up.cu``): ``silu(x @ w_gate[e]) * (x @ w_up[e])`` per
 schedule block, zeros for inactive blocks.  Weight formats as in
 ``grouped_gemm``: both operands in one format, with ``wg_scale`` and
-``wu_scale`` for int8 and int4.  In bf16 with dense weights a CUDA call
-needs the schedule's ``seg_start``, as ``grouped_gemm``'s does."""
+``wu_scale`` for int8 and int4.  In bf16 a CUDA call needs the
+schedule's ``seg_start``, as ``grouped_gemm``'s does."""
 from __future__ import annotations
 
 from typing import Optional
@@ -40,8 +40,8 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_format: str = "dense",
                   seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CPU tensors run the plain version (``seg_start`` unused); CUDA
-    tensors the kernel, which in bf16 on dense weights needs the
-    schedule's ``seg_start``."""
+    tensors the kernel, which in bf16 needs the schedule's
+    ``seg_start``."""
     if not _build.on_cuda(x, w_gate, w_up, block_expert, block_active,
                           wg_scale, wu_scale, seg_start):
         return fused_gate_up_plain(x, w_gate, w_up, block_expert,
@@ -53,7 +53,7 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     code, cap, K, F, fmt = check_gemm_operands(
         x, [w_gate, w_up], block_expert, block_active, block_m, w_format,
         scales)
-    seg, buf = work_list_args(x, [w_gate, w_up], seg_start, w_format,
+    seg, buf = work_list_args(x, [w_gate, w_up], seg_start,
                               "fused_gate_up")
     lib = _build.library()
     out = torch.empty((cap, F), dtype=x.dtype, device=x.device)

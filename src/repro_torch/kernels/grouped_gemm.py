@@ -5,9 +5,9 @@ kernel in ``csrc/grouped_gemm.cu``).
 an optional ``row_scale`` epilogue (the folded combine weights), and zeros
 for inactive blocks.  ``block_m`` is any multiple of 8: the ``fixed``
 policy's 128-row blocks and the ``dynamic`` policy's 8-row sub-blocks.
-In bf16 with dense weights the kernel is a Hopper one over tiles of each
-expert's run of rows, found from the schedule's ``seg_start`` (see
-``expert_tiles``), which a CUDA call must then pass.
+In bf16 the kernel is a Hopper one over tiles of each expert's run of
+rows, found from the schedule's ``seg_start`` (see ``expert_tiles``),
+which a CUDA call must then pass, in every weight format.
 
 Weight formats (``w_format``), as the reference's: ``"dense"`` (w of x's
 dtype), ``"int8"`` (w an (E, K, N) int8 payload) and ``"int4"`` (w an
@@ -172,18 +172,19 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m,
     return code, cap, K, N, W_FORMATS.index(w_format)
 
 
-def work_list_args(x, ws, seg_start, w_format: str, kernel: str):
-    """(seg_start, scratch) for the C call when the Hopper kernel runs (bf16
-    on dense weights ``ws``): the schedule's seg_start, from which it finds
-    each expert's run, and the work lists' scratch.  It refuses a call
-    without seg_start, or with x or a weight off a 16-byte boundary (TMA).
-    (None, None) on the other paths, which read neither."""
-    if x.dtype != torch.bfloat16 or w_format != "dense":
+def work_list_args(x, ws, seg_start, kernel: str):
+    """(seg_start, scratch) for the C call when a Hopper kernel runs (bf16,
+    on dense, int8 or int4 weights ``ws``): the schedule's seg_start, from
+    which it finds each expert's run, and the work lists' scratch.  It
+    refuses a call without seg_start, or with x or a weight (or payload)
+    off a 16-byte boundary (TMA).  (None, None) in fp32, which reads
+    neither."""
+    if x.dtype != torch.bfloat16:
         return None, None
     E = ws[0].shape[0]
     _build.require(seg_start is not None,
-                   f"{kernel} in bf16 on dense weights walks each expert's "
-                   "run of rows from the schedule's seg_start: pass it")
+                   f"{kernel} in bf16 walks each expert's run of rows from "
+                   "the schedule's seg_start: pass it")
     _build.require(seg_start.dtype == torch.int32
                    and seg_start.shape == (E,) and seg_start.is_contiguous(),
                    f"{kernel} takes a contiguous int32 ({E},) seg_start")
@@ -212,8 +213,8 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                  w_format: str = "dense",
                  seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CPU tensors run the plain version (``seg_start`` unused); CUDA
-    tensors the kernel, which in bf16 on dense weights needs the
-    schedule's ``seg_start``."""
+    tensors the kernel, which in bf16 needs the schedule's
+    ``seg_start``."""
     if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
                           w_scale, seg_start):
         return grouped_gemm_plain(x, w, block_expert, block_active,
@@ -228,7 +229,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                        and row_scale.is_contiguous(),
                        f"grouped GEMM takes a contiguous float32 ({cap},) "
                        "row_scale")
-    seg, buf = work_list_args(x, [w], seg_start, w_format, "grouped_gemm")
+    seg, buf = work_list_args(x, [w], seg_start, "grouped_gemm")
     lib = _build.library()
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
     s_ptr, s_e, s_n = scale_args(scales)

@@ -1,8 +1,9 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions
 (the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
 forward's and the backward's Hopper GEMMs at shapes that stress their
-tiling, the int8 and int4 formats of the two GEMMs, the paged decode-attention kernel
-over its masks, and its MLA form), the MoE layer without a host sync under
+tiling, on dense weights and on int8 and int4 ones, the paged
+decode-attention kernel over its masks, and its MLA form), the MoE layer
+without a host sync under
 both policies and on quantized weights, and the contiguous and paged
 engines' launch counts (dense and int8 experts; MLA).
 
@@ -432,26 +433,34 @@ def test_quantized_gemm_dequantizes_bitwise(cuda, scheme, dtype, block_m):
     """One-hot activation rows pick single weight rows: the product of a
     row with one 1.0 is exact, so the kernel's output must equal the plain
     dequantization bf16/fp32(q * s) bit for bit, in every tile height and
-    over partial K stages (K = 176)."""
+    over partial K stages (K = 176).  The schedule is built by hand on the
+    schedules' contract (each expert's blocks one contiguous run from
+    seg_start; the active blocks a prefix): experts of two blocks, of one,
+    and of none, and an inactive block whose rows must be zeros."""
     from repro_torch.kernels.ops import _weight_operands
     from repro_torch.quantization import get_scheme
-    E, K, N, nb = 4, 176, 192, 6
+    E, K, N = 5, 176, 192
     g = torch.Generator(device=cuda).manual_seed(5)
     w = torch.randn((E, K, N), generator=g, device=cuda)
     w = (w * torch.logspace(-3, 2, N, device=cuda)).to(DTYPES[dtype])
     qt = get_scheme(scheme).quantize(w)
+    runs = [0, 0, 1, 2, 2, 3]              # expert of each active block
+    nb = len(runs) + 1                     # and one inactive block
     cap = nb * block_m
-    be = torch.tensor([i % E for i in range(nb)], dtype=torch.int32,
-                      device=cuda)
-    ba = torch.ones(nb, dtype=torch.int32, device=cuda)
+    be = torch.tensor(runs + [0], dtype=torch.int32, device=cuda)
+    ba = torch.tensor([1] * len(runs) + [0], dtype=torch.int32, device=cuda)
+    seg = torch.tensor([runs.index(e) if e in runs else len(runs)
+                        for e in range(E)], dtype=torch.int32,
+                       device=cuda) * block_m
     rows = torch.arange(cap, device=cuda)
     k_of_row = (rows * 37 + 5) % K
     x = torch.zeros((cap, K), dtype=DTYPES[dtype], device=cuda)
     x[rows, k_of_row] = 1.0
     wq, ws, fmt = _weight_operands(qt)
     out = ops._gg.grouped_gemm(x, wq, be, ba, block_m=block_m, w_scale=ws,
-                               w_format=fmt)
+                               w_format=fmt, seg_start=seg)
     want = qt.materialize()[be.long()[rows // block_m], k_of_row]
+    want[ba.repeat_interleave(block_m) == 0] = 0
     assert torch.equal(out, want)
     torch.cuda.synchronize()
 
@@ -463,11 +472,13 @@ def test_quantized_wrapper_refuses_mismatched_operands(cuda):
     q = torch.zeros((2, 32, 32), dtype=torch.int8, device=cuda)
     s = torch.ones((2, 32), device=cuda)
     be = torch.zeros(1, dtype=torch.int32, device=cuda)
+    seg = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="w_scale"):
         grouped_gemm(x, q, be, be, block_m=16, w_format="int8")
     with pytest.raises(ValueError, match=r"\(E, 16, N\)"):
         grouped_gemm(x, q, be, be, block_m=16, w_scale=s, w_format="int4")
-    out = grouped_gemm(x, q, be, be, block_m=16, w_scale=s, w_format="int8")
+    out = grouped_gemm(x, q, be, be, block_m=16, w_scale=s, w_format="int8",
+                       seg_start=seg)
     assert torch.equal(out, torch.zeros_like(out))      # inactive block
     torch.cuda.synchronize()
 
@@ -809,6 +820,128 @@ def test_forward_gemms_refuse_missing_seg_start_and_misaligned_views(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         ops._fgu.fused_gate_up(bad, wg, wu, *arrays,
                                seg_start=sched.seg_start, **kw)
+
+
+# the forward's Hopper kernels on int8/int4 weights (the same work lists,
+# the payload expanded on chip), at the tiling stresses above
+QUANT_SCHEMES = ["int8_expert", "int8_channel", "int4_packed"]
+
+
+def quantized_pair(dev, K, N, dtype, policy, M, scheme, seed=0):
+    """forward_pair's inputs with the stacks quantized under ``scheme``:
+    (schedule, x, row_scale, [(kernel name, kernel call, plain call)])."""
+    from repro_torch.quantization import get_scheme
+    sched, x, w, wg, wu, rs = forward_pair(dev, K, N, dtype, policy, M,
+                                           seed=seed)
+    q, qg, qu = (get_scheme(scheme).quantize(t) for t in (w, wg, wu))
+    return sched, x, rs, [
+        ("grouped_gemm", lambda: ops.grouped_gemm(x, q, sched, row_scale=rs),
+         lambda: ref.grouped_gemm_ref(x, q, sched, rs)),
+        ("fused_gate_up", lambda: ops.fused_gate_up(x, qg, qu, sched),
+         lambda: ref.fused_gate_up_ref(x, qg, qu, sched))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+@pytest.mark.parametrize("scheme", QUANT_SCHEMES)
+def test_quantized_gemms_tiling_match_plain(cuda, scheme, policy, M, dtype):
+    """B1 (a distinct row_scale per row) and B2 on int8/int4 weights at
+    K=176 (a partial K stage), N=192, experts with 0 and 1 rows and runs of
+    up to 300 (passes of 128 rows): within TOL, every element written
+    (NaN-poisoned allocator), exact zeros on the rows past the active
+    blocks, bitwise equal across two calls, one launch counted each."""
+    from repro_torch.kernels.grouped_gemm import launch_key
+    from repro_torch.quantization import get_scheme
+    K, N = 176, 192
+    fmt = get_scheme(scheme).kernel_format
+    sched, x, _, calls = quantized_pair(cuda, K, N, DTYPES[dtype], policy, M,
+                                        scheme)
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    for name, kern, plain in calls:
+        junk = torch.full((sched.capacity * N,), float("nan"), device=cuda,
+                          dtype=DTYPES[dtype])
+        del junk
+        ops.reset_launches()
+        out = kern()
+        again = kern()
+        assert ops.LAUNCHES[launch_key(name, fmt)] == 2
+        want = plain()
+        torch.cuda.synchronize()
+        assert out.shape == (sched.capacity, N)
+        assert not torch.isnan(out).any(), name
+        assert torch.equal(out, again), name
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+        assert torch.equal(out[dead], torch.zeros_like(out[dead])), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["int8_expert", "int4_packed"])
+@pytest.mark.parametrize("T", [2, 64])
+def test_quantized_gemms_160_experts_match_plain(cuda, T, scheme):
+    """deepseek-v2's expert count (E=160, k=6, softmax) at narrow widths on
+    the dynamic policy's 8-row blocks: within TOL, dead rows exact zeros
+    after NaN poisoning, bitwise equal across two calls."""
+    E, k, d, f = 160, 6, 256, 192
+    logits, x, qg, qu, qd = quantized_layer(cuda, T, E, k, d, f,
+                                            torch.bfloat16, scheme, seed=T)
+    w, idx = ref.router_ref(logits, k, gating="softmax", norm_topk=False,
+                            routed_scale=16.0)
+    sched = build_dynamic_schedule(idx, E, 128)
+    xp = ops.permute(x, sched)
+    h = ref.fused_gate_up_ref(xp, qg, qu, sched)
+    scale = combine_scale_rows(sched, w)
+    dead = (sched.block_active == 0).repeat_interleave(sched.block_m)
+    for kern, plain, n in (
+            (lambda: ops.fused_gate_up(xp, qg, qu, sched),
+             lambda: ref.fused_gate_up_ref(xp, qg, qu, sched), f),
+            (lambda: ops.grouped_gemm(h, qd, sched, row_scale=scale),
+             lambda: ref.grouped_gemm_ref(h, qd, sched, scale), d)):
+        junk = torch.full((sched.capacity * n,), float("nan"), device=cuda,
+                          dtype=torch.bfloat16)
+        del junk
+        out = kern()
+        again = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        assert not torch.isnan(out).any()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **TOL["bfloat16"])
+        assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+@pytest.mark.gpu
+def test_quantized_gemms_refuse_missing_seg_start_and_misaligned_views(cuda):
+    """In bf16 on int8/int4 weights the kernels walk each expert's run
+    from seg_start: a call without it is refused, never sent another
+    route; so is a payload view off a 16-byte boundary (TMA)."""
+    from repro_torch.kernels.ops import _weight_operands
+    from repro_torch.quantization import get_scheme
+    K, N = 176, 192
+    sched, x, w, wg, wu, _ = forward_pair(cuda, K, N, torch.bfloat16,
+                                          "fixed", 128)
+    arrays = (sched.block_expert, sched.block_active)
+    for scheme in ("int8_channel", "int4_packed"):
+        sch = get_scheme(scheme)
+        (q, s, fmt), (qg, sg, _), (qu, su, _) = (
+            _weight_operands(sch.quantize(t)) for t in (w, wg, wu))
+        kw = dict(block_m=sched.block_m, w_format=fmt)
+        with pytest.raises(ValueError, match="seg_start"):
+            ops._gg.grouped_gemm(x, q, *arrays, w_scale=s, **kw)
+        with pytest.raises(ValueError, match="seg_start"):
+            ops._fgu.fused_gate_up(x, qg, qu, *arrays, wg_scale=sg,
+                                   wu_scale=su, **kw)
+        buf = torch.zeros(q.numel() + 16, dtype=torch.int8, device=cuda)
+        bad = buf[1:1 + q.numel()].view(q.shape)
+        assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+        with pytest.raises(ValueError, match="16-byte"):
+            ops._gg.grouped_gemm(x, bad, *arrays, w_scale=s,
+                                 seg_start=sched.seg_start, **kw)
+        with pytest.raises(ValueError, match="16-byte"):
+            ops._fgu.fused_gate_up(x, bad, qu, *arrays, wg_scale=sg,
+                                   wu_scale=su, seg_start=sched.seg_start,
+                                   **kw)
 
 
 def plain_moe(x, router, wg, wu, wd, cfg):
