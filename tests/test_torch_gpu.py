@@ -912,6 +912,38 @@ def test_quantized_gemms_160_experts_match_plain(cuda, T, scheme):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_int4_with_channel_scales_matches_plain(cuda, dtype):
+    """int4 payloads with one scale per (expert, column), which no scheme
+    makes but the wrappers take: the kernel's column scales on int4,
+    against the plain versions, on the dynamic policy."""
+    from repro_torch.kernels.ops import _weight_operands
+    from repro_torch.quantization import get_scheme
+    K, N = 176, 192
+    sched, x, w, wg, wu, rs = forward_pair(cuda, K, N, DTYPES[dtype],
+                                           "dynamic", 128)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    (q, _, fmt), (qg, _, _), (qu, _, _) = (
+        _weight_operands(get_scheme("int4_packed").quantize(t))
+        for t in (w, wg, wu))
+    s, sg, su = (torch.rand((len(COUNTS), N), generator=g, device=cuda)
+                 * 0.1 + 0.01 for _ in range(3))
+    arrays = (sched.block_expert, sched.block_active)
+    kw = dict(block_m=sched.block_m, w_format=fmt)
+    y = ops._gg.grouped_gemm(x, q, *arrays, w_scale=s, row_scale=rs,
+                             seg_start=sched.seg_start, **kw)
+    h = ops._fgu.fused_gate_up(x, qg, qu, *arrays, wg_scale=sg, wu_scale=su,
+                               seg_start=sched.seg_start, **kw)
+    y_p = ops._gg.grouped_gemm_plain(x, q, *arrays, w_scale=s, row_scale=rs,
+                                     **kw)
+    h_p = ops._fgu.fused_gate_up_plain(x, qg, qu, *arrays, wg_scale=sg,
+                                       wu_scale=su, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_p.float(), **TOL[dtype])
+    torch.testing.assert_close(h.float(), h_p.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
 def test_quantized_gemms_refuse_missing_seg_start_and_misaligned_views(cuda):
     """In bf16 on int8/int4 weights the kernels walk each expert's run
     from seg_start: a call without it is refused, never sent another
