@@ -12,9 +12,9 @@ result line):
    per kernel;
    then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
    the SASS of the Hopper kernels (the forward's B1 and B2 in bf16 on
-   dense, int8 and int4 weights, the backward's B7 and B1^T; ``cuobjdump
-   -sass`` on the built library) and fails if either count of any of them
-   is 0;
+   dense, int8 and int4 weights, the backward's B7 and B1^T, the bf16 MLA
+   decode-attention kernel; ``cuobjdump -sass`` on the built library) and
+   fails if either count of any of them is 0;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    bf16 and fp32.  The five MoE kernels at moonshot-v1-16b-a3b's full width
    (decode T=2 and T=4, prefill T=64) and at mixtral-8x7b's (T=512), on
@@ -54,13 +54,18 @@ result line):
    at its training shape T=4096 on both policies in bf16, held and timed
    (B1 and B2 beside their bounds, B1 beside ``torch._grouped_mm``).  The
    MLA form of the paged decode-attention kernel (second score operand q2
-   against the rope-key pool, the latent pool as key and value) at
-   deepseek's shape (128 heads, latent 512, rope key 64, blocks of 16) at
-   decode (B=2) and at the 64-row chunk step, and with 120 heads (not a
-   multiple of its 16-head tile), bf16 and fp32, vector and scalar
-   kv_limit, blocks past kv_limit poisoned as above; timed beside its
-   bound (bytes and tensor-core operations, each named), its plain version
-   and scaled_dot_product_attention over the contiguous concatenated view.
+   against the rope-key pool, the latent pool as key and value; bf16 the
+   Hopper kernel, fp32 the CUDA-core one) at deepseek's shape (128 heads,
+   latent 512, rope key 64, blocks of 16) at each of ``MLA_SHAPES``
+   (decode B=2, the 64-row chunk step, long context B=2 at 8,191 and 6,143
+   in tables of 512 blocks, 32 rows of 2,047), and at decode with 120
+   heads (not a multiple of the 64-head tile), bf16 and fp32, vector and
+   scalar kv_limit, a row at kv_limit -1 (exact zeros), blocks past
+   kv_limit poisoned as above (later splits' blocks among them), bitwise
+   across two calls; timed at each of ``MLA_SHAPES`` beside its split plan,
+   its bound (bytes and tensor-core operations, each named), its plain
+   version and scaled_dot_product_attention over the contiguous
+   concatenated view.
    The five MoE kernels at moonshot's training shape (T = 8 x 512 = 4096
    tokens, capacity 32,768 rows on ``fixed``), bf16, both policies, held
    and timed (B1 and B2 beside their bounds and B1 beside
@@ -221,7 +226,7 @@ REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
 # the Hopper kernels (wgmma + TMA): report name -> the mangled name's stem
 # of each instantiation in the built library (the forward's kernels are
 # templates: FUSED false is B1, true B2; the quantized one's FMT 1 is int8,
-# 2 int4)
+# 2 int4; the bf16 MLA kernel's TP 64 and 32 positions a tile)
 HOPPER_KERNELS = {"grouped_gemm": "fwd_hopper_kernelILb0E",
                   "fused_gate_up": "fwd_hopper_kernelILb1E",
                   "grouped_gemm_int8": "fwd_quant_kernelILb0ELi1E",
@@ -229,7 +234,8 @@ HOPPER_KERNELS = {"grouped_gemm": "fwd_hopper_kernelILb0E",
                   "fused_gate_up_int8": "fwd_quant_kernelILb1ELi1E",
                   "fused_gate_up_int4": "fwd_quant_kernelILb1ELi2E",
                   "grouped_wgrad": "wgrad_hopper_kernel",
-                  "grouped_gemm_t": "gemm_t_hopper_kernel"}
+                  "grouped_gemm_t": "gemm_t_hopper_kernel",
+                  "paged_attention_mla": "mla_hopper_kernel"}
 
 
 def fail(msg: str, code: int = 1):
@@ -1016,6 +1022,16 @@ PAGED_SHAPES = {
     "batched": (ATTN, [(s, 2047) for s in range(32)], 128, 32),
     "gqa_decode": (ATTN_GQA, paged_rows("decode"), 8, 2),
 }
+# the MLA kernel's held and timed shapes (deepseek-v2's absorbed decode),
+# as PAGED_SHAPES: decode, the 64-row chunk step, long context (two rows of
+# 8,192 and 6,144 positions, tables of 512 blocks) and batched (32 rows of
+# 2,048, tables of 128)
+MLA_SHAPES = {
+    "decode": (MLA_ATTN, paged_rows("decode"), 8, 2),
+    "chunk": (MLA_ATTN, paged_rows("chunk"), 8, 2),
+    "long": (MLA_ATTN, [(0, 8191), (1, 6143)], 512, 2),
+    "batched": (MLA_ATTN, [(s, 2047) for s in range(32)], 128, 32),
+}
 
 
 def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
@@ -1188,18 +1204,36 @@ class MLACase(PagedCase):
 
 
 def check_mla(errs: dict) -> None:
-    """The MLA kernel at deepseek's shape: decode (B=2) and the 64-row chunk
-    step, 128 heads and 120 (not a multiple of the kernel's head tiles),
-    vector and scalar kv_limit, poisoned blocks."""
+    """The MLA kernels (bf16: the Hopper kernel; fp32: the CUDA-core one) at
+    each of MLA_SHAPES and at decode with 120 heads (not a multiple of the
+    64-head tile), vector and scalar kv_limit, blocks past kv_limit
+    poisoned as in ``check_attention``, and the last row at kv_limit -1,
+    which must come out as exact zeros."""
     import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention as kern, paged_decode_attention_plain as plain)
+    shapes = [(kind, attn, rows, nb, slots)
+              for kind, (attn, rows, nb, slots) in MLA_SHAPES.items()]
+    shapes.append(("decode", dict(MLA_ATTN, G=120), paged_rows("decode"), 8,
+                   2))
     for dtype in (torch.bfloat16, torch.float32):
-        for G, kind in ((128, "decode"), (128, "chunk"), (120, "decode")):
-            c = MLACase(dict(MLA_ATTN, G=G), paged_rows(kind), dtype,
-                        seed=17 + G)
+        tol = TOL[str(dtype).replace("torch.", "")]
+        for kind, attn, rows, nb, slots in shapes:
+            c = MLACase(attn, rows, dtype, seed=17 + attn["G"], nb=nb,
+                        slots=slots)
+            dead = c.lim.clone()
+            dead[-1] = -1
+            got, want = c.run(kern, dead), c.run(plain, dead)
+            torch.cuda.synchronize()
+            if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+                raise AssertionError(f"paged_attention_mla: a row at kv_limit"
+                                     f" -1 is not zeros ({c.label()} {kind})")
+            torch.testing.assert_close(got.float(), want.float(), **tol)
             check_attention("paged_attention_mla", c, f"{c.label()} {kind}",
                             errs, (("", {}),
                                    ("scalar kv_limit", dict(lim=60))))
-            del c
+            del c, got, want
+            torch.cuda.empty_cache()
 
 
 def mla_library_call(c: MLACase):
@@ -1233,30 +1267,42 @@ def mla_library_call(c: MLACase):
 
 
 def time_mla(kind: str) -> dict:
-    """Kernel, plain and SDPA-yardstick times of the MLA kernel (bf16,
-    deepseek's shape), with both halves of the bound."""
+    """Kernel, plain and SDPA-yardstick times of the MLA kernel at
+    MLA_SHAPES[kind] (bf16, deepseek's shape), with both halves of the
+    bound and the kernel's split plan."""
     import torch
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention as kern, paged_decode_attention_plain as plain)
-    c = MLACase(MLA_ATTN, paged_rows(kind), torch.bfloat16, seed=19)
+        paged_decode_attention as kern, paged_decode_attention_plain as plain,
+        mla_split_plan)
+    attn, rows, nb, slots = MLA_SHAPES[kind]
+    c = MLACase(attn, rows, torch.bfloat16, seed=19, nb=nb, slots=slots)
+    B = c.q.shape[0]
+    big = B * (max(c.lims) + 1) > 4096             # long rows: fewer calls
     n_bytes, flops = c.work()
     b_ms, b_by = bound_ms(n_bytes, flops)
     lib, lib_name = mla_library_call(c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, per = mla_split_plan(B, 1, attn["G"], nb, attn["bs"], attn["D"],
+                                  attn["D2"], sms)
     out = {
-        "ms": device_ms(lambda: c.run(kern), 50),
-        "eager_ms": time_ms(lambda: c.run(kern), 200),
-        "plain_ms": device_ms(lambda: c.run(plain), 10),
+        "ms": device_ms(lambda: c.run(kern), 20 if big else 50),
+        "eager_ms": time_ms(lambda: c.run(kern), 50 if big else 200),
+        "plain_ms": device_ms(lambda: c.run(plain), 3 if big else 10),
         "bound_ms": b_ms, "bound_by": b_by,
         "bound_bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
-        "library_ms": device_ms(lib, 50) if lib is not None else None,
+        "library_ms": (device_ms(lib, 20 if big else 50) if lib is not None
+                       else None),
         "library": lib_name if lib is not None else None,
         "library_null_reason": None if lib is not None else lib_name,
-        "bytes": n_bytes, "flops": flops, "rows": c.q.shape[0],
+        "bytes": n_bytes, "flops": flops, "rows": B, "nb": nb,
         "kv_positions_read": c.kv_positions_read(),
         "row_kv_positions": sum(p + 1 for p in c.lims),
+        "n_split": n_split, "per_split": per,
     }
+    del c, lib
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1983,7 +2029,7 @@ def main() -> None:
     check_paged(errs)
     paged_t = {k: time_paged(k) for k in PAGED_SHAPES}
     check_mla(errs)
-    mla_t = {k: time_mla(k) for k in ("decode", "chunk")}
+    mla_t = {k: time_mla(k) for k in MLA_SHAPES}
     for p in padding:
         print(f"[padding] E={p['E']} bf16 T={p['T']} {p['policy']}: block_m "
               f"{p['block_m']}, capacity {p['capacity']} rows "
@@ -2054,8 +2100,9 @@ def main() -> None:
         lib = ("null: " + t["library_null_reason"] if t["library_ms"] is None
                else f"{t['library_ms'] * 1e3:.1f} us ({t['library']})")
         print(f"[times] paged_attention_mla deepseek bf16 {step_kind} "
-              f"B={t['rows']} ({t['kv_positions_read']} latent positions "
-              f"read, {t['row_kv_positions']} over the rows): "
+              f"B={t['rows']} nb={t['nb']} ({t['n_split']} splits of "
+              f"{t['per_split']} entries; {t['kv_positions_read']} latent "
+              f"positions read, {t['row_kv_positions']} over the rows): "
               f"{t['ms'] * 1e3:.1f} us (eager {t['eager_ms'] * 1e3:.1f}), "
               f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}; bytes "
               f"{t['bound_bytes_ms'] * 1e3:.2f} us for "
@@ -2437,7 +2484,8 @@ def main() -> None:
                     **{k: paged_t["gqa_decode"][k] for k in pkeys}}}
         elif name == "paged_attention_mla":
             entry["launches"] = deepseek["paged"]["launches"][name]
-            mkeys = keys + ("bound_bytes_ms", "bound_ops_ms")
+            mkeys = keys + ("bound_bytes_ms", "bound_ops_ms", "n_split",
+                            "per_split", "bytes")
             d, extra = mla_t["decode"], {
                 "shape": "deepseek-v2-236b bf16 paged MLA decode B=2 "
                          "(kv_limit 100 and 77, blocks of 16; q 128 x 512 "
@@ -2446,7 +2494,17 @@ def main() -> None:
                                 f"{DEEPSEEK_LAYERS} layers",
                 "bound_bytes_ms": mla_t["decode"]["bound_bytes_ms"],
                 "bound_ops_ms": mla_t["decode"]["bound_ops_ms"],
-                "chunk_B64": {k: mla_t["chunk"][k] for k in mkeys}}
+                "n_split": mla_t["decode"]["n_split"],
+                "chunk_B64": {k: mla_t["chunk"][k] for k in mkeys},
+                "long_context_B2": {
+                    "shape": "deepseek bf16, kv_limit 8191 and 6143, nb 512",
+                    **{k: mla_t["long"][k] for k in mkeys}},
+                "batched_B32": {
+                    "shape": "deepseek bf16, 32 rows at kv_limit 2047, "
+                             "nb 128",
+                    **{k: mla_t["batched"][k] for k in mkeys}},
+                "sass": {fn: n for fn, n in sass.items()
+                         if HOPPER_KERNELS[name] in fn}}
         else:
             d = timings["dynamic", SERVE_SLOTS][name]
             extra = {

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "moe_grouped_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     "moe_expert_tiles": [_P] * 4 + [_I] * 3 + [_P],
     "moe_paged_attention": [_P] * 9 + [_F] + [_I] * 13 + [_F, _I, _P],
-    "moe_paged_attention_mla": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    "moe_paged_attention_mla": [_P] * 10 + [_F] + [_I] * 13 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

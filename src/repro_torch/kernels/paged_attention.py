@@ -22,9 +22,12 @@ rounds, and the plain version rounds the same way.
 MLA's absorbed decode adds a second score operand: ``q2`` against
 ``k2_pool`` (the rope key), so a score is ``q.k + q2.k2`` in fp32, and the
 latent pool is both ``k_pool`` and ``v_pool``.  ``q2`` is scaled by the same
-``scale``.  On the card that form runs its own kernel
-(``paged_attention_mla`` in the launch counts), which reads each latent
-tile once as key and value."""
+``scale``.  On the card that form runs its own kernels
+(``paged_attention_mla`` in the launch counts), which read each latent
+tile once as key and value: in bf16 a Hopper kernel that, like the GQA
+one, walks ``mla_split_plan``'s ranges of each row's table in parallel and
+merges them in order (``paged_decode_attention_mla_walk`` is its plain
+model); in fp32 one pass over each row on CUDA cores."""
 from __future__ import annotations
 
 import functools
@@ -233,21 +236,27 @@ def paged_decode_attention_walk(q: torch.Tensor, k_pool: torch.Tensor,
                 state = _online_step(state, sc, ok[:, None, None, :],
                                      vt[:, c0:c1])
         splits.append(((j0 < n_used)[:, None, None], state))
-    # the merge, in split order: splits that start past the block holding
-    # kv_limit are left out (the kernel writes no partial for them)
-    M = torch.full((B, Hkv, G), NEG_INF, device=dev)
+    return _merge_splits(splits).to(q.dtype)
+
+
+def _merge_splits(splits) -> torch.Tensor:
+    """The merge of the kernels' split partials, in split order: ``splits``
+    is [(live (B, 1, 1), (m, l, acc))]; splits that start past the block
+    holding kv_limit are left out (the kernel writes no partial for them);
+    L > 0 ? acc / max(L, 1e-30) : 0, in fp32."""
+    m0, _, a0 = splits[0][1]
+    M = torch.full_like(m0, NEG_INF)
     for live, (m, _, _) in splits:
         M = torch.where(live, torch.maximum(M, m), M)
     L = torch.zeros_like(M)
-    acc = torch.zeros((B, Hkv, G, Dv), device=dev)
+    acc = torch.zeros_like(a0)
     for live, (m, l, a) in splits:
         f = torch.where(live, torch.exp(m - M), torch.zeros_like(M))
         L = L + l * f
         acc = acc + a * f[..., None]
-    out = torch.where(L[..., None] > 0,
-                      acc / torch.clamp(L[..., None], min=1e-30),
-                      torch.zeros_like(acc))
-    return out.to(q.dtype)
+    return torch.where(L[..., None] > 0,
+                       acc / torch.clamp(L[..., None], min=1e-30),
+                       torch.zeros_like(acc))
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -347,17 +356,136 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-# the MLA kernel's limits (csrc/paged_attention.cu): each lane holds its
-# share of a head's [q | q2] and of its accumulator in registers, and a lane
-# holds one position of a pool block
+# the MLA kernels' limits (csrc/paged_attention.cu): the fp32 one holds a
+# lane's share of a head's [q | q2] and of its accumulator in registers, and
+# one position of a pool block a lane; the bf16 one takes the same shapes
 MLA_MAX_QK, MLA_MAX_V, MLA_MAX_BLOCK = 576, 512, 32
+# the bf16 kernel: a thread block takes MLA_HEADS query heads (wgmma's M)
+# of one (row, KV head) and walks its split in tiles of mla_tile() positions
+MLA_HEADS = 64
+# the MLA plan's model of the card, in the time of one pool block's walk: a
+# split's fixed cost beside its q tile, and the merge launch's; a split's
+# fp32 partial (written, then read by the merge) costs the walk of one pool
+# block for each MLA_PARTIAL_PER_WALK of its size in pool blocks' bytes (a
+# walk is held by TMA's box rate and the tensor cores, not by bytes)
+MLA_SPLIT_FIXED, MLA_MERGE_COST, MLA_PARTIAL_PER_WALK = 3, 1, 4
+
+
+def mla_tile(D: int, D2: int) -> int:
+    """Positions a tile of the bf16 MLA kernel: 64, or 32 where the row's
+    64-column groups of [latent | rope key] number ten (the q tile and two
+    stages of 64 positions would not fit in 227 KB)."""
+    return 64 if -(-D // 64) + -(-D2 // 64) <= 9 else 32
+
+
+@functools.lru_cache(maxsize=1024)
+def mla_split_plan(B: int, Hkv: int, G: int, nb: int, bs: int, D: int,
+                   D2: int, sms: int) -> tuple:
+    """The bf16 MLA kernel's cut of each row's ``nb`` table entries ->
+    (n_split, per_split), per_split a whole number of the kernel's tiles
+    (``mla_tile(D, D2) // bs`` pool blocks), no split empty.  A thread block
+    takes one split of one of B x Hkv x ceil(G / MLA_HEADS) units; one block
+    fits an SM.  Model time, in pool-block walks: rounds x (per_split + the
+    q tile + MLA_SPLIT_FIXED), and where there is more than one split, +
+    rounds x the partial's cost (each split writes its fp32 64 x D
+    accumulator and the merge reads it back: about seven pool blocks' bytes
+    at deepseek's shape, two walks) + MLA_MERGE_COST; rounds = ceil(blocks
+    / sms).  It reads the shapes only, never ``kv_limit``: the call stays
+    free of host syncs."""
+    units = B * Hkv * -(-G // MLA_HEADS)
+    nbt = max(1, mla_tile(D, D2) // bs)
+    block = bs * (D + D2)                      # a pool block's latent, bf16
+    fixed = -(-MLA_HEADS * (D + D2) // block) + MLA_SPLIT_FIXED
+    part = -(-MLA_HEADS * 2 * (D + 2) // block)     # fp32 acc, m and l
+    part_cost = -(-part // MLA_PARTIAL_PER_WALK)
+    best = None
+    for tiles in range(1, -(-nb // nbt) + 1):
+        per = min(nb, tiles * nbt)
+        n = -(-nb // per)
+        rounds = -(-units * n // sms)
+        cost = rounds * (per + fixed) if n == 1 else \
+            rounds * (per + fixed + part_cost) + MLA_MERGE_COST
+        if best is None or cost < best[0]:
+            best = (cost, n, per)
+    return best[1], best[2]
+
+
+def paged_decode_attention_mla_walk(q: torch.Tensor, kv_pool: torch.Tensor,
+                                    k2_pool: torch.Tensor,
+                                    tables: torch.Tensor, kv_limit, *,
+                                    q2: torch.Tensor,
+                                    scale: Optional[float] = None,
+                                    q_pos: Optional[torch.Tensor] = None,
+                                    causal: bool = False,
+                                    window: Optional[int] = None,
+                                    logit_softcap: Optional[float] = None,
+                                    sms: int = 132) -> torch.Tensor:
+    """A plain model of the bf16 MLA kernel's walk, for the tests: the MLA
+    plan for ``sms`` SMs; in each split, the online softmax over the split's
+    entries below the block holding kv_limit, in order, a tile of
+    ``mla_tile`` positions at a time (scores q.kv + q2.k2 in fp32, fp32
+    statistics, p rounded to the latent's dtype before PV, the latent as the
+    value); the live splits merged in split order; l > 0 ? acc / max(l,
+    1e-30) : 0.  Entries past that block are never read: poison there stays
+    out."""
+    B, Hkv, G, D = q.shape
+    D2 = q2.shape[-1]
+    dev = q.device
+    bs, nb = kv_pool.shape[1], tables.shape[1]
+    n_split, per = mla_split_plan(B, Hkv, G, nb, bs, D, D2, sms)
+    nbt = max(1, mla_tile(D, D2) // bs)
+    lim = _row_vector(kv_limit, B, dev).long()
+    qp = (_row_vector(q_pos, B, dev).long() if causal or window is not None
+          else None)
+    n_used = torch.where(lim < 0, torch.zeros_like(lim),
+                         torch.clamp(lim // bs + 1, max=nb))
+    s = D ** -0.5 if scale is None else scale
+    qs, q2s = scale_q(q, s).float(), scale_q(q2, s).float()
+    splits = []
+    for sp in range(n_split):
+        j0 = sp * per
+        j_end = min(nb, j0 + per)
+        state = (torch.full((B, Hkv, G), NEG_INF, device=dev),
+                 torch.zeros((B, Hkv, G), device=dev),
+                 torch.zeros((B, Hkv, G, D), device=dev))
+        for t0 in range(j0, j_end, nbt):
+            js = range(t0, min(j_end, t0 + nbt))
+            kv, k2, ok = [], [], []
+            for j in js:
+                taken = j < n_used                             # (B,)
+                blk = torch.where(taken, tables[:, j].long(),
+                                  torch.zeros_like(lim))
+                keep = taken[:, None, None, None]
+                kv.append(torch.where(keep, kv_pool[blk],
+                                      torch.zeros_like(kv_pool[blk])))
+                k2.append(torch.where(keep, k2_pool[blk],
+                                      torch.zeros_like(k2_pool[blk])))
+                kpos = j * bs + torch.arange(bs, device=dev)[None]
+                okj = (kpos <= lim[:, None]) & taken[:, None]
+                if causal:
+                    okj = okj & (kpos <= qp[:, None])
+                if window is not None:
+                    okj = okj & (kpos > qp[:, None] - window)
+                ok.append(okj)
+            kvt, k2t = torch.cat(kv, 1), torch.cat(k2, 1)  # (B, n, Hkv, *)
+            sc = torch.einsum("bhgd,bkhd->bhgk", qs, kvt.float()) \
+                + torch.einsum("bhgd,bkhd->bhgk", q2s, k2t.float())
+            if logit_softcap is not None:
+                sc = logit_softcap * torch.tanh(sc / logit_softcap)
+            state = _online_step(state, sc, torch.cat(ok, 1)[:, None, None],
+                                 kvt)
+        splits.append(((j0 < n_used)[:, None, None], state))
+    return _merge_splits(splits).to(q.dtype)
 
 
 def _launch_mla(q, q2, kv_pool, v_pool, k2_pool, tables, lim, *, scale,
                 q_pos, causal, window, logit_softcap) -> torch.Tensor:
-    """The MLA kernel: scores ``q.kv + q2.k2`` over the latent pool, which
-    is also the value.  One thread block per (row, KV head, tile of 16 query
-    heads, or of 8 where 16-head tiles would not fill the card)."""
+    """The MLA kernels: scores ``q.kv + q2.k2`` over the latent pool, which
+    is also the value.  bf16: the Hopper kernel, a thread block per (row,
+    KV head, tile of 64 query heads, split of ``mla_split_plan``), then the
+    merge where there is more than one split.  fp32: one thread block per
+    (row, KV head, tile of 16 query heads, or of 8 where 16-head tiles
+    would not fill the card), over the whole table."""
     B, Hkv, G, D = q.shape
     D2 = q2.shape[-1]
     n_blocks, bs = kv_pool.shape[0], kv_pool.shape[1]
@@ -382,16 +510,37 @@ def _launch_mla(q, q2, kv_pool, v_pool, k2_pool, tables, lim, *, scale,
                    f"the MLA kernel takes blocks of at most {MLA_MAX_BLOCK} "
                    f"positions, not {bs}")
     _require_rows(tables, lim, q_pos, B)
+    _build.require(nb > 0, "the MLA kernel takes tables of at least one "
+                   "entry")
     s = D ** -0.5 if scale is None else scale
-    qs = scale_q(q, s).contiguous()
-    q2s = scale_q(q2, s).contiguous()
     out = torch.empty((B, Hkv, G, D), dtype=q.dtype, device=q.device)
+    n_split, per = 1, nb
+    part_ml = part_acc = None
+    if q.dtype == torch.bfloat16:
+        # the kernel rounds q * scale and q2 * scale to bf16 itself
+        qs, q2s, k_scale = q.contiguous(), q2.contiguous(), _scale_value(q, s)
+        _build.require(_build.aligned(qs, q2s, kv_pool, k2_pool),
+                       "the bf16 MLA kernel loads q, q2 and the pools with "
+                       "TMA: each must start on a 16-byte boundary")
+        n_split, per = mla_split_plan(
+            B, Hkv, G, nb, bs, D, D2,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        if n_split > 1:                  # each split's fp32 (m, l) and acc
+            part_ml = torch.empty((B, Hkv, G, n_split, 2),
+                                  dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((B, Hkv, G, n_split, D),
+                                   dtype=torch.float32, device=q.device)
+    else:                                 # fp32: q and q2 arrive scaled
+        qs, q2s, k_scale = (scale_q(q, s).contiguous(),
+                            scale_q(q2, s).contiguous(), 1.0)
     err = _build.library().moe_paged_attention_mla(
         qs.data_ptr(), q2s.data_ptr(), kv_pool.data_ptr(),
         k2_pool.data_ptr(), tables.data_ptr(), lim.data_ptr(),
         None if q_pos is None else q_pos.data_ptr(), out.data_ptr(),
-        B, Hkv, G, D, D2, bs, nb, int(causal), int(window is not None),
-        0 if window is None else int(window),
+        None if part_ml is None else part_ml.data_ptr(),
+        None if part_acc is None else part_acc.data_ptr(), k_scale,
+        B, Hkv, G, D, D2, bs, nb, n_blocks, per, n_split, int(causal),
+        int(window is not None), 0 if window is None else int(window),
         0.0 if logit_softcap is None else float(logit_softcap),
         _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
     _build.check(err, "paged_attention_mla")

@@ -220,10 +220,11 @@ def test_paged_attention_no_host_sync(cuda):
                                             (4, 20, 64, 16, 32, 3)])
 def test_paged_attention_mla_kernel_matches_plain(cuda, B, G, D, D2, bs, nb,
                                                   dtype):
-    """The MLA kernel (q2 against the rope-key pool, the latent pool as key
-    and value) against its plain version: head counts that are and are not
-    multiples of its 8- and 16-head tiles (B=20 x 128 heads fills the card
-    with 16-head tiles; the rest take 8), vector and scalar kv_limit,
+    """The MLA kernels (q2 against the rope-key pool, the latent pool as key
+    and value) against their plain version: head counts that are and are
+    not multiples of the bf16 kernel's 64-head tiles and of the fp32 one's
+    8- and 16-head tiles (B=20 x 128 heads fills the card with 16-head
+    tiles), blocks of 4 to 32 positions, vector and scalar kv_limit,
     masks, and NaN in whole blocks past kv_limit leaking nothing."""
     dt = DTYPES[dtype]
     g = torch.Generator(device=cuda).manual_seed(G + D)
@@ -258,6 +259,102 @@ def test_paged_attention_mla_kernel_matches_plain(cuda, B, G, D, D2, bs, nb,
         paged_decode_attention(q, ckv, ckv.clone(), tables, lim1, q2=q2,
                                k2_pool=kr)
     torch.cuda.synchronize()
+
+
+def mla_inputs(dev, lims, nb, dtype, G=128, D=512, D2=64, bs=16, seed=0):
+    """deepseek-v2's absorbed decode: one row per entry of ``lims`` over its
+    own ``nb`` blocks of a shuffled pool."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lims)
+    n_blocks = B * nb
+    ckv = torch.randn(n_blocks, bs, 1, D, generator=g, device=dev).to(dtype)
+    kr = torch.randn(n_blocks, bs, 1, D2, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, 1, G, D, generator=g, device=dev).to(dtype)
+    q2 = torch.randn(B, 1, G, D2, generator=g, device=dev).to(dtype)
+    tables = torch.randperm(n_blocks, generator=g, device=dev)
+    tables = tables.reshape(B, nb).to(torch.int32).contiguous()
+    lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+    return q, q2, ckv, kr, tables, lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("lims,nb", [([8191, 6143, -1], 512),
+                                     ([2047] * 31 + [-1], 128)])
+def test_paged_attention_mla_kernel_long_and_batched(cuda, lims, nb, dtype):
+    """deepseek's shape at long context (tables of 512 blocks: many splits
+    in bf16) and 32 rows of 2,047 (two splits): within TOL of plain, bitwise
+    equal across two calls, a row at kv_limit -1 exact zeros, and NaN in
+    the blocks past a short kv_limit, later splits' ranges among them,
+    leaking nothing."""
+    q, q2, ckv, kr, tables, lim = mla_inputs(cuda, lims, nb, DTYPES[dtype])
+    kw = dict(scale=576 ** -0.5, q2=q2, k2_pool=kr)
+    out = paged_decode_attention(q, ckv, ckv, tables, lim, **kw)
+    want = paged_decode_attention_plain(q, ckv, ckv, tables, lim, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert torch.equal(paged_decode_attention(q, ckv, ckv, tables, lim, **kw),
+                       out)
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+    short = torch.clamp(lim, max=40)               # blocks 0-2
+    base = paged_decode_attention(q, ckv, ckv, tables, short, **kw)
+    past = tables[:, 3:].reshape(-1).long()
+    ckv[past] = float("nan")
+    kr[past] = float("nan")
+    assert torch.equal(paged_decode_attention(q, ckv, ckv, tables, short,
+                                              **kw), base)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lims,nb,G,bs,D,D2", [
+    ([100, 77], 8, 128, 16, 512, 64), ([8191, 6143], 512, 128, 16, 512, 64),
+    ([2047] * 32, 128, 120, 16, 512, 64), ([300, -1, 5], 80, 20, 4, 512, 64),
+    ([250, 90], 40, 64, 8, 512, 64),
+    # ten 64-column groups: the kernel's 32-position tiles; bs 12 does not
+    # divide them, and leaves rows of every tile unloaded
+    ([200, 90, -1], 24, 20, 12, 488, 88), ([150, 40], 16, 72, 8, 8, 568),
+    # the reduced deepseek's widths: groups zero-padded to nine
+    ([60, 7], 10, 4, 8, 32, 8)])
+def test_paged_attention_mla_kernel_matches_walk(cuda, lims, nb, G, bs, D,
+                                                 D2):
+    """The bf16 kernel against the plain model of its own walk (the card's
+    SM count, the same split plan and tiles) within TOL; a row at kv_limit
+    -1 is exact zeros."""
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_mla_walk)
+    q, q2, ckv, kr, tables, lim = mla_inputs(cuda, lims, nb, torch.bfloat16,
+                                             G=G, D=D, D2=D2, bs=bs,
+                                             seed=G + bs)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = paged_decode_attention(q, ckv, ckv, tables, lim, scale=0.05, q2=q2,
+                                 k2_pool=kr)
+    want = paged_decode_attention_mla_walk(q, ckv, kr, tables, lim, q2=q2,
+                                           scale=0.05, sms=sms)
+    torch.testing.assert_close(out.float(), want.float(), **TOL["bfloat16"])
+    for b, n in enumerate(lims):
+        if n < 0:
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+
+
+@pytest.mark.gpu
+def test_paged_attention_mla_no_host_sync(cuda):
+    """The bf16 MLA call (its split plan from the shapes, partials from
+    torch.empty, the kernel and the merge) runs under
+    set_sync_debug_mode("error")."""
+    q, q2, ckv, kr, tables, lim = mla_inputs(cuda, [8191, 6143], 512,
+                                             torch.bfloat16)
+    qpos = torch.clamp(lim - 1, min=0)
+    kw = dict(scale=576 ** -0.5, q2=q2, k2_pool=kr, q_pos=qpos, causal=True,
+              window=3000, logit_softcap=30.0)
+    paged_decode_attention(q, ckv, ckv, tables, lim, **kw)     # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged_decode_attention(q, ckv, ckv, tables, lim, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = paged_decode_attention_plain(q, ckv, ckv, tables, lim, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL["bfloat16"])
 
 
 @pytest.mark.gpu
