@@ -1,7 +1,8 @@
-"""A/B of the grouped-GEMM kernels (B1 and B2) of this checkout against
-those of another source tree, on one NVIDIA GPU.
+"""A/B of the grouped-GEMM kernels (B1 and B2), and of the router (B5)
+and the combine (B4), of this checkout against those of another source
+tree, on one NVIDIA GPU.
 
-    python3 chip_gemm_ab.py --other DIR [--replays 20] [--arms dense,quant]
+    python3 chip_gemm_ab.py --other DIR [--replays 20] [--arms dense,quant,route]
 
 DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
 weight-format C interface of the GEMMs (``moe_grouped_gemm`` and
@@ -17,7 +18,16 @@ stacks quantized under int8_expert, int8_channel and int4_packed at T=2
 (dynamic and fixed) and T=64 (dynamic), and deepseek-v2-236b's (E=160,
 k=6, d=5120, f=1536) under int8_expert at T=2 and T=64 (dynamic).  Each
 runs ``fused_gate_up`` and ``grouped_gemm`` (with the folded combine rows)
-of both trees in fp32 and bf16.  fp32 (the CUDA-core kernels, every
+of both trees in fp32 and bf16.  ``route``: ``router_topk`` at moonshot's,
+deepseek-v2's, mixtral-8x7b's (E=8) and deepseek-v3's (E=256, k=8,
+sigmoid) routers, and ``unpermute`` (folded, bf16 and fp32; weighted,
+bf16) at moonshot's and deepseek-v2's widths on the ``dynamic`` schedule,
+at T=2, 64 and 4096: the router's indices must equal the other tree's and
+the plain version's and its weights be within 1e-5 / 1e-6 of the plain
+version's (the max difference from the other tree is printed);
+``unpermute`` must be bitwise equal to the other tree's and to the plain
+version.  Both are timed in turns as below.  The other tree's
+``moe_unpermute`` is called with the parameters its source declares.  fp32 (the CUDA-core kernels, every
 format): the two trees must be bitwise equal.  bf16: each tree's kernel
 may sum in its own order, so the script prints the max abs difference
 between the trees and holds this tree within the bf16 tolerance of the
@@ -52,6 +62,13 @@ ARMS = {
        ("deepseek", "int8_expert", "dynamic", 64)),
 }
 SHAPES = {"moonshot": MOONSHOT, "deepseek": DEEPSEEK}
+# the route arm: routers and combine widths, at ROUTE_TS tokens
+ROUTERS = {"moonshot": MOONSHOT, "deepseek": DEEPSEEK,
+           "mixtral": dict(E=8, k=2, gating="softmax", norm_topk=False,
+                           routed_scale=1.0),
+           "deepseek-v3": dict(E=256, k=8, gating="sigmoid", norm_topk=True,
+                               routed_scale=2.5)}
+ROUTE_TS = (2, 64, 4096)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)     # chip_smoke.py's bf16 TOL
 def build_other(csrc: pathlib.Path, flags):
     """Compile the other tree's kernels (one nvcc per source, in parallel)
@@ -86,7 +103,14 @@ def build_other(csrc: pathlib.Path, flags):
     else:
         lib.moe_grouped_gemm.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.moe_fused_gate_up.argtypes = [P] * 8 + [I] * 8 + [P]
-    for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up):
+    F = ctypes.c_float
+    lib.moe_router_topk.argtypes = [P, P, P] + [I] * 5 + [F, P]
+    unperm = (csrc / "unpermute.cu").read_text()
+    planned = "tile_t" in unperm[unperm.index("MOE_API int moe_unpermute("):]
+    lib.moe_unpermute.argtypes = [P] * 4 + [I] * (7 if planned else 4) + [P]
+    lib.unpermute_planned = planned
+    for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up,
+               lib.moe_router_topk, lib.moe_unpermute):
         fn.restype = ctypes.c_int
     return lib, lists
 
@@ -113,6 +137,103 @@ def device_ms(fn, per_graph: int = 10, replays: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * per_graph)
+
+
+def turns(a, b, replays: int) -> dict:
+    """Device µs of a and b in turns: other, this, this, other."""
+    t = [device_ms(f, replays=replays) for f in (a, b, b, a)]
+    return {"other": [t[0] * 1e3, t[3] * 1e3],
+            "this": [t[1] * 1e3, t[2] * 1e3]}
+
+
+def route_arm(other, smi: str, replays: int) -> None:
+    """B5 and B4 of both trees: held (see the module's note) and timed in
+    turns; one JSON line per shape."""
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import unpermute as unperm
+    from repro_torch.scheduling import build_schedule
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+    for arch, s in ROUTERS.items():
+        kw = dict(gating=s["gating"], norm_topk=s["norm_topk"],
+                  routed_scale=s["routed_scale"])
+        for T in ROUTE_TS:
+            g = torch.Generator(device="cuda").manual_seed(T)
+            logits = torch.randn((T, s["E"]), generator=g, device="cuda")
+            w_o = torch.empty((T, s["k"]), dtype=torch.float32,
+                              device="cuda")
+            i_o = torch.empty((T, s["k"]), dtype=torch.int32, device="cuda")
+
+            def other_route():
+                _build.check(other.moe_router_topk(
+                    logits.data_ptr(), w_o.data_ptr(), i_o.data_ptr(), T,
+                    s["E"], s["k"], int(s["gating"] == "sigmoid"),
+                    int(s["norm_topk"]), float(s["routed_scale"]), stream()),
+                    "other router_topk")
+                return w_o, i_o
+
+            def this_route():
+                return ops.router_topk(logits, top_k=s["k"], **kw)
+            w_b, i_b = this_route()
+            w_a, i_a = other_route()
+            w_p, i_p = ref.router_ref(logits, s["k"], **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(i_b, i_a) and torch.equal(i_b, i_p)):
+                sys.exit(f"chip_gemm_ab: router indices differ ({arch} "
+                         f"T={T})")
+            torch.testing.assert_close(w_b, w_p, rtol=1e-5, atol=1e-6)
+            row = {"arm": "route", "kernel": "router_topk", "arch": arch,
+                   "E": s["E"], "k": s["k"], "T": T, "card": smi,
+                   "max_abs_diff": (w_b - w_a).abs().max().item(),
+                   "bitwise_equal": bool(torch.equal(w_b, w_a)),
+                   "us": turns(other_route, this_route, replays)}
+            print(json.dumps(row), flush=True)
+            if arch not in SHAPES:
+                continue
+            sched = build_schedule(i_p, s["E"], s["M"], policy="dynamic")
+            pos = sched.pos.contiguous()
+            for dtype, weighted in ((torch.bfloat16, False),
+                                    (torch.float32, False),
+                                    (torch.bfloat16, True)):
+                y = torch.randn((sched.capacity, s["d"]), generator=g,
+                                device="cuda").to(dtype)
+                w = w_p if weighted else None
+                out = torch.empty((T, s["d"]), dtype=dtype, device="cuda")
+                code = _build.dtype_code(dtype)
+
+                def other_unperm():
+                    args = [y.data_ptr(), pos.data_ptr(),
+                            None if w is None else w.data_ptr(),
+                            out.data_ptr(), T, s["k"], s["d"], code]
+                    if other.unpermute_planned:
+                        args += list(unperm.unpermute_plan(
+                            T, s["k"], s["d"], y.element_size(),
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count))
+                    _build.check(other.moe_unpermute(*args, stream()),
+                                 "other unpermute")
+                    return out
+
+                def this_unperm():
+                    return unperm.unpermute(y, pos, w)
+                got = this_unperm()
+                theirs = other_unperm().clone()
+                want = unperm.unpermute_plain(y, pos, w)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, theirs) and torch.equal(got, want)):
+                    sys.exit(f"chip_gemm_ab: unpermute not bitwise ({arch} "
+                             f"T={T} {dtype} weighted={weighted})")
+                row = {"arm": "route", "kernel": "unpermute", "arch": arch,
+                       "d": s["d"], "k": s["k"], "T": T,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "weighted": weighted, "card": smi,
+                       "bitwise_equal": True,
+                       "us": turns(other_unperm, this_unperm, replays)}
+                print(json.dumps(row), flush=True)
+                del y, out, got, theirs, want
+            torch.cuda.empty_cache()
 
 
 def layer(arch: str, scheme, policy: str, T: int, dtype, seed: int):
@@ -167,7 +288,7 @@ def main() -> None:
     ap.add_argument("--other", required=True, type=pathlib.Path)
     ap.add_argument("--replays", type=int, default=20)
     ap.add_argument("--arms", default="dense,quant",
-                    help="comma-separated arms: dense, quant")
+                    help="comma-separated arms: dense, quant, route")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -182,7 +303,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    shapes = [sh for arm in args.arms.split(",") for sh in ARMS[arm]]
+    arms = args.arms.split(",")
+    if "route" in arms:
+        route_arm(other, smi, args.replays)
+    shapes = [sh for arm in arms if arm != "route" for sh in ARMS[arm]]
     for arch, scheme, policy, T in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             xp, h, wg, wu, wd, sched, scale = layer(arch, scheme, policy, T,

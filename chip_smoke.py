@@ -52,7 +52,16 @@ result line):
    and its int8_expert GEMMs on ``dynamic`` (held in bf16 and fp32, timed
    in bf16 as moonshot's); and
    at its training shape T=4096 on both policies in bf16, held and timed
-   (B1 and B2 beside their bounds, B1 beside ``torch._grouped_mm``).  The
+   (B1 and B2 beside their bounds, B1 beside ``torch._grouped_mm``).
+   Everywhere the router must also be bitwise equal across two calls, and
+   unpermute bitwise equal to its plain version (folded, and weighted with
+   the router's weights) and across two calls.  The router alone
+   (``ROUTERS``: moonshot's, deepseek-v2's, mixtral's E=8 and
+   deepseek-v3's E=256 k=8 sigmoid) at T=1, 2, 3, 64 and 4096 on rows of
+   ties at the k-th place, equal scores and -inf logits; mixtral's and
+   deepseek-v3's timed at T=2, 64 and 4096 (random rows, and all-equal
+   rows, the router's slowest case), beside an empty kernel's time, the
+   launch floor, timed the same way.  The
    MLA form of the paged decode-attention kernel (second score operand q2
    against the rope-key pool, the latent pool as key and value; bf16 the
    Hopper kernel, fp32 the CUDA-core one) at deepseek's shape (128 heads,
@@ -173,6 +182,17 @@ MLA_ATTN = dict(Hkv=1, G=128, D=512, D2=64, bs=16)
 DEEPSEEK = dict(E=160, k=6, d=5120, f=1536, M=128, gating="softmax",
                 norm_topk=False, routed_scale=16.0)
 DEEPSEEK_LAYERS, DEEPSEEK_CHECK_LAYERS = 4, 2
+# the routers held and timed alone, beside moonshot's and deepseek-v2's
+# (which run in every Case): mixtral-8x7b's E=8, and deepseek-v3's
+# (configs/paper.py: E=256, k=8, sigmoid) with DeepSeek-V3's
+# renormalisation and routed_scaling_factor 2.5, without its group-limited
+# selection (the reference's router has none); held at ROUTE_CHECK_TS,
+# timed at ROUTE_TIME_TS
+ROUTERS = {"moonshot-v1-16b-a3b": MOONSHOT, "deepseek-v2-236b": DEEPSEEK,
+           "mixtral-8x7b": MIXTRAL,
+           "deepseek-v3": dict(E=256, k=8, gating="sigmoid", norm_topk=True,
+                               routed_scale=2.5)}
+ROUTE_CHECK_TS, ROUTE_TIME_TS = (1, 2, 3, 64, 4096), (2, 64, 4096)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)   # bf16 through CHECK_LAYERS layers
@@ -553,13 +573,20 @@ def check_case(c: Case, errs: dict) -> None:
             if not torch.equal(i, i_p):
                 raise AssertionError(f"router indices differ ({c.label()})")
             torch.testing.assert_close(w, w_p, rtol=1e-5, atol=1e-6)
+            w2, i2 = kern()
+            if not (torch.equal(w, w2) and torch.equal(i, i2)):
+                raise AssertionError(f"router: two calls differ "
+                                     f"({c.label()})")
             err = (w - w_p).abs().max().item()
         else:
             if torch.isnan(got).any():
                 raise AssertionError(f"{name}: NaN in output ({c.label()})")
-            if name == "permute" and not torch.equal(got, want):
-                raise AssertionError(f"permute not bitwise ({c.label()})")
-            if name in ("fused_gate_up", "grouped_gemm") \
+            if name in ("permute", "unpermute") \
+                    and not torch.equal(got, want):
+                raise AssertionError(f"{name} not bitwise ({c.label()})")
+            if name == "unpermute":
+                check_unpermute_weighted(c)
+            if name in ("fused_gate_up", "grouped_gemm", "unpermute") \
                     and not torch.equal(got, kern()):
                 raise AssertionError(f"{name}: two calls differ "
                                      f"({c.label()})")
@@ -573,6 +600,98 @@ def check_case(c: Case, errs: dict) -> None:
             err = (got.float() - want.float()).abs().max().item()
         errs[name] = max(errs.get(name, 0.0), err)
         print(f"  {name:14s} {c.label():36s} max_abs_err {err:.3e}")
+
+
+def check_unpermute_weighted(c: Case) -> None:
+    """B4 with the combine weights not folded (the reference's unfolded
+    path): bitwise the plain version, and across two calls."""
+    import torch
+    from repro_torch.kernels import unpermute as unperm
+    got = unperm.unpermute(c.y, c.sched.pos, c.w)
+    if not torch.equal(got, unperm.unpermute_plain(c.y, c.sched.pos, c.w)) \
+            or not torch.equal(got, unperm.unpermute(c.y, c.sched.pos, c.w)):
+        raise AssertionError(f"unpermute weighted not bitwise ({c.label()})")
+
+
+def router_logits(T: int, E: int, k: int, seed: int, special: bool):
+    """(T, E) fp32 logits on the card.  ``special``: the first rows are an
+    all-equal row, a row whose k-th place is a tie of three, -inf on every
+    third expert, -inf but for a quarter of the experts (tied at 1.0), and
+    coarse values with many ties."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((max(T, 6), E), generator=g)
+    if special:
+        top = torch.randperm(E, generator=g)
+        x[0] = 0.25
+        x[1] = torch.randn(E, generator=g) * 0.1 - 5.0
+        x[1, top[:k - 1]] = 3.0 + torch.arange(k - 1, dtype=torch.float32)
+        x[1, top[k - 1:k + 2]] = 2.0
+        x[2, 1::3] = float("-inf")
+        x[3] = float("-inf")
+        x[3, top[:max(1, E // 4)]] = 1.0
+        x[4] = torch.round(x[4] * 2) / 2
+    return x[:T].contiguous().cuda()
+
+
+def check_router(arch: str, T: int, errs: dict) -> None:
+    """B5 on rows of ties, equal scores and -inf against its plain version:
+    indices equal, weights within 1e-5 / 1e-6, two calls bitwise equal."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    s = ROUTERS[arch]
+    kw = dict(gating=s["gating"], norm_topk=s["norm_topk"],
+              routed_scale=s["routed_scale"])
+    logits = router_logits(T, s["E"], s["k"], seed=T, special=True)
+    w, i = ops.router_topk(logits, top_k=s["k"], **kw)
+    w_p, i_p = ref.router_ref(logits, s["k"], **kw)
+    w2, i2 = ops.router_topk(logits, top_k=s["k"], **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(i, i_p):
+        raise AssertionError(f"router indices differ ({arch} T={T})")
+    torch.testing.assert_close(w, w_p, rtol=1e-5, atol=1e-6)
+    if not (torch.equal(w, w2) and torch.equal(i, i2)):
+        raise AssertionError(f"router: two calls differ ({arch} T={T})")
+    err = (w - w_p).abs().max().item()
+    errs["router_topk"] = max(errs.get("router_topk", 0.0), err)
+    print(f"  router_topk    {arch} E={s['E']} k={s['k']} T={T} ties, "
+          f"equal rows, -inf: max_abs_err {err:.3e}")
+
+
+def time_router(arch: str, T: int) -> dict:
+    """B5 alone on random logits (and on all-equal rows, where every key
+    is a candidate), beside its bound and its plain version."""
+    from repro_torch.kernels import ops, ref
+    s = ROUTERS[arch]
+    kw = dict(gating=s["gating"], norm_topk=s["norm_topk"],
+              routed_scale=s["routed_scale"])
+    logits = router_logits(T, s["E"], s["k"], seed=1000 + T, special=False)
+    equal = logits * 0.0
+
+    def kern():
+        return ops.router_topk(logits, top_k=s["k"], **kw)
+    n_bytes = T * s["E"] * 4 + T * s["k"] * 8
+    b_ms, b_by = bound_ms(n_bytes, T * s["E"] * (s["k"] + 4))
+    return {"ms": device_ms(kern, 50), "eager_ms": time_ms(kern, 250),
+            "plain_ms": device_ms(lambda: ref.router_ref(
+                logits, s["k"], **kw), 10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": None,
+            "library_null_reason": "no single PyTorch call gates, selects "
+                                   "by iterative argmax and renormalises",
+            "all_equal_ms": device_ms(lambda: ops.router_topk(
+                equal, top_k=s["k"], **kw), 50),
+            "bytes": n_bytes}
+
+
+def time_launch_floor() -> dict:
+    """The empty kernel (csrc/launch_floor.cu), timed as the kernels are:
+    CUDA-graph replays, and eager calls through ctypes."""
+    import torch
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return {"ms": device_ms(lambda: _build.launch_floor(dev), 50),
+            "eager_ms": time_ms(lambda: _build.launch_floor(dev), 250)}
 
 
 def time_case(c: Case) -> dict:
@@ -2030,6 +2149,15 @@ def main() -> None:
     paged_t = {k: time_paged(k) for k in PAGED_SHAPES}
     check_mla(errs)
     mla_t = {k: time_mla(k) for k in MLA_SHAPES}
+    # B5 alone at every router, then timed at mixtral's and deepseek-v3's
+    # (moonshot's and deepseek-v2's are timed in their Cases); the floor
+    for arch in ROUTERS:
+        for T in ROUTE_CHECK_TS:
+            check_router(arch, T, errs)
+    route_t = {(arch, T): time_router(arch, T)
+               for arch in ("mixtral-8x7b", "deepseek-v3")
+               for T in ROUTE_TIME_TS}
+    floor = time_launch_floor()
     for p in padding:
         print(f"[padding] E={p['E']} bf16 T={p['T']} {p['policy']}: block_m "
               f"{p['block_m']}, capacity {p['capacity']} rows "
@@ -2110,6 +2238,25 @@ def main() -> None:
               f"{t['bound_ops_ms'] * 1e3:.2f} us for {t['flops'] / 1e9:.3f} "
               f"GFLOP), plain {t['plain_ms'] * 1e3:.1f} us, SDPA yardstick "
               f"{lib}")
+
+    print(f"[times] launch floor (empty kernel): {floor['ms'] * 1e3:.2f} us "
+          f"(eager {floor['eager_ms'] * 1e3:.2f})")
+    for arch, tm in (("moonshot", timings), ("deepseek", ds_timings)):
+        for n in ("router_topk", "unpermute"):
+            print(f"[times] {n} {arch} bf16 dynamic: " + "; ".join(
+                f"T={T} {tm['dynamic', T][n]['ms'] * 1e3:.2f} us (eager "
+                f"{tm['dynamic', T][n]['eager_ms'] * 1e3:.2f}, bound "
+                f"{tm['dynamic', T][n]['bound_ms'] * 1e3:.2f}, floor "
+                f"{floor['ms'] * 1e3:.2f})"
+                for T in ROUTE_TIME_TS))
+    for (arch, T), t in sorted(route_t.items()):
+        s = ROUTERS[arch]
+        print(f"[times] router_topk {arch} E={s['E']} k={s['k']} "
+              f"{s['gating']} T={T}: {t['ms'] * 1e3:.2f} us (eager "
+              f"{t['eager_ms'] * 1e3:.2f}; all-equal rows "
+              f"{t['all_equal_ms'] * 1e3:.2f}), bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, floor {floor['ms'] * 1e3:.2f}")
 
     # 4. MoE layer without a host sync -----------------------------------
     from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
@@ -2523,6 +2670,12 @@ def main() -> None:
                 "training_T4096": {policy: {
                     k: timings[policy, TRAIN_BATCH * TRAIN_SEQ][name][k]
                     for k in keys} for policy in ("fixed", "dynamic")}}
+            if name in ("router_topk", "unpermute"):
+                extra["launch_floor_ms"] = floor["ms"]
+            if name == "router_topk":
+                extra.update({f"{arch}_T{T}": {
+                    k: route_t[arch, T][k] for k in keys + ("all_equal_ms",)}
+                    for arch, T in sorted(route_t)})
             if name in HOPPER_KERNELS:
                 # B1 and B2: bf16 on dense weights runs the Hopper kernel
                 # (one work-list build inside each call)

@@ -1,120 +1,250 @@
-// Fused gating + iterative top-k router.
+// Fused gating + top-k router: softmax or sigmoid of each row of (T, E)
+// fp32 logits, then the k largest scores, ties to the lowest expert index
+// (the order of the reference's k rounds of argmax), optionally
+// renormalised by their sum + 1e-20, then times routed_scale when it is
+// not 1.0, as in router_topk.py:49-53.
 //
 // Replaces: src/repro/kernels/router_topk.py, router_topk (its Pallas _kernel).
 //
-// What bounds it on the H100: activation bytes.  It reads T*E fp32 logits
-// once and writes T*k weights and indices: a few hundred KB at most on the
-// main path, a few microseconds at 3.35 TB/s, so launch latency dominates.
+// What bounds it on the H100: not bytes (T*E*4 read, T*k*8 written: 0.37
+// us at T=4096 E=64) but the chain of dependent steps in one row, on top of
+// the launch.  The first port took the k picks as k rounds of a warp
+// argmax, each a 5-step shuffle butterfly over (value, index) and a
+// broadcast: about 70 shuffles in series at k=6.
 //
-// Design: one warp per token row, E <= 256, so each lane keeps up to eight
-// scores in registers and the row is read from device memory exactly once.
-// Softmax subtracts the row max (warp shuffle reductions); sigmoid is
-// per element.  Top-k is k rounds of a warp argmax that breaks ties toward
-// the lowest expert index, masking the winner to -inf, so indices equal the
-// plain version's exactly (no torch.topk).  Renormalisation divides by the
-// sequential sum of the k weights + 1e-20, then routed_scale multiplies
-// only when it is not 1.0, as in router_topk.py:49-53.
+// Design: all k picks in one pass, by ranking.  A score and its expert are
+// one 64-bit key, the score's bits over ~expert: scores are never negative
+// (softmax and sigmoid), so their bits order as unsigned integers, and
+// among equal scores the lower expert has the larger key.  A key's rank,
+// the number of larger keys in its row, is its pick slot: rank j is the
+// reference's j-th argmax.  Every lane ranks its own keys at once and the
+// pickers store in parallel; no round waits on another.
+//   - E <= 32: a row takes L = next_pow2(E) lanes, one key each, and a warp
+//     takes 32 / L rows (mixtral's E=8: 4 rows a warp).  Each lane counts
+//     the larger keys among its row's L in shared memory.
+//   - E > 32: a warp takes a row, a lane the keys of experts lane + 32c.
+//     Ranking every key against the row costs E^2/32 compares a lane (2,048
+//     at E=256); instead the k-th largest of the 32 lanes' largest keys,
+//     tau, prunes the row: the k lane maxima at or above it outrank every
+//     key below it, so only keys >= tau (about k of them) can be picked,
+//     and a key's rank among those is its rank in the row.  The lane maxima
+//     are ranked (32 compares), the keys >= tau are compacted by ballot into
+//     shared memory, and every lane counts its keys' larger candidates:
+//     32 + (E/32) * n compares.  Only the k lanes whose maxima reach tau
+//     hold candidates, so n <= k * E/32; on random logits n is about k + 1
+//     (and exactly k on a row of equal scores, whose keys order by expert).
+//     This replaces splitting a row across the warps of a block, which
+//     would have cut the compares by the number of warps at the cost of a
+//     block barrier and cross-warp reductions.
+// The gating arithmetic is the first port's, in the same order (a lane's
+// scores summed in c order, then the xor butterfly; padding adds exact
+// zeros): scores, picks and weights are its bits.  expf and IEEE division
+// throughout.  Renormalisation sums the k picked weights in slot order,
+// from shared memory, as the reference's rounds would have stored them.
+// NaN logits are outside the contract (the plain version fails on them).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxPerLane = 8;      // E <= 256
+constexpr int kWarps = 4;           // warps a block
+constexpr int kMaxE = 256;
 constexpr int kMaxTopK = 16;
-constexpr int kWarpsPerBlock = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void router_topk_kernel(const float* __restrict__ logits,
+typedef unsigned long long Key;
+
+__device__ __forceinline__ Key make_key(float score, int e) {
+  return ((Key)__float_as_uint(score) << 32) | (unsigned)(~e);
+}
+__device__ __forceinline__ float key_score(Key key) {
+  return __uint_as_float((unsigned)(key >> 32));
+}
+__device__ __forceinline__ int key_expert(Key key) {
+  return (int)(~(unsigned)key);
+}
+
+// the renormalising divisor: the k picked weights (in `slot`, by rank)
+// summed in slot order, + 1e-20; the loads unrolled ahead of the adds
+__device__ __forceinline__ float slot_sum(const float* slot, int k) {
+  float v[kMaxTopK];
+#pragma unroll
+  for (int j = 0; j < kMaxTopK; ++j) v[j] = j < k ? slot[j] : 0.f;
+  float tot = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxTopK; ++j)
+    if (j < k) tot += v[j];
+  return tot + 1e-20f;
+}
+
+__device__ __forceinline__ float finish_weight(float w, float tot,
+                                               int norm_topk,
+                                               float routed_scale) {
+  if (norm_topk) w = w / tot;
+  if (routed_scale != 1.0f) w = w * routed_scale;
+  return w;
+}
+
+// E <= 32: L lanes a row (L = next_pow2(E)), 32 / L rows a warp
+template <int L>
+__global__ void router_rows_kernel(const float* __restrict__ logits,
                                    float* __restrict__ w_out,
                                    int* __restrict__ i_out, int T, int E,
                                    int k, int gating_sigmoid, int norm_topk,
                                    float routed_scale) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  constexpr int R = 32 / L;
+  __shared__ Key keys[kWarps][32];
+  __shared__ float slot[kWarps][32];        // R rows x k <= 32 slots
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = lane / L, e = lane % L;
+  const int t = (blockIdx.x * kWarps + warp) * R + seg;
+  const bool live = t < T && e < E;
+  const float NEG_INF = -__int_as_float(0x7f800000);
+
+  float s = live ? logits[(size_t)t * E + e] : NEG_INF;
+  if (gating_sigmoid) {
+    if (live) s = 1.0f / (1.0f + expf(-s));
+  } else {
+    float m = s;
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    s = live ? expf(s - m) : 0.f;
+    float sum = s;
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    s = s / sum;
+  }
+  const Key key = live ? make_key(s, e) : 0ull;
+  keys[warp][lane] = key;
+  __syncwarp();
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) rank += keys[warp][seg * L + j] > key;
+  const bool pick = live && rank < k;
+  float* row_slot = &slot[warp][seg * k];
+  if (pick) {
+    i_out[(size_t)t * k + rank] = e;
+    row_slot[rank] = s;
+  }
+  __syncwarp();
+  const float tot = norm_topk ? slot_sum(row_slot, k) : 1.f;
+  if (pick)
+    w_out[(size_t)t * k + rank] = finish_weight(s, tot, norm_topk,
+                                                routed_scale);
+}
+
+// E > 32: a warp a row, PER = ceil(E / 32) keys a lane (experts lane + 32c)
+template <int PER>
+__global__ void router_wide_kernel(const float* __restrict__ logits,
+                                   float* __restrict__ w_out,
+                                   int* __restrict__ i_out, int T, int E,
+                                   int k, int gating_sigmoid, int norm_topk,
+                                   float routed_scale) {
+  __shared__ Key cand[kWarps][kMaxE];
+  __shared__ Key lane_max[kWarps][32];
+  __shared__ float slot[kWarps][kMaxTopK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * kWarps + warp;
   if (t >= T) return;
   const float* row = logits + (size_t)t * E;
   const float NEG_INF = -__int_as_float(0x7f800000);
 
-  float s[kMaxPerLane];
+  float s[PER];
 #pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) {
-    int e = lane + 32 * c;
+  for (int c = 0; c < PER; ++c) {
+    const int e = lane + 32 * c;
     s[c] = (e < E) ? row[e] : NEG_INF;
   }
-
   if (gating_sigmoid) {
 #pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c)
+    for (int c = 0; c < PER; ++c)
       if (lane + 32 * c < E) s[c] = 1.0f / (1.0f + expf(-s[c]));
   } else {
     float m = NEG_INF;
 #pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) m = fmaxf(m, s[c]);
+    for (int c = 0; c < PER; ++c) m = fmaxf(m, s[c]);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) {
+    for (int c = 0; c < PER; ++c) {
       s[c] = (lane + 32 * c < E) ? expf(s[c] - m) : 0.f;
       sum += s[c];
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
 #pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c)
-      s[c] = (lane + 32 * c < E) ? s[c] / sum : NEG_INF;
+    for (int c = 0; c < PER; ++c) s[c] = s[c] / sum;
   }
 
-  float masked[kMaxPerLane];
+  Key kk[PER];
+  Key best = 0ull;
 #pragma unroll
-  for (int c = 0; c < kMaxPerLane; ++c) masked[c] = (lane + 32 * c < E) ? s[c] : NEG_INF;
-
-  float wsel[kMaxTopK];
-  for (int j = 0; j < k; ++j) {
-    // lane-local best: largest value, lowest index among equals
-    float bv = NEG_INF;
-    int bi = E;
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) {
-      int e = lane + 32 * c;
-      if (e < E && (masked[c] > bv || (masked[c] == bv && e < bi))) {
-        bv = masked[c];
-        bi = e;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    // the owner lane reads the unmasked score and masks its entry
-    float wv = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxPerLane; ++c) {
-      if (lane + 32 * c == bi) {
-        wv = s[c];
-        masked[c] = NEG_INF;
-      }
-    }
-    const int owner = bi & 31;
-    wv = __shfl_sync(0xffffffffu, wv, owner);
-    wsel[j] = wv;
-    if (lane == 0) i_out[(size_t)t * k + j] = bi;
+  for (int c = 0; c < PER; ++c) {
+    const int e = lane + 32 * c;
+    kk[c] = (e < E) ? make_key(s[c], e) : 0ull;    // padding ranks last
+    best = kk[c] > best ? kk[c] : best;
   }
-
-  if (lane == 0) {
-    if (norm_topk) {
-      float tot = 0.f;
-      for (int j = 0; j < k; ++j) tot += wsel[j];
-      tot += 1e-20f;
-      for (int j = 0; j < k; ++j) wsel[j] = wsel[j] / tot;
-    }
-    if (routed_scale != 1.0f)
-      for (int j = 0; j < k; ++j) wsel[j] = wsel[j] * routed_scale;
-    for (int j = 0; j < k; ++j) w_out[(size_t)t * k + j] = wsel[j];
+  // tau: the lane maximum of rank k-1 (every lane holds a real key: E > 32)
+  lane_max[warp][lane] = best;
+  __syncwarp();
+  int r = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) r += lane_max[warp][j] > best;
+  const unsigned at_k = __ballot_sync(kFull, r == k - 1);
+  const Key tau = lane_max[warp][__ffs(at_k) - 1];
+  // the candidates (keys >= tau) into shared memory, in any order
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;
+#pragma unroll
+  for (int c = 0; c < PER; ++c) {
+    const bool in = kk[c] >= tau;
+    const unsigned ballot = __ballot_sync(kFull, in);
+    if (in) cand[warp][n + __popc(ballot & below)] = kk[c];
+    n += __popc(ballot);
   }
+  __syncwarp();
+  // each key's rank among the candidates: its rank in the row where it is
+  // a candidate, and >= n >= k where it is not
+  int rank[PER];
+#pragma unroll
+  for (int c = 0; c < PER; ++c) rank[c] = 0;
+  for (int j = 0; j < n; ++j) {
+    const Key o = cand[warp][j];
+#pragma unroll
+    for (int c = 0; c < PER; ++c) rank[c] += o > kk[c];
+  }
+#pragma unroll
+  for (int c = 0; c < PER; ++c) {
+    if (rank[c] < k) {
+      i_out[(size_t)t * k + rank[c]] = key_expert(kk[c]);
+      slot[warp][rank[c]] = key_score(kk[c]);
+    }
+  }
+  __syncwarp();
+  // one divisor for the row, then every key's weight without a branch
+  const float tot = norm_topk ? slot_sum(slot[warp], k) : 1.f;
+  float wt[PER];
+#pragma unroll
+  for (int c = 0; c < PER; ++c)
+    wt[c] = finish_weight(key_score(kk[c]), tot, norm_topk, routed_scale);
+#pragma unroll
+  for (int c = 0; c < PER; ++c)
+    if (rank[c] < k) w_out[(size_t)t * k + rank[c]] = wt[c];
+}
+
+template <int L>
+void launch_rows(const float* logits, float* w, int* idx, int T, int E,
+                 int k, int sig, int norm, float scale, cudaStream_t s) {
+  const int rows = kWarps * (32 / L);
+  router_rows_kernel<L><<<(T + rows - 1) / rows, 32 * kWarps, 0, s>>>(
+      logits, w, idx, T, E, k, sig, norm, scale);
+}
+
+template <int PER>
+void launch_wide(const float* logits, float* w, int* idx, int T, int E,
+                 int k, int sig, int norm, float scale, cudaStream_t s) {
+  router_wide_kernel<PER><<<(T + kWarps - 1) / kWarps, 32 * kWarps, 0, s>>>(
+      logits, w, idx, T, E, k, sig, norm, scale);
 }
 
 }  // namespace
@@ -123,9 +253,24 @@ MOE_API int moe_router_topk(const void* logits, void* weights, void* indices,
                             int T, int E, int k, int gating_sigmoid,
                             int norm_topk, float routed_scale, void* stream) {
   if (T == 0) return moe_last_error();
-  dim3 grid((T + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  router_topk_kernel<<<grid, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)logits, (float*)weights, (int*)indices, T, E, k,
-      gating_sigmoid, norm_topk, routed_scale);
+  const float* x = (const float*)logits;
+  float* w = (float*)weights;
+  int* idx = (int*)indices;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ARGS x, w, idx, T, E, k, gating_sigmoid, norm_topk, routed_scale, s
+  if (E <= 1) launch_rows<1>(ARGS);
+  else if (E <= 2) launch_rows<2>(ARGS);
+  else if (E <= 4) launch_rows<4>(ARGS);
+  else if (E <= 8) launch_rows<8>(ARGS);
+  else if (E <= 16) launch_rows<16>(ARGS);
+  else if (E <= 32) launch_rows<32>(ARGS);
+  else if (E <= 64) launch_wide<2>(ARGS);
+  else if (E <= 96) launch_wide<3>(ARGS);
+  else if (E <= 128) launch_wide<4>(ARGS);
+  else if (E <= 160) launch_wide<5>(ARGS);
+  else if (E <= 192) launch_wide<6>(ARGS);
+  else if (E <= 224) launch_wide<7>(ARGS);
+  else launch_wide<8>(ARGS);
+#undef ARGS
   return moe_last_error();
 }

@@ -50,7 +50,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "moe_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "moe_permute": [_P, _P, _P, _I, _I, _P],
-    "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "moe_unpermute": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "moe_grouped_gemm": [_P] * 9 + [_I] * 9 + [_P],
     "moe_fused_gate_up": [_P] * 10 + [_I] * 9 + [_P],
     "moe_grouped_gemm_t": [_P] * 7 + [_I] * 6 + [_P],
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "moe_expert_tiles": [_P] * 4 + [_I] * 3 + [_P],
     "moe_paged_attention": [_P] * 9 + [_F] + [_I] * 13 + [_F, _I, _P],
     "moe_paged_attention_mla": [_P] * 10 + [_F] + [_I] * 13 + [_F, _I, _P],
+    "moe_launch_floor": [_P],
 }
 
 _lock = threading.Lock()
@@ -150,6 +151,13 @@ def library() -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel (``csrc/launch_floor.cu``) on ``device``'s
+    current stream: the cost of a launch with no work, to time beside the
+    small kernels.  No path of the port launches it."""
+    check(library().moe_launch_floor(stream_ptr(device)), "launch_floor")
 
 
 def check(err: int, kernel: str) -> None:

@@ -371,6 +371,21 @@ MLA_HEADS = 64
 MLA_SPLIT_FIXED, MLA_MERGE_COST, MLA_PARTIAL_PER_WALK = 3, 1, 4
 
 
+def fused_read_takes(bs: int, D: int, Dv: int, itemsize: int,
+                     D2: Optional[int] = None) -> bool:
+    """Whether the fused paged read's kernels take a pool of ``bs``-position
+    blocks: GQA heads of ``D`` key and ``Dv`` value columns of ``itemsize``
+    bytes, or with ``D2`` the MLA kernels' latent of ``D`` (also the value)
+    and rope key of ``D2``.  The kernels' wrappers refuse the rest; the
+    gather path and the reference take every shape."""
+    if D2 is not None:
+        return (0 < bs <= MLA_MAX_BLOCK and D % 8 == 0 and D2 % 8 == 0
+                and D + D2 <= MLA_MAX_QK and D <= MLA_MAX_V)
+    return (D % 8 == 0 and Dv % 8 == 0 and 0 < D <= GQA_MAX_WIDTH
+            and 0 < Dv <= GQA_MAX_WIDTH
+            and gqa_warps(bs, D, Dv, itemsize) > 0)
+
+
 def mla_tile(D: int, D2: int) -> int:
     """Positions a tile of the bf16 MLA kernel: 64, or 32 where the row's
     64-column groups of [latent | rope key] number ten (the q tile and two

@@ -1,10 +1,12 @@
-"""Fused gating + iterative top-k router (counterpart of
-``repro.kernels.router_topk``; kernel in ``csrc/router_topk.cu``).
+"""Fused gating + top-k router (counterpart of ``repro.kernels.router_topk``;
+kernel in ``csrc/router_topk.cu``).
 
-Row-max-stable softmax or sigmoid over fp32 logits, then k rounds of argmax
-with ties to the lowest expert index, each pick masked to -inf.  The weight
-is the unmasked score; optional renormalisation ``/(sum + 1e-20)``, then
-``* routed_scale``."""
+Row-max-stable softmax or sigmoid over fp32 logits, then the k largest
+scores with ties to the lowest expert index: the order of the reference's k
+rounds of argmax, each pick masked to -inf.  The weight is the unmasked
+score; optional renormalisation ``/(sum + 1e-20)``, then ``*
+routed_scale``.  The kernel takes all k picks in one pass by ranking
+(``router_topk_walk`` models it)."""
 from __future__ import annotations
 
 import torch
@@ -12,19 +14,22 @@ import torch
 from repro_torch.kernels import _build
 
 
-def router_topk_plain(logits: torch.Tensor, top_k: int, *,
-                      gating: str = "softmax", norm_topk: bool = False,
-                      routed_scale: float = 1.0):
-    """logits: (T, E) -> (weights (T, k) f32, indices (T, k) i32)."""
+def _gate(logits: torch.Tensor, gating: str) -> torch.Tensor:
     x = logits.float()
     if gating == "softmax":
         x = x - x.max(dim=-1, keepdim=True).values
         e = torch.exp(x)
-        scores = e / e.sum(dim=-1, keepdim=True)
-    elif gating == "sigmoid":
-        scores = torch.sigmoid(x)
-    else:
-        raise ValueError(f"unknown gating {gating!r}")
+        return e / e.sum(dim=-1, keepdim=True)
+    if gating == "sigmoid":
+        return torch.sigmoid(x)
+    raise ValueError(f"unknown gating {gating!r}")
+
+
+def router_topk_plain(logits: torch.Tensor, top_k: int, *,
+                      gating: str = "softmax", norm_topk: bool = False,
+                      routed_scale: float = 1.0):
+    """logits: (T, E) -> (weights (T, k) f32, indices (T, k) i32)."""
+    scores = _gate(logits, gating)
     T, E = scores.shape
     col = torch.arange(E, device=scores.device).expand(T, E)
     masked = scores
@@ -39,6 +44,63 @@ def router_topk_plain(logits: torch.Tensor, top_k: int, *,
     weights = torch.stack(ws, dim=-1)
     if norm_topk:
         weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    if routed_scale != 1.0:
+        weights = weights * routed_scale
+    return weights, indices
+
+
+def router_layout(E: int) -> tuple:
+    """How the kernel lays out a row of ``E`` experts: (lanes a row, keys a
+    lane, rows a warp).  E <= 32: the next power of two lanes, one key
+    each; wider rows take a warp, expert ``lane + 32 c`` in key c."""
+    if E <= 32:
+        lanes = 1 << (E - 1).bit_length()
+        return lanes, 1, 32 // lanes
+    return 32, -(-E // 32), 1
+
+
+def router_topk_walk(logits: torch.Tensor, top_k: int, *,
+                     gating: str = "softmax", norm_topk: bool = False,
+                     routed_scale: float = 1.0):
+    """The kernel's selection in plain PyTorch: each score and its expert as
+    one key (the score's bits over ~expert, so equal scores order by the
+    lower expert), the k largest keys by rank; past 32 experts only the keys
+    at or above tau, the k-th largest of the 32 lanes' largest keys, are
+    ranked, among themselves.  Renormalises by the k weights summed in slot
+    order.  Same result as ``router_topk_plain``."""
+    scores = _gate(logits, gating)
+    T, E = scores.shape
+    lanes, per, _ = router_layout(E)
+    expert = torch.arange(lanes * per).reshape(per, lanes)
+    live = expert < E
+    bits = scores.contiguous().view(torch.int32).to(torch.int64)
+    assert (bits >= 0).all(), "scores are never negative"
+    row_keys = (bits << 32) | (0xFFFFFFFF - torch.arange(E))
+    keys = torch.zeros((T, per, lanes), dtype=torch.int64)
+    keys[:, live] = row_keys[:, expert[live]]
+    if E <= 32:
+        cand = keys.reshape(T, -1)
+    else:
+        lane_max = keys.max(dim=1).values                       # (T, 32)
+        lane_rank = (lane_max[:, None, :] > lane_max[:, :, None]).sum(-1)
+        tau = lane_max[lane_rank == top_k - 1]                  # one a row
+        assert tau.shape == (T,)
+        cand = torch.where(keys >= tau[:, None, None], keys, -1).reshape(T,
+                                                                          -1)
+    flat = keys.reshape(T, -1)
+    rank = (cand[:, None, :] > flat[:, :, None]).sum(-1)
+    pick = rank < top_k
+    assert (pick.sum(-1) == top_k).all()
+    order = torch.argsort(torch.where(pick, rank, top_k), dim=-1,
+                          stable=True)[:, :top_k]
+    chosen = flat.gather(-1, order)
+    indices = (0xFFFFFFFF - (chosen & 0xFFFFFFFF)).to(torch.int32)
+    weights = (chosen >> 32).to(torch.int32).view(torch.float32)
+    if norm_topk:
+        tot = torch.zeros(T)
+        for j in range(top_k):
+            tot = tot + weights[:, j]
+        weights = weights / (tot + 1e-20)[:, None]
     if routed_scale != 1.0:
         weights = weights * routed_scale
     return weights, indices

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
+from repro_torch.kernels.paged_attention import fused_read_takes
 from repro_torch.models.attention import (Attention, attention, paged_decode,
                                           project_qkv, write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
@@ -52,7 +53,9 @@ class RunConfig(NamedTuple):
                                      # the engine quantizes at load)
     paged_attn: str = "auto"         # paged decode read path:
                                      # auto   = fused kernel iff the executor
-                                     #          is cuda, else gather
+                                     #          is cuda and the kernel takes
+                                     #          the pool's shapes, else
+                                     #          gather
                                      # fused  = the paged-attention kernel
                                      # gather = gather_block_kv + attention
                                      #          (the oracle)
@@ -218,13 +221,26 @@ def swap_cache_slots(cache, i: int, j: int):
 # ----------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------
-def paged_fused(rc: RunConfig) -> bool:
-    """Whether the paged read runs the fused kernel (``rc.paged_attn``)."""
+def paged_fused(rc: RunConfig, pool: Optional[dict] = None) -> bool:
+    """Whether the paged read runs the fused kernel (``rc.paged_attn``).
+    ``auto`` runs it on the ``cuda`` executor where its kernels take the
+    block pool's shapes (``pool``: one layer's ``{"k", "v"}`` or MLA's
+    ``{"ckv", "kr"}``), and the gather elsewhere; ``fused`` runs it on any
+    shape, and the kernel's wrapper raises on one it refuses."""
     if rc.paged_attn not in ("auto", "fused", "gather"):
         raise ValueError(f"RunConfig.paged_attn={rc.paged_attn!r}; "
                          "expected auto | fused | gather")
-    return rc.paged_attn == "fused" or (rc.paged_attn == "auto"
-                                        and rc.executor == "cuda")
+    if rc.paged_attn != "auto":
+        return rc.paged_attn == "fused"
+    if rc.executor != "cuda" or pool is None:
+        return False
+    if "ckv" in pool:
+        ckv, kr = pool["ckv"], pool["kr"]
+        return fused_read_takes(ckv.shape[1], ckv.shape[2], ckv.shape[2],
+                                ckv.element_size(), D2=kr.shape[2])
+    k, v = pool["k"], pool["v"]
+    return fused_read_takes(k.shape[1], k.shape[3], v.shape[3],
+                            k.element_size())
 
 
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
@@ -356,7 +372,7 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
 @torch.no_grad()
 def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
                    mode: str, cache, pos, block_tables):
-    fused = paged_fused(rc)
+    fused = paged_fused(rc, cache[0] if block_tables is not None else None)
     dt = rc.compute_dtype
     tokens = batch["tokens"]
     x = model.embed[tokens].to(dt)

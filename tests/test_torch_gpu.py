@@ -2,10 +2,12 @@
 (the MoE kernels on the fixed and the dynamic policy's 8-row schedules, the
 forward's and the backward's Hopper GEMMs at shapes that stress their
 tiling, on dense weights and on int8 and int4 ones, the paged
-decode-attention kernel over its masks, and its MLA form), the MoE layer
-without a host sync under
-both policies and on quantized weights, and the contiguous and paged
-engines' launch counts (dense and int8 experts; MLA).
+decode-attention kernel over its masks, and its MLA form; the router over
+ties, all-equal rows and -inf logits, and the combine bitwise, at one to
+4096 tokens), the MoE layer without a host sync under
+both policies and on quantized weights, the contiguous and paged
+engines' launch counts (dense and int8 experts; MLA), and the MLA engine's
+gather read where its KV blocks are wider than the kernel takes.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -1143,3 +1145,131 @@ def test_moe_backward_makes_no_host_sync(cuda, policy):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(torch.isfinite(a.grad).all() for a in args)
+
+
+def router_logits(dev, T: int, E: int, k: int, seed: int):
+    """(T, E) fp32 logits: after a random row, an all-equal row, a row
+    whose k-th place is a tie of three, -inf on every third expert, -inf
+    all but a quarter of the experts (tied at 1.0), coarse values with many
+    ties; random rows after that."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((max(T, 8), E), generator=g)
+    x[1] = 0.25
+    top = torch.randperm(E, generator=g)
+    x[2] = torch.randn(E, generator=g) * 0.1 - 5.0
+    x[2, top[:k - 1]] = 3.0 + torch.arange(k - 1, dtype=torch.float32)
+    x[2, top[k - 1:k + 2]] = 2.0
+    x[3, 1::3] = float("-inf")
+    x[4] = float("-inf")
+    x[4, top[:max(1, E // 4)]] = 1.0
+    x[5] = torch.round(x[5] * 2) / 2
+    return x[:T].contiguous().to(dev)
+
+
+ROUTE_KW = ({"gating": "softmax", "norm_topk": False, "routed_scale": 16.0},
+            {"gating": "sigmoid", "norm_topk": True, "routed_scale": 2.446},
+            {"gating": "softmax", "norm_topk": True, "routed_scale": 1.0})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 3, 64, 4096])
+@pytest.mark.parametrize("E", [8, 64, 160, 256])
+def test_router_topk_kernel_matches_plain(cuda, E, T):
+    """Every k the wrapper takes (1 to min(E, 16)), softmax and sigmoid,
+    with renorm and scale: indices equal to the plain version's, weights
+    within 1e-5 / 1e-6, and two calls bitwise equal."""
+    for k in range(1, min(E, 16) + 1):
+        logits = router_logits(cuda, T, E, k, seed=E * 100 + k)
+        for kw in ROUTE_KW:
+            w, idx = ops.router_topk(logits, top_k=k, **kw)
+            w_p, idx_p = ref.router_ref(logits, k, **kw)
+            assert torch.equal(idx, idx_p), (k, kw)
+            torch.testing.assert_close(w, w_p, rtol=1e-5, atol=1e-6)
+            w2, idx2 = ops.router_topk(logits, top_k=k, **kw)
+            assert torch.equal(w, w2) and torch.equal(idx, idx2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [2048, 4096, 5120, 7168])
+def test_unpermute_kernel_bitwise_plain(cuda, d, dtype):
+    """Weighted and folded, at the plan's tilings from one token to
+    training's 4096: bitwise equal to the plain version; NaN in the rows of
+    y that pos never names changes nothing."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda).manual_seed(d)
+    for T in (1, 2, 64, 4096):
+        for k in (1, 2, 6, 8):
+            cap = T * k + 64
+            y = torch.randn((cap, d), generator=g, device=cuda).to(dt)
+            perm = torch.randperm(cap, generator=g, device=cuda)
+            pos = perm[:T * k].reshape(T, k).to(torch.int32).contiguous()
+            y[perm[T * k:]] = float("nan")
+            w = torch.rand((T, k), generator=g, device=cuda)
+            for weights in (None, w):
+                got = ops._unperm.unpermute(y, pos, weights)
+                want = ops._unperm.unpermute_plain(y, pos, weights)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (T, k, weights is None)
+                assert torch.equal(got, ops._unperm.unpermute(y, pos,
+                                                              weights))
+            del y, perm, pos, w
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_unpermute_refuses_a_misaligned_view(cuda):
+    buf = torch.zeros(64 * 16 + 8, dtype=torch.bfloat16, device=cuda)
+    y = buf[1:1 + 64 * 16].view(64, 16)            # 2 bytes past 16
+    pos = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._unperm.unpermute(y, pos, None)
+    ok = buf[8:8 + 64 * 16].view(64, 16)            # 16 bytes in
+    assert torch.equal(ops._unperm.unpermute(ok, pos, None),
+                       ops._unperm.unpermute_plain(ok, pos, None))
+
+
+@pytest.mark.gpu
+def test_launch_floor_kernel_launches(cuda):
+    from repro_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    _build.launch_floor(cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_mla_engine_with_64_position_blocks_reads_by_gather(cuda):
+    """A reduced deepseek-v2 engine with 64-position KV blocks (more than
+    the MLA kernel takes): under ``auto`` it serves the gather read's greedy
+    tokens and never launches the MLA kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("deepseek-v2-236b"), layers=3)
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 5, 33)]
+    outs = {}
+    for read in ("auto", "gather"):
+        eng = ServeEngine(cfg, model, slots=2, capacity=160,
+                          kv_block_size=64, prefill_chunk=16,
+                          rc=RunConfig(compute_dtype=torch.bfloat16,
+                                       schedule_policy="dynamic",
+                                       paged_attn=read))
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        eng.run(reqs)
+        assert ops.LAUNCHES["paged_attention_mla"] == 0
+        assert ops.LAUNCHES["paged_attention"] == 0
+        outs[read] = [r.out for r in reqs]
+    assert outs["auto"] == outs["gather"]
+    with pytest.raises(ValueError, match="at most"):
+        ServeEngine(cfg, model, slots=1, capacity=160, kv_block_size=64,
+                    rc=RunConfig(compute_dtype=torch.bfloat16,
+                                 schedule_policy="dynamic",
+                                 paged_attn="fused")).run(
+            [Request(rid=0, prompt=prompts[1], max_new=2)])
