@@ -2,7 +2,7 @@
 and the combine (B4), of this checkout against those of another source
 tree, on one NVIDIA GPU.
 
-    python3 chip_gemm_ab.py --other DIR [--replays 20] [--arms dense,quant,route]
+    python3 chip_gemm_ab.py --other DIR [--replays N] [--arms dense,quant,route]
 
 DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
 weight-format C interface of the GEMMs (``moe_grouped_gemm`` and
@@ -26,8 +26,7 @@ at T=2, 64 and 4096: the router's indices must equal the other tree's and
 the plain version's and its weights be within 1e-5 / 1e-6 of the plain
 version's (the max difference from the other tree is printed);
 ``unpermute`` must be bitwise equal to the other tree's and to the plain
-version.  Both are timed in turns as below.  The other tree's
-``moe_unpermute`` is called with the parameters its source declares.  fp32 (the CUDA-core kernels, every
+version.  Both are timed in turns as below.  fp32 (the CUDA-core kernels, every
 format): the two trees must be bitwise equal.  bf16: each tree's kernel
 may sum in its own order, so the script prints the max abs difference
 between the trees and holds this tree within the bf16 tolerance of the
@@ -105,10 +104,7 @@ def build_other(csrc: pathlib.Path, flags):
         lib.moe_fused_gate_up.argtypes = [P] * 8 + [I] * 8 + [P]
     F = ctypes.c_float
     lib.moe_router_topk.argtypes = [P, P, P] + [I] * 5 + [F, P]
-    unperm = (csrc / "unpermute.cu").read_text()
-    planned = "tile_t" in unperm[unperm.index("MOE_API int moe_unpermute("):]
-    lib.moe_unpermute.argtypes = [P] * 4 + [I] * (7 if planned else 4) + [P]
-    lib.unpermute_planned = planned
+    lib.moe_unpermute.argtypes = [P] * 4 + [I] * 4 + [P]
     for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up,
                lib.moe_router_topk, lib.moe_unpermute):
         fn.restype = ctypes.c_int
@@ -204,16 +200,10 @@ def route_arm(other, smi: str, replays: int) -> None:
                 code = _build.dtype_code(dtype)
 
                 def other_unperm():
-                    args = [y.data_ptr(), pos.data_ptr(),
-                            None if w is None else w.data_ptr(),
-                            out.data_ptr(), T, s["k"], s["d"], code]
-                    if other.unpermute_planned:
-                        args += list(unperm.unpermute_plan(
-                            T, s["k"], s["d"], y.element_size(),
-                            torch.cuda.get_device_properties(0)
-                            .multi_processor_count))
-                    _build.check(other.moe_unpermute(*args, stream()),
-                                 "other unpermute")
+                    _build.check(other.moe_unpermute(
+                        y.data_ptr(), pos.data_ptr(),
+                        None if w is None else w.data_ptr(), out.data_ptr(),
+                        T, s["k"], s["d"], code, stream()), "other unpermute")
                     return out
 
                 def this_unperm():

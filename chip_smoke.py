@@ -59,9 +59,10 @@ result line):
    (``ROUTERS``: moonshot's, deepseek-v2's, mixtral's E=8 and
    deepseek-v3's E=256 k=8 sigmoid) at T=1, 2, 3, 64 and 4096 on rows of
    ties at the k-th place, equal scores and -inf logits; mixtral's and
-   deepseek-v3's timed at T=2, 64 and 4096 (random rows, and all-equal
-   rows, the router's slowest case), beside an empty kernel's time, the
-   launch floor, timed the same way.  The
+   deepseek-v3's timed at T=2, 64 and 4096 (random rows, and rows whose
+   top k lanes hold all their experts above tau, the ranking's most
+   candidates), beside an empty kernel's time, the launch floor, timed
+   the same way.  The
    MLA form of the paged decode-attention kernel (second score operand q2
    against the rope-key pool, the latent pool as key and value; bf16 the
    Hopper kernel, fp32 the CUDA-core one) at deepseek's shape (128 heads,
@@ -409,6 +410,12 @@ def bound_ms(n_bytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def router_work(T: int, E: int, k: int):
+    """B5's (bytes, flops): the logits read once, weights and indices
+    written once."""
+    return T * E * 4 + T * k * 8, T * E * (k + 4)
+
+
 class Case:
     """One layer's inputs at one shape and dtype, and its schedule."""
 
@@ -465,7 +472,7 @@ class Case:
         used = self.n_experts_used
         nb = cap // M
         if name == "router_topk":
-            return T * E * 4 + T * k * 8, T * E * (k + 4)
+            return router_work(T, E, k)
         if name == "permute":
             return T * d * es + cap * 4 + cap * d * es, 0
         if name == "fused_gate_up":
@@ -659,19 +666,24 @@ def check_router(arch: str, T: int, errs: dict) -> None:
 
 
 def time_router(arch: str, T: int) -> dict:
-    """B5 alone on random logits (and on all-equal rows, where every key
-    is a candidate), beside its bound and its plain version."""
+    """B5 alone on random logits, beside its bound and its plain version;
+    and on rows ordered so that every expert of the k lanes whose maxima
+    lead is a candidate ((k-1) * E/32 + 1 of them past 32 experts, about
+    k + 1 on random rows), the ranking's most work."""
+    import torch
     from repro_torch.kernels import ops, ref
     s = ROUTERS[arch]
     kw = dict(gating=s["gating"], norm_topk=s["norm_topk"],
               routed_scale=s["routed_scale"])
     logits = router_logits(T, s["E"], s["k"], seed=1000 + T, special=False)
-    equal = logits * 0.0
+    e = torch.arange(s["E"], device="cuda")
+    worst = (3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)).expand(T, -1)
+    worst = worst.contiguous()
 
     def kern():
         return ops.router_topk(logits, top_k=s["k"], **kw)
-    n_bytes = T * s["E"] * 4 + T * s["k"] * 8
-    b_ms, b_by = bound_ms(n_bytes, T * s["E"] * (s["k"] + 4))
+    n_bytes, flops = router_work(T, s["E"], s["k"])
+    b_ms, b_by = bound_ms(n_bytes, flops)
     return {"ms": device_ms(kern, 50), "eager_ms": time_ms(kern, 250),
             "plain_ms": device_ms(lambda: ref.router_ref(
                 logits, s["k"], **kw), 10),
@@ -679,8 +691,8 @@ def time_router(arch: str, T: int) -> dict:
             "library": None,
             "library_null_reason": "no single PyTorch call gates, selects "
                                    "by iterative argmax and renormalises",
-            "all_equal_ms": device_ms(lambda: ops.router_topk(
-                equal, top_k=s["k"], **kw), 50),
+            "most_candidates_ms": device_ms(lambda: ops.router_topk(
+                worst, top_k=s["k"], **kw), 50),
             "bytes": n_bytes}
 
 
@@ -2253,8 +2265,8 @@ def main() -> None:
         s = ROUTERS[arch]
         print(f"[times] router_topk {arch} E={s['E']} k={s['k']} "
               f"{s['gating']} T={T}: {t['ms'] * 1e3:.2f} us (eager "
-              f"{t['eager_ms'] * 1e3:.2f}; all-equal rows "
-              f"{t['all_equal_ms'] * 1e3:.2f}), bound "
+              f"{t['eager_ms'] * 1e3:.2f}; most candidates "
+              f"{t['most_candidates_ms'] * 1e3:.2f}), bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), plain "
               f"{t['plain_ms'] * 1e3:.1f} us, floor {floor['ms'] * 1e3:.2f}")
 
@@ -2674,7 +2686,8 @@ def main() -> None:
                 extra["launch_floor_ms"] = floor["ms"]
             if name == "router_topk":
                 extra.update({f"{arch}_T{T}": {
-                    k: route_t[arch, T][k] for k in keys + ("all_equal_ms",)}
+                    k: route_t[arch, T][k]
+                    for k in keys + ("most_candidates_ms",)}
                     for arch, T in sorted(route_t)})
             if name in HOPPER_KERNELS:
                 # B1 and B2: bf16 on dense weights runs the Hopper kernel

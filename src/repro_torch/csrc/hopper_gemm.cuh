@@ -4,8 +4,7 @@
 // the grouped weight gradient (grouped_wgrad.cu), and B1 with its weight
 // read transposed, the dX product (grouped_gemm_t.cu); the PTX helpers and
 // the wgmma shapes also serve the bf16 MLA decode kernel
-// (paged_attention.cu), and the barriers and the 1-D bulk copy the
-// unpermute combine (unpermute.cu).
+// (paged_attention.cu).
 //
 // The shape of the kernels (the "usual shape of a fast kernel" on this
 // card): persistent thread blocks, one per SM, each walking a list of work
@@ -131,16 +130,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2) : "memory");
-}
-// a non-tensor bulk copy of `bytes` contiguous bytes from global memory at
-// src into shared memory at dst, completing on `bar`: both addresses and
-// the size multiples of 16 bytes
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // shared -> global copy of one box (coordinates as for the loads; the

@@ -4,210 +4,98 @@
 //
 // Replaces: src/repro/kernels/unpermute.py, unpermute (its Pallas _kernel).
 //
-// What bounds it on the H100: activation bytes, T*k gathered rows of y read
-// and T rows written (at training's T=4096, k=6: 100.7 MB read and 16.8 MB
-// written at d=2048, 35.1 us at 3.35 TB/s).  Only bytes kept in flight
-// reach that rate: a gather whose every row load waits on its own position
-// load, as the first port's did (one block a token, a thread 8 columns, the
-// k-loop a runtime bound), keeps few rows in flight.
+// What bounds it on the H100: activation bytes, T*k rows of y read and T
+// rows written; a few MB on the main path.
 //
-// Design: Hopper's non-tensor bulk copies.  The work is cut into items, a
-// tile of tokens x a slice of columns (kernels/unpermute.py,
-// unpermute_plan, from the shapes: whole rows where T fills the card,
-// slices of at least 256 bytes where it does not, so that small T still
-// spreads over the SMs).  Blocks walk the items strided by the grid, with a
-// ring of two stages in shared memory.  A producer warp reads a tile's
-// positions (and weights, into the stage) an item ahead (the first before
-// the barriers are set up) and issues one cp.async.bulk per gathered row
-// slice, all on one mbarrier with its bytes expected: every row of the
-// tile is in flight at once, and the next tile's rows while this one is
-// summed.  Eight consumer warps wait on the
-// barrier, sum each 8-column vector over c in shared memory with the
-// rounded intrinsics (__fadd_rn(acc, __fmul_rn(v, w)), no fused
-// multiply-add), store 16-byte vectors, and release the stage on a second
-// mbarrier.  The result is the plain version's bit for bit.  Bulk copies
-// take 16-byte-aligned addresses and sizes: d % 8 == 0 and slices of a
-// multiple of 8 columns give that for bf16 and fp32 rows of a 16-byte
-// aligned y.
-#include "hopper_gemm.cuh"
+// Design: one thread block per token.  Each thread owns 8 consecutive
+// elements of the row (one 16-byte bf16 vector, two fp32 vectors), keeps
+// eight fp32 accumulators in registers across the k gathered rows, and
+// stores once.  Blocks of 256 threads, several to an SM, once the tokens
+// fill the card; with fewer tokens than SMs each block has a thread per
+// vector (up to 1024), so that a row, deepseek-v2's 5120 columns too, is
+// one pass.  The Pallas kernel revisits its output block k times
+// through a VMEM scratch; here the k-loop lives inside the block and the
+// sum never leaves registers.  Multiplies and adds are the rounded
+// intrinsics (no fused multiply-add), so the result is the plain version's
+// bit for bit.
+//
+// Tried and not kept (PERF.md, commit 27453a3): tiles of tokens x slices
+// of columns gathered by 1-D bulk copies (cp.async.bulk) into a two-stage
+// shared-memory ring, a producer warp issuing every row of a tile at once.
+// It won where few tokens meet wide rows (deepseek-v2 T=2: 4.1 -> 2.4 us,
+// which the one-pass blocks above now take too) but lost 1-3 % at
+// T=4096, where this kernel already moves 2.85 TB/s, and 3-11 % at
+// moonshot's T=64: the copy's round trip through shared memory lengthens
+// the chain that small T is made of.
+#include "common.cuh"
 
 namespace {
 
-using hopper::bulk_load;
-using hopper::mbar_arrive;
-using hopper::mbar_expect_tx;
-using hopper::mbar_fence_init;
-using hopper::mbar_init;
-using hopper::mbar_wait;
-using hopper::smem_addr;
-
-// kernels/unpermute.py holds the plan to these: UNPERMUTE_STAGE_BYTES,
-// UNPERMUTE_MAX_ROWS
-constexpr int kStages = 2;
-constexpr int kStageBytes = 48 * 1024;    // a tile's gathered row slices
-constexpr int kMaxRows = 256;             // tile tokens x k a stage
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = 32 * kConsumerWarps;
-constexpr int kThreads = kConsumers + 32;
-constexpr int kSmem = kStages * kStageBytes + kStages * kMaxRows * 4 +
-                      2 * kStages * 8;
-
-struct Item {
-  int t0, nt, c0, nc;
-};
-
-__device__ __forceinline__ Item item_of(int item, int T, int d, int tile_t,
-                                        int slice_d, int n_slices) {
-  Item it;
-  it.t0 = (item / n_slices) * tile_t;
-  it.c0 = (item % n_slices) * slice_d;
-  it.nt = min(tile_t, T - it.t0);
-  it.nc = min(slice_d, d - it.c0);
-  return it;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-unpermute_kernel(const T* __restrict__ y, const int* __restrict__ pos,
-                 const float* __restrict__ w, T* __restrict__ out, int n_tok,
-                 int k, int d, int tile_t, int slice_d, int n_slices,
-                 int n_items) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* wsm = reinterpret_cast<float*>(smem + kStages * kStageBytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(wsm + kStages * kMaxRows);
-  const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + kStages);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool producer = warp == kConsumerWarps;
-  // the producer's positions and weights of one item, row lane + 32q in
-  // slot q, loaded an item ahead of its copies
-  int rp[kMaxRows / 32];
-  float rw[kMaxRows / 32];
-  auto fetch = [&](int item) {
-    const Item m = item_of(item, n_tok, d, tile_t, slice_d, n_slices);
-    const int rows = m.nt * k, r0 = m.t0 * k;
+__global__ void unpermute_kernel(const T* __restrict__ y,
+                                 const int* __restrict__ pos,
+                                 const float* __restrict__ w,
+                                 T* __restrict__ out, int k, int d) {
+  const int t = blockIdx.x;
+  for (int base = threadIdx.x * 8; base < d; base += blockDim.x * 8) {
+    float acc[8];
 #pragma unroll
-    for (int q = 0; q < kMaxRows / 32; ++q) {
-      const int r = lane + 32 * q;
-      if (r < rows) {
-        rp[q] = pos[r0 + r];
-        if (w != nullptr) rw[q] = w[r0 + r];
+    for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+    for (int c = 0; c < k; ++c) {
+      const int p = pos[(size_t)t * k + c];
+      const T* src = y + (size_t)p * d + base;
+      alignas(16) T vals[8];
+      if (sizeof(T) == 2) {
+        *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        reinterpret_cast<uint4*>(vals)[0] = reinterpret_cast<const uint4*>(src)[0];
+        reinterpret_cast<uint4*>(vals)[1] = reinterpret_cast<const uint4*>(src)[1];
       }
-    }
-  };
-  if (producer && blockIdx.x < n_items) fetch(blockIdx.x);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kConsumerWarps);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (producer) {
-    int it = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-      const int s = it % kStages;
-      if (it >= kStages) mbar_wait(empty0 + 8 * s, (it / kStages - 1) & 1);
-      const Item m = item_of(item, n_tok, d, tile_t, slice_d, n_slices);
-      const int rows = m.nt * k;
-      const uint32_t row_bytes = (uint32_t)(m.nc * sizeof(T));
       if (w != nullptr) {
+        const float wc = w[(size_t)t * k + c];
 #pragma unroll
-        for (int q = 0; q < kMaxRows / 32; ++q)
-          if (lane + 32 * q < rows) wsm[s * kMaxRows + lane + 32 * q] = rw[q];
-        __threadfence_block();
-      }
-      __syncwarp();
-      // arrival (count 1) with the stage's bytes, before any copy lands
-      if (lane == 0) mbar_expect_tx(full0 + 8 * s, rows * row_bytes);
-      __syncwarp();
-      const uint32_t dst = smem_addr(smem + s * kStageBytes);
+        for (int q = 0; q < 8; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(to_f32(vals[q]), wc));
+      } else {
 #pragma unroll
-      for (int q = 0; q < kMaxRows / 32; ++q) {
-        const int r = lane + 32 * q;
-        if (r < rows)
-          bulk_load(dst + r * row_bytes, y + (size_t)rp[q] * d + m.c0,
-                    row_bytes, full0 + 8 * s);
+        for (int q = 0; q < 8; ++q) acc[q] = __fadd_rn(acc[q], to_f32(vals[q]));
       }
-      if (item + gridDim.x < n_items) fetch(item + gridDim.x);
     }
-    return;
-  }
-
-  int it = 0;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-    const int s = it % kStages;
-    const Item m = item_of(item, n_tok, d, tile_t, slice_d, n_slices);
-    const int nvec = m.nc / 8;
-    const T* stage = reinterpret_cast<const T*>(smem + s * kStageBytes);
-    const float* ws = wsm + s * kMaxRows;
-    mbar_wait(full0 + 8 * s, (it / kStages) & 1);
-    for (int v = threadIdx.x; v < m.nt * nvec; v += kConsumers) {
-      const int t = v / nvec, col = (v - t * nvec) * 8;
-      const T* src = stage + (size_t)t * k * m.nc + col;
-      float acc[8];
+    alignas(16) T res[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) acc[q] = 0.f;
-      for (int c = 0; c < k; ++c) {
-        alignas(16) T vals[8];
-        const uint4* row = reinterpret_cast<const uint4*>(src + (size_t)c * m.nc);
-        reinterpret_cast<uint4*>(vals)[0] = row[0];
-        if constexpr (sizeof(T) == 4) reinterpret_cast<uint4*>(vals)[1] = row[1];
-        if (w != nullptr) {
-          const float wc = ws[t * k + c];
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            acc[q] = __fadd_rn(acc[q], __fmul_rn(to_f32(vals[q]), wc));
-        } else {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) acc[q] = __fadd_rn(acc[q], to_f32(vals[q]));
-        }
-      }
-      alignas(16) T res[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) res[q] = from_f32<T>(acc[q]);
-      uint4* dst = reinterpret_cast<uint4*>(out + (size_t)(m.t0 + t) * d +
-                                            m.c0 + col);
-      dst[0] = reinterpret_cast<const uint4*>(res)[0];
-      if constexpr (sizeof(T) == 4) dst[1] = reinterpret_cast<const uint4*>(res)[1];
+    for (int q = 0; q < 8; ++q) res[q] = from_f32<T>(acc[q]);
+    T* dst = out + (size_t)t * d + base;
+    if (sizeof(T) == 2) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(res);
+    } else {
+      reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(res)[0];
+      reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(res)[1];
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
-}
-
-template <typename T>
-int launch(const void* y, const void* pos, const void* weights, void* out,
-           int n_tok, int k, int d, int tile_t, int slice_d, int grid,
-           cudaStream_t stream) {
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(unpermute_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    attr = true;
-  }
-  const int n_slices = (d + slice_d - 1) / slice_d;
-  const int n_items = (n_tok + tile_t - 1) / tile_t * n_slices;
-  unpermute_kernel<T><<<grid, kThreads, kSmem, stream>>>(
-      (const T*)y, (const int*)pos, (const float*)weights, (T*)out, n_tok, k,
-      d, tile_t, slice_d, n_slices, n_items);
-  return moe_last_error();
 }
 
 }  // namespace
 
-// tile_t tokens x slice_d columns an item, on `grid` blocks: the plan of
-// kernels/unpermute.py (unpermute_plan), which also checks that a tile's
-// rows fit a stage
 MOE_API int moe_unpermute(const void* y, const void* pos, const void* weights,
                           void* out, int T, int k, int d, int dtype,
-                          int tile_t, int slice_d, int grid, void* stream) {
+                          void* stream) {
   if (T == 0) return moe_last_error();
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int vecs = d / 8, most = T < sms ? 1024 : 256;
+  const int threads = vecs >= most ? most : ((vecs + 31) / 32) * 32;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16>(y, pos, weights, out, T, k, d, tile_t,
-                                 slice_d, grid, s);
-  return launch<float>(y, pos, weights, out, T, k, d, tile_t, slice_d, grid,
-                       s);
+  if (dtype == kBF16) {
+    unpermute_kernel<__nv_bfloat16><<<T, threads, 0, s>>>(
+        (const __nv_bfloat16*)y, (const int*)pos, (const float*)weights,
+        (__nv_bfloat16*)out, k, d);
+  } else {
+    unpermute_kernel<float><<<T, threads, 0, s>>>(
+        (const float*)y, (const int*)pos, (const float*)weights, (float*)out,
+        k, d);
+  }
+  return moe_last_error();
 }

@@ -50,7 +50,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "moe_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "moe_permute": [_P, _P, _P, _I, _I, _P],
-    "moe_unpermute": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "moe_grouped_gemm": [_P] * 9 + [_I] * 9 + [_P],
     "moe_fused_gate_up": [_P] * 10 + [_I] * 9 + [_P],
     "moe_grouped_gemm_t": [_P] * 7 + [_I] * 6 + [_P],

@@ -51,12 +51,12 @@ def router_topk_plain(logits: torch.Tensor, top_k: int, *,
 
 def router_layout(E: int) -> tuple:
     """How the kernel lays out a row of ``E`` experts: (lanes a row, keys a
-    lane, rows a warp).  E <= 32: the next power of two lanes, one key
-    each; wider rows take a warp, expert ``lane + 32 c`` in key c."""
+    lane).  E <= 32: the next power of two lanes, one key each (32 / lanes
+    rows a warp); wider rows take a warp, expert ``lane + 32 c`` in key
+    c."""
     if E <= 32:
-        lanes = 1 << (E - 1).bit_length()
-        return lanes, 1, 32 // lanes
-    return 32, -(-E // 32), 1
+        return 1 << (E - 1).bit_length(), 1
+    return 32, -(-E // 32)
 
 
 def router_topk_walk(logits: torch.Tensor, top_k: int, *,
@@ -70,7 +70,7 @@ def router_topk_walk(logits: torch.Tensor, top_k: int, *,
     order.  Same result as ``router_topk_plain``."""
     scores = _gate(logits, gating)
     T, E = scores.shape
-    lanes, per, _ = router_layout(E)
+    lanes, per = router_layout(E)
     expert = torch.arange(lanes * per).reshape(per, lanes)
     live = expert < E
     bits = scores.contiguous().view(torch.int32).to(torch.int64)

@@ -2,11 +2,7 @@
 ``repro.kernels.unpermute``; kernel in ``csrc/unpermute.cu``):
 ``out[t] = sum_c w[t, c] * y[pos[t, c]]`` summed in fp32 in c order, cast to
 ``y.dtype``.  ``weights=None`` is the folded case (weights already applied
-in the down projection's epilogue): an unweighted sum.
-
-The kernel gathers with bulk copies into shared memory, item by item: a
-tile of tokens x a slice of columns (``unpermute_plan``;
-``unpermute_walk`` models the walk)."""
+in the down projection's epilogue): an unweighted sum."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,78 +27,6 @@ def unpermute_plain(y: torch.Tensor, pos: torch.Tensor,
     return acc.to(y.dtype)
 
 
-# the kernel's stages (csrc/unpermute.cu): each holds a tile's gathered row
-# slices, at most UNPERMUTE_STAGE_BYTES of them and UNPERMUTE_MAX_ROWS rows
-# (tokens x k); UNPERMUTE_BLOCKS_PER_SM blocks fit an SM.  A tile is at
-# most UNPERMUTE_MAX_TILE tokens, and a slice cut to spread a small T over
-# the SMs no narrower than UNPERMUTE_MIN_SLICE_BYTES
-UNPERMUTE_STAGE_BYTES, UNPERMUTE_MAX_ROWS = 48 * 1024, 256
-UNPERMUTE_BLOCKS_PER_SM, UNPERMUTE_MAX_TILE = 2, 16
-UNPERMUTE_MIN_SLICE_BYTES = 256
-
-
-def unpermute_plan(T: int, k: int, d: int, itemsize: int, sms: int) -> tuple:
-    """The kernel's items and grid: (tile tokens, slice columns, blocks).
-    A slice is the whole row unless k of them would overflow a stage; a
-    tile is as many tokens as a stage holds.  Where that leaves fewer items
-    than the card has block slots, tiles shrink to one token, then slices
-    halve (multiples of 8 columns, down to UNPERMUTE_MIN_SLICE_BYTES) while
-    the items still fit the slots.  The grid gives every block the same
-    number of items, but for the last few blocks."""
-    def half(n: int) -> int:
-        return -(-n // 16) * 8
-
-    def items(tile: int, width: int) -> int:
-        return -(-T // tile) * -(-d // width)
-    width = d
-    while k * width * itemsize > UNPERMUTE_STAGE_BYTES:
-        width = half(width)
-    tile = max(1, min(T, UNPERMUTE_MAX_TILE, UNPERMUTE_MAX_ROWS // k,
-                      UNPERMUTE_STAGE_BYTES // (k * width * itemsize)))
-    slots = UNPERMUTE_BLOCKS_PER_SM * sms
-    while tile > 1 and items(tile, width) < slots:
-        tile //= 2
-    while (items(tile, half(width)) <= slots
-           and half(width) * itemsize >= UNPERMUTE_MIN_SLICE_BYTES):
-        width = half(width)
-    n = items(tile, width)
-    per_block = -(-n // slots)
-    return tile, width, -(-n // per_block)
-
-
-def unpermute_walk(y: torch.Tensor, pos: torch.Tensor,
-                   weights: Optional[torch.Tensor], sms: int):
-    """The kernel's walk in plain PyTorch: block b takes items b, b + grid,
-    ... of ``unpermute_plan``, each a stage of its tile's k row slices,
-    gathered as the bulk copies gather them and summed in c order in fp32.
-    Returns the output and how many times each (token, column) was
-    written."""
-    T, k = pos.shape
-    d, es = y.shape[1], y.element_size()
-    tile, width, grid = unpermute_plan(T, k, d, es, sms)
-    n_slices = -(-d // width)
-    n_items = -(-T // tile) * n_slices
-    out = torch.empty((T, d), dtype=y.dtype)
-    written = torch.zeros((T, d), dtype=torch.int32)
-    for b in range(grid):
-        for item in range(b, n_items, grid):
-            t0, c0 = item // n_slices * tile, item % n_slices * width
-            nt, nc = min(tile, T - t0), min(width, d - c0)
-            assert nc % 8 == 0 and nt * k <= UNPERMUTE_MAX_ROWS
-            assert nt * k * nc * es <= UNPERMUTE_STAGE_BYTES
-            rows = pos[t0:t0 + nt].reshape(-1).long()
-            stage = y[rows, c0:c0 + nc].reshape(nt, k, nc).float()
-            acc = torch.zeros((nt, nc), dtype=torch.float32)
-            for c in range(k):
-                term = stage[:, c]
-                if weights is not None:
-                    term = term * weights[t0:t0 + nt, c:c + 1].float()
-                acc = acc + term
-            out[t0:t0 + nt, c0:c0 + nc] = acc.to(y.dtype)
-            written[t0:t0 + nt, c0:c0 + nc] += 1
-    return out, written
-
-
 def unpermute(y: torch.Tensor, pos: torch.Tensor,
               weights: Optional[torch.Tensor]) -> torch.Tensor:
     """CPU tensors run the plain version; CUDA tensors the kernel."""
@@ -115,11 +39,8 @@ def unpermute(y: torch.Tensor, pos: torch.Tensor,
     _build.require(pos.dtype == torch.int32 and pos.dim() == 2
                    and pos.is_contiguous(),
                    "unpermute takes a contiguous int32 (T, k) pos")
-    _build.require(pos.shape[1] <= UNPERMUTE_MAX_ROWS,
-                   f"unpermute takes k <= {UNPERMUTE_MAX_ROWS}, not "
-                   f"{pos.shape[1]}")
     _build.require(_build.aligned(y),
-                   "unpermute gathers y's rows with bulk copies: y must "
+                   "unpermute loads y's rows as 16-byte vectors: y must "
                    "start on a 16-byte boundary")
     if weights is not None:
         _build.require(weights.dtype == torch.float32
@@ -128,15 +49,11 @@ def unpermute(y: torch.Tensor, pos: torch.Tensor,
                        "unpermute takes contiguous float32 (T, k) weights")
     lib = _build.library()
     T, k = pos.shape
-    tile, width, grid = unpermute_plan(
-        T, k, y.shape[1], y.element_size(),
-        torch.cuda.get_device_properties(y.device).multi_processor_count)
     out = torch.empty((T, y.shape[1]), dtype=y.dtype, device=y.device)
     err = lib.moe_unpermute(
         y.data_ptr(), pos.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
-        T, k, y.shape[1], code, tile, width, grid,
-        _build.stream_ptr(y.device))
+        T, k, y.shape[1], code, _build.stream_ptr(y.device))
     _build.check(err, "unpermute")
     _build.LAUNCHES["unpermute"] += 1
     return out

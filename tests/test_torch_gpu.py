@@ -1194,9 +1194,9 @@ def test_router_topk_kernel_matches_plain(cuda, E, T):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("d", [2048, 4096, 5120, 7168])
 def test_unpermute_kernel_bitwise_plain(cuda, d, dtype):
-    """Weighted and folded, at the plan's tilings from one token to
-    training's 4096: bitwise equal to the plain version; NaN in the rows of
-    y that pos never names changes nothing."""
+    """Weighted and folded, from one token to training's 4096: bitwise
+    equal to the plain version; NaN in the rows of y that pos never names
+    changes nothing."""
     dt = DTYPES[dtype]
     g = torch.Generator(device=cuda).manual_seed(d)
     for T in (1, 2, 64, 4096):
