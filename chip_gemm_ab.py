@@ -20,9 +20,11 @@ k=6, d=5120, f=1536) under int8_expert at T=2 and T=64 (dynamic).  Each
 runs ``fused_gate_up`` and ``grouped_gemm`` (with the folded combine rows)
 of both trees in fp32 and bf16.  ``route``: ``router_topk`` at moonshot's,
 deepseek-v2's, mixtral-8x7b's (E=8) and deepseek-v3's (E=256, k=8,
-sigmoid) routers, and ``unpermute`` (folded, bf16 and fp32; weighted,
-bf16) at moonshot's and deepseek-v2's widths on the ``dynamic`` schedule,
-at T=2, 64 and 4096: the router's indices must equal the other tree's and
+sigmoid) routers, on random rows and on rows ordered by (e % 32, e //
+32), the most candidates of this tree's ranking, and ``unpermute`` (folded,
+bf16 and fp32; weighted, bf16) at moonshot's and deepseek-v2's widths on
+the ``dynamic`` schedule (of the random rows' picks), at T=2, 64 and 4096:
+the router's indices must equal the other tree's and
 the plain version's and its weights be within 1e-5 / 1e-6 of the plain
 version's (the max difference from the other tree is printed);
 ``unpermute`` must be bitwise equal to the other tree's and to the plain
@@ -142,11 +144,45 @@ def turns(a, b, replays: int) -> dict:
             "this": [t[1] * 1e3, t[2] * 1e3]}
 
 
+def route_ab(other, arch, s, kw, T, rows, logits, stream, smi, replays):
+    """B5 of both trees on ``logits``: held and timed in turns, one JSON
+    line; returns the plain version's (weights, indices)."""
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    w_o = torch.empty((T, s["k"]), dtype=torch.float32, device="cuda")
+    i_o = torch.empty((T, s["k"]), dtype=torch.int32, device="cuda")
+
+    def other_route():
+        _build.check(other.moe_router_topk(
+            logits.data_ptr(), w_o.data_ptr(), i_o.data_ptr(), T, s["E"],
+            s["k"], int(s["gating"] == "sigmoid"), int(s["norm_topk"]),
+            float(s["routed_scale"]), stream()), "other router_topk")
+        return w_o, i_o
+
+    def this_route():
+        return ops.router_topk(logits, top_k=s["k"], **kw)
+    w_b, i_b = this_route()
+    w_a, i_a = other_route()
+    w_p, i_p = ref.router_ref(logits, s["k"], **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(i_b, i_a) and torch.equal(i_b, i_p)):
+        sys.exit(f"chip_gemm_ab: router indices differ ({arch} T={T} "
+                 f"{rows})")
+    torch.testing.assert_close(w_b, w_p, rtol=1e-5, atol=1e-6)
+    row = {"arm": "route", "kernel": "router_topk", "arch": arch,
+           "E": s["E"], "k": s["k"], "T": T, "rows": rows, "card": smi,
+           "max_abs_diff": (w_b - w_a).abs().max().item(),
+           "bitwise_equal": bool(torch.equal(w_b, w_a)),
+           "us": turns(other_route, this_route, replays)}
+    print(json.dumps(row), flush=True)
+    return w_p, i_p
+
+
 def route_arm(other, smi: str, replays: int) -> None:
     """B5 and B4 of both trees: held (see the module's note) and timed in
     turns; one JSON line per shape."""
     import torch
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build
     from repro_torch.kernels import unpermute as unperm
     from repro_torch.scheduling import build_schedule
 
@@ -157,35 +193,14 @@ def route_arm(other, smi: str, replays: int) -> None:
                   routed_scale=s["routed_scale"])
         for T in ROUTE_TS:
             g = torch.Generator(device="cuda").manual_seed(T)
-            logits = torch.randn((T, s["E"]), generator=g, device="cuda")
-            w_o = torch.empty((T, s["k"]), dtype=torch.float32,
-                              device="cuda")
-            i_o = torch.empty((T, s["k"]), dtype=torch.int32, device="cuda")
-
-            def other_route():
-                _build.check(other.moe_router_topk(
-                    logits.data_ptr(), w_o.data_ptr(), i_o.data_ptr(), T,
-                    s["E"], s["k"], int(s["gating"] == "sigmoid"),
-                    int(s["norm_topk"]), float(s["routed_scale"]), stream()),
-                    "other router_topk")
-                return w_o, i_o
-
-            def this_route():
-                return ops.router_topk(logits, top_k=s["k"], **kw)
-            w_b, i_b = this_route()
-            w_a, i_a = other_route()
-            w_p, i_p = ref.router_ref(logits, s["k"], **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(i_b, i_a) and torch.equal(i_b, i_p)):
-                sys.exit(f"chip_gemm_ab: router indices differ ({arch} "
-                         f"T={T})")
-            torch.testing.assert_close(w_b, w_p, rtol=1e-5, atol=1e-6)
-            row = {"arm": "route", "kernel": "router_topk", "arch": arch,
-                   "E": s["E"], "k": s["k"], "T": T, "card": smi,
-                   "max_abs_diff": (w_b - w_a).abs().max().item(),
-                   "bitwise_equal": bool(torch.equal(w_b, w_a)),
-                   "us": turns(other_route, this_route, replays)}
-            print(json.dumps(row), flush=True)
+            e = torch.arange(s["E"], device="cuda")
+            worst = (3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)).expand(T, -1)
+            route_ab(other, arch, s, kw, T, "most_candidates",
+                     worst.contiguous(), stream, smi, replays)
+            w_p, i_p = route_ab(other, arch, s, kw, T, "random",
+                                torch.randn((T, s["E"]), generator=g,
+                                            device="cuda"),
+                                stream, smi, replays)
             if arch not in SHAPES:
                 continue
             sched = build_schedule(i_p, s["E"], s["M"], policy="dynamic")

@@ -623,8 +623,9 @@ def check_unpermute_weighted(c: Case) -> None:
 def router_logits(T: int, E: int, k: int, seed: int, special: bool):
     """(T, E) fp32 logits on the card.  ``special``: the first rows are an
     all-equal row, a row whose k-th place is a tie of three, -inf on every
-    third expert, -inf but for a quarter of the experts (tied at 1.0), and
-    coarse values with many ties."""
+    third expert, -inf but for a quarter of the experts (tied at 1.0),
+    coarse values with many ties, and the row of most candidates
+    (``most_candidates``)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((max(T, 6), E), generator=g)
@@ -638,12 +639,24 @@ def router_logits(T: int, E: int, k: int, seed: int, special: bool):
         x[3] = float("-inf")
         x[3, top[:max(1, E // 4)]] = 1.0
         x[4] = torch.round(x[4] * 2) / 2
+        x[5] = most_candidates(1, E)[0]
     return x[:T].contiguous().cuda()
 
 
+def most_candidates(T: int, E: int):
+    """(T, E) logits ordered by (e % 32, e // 32): every key of the k - 1
+    lanes that hold the largest is a candidate of B5's ranking, (k-1) *
+    E/32 + 1 of them past 32 experts (about k + 1 on random rows)."""
+    import torch
+    e = torch.arange(E)
+    return (3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)).expand(T, -1) \
+        .contiguous()
+
+
 def check_router(arch: str, T: int, errs: dict) -> None:
-    """B5 on rows of ties, equal scores and -inf against its plain version:
-    indices equal, weights within 1e-5 / 1e-6, two calls bitwise equal."""
+    """B5 on rows of ties, equal scores, -inf and the most candidates
+    against its plain version: indices equal, weights within 1e-5 / 1e-6,
+    two calls bitwise equal."""
     import torch
     from repro_torch.kernels import ops, ref
     s = ROUTERS[arch]
@@ -676,9 +689,13 @@ def time_router(arch: str, T: int) -> dict:
     kw = dict(gating=s["gating"], norm_topk=s["norm_topk"],
               routed_scale=s["routed_scale"])
     logits = router_logits(T, s["E"], s["k"], seed=1000 + T, special=False)
-    e = torch.arange(s["E"], device="cuda")
-    worst = (3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)).expand(T, -1)
-    worst = worst.contiguous()
+    worst = most_candidates(T, s["E"]).cuda()
+    w, i = ops.router_topk(worst, top_k=s["k"], **kw)
+    w_p, i_p = ref.router_ref(worst, s["k"], **kw)
+    if not torch.equal(i, i_p):
+        raise AssertionError(f"router indices differ on the most "
+                             f"candidates ({arch} T={T})")
+    torch.testing.assert_close(w, w_p, rtol=1e-5, atol=1e-6)
 
     def kern():
         return ops.router_topk(logits, top_k=s["k"], **kw)
@@ -1163,6 +1180,9 @@ MLA_SHAPES = {
     "long": (MLA_ATTN, [(0, 8191), (1, 6143)], 512, 2),
     "batched": (MLA_ATTN, [(s, 2047) for s in range(32)], 128, 32),
 }
+# decode over 64-position pool blocks (an engine's kv_block_size=64), held
+# and timed beside MLA_SHAPES
+MLA_DECODE_BS64 = (dict(MLA_ATTN, bs=64), paged_rows("decode"), 4, 2)
 
 
 def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
@@ -1336,8 +1356,10 @@ class MLACase(PagedCase):
 
 def check_mla(errs: dict) -> None:
     """The MLA kernels (bf16: the Hopper kernel; fp32: the CUDA-core one) at
-    each of MLA_SHAPES and at decode with 120 heads (not a multiple of the
-    64-head tile), vector and scalar kv_limit, blocks past kv_limit
+    each of MLA_SHAPES, at decode with 120 heads (not a multiple of the
+    64-head tile) and at decode over 64-position pool blocks (a pool block
+    a tile; the fp32 kernel walks it in two chunks), vector and scalar
+    kv_limit, blocks past kv_limit
     poisoned as in ``check_attention``, and the last row at kv_limit -1,
     which must come out as exact zeros."""
     import torch
@@ -1347,6 +1369,7 @@ def check_mla(errs: dict) -> None:
               for kind, (attn, rows, nb, slots) in MLA_SHAPES.items()]
     shapes.append(("decode", dict(MLA_ATTN, G=120), paged_rows("decode"), 8,
                    2))
+    shapes.append(("decode bs64", *MLA_DECODE_BS64))
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).replace("torch.", "")]
         for kind, attn, rows, nb, slots in shapes:
@@ -1397,15 +1420,15 @@ def mla_library_call(c: MLACase):
                   "view, one KV head (enable_gqa), excludes the gather")
 
 
-def time_mla(kind: str) -> dict:
+def time_mla(kind: str, shape=None) -> dict:
     """Kernel, plain and SDPA-yardstick times of the MLA kernel at
-    MLA_SHAPES[kind] (bf16, deepseek's shape), with both halves of the
-    bound and the kernel's split plan."""
+    MLA_SHAPES[kind] or ``shape`` (bf16, deepseek's shape), with both
+    halves of the bound and the kernel's split plan."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention as kern, paged_decode_attention_plain as plain,
         mla_split_plan)
-    attn, rows, nb, slots = MLA_SHAPES[kind]
+    attn, rows, nb, slots = shape or MLA_SHAPES[kind]
     c = MLACase(attn, rows, torch.bfloat16, seed=19, nb=nb, slots=slots)
     B = c.q.shape[0]
     big = B * (max(c.lims) + 1) > 4096             # long rows: fewer calls
@@ -2161,6 +2184,7 @@ def main() -> None:
     paged_t = {k: time_paged(k) for k in PAGED_SHAPES}
     check_mla(errs)
     mla_t = {k: time_mla(k) for k in MLA_SHAPES}
+    mla_t["decode bs64"] = time_mla("decode bs64", MLA_DECODE_BS64)
     # B5 alone at every router, then timed at mixtral's and deepseek-v3's
     # (moonshot's and deepseek-v2's are timed in their Cases); the floor
     for arch in ROUTERS:

@@ -337,7 +337,7 @@ int launch_hopper(const void* x, const void* w0, const void* w1,
     return (int)cudaErrorInvalidValue;
   constexpr int smem = St::R::SMEM;
   const int most = hopper::max_tiles(capacity, E) * ((N + St::BN - 1) / St::BN);
-  const int grid = most < hopper::num_sms() ? most : hopper::num_sms();
+  const int grid = most < moe_num_sms() ? most : moe_num_sms();
   auto* kernel = fwd_hopper_kernel<FUSED>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -538,7 +538,7 @@ int launch_quant(const void* x, const void* q0, const void* q1,
   constexpr int smem = St::R::SMEM + 2 * 128 * 4;
   static_assert(smem <= 232448, "shared memory");
   const int most = hopper::max_tiles(capacity, E) * ((N + QBN - 1) / QBN);
-  const int grid = most < hopper::num_sms() ? most : hopper::num_sms();
+  const int grid = most < moe_num_sms() ? most : moe_num_sms();
   auto* kernel = fwd_quant_kernel<FUSED, FMT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -230,7 +230,7 @@ int launch_hopper(const void* x, const void* w, hopper::WorkLists lists,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
   const int most = hopper::max_tiles(capacity, E) * ((N + BN - 1) / BN);
-  const int grid = most < hopper::num_sms() ? most : hopper::num_sms();
+  const int grid = most < moe_num_sms() ? most : moe_num_sms();
   kernel<<<grid, hopper::THREADS, smem, s>>>(x256, x128, wmap, out64, out8,
                                              lists.tiles, lists.count, K, N);
   return moe_last_error();

@@ -253,7 +253,7 @@ int launch_wgrad_hopper(const void* x, const void* dy, const int2* runs,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
   const int items = E * ((K + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int grid = items < hopper::num_sms() ? items : hopper::num_sms();
+  const int grid = items < moe_num_sms() ? items : moe_num_sms();
   kernel<<<grid, hopper::THREADS, smem, s>>>(x64, x8, dy64, dy8, omap,
                                              runs, K, N, E, capacity);
   return moe_last_error();

@@ -411,20 +411,6 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int rank,
                     box);
 }
 
-// SMs of the current device (cached per device)
-inline int num_sms() {
-  static int cache[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (cache[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = n > 0 ? n : 132;
-  }
-  return cache[dev];
-}
-
 // ----------------------------------------------------- the work lists
 // Scratch of the work lists (int32 words, allocated by the wrapper as
 // kernels/expert_tiles.py's scratch() sizes it): the tiles (int4 each:

@@ -76,7 +76,8 @@
 // tiles of 64 positions, a ring of two tiles in shared memory.  Warp 0
 // fills the ring by TMA: each pool block's bs rows of each 64-column group
 // are one box (3-D maps of the two pools; the block's row is tables[b, j]
-// x bs), so any bs <= 32 tiles 64 positions, and entries past the split
+// x bs), so any bs <= 64 tiles 64 positions (bs <= 32 where the tiles are
+// of 32), and entries past the split
 // load a box past the pool's end, which TMA fills with zeros.  The q tile
 // (64 x 576) comes in once, and is scaled in shared memory.  The two
 // warpgroups each compute the scores of half the tile's positions for all
@@ -105,11 +106,12 @@
 // head where 16-head tiles would leave most SMs idle, as at decode); each
 // head's query share and accumulator stay in registers: lane l holds the
 // pairs 2(l + 32i) of [q | q2] and of the accumulator.  Shared memory holds
-// (bs, D + D2) tiles, each position's latent row followed by its rope key,
-// read as key and value; they are double-buffered, the next pool block's
+// tiles of a pool block's positions, 32 at most (a block of bs > 32 is
+// walked in chunks of 32), each position's latent row followed by its rope
+// key, read as key and value; they are double-buffered, the next chunk's
 // tile streaming in with cp.async while this one is consumed.  A lane keeps
-// one position's score (bs <= 32), so the online softmax of a warp's heads
-// runs in the warp.
+// one position's score, so the online softmax of a warp's heads runs in the
+// warp.
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -547,20 +549,24 @@ constexpr int MLA_WARPS = 8;
 constexpr int MLA_THREADS = MLA_WARPS * 32;
 constexpr int MLA_QP = 9;    // pairs of [q | q2] per lane: D + D2 <= 576
 constexpr int MLA_VP = 8;    // pairs of the accumulator per lane: D <= 512
-constexpr int MLA_MAX_BS = 32;                  // one position per lane
+// pool blocks of up to 64 positions: the bf16 kernel's tile (where its
+// row has at most nine 64-column groups, else 32); the fp32 kernel walks a
+// block in chunks of at most MLA_CHUNK positions, one a lane
+constexpr int MLA_MAX_BS = 64;
+constexpr int MLA_CHUNK = 32;
 
-// Start copying pool block blk's (bs, D) latent rows and (bs, D2) rope keys
-// for head h into one (bs, D + D2) shared tile, 16 bytes a copy; the
-// caller commits the group and waits for it.
+// Start copying positions [c0, c0 + nc) of pool block blk's latent rows and
+// rope keys for head h into one (nc, D + D2) shared tile, 16 bytes a copy;
+// the caller commits the group and waits for it.
 template <typename T>
 __device__ __forceinline__ void issue_latent_tile(
     T* dst, const T* __restrict__ kv_pool, const T* __restrict__ k2_pool,
-    size_t blk, int h, int Hkv, int bs, int D, int D2) {
+    size_t blk, int c0, int nc, int h, int Hkv, int bs, int D, int D2) {
   constexpr int EPV = 16 / sizeof(T);
   const int Dt = D + D2, vpr = Dt / EPV;
-  for (int v = threadIdx.x; v < bs * vpr; v += MLA_THREADS) {
+  for (int v = threadIdx.x; v < nc * vpr; v += MLA_THREADS) {
     const int kk = v / vpr, c = (v % vpr) * EPV;
-    const size_t row = (blk * bs + kk) * Hkv + h;
+    const size_t row = (blk * bs + c0 + kk) * Hkv + h;
     cp_async16(dst + kk * Dt + c, c < D ? kv_pool + row * D + c
                                         : k2_pool + row * D2 + (c - D));
   }
@@ -580,7 +586,7 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
                            float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Dt = D + D2;
-  T* sK = reinterpret_cast<T*>(smem);   // 2 x (bs, D + D2), double-buffered
+  T* sK = reinterpret_cast<T*>(smem);   // 2 x (chunk, D + D2), double-buffered
   const int b = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g0 = (blockIdx.z * MLA_WARPS + warp) * HPW;  // the warp's heads
@@ -588,14 +594,17 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
   const int qp = (causal || has_window) ? q_pos[b] : 0;
   const size_t row0 = ((size_t)b * Hkv + h) * G;
   const int* trow = tables + (size_t)b * nb;
-  // blocks past the one holding kv_limit contribute nothing
+  // blocks past the one holding kv_limit contribute nothing; each block is
+  // walked in cpb chunks of at most MLA_CHUNK positions
   const int n_used = lim < 0 ? 0 : min(nb, lim / bs + 1);
-  if (n_used > 0) {
-    issue_latent_tile(sK, kv_pool, k2_pool, (size_t)trow[0], h, Hkv, bs, D,
-                      D2);
+  const int chunk = min(bs, MLA_CHUNK), cpb = (bs + chunk - 1) / chunk;
+  const int n_chunks = n_used * cpb;
+  if (n_chunks > 0) {
+    issue_latent_tile(sK, kv_pool, k2_pool, (size_t)trow[0], 0, chunk, h,
+                      Hkv, bs, D, D2);
     cp_async_commit();
   }
-  int blk_next = n_used > 1 ? trow[1] : 0;
+  int blk_next = n_chunks > 1 ? trow[1 / cpb] : 0;
 
   // this lane's pairs of each head's [q | q2]; heads past G hold zeros.
   // Addresses are clamped in bounds so that every load is unconditional.
@@ -623,15 +632,19 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
     for (int i = 0; i < MLA_VP; ++i) acc[j][i] = make_float2(0.f, 0.f);
   }
 
-  for (int jb = 0; jb < n_used; ++jb) {
-    const T* tile = sK + (jb & 1) * bs * Dt;
+  for (int u = 0; u < n_chunks; ++u) {
+    // chunk u: positions [c0, c0 + nc) of the table's block jb
+    const int jb = u / cpb, c0 = (u % cpb) * chunk, nc = min(chunk, bs - c0);
+    const T* tile = sK + (u & 1) * chunk * Dt;
     // the next tile streams in while this one is consumed; the table
-    // entry after it is read one block ahead
-    if (jb + 1 < n_used) {
-      issue_latent_tile(sK + ((jb + 1) & 1) * bs * Dt, kv_pool, k2_pool,
-                        (size_t)blk_next, h, Hkv, bs, D, D2);
+    // entry after it is read one chunk ahead
+    if (u + 1 < n_chunks) {
+      const int c1 = ((u + 1) % cpb) * chunk;
+      issue_latent_tile(sK + ((u + 1) & 1) * chunk * Dt, kv_pool, k2_pool,
+                        (size_t)blk_next, c1, min(chunk, bs - c1), h, Hkv,
+                        bs, D, D2);
       cp_async_commit();
-      blk_next = jb + 2 < n_used ? trow[jb + 2] : 0;
+      blk_next = u + 2 < n_chunks ? trow[(u + 2) / cpb] : 0;
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -643,7 +656,7 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
 #pragma unroll
     for (int j = 0; j < HPW; ++j) s_pos[j] = kNegInf;
 #pragma unroll 2
-    for (int kk = 0; kk < bs; ++kk) {
+    for (int kk = 0; kk < nc; ++kk) {
       const T* krow = tile + kk * Dt;
       float2 kv[MLA_QP];
 #pragma unroll
@@ -663,8 +676,8 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
     }
 
     // online softmax over this block, in the warp
-    const bool ok = lane < bs && attended(jb * bs + lane, lim, qp, causal,
-                                          has_window, window);
+    const bool ok = lane < nc && attended(jb * bs + c0 + lane, lim, qp,
+                                          causal, has_window, window);
     float p_pos[HPW];
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
@@ -686,7 +699,7 @@ paged_attention_mla_kernel(const T* __restrict__ q, const T* __restrict__ q2,
 
     // acc += p @ V, V the tile's latent rows; p rounded to V's dtype
 #pragma unroll 2
-    for (int kk = 0; kk < bs; ++kk) {
+    for (int kk = 0; kk < nc; ++kk) {
       const T* vrow = tile + kk * Dt;
       float2 v[MLA_VP];
 #pragma unroll
@@ -728,7 +741,7 @@ int launch_mla_tiles(const void* q, const void* q2, const void* kv_pool,
                      int B, int Hkv, int G, int D, int D2, int bs, int nb,
                      int causal, int has_window, int window, float softcap,
                      cudaStream_t s) {
-  const size_t smem = 2 * (size_t)bs * (D + D2) * sizeof(T);
+  const size_t smem = 2 * (size_t)min(bs, MLA_CHUNK) * (D + D2) * sizeof(T);
   auto* kernel = paged_attention_mla_kernel<T, HPW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -755,7 +768,7 @@ int launch_mla(const void* q, const void* q2, const void* kv_pool,
                const void* q_pos, void* out, int B, int Hkv, int G, int D,
                int D2, int bs, int nb, int causal, int has_window, int window,
                float softcap, cudaStream_t s) {
-  const int sms = hopper::num_sms();
+  const int sms = moe_num_sms();
   const long blocks16 = (long)B * Hkv * ((G + 2 * MLA_WARPS - 1) /
                                          (2 * MLA_WARPS));
   if (blocks16 >= sms)
@@ -1270,6 +1283,7 @@ int launch(const void* q, const void* q2, const void* kv_pool,
                        per_split, n_split, causal, has_window, window,       \
                        softcap, s)
   if (groups(D, D2) <= 9) return MOE_MLA_LAUNCH(64, 9);
+  if (bs > 32) return (int)cudaErrorInvalidValue;   // a block a tile at most
   return MOE_MLA_LAUNCH(32, 10);
 #undef MOE_MLA_LAUNCH
 }

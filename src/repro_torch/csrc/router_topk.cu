@@ -28,14 +28,24 @@
 //     tau, prunes the row: the k lane maxima at or above it outrank every
 //     key below it, so only keys >= tau (about k of them) can be picked,
 //     and a key's rank among those is its rank in the row.  The lane maxima
-//     are ranked (32 compares), the keys >= tau are compacted by ballot into
-//     shared memory, and every lane counts its keys' larger candidates:
-//     32 + (E/32) * n compares.  Only the k lanes whose maxima reach tau
-//     hold candidates, so n <= k * E/32; on random logits n is about k + 1
-//     (and exactly k on a row of equal scores, whose keys order by expert).
-//     This replaces splitting a row across the warps of a block, which
-//     would have cut the compares by the number of warps at the cost of a
-//     block barrier and cross-warp reductions.
+//     are ranked (32 compares), the n keys >= tau are compacted by ballot
+//     into shared memory, and each lane ranks candidates lane, lane + 32,
+//     ... against all n: 32 + ceil(n/32) * n compares a lane.  Only the k
+//     lanes whose maxima reach tau hold candidates, and of the k-th only
+//     tau itself, so n <= (k-1) * E/32 + 1 (57 at E=256 k=8, where every
+//     key of the k-1 leading lanes outranks tau: 114 compares, not the 456
+//     of ranking every key of a lane); on random logits n is about k + 1,
+//     one pass of n compares (and exactly k on a row of equal scores, whose
+//     keys order by expert).  The picks go to shared memory by rank, and
+//     lane j < k stores pick j.  This replaces splitting a row across the
+//     warps of a block, which would have cut the compares by the number of
+//     warps at the cost of a block barrier and cross-warp reductions.
+// Measured against the k argmax rounds (chip_gemm_ab.py --arms route, H100
+// 80GB HBM3 at 700 W, device us at T=2 / 4096): E=8 k=2 2.6 / 4.6 -> 1.7 /
+// 1.8; E=64 k=6 4.2 / 9.1 -> 2.1 / 3.8; E=160 k=6 4.2 / 9.0 -> 2.5 / 4.5;
+// E=256 k=8 5.0 / 11.5 -> 2.7 / 5.7, and on the rows of most candidates
+// 5.0 / 11.4 -> 4.0 / 9.2.  The ranking is faster at every E timed, so the
+// rounds are gone.
 // The gating arithmetic is the first port's, in the same order (a lane's
 // scores summed in c order, then the xor butterfly; padding adds exact
 // zeros): scores, picks and weights are its bits.  expf and IEEE division
@@ -142,6 +152,7 @@ __global__ void router_wide_kernel(const float* __restrict__ logits,
   __shared__ Key cand[kWarps][kMaxE];
   __shared__ Key lane_max[kWarps][32];
   __shared__ float slot[kWarps][kMaxTopK];
+  __shared__ int slot_e[kWarps][kMaxTopK];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = blockIdx.x * kWarps + warp;
   if (t >= T) return;
@@ -203,33 +214,26 @@ __global__ void router_wide_kernel(const float* __restrict__ logits,
     n += __popc(ballot);
   }
   __syncwarp();
-  // each key's rank among the candidates: its rank in the row where it is
-  // a candidate, and >= n >= k where it is not
-  int rank[PER];
-#pragma unroll
-  for (int c = 0; c < PER; ++c) rank[c] = 0;
-  for (int j = 0; j < n; ++j) {
-    const Key o = cand[warp][j];
-#pragma unroll
-    for (int c = 0; c < PER; ++c) rank[c] += o > kk[c];
-  }
-#pragma unroll
-  for (int c = 0; c < PER; ++c) {
-    if (rank[c] < k) {
-      i_out[(size_t)t * k + rank[c]] = key_expert(kk[c]);
-      slot[warp][rank[c]] = key_score(kk[c]);
+  // each candidate's rank among the candidates, which is its rank in the
+  // row; those ranked below k go to their slots
+  for (int i = lane; i < n; i += 32) {
+    const Key key = cand[warp][i];
+    int rank = 0;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) rank += cand[warp][j] > key;
+    if (rank < k) {
+      slot[warp][rank] = key_score(key);
+      slot_e[warp][rank] = key_expert(key);
     }
   }
   __syncwarp();
-  // one divisor for the row, then every key's weight without a branch
+  // one divisor for the row; lane j < k stores pick j
   const float tot = norm_topk ? slot_sum(slot[warp], k) : 1.f;
-  float wt[PER];
-#pragma unroll
-  for (int c = 0; c < PER; ++c)
-    wt[c] = finish_weight(key_score(kk[c]), tot, norm_topk, routed_scale);
-#pragma unroll
-  for (int c = 0; c < PER; ++c)
-    if (rank[c] < k) w_out[(size_t)t * k + rank[c]] = wt[c];
+  if (lane < k) {
+    i_out[(size_t)t * k + lane] = slot_e[warp][lane];
+    w_out[(size_t)t * k + lane] = finish_weight(slot[warp][lane], tot,
+                                                norm_topk, routed_scale);
+  }
 }
 
 template <int L>

@@ -79,13 +79,7 @@ MOE_API int moe_unpermute(const void* y, const void* pos, const void* weights,
                           void* out, int T, int k, int d, int dtype,
                           void* stream) {
   if (T == 0) return moe_last_error();
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int vecs = d / 8, most = T < sms ? 1024 : 256;
+  const int vecs = d / 8, most = T < moe_num_sms() ? 1024 : 256;
   const int threads = vecs >= most ? most : ((vecs + 31) / 32) * 32;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kBF16) {

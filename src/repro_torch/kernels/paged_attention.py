@@ -318,15 +318,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                    f"paged attention takes (n_blocks, bs, {Hkv}, D) pools")
     _build.require(k_pool.is_contiguous() and v_pool.is_contiguous(),
                    "paged attention takes contiguous pools")
-    _build.require(D % 8 == 0 and Dv % 8 == 0 and 0 < D <= GQA_MAX_WIDTH
-                   and 0 < Dv <= GQA_MAX_WIDTH,
-                   f"paged attention loads 16-byte vectors and holds at most "
-                   f"{GQA_MAX_WIDTH} columns a head: D={D} and Dv={Dv} must "
-                   f"be multiples of 8 up to {GQA_MAX_WIDTH}")
+    refusal = fused_read_refusal(bs, D, Dv, q.element_size())
+    _build.require(refusal is None, refusal)
     warps = min(Hkv, gqa_warps(bs, D, Dv, q.element_size()))
-    _build.require(warps > 0, f"paged attention keeps two (bs, D + Dv) "
-                   f"tiles a warp in {GQA_SMEM_BYTES} bytes: bs={bs}, "
-                   f"D={D}, Dv={Dv} in {q.dtype} do not fit")
     _require_rows(tables, lim, qp, B)
     qc = q.contiguous()            # the kernel scales it in q's dtype
     out = torch.empty((B, Hkv, G, Dv), dtype=q.dtype, device=q.device)
@@ -357,9 +351,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 # the MLA kernels' limits (csrc/paged_attention.cu): the fp32 one holds a
-# lane's share of a head's [q | q2] and of its accumulator in registers, and
-# one position of a pool block a lane; the bf16 one takes the same shapes
-MLA_MAX_QK, MLA_MAX_V, MLA_MAX_BLOCK = 576, 512, 32
+# lane's share of a head's [q | q2] and of its accumulator in registers; the
+# bf16 one takes the same widths, and pool blocks of at most one of its
+# tiles (mla_tile), whose TMA boxes are a pool block's rows
+MLA_MAX_QK, MLA_MAX_V = 576, 512
 # the bf16 kernel: a thread block takes MLA_HEADS query heads (wgmma's M)
 # of one (row, KV head) and walks its split in tiles of mla_tile() positions
 MLA_HEADS = 64
@@ -371,19 +366,35 @@ MLA_HEADS = 64
 MLA_SPLIT_FIXED, MLA_MERGE_COST, MLA_PARTIAL_PER_WALK = 3, 1, 4
 
 
-def fused_read_takes(bs: int, D: int, Dv: int, itemsize: int,
-                     D2: Optional[int] = None) -> bool:
-    """Whether the fused paged read's kernels take a pool of ``bs``-position
-    blocks: GQA heads of ``D`` key and ``Dv`` value columns of ``itemsize``
-    bytes, or with ``D2`` the MLA kernels' latent of ``D`` (also the value)
-    and rope key of ``D2``.  The kernels' wrappers refuse the rest; the
-    gather path and the reference take every shape."""
+def fused_read_refusal(bs: int, D: int, Dv: int, itemsize: int,
+                       D2: Optional[int] = None) -> Optional[str]:
+    """Why the fused paged read's kernels refuse a pool of ``bs``-position
+    blocks, or None where they take it: GQA heads of ``D`` key and ``Dv``
+    value columns of ``itemsize`` bytes, or with ``D2`` the MLA kernels'
+    latent of ``D`` (also the value) and rope key of ``D2``.  The kernels'
+    wrappers raise with it; the gather path and the reference take every
+    shape."""
     if D2 is not None:
-        return (0 < bs <= MLA_MAX_BLOCK and D % 8 == 0 and D2 % 8 == 0
-                and D + D2 <= MLA_MAX_QK and D <= MLA_MAX_V)
-    return (D % 8 == 0 and Dv % 8 == 0 and 0 < D <= GQA_MAX_WIDTH
-            and 0 < Dv <= GQA_MAX_WIDTH
-            and gqa_warps(bs, D, Dv, itemsize) > 0)
+        if not (0 < D and D % 8 == 0 and D2 % 8 == 0 and D + D2 <= MLA_MAX_QK
+                and D <= MLA_MAX_V):
+            return (f"the MLA kernel takes D and D2 multiples of 8 with D "
+                    f"<= {MLA_MAX_V} and D + D2 <= {MLA_MAX_QK}, not {D}, "
+                    f"{D2}")
+        if not 0 < bs <= mla_tile(D, D2):
+            return (f"the MLA kernel takes blocks of at most "
+                    f"{mla_tile(D, D2)} positions at D={D}, D2={D2}, not "
+                    f"{bs}")
+        return None
+    if not (D % 8 == 0 and Dv % 8 == 0 and 0 < D <= GQA_MAX_WIDTH
+            and 0 < Dv <= GQA_MAX_WIDTH):
+        return (f"paged attention loads 16-byte vectors and holds at most "
+                f"{GQA_MAX_WIDTH} columns a head: D={D} and Dv={Dv} must be "
+                f"multiples of 8 up to {GQA_MAX_WIDTH}")
+    if gqa_warps(bs, D, Dv, itemsize) <= 0:
+        return (f"paged attention keeps two (bs, D + Dv) tiles a warp in "
+                f"{GQA_SMEM_BYTES} bytes: bs={bs}, D={D}, Dv={Dv} of "
+                f"{itemsize}-byte elements do not fit")
+    return None
 
 
 def mla_tile(D: int, D2: int) -> int:
@@ -517,13 +528,8 @@ def _launch_mla(q, q2, kv_pool, v_pool, k2_pool, tables, lim, *, scale,
                    f"(n_blocks, bs, {Hkv}, {D2}) pools")
     _build.require(kv_pool.is_contiguous() and k2_pool.is_contiguous(),
                    "paged attention takes contiguous pools")
-    _build.require(D % 8 == 0 and D2 % 8 == 0 and D + D2 <= MLA_MAX_QK
-                   and D <= MLA_MAX_V,
-                   f"the MLA kernel takes D and D2 multiples of 8 with D <= "
-                   f"{MLA_MAX_V} and D + D2 <= {MLA_MAX_QK}, not {D}, {D2}")
-    _build.require(0 < bs <= MLA_MAX_BLOCK,
-                   f"the MLA kernel takes blocks of at most {MLA_MAX_BLOCK} "
-                   f"positions, not {bs}")
+    refusal = fused_read_refusal(bs, D, D, q.element_size(), D2=D2)
+    _build.require(refusal is None, refusal)
     _require_rows(tables, lim, q_pos, B)
     _build.require(nb > 0, "the MLA kernel takes tables of at least one "
                    "entry")

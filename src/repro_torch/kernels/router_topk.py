@@ -66,8 +66,8 @@ def router_topk_walk(logits: torch.Tensor, top_k: int, *,
     one key (the score's bits over ~expert, so equal scores order by the
     lower expert), the k largest keys by rank; past 32 experts only the keys
     at or above tau, the k-th largest of the 32 lanes' largest keys, are
-    ranked, among themselves.  Renormalises by the k weights summed in slot
-    order.  Same result as ``router_topk_plain``."""
+    candidates, each ranked among the candidates.  Renormalises by the k
+    weights summed in slot order.  Same result as ``router_topk_plain``."""
     scores = _gate(logits, gating)
     T, E = scores.shape
     lanes, per = router_layout(E)
@@ -87,13 +87,14 @@ def router_topk_walk(logits: torch.Tensor, top_k: int, *,
         assert tau.shape == (T,)
         cand = torch.where(keys >= tau[:, None, None], keys, -1).reshape(T,
                                                                           -1)
-    flat = keys.reshape(T, -1)
-    rank = (cand[:, None, :] > flat[:, :, None]).sum(-1)
-    pick = rank < top_k
+        n = (cand >= 0).sum(-1)
+        assert (n <= (top_k - 1) * per + 1).all()
+    rank = (cand[:, None, :] > cand[:, :, None]).sum(-1)
+    pick = (cand >= 0) & (rank < top_k)
     assert (pick.sum(-1) == top_k).all()
     order = torch.argsort(torch.where(pick, rank, top_k), dim=-1,
                           stable=True)[:, :top_k]
-    chosen = flat.gather(-1, order)
+    chosen = cand.gather(-1, order)
     indices = (0xFFFFFFFF - (chosen & 0xFFFFFFFF)).to(torch.int32)
     weights = (chosen >> 32).to(torch.int32).view(torch.float32)
     if norm_topk:

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
-from repro_torch.kernels.paged_attention import fused_read_takes
+from repro_torch.kernels.paged_attention import fused_read_refusal
 from repro_torch.models.attention import (Attention, attention, paged_decode,
                                           project_qkv, write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
@@ -53,9 +53,9 @@ class RunConfig(NamedTuple):
                                      # the engine quantizes at load)
     paged_attn: str = "auto"         # paged decode read path:
                                      # auto   = fused kernel iff the executor
-                                     #          is cuda and the kernel takes
-                                     #          the pool's shapes, else
-                                     #          gather
+                                     #          is cuda (which raises on a
+                                     #          pool shape it refuses),
+                                     #          else gather
                                      # fused  = the paged-attention kernel
                                      # gather = gather_block_kv + attention
                                      #          (the oracle)
@@ -222,25 +222,35 @@ def swap_cache_slots(cache, i: int, j: int):
 # Forward
 # ----------------------------------------------------------------------
 def paged_fused(rc: RunConfig, pool: Optional[dict] = None) -> bool:
-    """Whether the paged read runs the fused kernel (``rc.paged_attn``).
-    ``auto`` runs it on the ``cuda`` executor where its kernels take the
-    block pool's shapes (``pool``: one layer's ``{"k", "v"}`` or MLA's
-    ``{"ckv", "kr"}``), and the gather elsewhere; ``fused`` runs it on any
-    shape, and the kernel's wrapper raises on one it refuses."""
+    """Whether the paged read runs the fused kernel (``rc.paged_attn``):
+    ``auto`` runs it on the ``cuda`` executor and the gather elsewhere.
+    Where its kernels refuse the block pool's shapes (``pool``: one layer's
+    ``{"k", "v"}`` or MLA's ``{"ckv", "kr"}``), ``auto`` on ``cuda`` raises
+    before the step, naming the shape; ``fused`` raises in the kernel's
+    wrapper.  Neither falls back to the gather."""
     if rc.paged_attn not in ("auto", "fused", "gather"):
         raise ValueError(f"RunConfig.paged_attn={rc.paged_attn!r}; "
                          "expected auto | fused | gather")
     if rc.paged_attn != "auto":
         return rc.paged_attn == "fused"
-    if rc.executor != "cuda" or pool is None:
+    if rc.executor != "cuda":
         return False
-    if "ckv" in pool:
-        ckv, kr = pool["ckv"], pool["kr"]
-        return fused_read_takes(ckv.shape[1], ckv.shape[2], ckv.shape[2],
-                                ckv.element_size(), D2=kr.shape[2])
-    k, v = pool["k"], pool["v"]
-    return fused_read_takes(k.shape[1], k.shape[3], v.shape[3],
-                            k.element_size())
+    if pool is not None:
+        if "ckv" in pool:
+            ckv, kr = pool["ckv"], pool["kr"]
+            refusal = fused_read_refusal(ckv.shape[1], ckv.shape[2],
+                                         ckv.shape[2], ckv.element_size(),
+                                         D2=kr.shape[2])
+        else:
+            k, v = pool["k"], pool["v"]
+            refusal = fused_read_refusal(k.shape[1], k.shape[3], v.shape[3],
+                                         k.element_size())
+        if refusal is not None:
+            raise ValueError(f"paged_attn='auto' reads the pool with the "
+                             f"fused kernels on the cuda executor, and "
+                             f"{refusal}; serve this pool with "
+                             f"paged_attn='gather'")
+    return True
 
 
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,

@@ -219,14 +219,17 @@ def test_paged_attention_no_host_sync(cuda):
                                             (20, 128, 512, 64, 16, 3),
                                             (5, 20, 512, 64, 16, 4),
                                             (3, 4, 32, 8, 4, 5),
-                                            (4, 20, 64, 16, 32, 3)])
+                                            (4, 20, 64, 16, 32, 3),
+                                            (3, 128, 512, 64, 64, 4),
+                                            (4, 20, 64, 16, 48, 3)])
 def test_paged_attention_mla_kernel_matches_plain(cuda, B, G, D, D2, bs, nb,
                                                   dtype):
     """The MLA kernels (q2 against the rope-key pool, the latent pool as key
     and value) against their plain version: head counts that are and are
     not multiples of the bf16 kernel's 64-head tiles and of the fp32 one's
     8- and 16-head tiles (B=20 x 128 heads fills the card with 16-head
-    tiles), blocks of 4 to 32 positions, vector and scalar kv_limit,
+    tiles), blocks of 4 to 64 positions (the fp32 kernel walks blocks of
+    more than 32 in chunks), vector and scalar kv_limit,
     masks, and NaN in whole blocks past kv_limit leaking nothing."""
     dt = DTYPES[dtype]
     g = torch.Generator(device=cuda).manual_seed(G + D)
@@ -316,7 +319,9 @@ def test_paged_attention_mla_kernel_long_and_batched(cuda, lims, nb, dtype):
     # divide them, and leaves rows of every tile unloaded
     ([200, 90, -1], 24, 20, 12, 488, 88), ([150, 40], 16, 72, 8, 8, 568),
     # the reduced deepseek's widths: groups zero-padded to nine
-    ([60, 7], 10, 4, 8, 32, 8)])
+    ([60, 7], 10, 4, 8, 32, 8),
+    # a pool block a tile: 64 positions, and 48 (16 rows of a tile unloaded)
+    ([700, 100, -1], 12, 128, 64, 512, 64), ([300, 47], 8, 20, 48, 64, 8)])
 def test_paged_attention_mla_kernel_matches_walk(cuda, lims, nb, G, bs, D,
                                                  D2):
     """The bf16 kernel against the plain model of its own walk (the card's
@@ -1151,7 +1156,8 @@ def router_logits(dev, T: int, E: int, k: int, seed: int):
     """(T, E) fp32 logits: after a random row, an all-equal row, a row
     whose k-th place is a tie of three, -inf on every third expert, -inf
     all but a quarter of the experts (tied at 1.0), coarse values with many
-    ties; random rows after that."""
+    ties, a row ordered by (e % 32, e // 32), which gives the ranking its
+    most candidates; random rows after that."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((max(T, 8), E), generator=g)
     x[1] = 0.25
@@ -1163,6 +1169,8 @@ def router_logits(dev, T: int, E: int, k: int, seed: int):
     x[4] = float("-inf")
     x[4, top[:max(1, E // 4)]] = 1.0
     x[5] = torch.round(x[5] * 2) / 2
+    e = torch.arange(E)
+    x[6] = 3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)
     return x[:T].contiguous().to(dev)
 
 
@@ -1240,36 +1248,51 @@ def test_launch_floor_kernel_launches(cuda):
 
 
 @pytest.mark.gpu
-def test_mla_engine_with_64_position_blocks_reads_by_gather(cuda):
-    """A reduced deepseek-v2 engine with 64-position KV blocks (more than
-    the MLA kernel takes): under ``auto`` it serves the gather read's greedy
-    tokens and never launches the MLA kernel."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mla_engine_with_64_position_blocks_reads_by_the_mla_kernel(cuda,
+                                                                    dtype):
+    """A reduced deepseek-v2 engine with 64-position KV blocks: under
+    ``auto`` it reads the pool with the MLA kernel, once per layer per
+    forward.  In fp32 it serves the gather read's greedy tokens.  In bf16
+    the tensor-core kernel sums in another order than the gather's einsum,
+    and on this random model the greedy tokens of 16-position blocks
+    already part from the gather's within a few steps; there the
+    64-position engine must serve the 16-position engine's tokens (the
+    kernel itself is held against the plain version at 48- and 64-position
+    blocks above).  128-position blocks, more than the kernel takes, raise
+    under ``auto`` and ``fused`` alike."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.lm import RunConfig, init_params
     from repro_torch.serve.engine import Request, ServeEngine
+    dt = DTYPES[dtype]
     cfg = reduced(get_config("deepseek-v2-236b"), layers=3)
-    model = init_params(cfg, 0, param_dtype=torch.bfloat16)
+    model = init_params(cfg, 0, param_dtype=dt)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (70, 5, 33)]
     outs = {}
-    for read in ("auto", "gather"):
+    for read, bs in (("auto", 64), ("gather", 64), ("auto", 16)):
         eng = ServeEngine(cfg, model, slots=2, capacity=160,
-                          kv_block_size=64, prefill_chunk=16,
-                          rc=RunConfig(compute_dtype=torch.bfloat16,
+                          kv_block_size=bs, prefill_chunk=16,
+                          rc=RunConfig(compute_dtype=dt,
                                        schedule_policy="dynamic",
                                        paged_attn=read))
         reqs = [Request(rid=i, prompt=p, max_new=6)
                 for i, p in enumerate(prompts)]
         ops.reset_launches()
         eng.run(reqs)
-        assert ops.LAUNCHES["paged_attention_mla"] == 0
+        assert ops.LAUNCHES["paged_attention_mla"] == \
+            (cfg.n_layers * eng.n_forwards if read == "auto" else 0)
         assert ops.LAUNCHES["paged_attention"] == 0
-        outs[read] = [r.out for r in reqs]
-    assert outs["auto"] == outs["gather"]
-    with pytest.raises(ValueError, match="at most"):
-        ServeEngine(cfg, model, slots=1, capacity=160, kv_block_size=64,
-                    rc=RunConfig(compute_dtype=torch.bfloat16,
-                                 schedule_policy="dynamic",
-                                 paged_attn="fused")).run(
-            [Request(rid=0, prompt=prompts[1], max_new=2)])
+        outs[read, bs] = [r.out for r in reqs]
+        assert all(len(o) == 6 for o in outs[read, bs])
+    want = outs["gather", 64] if dt == torch.float32 else outs["auto", 16]
+    assert outs["auto", 64] == want
+    for read in ("auto", "fused"):
+        with pytest.raises(ValueError, match="at most 64 positions"):
+            ServeEngine(cfg, model, slots=1, capacity=256,
+                        kv_block_size=128,
+                        rc=RunConfig(compute_dtype=dt,
+                                     schedule_policy="dynamic",
+                                     paged_attn=read)).run(
+                [Request(rid=0, prompt=prompts[1], max_new=2)])

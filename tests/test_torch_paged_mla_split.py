@@ -88,7 +88,8 @@ SC = (D + D2) ** -0.5              # the model's (r + dr)^-0.5
 # tile (4 entries) at sms=132 and 2 of six tiles at sms=8; nb=50 at sms=5
 # one split of 13 tiles (the last of 2 entries); bs=8, nb=61 takes 8
 # splits of one tile (8 entries; the last 5); bs=4, nb=40 3 splits of one
-# tile of 16 entries, the last of 8.
+# tile of 16 entries, the last of 8; bs=64 and bs=48 a pool block a tile
+# (48 leaves 16 rows of each tile unloaded).
 CASES = {
     "bs16_one_tile_splits": (dict(nb=48, lim=[767, 200, 31]),
                              dict(scale=SC), 132),
@@ -101,6 +102,9 @@ CASES = {
         dict(nb=48, lim=[700, 500, 90]),
         dict(q_pos=[700, 480, 90], causal=True, window=100, scale=SC), 132),
     "softcap": (dict(nb=61, bs=8), dict(logit_softcap=0.5, scale=SC), 132),
+    "bs64_block_a_tile": (dict(nb=12, bs=64, lim=[767, 200, 63]),
+                          dict(scale=SC), 132),
+    "bs48_short_tiles": (dict(nb=13, bs=48), {}, 8),
 }
 
 
@@ -157,7 +161,8 @@ def test_blocks_past_kv_limit_stay_out(dtype):
     (2, 120, 8, 16, 512, 64, 132),      # 120 heads: two head tiles
     (3, 4, 48, 16, 64, 8, 132), (3, 4, 61, 8, 64, 8, 132),
     (3, 4, 40, 4, 64, 8, 132), (1, 4, 1, 1, 64, 8, 132),
-    (5, 20, 97, 3, 488, 88, 7), (1, 16, 1000, 32, 512, 64, 132)])
+    (5, 20, 97, 3, 488, 88, 7), (1, 16, 1000, 32, 512, 64, 132),
+    (2, 128, 40, 64, 512, 64, 132), (3, 4, 13, 48, 64, 8, 8)])
 def test_mla_split_plan_covers_every_entry_once(B, G, nb, bs, Dl, Dr, sms):
     n_split, per = mla_split_plan(B, 1, G, nb, bs, Dl, Dr, sms)
     assert 1 <= n_split <= nb and per >= 1

@@ -12,9 +12,10 @@ place and -inf logits: indices exactly, weights within rtol 1e-5 / atol
 1e-6.  The combine's kernel (``csrc/unpermute.cu``) is held bitwise
 against ``unpermute_plain`` on the card, so here the plain version must
 equal the reference's Pallas ``unpermute`` bit for bit, weighted and
-folded, at row widths from 8 to 5,120.  Last, ``paged_fused`` must send the
-pool shapes the fused paged read's kernels refuse to the gather under
-``paged_attn="auto"``."""
+folded, at row widths from 8 to 5,120.  Last, ``paged_fused`` under
+``paged_attn="auto"`` must run the fused paged read on every pool shape its
+kernels take (deepseek-v2's 64-position blocks among them) and raise,
+naming the shape, on one they refuse, never falling back to the gather."""
 import dataclasses
 
 import numpy as np
@@ -45,7 +46,9 @@ EK = [(E, k) for E in (8, 64, 160, 256) for k in (1, 2, 6, 8, 16) if k <= E]
 def router_logits(E: int, k: int, seed: int) -> np.ndarray:
     """16 rows: random ones, an all-equal row, rows whose k-th place is a
     tie of three (the k-1 above it distinct), -inf on every third expert,
-    and coarse values with many ties."""
+    coarse values with many ties, and a row ordered by (e % 32, e // 32),
+    which gives the ranking its most candidates ((k-1) * E/32 + 1 past 32
+    experts: every key of the lanes that hold the k-1 largest)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((16, E)).astype(np.float32)
     x[1] = 0.25
@@ -58,6 +61,8 @@ def router_logits(E: int, k: int, seed: int) -> np.ndarray:
     x[5] = np.round(x[5] * 2) / 2
     x[6, :] = -np.inf
     x[6, rng.permutation(E)[:max(1, E // 4)]] = 1.0
+    e = np.arange(E)
+    x[7] = 3.0 - 0.1 * (e % 32) - 0.001 * (e // 32)
     return x
 
 
@@ -125,31 +130,38 @@ def meta_pool(cfg, bs: int) -> dict:
 
 
 def test_auto_routes_refused_pool_shapes_to_the_gather():
+    """``auto`` on ``cuda`` takes the fused read wherever its kernels take
+    the pool, and raises, naming the shape, where they refuse it: it routes
+    nothing to the gather on its own."""
     cuda = RunConfig(executor="cuda")
     deepseek = get_config("deepseek-v2-236b")
     moonshot = get_config("moonshot-v1-16b-a3b")
     wide = dataclasses.replace(moonshot, head_dim=288)
-    assert paged_fused(cuda, meta_pool(deepseek, 16))
-    assert paged_fused(cuda, meta_pool(deepseek, 32))
-    assert not paged_fused(cuda, meta_pool(deepseek, 64))
+    for bs in (16, 32, 48, 64):
+        assert paged_fused(cuda, meta_pool(deepseek, bs))
     assert paged_fused(cuda, meta_pool(moonshot, 16))
-    assert not paged_fused(cuda, meta_pool(wide, 16))
-    assert not paged_fused(cuda, None)
+    assert paged_fused(cuda, None)
+    with pytest.raises(ValueError, match="at most 64 positions.*not 128"):
+        paged_fused(cuda, meta_pool(deepseek, 128))
+    with pytest.raises(ValueError, match="D=288.*paged_attn='gather'"):
+        paged_fused(cuda, meta_pool(wide, 16))
     # an explicit request is kept, and the kernel's wrapper refuses it
     assert paged_fused(cuda._replace(paged_attn="fused"),
-                       meta_pool(deepseek, 64))
+                       meta_pool(deepseek, 128))
     assert not paged_fused(cuda._replace(paged_attn="gather"),
                            meta_pool(moonshot, 16))
     assert not paged_fused(RunConfig(executor="plain"),
                            meta_pool(moonshot, 16))
 
 
-@pytest.mark.parametrize("kv_block,fused_calls", [(64, False), (8, True)])
+@pytest.mark.parametrize("kv_block,fused_calls", [(64, True), (8, True),
+                                                 (128, False)])
 def test_engine_auto_read_follows_the_pool_shape(monkeypatch, kv_block,
                                                  fused_calls):
     """A reduced deepseek-v2 engine on the ``cuda`` executor (plain versions
-    here): with 64-position blocks ``auto`` never enters the fused MLA read
-    and serves the gather's tokens; with 8-position blocks it does."""
+    here): with 8- and 64-position blocks ``auto`` enters the fused MLA read
+    and serves the gather's tokens; with 128-position blocks, more than the
+    MLA kernels take, it raises rather than read by the gather."""
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = reduced(get_config("deepseek-v2-236b"), layers=2)
     model = init_params(cfg, 0, device="cpu")
@@ -171,8 +183,15 @@ def test_engine_auto_read_follows_the_pool_shape(monkeypatch, kv_block,
                                        paged_attn=read), device="cpu")
         reqs = [Request(rid=i, prompt=p, max_new=3)
                 for i, p in enumerate(prompts)]
+        if read == "auto" and not fused_calls:
+            with pytest.raises(ValueError, match="not 128"):
+                eng.run(reqs)
+            assert not calls
+            continue
         eng.run(reqs)
         outs[read] = [r.out for r in reqs]
         if read == "auto":
-            assert bool(calls) == fused_calls
-    assert outs["auto"] == outs["gather"]
+            assert calls
+    assert len(outs["gather"]) == 2
+    if fused_calls:
+        assert outs["auto"] == outs["gather"]
