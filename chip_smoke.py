@@ -13,8 +13,9 @@ result line):
    then counts the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
    the SASS of the Hopper kernels (the forward's B1 and B2 in bf16 on
    dense, int8 and int4 weights, the backward's B7 and B1^T, the bf16 MLA
-   decode-attention kernel; ``cuobjdump -sass`` on the built library) and
-   fails if either count of any of them is 0;
+   decode-attention kernel; ``cuobjdump -sass`` on the built library, run
+   in the background beside phase 3 and read at its end) and fails if
+   either count of any of them is 0;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    bf16 and fp32.  The five MoE kernels at moonshot-v1-16b-a3b's full width
    (decode T=2 and T=4, prefill T=64) and at mixtral-8x7b's (T=512), on
@@ -84,7 +85,8 @@ result line):
    and fp32, in both orientations the layer's backward runs (gate/up: x
    (capacity, d), dy (capacity, f), W (E, d, f); down: x = h (capacity,
    f), dy the scaled output gradient (capacity, d), W_down (E, f, d)): the
-   grouped weight gradient B7 (x, dy -> dW) with fp32 output (within 1e-4)
+   grouped weight gradient B7 (x, dy -> dW) with fp32 output (within 1e-4;
+   moonshot's layer, deepseek's in bf16 only)
    and with bf16 output (the form training launches; within the bf16
    tolerance), exact zeros for experts with no tokens, every element
    written after NaN poisoning, bitwise equal across two calls; and B1 with
@@ -92,7 +94,16 @@ result line):
    tolerances, inactive rows zero); timed in bf16 beside their bounds
    (bytes and tensor-core operations), their plain versions and
    ``torch._grouped_mm`` (2-D x 2-D for B7, 2-D x 3-D for B1^T; timed
-   only);
+   only).  [capacity]: the five MoE kernels on ``capacity_factor``
+   schedules (headroom 1.25 and 0.5, bf16 and fp32) at moonshot's T=2, 64
+   and 4096, deepseek-v2's T=2 and 64 and the four paper layers
+   (configs/paper.py) at T=512, with every check above and, after NaN
+   poisoning, exact zeros on every row that holds no token (bucket tails,
+   empty buckets, the sentinel block of dropped assignments); the int8
+   and int4 GEMMs at moonshot's T=2 and 64; B7 and B1^T at moonshot's
+   T=4096 in both orientations (timed in bf16); each schedule's
+   drop_fraction printed; B2 and B1 timed in turns on capacity_factor,
+   fixed and dynamic at moonshot's T=2, 64, 4096 and deepseek-v2's T=2;
 4. MoE layer: ``moe_ffn`` on the ``cuda`` executor under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    layer), with the ``fixed`` and the ``dynamic`` policy: at moonshot width
@@ -153,10 +164,25 @@ result line):
    each, B7 writing the bf16 expert copy's gradient directly, permute and
    unpermute 2 each; every loss finite), one step under
    the profiler, then 4 steps on the first batch again at a constant rate
-   from fresh moments, whose loss must fall.
+   from fresh moments, whose loss must fall.  The MoE layer's sync-debug
+   forward and backward runs on ``capacity_factor`` too.  [train capacity
+   remat]: the same model, batch and steps on ``capacity_factor`` (1.25)
+   with remat, each step's launches checked (remat adds the forward's
+   router, permute, fused_gate_up, down grouped_gemm and unpermute once per
+   MoE layer), its step time, tokens/s, peak memory, busy share and
+   ``sched/drop_fraction`` beside the ``fixed`` run without remat, and the
+   peak of one forward and backward alone with and without remat.  [train
+   resume]: moonshot cut to 2 layers (1.345 B parameters) on
+   ``capacity_factor`` with remat, 4 steps: two uninterrupted runs bitwise
+   equal, then a run checkpointing every 2 steps (keeping 1) with a
+   failure injected at step 3, restarted by ``supervise``: it resumes from
+   step 2 and ends bitwise where the uninterrupted runs end; the
+   directory's free space (too little fails the phase), the checkpoint's
+   bytes and the host copy, write and restore times printed.
 
-The last lines are the kernel report ``{"kernels": [...]}``, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+``[elapsed]`` lines give the seconds since the start at the end of each
+phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -214,6 +240,16 @@ TRAIN_CHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-3),
 # the full-width model then fits one batch: TRAIN_FIT_STEPS steps on it at
 # a constant learning rate, from fresh AdamW moments; its loss must fall
 TRAIN_FIT_STEPS, TRAIN_FIT_LR = 4, 1e-5
+# the plain GEMMs' eager timing, (calls, warm-up calls): at the serving
+# shapes, and at training's T=4096, where one plain call walks thousands of
+# blocks from Python and is a yardstick only
+PLAIN_ITERS = {False: (5, 3), True: (1, 1)}
+# [capacity]: the capacity_factor policy's headroom at each check (the
+# reference's sweep value, and one that fills every bucket and drops), the
+# one its timing and training run at, and the 2-layer model checkpointed
+# by [train resume] (1 dense + 1 MoE), its steps, failure and saves
+CAPACITY_FACTORS, CAPACITY_FACTOR = (1.25, 0.5), 1.25
+RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
 SOURCES = {
     "router_topk": ("src/repro_torch/csrc/router_topk.cu",
                     "src/repro/kernels/router_topk.py:60"),
@@ -264,14 +300,31 @@ def fail(msg: str, code: int = 1):
     sys.exit(code)
 
 
-def sass_counts(lib_path) -> dict:
-    """Per instantiation of the Hopper kernels in the built library: its
-    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions, from
-    ``cuobjdump -sass``."""
+def start_sass(lib_path):
+    """``cuobjdump -sass`` of the built library, started in the background
+    (it runs beside the kernel checks; ``sass_counts`` collects it); killed
+    at exit if it is still running."""
+    import atexit
     import shutil
+    import tempfile
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out,
+                            stderr=subprocess.DEVNULL, text=True)
+    atexit.register(proc.kill)
+    return proc, out
+
+
+def sass_counts(job) -> dict:
+    """Per instantiation of the Hopper kernels in the built library: its
+    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions, from the
+    ``cuobjdump -sass`` that ``start_sass`` started."""
+    proc, out = job
+    if proc.wait(timeout=300) != 0:
+        fail(f"cuobjdump -sass exited with {proc.returncode}")
+    out.seek(0)
+    sass = out.read()
+    out.close()
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -302,12 +355,12 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean time of ``fn`` over ``iters`` eager calls (CUDA events, after 3
-    warm-up calls).  Where the device finishes before the host has issued
-    the next call, this is the host's time per call."""
+def time_ms(fn, iters: int, warm: int = 3) -> float:
+    """Mean time of ``fn`` over ``iters`` eager calls (CUDA events, after
+    ``warm`` warm-up calls).  Where the device finishes before the host has
+    issued the next call, this is the host's time per call."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -420,7 +473,7 @@ class Case:
     """One layer's inputs at one shape and dtype, and its schedule."""
 
     def __init__(self, shape: dict, T: int, dtype, seed: int,
-                 policy: str = "fixed"):
+                 policy: str = "fixed", **policy_kw):
         import torch
         from repro_torch.kernels import ref
         from repro_torch.scheduling import build_schedule
@@ -428,6 +481,7 @@ class Case:
         g = torch.Generator(device="cuda").manual_seed(seed)
         E, d, f = shape["E"], shape["d"], shape["f"]
         self.shape, self.T, self.dtype, self.policy = shape, T, dtype, policy
+        self.policy_kw = policy_kw
         self.route_kw = dict(gating=shape["gating"],
                              norm_topk=shape["norm_topk"],
                              routed_scale=shape["routed_scale"])
@@ -442,7 +496,8 @@ class Case:
         self.wd = randn(E, f, d, scale=f ** -0.5)
         self.w, self.idx = ref.router_ref(self.logits, shape["k"],
                                           **self.route_kw)
-        self.sched = build_schedule(self.idx, E, shape["M"], policy=policy)
+        self.sched = build_schedule(self.idx, E, shape["M"], policy=policy,
+                                    **policy_kw)
         self.scale = combine_scale_rows(self.sched, self.w)
         self.xp = ref.permute_ref(self.x, self.sched)
         self.h = ref.fused_gate_up_ref(self.xp, self.wg, self.wu, self.sched)
@@ -451,13 +506,17 @@ class Case:
         active = self.sched.block_active.bool().cpu()
         self.inactive_rows = (~active).repeat_interleave(
             self.sched.block_m).cuda()
+        # rows that hold no token: padding, and on capacity_factor the
+        # bucket tails, the empty buckets and the sentinel block
+        self.tokenless_rows = self.sched.src_tok < 0
         self.n_active_blocks = int(active.sum())
         self.n_experts_used = int((self.sched.counts > 0).sum())
 
     def label(self) -> str:
         dt = str(self.dtype).replace("torch.", "")
+        cf = self.policy_kw.get("capacity_factor")
         return (f"E={self.shape['E']} d={self.shape['d']} T={self.T} {dt} "
-                f"{self.policy}")
+                f"{self.policy}" + (f" cf={cf}" if cf is not None else ""))
 
     # -- work each function must do (data-dependent: this routing) --------
     def work(self, name: str):
@@ -598,11 +657,14 @@ def check_case(c: Case, errs: dict) -> None:
                 raise AssertionError(f"{name}: two calls differ "
                                      f"({c.label()})")
             if name in ("permute", "fused_gate_up", "grouped_gemm"):
-                dead = got[c.inactive_rows]
-                if dead.numel() and not torch.equal(dead,
-                                                    torch.zeros_like(dead)):
-                    raise AssertionError(
-                        f"{name}: inactive rows not zero ({c.label()})")
+                for rows, what in ((c.inactive_rows, "inactive rows"),
+                                   (c.tokenless_rows, "rows without a "
+                                    "token")):
+                    dead = got[rows]
+                    if dead.numel() and not torch.equal(
+                            dead, torch.zeros_like(dead)):
+                        raise AssertionError(
+                            f"{name}: {what} not zero ({c.label()})")
             torch.testing.assert_close(got.float(), want.float(), **tol)
             err = (got.float() - want.float()).abs().max().item()
         errs[name] = max(errs.get(name, 0.0), err)
@@ -739,7 +801,8 @@ def time_case(c: Case) -> dict:
         out[name] = {
             "ms": device_ms(kern, n),
             "eager_ms": time_ms(kern, 5 * n),
-            "plain_ms": time_ms(plain, 5) if gemm else device_ms(plain, 10),
+            "plain_ms": (time_ms(plain, *PLAIN_ITERS[c.T >= 4096]) if gemm
+                         else device_ms(plain, 10)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": device_ms(lib, n) if lib is not None else None,
             "library": lib_name if lib is not None else None,
@@ -848,10 +911,12 @@ def check_quant_case(qc: QuantCase, errs: dict) -> None:
             raise AssertionError(f"{name}: NaN in output ({qc.label()})")
         if not torch.equal(got, kern()):
             raise AssertionError(f"{name}: two calls differ ({qc.label()})")
-        dead = got[qc.c.inactive_rows]
-        if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
-            raise AssertionError(f"{name}: inactive rows not zero "
-                                 f"({qc.label()})")
+        for rows in (qc.c.inactive_rows, qc.c.tokenless_rows):
+            dead = got[rows]
+            if dead.numel() and not torch.equal(dead,
+                                                torch.zeros_like(dead)):
+                raise AssertionError(f"{name}: inactive or tokenless rows "
+                                     f"not zero ({qc.label()})")
         torch.testing.assert_close(got.float(), want.float(), **tol)
         err = (got.float() - want.float()).abs().max().item()
         key = f"{name}_{qc.fmt}"
@@ -915,7 +980,7 @@ class TrainCase:
     takes (dy, W) -> (capacity, K), the dX product."""
 
     def __init__(self, shape: dict, T: int, dtype, seed: int, policy: str,
-                 orient: str = "gate_up"):
+                 orient: str = "gate_up", **policy_kw):
         import torch
         from repro_torch.kernels import ref
         from repro_torch.scheduling import build_schedule, combine_scale_rows
@@ -932,7 +997,9 @@ class TrainCase:
         wts, idx = ref.router_ref(logits, shape["k"], gating=shape["gating"],
                                   norm_topk=shape["norm_topk"],
                                   routed_scale=shape["routed_scale"])
-        self.sched = build_schedule(idx, E, shape["M"], policy=policy)
+        self.sched = build_schedule(idx, E, shape["M"], policy=policy,
+                                    **policy_kw)
+        self.policy_kw = policy_kw
         self.x = ref.permute_ref(randn(T, self.K), self.sched)
         self.dout = ref.permute_ref(randn(T, self.N), self.sched)
         if orient == "gate_up":
@@ -944,14 +1011,17 @@ class TrainCase:
         active = self.sched.block_active.bool().cpu()
         self.inactive_rows = (~active).repeat_interleave(
             self.sched.block_m).cuda()
+        self.tokenless_rows = self.sched.src_tok < 0
         self.n_active_blocks = int(active.sum())
         self.empty_experts = (self.sched.counts == 0)
         self.n_experts_used = int((~self.empty_experts).sum())
 
     def label(self) -> str:
         dt = str(self.dtype).replace("torch.", "")
+        cf = self.policy_kw.get("capacity_factor")
         return (f"E={self.shape['E']} K={self.K} N={self.N} T={self.T} {dt} "
-                f"{self.policy} {self.orient}")
+                f"{self.policy}" + (f" cf={cf}" if cf is not None else "")
+                + f" {self.orient}")
 
     def work(self, name: str):
         """(bytes, flops) of this routing: the active blocks' rows read
@@ -1015,10 +1085,12 @@ def check_train_case(c: TrainCase, errs: dict) -> None:
             raise AssertionError(f"{name}: two calls differ ({c.label()})")
         del again
         wgrad = name.startswith("grouped_wgrad")
-        dead = got[c.empty_experts] if wgrad else got[c.inactive_rows]
-        if dead.numel() and not torch.equal(dead, torch.zeros_like(dead)):
-            raise AssertionError(f"{name}: rows with no tokens not zero "
-                                 f"({c.label()})")
+        for dead in ((got[c.empty_experts],) if wgrad else
+                     (got[c.inactive_rows], got[c.tokenless_rows])):
+            if dead.numel() and not torch.equal(dead,
+                                                torch.zeros_like(dead)):
+                raise AssertionError(f"{name}: rows with no tokens not zero "
+                                     f"({c.label()})")
         tol = WGRAD_TOL if name == "grouped_wgrad" \
             else TOL[str(odt).replace("torch.", "")]
         torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -1073,7 +1145,7 @@ def time_train_case(c: TrainCase) -> dict:
         lib, lib_name = train_library_call(name, c)
         out[name] = {
             "ms": device_ms(kern, 5), "eager_ms": time_ms(kern, 10),
-            "plain_ms": time_ms(plain, 3), "bound_ms": b_ms,
+            "plain_ms": time_ms(plain, *PLAIN_ITERS[True]), "bound_ms": b_ms,
             "bound_by": b_by,
             "bound_bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
@@ -1085,6 +1157,105 @@ def time_train_case(c: TrainCase) -> dict:
             "block_m": c.sched.block_m}
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    return out
+
+
+def paper_shape(pc) -> dict:
+    """One of the paper's four MoE layers (configs/paper.py) as a Case
+    shape, with the dispatch defaults (no renormalisation, scale 1)."""
+    return dict(E=pc.n_experts, k=pc.top_k, d=pc.d_model, f=pc.d_ffn, M=128,
+                gating=pc.gating, norm_topk=False, routed_scale=1.0)
+
+
+def check_capacity(errs: dict) -> dict:
+    """[capacity]: the five kernels on ``capacity_factor`` schedules (every
+    check of check_case, rows without a token exactly 0 after NaN
+    poisoning among them: bucket tails, empty buckets, the sentinel block)
+    at moonshot's T=2, 64, 4096, deepseek-v2's T=2, 64 and the four paper
+    layers at T=512, headroom 1.25 and 0.5, bf16 and fp32; the int8 and
+    int4 GEMMs at moonshot's T=2 and 64; B7 and B1^T at moonshot's T=4096
+    (both orientations; timed in bf16).  Returns the drop fractions and
+    the backward's times."""
+    import torch
+    from repro_torch.configs import PAPER_CONFIGS
+    from repro_torch.scheduling import schedule_stats
+    shapes = ([("moonshot", MOONSHOT, T) for T in (2, 64, 4096)]
+              + [("deepseek", DEEPSEEK, T) for T in (2, 64)]
+              + [(name, paper_shape(pc), 512)
+                 for name, pc in sorted(PAPER_CONFIGS.items())])
+    drops = []
+    for arch, shape, T in shapes:
+        for cf in CAPACITY_FACTORS:
+            for dtype in (torch.bfloat16, torch.float32):
+                c = Case(shape, T, dtype, seed=700 + T,
+                         policy="capacity_factor", capacity_factor=cf)
+                check_case(c, errs)
+                if dtype == torch.bfloat16:
+                    st = schedule_stats(c.sched)
+                    drops.append({
+                        "arch": arch, "T": T, "capacity_factor": cf,
+                        "capacity": c.sched.capacity,
+                        "bucket": int(c.sched.group_offsets[1]),
+                        "drop_fraction": float(st.drop_fraction),
+                        "active_blocks": c.n_active_blocks,
+                        "rows_without_token": int(c.tokenless_rows.sum())})
+                if arch == "moonshot" and T in (2, 64):
+                    for scheme in REPORT_SCHEME.values():
+                        qc = QuantCase(c, scheme)
+                        check_quant_case(qc, errs)
+                        del qc
+                del c
+                torch.cuda.empty_cache()
+    for d in drops:
+        print(f"[capacity] {d['arch']} T={d['T']} capacity_factor "
+              f"{d['capacity_factor']}: bucket {d['bucket']} rows, capacity "
+              f"{d['capacity']} rows ({d['active_blocks']} active blocks), "
+              f"{d['rows_without_token']} rows without a token, "
+              f"drop_fraction {d['drop_fraction']:.4f}")
+    train_t = {}
+    for orient in ("gate_up", "down"):
+        for dtype in (torch.bfloat16, torch.float32):
+            c = TrainCase(MOONSHOT, TRAIN_BATCH * TRAIN_SEQ, dtype, seed=500,
+                          policy="capacity_factor", orient=orient,
+                          capacity_factor=CAPACITY_FACTOR)
+            check_train_case(c, errs)
+            if dtype == torch.bfloat16:
+                train_t[orient] = time_train_case(c)
+            del c
+            torch.cuda.empty_cache()
+    return {"drops": drops, "train": train_t}
+
+
+def time_capacity(shape: dict, T: int, seed: int) -> dict:
+    """B2 and B1 (bf16) on ``capacity_factor`` (headroom CAPACITY_FACTOR)
+    beside ``fixed`` and ``dynamic`` on the same routing and weights:
+    device µs from CUDA-graph replays, in turns (capacity, fixed, dynamic,
+    dynamic, fixed, capacity), each beside its own bound."""
+    import torch
+    cases = {p: Case(shape, T, torch.bfloat16, seed=seed, policy=p, **kw)
+             for p, kw in (("capacity_factor",
+                            {"capacity_factor": CAPACITY_FACTOR}),
+                           ("fixed", {}), ("dynamic", {}))}
+    order = ("capacity_factor", "fixed", "dynamic", "dynamic", "fixed",
+             "capacity_factor")
+    out = {}
+    for name in ("fused_gate_up", "grouped_gemm"):
+        calls = {p: kernel_calls(c)[name][0] for p, c in cases.items()}
+        turns = {p: [] for p in cases}
+        for p in order:
+            turns[p].append(device_ms(calls[p], 10))
+        out[name] = {}
+        for p, c in cases.items():
+            n_bytes, flops = c.work(name)
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            out[name][p] = {"ms": sum(turns[p]) / len(turns[p]),
+                            "turns_ms": turns[p], "bound_ms": b_ms,
+                            "bound_by": b_by, "capacity": c.sched.capacity,
+                            "active_blocks": c.n_active_blocks,
+                            "block_m": c.sched.block_m}
+        torch.cuda.synchronize()
+    del cases
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1846,7 +2017,8 @@ def moe_layer_backward_no_sync(policy: str) -> dict:
                             executor="cuda", gating=s["gating"],
                             norm_topk=s["norm_topk"],
                             routed_scale=s["routed_scale"],
-                            schedule_policy=policy)
+                            schedule_policy=policy,
+                            capacity_factor=CAPACITY_FACTOR)
 
     def step():
         y, aux = moe_ffn(*args, cfg)
@@ -1938,14 +2110,19 @@ def train_grads_vs_plain(compute: str) -> dict:
     return res
 
 
-def check_train_launches(launches: dict, n_moe: int) -> None:
+def check_train_launches(launches: dict, n_moe: int,
+                         remat: bool = False) -> None:
     """One training step, per MoE layer: router and fused_gate_up once;
     permute and unpermute twice (each is the other's backward); the dense
     grouped_gemm three times (the down projection and the backward's
-    recompute of g and u); B1^T and B7 three times each; nothing else."""
-    want = {"router_topk": n_moe, "permute": 2 * n_moe,
-            "unpermute": 2 * n_moe, "fused_gate_up": n_moe,
-            "grouped_gemm": 3 * n_moe,
+    recompute of g and u); B1^T and B7 three times each; nothing else.
+    With remat the layer's forward runs again in the backward: router,
+    fused_gate_up, permute, unpermute and the down grouped_gemm once more
+    each."""
+    r = 1 if remat else 0
+    want = {"router_topk": (1 + r) * n_moe, "permute": (2 + r) * n_moe,
+            "unpermute": (2 + r) * n_moe, "fused_gate_up": (1 + r) * n_moe,
+            "grouped_gemm": (3 + r) * n_moe,
             "grouped_gemm_t": 3 * n_moe, "grouped_wgrad": 3 * n_moe}
     for name, n in launches.items():
         if n != want.get(name, 0):
@@ -1953,12 +2130,15 @@ def check_train_launches(launches: dict, n_moe: int) -> None:
                                  f"times, expected {want.get(name, 0)}")
 
 
-def train_full_width(layers: int) -> dict:
+def train_full_width(layers: int, policy: str = "fixed",
+                     remat: bool = False, fit: bool = True,
+                     tag: str = "train") -> dict:
     """moonshot at full width cut to ``layers`` layers: TRAIN_STEPS steps of
     batch TRAIN_BATCH x seq TRAIN_SEQ through the port's trainer (fp32
-    parameters and AdamW moments, bf16 compute, ``fixed``), one more step
-    under the profiler, then TRAIN_FIT_STEPS steps on the first batch again,
-    whose loss must fall."""
+    parameters and AdamW moments, bf16 compute, ``policy`` (capacity_factor
+    at CAPACITY_FACTOR, with the sched/* telemetry), ``remat``), one more
+    step under the profiler, then with ``fit`` TRAIN_FIT_STEPS steps on the
+    first batch again, whose loss must fall."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1971,20 +2151,25 @@ def train_full_width(layers: int) -> dict:
                                         train_state)
     cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=layers)
     n_moe = n_moe_layers(cfg)
-    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK)
+    capacity = policy == "capacity_factor"
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   schedule_policy=policy, capacity_factor=CAPACITY_FACTOR,
+                   remat=remat, moe_stats=capacity)
     opt = OptConfig(total_steps=TRAIN_STEPS + 1, warmup_steps=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, 0, rc, device="cuda")
     n_params = sum(p.numel() for p in state["params"].parameters())
-    print(f"[train] {cfg.name} at full width (d_model={cfg.d_model}, "
+    sched_name = (f"capacity_factor {CAPACITY_FACTOR}" if capacity
+                  else policy)
+    print(f"[{tag}] {cfg.name} at full width (d_model={cfg.d_model}, "
           f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff_expert="
           f"{cfg.moe.d_ff_expert}, vocab={cfg.vocab_size}); reduced: n_layers"
           f" 48 -> {layers} (1 dense + {n_moe} MoE); {n_params / 1e9:.3f} B "
-          f"parameters, fp32 with fp32 AdamW moments, bf16 compute, fixed "
-          f"schedule, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, loss in strided "
-          f"chunks (loss_chunk {LOSS_CHUNK}); random weights, seed 0; "
-          f"the reference's Markov tokens")
+          f"parameters, fp32 with fp32 AdamW moments, bf16 compute, "
+          f"{sched_name} schedule, remat {remat}, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, loss in strided chunks (loss_chunk {LOSS_CHUNK}); "
+          f"random weights, seed 0; the reference's Markov tokens")
     step_fn = make_train_step(cfg, rc, opt)
     batches = [device_batch(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i,
                                        seed=1), "cuda")
@@ -1999,19 +2184,21 @@ def train_full_width(layers: int) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
-        check_train_launches(launches, n_moe)
+        check_train_launches(launches, n_moe, remat)
         row = {"step": i, **{k: float(v) for k, v in m.items()}, "ms": ms,
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "grouped_wgrad_launches": launches["grouped_wgrad"],
                "grouped_gemm_t_launches": launches["grouped_gemm_t"]}
         rows.append(row)
-        print(f"[train] step {i}: loss {row['loss']:.4f} (ce {row['ce']:.4f})"
+        drop = (f"; sched/drop_fraction {row['sched/drop_fraction'] / n_moe:.4f}"
+                f" (mean of {n_moe} MoE layers)" if capacity else "")
+        print(f"[{tag}] step {i}: loss {row['loss']:.4f} (ce {row['ce']:.4f})"
               f" grad_norm {row['grad_norm']:.4f} lr {row['lr']:.3e}; "
               f"{ms:.1f} ms ({row['tokens_per_s']:.0f} tokens/s); peak "
               f"memory {row['peak_bytes'] / 1e9:.2f} GB; B7 launches "
               f"{row['grouped_wgrad_launches']}, B1^T "
-              f"{row['grouped_gemm_t_launches']}")
+              f"{row['grouped_gemm_t_launches']}{drop}")
         if not all(np.isfinite(row[k]) for k in ("loss", "ce", "grad_norm")):
             raise AssertionError(f"training step {i}: non-finite loss")
     launches = dict(ops.LAUNCHES)
@@ -2019,23 +2206,49 @@ def train_full_width(layers: int) -> dict:
                           top=16)
     steady = [r["ms"] for r in rows[1:]]
     summary = {"layers": layers, "n_params": n_params, "batch": TRAIN_BATCH,
-               "seq": TRAIN_SEQ, "steps": rows, "launches": launches,
+               "seq": TRAIN_SEQ, "policy": policy, "remat": remat,
+               "steps": rows, "launches": launches,
                "step_ms_median_after_first": float(np.median(steady)),
                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
                / float(np.median(steady)) * 1e3,
                "peak_bytes": max(r["peak_bytes"] for r in rows),
                "profile": prof}
-    print(f"[train] {TRAIN_STEPS} steps: median step after the first "
+    print(f"[{tag}] {TRAIN_STEPS} steps: median step after the first "
           f"{summary['step_ms_median_after_first']:.1f} ms, "
           f"{summary['tokens_per_s']:.0f} tokens/s, peak device memory "
           f"{summary['peak_bytes'] / 1e9:.2f} GB; launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})}")
-    print(f"[profile train] one step: wall {prof['wall_ms']:.2f} ms, device "
+    print(f"[profile {tag}] one step: wall {prof['wall_ms']:.2f} ms, device "
           f"busy {prof['device_ms']:.2f} ms (share {prof['busy_share']:.3f})")
     for name, calls, ms in prof["top_device"]:
         print(f"    device {ms:9.3f} ms {calls:5d}x  {name[:70]}")
     for name, calls, ms in prof["top_cpu"]:
         print(f"    host   {ms:9.3f} ms {calls:5d}x  {name[:70]}")
+    if not fit:
+        # the forward and backward alone, with and without remat: the peak
+        # above the resident state and gradients' start
+        from repro_torch.models.lm import loss_fn
+        model = state["params"]
+        params = list(model.parameters())
+        peaks = {}
+        for r in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, _ = loss_fn(model, cfg, rc._replace(remat=r), batches[0])
+            grads = torch.autograd.grad(loss, params)
+            del loss, grads
+            torch.cuda.synchronize()
+            peaks[r] = torch.cuda.max_memory_allocated() - base
+        summary["fwd_bwd_peak_above_state_bytes"] = {
+            "remat": peaks[True], "no_remat": peaks[False]}
+        print(f"[{tag}] forward + backward alone (parameters and moments "
+              f"resident, {base / 1e9:.2f} GB): peak above them "
+              f"{peaks[True] / 1e9:.2f} GB with remat, "
+              f"{peaks[False] / 1e9:.2f} GB without")
+        del state, batches, model, params
+        torch.cuda.empty_cache()
+        return summary
     # the model then fits one batch: fresh moments, a constant rate
     model = state["params"]
     del state
@@ -2058,6 +2271,115 @@ def train_full_width(layers: int) -> dict:
     return summary
 
 
+def train_resume() -> dict:
+    """[train resume]: moonshot at full width cut to RESUME_LAYERS layers (1
+    dense + 1 MoE), capacity_factor, remat, bf16 compute, batch TRAIN_BATCH
+    x seq TRAIN_SEQ, RESUME_STEPS steps.  Two uninterrupted runs first,
+    whose parameters must be bitwise equal; then a run that checkpoints
+    every RESUME_SAVE_EVERY steps (keeping 1) and fails at step
+    RESUME_FAIL_AT, restarted by ``supervise``: it must resume from step
+    RESUME_FAIL_AT - 1 and end bitwise where the uninterrupted runs end.
+    Prints the directory's free space before writing (a disk that cannot
+    hold a checkpoint fails the phase), the checkpoint's bytes, and the
+    host copy's, the write's and the restore's times."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.fault import supervise
+    from repro_torch.train.loop import train
+    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=RESUME_LAYERS)
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   schedule_policy="capacity_factor",
+                   capacity_factor=CAPACITY_FACTOR, remat=True)
+    opt = OptConfig(total_steps=RESUME_STEPS, warmup_steps=1)
+    kw = dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              log_every=1, log=lambda line: None, device="cuda")
+
+    def final_params(out):
+        params = {n: p.detach().clone()
+                  for n, p in out["state"]["params"].named_parameters()}
+        out.clear()
+        torch.cuda.empty_cache()
+        return params
+    t0 = time.perf_counter()
+    clean = final_params(train(cfg, rc, opt, **kw))
+    again = final_params(train(cfg, rc, opt, **kw))
+    clean_s = (time.perf_counter() - t0) / 2
+    n_params = sum(p.numel() for p in clean.values())
+    diff = [n for n in clean if not torch.equal(clean[n], again[n])]
+    if diff:
+        raise AssertionError(
+            "two uninterrupted runs differ in " + ", ".join(
+                f"{n} (max |diff| "
+                f"{(clean[n] - again[n]).abs().max().item():.3e})"
+                for n in diff))
+    del again
+    root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    need = 12 * n_params          # fp32 parameters and two fp32 moments
+    print(f"[train resume] {cfg.name} at full width, {RESUME_LAYERS} layers"
+          f" (1 dense + 1 MoE), {n_params / 1e9:.3f} B parameters, "
+          f"capacity_factor {CAPACITY_FACTOR}, remat, {RESUME_STEPS} steps of"
+          f" batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: two uninterrupted runs "
+          f"bitwise equal ({clean_s:.1f} s each); checkpoint directory "
+          f"{root.relative_to(ROOT)}: {free / 1e9:.1f} GB free, a checkpoint "
+          f"{need / 1e9:.2f} GB")
+    if free < need:
+        raise AssertionError(f"the disk holds {free / 1e9:.1f} GB, less than "
+                             f"one checkpoint ({need / 1e9:.2f} GB)")
+    attempts = []
+
+    def run():
+        attempts.append(len(attempts))
+        return train(cfg, rc, opt, ckpt_dir=str(root),
+                     save_every=RESUME_SAVE_EVERY, keep_last=1,
+                     fail_at=RESUME_FAIL_AT if len(attempts) == 1 else None,
+                     **kw)
+    t0 = time.perf_counter()
+    out = supervise(run)
+    wall = time.perf_counter() - t0
+    stats, resumed_from = out["checkpoint"], out["resumed_from"]
+    if out["restarts"] != 1 or resumed_from != RESUME_FAIL_AT - 1:
+        raise AssertionError(f"resume: {out['restarts']} restarts, resumed "
+                             f"from {resumed_from}")
+    on_disk = sorted(p.name for p in root.iterdir())
+    disk_bytes = sum(f.stat().st_size for f in root.rglob("*")
+                     if f.is_file())
+    resumed = final_params(out)
+    diff = [n for n in clean if not torch.equal(clean[n], resumed[n])]
+    if diff:
+        raise AssertionError(
+            "the resumed run ends elsewhere than the uninterrupted one: "
+            + ", ".join(f"{n} (max |diff| "
+                        f"{(clean[n] - resumed[n]).abs().max().item():.3e})"
+                        for n in diff))
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"layers": RESUME_LAYERS, "n_params": n_params, "free_bytes": free,
+           "checkpoint_bytes": stats["bytes"], "disk_bytes": disk_bytes,
+           "host_copy_ms": stats["host_copy_s"] * 1e3,
+           "write_s": stats["write_s"], "restore_s": stats["restore_s"],
+           "write_GB_per_s": stats["bytes"] / stats["write_s"] / 1e9,
+           "clean_run_s": clean_s, "supervised_s": wall,
+           "resumed_from": resumed_from, "on_disk": on_disk}
+    print(f"[train resume] failure injected at step {RESUME_FAIL_AT}, "
+          f"save_every {RESUME_SAVE_EVERY}, keep_last 1: supervise restarted "
+          f"once, resumed from step {resumed_from}, final parameters "
+          f"bitwise the uninterrupted run's; on disk {on_disk} "
+          f"({disk_bytes / 1e9:.3f} GB); last save: {stats['bytes'] / 1e9:.3f}"
+          f" GB, host copy {res['host_copy_ms']:.0f} ms, write "
+          f"{stats['write_s']:.2f} s ({res['write_GB_per_s']:.2f} GB/s); "
+          f"restore {stats['restore_s']:.2f} s; the supervised runs "
+          f"{wall:.1f} s")
+    del clean, resumed
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2074,6 +2396,11 @@ def main() -> None:
         fail("CUDA is not available: this script runs on the GPU only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        print(f"[elapsed] {phase}: {time.perf_counter() - t_start:.1f} s "
+              "since the start")
 
     # 1. device ------------------------------------------------------------
     smi = smi_line()
@@ -2100,14 +2427,8 @@ def main() -> None:
             print(f"  ptxas {kernel_name(entry)}: "
                   f"{line.split(':', 1)[1].strip()}{spill}")
             entry = None
-    sass = sass_counts(_build.build())
-    for fn, n in sass.items():
-        print(f"  SASS {fn[:72]}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}")
-    for name, stem in HOPPER_KERNELS.items():
-        found = [n for fn, n in sass.items() if stem in fn]
-        if not found or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0
-                            for n in found):
-            fail(f"{name}: no wgmma or no TMA load in the SASS of {stem}")
+    elapsed("build")
+    sass_job = start_sass(_build.build())
 
     # 3. kernels against plain versions, then times ---------------------------
     print("[kernels] CUDA kernel vs plain PyTorch version on the card")
@@ -2136,6 +2457,7 @@ def main() -> None:
                             del qc
                     del c
                     torch.cuda.empty_cache()
+    elapsed("kernels, moonshot and mixtral")
     # B1-B5 at deepseek-v2's MoE layer (E=160, d=5120, f=1536, softmax)
     ds_timings = {}                   # (policy, T) -> per-kernel times
     ds_qtimings = {}                  # T -> int8_expert GEMM times (dynamic)
@@ -2155,6 +2477,7 @@ def main() -> None:
                     del qc
                 del c
                 torch.cuda.empty_cache()
+    elapsed("kernels, deepseek-v2")
     # B1-B5 at the training shape (T = 4096 tokens, bf16): the forward that
     # each training step runs, held and timed; and at deepseek-v2's layer
     for shape, tm in ((MOONSHOT, timings), (DEEPSEEK, ds_timings)):
@@ -2165,6 +2488,7 @@ def main() -> None:
             tm[policy, TRAIN_BATCH * TRAIN_SEQ] = time_case(c)
             del c
             torch.cuda.empty_cache()
+    elapsed("kernels, the training shape's forward")
     # the backward's B7 and B1^T at the training shape (T = 4096 tokens):
     # moonshot's MoE layer and deepseek-v2's (E=160), both policies, in both
     # orientations the layer's backward runs (gate/up and down)
@@ -2172,7 +2496,9 @@ def main() -> None:
     for arch, shape in (("moonshot", MOONSHOT), ("deepseek", DEEPSEEK)):
         for policy in ("fixed", "dynamic"):
             for orient in ("gate_up", "down"):
-                for dtype in (torch.bfloat16, torch.float32):
+                # fp32 at moonshot's layer; deepseek's held in bf16, timed
+                for dtype in ((torch.bfloat16, torch.float32)
+                              if arch == "moonshot" else (torch.bfloat16,)):
                     c = TrainCase(shape, TRAIN_BATCH * TRAIN_SEQ, dtype,
                                   seed=500, policy=policy, orient=orient)
                     check_train_case(c, errs)
@@ -2180,11 +2506,34 @@ def main() -> None:
                         train_t[arch, policy, orient] = time_train_case(c)
                     del c
                     torch.cuda.empty_cache()
+    elapsed("kernels, the backward's B7 and B1^T")
+    # [capacity]: the five kernels, the quantized GEMMs and the backward's
+    # on capacity_factor schedules; B1 and B2 timed beside fixed and dynamic
+    capacity = check_capacity(errs)
+    for orient, tm in capacity["train"].items():
+        train_t["moonshot", "capacity_factor", orient] = tm
+    cap_t = {(arch, T): time_capacity(shape, T, seed=T)
+             for arch, shape, T in (("moonshot", MOONSHOT, 2),
+                                    ("moonshot", MOONSHOT, 64),
+                                    ("moonshot", MOONSHOT,
+                                     TRAIN_BATCH * TRAIN_SEQ),
+                                    ("deepseek", DEEPSEEK, 2))}
+    for (arch, T), tm in cap_t.items():
+        for name, t in tm.items():
+            print(f"[times capacity] {name} {arch} bf16 T={T}: " + "; ".join(
+                f"{p} {v['ms'] * 1e3:.1f} us (turns "
+                + "/".join(f"{x * 1e3:.1f}" for x in v["turns_ms"])
+                + f"; bound {v['bound_ms'] * 1e3:.2f} {v['bound_by']}; "
+                f"{v['active_blocks']} active blocks of {v['block_m']}, "
+                f"capacity {v['capacity']})" for p, v in t.items()))
+    elapsed("capacity")
     check_paged(errs)
     paged_t = {k: time_paged(k) for k in PAGED_SHAPES}
+    elapsed("kernels, GQA attention")
     check_mla(errs)
     mla_t = {k: time_mla(k) for k in MLA_SHAPES}
     mla_t["decode bs64"] = time_mla("decode bs64", MLA_DECODE_BS64)
+    elapsed("kernels, MLA attention")
     # B5 alone at every router, then timed at mixtral's and deepseek-v3's
     # (moonshot's and deepseek-v2's are timed in their Cases); the floor
     for arch in ROUTERS:
@@ -2216,6 +2565,18 @@ def main() -> None:
                 + ("null" if t[n]['library_ms'] is None
                    else f"{t[n]['library_ms'] * 1e3:.1f}") + ")"
                 for n in MOE_KERNELS))
+    elapsed("kernels, router, launch floor")
+    # the SASS counts of the Hopper kernels, from cuobjdump started after
+    # the build
+    sass = sass_counts(sass_job)
+    print("[build] SASS of the Hopper kernels (cuobjdump -sass):")
+    for fn, n in sass.items():
+        print(f"  SASS {fn[:72]}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}")
+    for name, stem in HOPPER_KERNELS.items():
+        found = [n for fn, n in sass.items() if stem in fn]
+        if not found or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0
+                            for n in found):
+            fail(f"{name}: no wgmma or no TMA load in the SASS of {stem}")
     for (arch, policy, orient), tm in sorted(train_t.items()):
         for n, t in tm.items():
             lib = ("null: " + t["library_null_reason"]
@@ -2343,6 +2704,8 @@ def main() -> None:
             del c, ws
             torch.cuda.empty_cache()
 
+    elapsed("moe_ffn without a host sync")
+
     # 5. serving, paged --------------------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.models.lm import (RunConfig, forward, init_params,
@@ -2389,6 +2752,7 @@ def main() -> None:
     print(f"[serve paged] prefix-hit tokens {hit:.0f} "
           f"({json.dumps(engine.kv.stats())})")
     paged_summary = summarize("serve paged", paged, reqs, layers)
+    elapsed("serving moonshot, paged")
 
     # the first paged step's logits (64 prompt rows) through the kernels
     # and the fused read, and through the plain versions and the gather
@@ -2419,6 +2783,7 @@ def main() -> None:
               f"{bool((logits.argmax(-1) == logits_p.argmax(-1)).all())}")
     del head, head32
     torch.cuda.empty_cache()
+    elapsed("serving moonshot, first-step logits")
 
     # where the time goes: two prompt-chunk steps, then five decode steps
     for i in range(SERVE_SLOTS):
@@ -2469,6 +2834,7 @@ def main() -> None:
     print_profile("serve contiguous", "2 prefills of 48 tokens", contig_prof)
     del engine
     torch.cuda.empty_cache()
+    elapsed("serving moonshot, contiguous")
 
     # 7. serving, paged, quantized experts -------------------------------
     # the served model under int8_expert (quantized in place by the engine)
@@ -2547,20 +2913,46 @@ def main() -> None:
     del model, int4_model
     torch.cuda.empty_cache()
 
+    elapsed("serving moonshot")
+
     # 8. serving deepseek-v2-236b (MLA), once moonshot's models are freed --
     deepseek = serve_deepseek(rng)
     print(json.dumps({"serve_deepseek": deepseek}))
+    elapsed("serving deepseek-v2")
 
     # 9. training: the MoE layer's backward without a host sync, one fp32
     # step's gradients against the plain versions, then the full-width
     # trainer ----------------------------------------------------------------
     train_sync = {p: moe_layer_backward_no_sync(p)
-                  for p in ("fixed", "dynamic")}
+                  for p in ("fixed", "dynamic", "capacity_factor")}
     train_check = {c: train_grads_vs_plain(c)
                    for c in ("float32", "bfloat16")}
     train = train_full_width(TRAIN_LAYERS)
     print(json.dumps({"train": {"moe_ffn_no_sync_launches": train_sync,
                                 "check_vs_plain": train_check, **train}}))
+    elapsed("training, fixed")
+    # [train capacity remat]: the same model and batch on capacity_factor
+    # with each layer recomputed in the backward
+    train_cap = train_full_width(TRAIN_LAYERS, "capacity_factor", remat=True,
+                                 fit=False, tag="train capacity remat")
+    drop = [r["sched/drop_fraction"] / n_moe_layers(get_config(
+        "moonshot-v1-16b-a3b").replace(n_layers=TRAIN_LAYERS))
+        for r in train_cap["steps"]]
+    print(f"[train capacity remat] beside fixed without remat (this run): "
+          f"median step {train_cap['step_ms_median_after_first']:.1f} ms "
+          f"against {train['step_ms_median_after_first']:.1f}, "
+          f"{train_cap['tokens_per_s']:.0f} tokens/s against "
+          f"{train['tokens_per_s']:.0f}, peak device memory "
+          f"{train_cap['peak_bytes'] / 1e9:.2f} GB against "
+          f"{train['peak_bytes'] / 1e9:.2f}, device busy share "
+          f"{train_cap['profile']['busy_share']:.3f} against "
+          f"{train['profile']['busy_share']:.3f}; sched/drop_fraction per "
+          f"step " + ", ".join(f"{d:.4f}" for d in drop))
+    print(json.dumps({"train_capacity_remat": train_cap}))
+    elapsed("training, capacity_factor and remat")
+    resume = train_resume()
+    print(json.dumps({"train_resume": resume}))
+    elapsed("training resume")
 
     # 10. report -----------------------------------------------------------
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2642,6 +3034,10 @@ def main() -> None:
                 "sass": {fn: n for fn, n in sass.items()
                          if HOPPER_KERNELS[name] in fn},
                 **cells(tname)}
+            extra["capacity_factor"] = {
+                orient: {k: train_t["moonshot", "capacity_factor",
+                                    orient][tname][k] for k in tkeys}
+                for orient in ("gate_up", "down")}
             if name == "grouped_wgrad":
                 entry["max_abs_err"] = errs["grouped_wgrad_bf16"]
                 extra.update({"out_dtype": "bfloat16",
@@ -2718,6 +3114,9 @@ def main() -> None:
                 # (one work-list build inside each call)
                 extra["sass"] = {fn: n for fn, n in sass.items()
                                  if HOPPER_KERNELS[name] in fn}
+                extra["capacity_factor"] = {
+                    f"{arch}_T{T}": tm[name]
+                    for (arch, T), tm in cap_t.items()}
         entry.update({k: d[k] for k in keys})
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})

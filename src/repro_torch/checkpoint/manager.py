@@ -1,0 +1,208 @@
+"""Checkpointing: versioned, atomic, async, self-describing (counterpart of
+``repro.checkpoint.manager``).
+
+* Atomic: each checkpoint is written to ``<dir>/tmp.<step>`` and renamed
+  to ``<dir>/ckpt_<step:08d>`` only after every file is flushed, so a crash
+  mid-write never corrupts the latest checkpoint.  Older checkpoints are
+  removed down to ``keep_last`` after each publish.
+* Async: the trainer updates its parameters and moments in place
+  (``optim.adamw``), so ``save`` copies every leaf to host memory on the
+  caller's thread before it returns; only the file write runs on the
+  background thread (the reference likewise calls ``device_get`` on the
+  caller's thread).  One write is in flight at a time.
+* Staged: the host copies land in page-locked buffers that the manager
+  keeps and reuses (``save`` waits for the previous write before it
+  overwrites them), so a device leaf crosses to the host in one
+  asynchronous copy, not a pageable one; the leaves are written by a few
+  threads, one ``.npy`` file each, and ``restore`` reads them through
+  memory maps into the same buffers on a few threads before one copy to
+  the device each (``PERF.md`` gives the times on the card's host).
+* Self-describing: ``manifest.json`` holds the step, the time and every
+  leaf's name, shape and dtype.  numpy has no bfloat16, so a bf16 leaf is
+  stored as its raw 16-bit words (int16) with ``bfloat16`` in the
+  manifest.
+* Structure: the state is flattened by name (``params/<parameter or
+  buffer>``, ``opt/m/<name>``, ``opt/v/<name>``, ``opt/step``); a module
+  flattens to its ``state_dict``, so a model whose routed experts are
+  quantized (payload and scale buffers in place of the dense stack) has
+  another structure than the dense one, and restoring one into the other
+  raises the reference's structure-mismatch error.
+
+``restore`` copies each leaf into the target's tensor, on that tensor's
+own device, in place.  ``stats`` holds the bytes and the seconds of the
+last save's host copy and write and of the last restore.  Elastic
+re-sharding onto another mesh waits for the port's sharded training."""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+# numpy has no bfloat16: such leaves travel as their raw 16-bit words
+_RAW_WORDS = {torch.bfloat16: torch.int16}
+_IO_THREADS = 4          # writers and readers of the leaves' files
+
+
+def flatten_state(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{name: tensor}`` over a nest of dicts, modules and tensors; a
+    module contributes its ``state_dict`` (parameters and buffers)."""
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.state_dict(keep_vars=True)
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if not isinstance(tree, dict):
+        raise TypeError(f"cannot checkpoint a {type(tree).__name__} at "
+                        f"{prefix or 'the root'}")
+    out: Dict[str, torch.Tensor] = {}
+    for key, sub in tree.items():
+        out.update(flatten_state(sub, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def _words(host: torch.Tensor) -> np.ndarray:
+    """A host tensor as the numpy array its file holds (bf16: int16)."""
+    if host.dtype in _RAW_WORDS:
+        host = host.view(_RAW_WORDS[host.dtype])
+    return host.numpy()
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep_last: int = 3,
+                 async_save: bool = True):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep_last = keep_last
+        self._pool = ThreadPoolExecutor(max_workers=1) if async_save else None
+        self._pending: Optional[Future] = None
+        self._lock = threading.Lock()
+        self._host: Dict[str, torch.Tensor] = {}    # staging, reused
+        self.stats: Dict[str, float] = {}
+
+    def _staging(self, leaves: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """A host buffer per leaf, page-locked for a device leaf; kept from
+        the last call when its shape and dtype still match."""
+        for name, t in leaves.items():
+            buf = self._host.get(name)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                self._host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                               pin_memory=t.is_cuda)
+        return {name: self._host[name] for name in leaves}
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, state: Any) -> None:
+        """Copy ``state`` to host memory now, write it (in the background
+        when async)."""
+        self.wait()        # one write in flight; it reads the staging
+        t0 = time.perf_counter()
+        leaves = flatten_state(state)
+        staging = self._staging(leaves)
+        for name, t in leaves.items():
+            staging[name].copy_(t.detach(), non_blocking=t.is_cuda)
+        for dev in {t.device for t in leaves.values() if t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        host = {n: _words(b) for n, b in staging.items()}
+        meta = [{"name": n, "shape": list(t.shape), "dtype": _dtype_name(t)}
+                for n, t in leaves.items()]
+        self.stats.update(bytes=sum(a.nbytes for a in host.values()),
+                          host_copy_s=time.perf_counter() - t0)
+        if self._pool is None:
+            self._write(step, host, meta)
+            return
+        self._pending = self._pool.submit(self._write, step, host, meta)
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def _write(self, step: int, host: Dict[str, np.ndarray], meta) -> None:
+        t0 = time.perf_counter()
+        tmp = self.dir / f"tmp.{step}"
+        final = self.dir / f"ckpt_{step:08d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+
+        def write_leaf(i_arr):
+            i, arr = i_arr
+            with open(tmp / f"leaf_{i}.npy", "wb") as f:
+                np.save(f, arr)
+                f.flush()
+        with ThreadPoolExecutor(max_workers=_IO_THREADS) as io:
+            list(io.map(write_leaf, enumerate(host.values())))
+        manifest = {"step": step, "time": time.time(), "leaves": meta}
+        with open(tmp / "manifest.json", "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)                 # atomic publish
+        self._gc()
+        self.stats["write_s"] = time.perf_counter() - t0
+
+    def _gc(self) -> None:
+        with self._lock:
+            ckpts = sorted(self.dir.glob("ckpt_*"))
+            for old in ckpts[:-self.keep_last]:
+                shutil.rmtree(old, ignore_errors=True)
+
+    # ------------------------------------------------------------------
+    def latest_step(self) -> Optional[int]:
+        ckpts = sorted(self.dir.glob("ckpt_*"))
+        if not ckpts:
+            return None
+        return int(ckpts[-1].name.split("_")[1])
+
+    def restore(self, target: Any, step: Optional[int] = None) -> Any:
+        """Load checkpoint ``step`` (default: the latest) into ``target``'s
+        tensors in place, each on its own device; returns ``target``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = self.dir / f"ckpt_{step:08d}"
+        with open(path / "manifest.json") as f:
+            meta = json.load(f)["leaves"]
+        leaves = flatten_state(target)
+        if len(meta) != len(leaves) \
+                or [m["name"] for m in meta] != list(leaves):
+            raise ValueError(
+                f"checkpoint {path.name} holds {len(meta)} leaves but the "
+                f"restore target flattens to {len(leaves)} — the tree "
+                f"STRUCTURES differ (e.g. a quantized checkpoint restored "
+                f"into a dense target, or vice versa; build the target "
+                f"with the same quantization scheme it was saved under)")
+        for m, (name, t) in zip(meta, leaves.items()):
+            if tuple(m["shape"]) != tuple(t.shape) \
+                    or m["dtype"] != _dtype_name(t):
+                raise ValueError(
+                    f"leaf {name}: checkpoint {m['dtype']} {m['shape']} != "
+                    f"target {_dtype_name(t)} {list(t.shape)}")
+        t0 = time.perf_counter()
+        self.wait()                       # the staging may be in a write
+        staging = self._staging(leaves)
+
+        def read_leaf(i_name):
+            i, name = i_name
+            _words(staging[name])[...] = np.load(path / f"leaf_{i}.npy",
+                                                 mmap_mode="r")
+        with ThreadPoolExecutor(max_workers=_IO_THREADS) as io:
+            list(io.map(read_leaf, enumerate(leaves)))
+        with torch.no_grad():
+            for name, t in leaves.items():
+                t.copy_(staging[name], non_blocking=t.is_cuda)
+        for dev in {t.device for t in leaves.values() if t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        self.stats["restore_s"] = time.perf_counter() - t0
+        return target

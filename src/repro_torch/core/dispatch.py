@@ -26,7 +26,9 @@ class MoEDispatchConfig(NamedTuple):
     norm_topk: bool = False
     routed_scale: float = 1.0
     schedule_policy: str = "fixed"   # any registered repro_torch policy
+    capacity_factor: float = 2.0     # the capacity_factor policy's headroom
     block_m_min: int = 8             # the dynamic policy's sub-block floor
+    emit_stats: bool = False         # sched/* ScheduleStats in the aux
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,

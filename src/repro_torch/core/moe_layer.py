@@ -4,6 +4,8 @@ one dense SwiGLU of width ``n_shared * d_ff_expert``, computed in fp32 and
 cast to the layer's dtype, as in the reference."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import MoEConfig
@@ -15,13 +17,20 @@ from repro_torch.quantization import expert_weights, params_scheme
 def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
                     fuse_gate_up: bool = True, fold_combine: bool = True,
                     schedule_policy: str = "fixed",
-                    block_m_min: int = 8) -> MoEDispatchConfig:
+                    capacity_factor: Optional[float] = None,
+                    block_m_min: int = 8,
+                    emit_stats: bool = False) -> MoEDispatchConfig:
+    """``capacity_factor`` None takes the architecture's
+    (``moe.capacity_factor``)."""
     return MoEDispatchConfig(
         n_experts=moe.n_experts, top_k=moe.top_k, block_m=moe.block_m,
         executor=executor, fuse_gate_up=fuse_gate_up,
         fold_combine=fold_combine, gating=moe.gating,
         norm_topk=moe.norm_topk, routed_scale=moe.routed_scale,
-        schedule_policy=schedule_policy, block_m_min=block_m_min)
+        schedule_policy=schedule_policy,
+        capacity_factor=(moe.capacity_factor if capacity_factor is None
+                         else capacity_factor),
+        block_m_min=block_m_min, emit_stats=emit_stats)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):

@@ -416,9 +416,11 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int rank,
 // kernels/expert_tiles.py's scratch() sizes it): the tiles (int4 each:
 // expert or -1 for a zero tile, row0, rows, 0; at most TILE_ROWS rows),
 // then the per-expert runs (int2: first row, end row), then the count.
+// max_tiles: the runs and the uncovered spans between them are at most
+// 2E + 1 spans (expert_tiles.cu derives the bound)
 constexpr int TILE_ROWS = 256;
-inline int max_tiles(int capacity, int n_experts) {
-  return (capacity + TILE_ROWS - 1) / TILE_ROWS + n_experts + 1;
+__host__ __device__ inline int max_tiles(int capacity, int n_experts) {
+  return (capacity + TILE_ROWS - 1) / TILE_ROWS + 2 * n_experts;
 }
 struct WorkLists {
   int4* tiles;

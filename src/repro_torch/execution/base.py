@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.scheduling import (BlockSchedule, build_schedule,
                                     combine_scale_rows,
-                                    policy_config_kwargs)
+                                    policy_config_kwargs, schedule_stats)
 
 
 class DispatchPlan(NamedTuple):
@@ -32,7 +32,7 @@ class DispatchPlan(NamedTuple):
     logits: torch.Tensor                    # (T, E) f32 router logits
     schedule: BlockSchedule
     combine_scale: Optional[torch.Tensor]   # (capacity,) f32 epilogue rows
-    aux: dict                               # lb/z losses
+    aux: dict                               # lb/z losses (+ sched/*)
 
 
 def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg):
@@ -129,13 +129,18 @@ def available_executors():
 
 def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
                   ) -> DispatchPlan:
-    """Phase 1: route + schedule + combine rows + aux, once per batch."""
+    """Phase 1: route + schedule + combine rows + aux, once per batch;
+    with ``cfg.emit_stats`` the aux also holds the schedule's ``sched/*``
+    telemetry (device tensors, no host read)."""
     ex = get_executor(cfg.executor)
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
     aux = router_aux_losses(logits, indices, cfg)
     sched = plan_schedule(indices, cfg)
     combine = combine_scale_rows(sched, weights) if cfg.fold_combine else None
+    if cfg.emit_stats:
+        aux.update({f"sched/{k}": v for k, v
+                    in schedule_stats(sched)._asdict().items()})
     return DispatchPlan(weights=weights, indices=indices, logits=logits,
                         schedule=sched, combine_scale=combine, aux=aux)
 

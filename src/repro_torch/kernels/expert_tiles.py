@@ -8,14 +8,18 @@ each expert's run of rows and the tiles over those runs.
   blocks, from block ``seg_start[e] // block_m`` to the last consecutive
   active block of e; ``[start, start)`` for an expert with none.
 * ``tiles`` (n, 3) int32: ``(e, row0, rows)``, the ``TILE_ROWS``-row slices
-  of each run in expert order, then ``(-1, row0, rows)`` slices of the rows
-  past the active blocks (the kernels store zeros there).  Every row of the
-  schedule is in exactly one tile and no tile spans two experts; ``n`` is at
-  most ``max_tiles(capacity, E)``.
+  of each run in expert order, then ``(-1, row0, rows)`` slices of every
+  span of rows that no run covers, in row order (the kernels store zeros
+  there).  Every row of the schedule is in exactly one tile and no tile
+  spans two experts or two spans; ``n`` is at most
+  ``max_tiles(capacity, E)``.
 
-The schedule's contract (both ported policies): the active blocks are a
-prefix, and each expert's active blocks are one run starting at block
-``seg_start[e] // block_m``."""
+The schedule's contract (every ported policy): each expert's active blocks
+are one run starting at block ``seg_start[e] // block_m``, and the runs are
+disjoint.  Under ``fixed`` and ``dynamic`` the runs tile a prefix of the
+schedule and the one uncovered span is the tail; under ``capacity_factor``
+the uncovered spans are also each bucket's inactive tail, the empty
+buckets and the sentinel block of dropped assignments."""
 from __future__ import annotations
 
 import torch
@@ -28,9 +32,10 @@ MAX_EXPERTS = 1024       # one thread of expert_tiles_kernel per expert
 
 def max_tiles(capacity: int, n_experts: int) -> int:
     """The most tiles a schedule of ``capacity`` rows can give
-    (hopper_gemm.cuh ``max_tiles``): one partial slice per expert, and one
-    for the zero rows."""
-    return -(-capacity // TILE_ROWS) + n_experts + 1
+    (hopper_gemm.cuh ``max_tiles``): the runs and the uncovered spans are
+    at most 2E + 1 disjoint spans of ``capacity`` rows, and n spans take at
+    most ``ceil(capacity / TILE_ROWS) + n - 1`` tiles."""
+    return -(-capacity // TILE_ROWS) + 2 * n_experts
 
 
 def expert_tiles_plain(seg_start: torch.Tensor, block_expert: torch.Tensor,
@@ -58,10 +63,14 @@ def expert_tiles_plain(seg_start: torch.Tensor, block_expert: torch.Tensor,
     for e, (s, t) in enumerate(runs.tolist()):
         tiles += [(e, r, min(TILE_ROWS, t - r))
                   for r in range(s, t, TILE_ROWS)]
-    active = torch.nonzero(act).reshape(-1)
-    active_end = (int(active[-1]) + 1) * block_m if active.numel() else 0
-    tiles += [(-1, r, min(TILE_ROWS, capacity - r))
-              for r in range(active_end, capacity, TILE_ROWS)]
+    # the spans no run covers: the gaps between the runs in row order
+    lo = 0
+    for s, t in sorted((s, t) for s, t in runs.tolist() if t > s) \
+            + [(capacity, capacity)]:
+        tiles += [(-1, r, min(TILE_ROWS, s - r))
+                  for r in range(lo, s, TILE_ROWS)]
+        lo = t
+    tiles = tiles[:max_tiles(capacity, E)]      # the kernel's clamp
     return runs, torch.tensor(tiles, dtype=torch.int32).reshape(-1, 3)
 
 

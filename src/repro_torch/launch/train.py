@@ -7,10 +7,13 @@ backward on the kernels).
         --seq 512 --dtype bf16
 
 Widths are the architecture's own; ``--layers`` cuts depth, ``--reduce``
-takes the reduced (smoke) config as the reference's launcher does.
-Parameters and optimizer moments are fp32; ``--dtype`` is the compute
-dtype.  Runs on the card; ``--device cpu`` runs the kernels' plain
-versions on the CPU.  No mesh: one device."""
+takes the reduced (smoke) config as the reference's launcher does, and
+remat (each layer recomputed in the backward) is on unless ``--reduce``,
+as there.  Parameters and optimizer moments are fp32; ``--dtype`` is the
+compute dtype.  ``--ckpt-dir`` saves the state every ``--save-every``
+steps and at the end; run the same command again and it resumes from the
+last checkpoint there.  Runs on the card; ``--device cpu`` runs the
+kernels' plain versions on the CPU.  No mesh: one device."""
 import argparse
 
 import torch
@@ -36,6 +39,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduce", action="store_true",
@@ -47,7 +52,8 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
-    rc = RunConfig(compute_dtype=DTYPES[args.dtype], loss_chunk=LOSS_CHUNK)
+    rc = RunConfig(compute_dtype=DTYPES[args.dtype], loss_chunk=LOSS_CHUNK,
+                   remat=not args.reduce)
     opt = OptConfig(lr=args.lr, total_steps=args.steps,
                     warmup_steps=max(args.steps // 20, 1))
     on_card = torch.device(args.device).type == "cuda"
@@ -55,14 +61,18 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats()
     print(f"{cfg.name}: {cfg.n_layers} layers at d_model={cfg.d_model}, "
           f"fp32 parameters, {args.dtype} compute, fixed schedule, "
-          f"cuda executor; batch {args.batch} x seq {args.seq}, accum "
-          f"{args.accum}, {args.steps} steps")
+          f"cuda executor, remat {rc.remat}; batch {args.batch} x seq "
+          f"{args.seq}, accum {args.accum}, {args.steps} steps")
     out = train(cfg, rc, opt, steps=args.steps, batch=args.batch,
-                seq=args.seq, accum=args.accum, log_every=1,
-                device=args.device)
+                seq=args.seq, accum=args.accum, ckpt_dir=args.ckpt_dir,
+                save_every=args.save_every, log_every=1, device=args.device)
     h = out["history"]
     peak = (f"{torch.cuda.max_memory_allocated()} bytes" if on_card
             else "not measured (no card)")
+    if not h:
+        print(f"done: nothing to run past the checkpoint of step "
+              f"{out['resumed_from']}")
+        return out
     print(f"done: ce {h[0]['ce']:.4f} -> {h[-1]['ce']:.4f}; "
           f"stragglers={len(out['stragglers'])}; peak device memory {peak}")
     return out

@@ -34,6 +34,7 @@ from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
 from repro_torch.models.ffn import SwiGLU
 from repro_torch.models.mla import MLA, mla_block, prefill_mla_cache
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
+from repro_torch.scheduling import ScheduleStats
 
 
 class RunConfig(NamedTuple):
@@ -43,11 +44,15 @@ class RunConfig(NamedTuple):
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32   # master weights: fp32 only
     executor: str = "cuda"
-    schedule_policy: str = "fixed"
+    schedule_policy: str = "fixed"   # fixed | capacity_factor | dynamic
+    capacity_factor: float = 2.0     # the capacity_factor policy's headroom
     fuse_gate_up: bool = True
     fold_combine: bool = True
     block_m_min: int = 8             # the dynamic policy's sub-block floor
     loss_chunk: int = 1024           # chunked_ce's chunk length (train)
+    remat: bool = False              # train: recompute each layer in the
+                                     # backward (torch.utils.checkpoint)
+    moe_stats: bool = False          # sched/* ScheduleStats in the aux
     quant: str = "none"              # expert-weight QuantScheme for serving
                                      # (repro_torch.quantization registry;
                                      # the engine quantizes at load)
@@ -279,7 +284,9 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                                fuse_gate_up=rc.fuse_gate_up,
                                fold_combine=rc.fold_combine,
                                schedule_policy=rc.schedule_policy,
-                               block_m_min=rc.block_m_min)
+                               capacity_factor=rc.capacity_factor,
+                               block_m_min=rc.block_m_min,
+                               emit_stats=rc.moe_stats)
         o, aux = apply_moe(blk.moe.params(), h, dcfg)
     else:
         o = blk.ffn(h)
@@ -368,12 +375,27 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
 
 
 def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
+    """With ``rc.remat`` each layer is recomputed in the backward (the
+    reference's per-group ``jax.checkpoint(nothing_saveable)``); the layer
+    draws no random numbers, so no RNG state is kept for the replay
+    (``preserve_rng_state=False``).  With ``rc.moe_stats`` the ``sched/*``
+    keys start at fp32 zeros, as the reference's scan carry does."""
     x = model.embed[batch["tokens"]].to(rc.compute_dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_acc: dict = {}
+    if rc.moe_stats and n_moe_layers(cfg):
+        aux_acc = {f"sched/{k}": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
+                   for k in ScheduleStats._fields}
     for blk in model.layers:
-        x, aux = apply_block(blk, x, cfg, rc, positions=positions,
-                             mode="train")
+        if rc.remat:
+            x, aux = checkpoint(apply_block, blk, x, cfg, rc,
+                                positions=positions, mode="train",
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = apply_block(blk, x, cfg, rc, positions=positions,
+                                 mode="train")
         for key, val in aux.items():
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     return model.final_norm(x), None, aux_acc

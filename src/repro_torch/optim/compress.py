@@ -1,0 +1,45 @@
+"""Gradient compression with error feedback (counterpart of
+``repro.optim.compress``): int8 symmetric quantization, one fp32 scale per
+tensor, with the quantization residual carried into the next step's
+gradient so that the compressed sum stays unbiased over time.
+
+Gradients and error states are ``{name: tensor}`` mappings.  The
+reference's ``compressed_psum`` (an int8 all-gather inside ``shard_map``)
+waits for the port's sharded training."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+
+def quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (int8 payload, f32 scale): ``scale = max|g| / 127 + 1e-12``,
+    ``q = clip(round(g / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``)."""
+    g = g.float()
+    scale = torch.max(torch.abs(g)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_with_feedback(grads: Dict[str, torch.Tensor],
+                           error_state: Dict[str, torch.Tensor]):
+    """-> ({name: (q, scale)}, new error state {name: f32 residual})."""
+    packed, new_err = {}, {}
+    for name, g in grads.items():
+        gf = g.float() + error_state[name]
+        q, s = quantize(gf)
+        packed[name] = (q, s)
+        new_err[name] = gf - dequantize(q, s)
+    return packed, new_err
+
+
+def init_error_state(grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    return {n: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for n, g in grads.items()}

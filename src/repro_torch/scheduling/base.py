@@ -40,6 +40,55 @@ class BlockSchedule(NamedTuple):
     seg_start: Optional[torch.Tensor] = None   # (E,) per-expert base row
 
 
+class ScheduleStats(NamedTuple):
+    """Per-schedule telemetry, every field a 0-d device tensor (counterpart
+    of ``repro.scheduling.base.ScheduleStats``)."""
+
+    useful_rows: torch.Tensor     # kept (non-dropped) expanded tokens
+    dropped_rows: torch.Tensor    # assignments dropped by bounded capacity
+    padded_rows: torch.Tensor     # rows covered by ACTIVE blocks
+    pad_waste: torch.Tensor       # padded_rows / useful_rows
+    drop_fraction: torch.Tensor   # dropped / (T*k)
+    top1_share: torch.Tensor      # heaviest expert's share of raw routing
+    n_blocks_active: torch.Tensor
+    occupancy: torch.Tensor       # useful_rows / padded_rows
+
+
+def schedule_stats(sched: BlockSchedule) -> ScheduleStats:
+    """Telemetry from any policy's schedule: tensor ops on the device, no
+    host read."""
+    i32, f32 = torch.int32, torch.float32
+    n_assign = sched.pos.numel()
+    useful = (sched.src_tok >= 0).sum(dtype=i32)
+    dropped = n_assign - useful
+    n_active = (sched.block_active != 0).sum(dtype=i32)
+    padded = n_active * sched.block_m
+    total = sched.counts.sum(dtype=i32)
+
+    def safe(a, b):
+        if not isinstance(b, torch.Tensor):
+            return a.to(f32) / float(max(b, 1))
+        return a.to(f32) / torch.clamp(b, min=1).to(f32)
+    return ScheduleStats(
+        useful_rows=useful,
+        dropped_rows=dropped,
+        padded_rows=padded,
+        pad_waste=safe(padded, useful),
+        drop_fraction=safe(dropped, n_assign),
+        top1_share=safe(sched.counts.max(), total),
+        n_blocks_active=n_active,
+        occupancy=safe(useful, padded),
+    )
+
+
+# The head-to-head sweep, (policy name, build kwargs), as the reference's
+DEFAULT_POLICY_SWEEP = (
+    ("fixed", {}),
+    ("capacity_factor", {"capacity_factor": 1.25}),
+    ("dynamic", {}),
+)
+
+
 PolicyFn = Callable[..., BlockSchedule]
 
 _POLICIES: Dict[str, PolicyFn] = {}

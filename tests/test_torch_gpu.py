@@ -26,7 +26,9 @@ from repro_torch.kernels._build import BACKWARD_KERNELS, QUANT_KERNELS
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_plain,
     paged_decode_attention_walk)
-from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from repro_torch.scheduling import (build_capacity_schedule,
+                                    build_dynamic_schedule,
+                                    build_fixed_schedule)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
@@ -400,7 +402,7 @@ def test_paged_engine_serves_mla_through_the_mla_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic", "capacity_factor"])
 def test_moe_ffn_makes_no_host_sync(cuda, policy):
     T, E, k, d, f = 8, 64, 6, 256, 192
     logits, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
@@ -717,7 +719,11 @@ def test_grouped_gemm_t_kernel_matches_plain(cuda, T, E, k, d, f, dtype,
 # experts with no rows and with one, block_m 8, 16 and 128 (runs ending
 # inside a 64-row stage), the dynamic policy's 8-row blocks
 COUNTS = (1, 0, 37, 130, 0, 9, 300, 64)    # tokens per expert (E = 8)
-TILE_SHAPES = [("fixed", 8), ("fixed", 16), ("fixed", 128), ("dynamic", 128)]
+# capacity_factor at 1.25: buckets of 88 (block_m 8) or 128 rows, so the
+# experts of 130 and 300 tokens drop some, those of 0 leave empty buckets,
+# and every bucket but a full one has an inactive tail
+TILE_SHAPES = [("fixed", 8), ("fixed", 16), ("fixed", 128), ("dynamic", 128),
+               ("capacity_factor", 8), ("capacity_factor", 128)]
 
 
 def counted_pair(dev, K, N, dtype, policy, M, seed=0):
@@ -727,8 +733,10 @@ def counted_pair(dev, K, N, dtype, policy, M, seed=0):
     idx = rng.permutation(np.repeat(np.arange(len(COUNTS)), COUNTS))
     idx = torch.as_tensor(idx[:, None].astype(np.int32), device=dev)
     E = len(COUNTS)
-    sched = (build_fixed_schedule(idx, E, M) if policy == "fixed"
-             else build_dynamic_schedule(idx, E, M))
+    sched = {"fixed": lambda: build_fixed_schedule(idx, E, M),
+             "dynamic": lambda: build_dynamic_schedule(idx, E, M),
+             "capacity_factor": lambda: build_capacity_schedule(
+                 idx, E, M, capacity_factor=1.25)}[policy]()
     g = torch.Generator(device=dev).manual_seed(seed)
     T = idx.shape[0]
     x = ops.permute(torch.randn((T, K), generator=g, device=dev).to(dtype),
@@ -1098,7 +1106,7 @@ def plain_moe(x, router, wg, wu, wd, cfg):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fuse", [True, False])
-@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic", "capacity_factor"])
 def test_moe_backward_on_kernels_matches_autograd_through_plain(cuda, policy,
                                                                 fuse):
     """fp32 (1e-4): the layer's gradients with respect to x, the router and
@@ -1111,7 +1119,8 @@ def test_moe_backward_on_kernels_matches_autograd_through_plain(cuda, policy,
     cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
                             executor="cuda", gating="sigmoid",
                             norm_topk=True, routed_scale=2.446,
-                            fuse_gate_up=fuse, schedule_policy=policy)
+                            fuse_gate_up=fuse, schedule_policy=policy,
+                            capacity_factor=1.25)
     grads = []
     for fn in (moe_ffn, plain_moe):
         args = [t.clone().requires_grad_(True)
@@ -1130,7 +1139,7 @@ def test_moe_backward_on_kernels_matches_autograd_through_plain(cuda, policy,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic", "capacity_factor"])
 def test_moe_backward_makes_no_host_sync(cuda, policy):
     T, E, k, d, f = 64, 64, 6, 256, 192
     _, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
@@ -1296,3 +1305,132 @@ def test_mla_engine_with_64_position_blocks_reads_by_the_mla_kernel(cuda,
                                      schedule_policy="dynamic",
                                      paged_attn=read)).run(
                 [Request(rid=0, prompt=prompts[1], max_new=2)])
+
+
+# the capacity_factor policy: only a prefix of each expert's bucket is
+# active, a bucket with no tokens is wholly inactive, and the sentinel block
+# [E cap, E cap + M) takes the dropped assignments.  The work lists give
+# every such span a zero tile; with the allocator poisoned by NaN, every
+# row that holds no token must come out exactly 0.
+CAPACITY_CASES = [(2, 64, 0.5), (64, 64, 1.25), (64, 64, 0.5),
+                  (2, 160, 1.25)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["none", "int8_expert", "int4_packed"])
+@pytest.mark.parametrize("T,E,cf", CAPACITY_CASES)
+def test_capacity_gemms_store_zeros_on_every_row_without_a_token(cuda, T, E,
+                                                                 cf, scheme):
+    """B2 and B1 (dense bf16, int8, int4) and B1^T (dense bf16) on a
+    capacity_factor schedule at k=6, d=256, f=192: within TOL of the plain
+    versions, bitwise across two calls, and exactly 0 on every row whose
+    src_tok is -1 (bucket tails, empty buckets, the sentinel block)."""
+    from repro_torch.quantization import get_scheme
+    k, d, f = 6, 256, 192
+    logits, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16,
+                                  seed=T + E)
+    if scheme != "none":
+        wg, wu, wd = (get_scheme(scheme).quantize(w) for w in (wg, wu, wd))
+    w, idx = ref.router_ref(logits, k, gating="softmax", norm_topk=False,
+                            routed_scale=16.0)
+    sched = build_capacity_schedule(idx, E, 128, capacity_factor=cf)
+    empty = (sched.src_tok < 0)
+    assert int(sched.block_active[-1]) == 0            # the sentinel
+    assert int(empty.sum()) > sched.block_m            # and bucket tails
+    xp = ops.permute(x, sched)
+    h = ref.fused_gate_up_ref(xp, wg, wu, sched)
+    scale = combine_scale_rows(sched, w)
+    dy = ops.permute(torch.randn((T, d), device=cuda).to(torch.bfloat16),
+                     sched)
+    calls = [(lambda: ops.fused_gate_up(xp, wg, wu, sched),
+              lambda: ref.fused_gate_up_ref(xp, wg, wu, sched), f),
+             (lambda: ops.grouped_gemm(h, wd, sched, row_scale=scale),
+              lambda: ref.grouped_gemm_ref(h, wd, sched, scale), d)]
+    if scheme == "none":
+        calls.append((lambda: ops.grouped_gemm_t(dy, wd, sched),
+                      lambda: ref.grouped_gemm_t_ref(dy, wd, sched), f))
+    for kern, plain, n in calls:
+        junk = torch.full((sched.capacity * n,), float("nan"), device=cuda,
+                          dtype=torch.bfloat16)
+        del junk
+        out = kern()
+        again = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        assert not torch.isnan(out).any()
+        assert torch.equal(out, again)
+        assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_moe_layer_under_remat_makes_no_host_sync(cuda):
+    """moe_ffn on capacity_factor inside the non-reentrant checkpoint that
+    ``RunConfig.remat`` wraps each layer in: the forward, and the backward
+    with its recomputed forward, under set_sync_debug_mode("error")."""
+    from torch.utils.checkpoint import checkpoint
+    T, E, k, d, f = 64, 64, 6, 256, 192
+    _, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
+    args = [t.requires_grad_(True) for t in
+            (x, torch.randn((d, E), device=cuda), wg, wu, wd)]
+    cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                            executor="cuda", gating="sigmoid",
+                            norm_topk=True, routed_scale=2.446,
+                            schedule_policy="capacity_factor",
+                            capacity_factor=1.25, emit_stats=True)
+
+    def step():
+        y, aux = checkpoint(moe_ffn, *args, cfg, use_reentrant=False,
+                            preserve_rng_state=False)
+        (y.float().sum() + aux["lb_loss"]).backward()
+        return aux
+    step()                                     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(a.grad).all() for a in args)
+    assert 0.0 <= float(aux["sched/drop_fraction"]) < 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "capacity_factor"])
+def test_train_step_launches_under_remat(cuda, policy):
+    """Reduced moonshot (1 dense + 2 MoE layers), bf16 compute: remat adds
+    each MoE layer's forward kernels once (router, permute, fused_gate_up,
+    the down grouped_gemm, unpermute) and nothing of the backward's; the
+    loss and every gradient equal those without remat within fp32's
+    default closeness (the CPU test holds them bitwise; here the
+    embedding's backward accumulates with atomics)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))
+    got = {}
+    for remat in (False, True):
+        model = init_params(cfg, 0, device=cuda).requires_grad_(True)
+        rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=16,
+                       schedule_policy=policy, capacity_factor=1.25,
+                       remat=remat)
+        ops.reset_launches()
+        loss, _ = loss_fn(model, cfg, rc, {"tokens": toks})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        got[remat] = (loss.detach(), grads,
+                      {k: v for k, v in ops.LAUNCHES.items() if v})
+    n = 2
+    base = {"router_topk": n, "permute": 2 * n, "unpermute": 2 * n,
+            "fused_gate_up": n, "grouped_gemm": 3 * n,
+            "grouped_gemm_t": 3 * n, "grouped_wgrad": 3 * n}
+    assert got[False][2] == base
+    assert got[True][2] == {**base, "router_topk": 2 * n,
+                            "permute": 3 * n, "unpermute": 3 * n,
+                            "fused_gate_up": 2 * n, "grouped_gemm": 4 * n}
+    torch.testing.assert_close(got[True][0], got[False][0])
+    for a, b in zip(got[True][1], got[False][1]):
+        torch.testing.assert_close(a, b)

@@ -2,14 +2,19 @@
 them, and B7's ``out_dtype``.
 
 * ``expert_tiles_plain`` (the plain version of csrc/expert_tiles.cu's work
-  lists) on the port's and the reference's ``fixed`` and ``dynamic``
-  schedules of the same routing, at small training-like shapes and at the
-  serving shapes the forward walks (E=64 and 160, T=2, 4 and 64: nearly
-  every block inactive): every row of the schedule lies in exactly one
-  tile; an expert's tiles hold only its active rows, the zero tiles only
-  inactive rows; no tile is longer than ``TILE_ROWS``; the count is within
-  ``max_tiles``, the kernel's scratch and grid bound; each expert's run is
-  its active rows from ``seg_start``; both schedules give the same lists.
+  lists) on the port's and the reference's ``fixed``, ``dynamic`` and
+  ``capacity_factor`` schedules of the same routing, at small
+  training-like shapes and at the serving shapes the forward walks (E=64
+  and 160, T=2, 4 and 64: nearly every block inactive): every row of the
+  schedule lies in exactly one tile; an expert's tiles hold only its
+  active rows, the zero tiles only inactive rows (under
+  ``capacity_factor`` these are also the bucket tails, the empty buckets
+  and the sentinel block); no tile is longer than ``TILE_ROWS``; the count
+  is within ``max_tiles``, the kernel's scratch and grid bound; each
+  expert's run is its active rows from ``seg_start``; both schedules give
+  the same lists.  Under ``fixed`` and ``dynamic`` the lists are tile for
+  tile those of the rule they were built by before ``capacity_factor``
+  (zero tiles past the last active block only).
 * A tile-walk oracle (``tile_walk``): the forward's B1 and B2 computed from
   those lists the way grouped_gemm_hopper.cuh walks them (per tile, x's
   rows against the tile's expert in fp32, row_scale on the stored rows or
@@ -35,13 +40,16 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.schedule import build_schedule as jax_fixed  # noqa: E402
 from repro.kernels import grouped_wgrad as jwg  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.scheduling.capacity import build_capacity_schedule as jax_capacity  # noqa: E402
 from repro.scheduling.dynamic import build_dynamic_schedule as jax_dynamic  # noqa: E402
 from repro_torch.kernels import expert_tiles as et
 from repro_torch.kernels import fused_gate_up as fgu
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from repro_torch.scheduling import (build_capacity_schedule,
+                                    build_dynamic_schedule,
+                                    build_fixed_schedule)
 
 # (T, E, k, block_m): tests/test_torch_grouped_wgrad.py's sizes, runs long
 # enough for several tiles an expert, and the serving schedules the
@@ -50,6 +58,12 @@ from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
 CASES = [(32, 4, 1, 8), (64, 8, 2, 8), (128, 16, 4, 16), (512, 4, 2, 128),
          (2, 64, 6, 128), (4, 64, 6, 128), (64, 64, 6, 128),
          (2, 160, 6, 128), (4, 160, 6, 128), (64, 160, 6, 128)]
+
+
+# the capacity_factor policy's headroom here: the reference's sweep value,
+# under which the buckets of these routings have inactive tails, empty
+# buckets and (skewed) drops
+CAPACITY_FACTOR = 1.25
 
 
 def routed(T, E, k, seed, skew=False):
@@ -70,6 +84,11 @@ def both_schedules(idx, E, M, policy):
     if policy == "fixed":
         st = build_fixed_schedule(torch.from_numpy(idx), E, M)
         sj = jax_fixed(jnp.asarray(idx), E, M)
+    elif policy == "capacity_factor":
+        st = build_capacity_schedule(torch.from_numpy(idx), E, M,
+                                     capacity_factor=CAPACITY_FACTOR)
+        sj = jax_capacity(jnp.asarray(idx), E, M,
+                          capacity_factor=CAPACITY_FACTOR)
     else:
         st = build_dynamic_schedule(torch.from_numpy(idx), E, M,
                                     block_m_min=8)
@@ -110,7 +129,7 @@ def check_lists(runs, tiles, be, ba, block_m, capacity):
 
 
 @pytest.mark.parametrize("skew", [False, True])
-@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic", "capacity_factor"])
 @pytest.mark.parametrize("T,E,k,M", CASES)
 def test_work_lists_cover_the_schedule_once(T, E, k, M, policy, skew):
     idx = routed(T, E, k, seed=T + E, skew=skew)
@@ -124,6 +143,50 @@ def test_work_lists_cover_the_schedule_once(T, E, k, M, policy, skew):
         lists.append((runs, tiles))
     (runs_t, tiles_t), (runs_j, tiles_j) = lists
     assert torch.equal(runs_t, runs_j) and torch.equal(tiles_t, tiles_j)
+
+
+def prefix_lists(seg_start, block_expert, block_active, *, block_m,
+                 capacity):
+    """The lists as they were built while every policy's active blocks
+    formed a prefix: the runs' tiles, then zero tiles from the end of the
+    last active block only."""
+    runs, tiles = et.expert_tiles_plain(seg_start, block_expert,
+                                        block_active, block_m=block_m,
+                                        capacity=capacity)
+    live = [t for t in tiles.tolist() if t[0] >= 0]
+    active = torch.nonzero(block_active != 0).reshape(-1)
+    end = (int(active[-1]) + 1) * block_m if active.numel() else 0
+    live += [[-1, r, min(et.TILE_ROWS, capacity - r)]
+             for r in range(end, capacity, et.TILE_ROWS)]
+    return runs, torch.tensor(live, dtype=torch.int32).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+@pytest.mark.parametrize("T,E,k,M", CASES)
+def test_fixed_and_dynamic_lists_are_unchanged(T, E, k, M, policy, skew):
+    """Under fixed and dynamic the only uncovered span is the tail past the
+    last active block, so the lists are tile for tile those of the prefix
+    rule; capacity_factor's are not (its buckets leave gaps)."""
+    idx = torch.from_numpy(routed(T, E, k, seed=T + E, skew=skew))
+    builds = {"fixed": lambda: build_fixed_schedule(idx, E, M),
+              "dynamic": lambda: build_dynamic_schedule(idx, E, M),
+              "capacity_factor": lambda: build_capacity_schedule(
+                  idx, E, M, capacity_factor=CAPACITY_FACTOR)}
+    for name in (policy, "capacity_factor"):
+        st = builds[name]()
+        seg, be, ba = st.seg_start, st.block_expert, st.block_active
+        bm, cap = st.block_m, st.capacity
+        got = et.expert_tiles_plain(seg, be, ba, block_m=bm, capacity=cap)
+        want = prefix_lists(seg, be, ba, block_m=bm, capacity=cap)
+        if name == policy:
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    got = et.expert_tiles_plain(seg, be, ba, block_m=bm, capacity=cap)
+    want = prefix_lists(seg, be, ba, block_m=bm, capacity=cap)
+    a = ba.numpy() != 0
+    prefix = not (a[1:] & ~a[:-1]).any()        # no active after inactive
+    assert torch.equal(got[1], want[1]) == prefix
 
 
 def test_experts_with_no_rows_get_empty_runs():
@@ -170,7 +233,9 @@ COUNTS = (1, 0, 37, 130, 0, 9, 300, 64)
 
 @pytest.mark.parametrize("side", ["port", "reference"])
 @pytest.mark.parametrize("policy,M", [("fixed", 8), ("fixed", 16),
-                                      ("fixed", 128), ("dynamic", 128)])
+                                      ("fixed", 128), ("dynamic", 128),
+                                      ("capacity_factor", 8),
+                                      ("capacity_factor", 128)])
 def test_tile_walk_matches_the_plain_forward_gemms(policy, M, side):
     rng = np.random.default_rng(M)
     idx = rng.permutation(np.repeat(np.arange(len(COUNTS)), COUNTS))

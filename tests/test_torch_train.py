@@ -249,7 +249,7 @@ def test_schedule_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 
 
-def test_train_loop_logs_and_injects_failure():
+def test_train_loop_logs_and_injects_failure(tmp_path):
     _, tcfg = configs()
     kw = dict(steps=3, batch=2, seq=16, seed=0, device="cpu")
     rc = RunConfig(loss_chunk=LOSS_CHUNK)
@@ -261,8 +261,11 @@ def test_train_loop_logs_and_injects_failure():
     assert lines[0].startswith("[train] step     0 loss ")
     with pytest.raises(RuntimeError, match="injected failure at step 1"):
         train(tcfg, rc, opt, fail_at=1, log=lines.append, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        train(tcfg, rc, opt, ckpt_dir="ckpt", **kw)
+    out = train(tcfg, rc, opt, ckpt_dir=str(tmp_path), save_every=1,
+                log=lines.append, **kw)
+    assert out["resumed_from"] is None
+    assert sorted(p.name for p in tmp_path.iterdir()) \
+        == ["ckpt_00000001", "ckpt_00000002"]       # none at step 0
 
 
 def test_launcher_trains_reduced_moonshot_on_the_cpu(capsys):
