@@ -122,7 +122,16 @@ result line):
    in fp32 through the first 4 layers (rtol = atol = 1e-3), and in bf16
    through the dense layer 0 and the head (rtol = atol = 5e-2).  Then a
    prefill window (two chunk steps) and five decode steps run under
-   torch.profiler;
+   torch.profiler.  [serve obs] on the same model and prompts: the
+   memory observability bundle against the null one and ``moe_stats`` on
+   against off (tokens and launches equal; the trace validated with the
+   reference's span names; counters; TTFT/TPOT/queue/E2E p50/p99; decode
+   ms per step with the arms switched step by step on one engine), an
+   explicit preemption on the paged and the contiguous engine and the
+   ``slo`` policy on a stepped clock (tokens bitwise the uninterrupted
+   run's in fp32; the resumed admission timed in bf16), and a
+   ``torch.profiler`` device trace of two decode steps that must name B1,
+   B2 and B6 (``serve_obs``);
 6. serving, contiguous + fixed (``kv_block_size=0``): 3 requests as before
    the paged engine existed, with the same launch, logits and profile
    checks;
@@ -178,7 +187,9 @@ result line):
    failure injected at step 3, restarted by ``supervise``: it resumes from
    step 2 and ends bitwise where the uninterrupted runs end; the
    directory's free space (too little fails the phase), the checkpoint's
-   bytes and the host copy, write and restore times printed.
+   bytes and the host copy, write and restore times printed; the
+   supervised runs carry a memory observability bundle, whose
+   ``train/step`` and ``train/checkpoint`` spans must be there.
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -199,6 +210,9 @@ MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
 MIXTRAL = dict(E=8, k=2, d=4096, f=14336, M=128, gating="softmax",
                norm_topk=False, routed_scale=1.0)
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_NEW = 2, 4, 16
+# [serve obs]: rounds of (NOOP, memory, stats off, stats off, memory,
+# NOOP) decode steps, switched step by step on one engine
+OBS_ROUNDS = 15
 CONTIG_REQUESTS = 3
 KV_BLOCK, PREFILL_CHUNK, SHARED_PREFIX = 16, 32, 40
 ATTN = dict(Hkv=16, G=1, D=128, bs=16)          # moonshot's attention
@@ -452,6 +466,7 @@ def profile_window(fn, top: int = 8) -> dict:
     return {"wall_ms": wall * 1e3, "device_ms": busy / 1e3,
             "busy_share": busy / 1e3 / (wall * 1e3),
             "kernel_ms": sum(v[1] for v in per_kernel.values()),
+            "device_events": len(dev),
             "top_device": [(k[:90], n, ms) for k, (n, ms) in by_dev],
             "top_cpu": [(e.key[:90], e.count, e.self_cpu_time_total / 1e3)
                         for e in by_cpu]}
@@ -1834,6 +1849,411 @@ def print_profile(tag: str, prefill_label: str, prof: dict) -> None:
             print(f"    host   {ms:9.3f} ms {calls:5d}x  {name[:70]}")
 
 
+class SteppedClock:
+    """A clock that only its owner moves (the [serve obs] slo run)."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def drive_scheduled(engine, reqs) -> dict:
+    """Serve ``reqs`` through ``enqueue`` and ``schedule`` (the engine's
+    admission policy and its preemptions), with the launch counters set to
+    0 just before and read just after; host-clock times of each step
+    (each ends in its host transfer), split into steps that carried prompt
+    rows and decode-only steps."""
+    import torch
+    from repro_torch.kernels import ops
+    pending = engine.enqueue(list(reqs))
+    forwards0 = engine.n_forwards
+    prompt_steps, decode_steps = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_run = time.perf_counter()
+    while pending or engine.n_active:
+        engine.schedule(pending)
+        t0 = time.perf_counter()
+        engine.step()
+        dt = time.perf_counter() - t0
+        (prompt_steps if engine.last_step[1] else decode_steps).append(dt)
+    torch.cuda.synchronize()
+    return {"launches": dict(ops.LAUNCHES),
+            "forwards": engine.n_forwards - forwards0,
+            "run_s": time.perf_counter() - t_run,
+            "prompt_steps": prompt_steps, "decode_steps": decode_steps}
+
+
+def timed_admissions(engine) -> dict:
+    """Wrap ``engine.admit`` (the scheduling pass calls it) so that each
+    admission's host time, synchronised at both ends, is kept by rid."""
+    import torch
+    admit, times = engine.admit, {}
+
+    def timed(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = admit(req)
+        torch.cuda.synchronize()
+        times.setdefault(req.rid, []).append(time.perf_counter() - t0)
+        return ok
+    engine.admit = timed
+    return times
+
+
+def serve_obs(cfg, model, prompts, capacity, paged_kw) -> dict:
+    """[serve obs]: the paged engine's observability, admission policies
+    and preemption on the served model (the engine's default ``dynamic``
+    with ``moe_stats``), on the [serve paged] prompts (4 requests, 16 new
+    tokens each, 2 slots, submitted together).
+
+    (a) bf16: the memory bundle against ``NOOP``, and ``moe_stats`` on
+    against off, each arm a fresh engine on the same requests (after one
+    untimed NOOP run): greedy tokens bitwise equal and launches equal (and
+    as ``check_launches`` expects); 5 decode steps of two fresh requests
+    profiled in each (device activities and busy share).  The memory
+    run's trace is saved under build/ and validated with the reference's
+    span names; its counters and TTFT/TPOT/queue/E2E p50/p99 are printed.
+    Then the decode step's cost of each arm: one engine, two requests
+    decoding, the arm switched step by step in OBS_ROUNDS palindromic
+    rounds (NOOP, memory, stats off, stats off, memory, NOOP), each step
+    timed alone (host clock; each ends in its host transfer), so that a
+    drift of the host's speed falls on every arm alike.
+    (b) ``preempt(0)`` after 2 steps, paged (the table parks) and
+    contiguous (the resume re-prefills prompt + out[:-1]): one preemption
+    and one resumption, no parked table left.  In bf16 the resumed
+    admission is timed and the tokens compared with the uninterrupted
+    run's (printed, not required: see below); in fp32 (an fp32 copy of
+    the first CHECK_LAYERS layers) the tokens must be bitwise the
+    uninterrupted fp32 run's.  A preemption changes the rows the other
+    requests' later steps share, and in bf16 cuBLAS's choice of algorithm
+    by row count and the GQA kernel's split plan by batch round some
+    logits differently, which can flip a greedy pick; in fp32 such
+    differences sit far below the logits' gaps.
+    (c) ``slo`` admission, fp32 copy, on a stepped clock moved by (a)'s
+    median NOOP decode step after each step (``step_time_hint`` the same):
+    request 0 (41-64 prompt tokens, two chunks) with a TTFT deadline of
+    half a step is preempted before its second step when request 2
+    arrives with a deadline it can meet (10 steps), and resumes last;
+    every request completes with the uninterrupted fp32 run's tokens.
+    (d) bf16: ``device_trace`` around two decode steps: the profiler's
+    trace must name B1, B2 and the GQA kernel (B6)."""
+    import numpy as np
+    import torch
+    from repro_torch.execution import set_plan_hook
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.obs import (NOOP, Observability, device_trace,
+                                 latency_summary, validate_chrome_trace)
+    from repro_torch.serve.engine import Request, ServeEngine
+    rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic",
+                   moe_stats=True)
+    moe_layers, V = n_moe_layers(cfg), cfg.vocab_size
+    # the tails' two 16-token prompts (one chunk each)
+    tail = np.random.default_rng(1).integers(0, V, (SERVE_SLOTS, 16)).astype(
+        np.int32)
+
+    def fresh(**kw):
+        return [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW, **kw)
+                for i, p in enumerate(prompts)]
+
+    def decode_ready(engine, max_new=SERVE_MAX_NEW):
+        """Admit the two tail prompts, run their chunk step and a first
+        decode step."""
+        for i in range(SERVE_SLOTS):
+            engine.admit(Request(rid=100 + i, prompt=tail[i],
+                                 max_new=max_new))
+        for _ in range(2):
+            engine.step()
+
+    # (a) -----------------------------------------------------------------
+    arms = {"noop": (NOOP, True), "memory": (None, True),
+            "stats_off": (NOOP, False)}
+    runs = {}
+    for name in ("noop", "noop", "memory", "stats_off"):
+        obs, stats = arms[name]
+        obs = obs or Observability.memory()
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                             rc=rc._replace(moe_stats=stats), obs=obs,
+                             **paged_kw)
+        reqs = fresh()
+        res = drive_scheduled(engine, reqs)
+        check_launches(res["launches"], moe_layers * res["forwards"],
+                       cfg.n_layers * res["forwards"], "dense")
+        check_requests(reqs, V)
+        counters = {(c["name"] + (json.dumps(c["labels"], sort_keys=True)
+                                  if c["labels"] else "")): c["value"]
+                    for c in obs.metrics.snapshot()["counters"]}
+        decode_ready(engine)
+        prof = profile_window(lambda: [engine.step() for _ in range(5)])
+        set_plan_hook(None)
+        runs[name] = {"res": res, "reqs": reqs, "obs": obs, "prof": prof,
+                      "counters": counters}
+        del engine
+        torch.cuda.empty_cache()
+    base = runs["noop"]
+    tokens = [r.out for r in base["reqs"]]
+    for name, run in runs.items():
+        if [r.out for r in run["reqs"]] != tokens:
+            raise AssertionError(f"[serve obs] {name}: tokens differ from "
+                                 "the NOOP run's")
+        if run["res"]["launches"] != base["res"]["launches"]:
+            raise AssertionError(f"[serve obs] {name}: launches "
+                                 f"{run['res']['launches']} differ from the "
+                                 "NOOP run's")
+    mem = runs["memory"]
+    trace_path = ROOT / "build" / "serve_obs_trace.json"
+    mem["obs"].tracer.save(trace_path)
+    v = validate_chrome_trace(
+        json.loads(trace_path.read_text()),
+        required_names=("serve/admit", "serve/step", "serve/assemble",
+                        "serve/forward", "serve/host_sync",
+                        "serve/postprocess", "serve/retire",
+                        "serve/prefix_probe", "recompile", "plan_trace"))
+    counters = mem["counters"]
+    if counters.get("serve/completed") != len(prompts) \
+            or counters.get("serve/admitted") != len(prompts):
+        raise AssertionError(f"[serve obs] counters {counters}")
+    lat = latency_summary(mem["reqs"])
+    sched = {k: x for k, x in mem["reqs"][0].stats.items()
+             if k.startswith("sched/")}
+    events = {name: run["prof"]["device_events"]
+              for name, run in runs.items()}
+    busy = {name: run["prof"]["busy_share"] for name, run in runs.items()}
+    print(f"[serve obs] (a) memory bundle vs NOOP vs moe_stats off, fresh "
+          f"engines: tokens bitwise equal, launches equal "
+          f"({json.dumps(base['res']['launches'])}); over 5 decode steps, "
+          f"device activities {json.dumps(events)}, busy share "
+          f"{json.dumps({k: round(x, 3) for k, x in busy.items()})}; trace "
+          f"{trace_path.relative_to(ROOT)}: {v['events']} events, "
+          f"{len(v['names'])} names")
+    print(f"[serve obs] counters {json.dumps(counters)}")
+    print(f"[serve obs] request 0's plan stats (last step): "
+          f"{json.dumps({k: round(x, 4) for k, x in sched.items()})}")
+    for fam in ("ttft_s", "tpot_s", "queue_wait_s", "e2e_s"):
+        a = lat[fam]
+        print(f"[serve obs] {fam}: p50 {a['p50'] * 1e3:.2f} ms, p99 "
+              f"{a['p99'] * 1e3:.2f} ms, mean {a['mean'] * 1e3:.2f} ms "
+              f"(n={a['n']}; 4 requests submitted together on "
+              f"{SERVE_SLOTS} slots; host clock)")
+    launches = base["res"]["launches"]
+    del runs, mem, base
+    torch.cuda.empty_cache()
+
+    # the decode step's cost of each arm, switched step by step
+    per_round = ("noop", "memory", "stats_off", "stats_off", "memory", "noop")
+    n_steps = OBS_ROUNDS * len(per_round)
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                         capacity=len(tail[0]) + n_steps + 8, rc=rc,
+                         **paged_kw)
+    decode_ready(engine, max_new=n_steps + 4)
+    mem_obs = Observability.memory()
+
+    def use(name):
+        obs = mem_obs if name == "memory" else NOOP
+        engine.obs, engine._clock = obs, obs.clock
+        engine.kv.bind_obs(obs.metrics, obs.tracer)
+        set_plan_hook(obs.on_plan if obs.enabled else None)
+        engine.rc = rc._replace(moe_stats=name != "stats_off")
+    times = {name: [] for name in arms}
+    for _ in range(OBS_ROUNDS):
+        for name in per_round:
+            use(name)
+            t0 = time.perf_counter()
+            rows = engine.step()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            if rows != SERVE_SLOTS:
+                raise AssertionError(f"[serve obs] a timed step ran {rows} "
+                                     f"rows, not {SERVE_SLOTS}")
+    set_plan_hook(None)
+    del engine
+    torch.cuda.empty_cache()
+
+    def paired(a, b):
+        """Per round: the mean of a's two steps less b's."""
+        return [float(np.mean(times[a][2 * i:2 * i + 2])
+                      - np.mean(times[b][2 * i:2 * i + 2]))
+                for i in range(OBS_ROUNDS)]
+    med = {name: float(np.median(x)) for name, x in times.items()}
+    q = {name: [float(np.percentile(x, 25)), float(np.percentile(x, 75))]
+         for name, x in times.items()}
+    d_obs, d_stats = paired("memory", "noop"), paired("noop", "stats_off")
+    print(f"[serve obs] decode ms per step, {OBS_ROUNDS} rounds x "
+          f"{per_round} on one engine (2 slots, host clock): median NOOP "
+          f"{med['noop']:.3f} (quartiles {q['noop'][0]:.3f}-"
+          f"{q['noop'][1]:.3f}), memory {med['memory']:.3f} "
+          f"({q['memory'][0]:.3f}-{q['memory'][1]:.3f}), moe_stats off "
+          f"{med['stats_off']:.3f} ({q['stats_off'][0]:.3f}-"
+          f"{q['stats_off'][1]:.3f}); per round, memory - NOOP: median "
+          f"{np.median(d_obs):+.3f} ms, {sum(d > 0 for d in d_obs)} of "
+          f"{OBS_ROUNDS} rounds above 0; moe_stats on - off: median "
+          f"{np.median(d_stats):+.3f} ms, {sum(d > 0 for d in d_stats)} of "
+          f"{OBS_ROUNDS} above 0")
+    out = {"decode_ms_median": med, "decode_ms_quartiles": q,
+           "memory_minus_noop_ms": d_obs, "stats_on_minus_off_ms": d_stats,
+           "latency": lat, "counters": counters,
+           "launches": launches,
+           "device_events_5_decode_steps": events,
+           "busy_share_5_decode_steps": busy,
+           "trace_events": v["events"]}
+    step_s = med["noop"] / 1e3
+
+    # (b) and (c) -------------------------------------------------------
+    n_check = min(cfg.n_layers, CHECK_LAYERS)
+    cfg32 = cfg.replace(n_layers=n_check)
+    model32 = copy.deepcopy(truncated(model, n_check)).float()
+    rc32 = rc._replace(compute_dtype=torch.float32)
+
+    def uninterrupted(m, c, r, kw):
+        engine = ServeEngine(c, m, slots=SERVE_SLOTS, capacity=capacity,
+                             rc=r, **kw)
+        reqs = fresh()
+        drive_scheduled(engine, reqs)
+        check_requests(reqs, V)
+        return [x.out for x in reqs]
+
+    def preempted(m, c, r, kw):
+        engine = ServeEngine(c, m, slots=SERVE_SLOTS, capacity=capacity,
+                             rc=r, **kw)
+        admits = timed_admissions(engine)
+        reqs = fresh()
+        pending = engine.enqueue(reqs)
+        engine.schedule(pending)
+        for _ in range(2):
+            engine.step()
+        victim = engine.preempt(0)
+        n_out = len(victim.out)
+        parked = engine.kv.stats()["parked_tables"] if engine.paged else 0
+        pending.append(victim)
+        while pending or engine.n_active:
+            engine.schedule(pending)
+            engine.step()
+        torch.cuda.synchronize()
+        check_requests(reqs, V)
+        left = engine.kv.stats()["parked_tables"] if engine.paged else 0
+        if (engine.n_preempted, engine.n_resumed, parked, left) \
+                != (1, 1, int(engine.paged), 0):
+            raise AssertionError(
+                f"[serve obs] (b) preempted {engine.n_preempted}, resumed "
+                f"{engine.n_resumed}, parked {parked} then {left}")
+        return ([x.out for x in reqs], victim, n_out,
+                1e3 * admits[victim.rid][0], 1e3 * admits[victim.rid][1])
+
+    ref32 = {}
+    for kvb in (KV_BLOCK, 0):
+        tag = "paged" if kvb else "contiguous"
+        kw = dict(paged_kw) if kvb else dict(kv_block_size=0)
+        want16 = tokens if kvb else uninterrupted(model, cfg, rc, kw)
+        got16, victim, n_out, first_ms, resume_ms = preempted(
+            model, cfg, rc, kw)
+        differ = [i for i, (a, b) in enumerate(zip(got16, want16)) if a != b]
+        ref32[kvb] = uninterrupted(model32, cfg32, rc32, kw)
+        got32 = preempted(model32, cfg32, rc32, kw)[0]
+        if got32 != ref32[kvb]:
+            raise AssertionError(
+                f"[serve obs] (b) {tag} fp32: the preempted run's tokens "
+                f"differ from the uninterrupted run's: {got32} vs "
+                f"{ref32[kvb]}")
+        how = ("the parked table re-attached, nothing recomputed" if kvb
+               else f"a prefill of prompt + out[:-1] = "
+                    f"{len(victim.prompt) + n_out - 1} tokens")
+        print(f"[serve obs] (b) {tag}: preempt(0) after 2 steps (request "
+              f"{victim.rid}, {n_out} token(s) out), resumed: {how}; bf16 "
+              f"admission {first_ms:.3f} ms, resumed admission "
+              f"{resume_ms:.3f} ms (host clock, synchronised); bf16 tokens: "
+              f"requests {differ or 'none'} differ from the uninterrupted "
+              f"run's (other rows beside them after the preemption); fp32 "
+              f"({n_check} layers): tokens bitwise the uninterrupted run's")
+        out[f"preempt_{tag}"] = {"first_admit_ms": first_ms,
+                                 "resume_admit_ms": resume_ms,
+                                 "tokens_out_at_preempt": n_out,
+                                 "bf16_requests_differing": differ}
+
+    clock = SteppedClock()
+    obs = Observability.memory(clock=clock)
+    engine = ServeEngine(cfg32, model32, slots=SERVE_SLOTS,
+                         capacity=capacity, rc=rc32, admission="slo",
+                         obs=obs, **paged_kw)
+    engine.step_time_hint = step_s
+    if len(prompts[0]) <= PREFILL_CHUNK:
+        raise AssertionError("request 0's prompt takes one chunk")
+    deadline = {0: 0.5, 2: 10.0}             # in steps
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW,
+                    slo_ttft=(deadline[i] * step_s if i in deadline
+                              else None))
+            for i, p in enumerate(prompts)]
+    pending = engine.enqueue(reqs[:2])
+    engine.schedule(pending)
+    engine.step()
+    clock.now += step_s
+    pending += engine.enqueue(reqs[2:])
+    while pending or engine.n_active:
+        engine.schedule(pending)
+        engine.step()
+        clock.now += step_s
+    set_plan_hook(None)
+    check_requests(reqs, V)
+    if engine.n_preempted < 1 or engine.n_resumed != engine.n_preempted:
+        raise AssertionError(f"[serve obs] (c) preempted "
+                             f"{engine.n_preempted}, resumed "
+                             f"{engine.n_resumed}")
+    if [r.out for r in reqs] != ref32[KV_BLOCK]:
+        raise AssertionError("[serve obs] (c) the slo run's tokens differ "
+                             "from the uninterrupted fp32 run's")
+    order = [(e["name"].split("/")[1], e["args"]["rid"])
+             for e in obs.tracer.events
+             if e["name"] in ("serve/admit", "serve/preempt",
+                              "serve/resume", "serve/retire")]
+    kv = engine.kv.stats()
+    print(f"[serve obs] (c) slo admission, fp32 ({n_check} layers), on a "
+          f"stepped clock ({step_s * 1e3:.3f} ms a step, step_time_hint the "
+          f"same): request 0's TTFT deadline 0.5 steps, request 2's 10; "
+          f"{engine.n_preempted} preempted, {engine.n_resumed} resumed, "
+          f"park reclaims {kv['park_reclaims']}; tokens the uninterrupted "
+          f"run's; events {order}; TTFT misses "
+          f"{obs.metrics.counter_value('serve/slo_ttft_miss'):.0f}")
+    out["slo"] = {"preempted": engine.n_preempted,
+                  "resumed": engine.n_resumed,
+                  "park_reclaims": kv["park_reclaims"], "events": order}
+    del engine, model32
+    torch.cuda.empty_cache()
+
+    # (d) -----------------------------------------------------------------
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                         rc=rc, **paged_kw)
+    decode_ready(engine)
+    engine.step()                        # the first decode step, untraced
+    logdir = ROOT / "build" / "device_trace"
+    with device_trace(str(logdir)) as prof:
+        if prof is None:
+            raise AssertionError("[serve obs] (d) the profiler did not start")
+        for _ in range(2):
+            engine.step()
+    path = logdir / "device_trace.json"
+    names = {e.get("name", "") for e in json.loads(
+        path.read_text())["traceEvents"]
+        if "kernel" in str(e.get("cat", "")).lower()}
+    want = {"B1 grouped_gemm": ("fwd_hopper_kernel<false>",
+                                "fwd_hopper_kernelILb0E"),
+            "B2 fused_gate_up": ("fwd_hopper_kernel<true>",
+                                 "fwd_hopper_kernelILb1E"),
+            "B6 paged_attention": ("paged_attention_split_kernel",)}
+    missing = [k for k, subs in want.items()
+               if not any(sub in n for n in names for sub in subs)]
+    if missing:
+        raise AssertionError(f"[serve obs] (d) {path} names no kernel of "
+                             f"{missing}; kernels: {sorted(names)}")
+    print(f"[serve obs] (d) device_trace around 2 decode steps -> "
+          f"{path.relative_to(ROOT)} ({path.stat().st_size} bytes, "
+          f"{len(names)} kernel names; B1, B2 and B6 among them): "
+          + "; ".join(sorted(n[:60] for n in names)))
+    out["device_trace_kernels"] = sorted(names)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_deepseek(rng) -> dict:
     """deepseek-v2-236b at full width, cut to DEEPSEEK_LAYERS layers (1 dense
     + 3 MoE), random bf16 weights: the paged engine (its attention through
@@ -2282,11 +2702,13 @@ def train_resume() -> dict:
     Prints the directory's free space before writing (a disk that cannot
     hold a checkpoint fails the phase), the checkpoint's bytes, and the
     host copy's, the write's and the restore's times."""
+    import collections
     import shutil
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import LOSS_CHUNK
     from repro_torch.models.lm import RunConfig
+    from repro_torch.obs import Observability
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.fault import supervise
     from repro_torch.train.loop import train
@@ -2333,13 +2755,14 @@ def train_resume() -> dict:
         raise AssertionError(f"the disk holds {free / 1e9:.1f} GB, less than "
                              f"one checkpoint ({need / 1e9:.2f} GB)")
     attempts = []
+    obs = Observability.memory()
 
     def run():
         attempts.append(len(attempts))
         return train(cfg, rc, opt, ckpt_dir=str(root),
                      save_every=RESUME_SAVE_EVERY, keep_last=1,
                      fail_at=RESUME_FAIL_AT if len(attempts) == 1 else None,
-                     **kw)
+                     obs=obs, **kw)
     t0 = time.perf_counter()
     out = supervise(run)
     wall = time.perf_counter() - t0
@@ -2359,13 +2782,21 @@ def train_resume() -> dict:
                         f"{(clean[n] - resumed[n]).abs().max().item():.3e})"
                         for n in diff))
     shutil.rmtree(root, ignore_errors=True)
+    spans = collections.Counter(e["name"] for e in obs.tracer.events)
+    if not spans["train/step"] or not spans["train/checkpoint"]:
+        raise AssertionError(f"[train resume] the memory bundle's spans: "
+                             f"{dict(spans)}")
+    logged = obs.metrics.counter_value("train/steps_logged")
+    print(f"[train resume] memory bundle over the supervised runs: spans "
+          f"{dict(sorted(spans.items()))}, train/steps_logged {logged:.0f}")
     res = {"layers": RESUME_LAYERS, "n_params": n_params, "free_bytes": free,
            "checkpoint_bytes": stats["bytes"], "disk_bytes": disk_bytes,
            "host_copy_ms": stats["host_copy_s"] * 1e3,
            "write_s": stats["write_s"], "restore_s": stats["restore_s"],
            "write_GB_per_s": stats["bytes"] / stats["write_s"] / 1e9,
            "clean_run_s": clean_s, "supervised_s": wall,
-           "resumed_from": resumed_from, "on_disk": on_disk}
+           "resumed_from": resumed_from, "on_disk": on_disk,
+           "spans": dict(spans)}
     print(f"[train resume] failure injected at step {RESUME_FAIL_AT}, "
           f"save_every {RESUME_SAVE_EVERY}, keep_last 1: supervise restarted "
           f"once, resumed from step {resumed_from}, final parameters "
@@ -2797,6 +3228,12 @@ def main() -> None:
                   paged_prof)
     del engine
     torch.cuda.empty_cache()
+
+    # [serve obs]: observability, admission policies and preemption on the
+    # same model and prompts
+    obs_summary = serve_obs(cfg, model, prompts, capacity, paged_kw)
+    print(json.dumps({"serve_obs": obs_summary}))
+    elapsed("serving moonshot, observability and preemption")
 
     # 6. serving, contiguous + fixed -------------------------------------
     rc_c = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="fixed")

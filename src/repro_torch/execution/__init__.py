@@ -5,11 +5,11 @@ from repro_torch.execution.base import (DispatchPlan, Executor,
                                         combine_scale_rows, execute,
                                         get_executor, plan_dispatch,
                                         plan_schedule, register_executor,
-                                        router_aux_losses)
+                                        router_aux_losses, set_plan_hook)
 from repro_torch.execution import cuda  # noqa: F401  (registers "cuda")
 
 __all__ = [
     "DispatchPlan", "Executor", "available_executors", "combine_scale_rows",
     "execute", "get_executor", "plan_dispatch", "plan_schedule",
-    "register_executor", "router_aux_losses",
+    "register_executor", "router_aux_losses", "set_plan_hook",
 ]

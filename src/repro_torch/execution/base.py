@@ -127,12 +127,35 @@ def available_executors():
     return sorted(_EXECUTORS)
 
 
+# ----------------------------------------------------------------------
+# Plan-stats hook (observability)
+# ----------------------------------------------------------------------
+# Called for every plan built with host-static facts (token count,
+# executor, policy); ``repro_torch.obs`` wires it to ``moe/plans_traced``,
+# counted only inside a serving step at a new shape.  Process-global, as
+# the reference's (one observability bundle per process); the default None
+# costs one identity check per plan.
+_PLAN_HOOK: Optional[Callable[..., None]] = None
+
+
+def set_plan_hook(hook: Optional[Callable[..., None]]):
+    """Install ``hook(tokens=..., executor=..., policy=...)``; returns the
+    previous hook so that callers (tests, short-lived engines) can restore
+    it."""
+    global _PLAN_HOOK
+    prev, _PLAN_HOOK = _PLAN_HOOK, hook
+    return prev
+
+
 def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
                   ) -> DispatchPlan:
     """Phase 1: route + schedule + combine rows + aux, once per batch;
     with ``cfg.emit_stats`` the aux also holds the schedule's ``sched/*``
     telemetry (device tensors, no host read)."""
     ex = get_executor(cfg.executor)
+    if _PLAN_HOOK is not None:
+        _PLAN_HOOK(tokens=int(x.shape[0]), executor=str(cfg.executor),
+                   policy=str(cfg.schedule_policy))
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
     aux = router_aux_losses(logits, indices, cfg)

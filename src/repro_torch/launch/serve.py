@@ -16,9 +16,22 @@ holds 13.3 B parameters, 26.6 GB in bf16).  ``--quant
 compressed under that scheme (quantized at load, one stack at a time; the
 kernels dequantize on chip); ``--quant-experts`` is its deprecated alias
 for ``int8_expert``.  Prints the routed experts' stored bytes and the peak
-device memory from load to the end of serving.  Runs on the card; ``--device cpu`` runs the kernels' plain
-versions on the CPU."""
+device memory from load to the end of serving.  Runs on the card;
+``--device cpu`` runs the kernels' plain versions on the CPU.
+
+Scheduling and observability: ``--admission {fcfs,sjf,prefix_hit,slo}``
+picks the pending request for each free slot (``slo`` admits by TTFT
+deadline and preempts; ``--slo-ttft`` / ``--slo-tpot`` give every request
+its deadlines in seconds), ``--max-steps`` bounds the run (unfinished
+requests are reported).  Each request's plan stats (``sched/*`` of its
+last step, summed over the MoE layers) are printed, then TTFT, TPOT,
+queue wait and end-to-end latency (mean, p50, p99 over the completed
+requests) and the paged cache's stats.  ``--trace [PATH]`` writes the
+step timeline as a Chrome trace, ``--metrics-out [PATH]`` the metrics
+snapshot with the latency table as JSON, ``--device-trace DIR`` a
+``torch.profiler`` trace of the run (kernels and device times)."""
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -33,7 +46,10 @@ def main(argv=None):
     from repro_torch.quantization import (available_schemes,
                                           resolve_quant_cli,
                                           routed_expert_bytes)
+    from repro_torch.obs import (NOOP, Observability, device_trace,
+                                 drop_summary, latency_summary)
     from repro_torch.scheduling import available_policies
+    from repro_torch.serve.admission import available_admission_policies
     from repro_torch.serve.engine import Request, ServeEngine
 
     ap = argparse.ArgumentParser()
@@ -60,6 +76,34 @@ def main(argv=None):
                     help="expert-weight quantization scheme (default: none)")
     ap.add_argument("--quant-experts", action="store_true",
                     help="DEPRECATED: alias for --quant int8_expert")
+    ap.add_argument("--admission", default="fcfs",
+                    choices=available_admission_policies(),
+                    help="which pending request gets a freed slot (fcfs, "
+                         "sjf = shortest prompt, prefix_hit = warmest "
+                         "cached prefix, slo = TTFT-deadline feasibility "
+                         "with preemption)")
+    ap.add_argument("--slo-ttft", type=float, default=None, metavar="S",
+                    help="per-request time-to-first-token deadline "
+                         "(seconds); pair with --admission slo")
+    ap.add_argument("--slo-tpot", type=float, default=None, metavar="S",
+                    help="per-request time-per-output-token budget "
+                         "(seconds); pair with --admission slo")
+    ap.add_argument("--max-steps", type=int, default=512,
+                    help="engine-step budget for the whole run; requests "
+                         "still unfinished when it runs out are reported "
+                         "(partial output kept)")
+    ap.add_argument("--trace", nargs="?", const="results/trace/serve.json",
+                    default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON of the step timeline "
+                         "(default path results/trace/serve.json)")
+    ap.add_argument("--metrics-out", nargs="?",
+                    const="results/serve/metrics.json", default=None,
+                    metavar="PATH",
+                    help="write the metrics snapshot (counters, gauges, "
+                         "histograms, latency percentiles) as JSON")
+    ap.add_argument("--device-trace", default=None, metavar="DIR",
+                    help="bracket the run in a torch.profiler trace (CPU "
+                         "and CUDA activity) written to DIR")
     args = ap.parse_args(argv)
     quant = resolve_quant_cli(args.quant, args.quant_experts)
 
@@ -75,34 +119,87 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i, prompt=rng.integers(
                 0, cfg.vocab_size, int(rng.integers(16, 65))).astype(np.int32),
-                    max_new=args.max_new)
+                    max_new=args.max_new, slo_ttft=args.slo_ttft,
+                    slo_tpot=args.slo_tpot)
             for i in range(args.requests)]
     capacity = max(len(r.prompt) for r in reqs) + args.max_new + 1
     rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
-                   paged_attn=args.paged_attn, quant=quant)
+                   paged_attn=args.paged_attn, quant=quant,
+                   moe_stats=bool(cfg.is_moe))
+    obs = (Observability.memory()
+           if (args.trace or args.metrics_out or args.device_trace)
+           else NOOP)
     engine = ServeEngine(cfg, model, slots=args.slots, capacity=capacity,
-                         rc=rc, kv_block_size=args.kv_block,
-                         prefill_chunk=args.prefill_chunk, device=args.device)
+                         rc=rc, admission=args.admission,
+                         kv_block_size=args.kv_block,
+                         prefill_chunk=args.prefill_chunk, obs=obs,
+                         device=args.device)
     cache = (f"paged KV cache (blocks of {args.kv_block}, prefill chunks of "
              f"{engine.prefill_chunk}, {args.paged_attn} read)"
              if engine.paged else "contiguous KV cache")
     print(f"{cfg.name}: {cfg.n_layers} layers at full width, {args.dtype}, "
           f"{cache}, {args.policy} schedule, cuda executor, "
-          f"{args.slots} slots x {capacity} tokens")
+          f"{args.admission} admission, {args.slots} slots x {capacity} "
+          f"tokens")
     print(f"routed experts: {quant} scheme, {routed_expert_bytes(model)} "
           f"bytes stored ({dense_bytes} dense {args.dtype})")
+    bracket = (device_trace(args.device_trace) if args.device_trace
+               else contextlib.nullcontext())
     t0 = time.perf_counter()
-    done = engine.run(reqs)
+    with bracket:
+        done = engine.run(reqs, max_steps=args.max_steps)
     dt_s = time.perf_counter() - t0
     for r in reqs:
-        print(f"req {r.rid}: {len(r.prompt)} prompt tokens -> {r.out}")
+        tag = "" if r.done else "  [INCOMPLETE: step budget exhausted]"
+        print(f"req {r.rid}: {len(r.prompt)} prompt tokens -> {r.out}{tag}")
+        sched = {k.split("/", 1)[1]: round(v, 3)
+                 for k, v in r.stats.items() if k.startswith("sched/")}
+        if sched:
+            print(f"  plan stats (last step, shared by "
+                  f"{int(r.stats.get('serve/decode_batch', 1))} slot(s), "
+                  f"summed over moe layers): {sched}")
     n_tok = sum(len(r.out) for r in reqs)
     print(f"{len(done)}/{len(reqs)} requests completed, {n_tok} tokens, "
           f"{engine.n_forwards} forwards in {dt_s:.3f} s on "
-          f"{engine.device}")
+          f"{engine.device}; {engine.n_preempted} preempted, "
+          f"{engine.n_resumed} resumed")
+    # completion percentiles over completed requests only: censored
+    # (dropped or preempted) stats are rolled up by drop_summary
+    lat = latency_summary([r for r in reqs if r.done])
+    for fam in ("ttft_s", "tpot_s", "queue_wait_s", "e2e_s"):
+        agg = lat.get(fam)
+        if agg:
+            print(f"  {fam:>13}: mean {agg['mean'] * 1e3:8.2f} ms  "
+                  f"p50 {agg['p50'] * 1e3:8.2f} ms  "
+                  f"p99 {agg['p99'] * 1e3:8.2f} ms  (n={agg['n']})")
+    if engine.paged:
+        print(f"paged-cache stats: {engine.kv.stats()}")
+    drops = drop_summary(reqs)
+    if drops:
+        wait = drops["wait_s"]
+        tail = (f"; censored wait p50 {wait['p50'] * 1e3:.1f} ms"
+                if wait else "")
+        print(f"WARNING: {drops['n']} request(s) did not complete under "
+              f"--max-steps={args.max_steps} "
+              f"({drops['dropped']} dropped, {drops['preempted']} "
+              f"preempted-unresumed; rids {drops['rids']}); "
+              f"{drops['tokens_out']} partial token(s) retained on "
+              f"Request.out{tail}")
     peak = (f"{torch.cuda.max_memory_allocated(engine.device)} bytes"
             if on_card else "not measured (no card)")
     print(f"peak device memory (load, quantization and serving): {peak}")
+    if args.trace:
+        path = engine.obs.tracer.save(args.trace)
+        print(f"chrome trace ({len(engine.obs.tracer.events)} events) "
+              f"-> {path}")
+    if args.metrics_out:
+        extra = {"latency": lat}
+        if engine.paged:
+            extra["kv_stats"] = engine.kv.stats()
+        engine.obs.metrics.to_json(args.metrics_out, extra=extra)
+        print(f"metrics snapshot -> {args.metrics_out}")
+    if args.device_trace:
+        print(f"device trace -> {args.device_trace}/device_trace.json")
     return done
 
 

@@ -24,8 +24,18 @@ evicted only when the free list is empty.
 
 **Invariant.**  ``n_blocks = slots * ceil(capacity / block_size)``: the
 worst case (no sharing) is the contiguous layout's footprint, so
-allocation cannot fail.  Parking and resuming tables (preemption) and
-truncation (speculation) are not ported yet.
+allocation cannot fail.
+
+**Parking (preemption).**  ``park_slot`` detaches a preempted request's
+table under its rid with its refcounts kept, so its KV survives for a
+host-side resume (``resume_slot``).  Under pool pressure ``_alloc_block``
+reclaims the least recently parked table before it evicts a cached block;
+that request's resume then replays its tokens.  Truncation (speculation)
+is not ported yet.
+
+Pool events (allocations, evictions, prefix probes, compactions, parks)
+feed the ``kv/*`` counters and instants of an ``Observability`` bundle
+bound with ``bind_obs`` (null sinks by default).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import group_structure, init_cache
+from repro_torch.obs import NULL_METRICS, NULL_TRACER
 
 # block kinds whose caches are positional KV rows, the only thing a pool
 # can page
@@ -90,11 +101,25 @@ class PagedKVCache:
         # per-slot cursor for registering blocks as they fill:
         # (next block index to register, digest of the chain before it)
         self._chain: Dict[int, tuple] = {}
+        # preempted requests' parked tables (key -> {table, n_alloc,
+        # chain}), LRU order: their blocks stay refcounted until the request
+        # resumes or allocation pressure reclaims the record
+        self._parked: "OrderedDict[object, dict]" = OrderedDict()
         # read-only probe memo: key -> (index generation, cached tokens)
         self._probe_gen = 0
         self._probe_memo: Dict[object, tuple] = {}
         self.hits = self.misses = self.evictions = 0
+        self.park_reclaims = 0
         self.hit_tokens = 0
+        self._metrics = NULL_METRICS
+        self._tracer = NULL_TRACER
+
+    def bind_obs(self, metrics, tracer) -> None:
+        """Attach metrics/tracer sinks (the engine binds its bundle).  Pool
+        events are host-side control-plane work: instrumenting them adds
+        nothing to the forward."""
+        self._metrics = metrics
+        self._tracer = tracer
 
     # -- allocation ----------------------------------------------------
     def _index_mutated(self) -> None:
@@ -104,7 +129,13 @@ class PagedKVCache:
 
     def _alloc_block(self) -> int:
         if self.free:
+            self._metrics.inc("kv/blocks_allocated")
             return self.free.pop()
+        while not self._cached_free and self._parked:
+            self._reclaim_parked()       # may refill free or cached_free
+            if self.free:
+                self._metrics.inc("kv/blocks_allocated")
+                return self.free.pop()
         if not self._cached_free:
             raise RuntimeError("paged pool exhausted: broken refcounting "
                                "(n_blocks guarantees worst-case capacity)")
@@ -112,6 +143,9 @@ class PagedKVCache:
         del self._hash_to_block[self._block_hash.pop(b)]
         self._index_mutated()
         self.evictions += 1
+        self._metrics.inc("kv/blocks_allocated")
+        self._metrics.inc("kv/evictions")
+        self._tracer.instant("kv/evict", block=b)
         return b
 
     def _release_blocks(self, table: np.ndarray, n_alloc: int) -> None:
@@ -123,6 +157,17 @@ class PagedKVCache:
                     self._cached_free[b] = None      # park: contents reusable
                 else:
                     self.free.append(b)
+
+    def _reclaim_parked(self) -> None:
+        """Allocation pressure: give up the least recently parked table so
+        that running slots never starve.  Its request finds no record on
+        resume and replays its tokens: a latency cost, never a correctness
+        one."""
+        key, rec = self._parked.popitem(last=False)
+        self._release_blocks(rec["table"], rec["n_alloc"])
+        self.park_reclaims += 1
+        self._metrics.inc("kv/park_reclaims")
+        self._tracer.instant("kv/park_reclaim", key=str(key))
 
     def ensure_allocated(self, slot: int, last_pos: int) -> None:
         """Grow ``slot``'s table so position ``last_pos`` is addressable.
@@ -146,22 +191,27 @@ class PagedKVCache:
         digest = b""
         n_hit = 0
         if self.prefix_cache:
-            for i in range(max_full):
-                nxt = _chain_digest(digest, prompt[i * bs:(i + 1) * bs])
-                b = self._hash_to_block.get(nxt)
-                if b is None:
-                    self.misses += 1
-                    break
-                digest = nxt
-                if self.refcount[b] == 0:               # revive a parked block
-                    self._cached_free.pop(b)
-                self.refcount[b] += 1
-                self.tables[slot, i] = b
-                self.n_alloc[slot] += 1
-                self.hits += 1
-                n_hit = i + 1
+            with self._tracer.span("serve/prefix_probe", slot=slot,
+                                   prompt_tokens=len(prompt)):
+                for i in range(max_full):
+                    nxt = _chain_digest(digest, prompt[i * bs:(i + 1) * bs])
+                    b = self._hash_to_block.get(nxt)
+                    if b is None:
+                        self.misses += 1
+                        self._metrics.inc("kv/prefix_misses")
+                        break
+                    digest = nxt
+                    if self.refcount[b] == 0:           # revive a parked block
+                        self._cached_free.pop(b)
+                    self.refcount[b] += 1
+                    self.tables[slot, i] = b
+                    self.n_alloc[slot] += 1
+                    self.hits += 1
+                    self._metrics.inc("kv/prefix_hits")
+                    n_hit = i + 1
         self._chain[slot] = (n_hit, digest)
         self.hit_tokens += n_hit * bs
+        self._metrics.inc("kv/prefix_hit_tokens", n_hit * bs)
         return n_hit * bs
 
     def probe_prefix(self, prompt: np.ndarray, *, memo_key=None) -> int:
@@ -206,12 +256,49 @@ class PagedKVCache:
             i += 1
         self._chain[slot] = (i, digest)
 
-    # -- release / views -----------------------------------------------
+    # -- release / park / views ----------------------------------------
     def release_slot(self, slot: int) -> None:
         self._release_blocks(self.tables[slot], int(self.n_alloc[slot]))
         self.tables[slot, :] = 0
         self.n_alloc[slot] = 0
         self._chain.pop(slot, None)
+
+    def park_slot(self, slot: int, key) -> None:
+        """Preemption: detach ``slot``'s table into a parked record under
+        ``key`` (the request's rid).  Its blocks keep their refcounts, so
+        the request's KV survives for a host-side resume; under allocation
+        pressure the least recently parked record is reclaimed instead.
+        The slot is left empty."""
+        self._parked[key] = {"table": self.tables[slot].copy(),
+                             "n_alloc": int(self.n_alloc[slot]),
+                             "chain": self._chain.get(slot)}
+        self.tables[slot, :] = 0
+        self.n_alloc[slot] = 0
+        self._chain.pop(slot, None)
+        self._metrics.inc("kv/tables_parked")
+        self._tracer.instant("kv/park", slot=slot, key=str(key))
+
+    def resume_slot(self, slot: int, key) -> bool:
+        """Re-attach the table parked under ``key`` to the empty ``slot``.
+        False when the record was reclaimed: the caller replays instead."""
+        rec = self._parked.pop(key, None)
+        if rec is None:
+            return False
+        if self.n_alloc[slot] != 0:
+            raise ValueError(f"resume target slot {slot} is not empty")
+        self.tables[slot] = rec["table"]
+        self.n_alloc[slot] = rec["n_alloc"]
+        if rec["chain"] is not None:
+            self._chain[slot] = rec["chain"]
+        self._metrics.inc("kv/tables_resumed")
+        self._tracer.instant("kv/resume", slot=slot, key=str(key))
+        return True
+
+    def drop_parked(self, key) -> None:
+        """Discard a parked record (the request will never resume)."""
+        rec = self._parked.pop(key, None)
+        if rec is not None:
+            self._release_blocks(rec["table"], rec["n_alloc"])
 
     def move_slot(self, dst: int, src: int) -> None:
         """Host-side slot compaction: moving a request between slots is two
@@ -224,6 +311,8 @@ class PagedKVCache:
             del self._chain[dst]
         self.tables[src] = 0
         self.n_alloc[src] = 0
+        self._metrics.inc("kv/compactions")
+        self._tracer.instant("kv/compaction", src=src, dst=dst)
 
     def table_rows(self, slot_ids) -> np.ndarray:
         """(len(slot_ids), blocks_per_slot) int32 rows for a step batch."""
@@ -249,6 +338,8 @@ class PagedKVCache:
                             for b, h in self._block_hash.items()}
         self._cached_free = OrderedDict(
             (int(perm[b]), None) for b in self._cached_free)
+        for rec in self._parked.values():
+            rec["table"] = perm[rec["table"]].astype(np.int32)
 
     # -- introspection -------------------------------------------------
     def stats(self) -> dict:
@@ -257,4 +348,6 @@ class PagedKVCache:
                 "blocks_parked": len(self._cached_free),
                 "prefix_hits": self.hits, "prefix_misses": self.misses,
                 "prefix_hit_tokens": self.hit_tokens,
-                "evictions": self.evictions}
+                "evictions": self.evictions,
+                "parked_tables": len(self._parked),
+                "park_reclaims": self.park_reclaims}

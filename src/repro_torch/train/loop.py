@@ -11,6 +11,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import device_batch, make_batch
 from repro_torch.models.lm import RunConfig
+from repro_torch.obs import NOOP
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor
 from repro_torch.train.step import init_train_state, make_train_step
@@ -21,7 +22,8 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
           ckpt_dir: Optional[str] = None, save_every: int = 20,
           keep_last: int = 3, fail_at: Optional[int] = None,
           seed: int = 0, log_every: int = 10,
-          log: Callable[[str], None] = print, device="cuda") -> Dict:
+          log: Callable[[str], None] = print, device="cuda",
+          obs=None) -> Dict:
     """Returns {"state", "history", "stragglers", "resumed_from",
     "checkpoint"}: ``history`` holds the metrics (floats) of every
     ``log_every``-th step and of the last; ``checkpoint`` the manager's
@@ -32,7 +34,16 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
     a run that finds a checkpoint there resumes from the step after it
     (``resumed_from`` is that checkpoint's step, else None).  The data of
     step i depends on i and the seed only, so a resumed run sees the
-    batches an uninterrupted one would."""
+    batches an uninterrupted one would.
+
+    ``obs`` (``repro_torch.obs.Observability``, default ``NOOP``) adds the
+    spans ``train/data``, ``train/step`` and ``train/checkpoint`` (the
+    in-loop saves), the straggler bracket (``train/slow_steps``), and at
+    each logged step ``train/steps_logged`` and one ``train/<metric>``
+    histogram sample per metric.  The ``train/step`` span measures what
+    the host spends enqueueing the step (CUDA is asynchronous) unless the
+    step is logged, whose metrics are read after it."""
+    obs = obs or NOOP
     dev = resolve_device(device)
     manager = CheckpointManager(ckpt_dir, keep_last=keep_last) \
         if ckpt_dir else None
@@ -50,22 +61,30 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
     try:
         for step in range(start, steps):
             monitor.start_step(step)
+            obs.step_begin(step)
             injector.maybe_fail(step)
-            b = device_batch(make_batch(cfg, batch, seq, step=step,
-                                        accum=accum, seed=seed + 1), dev)
-            state, metrics = step_fn(state, b)
+            with obs.tracer.span("train/data", step=step):
+                b = device_batch(make_batch(cfg, batch, seq, step=step,
+                                            accum=accum, seed=seed + 1), dev)
+            with obs.tracer.span("train/step", step=step):
+                state, metrics = step_fn(state, b)
             flag = monitor.end_step()
+            obs.step_end(step, scope="train")
             if flag:
                 log(f"[straggler] step {flag['step']} "
                     f"{flag['slowdown']:.1f}x median")
             if step % log_every == 0 or step == steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}  # syncs
                 history.append({"step": step, **m})
+                if obs.enabled:
+                    obs.metrics.inc("train/steps_logged")
+                    obs.metrics.observe_many("train/", m)
                 log(f"[train] step {step:5d} loss {m.get('loss', 0):.4f} "
                     f"ce {m.get('ce', 0):.4f} gnorm "
                     f"{m.get('grad_norm', 0):.3f}")
             if manager is not None and step % save_every == 0 and step > 0:
-                manager.save(step, state)
+                with obs.tracer.span("train/checkpoint", step=step):
+                    manager.save(step, state)
     finally:
         if manager is not None:
             manager.wait()

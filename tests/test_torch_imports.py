@@ -24,6 +24,8 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
+assert {"repro_torch.obs", "repro_torch.obs.trace",
+        "repro_torch.serve.admission"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

@@ -19,7 +19,8 @@ from repro_torch.serve.kv_cache import PAGED_KINDS, PagedKVCache, \
     paged_supported
 
 STAT_KEYS = ("blocks_total", "blocks_in_use", "blocks_parked", "prefix_hits",
-             "prefix_misses", "prefix_hit_tokens", "evictions")
+             "prefix_misses", "prefix_hit_tokens", "evictions",
+             "parked_tables", "park_reclaims")
 
 
 def pair(slots=3, capacity=12, bs=4, prefix_cache=True):

@@ -144,9 +144,10 @@ def test_paged_tokens_identical_to_reference_fused_interpret(
 
 
 def test_engine_serves_paged_dynamic_and_refuses_the_rest():
-    """The engine serves blocks of 16 and the dynamic policy by default
-    (paged wherever the model allows it); kv_block_size=0 keeps the
-    contiguous engine; non-greedy sampling, other admission policies and a
+    """The engine serves blocks of 16 and the dynamic policy with the plan
+    stats on by default (paged wherever the model allows it);
+    kv_block_size=0 keeps the contiguous engine; every registered admission
+    policy builds; non-greedy sampling, an unknown admission policy and a
     missing card raise."""
     tcfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=2)
     from repro_torch.models.lm import init_params
@@ -154,6 +155,7 @@ def test_engine_serves_paged_dynamic_and_refuses_the_rest():
     eng = ServeEngine(tcfg, model, device="cpu")
     assert eng.paged and eng.kv_block_size == 16 and eng.cache is None
     assert eng.rc.schedule_policy == "dynamic" and eng.prefill_chunk == 32
+    assert eng.rc.moe_stats
     eng = ServeEngine(tcfg, model, kv_block_size=16,
                       rc=RunConfig(schedule_policy="dynamic"), device="cpu")
     assert eng.kv.block_size == 16
@@ -164,8 +166,11 @@ def test_engine_serves_paged_dynamic_and_refuses_the_rest():
     assert not eng.paged and eng.kv is None
     with pytest.raises(ValueError, match="greedy"):
         ServeEngine(tcfg, model, sampling="top_p", device="cpu")
-    with pytest.raises(ValueError, match="first-come"):
-        ServeEngine(tcfg, model, admission="slo", device="cpu")
+    for policy in ("fcfs", "sjf", "prefix_hit", "slo"):
+        assert ServeEngine(tcfg, model, admission=policy,
+                           device="cpu").describe()["admission"] == policy
+    with pytest.raises(ValueError, match="unknown admission policy"):
+        ServeEngine(tcfg, model, admission="nope", device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         ServeEngine(tcfg, model, capacity=8, device="cpu").admit(
             Request(rid=0, prompt=np.zeros(9, np.int32)))
