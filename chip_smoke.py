@@ -28,7 +28,10 @@ result line):
    split order) at moonshot's attention shape (16 KV heads of 128, blocks
    of 16) at decode (B=2), at a prefill-chunk step (B=64), at long context
    (B=2 at kv_limit 8191 and 6143, tables of 512 blocks) and batched (32
-   rows at kv_limit 2047), and at mixtral's GQA decode (8 KV heads x 4),
+   rows at kv_limit 2047), at mixtral's GQA decode (8 KV heads x 4), and
+   at the dense family's attention (``DENSE_ATTN``: gemma2-9b's 8 KV heads
+   x 2 of 256 with its softcap of 50, qwen2-7b's 4 x 7, starcoder2-3b's 2
+   x 12, smollm-360m's 5 x 3 of 64) at decode and at the chunk step,
    with vector and scalar kv_limit, causal + window against q_pos,
    softcap, each bitwise equal across two calls, and whole blocks past
    kv_limit poisoned (1e4 against the plain version; NaN against the
@@ -189,7 +192,27 @@ result line):
    directory's free space (too little fails the phase), the checkpoint's
    bytes and the host copy, write and restore times printed; the
    supervised runs carry a memory observability bundle, whose
-   ``train/step`` and ``train/checkpoint`` spans must be there.
+   ``train/step`` and ``train/checkpoint`` spans must be there;
+10. the dense family, once training's models are freed.  [serve gemma2]:
+   gemma2-9b at full width and all 42 layers (9.24 B parameters, random
+   bf16 weights, seed 0) on [serve paged]'s traffic, through the paged
+   engine (blocks of 16, chunks of 32, the fused read: the GQA kernel's
+   launches must equal layers x forwards and no MoE kernel runs; the
+   prefix cache must hit; a profile of 2 chunk steps and 5 decode steps)
+   and the contiguous engine, then the first paged step's logits of a
+   4-layer fp32 copy through the fused read against the gather read (rtol
+   = atol = 1e-3).  [prefill long]: one prompt of 8,192 tokens (gemma2's
+   published context) through contiguous prefill at full depth, then 16
+   greedy decode steps (logits finite, tokens in the vocabulary; prefill
+   ms, tokens/s, peak memory); (a) the chunked ``flash_attention`` (chunks
+   of 512) against the whole-score ``attention`` at gemma2's local (window
+   4096) and global layers at 8,192 positions, fp32 within 1e-5 and bf16
+   within 2e-2, with the peak memory of each.  [serve dense]: qwen2-7b,
+   starcoder2-3b and smollm-360m at full width, depth cut to 2, two
+   requests each through the paged engine with the same launch checks.
+   Then qwen2-7b at full width and all 28 layers prefills one prompt of
+   32,768 tokens (the reference's prefill_32k shape, batch 1), as gemma2's
+   above.
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -215,8 +238,29 @@ SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_NEW = 2, 4, 16
 OBS_ROUNDS = 15
 CONTIG_REQUESTS = 3
 KV_BLOCK, PREFILL_CHUNK, SHARED_PREFIX = 16, 32, 40
-ATTN = dict(Hkv=16, G=1, D=128, bs=16)          # moonshot's attention
-ATTN_GQA = dict(Hkv=8, G=4, D=128, bs=16)       # mixtral-8x7b's
+ATTN = dict(Hkv=16, G=1, D=128, bs=16,          # moonshot's attention
+            arch="moonshot-v1-16b-a3b")
+ATTN_GQA = dict(Hkv=8, G=4, D=128, bs=16,       # mixtral-8x7b's
+                arch="mixtral-8x7b")
+# the dense family's attention (GQA over blocks of 16), each at decode and
+# at the 64-row chunk step: gemma2-9b with its softcap of 50, qwen2-7b,
+# starcoder2-3b, smollm-360m
+DENSE_ATTN = {"gemma2-9b": dict(Hkv=8, G=2, D=256, bs=16, softcap=50.0),
+              "qwen2-7b": dict(Hkv=4, G=7, D=128, bs=16),
+              "starcoder2-3b": dict(Hkv=2, G=12, D=128, bs=16),
+              "smollm-360m": dict(Hkv=5, G=3, D=64, bs=16)}
+# [serve dense]: the other three dense configs at full width, depth cut to
+# DENSE_LAYERS, DENSE_REQUESTS requests through the paged engine.  [prefill
+# long]: one prompt of each config's length through contiguous prefill at
+# full depth (gemma2-9b: its published context; qwen2-7b: the reference's
+# prefill_32k shape with its batch cut from 32 to 1), then LONG_DECODE
+# greedy tokens; the chunked attention against the whole-score one at
+# gemma2's local and global layers at FLASH_CHECK_S positions
+DENSE_LAYERS, DENSE_REQUESTS = 2, 2
+LONG_PROMPTS = {"gemma2-9b": 8192, "qwen2-7b": 32768}
+LONG_DECODE, FLASH_CHECK_S, FLASH_CHUNK = 16, 8192, 512
+FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # deepseek-v2-236b's absorbed MLA decode: one latent KV head of 512 and a
 # rope key of 64 for 128 query heads; and its MoE layer
 MLA_ATTN = dict(Hkv=1, G=128, D=512, D2=64, bs=16)
@@ -1356,6 +1400,10 @@ PAGED_SHAPES = {
     "batched": (ATTN, [(s, 2047) for s in range(32)], 128, 32),
     "gqa_decode": (ATTN_GQA, paged_rows("decode"), 8, 2),
 }
+for _arch, _attn in DENSE_ATTN.items():
+    for _kind in ("decode", "chunk"):
+        PAGED_SHAPES[f"{_arch}_{_kind}"] = (dict(_attn, arch=_arch),
+                                            paged_rows(_kind), 8, 2)
 # the MLA kernel's held and timed shapes (deepseek-v2's absorbed decode),
 # as PAGED_SHAPES: decode, the 64-row chunk step, long context (two rows of
 # 8,192 and 6,144 positions, tables of 512 blocks) and batched (32 rows of
@@ -1418,18 +1466,21 @@ def check_attention(name: str, c, label: str, errs: dict, variants) -> None:
 
 def check_paged(errs: dict) -> None:
     """The GQA paged-attention kernel at each of PAGED_SHAPES (moonshot's
-    decode, chunk, long-context and batched rows; mixtral's GQA decode),
-    over its masks."""
+    decode, chunk, long-context and batched rows; mixtral's GQA decode; the
+    dense family's decode and chunk rows), over its masks; the softcap
+    variant at the model's own cap where it has one (gemma2's 50), else
+    30."""
     import torch
     for dtype in (torch.bfloat16, torch.float32):
         for kind, (attn, rows, nb, slots) in PAGED_SHAPES.items():
             c = PagedCase(attn, rows, dtype, seed=7, nb=nb, slots=slots)
             qpos = torch.clamp(c.lim - 3, min=0)
+            cap = attn.get("softcap", 30.0)
             check_attention("paged_attention", c, f"{c.label()} {kind}", errs,
                             (("", {}), ("scalar kv_limit", dict(lim=60)),
                              ("causal+window", dict(q_pos=qpos, causal=True,
                                                     window=40)),
-                             ("softcap 30", dict(logit_softcap=30.0))))
+                             (f"softcap {cap:g}", dict(logit_softcap=cap))))
             del c
             torch.cuda.empty_cache()
 
@@ -1474,8 +1525,8 @@ def time_paged(kind: str) -> dict:
                    "each row's length (excludes the gather)"
                    + (", enable_gqa" if G > 1 else ""),
         "library_null_reason": None, "bytes": n_bytes, "flops": flops,
-        "rows": B, "Hkv": Hkv, "G": G, "nb": nb,
-        "kv_positions_read": c.kv_positions_read(),
+        "arch": attn["arch"], "rows": B, "Hkv": Hkv, "G": G, "D": D,
+        "nb": nb, "kv_positions_read": c.kv_positions_read(),
         "row_kv_positions": sum(p + 1 for p in c.lims),
         "n_split": n_split, "per_split": per,
     }
@@ -2286,11 +2337,7 @@ def serve_deepseek(rng) -> dict:
     print(f"[serve deepseek] {n_params / 1e9:.3f} B parameters "
           f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
           f"{time.perf_counter() - t0:.1f} s")
-    shared = rng.integers(0, V, SHARED_PREFIX)
-    prompts = [(rng.integers(0, V, int(rng.integers(16, 65))) if i == 1
-                else np.concatenate([shared, rng.integers(
-                    0, V, int(rng.integers(1, 25)))])).astype(np.int32)
-               for i in range(SERVE_REQUESTS)]
+    prompts = shared_prefix_prompts(rng, V)
     capacity = max(48, *(len(p) for p in prompts)) + SERVE_MAX_NEW + 1
     rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
     paged_kw = dict(kv_block_size=KV_BLOCK, prefill_chunk=PREFILL_CHUNK)
@@ -2410,6 +2457,282 @@ def serve_deepseek(rng) -> dict:
                     "launches": res["launches"]})
     out["int8_expert"] = summary
     del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def shared_prefix_prompts(rng, V: int, n: int = SERVE_REQUESTS):
+    """[serve paged]'s traffic: ``n`` prompts of 16-64 tokens, all but the
+    second opening with one SHARED_PREFIX-token prefix."""
+    import numpy as np
+    shared = rng.integers(0, V, SHARED_PREFIX)
+    return [(rng.integers(0, V, int(rng.integers(16, 65))) if i == 1
+             else np.concatenate([shared, rng.integers(
+                 0, V, int(rng.integers(1, 25)))])).astype(np.int32)
+            for i in range(n)]
+
+
+def dense_model(name: str, layers=None):
+    """A dense config at full width (``layers`` cuts its depth) with random
+    bf16 weights from seed 0, on the card; prints its size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    cfg = get_config(name)
+    full = cfg.n_layers
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    cut = (f"reduced: n_layers {full} -> {cfg.n_layers}"
+           if cfg.n_layers != full else f"all {full} layers")
+    print(f"[dense] {cfg.name} at full width (d_model={cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff={cfg.d_ff} {cfg.act}, {cfg.norm}, vocab="
+          f"{cfg.vocab_size}{', tied' if cfg.tie_embeddings else ''}); "
+          f"{cut}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f}"
+          f" GB bf16), random, seed 0, initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, n_params
+
+
+def serve_gemma2(rng):
+    """gemma2-9b at full width and all 42 layers, random bf16 weights: the
+    paged engine on [serve paged]'s traffic (blocks of 16, chunks of 32,
+    the fused read: the GQA kernel once per layer per forward, no MoE
+    kernel; the prefix cache must hit), a profile of 2 chunk steps and 5
+    decode steps, the same traffic on the contiguous engine, and the first
+    paged step's logits of a 4-layer fp32 copy through the fused read
+    against the gather read.  Returns (summaries, cfg, model)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()       # earlier phases' tensors
+    cfg, model, n_params = dense_model("gemma2-9b")
+    V = cfg.vocab_size
+    prompts = shared_prefix_prompts(rng, V)
+    capacity = max(48, *(len(p) for p in prompts)) + SERVE_MAX_NEW + 1
+    rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
+    paged_kw = dict(kv_block_size=KV_BLOCK, prefill_chunk=PREFILL_CHUNK)
+    out = {"n_params": n_params}
+    for kind, kw in (("paged", paged_kw), ("contiguous",
+                                           dict(kv_block_size=0))):
+        tag = f"serve gemma2 {kind}"
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                             capacity=capacity, rc=rc, **kw)
+        print(f"[{tag}] {SERVE_SLOTS} slots x {capacity} tokens"
+              + (f", blocks of {KV_BLOCK}, prefill chunks of "
+                 f"{PREFILL_CHUNK}, fused paged read" if engine.paged
+                 else "") + f"; prompts of {[len(p) for p in prompts]} "
+              f"tokens, requests 0, 2, 3 share {SHARED_PREFIX}")
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        res = serve_and_check(tag, engine, reqs, rng)
+        summary = summarize(tag, res, reqs, cfg.n_layers)
+        summary.update({"launches": res["launches"],
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "allocated_before_load_bytes": before})
+        if engine.paged:
+            hit = sum(r.stats["serve/prefix_hit_tokens"] for r in reqs)
+            if hit <= 0:
+                raise AssertionError("gemma2: the prefix cache never hit")
+            summary["prefix_hit_tokens"] = hit
+            print(f"[{tag}] prefix-hit tokens {hit:.0f}; peak device "
+                  f"memory {summary['peak_bytes'] / 1e9:.2f} GB (load and "
+                  f"serving; {before / 1e9:.2f} GB of it allocated before "
+                  f"the load by earlier phases)")
+            for i in range(SERVE_SLOTS):
+                engine.admit(Request(rid=100 + i, prompt=rng.integers(
+                    0, V, 48).astype(np.int32), max_new=16))
+            summary["profile"] = {
+                "prefill": profile_window(
+                    lambda: [engine.step() for _ in range(2)]),
+                "decode": profile_window(
+                    lambda: [engine.step() for _ in range(5)])}
+            print_profile(tag, "2 chunk steps, 2 x 48 prompt tokens",
+                          summary["profile"])
+        out[kind] = summary
+        del engine
+        torch.cuda.empty_cache()
+    # the first paged step's logits, fp32, CHECK_LAYERS layers: the fused
+    # read against the gather read (no MoE layer: the same torch ops else)
+    n_check = CHECK_LAYERS
+    head32 = copy.deepcopy(truncated(model, n_check)).float()
+    cfg_check = cfg.replace(n_layers=n_check)
+    logits, logits_p, n_rows = first_step_logits(
+        head32, cfg_check, rc._replace(compute_dtype=torch.float32),
+        prompts, capacity, paged_kw)
+    torch.testing.assert_close(logits, logits_p, **LOGIT_TOL_FP32)
+    err = (logits - logits_p).abs().max().item()
+    print(f"[serve gemma2 paged] first paged step ({n_rows} prompt rows, "
+          f"{n_check} layers, fp32) fused read vs gather read: max_abs_err "
+          f"{err:.3e} (|logits| max {logits_p.abs().max().item():.2f}, "
+          f"final softcap {cfg.final_logit_softcap:g}; tolerance rtol=atol="
+          f"{LOGIT_TOL_FP32['atol']:g}); argmax equal: "
+          f"{bool((logits.argmax(-1) == logits_p.argmax(-1)).all())}")
+    out["paged"]["first_step_fp32_max_abs_err"] = err
+    del head32, logits, logits_p
+    torch.cuda.empty_cache()
+    return out, cfg, model
+
+
+def serve_dense(rng) -> dict:
+    """qwen2-7b, starcoder2-3b and smollm-360m at full width, depth cut to
+    DENSE_LAYERS: DENSE_REQUESTS requests of [serve paged]'s traffic
+    through the paged engine (the GQA kernel once per layer per forward)."""
+    import torch
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = {}
+    for name in ("qwen2-7b", "starcoder2-3b", "smollm-360m"):
+        cfg, model, n_params = dense_model(name, DENSE_LAYERS)
+        prompts = shared_prefix_prompts(rng, cfg.vocab_size, DENSE_REQUESTS)
+        capacity = max(48, *(len(p) for p in prompts)) + SERVE_MAX_NEW + 1
+        engine = ServeEngine(
+            cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+            rc=RunConfig(compute_dtype=torch.bfloat16,
+                         schedule_policy="dynamic"),
+            kv_block_size=KV_BLOCK, prefill_chunk=PREFILL_CHUNK)
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        tag = f"serve dense {name}"
+        res = serve_and_check(tag, engine, reqs, rng)
+        out[name] = summarize(tag, res, reqs, cfg.n_layers)
+        out[name].update({"n_params": n_params, "launches": res["launches"]})
+        del engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_long() -> dict:
+    """The chunked ``flash_attention`` (chunks of FLASH_CHUNK) against the
+    whole-score ``attention`` at gemma2-9b's local (window 4096) and global
+    layers, FLASH_CHECK_S positions, softcap 50, fp32 within 1e-5 and bf16
+    within 2e-2; the time and the peak device memory above the inputs of
+    each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attention, flash_attention
+    cfg = get_config("gemma2-9b")
+    a, S = DENSE_ATTN["gemma2-9b"], FLASH_CHECK_S
+    out = {}
+    for layer, window in (("local", cfg.local_window), ("global", None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(S)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=g,
+                                   device="cuda").to(dtype)
+            q = randn(1, S, a["Hkv"] * a["G"], a["D"])
+            k, v = randn(1, S, a["Hkv"], a["D"]), randn(1, S, a["Hkv"],
+                                                       a["D"])
+            kw = dict(causal=True, window=window,
+                      logit_softcap=cfg.attn_logit_softcap)
+            row = {}
+            for arm, fn in (("flash", lambda: flash_attention(
+                                q, k, v, **kw, q_chunk=FLASH_CHUNK,
+                                kv_chunk=FLASH_CHUNK)),
+                            ("whole", lambda: attention(q, k, v, **kw))):
+                fn()                              # warm
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                row[arm] = fn()
+                torch.cuda.synchronize()
+                row[f"{arm}_ms"] = (time.perf_counter() - t0) * 1e3
+                row[f"{arm}_peak_bytes"] = \
+                    torch.cuda.max_memory_allocated() - base
+            dt = str(dtype).replace("torch.", "")
+            got, want = row.pop("flash"), row.pop("whole")
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **FLASH_TOL[dt])
+            if not torch.isfinite(got).all():
+                raise AssertionError("flash_attention: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            row["max_abs_err"] = err
+            out[f"{layer}_{dt}"] = row
+            print(f"[prefill long] (a) gemma2 {layer} layer (window "
+                  f"{window}), S={S}, {dt}: flash_attention (chunks of "
+                  f"{FLASH_CHUNK}) vs whole-score attention max_abs_err "
+                  f"{err:.3e} (tolerance {FLASH_TOL[dt]['atol']:g}); "
+                  f"{row['flash_ms']:.1f} ms, peak "
+                  f"{row['flash_peak_bytes'] / 1e9:.3f} GB against "
+                  f"{row['whole_ms']:.1f} ms, peak "
+                  f"{row['whole_peak_bytes'] / 1e9:.3f} GB")
+            del got, want, q, k, v
+            torch.cuda.empty_cache()
+    return out
+
+
+def prefill_long(cfg, model, rng) -> dict:
+    """One prompt of LONG_PROMPTS[cfg.name] tokens through contiguous
+    prefill (the model's ``forward`` over a one-slot cache, as the
+    contiguous engine's admission runs it; chunked attention, gemma2's
+    window on its local layers), then LONG_DECODE greedy decode steps:
+    prefill ms and tokens/s, decode ms per step, the peak device memory;
+    every logit finite, every token in the vocabulary."""
+    import torch
+    from repro_torch.models.lm import RunConfig, forward, init_cache
+    S = LONG_PROMPTS[cfg.name]
+    rc = RunConfig(compute_dtype=torch.bfloat16)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, S),
+                             device="cuda")[None]
+    cache = init_cache(cfg, 1, S + LONG_DECODE + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for layer in cache
+                      for t in layer.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    logits, cache, _ = forward(model, cfg, rc, {"tokens": prompt},
+                               mode="prefill", cache=cache)
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak_prefill = torch.cuda.max_memory_allocated()
+    toks = [tok]
+    t0 = time.perf_counter()
+    for i in range(LONG_DECODE - 1):
+        logits, cache, _ = forward(model, cfg, rc, {"tokens": tok[:, None]},
+                                   mode="decode", cache=cache, pos=S + i)
+        finite = finite & torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    toks = torch.cat(toks).tolist()
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: non-finite logits in the long "
+                             "prefill or its decode")
+    if not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"{cfg.name}: tokens outside the vocabulary")
+    out = {"prompt_tokens": S, "layers": cfg.n_layers,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": S / prefill_s,
+           "decode_ms_per_step": decode_s * 1e3 / (LONG_DECODE - 1),
+           "peak_bytes_prefill": peak_prefill,
+           "resident_bytes": resident, "cache_bytes": cache_bytes,
+           "prefill_transient_bytes": peak_prefill - resident,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "tokens": toks}
+    print(f"[prefill long] {cfg.name} ({cfg.n_layers} layers, bf16): one "
+          f"prompt of {S} tokens, contiguous prefill {out['prefill_ms']:.1f}"
+          f" ms ({out['prefill_tokens_per_s']:.0f} tokens/s), then "
+          f"{LONG_DECODE} greedy tokens ({out['decode_ms_per_step']:.2f} ms "
+          f"a decode step): {toks}; peak device memory "
+          f"{peak_prefill / 1e9:.2f} GB in the prefill: "
+          f"{resident / 1e9:.2f} GB resident before it (the weights, a "
+          f"{cache_bytes / 1e9:.2f} GB cache and what earlier phases hold) "
+          f"and {(peak_prefill - resident) / 1e9:.2f} GB of the prefill's "
+          f"own; {out['peak_bytes'] / 1e9:.2f} GB in all")
+    del cache, logits
     torch.cuda.empty_cache()
     return out
 
@@ -3040,9 +3363,9 @@ def main() -> None:
                else f"{t[n]['grouped_mm_dequantized_ms'] * 1e3:.1f}")
             + ")" for n in ("fused_gate_up", "grouped_gemm")))
     for step_kind, t in paged_t.items():
-        arch = "mixtral-8x7b" if t["G"] > 1 else "moonshot"
-        print(f"[times] paged_attention {arch} bf16 {step_kind} "
-              f"B={t['rows']} Hkv={t['Hkv']} G={t['G']} nb={t['nb']} "
+        print(f"[times] paged_attention {t['arch']} bf16 {step_kind} "
+              f"B={t['rows']} Hkv={t['Hkv']} G={t['G']} D={t['D']} "
+              f"nb={t['nb']} "
               f"({t['n_split']} splits of {t['per_split']} entries; "
               f"{t['kv_positions_read']} KV positions read, "
               f"{t['row_kv_positions']} over the rows, "
@@ -3158,11 +3481,7 @@ def main() -> None:
           f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    shared = rng.integers(0, V, SHARED_PREFIX)
-    prompts = [(rng.integers(0, V, int(rng.integers(16, 65))) if i == 1
-                else np.concatenate([shared, rng.integers(
-                    0, V, int(rng.integers(1, 25)))])).astype(np.int32)
-               for i in range(SERVE_REQUESTS)]
+    prompts = shared_prefix_prompts(rng, V)
     # room for the profiled 48-token prompts too
     capacity = max(48, *(len(p) for p in prompts)) + SERVE_MAX_NEW + 1
     rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
@@ -3391,6 +3710,30 @@ def main() -> None:
     print(json.dumps({"train_resume": resume}))
     elapsed("training resume")
 
+    # 10. the dense family: gemma2-9b served at full width and depth, its
+    # 8,192-token prefill; the chunked attention against the whole-score
+    # one; qwen2, starcoder2 and smollm served; qwen2-7b's 32,768-token
+    # prefill at full depth
+    gemma2, g_cfg, g_model = serve_gemma2(rng)
+    elapsed("serving gemma2-9b")
+    long_prefill = {g_cfg.name: prefill_long(g_cfg, g_model, rng)}
+    del g_model
+    torch.cuda.empty_cache()
+    elapsed("gemma2-9b long prefill")
+    flash_long = check_flash_long()
+    elapsed("chunked attention vs whole-score")
+    dense = serve_dense(rng)
+    elapsed("serving qwen2, starcoder2, smollm")
+    q_cfg, q_model, _ = dense_model("qwen2-7b")
+    long_prefill[q_cfg.name] = prefill_long(q_cfg, q_model, rng)
+    del q_model
+    torch.cuda.empty_cache()
+    elapsed("qwen2-7b long prefill")
+    print(json.dumps({"dense": {"serve_gemma2": gemma2,
+                                "serve_dense": dense,
+                                "flash_long": flash_long,
+                                "prefill_long": long_prefill}}))
+
     # 10. report -----------------------------------------------------------
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3497,7 +3840,18 @@ def main() -> None:
                 "mixtral_gqa_decode_B2": {
                     "shape": "mixtral-8x7b bf16 (Hkv 8, G 4), kv_limit 100 "
                              "and 77, nb 8",
-                    **{k: paged_t["gqa_decode"][k] for k in pkeys}}}
+                    **{k: paged_t["gqa_decode"][k] for k in pkeys}},
+                "dense": {kind: {
+                    "shape": f"{t['arch']} bf16 (Hkv {t['Hkv']}, G "
+                             f"{t['G']}, D {t['D']}), B={t['rows']}, nb 8",
+                    **{k: t[k] for k in pkeys}}
+                    for kind, t in paged_t.items()
+                    if t["arch"] in DENSE_ATTN},
+                "launches_gemma2": gemma2["paged"]["launches"][name],
+                "launches_run_gemma2": "gemma2-9b paged serving, all 42 "
+                                       "layers",
+                "launches_dense": {n: d["launches"][name]
+                                   for n, d in dense.items()}}
         elif name == "paged_attention_mla":
             entry["launches"] = deepseek["paged"]["launches"][name]
             mkeys = keys + ("bound_bytes_ms", "bound_ops_ms", "n_split",

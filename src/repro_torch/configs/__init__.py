@@ -1,12 +1,16 @@
 """Config registry: ``get_config("<arch-id>")`` for the architectures the
-port serves: moonshot-v1-16b-a3b and deepseek-v2-236b (MLA)."""
+port serves: moonshot-v1-16b-a3b and deepseek-v2-236b (MLA), and the dense
+family: qwen2-7b, smollm-360m, starcoder2-3b and gemma2-9b."""
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       RWKVConfig, SSMConfig, reduced)
-from repro_torch.configs import deepseek_v2_236b, moonshot_v1_16b_a3b
+from repro_torch.configs import (deepseek_v2_236b, gemma2_9b,
+                                 moonshot_v1_16b_a3b, qwen2_7b, smollm_360m,
+                                 starcoder2_3b)
 from repro_torch.configs.paper import PAPER_CONFIGS, TOKEN_SWEEP, PaperMoE
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (moonshot_v1_16b_a3b, deepseek_v2_236b)}
+            for m in (moonshot_v1_16b_a3b, deepseek_v2_236b, qwen2_7b,
+                      smollm_360m, starcoder2_3b, gemma2_9b)}
 ARCH_NAMES = tuple(REGISTRY)
 
 

@@ -9,15 +9,21 @@ engine with the paper's ``fixed`` schedule.
         --slots 2 --dtype bf16 --seed 0
 
 ``--arch deepseek-v2-236b`` serves the MLA model (latent KV cache; the
-paged read runs the MLA form of the paged-attention kernel).  Widths are
-the architecture's own; ``--layers`` cuts depth (deepseek-v2 at 4 layers
-holds 13.3 B parameters, 26.6 GB in bf16).  ``--quant
+paged read runs the MLA form of the paged-attention kernel); ``--arch``
+``qwen2-7b``, ``smollm-360m``, ``starcoder2-3b`` or ``gemma2-9b`` a dense
+model (GQA; gemma2's local layers take its sliding window in contiguous
+prefill, and its depth must be even: a local and a global layer a group).
+Widths are the architecture's own; ``--layers`` cuts depth (deepseek-v2 at
+4 layers holds 13.3 B parameters, 26.6 GB in bf16), ``--reduce`` takes the
+reduced (smoke) config as the reference's launcher does.  ``--quant
 {none,int8_expert,int8_channel,int4_packed}`` serves the routed experts
 compressed under that scheme (quantized at load, one stack at a time; the
 kernels dequantize on chip); ``--quant-experts`` is its deprecated alias
-for ``int8_expert``.  Prints the routed experts' stored bytes and the peak
-device memory from load to the end of serving.  Runs on the card;
-``--device cpu`` runs the kernels' plain versions on the CPU.
+for ``int8_expert``.  A dense model has no routed experts, and the flag
+leaves it as it is, as in the reference.  Prints the routed experts'
+stored bytes and the peak device memory from load to the end of serving.
+Runs on the card; ``--device cpu`` runs the kernels' plain versions on the
+CPU.
 
 Scheduling and observability: ``--admission {fcfs,sjf,prefix_hit,slo}``
 picks the pending request for each free slot (``slo`` admits by TTFT
@@ -41,7 +47,7 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def main(argv=None):
-    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.configs import ARCH_NAMES, get_config, reduced
     from repro_torch.models.lm import RunConfig, init_params
     from repro_torch.quantization import (available_schemes,
                                           resolve_quant_cli,
@@ -56,6 +62,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
     ap.add_argument("--layers", type=int, default=None,
                     help="depth cut (default: the architecture's own)")
+    ap.add_argument("--reduce", action="store_true",
+                    help="use the reduced (smoke) config")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=2)
@@ -108,6 +116,10 @@ def main(argv=None):
     quant = resolve_quant_cli(args.quant, args.quant_experts)
 
     cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduced(cfg)
+    if not cfg.is_moe:
+        quant = "none"          # no routed experts to quantize
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     dt = DTYPES[args.dtype]
@@ -137,12 +149,15 @@ def main(argv=None):
     cache = (f"paged KV cache (blocks of {args.kv_block}, prefill chunks of "
              f"{engine.prefill_chunk}, {args.paged_attn} read)"
              if engine.paged else "contiguous KV cache")
-    print(f"{cfg.name}: {cfg.n_layers} layers at full width, {args.dtype}, "
+    width = "reduced width" if args.reduce else "full width"
+    print(f"{cfg.name}: {cfg.n_layers} layers at {width}, {args.dtype}, "
           f"{cache}, {args.policy} schedule, cuda executor, "
           f"{args.admission} admission, {args.slots} slots x {capacity} "
           f"tokens")
-    print(f"routed experts: {quant} scheme, {routed_expert_bytes(model)} "
-          f"bytes stored ({dense_bytes} dense {args.dtype})")
+    if cfg.is_moe:
+        print(f"routed experts: {quant} scheme, "
+              f"{routed_expert_bytes(model)} bytes stored ({dense_bytes} "
+              f"dense {args.dtype})")
     bracket = (device_trace(args.device_trace) if args.device_trace
                else contextlib.nullcontext())
     t0 = time.perf_counter()

@@ -1,15 +1,18 @@
-"""Attention: q/k/v projections, causal prefill attention, decode attention
-against contiguous cache rows, and the paged write and read over a KV
-block pool (counterpart of ``repro.models.attention``).
+"""Attention: q/k/v projections, chunked ("flash") prefill attention,
+decode attention against contiguous cache rows, and the paged write and
+read over a KV block pool (counterpart of ``repro.models.attention``).
 
 The reference computes attention in pure jnp (chunked online softmax), so
 there is no TPU kernel to port for it: this is plain PyTorch, with the
-scores in fp32.  At the port's serving sizes the (S, S) or (1, capacity)
-score tensor is small, so it is formed whole instead of chunked.  The
-paged read has two paths: the fused one runs the paged decode-attention
-kernel over the pool (``kernels/paged_attention.py``); the gather path
-reassembles each row's view with ``gather_block_kv`` and runs the plain
-``attention``, the oracle."""
+scores in fp32.  ``flash_attention`` is the reference's chunked form: a
+loop over query chunks, and for each an online softmax over KV chunks, so
+a prompt's (S, S) score never exists whole.  ``attention`` forms the whole
+score in one pass; it is the plain version the chunked form is held
+against and the read of the paged gather path (the oracle).  The paged
+read has two paths: the fused one runs the paged decode-attention kernel
+over the pool (``kernels/paged_attention.py``); the gather path
+reassembles each row's view with ``gather_block_kv`` and runs
+``attention``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,14 +22,17 @@ from torch import nn
 
 from repro_torch.kernels.paged_attention import (gather_block_kv,
                                                   paged_decode_attention)
-from repro_torch.models.blocks import dense_init
+from repro_torch.models.blocks import dense_init, frozen, softcap
 
 NEG_INF = -1e30  # finite -inf stand-in, as in the reference
 
 
 class Attention(nn.Module):
+    """The reference's ``init_attn`` leaves: ``wq``, ``wk``, ``wv``, ``wo``
+    and, with ``bias``, zero ``bq``, ``bk``, ``bv``."""
+
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
-                 head_dim: int, gen, dtype, device):
+                 head_dim: int, gen, dtype, device, bias: bool = False):
         super().__init__()
         self.wq = dense_init(gen, (d_model, n_heads * head_dim), dtype, device)
         self.wk = dense_init(gen, (d_model, n_kv_heads * head_dim), dtype,
@@ -34,38 +40,147 @@ class Attention(nn.Module):
         self.wv = dense_init(gen, (d_model, n_kv_heads * head_dim), dtype,
                              device)
         self.wo = dense_init(gen, (n_heads * head_dim, d_model), dtype, device)
+        if bias:
+            for name, n in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+                setattr(self, name, frozen(torch.zeros(
+                    n * head_dim, dtype=dtype, device=device)))
 
 
 def project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv_heads: int,
                 head_dim: int):
-    """x: (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D)."""
+    """x: (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D); the biases
+    are added after the products, in x's dtype."""
     dt = x.dtype
     B, S, _ = x.shape
-    q = torch.matmul(x, p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
-    k = torch.matmul(x, p.wk.to(dt)).reshape(B, S, n_kv_heads, head_dim)
-    v = torch.matmul(x, p.wv.to(dt)).reshape(B, S, n_kv_heads, head_dim)
-    return q, k, v
+    q = torch.matmul(x, p.wq.to(dt))
+    k = torch.matmul(x, p.wk.to(dt))
+    v = torch.matmul(x, p.wv.to(dt))
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
+    return (q.reshape(B, S, n_heads, head_dim),
+            k.reshape(B, S, n_kv_heads, head_dim),
+            v.reshape(B, S, n_kv_heads, head_dim))
+
+
+def _scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """``q * D**-0.5`` with the scale rounded to q's dtype, as the
+    reference's ``q * asarray(scale, q.dtype)``."""
+    return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype,
+                            device=q.device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None,
+                    kv_limit: Optional[torch.Tensor] = None,
+                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    """The reference's chunked online-softmax attention.  q: (B, Sq, Hq,
+    D); k, v: (B, Skv, Hkv, D | Dv); kv_limit: (B,) inclusive last attended
+    key position.  Query i and key j sit at positions i and j (the
+    reference's zero offsets): ``causal`` keeps j <= i, ``window`` keeps j >
+    i - window.  Returns (B, Sq, Hq, Dv) in q's dtype.
+
+    The reference's order of operations: q scaled in its dtype, scores in
+    fp32, the softcap, the masks, ``p`` rounded to V's dtype before the PV
+    product, and at the end the ``l > 0`` divide.  Two differences, neither
+    of which moves a float beyond summation order:
+
+    * chunks of ``q_chunk`` and ``kv_chunk`` positions with a ragged last
+      one (the reference cuts each axis into its largest divisor <= the
+      target, which is one position for a prime length);
+    * a KV chunk that the causal or window mask removes whole is skipped:
+      in the reference it leaves the running (max, sum, acc) unchanged, and
+      skipping it keeps a windowed layer O(S x window); a chunk the masks
+      keep whole is not masked."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    qc, kc = max(1, min(q_chunk, Sq)), max(1, min(kv_chunk, Skv))
+    dev = q.device
+    # (B, Hkv, G, Sq, D) and (B, Hkv, Skv, D | Dv) in fp32: every product
+    # of the dtype's values is exact there, the sums fp32
+    qs = _scaled_q(q).reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    lim = None if kv_limit is None else kv_limit.reshape(B, 1, 1, 1, 1)
+    outs = []
+    for q0 in range(0, Sq, qc):
+        q1 = min(q0 + qc, Sq)
+        n = q1 - q0
+        qb = qs[:, :, :, q0:q1].reshape(B, Hkv, G * n, D)
+        qpos = torch.arange(q0, q1, device=dev)
+        m = torch.full((B, Hkv, G, n), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, n), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, G, n, Dv), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, Skv, kc):
+            k1 = min(k0 + kc, Skv)
+            if causal and k0 > q1 - 1:
+                break                          # past every query: all masked
+            if window is not None and k1 - 1 <= q0 - window:
+                continue                       # before every query's window
+            s = torch.matmul(qb, kf[:, :, k0:k1].transpose(-1, -2))
+            s = softcap(s, logit_softcap).reshape(B, Hkv, G, n, k1 - k0)
+            # the causal or window mask cuts this chunk somewhere
+            partial = ((causal and k1 - 1 > q0)
+                       or (window is not None and k0 <= q1 - 1 - window))
+            mask = None
+            if partial or lim is not None:
+                kpos = torch.arange(k0, k1, device=dev)
+            if partial:
+                mask = torch.ones((n, k1 - k0), dtype=torch.bool, device=dev)
+                if causal:
+                    mask = mask & (kpos[None, :] <= qpos[:, None])
+                if window is not None:
+                    mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            if lim is not None:
+                within = kpos <= lim
+                mask = within if mask is None else mask & within
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1)
+            pv = torch.matmul(p.to(v.dtype).float().reshape(B, Hkv, G * n,
+                                                           k1 - k0),
+                              vf[:, :, k0:k1])
+            acc = corr[..., None] * acc + pv.reshape(B, Hkv, G, n, Dv)
+            m = m_new
+        o = torch.where(l[..., None] > 0,
+                        acc / torch.clamp(l[..., None], min=1e-30),
+                        torch.zeros_like(acc))
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, n, Hq, Dv)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, kv_limit: Optional[torch.Tensor] = None,
+              window: Optional[int] = None,
               logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); kv_limit: (B,) inclusive
-    last attended key position (decode).  GQA groups Hq // Hkv query heads
-    per key head.  Returns (B, Sq, Hq, D) in q's dtype."""
+    """The whole score in one pass, the plain version of
+    ``flash_attention`` (same masks and positions).  q: (B, Sq, Hq, D); k,
+    v: (B, Skv, Hkv, D); kv_limit: (B,) inclusive last attended key
+    position (decode).  GQA groups Hq // Hkv query heads per key head.
+    Returns (B, Sq, Hq, D) in q's dtype."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    scale = torch.tensor(D ** -0.5, dtype=q.dtype, device=q.device)
-    qg = (q * scale).reshape(B, Sq, Hkv, G, D)
+    qg = _scaled_q(q).reshape(B, Sq, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    if logit_softcap is not None:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
+    s = softcap(s, logit_softcap)
     qpos = torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
     mask = mask[None, None, None]
     if kv_limit is not None:
         mask = mask & (kpos[None, None, None, None, :]
@@ -123,9 +238,10 @@ def paged_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pool: {"k", "v"} (n_blocks, bs, Hkv, D); pos: (B,) positions, each
     row's inclusive kv_limit.  Returns (B, 1, H, Dv) in q's dtype.
 
-    The fused read omits ``window``, exactly as the reference's fused call
-    does (its decode flash call runs with query position 0, which makes the
-    window term inert)."""
+    Neither read applies a sliding window, as in the reference (ROADMAP
+    C1): its fused call omits ``window``, and its gather path's decode
+    flash call runs with query position 0, where the window term is
+    inert."""
     scatter_block_rows(pool["k"], k, tables, pos)
     scatter_block_rows(pool["v"], v, tables, pos)
     B, _, H, D = q.shape

@@ -1,6 +1,8 @@
-"""Shared building blocks: RMSNorm, rotary embeddings, parameter init
-(counterpart of ``repro.models.blocks``)."""
+"""Shared building blocks: RMSNorm and layernorm, rotary embeddings, the
+logit softcap, parameter init (counterpart of ``repro.models.blocks``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -35,13 +37,54 @@ class RMSNorm(nn.Module):
         return apply_norm(self.scale, x, eps)
 
 
+class LayerNorm(nn.Module):
+    """Layernorm with ``scale`` (ones) and ``bias`` (zeros), the
+    reference's ``norm="layernorm"``."""
+
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = frozen(torch.ones(d, dtype=torch.float32, device=device))
+        self.bias = frozen(torch.zeros(d, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        return apply_layernorm(self.scale, self.bias, x, eps)
+
+
+def make_norm(kind: str, d: int, device) -> nn.Module:
+    """The reference's ``init_norm(d, kind)``: ``rmsnorm`` or
+    ``layernorm``."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, device)
+    if kind == "layernorm":
+        return LayerNorm(d, device)
+    raise ValueError(f"norm {kind!r}: expected rmsnorm | layernorm")
+
+
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
                ) -> torch.Tensor:
-    """Computed in fp32, cast back to x's dtype."""
+    """RMSNorm, computed in fp32, cast back to x's dtype."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale)
     return out.to(x.dtype)
+
+
+def apply_layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Layernorm over the population variance, computed in fp32, cast back
+    to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(x / cap)``, or x where ``cap`` is None."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

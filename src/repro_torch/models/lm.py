@@ -1,13 +1,19 @@
 """Language model for the ``moe`` family, with multi-head or latent (MLA)
-attention (counterpart of ``repro.models.lm``): the served path (prefill
-and decode over a contiguous KV cache, and decode rows over a paged KV
-block pool) and, for multi-head attention, the training path (``train``
-mode, ``chunked_ce``, ``loss_fn``).
+attention, and for the ``dense`` family, with global or alternating local
+and global attention (counterpart of ``repro.models.lm``): the served path
+(prefill and decode over a contiguous KV cache, and decode rows over a
+paged KV block pool) and, for multi-head attention, the training path
+(``train`` mode, ``chunked_ce``, ``loss_fn``).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
-the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers:
-``first_dense_layers`` dense-FFN blocks (``moe_dense``) then MoE blocks
-(``moe``).  Every ``(in, out)`` matrix keeps the reference's layout.
+the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers in the
+order of ``group_structure``: ``first_dense_layers`` dense-FFN blocks
+(``moe_dense``) then MoE blocks (``moe``); or ``attn`` blocks; or, for
+gemma2's ``local_global`` pattern, ``attn_local`` and ``attn_global`` in
+turn.  Every ``(in, out)`` matrix keeps the reference's layout.  Prefill and
+training run the chunked ``flash_attention`` (``RunConfig.q_chunk`` /
+``kv_chunk``), with the sliding window on ``attn_local`` layers; decode
+runs one chunk and, as the reference, no window (ROADMAP C1).
 
 The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
 Hkv, D) tensors per layer, or with MLA one ``{"ckv", "kr"}`` pair of
@@ -28,10 +34,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
 from repro_torch.kernels.paged_attention import fused_read_refusal
-from repro_torch.models.attention import (Attention, attention, paged_decode,
-                                          project_qkv, write_decode_rows)
-from repro_torch.models.blocks import RMSNorm, dense_init, normal_init, rope
-from repro_torch.models.ffn import SwiGLU
+from repro_torch.models.attention import (Attention, flash_attention,
+                                          paged_decode, project_qkv,
+                                          write_decode_rows)
+from repro_torch.models.blocks import (dense_init, make_norm, normal_init,
+                                       rope, softcap)
+from repro_torch.models.ffn import FFN
 from repro_torch.models.mla import MLA, mla_block, prefill_mla_cache
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
 from repro_torch.scheduling import ScheduleStats
@@ -49,6 +57,9 @@ class RunConfig(NamedTuple):
     fuse_gate_up: bool = True
     fold_combine: bool = True
     block_m_min: int = 8             # the dynamic policy's sub-block floor
+    q_chunk: int = 512               # flash_attention's query and KV
+    kv_chunk: int = 512              # chunks in prefill and train (0 = one
+                                     # chunk); decode runs one chunk
     loss_chunk: int = 1024           # chunked_ce's chunk length (train)
     remat: bool = False              # train: recompute each layer in the
                                      # backward (torch.utils.checkpoint)
@@ -67,14 +78,34 @@ class RunConfig(NamedTuple):
 
 
 def group_structure(cfg: ModelConfig):
-    """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds); the port
-    builds the moe family (with or without MLA): prefix ``moe_dense``, then
-    body ``moe``."""
-    if not cfg.is_moe:
+    """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds), the
+    reference's for the families the port builds: ``moe`` (with or without
+    MLA; prefix ``moe_dense``, body ``moe``) and ``dense`` (body ``attn``,
+    or ``attn_local``, ``attn_global`` for the ``local_global`` pattern, a
+    group of two layers: an odd depth raises, where the reference would
+    drop the last layer)."""
+    L = cfg.n_layers
+    if cfg.family not in ("moe", "dense") or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the moe family so far")
-    nd = cfg.moe.first_dense_layers
-    return ["moe_dense"] * nd, ["moe"], cfg.n_layers - nd, []
+            f"{cfg.name}: the port builds the moe and dense families so far, "
+            f"not {cfg.family!r}")
+    if cfg.layer_pattern == "local_global":
+        if L % 2:
+            raise ValueError(
+                f"{cfg.name} alternates local and global attention in groups "
+                f"of two layers (attn_local, attn_global): n_layers must be "
+                f"even, not {L}")
+        return [], ["attn_local", "attn_global"], L // 2, []
+    if cfg.is_moe:
+        nd = cfg.moe.first_dense_layers
+        return ["moe_dense"] * nd, ["moe"], L - nd, []
+    return [], ["attn"], L, []
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """Every layer's block kind, in order."""
+    prefix, body, n_groups, suffix = group_structure(cfg)
+    return prefix + body * n_groups + suffix
 
 
 class SharedExperts(nn.Module):
@@ -137,34 +168,63 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
+    """The reference's ``init_block`` leaves for an attention-style kind:
+    ``norm1``, ``norm2`` (and with ``post_block_norm`` ``post_norm1``,
+    ``post_norm2``) of ``cfg.norm``, ``attn`` (multi-head with the QKV
+    biases, or MLA) and ``moe`` or ``ffn``."""
+
     def __init__(self, cfg: ModelConfig, kind: str, gen, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
-        self.norm1 = RMSNorm(d, device)
-        self.norm2 = RMSNorm(d, device)
+        self.norm1 = make_norm(cfg.norm, d, device)
+        self.norm2 = make_norm(cfg.norm, d, device)
+        if cfg.post_block_norm:
+            self.post_norm1 = make_norm(cfg.norm, d, device)
+            self.post_norm2 = make_norm(cfg.norm, d, device)
         self.attn = (MLA(d, cfg.n_heads, cfg.mla, gen, dtype, device)
                      if cfg.mla is not None else
                      Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                               gen, dtype, device))
+                               gen, dtype, device, bias=cfg.qkv_bias))
         if kind == "moe":
             self.moe = MoE(cfg, gen, dtype, device)
         else:
-            self.ffn = SwiGLU(d, cfg.moe.d_ff_dense or 4 * d, gen, dtype,
-                              device)
+            f = (cfg.moe.d_ff_dense or 4 * d) if kind == "moe_dense" \
+                else cfg.d_ff
+            self.ffn = FFN(d, f, cfg.act, cfg.mlp_bias, gen, dtype, device)
 
 
 class LM(nn.Module):
+    """Embedding, layers, final norm and, unless ``tie_embeddings``, a
+    ``head``: a tied model reads ``embed.T`` (``head_matrix``)."""
+
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
-        prefix, body, n_groups, _ = group_structure(cfg)
         d = cfg.d_model
+        kinds = layer_kinds(cfg)          # raises before any allocation
         self.embed = normal_init(gen, (cfg.vocab_size, d), 0.02, dtype, device)
-        self.head = dense_init(gen, (d, cfg.vocab_size), dtype, device)
-        self.final_norm = RMSNorm(d, device)
-        kinds = prefix + body * n_groups
+        if not cfg.tie_embeddings:
+            self.head = dense_init(gen, (d, cfg.vocab_size), dtype, device)
+        self.final_norm = make_norm(cfg.norm, d, device)
         self.layers = nn.ModuleList(
             [Block(cfg, kind, gen, dtype, device) for kind in kinds])
+
+
+def head_matrix(model: LM, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, V) output projection: ``embed.T`` where the config ties it,
+    else ``head``."""
+    return model.embed.t() if cfg.tie_embeddings else model.head
+
+
+def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor, dt
+                 ) -> torch.Tensor:
+    """Token embeddings in ``dt``; with ``emb_scale`` times sqrt(d_model)
+    rounded to ``dt`` first, as the reference's ``asarray(d ** 0.5, dt)``
+    (60.0 for gemma2's 3584 in bf16)."""
+    x = model.embed[tokens].to(dt)
+    if cfg.emb_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    return x
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -272,9 +332,13 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                            cache=cache, cache_pos=cache_pos,
                            block_tables=block_tables, fused=fused)
     else:
-        o = _attention(blk.attn, h, cfg, positions=positions, mode=mode,
-                       cache=cache, cache_pos=cache_pos,
-                       block_tables=block_tables, fused=fused)
+        window = cfg.local_window if blk.kind == "attn_local" else None
+        o = _attention(blk.attn, h, cfg, rc, window=window,
+                       positions=positions, mode=mode, cache=cache,
+                       cache_pos=cache_pos, block_tables=block_tables,
+                       fused=fused)
+    if cfg.post_block_norm:
+        o = blk.post_norm1(o)
     x = x + o.to(dt)
 
     h = blk.norm2(x)
@@ -290,30 +354,43 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
         o, aux = apply_moe(blk.moe.params(), h, dcfg)
     else:
         o = blk.ffn(h)
+    if cfg.post_block_norm:
+        o = blk.post_norm2(o)
     return x + o.to(dt), aux
 
 
-def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig, *,
-               positions, mode: str, cache, cache_pos, block_tables,
-               fused: bool) -> torch.Tensor:
-    """Multi-head attention sub-block, output projection included."""
+ONE_CHUNK = 10 ** 9          # a chunk length that covers any sequence
+
+
+def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
+               rc: RunConfig, *, window: Optional[int], positions, mode: str,
+               cache, cache_pos, block_tables, fused: bool) -> torch.Tensor:
+    """Multi-head attention sub-block, output projection included.  Prefill
+    and train: ``flash_attention`` in ``rc``'s chunks with ``window``.
+    Decode: one chunk with query position 0, so that ``window`` is inert as
+    in the reference (C1); the paged reads take no window at all."""
     dt = h.dtype
     B, S, _ = h.shape
     q, k, v = project_qkv(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    softcap = cfg.attn_logit_softcap
+    cap = cfg.attn_logit_softcap
     if mode == "decode" and block_tables is not None:
         o = paged_decode(q, k, v, cache, block_tables, cache_pos,
-                         fused=fused, logit_softcap=softcap)
+                         fused=fused, logit_softcap=cap)
     elif mode == "decode":
         write_decode_rows(cache["k"], k, cache_pos)
         write_decode_rows(cache["v"], v, cache_pos)
-        o = attention(q, cache["k"].to(dt), cache["v"].to(dt), causal=False,
-                      kv_limit=cache_pos, logit_softcap=softcap)
+        o = flash_attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                            causal=False, window=window, kv_limit=cache_pos,
+                            logit_softcap=cap, q_chunk=ONE_CHUNK,
+                            kv_chunk=ONE_CHUNK)
     else:
-        o = attention(q, k, v, causal=cfg.causal, logit_softcap=softcap)
+        o = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                            logit_softcap=cap,
+                            q_chunk=rc.q_chunk or ONE_CHUNK,
+                            kv_chunk=rc.kv_chunk or ONE_CHUNK)
         if cache is not None:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
@@ -380,7 +457,7 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     draws no random numbers, so no RNG state is kept for the replay
     (``preserve_rng_state=False``).  With ``rc.moe_stats`` the ``sched/*``
     keys start at fp32 zeros, as the reference's scan carry does."""
-    x = model.embed[batch["tokens"]].to(rc.compute_dtype)
+    x = embed_tokens(model, cfg, batch["tokens"], rc.compute_dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_acc: dict = {}
     if rc.moe_stats and n_moe_layers(cfg):
@@ -406,8 +483,7 @@ def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
                    mode: str, cache, pos, block_tables):
     fused = paged_fused(rc, cache[0] if block_tables is not None else None)
     dt = rc.compute_dtype
-    tokens = batch["tokens"]
-    x = model.embed[tokens].to(dt)
+    x = embed_tokens(model, cfg, batch["tokens"], dt)
     B, S = x.shape[:2]
     if mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -427,12 +503,13 @@ def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     x = model.final_norm(x)
     x_last = x[:, -1] if mode == "prefill" else x[:, 0]
-    logits = torch.matmul(x_last, model.head.to(dt)).float()
-    return logits, cache, aux_acc
+    logits = torch.matmul(x_last, head_matrix(model, cfg).to(dt)).float()
+    return softcap(logits, cfg.final_logit_softcap), cache, aux_acc
 
 
 def n_moe_layers(cfg: ModelConfig) -> int:
-    return group_structure(cfg)[2]
+    """Layers of kind ``moe`` (0 for a dense model)."""
+    return layer_kinds(cfg).count("moe")
 
 
 # ----------------------------------------------------------------------
@@ -440,9 +517,7 @@ def n_moe_layers(cfg: ModelConfig) -> int:
 # ----------------------------------------------------------------------
 def _chunk_ce(xc: torch.Tensor, w_head: torch.Tensor, yc: torch.Tensor,
               vc: torch.Tensor, final_cap: Optional[float]) -> torch.Tensor:
-    logits = torch.matmul(xc, w_head).float()
-    if final_cap is not None:
-        logits = final_cap * torch.tanh(logits / final_cap)
+    logits = softcap(torch.matmul(xc, w_head).float(), final_cap)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, yc.long()[..., None])[..., 0]
     return torch.where(vc, lse - gold, torch.zeros_like(lse)).sum()
@@ -476,7 +551,7 @@ def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     aux losses (0.01 load balance, 1e-4 router z).  Returns (loss,
     metrics), every value a device tensor."""
     h, _, aux = forward(model, cfg, rc, batch, mode="train")
-    w_head = model.head.to(h.dtype)
+    w_head = head_matrix(model, cfg).to(h.dtype)
     labels = batch["tokens"][:, 1:]
     valid = torch.ones_like(labels, dtype=torch.bool)
     tot, n = chunked_ce(h[:, :-1], w_head, labels, valid,

@@ -6,8 +6,10 @@ array (the caller runs ``jax.tree.map(np.asarray, params)``; this module
 does not import JAX) and returns the port's ``LM`` holding the same
 weights; ``from_jax_tree`` maps any tree of that layout (gradients,
 updated parameters) onto the port's parameter names.  The stacked
-``body`` leaves are unstacked along axis 0 into one layer each; every
-``(in, out)`` matrix keeps its layout."""
+``body`` leaves are unstacked along axis 0: group g's blocks ``b0``,
+``b1``, ... become one layer each, in that order; every ``(in, out)``
+matrix keeps its layout, and biases, norms and post norms map by name.  A
+tree of a tied config has no ``head``, and neither has the port's model."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,9 +36,10 @@ def _jax_layers(cfg: ModelConfig, tree: dict):
     if len(layers) != len(prefix):
         raise ValueError(f"expected {len(prefix)} prefix blocks, "
                          f"got {len(layers)}")
-    stacked = _flatten(tree["body"]["b0"])
+    stacked = [_flatten(tree["body"][f"b{i}"]) for i in range(len(body))]
     for g in range(n_groups):
-        layers.append({k: v[g] for k, v in stacked.items()})
+        for blk in stacked:
+            layers.append({k: v[g] for k, v in blk.items()})
     return layers
 
 
@@ -44,8 +47,10 @@ def from_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
     """A tree of the reference's parameter layout (the parameters, their
     gradients or updated parameters; numpy leaves) as ``{name: array}``
     under the port's ``LM.named_parameters()`` names."""
-    flat = {"embed": tree["embed"], "head": tree["head"],
-            "final_norm.scale": tree["final_norm"]["scale"]}
+    flat = {"embed": tree["embed"]}
+    if "head" in tree:
+        flat["head"] = tree["head"]
+    flat.update({f"final_norm.{k}": v for k, v in tree["final_norm"].items()})
     for i, layer in enumerate(_jax_layers(cfg, tree)):
         flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     return flat
@@ -56,6 +61,12 @@ def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
     model = init_params(cfg, 0, device=device)
     ref = from_jax_tree(cfg, tree)
     names = dict(model.named_parameters())
+    mine = {n for n in names if not n.startswith("layers.")}
+    theirs = {n for n in ref if not n.startswith("layers.")}
+    if mine != theirs:
+        raise ValueError(f"reference leaves missing from the port: "
+                         f"{sorted(theirs - mine)}; port parameters with no "
+                         f"reference leaf: {sorted(mine - theirs)}")
     for i in range(len(model.layers)):
         pre = f"layers.{i}."
         mine = {n[len(pre):] for n in names if n.startswith(pre)}

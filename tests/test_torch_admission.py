@@ -50,6 +50,7 @@ from repro_torch.serve.admission import (available_admission_policies,
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 DT = 0.05                          # seconds per step on the stepped clock
 WIDTH = dict(layers=2, d_model=64, vocab=128)

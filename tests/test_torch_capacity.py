@@ -45,6 +45,7 @@ from repro_torch.scheduling import (DEFAULT_POLICY_SWEEP, ScheduleStats,
                                     capacity_slots, expert_capacity,
                                     schedule_stats)
 from repro_torch.weights import from_jax_params, from_jax_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def routing(kind, T, E, k, seed):

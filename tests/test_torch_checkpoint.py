@@ -47,6 +47,7 @@ from repro_torch.quantization import quantize_model
 from repro_torch.runtime.fault import supervise
 from repro_torch.train.loop import train
 from repro_torch.weights import from_jax_params, from_jax_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LOSS_CHUNK = 8
 

@@ -17,6 +17,7 @@ from repro.core.moe_layer import apply_moe as jax_apply_moe
 from repro_torch.configs import PAPER_CONFIGS
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.core.moe_layer import apply_moe
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 D, F, M, T = 64, 96, 8, 16
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -6,8 +6,10 @@ decode-attention kernel over its masks, and its MLA form; the router over
 ties, all-equal rows and -inf logits, and the combine bitwise, at one to
 4096 tokens), the MoE layer without a host sync under
 both policies and on quantized weights, the contiguous and paged
-engines' launch counts (dense and int8 experts; MLA), and the MLA engine's
-gather read where its KV blocks are wider than the kernel takes.
+engines' launch counts (dense and int8 experts; MLA), the MLA engine's
+gather read where its KV blocks are wider than the kernel takes, the GQA
+kernel at the dense family's attention shapes, and a reduced gemma2
+engine's fused read against its gather read.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -172,6 +174,67 @@ def test_paged_attention_kernel_matches_plain(cuda, B, Hkv, G, D, Dv, bs, nb,
     vp[past] = float("nan")
     assert torch.equal(paged_decode_attention(q, kp, vp, tables, lim1), base)
     torch.cuda.synchronize()
+
+
+# the dense family's attention in a decode step (B=2) and a 64-row chunk
+# step, blocks of 16: (Hkv, G, D, softcap) of gemma2-9b, qwen2-7b,
+# starcoder2-3b and smollm-360m
+DENSE_ATTN = {"gemma2": (8, 2, 256, 50.0), "qwen2": (4, 7, 128, None),
+              "starcoder2": (2, 12, 128, None), "smollm": (5, 3, 64, None)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B", [2, 64])
+@pytest.mark.parametrize("arch", sorted(DENSE_ATTN))
+def test_paged_attention_kernel_at_dense_shapes(cuda, arch, B, dtype):
+    """GQA groups of 2, 3, 7 and 12 over heads of 64-256 columns (several
+    passes of a warp's head tile where G passes it), the model's softcap,
+    scalar and vector kv_limit and a causal window: within TOL of the plain
+    version and bitwise across two calls."""
+    Hkv, G, D, cap = DENSE_ATTN[arch]
+    q, kp, vp, tables, lim = paged_inputs(cuda, B, Hkv, G, D, D, 16, 8,
+                                          DTYPES[dtype])
+    qpos = torch.clamp(lim - 3, min=0)
+    for kv, kw in ((lim, dict(logit_softcap=cap)), (60, dict()),
+                   (lim, dict(q_pos=qpos, causal=True, window=40,
+                              logit_softcap=cap))):
+        out = paged_decode_attention(q, kp, vp, tables, kv, **kw)
+        want = paged_decode_attention_plain(q, kp, vp, tables, kv, **kw)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+        assert torch.equal(paged_decode_attention(q, kp, vp, tables, kv,
+                                                  **kw), out)
+
+
+@pytest.mark.gpu
+def test_paged_gemma2_engine_reads_through_the_kernel(cuda):
+    """Reduced gemma2 (local and global layers, softcaps 50 and 30, tied
+    head), fp32: the fused read launches the GQA kernel once per layer per
+    forward, and serves the gather read's greedy tokens; no MoE kernel
+    runs."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("gemma2-9b"), layers=4)
+    model = init_params(cfg, 0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 9, 33)]
+    outs = {}
+    for read in ("fused", "gather"):
+        eng = ServeEngine(cfg, model, slots=2, capacity=96, kv_block_size=16,
+                          prefill_chunk=32, rc=RunConfig(paged_attn=read))
+        reqs = [Request(rid=i, prompt=p, max_new=5)
+                for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        done = eng.run(reqs)
+        assert len(done) == 3 and all(len(r.out) == 5 for r in done)
+        launches = dict(ops.LAUNCHES)
+        assert launches.pop("paged_attention") == \
+            (cfg.n_layers * eng.n_forwards if read == "fused" else 0)
+        assert all(n == 0 for n in launches.values()), ops.LAUNCHES
+        outs[read] = [r.out for r in reqs]
+    assert outs["fused"] == outs["gather"]
 
 
 @pytest.mark.gpu

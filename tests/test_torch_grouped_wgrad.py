@@ -29,6 +29,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.grouped_gemm import grouped_gemm_t_plain
 from repro_torch.kernels.grouped_wgrad import grouped_wgrad_plain
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CASES = [
     # (T, E, k, d, f, block_m), as tests/test_kernels.py's grouped_wgrad

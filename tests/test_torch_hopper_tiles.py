@@ -50,6 +50,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.scheduling import (build_capacity_schedule,
                                     build_dynamic_schedule,
                                     build_fixed_schedule)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # (T, E, k, block_m): tests/test_torch_grouped_wgrad.py's sizes, runs long
 # enough for several tiles an expert, and the serving schedules the

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro.scheduling.dynamic import build_dynamic_schedule as jax_dynamic  # noqa: E402
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CASES = [
     # (T, E, k, d, f, block_m), as tests/test_kernels.py

@@ -17,6 +17,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.paged_attention import gather_block_kv
 from repro_torch.serve.kv_cache import PAGED_KINDS, PagedKVCache, \
     paged_supported
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 STAT_KEYS = ("blocks_total", "blocks_in_use", "blocks_parked", "prefix_hits",
              "prefix_misses", "prefix_hit_tokens", "evictions",

@@ -35,6 +35,7 @@ from repro_torch.kernels.paged_attention import scale_q
 from repro_torch.models import mla as port_mla
 from repro_torch.models.lm import RunConfig, forward, init_cache
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

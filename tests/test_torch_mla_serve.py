@@ -31,6 +31,7 @@ from repro_torch.launch.serve import main as launch_main
 from repro_torch.models.lm import RunConfig
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ARCH = "deepseek-v2-236b"
 LENGTHS = (5, 17, 3, 11, 8)

@@ -24,6 +24,7 @@ from repro.models.lm import init_params as jax_init_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.models.lm import RunConfig, forward, init_cache
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, CAP = 2, 12, 32

@@ -21,6 +21,7 @@ from repro.core.dispatch import moe_ffn as jax_moe_ffn
 from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
 from repro_torch.kernels import ops
 from repro_torch.quantization import get_scheme
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 D, F, M, T = 64, 96, 8, 24
 TOL = dict(rtol=1e-4, atol=1e-4)

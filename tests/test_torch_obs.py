@@ -49,6 +49,7 @@ from repro_torch.obs import (LAT_KEYS, NOOP, MetricsRegistry, NullMetrics,
                              percentile, validate_chrome_trace)
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 WIDTH = dict(layers=2, d_model=64, vocab=128)
 JAX_RC = JaxRunConfig(executor="xla", schedule_policy="dynamic",

@@ -37,6 +37,7 @@ from repro_torch.kernels.paged_attention import (gather_block_kv,
 from repro_torch.models.attention import scatter_block_rows
 from repro_torch.models.lm import RunConfig, forward, init_cache
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

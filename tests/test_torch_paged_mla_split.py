@@ -29,6 +29,7 @@ from repro.kernels.paged_attention import paged_decode_attention as jax_paged
 from repro_torch.kernels.paged_attention import (
     MLA_HEADS, mla_split_plan, mla_tile, paged_decode_attention_mla_walk,
     paged_decode_attention_plain)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

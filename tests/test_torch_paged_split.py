@@ -25,6 +25,7 @@ from repro.kernels.paged_attention import paged_decode_attention as jax_paged
 from repro_torch.kernels.paged_attention import (
     GQA_WARPS, gqa_warps, paged_decode_attention_plain,
     paged_decode_attention_walk, split_plan)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -43,6 +43,7 @@ from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ops import _weight_operands
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 SCHEMES = ["int8_expert", "int8_channel", "int4_packed"]
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

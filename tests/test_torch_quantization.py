@@ -46,6 +46,7 @@ from repro_torch.execution import (Executor, combine_scale_rows,
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.scheduling import build_dynamic_schedule, build_fixed_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 SCHEMES = ["int8_expert", "int8_channel", "int4_packed"]
 CASES = [

@@ -35,6 +35,7 @@ from repro_torch.kernels.unpermute import unpermute_plain
 from repro_torch.models import mla as mla_mod
 from repro_torch.models.lm import (RunConfig, init_cache, init_params,
                                    paged_fused)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROUTINGS = {"softmax": dict(gating="softmax", norm_topk=False,
                             routed_scale=16.0),

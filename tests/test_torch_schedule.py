@@ -20,6 +20,7 @@ from repro_torch.execution import combine_scale_rows, router_aux_losses
 from repro_torch.scheduling import (build_dynamic_schedule,
                                     build_fixed_schedule, build_schedule,
                                     sub_block)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 FIELDS = ("counts", "group_offsets", "src_tok", "pos", "block_expert",
           "block_active", "seg_start")

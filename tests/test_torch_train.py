@@ -45,6 +45,7 @@ from repro_torch.optim import adamw
 from repro_torch.train.loop import train
 from repro_torch.train.step import make_train_step, train_state
 from repro_torch.weights import from_jax_params, from_jax_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
