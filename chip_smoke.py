@@ -134,7 +134,24 @@ result line):
    ``slo`` policy on a stepped clock (tokens bitwise the uninterrupted
    run's in fp32; the resumed admission timed in bf16), and a
    ``torch.profiler`` device trace of two decode steps that must name B1,
-   B2 and B6 (``serve_obs``);
+   B2 and B6 (``serve_obs``).  [serve sample] on the same model and
+   traffic under ``temperature`` 0.8, ``top_k`` 50 and ``top_p`` 0.9
+   (seed 0): threefry keys, bits and uniforms on the card bitwise the
+   CPU's and the reference's (literals taken from ``jax.random``), every
+   sampled token equal to ``sample_rows`` on the CPU over the step's
+   logits, a request alone sampling the tokens it samples in the batch
+   (fp32 copy), decode ms per step of each method against greedy in turns
+   and the device activities each adds (``serve_sample``).  [serve spec]
+   (k = 4): smollm-360m at full width with moonshot's vocabulary (random
+   bf16, seed 1) and the target itself as drafts: acceptance, the launches
+   of a round (one plan a MoE layer for the verify's 10 rows), the draft
+   steps and the verify forward under ``set_sync_debug_mode("error")``,
+   greedy tokens equal to the plain engine's in fp32 for both drafts, and
+   decode tokens/s against plain in turns (``serve_spec``).  [serve
+   loadgen]: seeded poisson and burst traces (16 requests at 8 req/s of
+   virtual time) replayed through ``ServingFrontend`` with the clock
+   moved by the measured step EWMA: completions, TTFT/TPOT p50/p99,
+   goodput, streamed tokens equal to each request's (``serve_loadgen``);
 6. serving, contiguous + fixed (``kv_block_size=0``): 3 requests as before
    the paged engine existed, with the same launch, logits and profile
    checks;
@@ -237,6 +254,35 @@ SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_NEW = 2, 4, 16
 # NOOP) decode steps, switched step by step on one engine
 OBS_ROUNDS = 15
 CONTIG_REQUESTS = 3
+# [serve sample]: the sampling configs (seed 0 each), and the rounds of
+# (greedy, temperature, top_k, top_p, top_p, top_k, temperature, greedy)
+# decode steps switched step by step on one engine
+SAMPLE_METHODS = {
+    "temperature": dict(method="temperature", temperature=0.8, seed=0),
+    "top_k": dict(method="top_k", temperature=0.8, top_k=50, seed=0),
+    "top_p": dict(method="top_p", temperature=0.8, top_p=0.9, seed=0)}
+SAMPLE_ROUNDS = 6
+# the reference's threefry words (jax.random on the CPU, threefry2x32 with
+# partitionable counters; JAX 0.9.0) for (seed, counter, role): the row
+# key, bits 0, 1, 2 and 163,839 of a (163840,) draw, the scalar uniform
+THREEFRY_VECTORS = (
+    (0, 0, 0, (4165894930, 804218099),
+     (1214273199, 3384852239, 1707608394, 3025140783), 0.2827199697494507),
+    (7, 3, 1, (4073741833, 2748900490),
+     (429855279, 897732436, 215886965, 637752223), 0.10008347034454346),
+    (123456, 16, 2, (1050066568, 1862183662),
+     (1083057526, 330649040, 1464979654, 20279065), 0.2521688938140869),
+    (-5, 70000, 3, (1124436665, 802648950),
+     (648655163, 1328871060, 2846055782, 2262432228), 0.15102672576904297))
+# [serve spec]: proposals a round, the verify's rows on SERVE_SLOTS slots,
+# the requests and new tokens of the fp32 identity check and of the
+# tokens/s turns
+SPEC_K = 4
+VERIFY_ROWS = SERVE_SLOTS * (SPEC_K + 1)
+SPEC_CHECK_NEW, SPEC_RATE_NEW = 12, 24
+# [serve loadgen]: requests a trace and their offered rate (virtual req/s),
+# as the reference's launcher replays them
+LOADGEN_REQUESTS, LOADGEN_RATE = 16, 8.0
 KV_BLOCK, PREFILL_CHUNK, SHARED_PREFIX = 16, 32, 40
 ATTN = dict(Hkv=16, G=1, D=128, bs=16,          # moonshot's attention
             arch="moonshot-v1-16b-a3b")
@@ -1384,9 +1430,14 @@ class PagedCase:
 
 def paged_rows(kind: str):
     """(slot, position) rows: decode = one row per slot at positions 100
-    and 77; chunk = 2 slots x 32 prompt rows at positions 32-63."""
+    and 77; verify = the speculative verify's SPEC_K + 1 rows a slot from
+    those positions on; chunk = 2 slots x 32 prompt rows at positions
+    32-63."""
     if kind == "decode":
         return [(0, 100), (1, 77)]
+    if kind == "verify":
+        return [(s, p + j) for s, p in ((0, 100), (1, 77))
+                for j in range(SPEC_K + 1)]
     return [(s, p) for s in range(2) for p in range(32, 64)]
 
 
@@ -1399,6 +1450,7 @@ PAGED_SHAPES = {
     "long": (ATTN, [(0, 8191), (1, 6143)], 512, 2),
     "batched": (ATTN, [(s, 2047) for s in range(32)], 128, 32),
     "gqa_decode": (ATTN_GQA, paged_rows("decode"), 8, 2),
+    "verify": (ATTN, paged_rows("verify"), 8, 2),
 }
 for _arch, _attn in DENSE_ATTN.items():
     for _kind in ("decode", "chunk"):
@@ -1820,9 +1872,9 @@ def check_launches(launches: dict, moe: int, attn: int, fmt: str,
             raise AssertionError(f"{name}: {n} launches, expected {want}")
 
 
-def check_requests(reqs, vocab: int) -> None:
+def check_requests(reqs, vocab: int, max_new: int = SERVE_MAX_NEW) -> None:
     for r in reqs:
-        if not r.done or len(r.out) != SERVE_MAX_NEW \
+        if not r.done or len(r.out) != max_new \
                 or not all(0 <= t < vocab for t in r.out):
             raise AssertionError(f"request {r.rid} incomplete: {r.out}")
         print(f"  req {r.rid}: {len(r.prompt)} prompt tokens -> {r.out}")
@@ -2303,6 +2355,490 @@ def serve_obs(cfg, model, prompts, capacity, paged_kw) -> dict:
     del engine
     torch.cuda.empty_cache()
     return out
+
+
+def check_threefry() -> dict:
+    """Threefry on the card: the reference's literal words
+    (THREEFRY_VECTORS) on the card and on the CPU, then a (4, 163840)
+    batch of bits and uniforms under four row keys bitwise the CPU's."""
+    import torch
+    from repro_torch.sampling import row_key, threefry
+    n = 163840
+    for seed, ctr, role, key, bits, u in THREEFRY_VECTORS:
+        for dev in ("cpu", "cuda"):
+            k = row_key(torch.tensor(seed, device=dev),
+                        torch.tensor(ctr, device=dev), role)
+            b = threefry.random_bits(k, n)
+            got = ((int(k[0]), int(k[1])),
+                   tuple(int(b[i]) for i in (0, 1, 2, n - 1)),
+                   float(threefry.uniform(k)))
+            if got != (key, bits, u):
+                raise AssertionError(f"threefry on {dev} at ({seed}, {ctr}, "
+                                     f"{role}): {got}, the reference's "
+                                     f"{(key, bits, u)}")
+    seeds = torch.tensor([0, 7, -3, 2 ** 31 - 1])
+    ctr = torch.tensor([0, 5, 70000, 12])
+    for role in range(4):
+        kc = row_key(seeds, ctr, role)
+        kg = row_key(seeds.cuda(), ctr.cuda(), role)
+        for fn in (threefry.random_bits, threefry.uniform):
+            if not torch.equal(fn(kc, n), fn(kg, n).cpu()):
+                raise AssertionError(f"{fn.__name__} role {role}: the card "
+                                     "differs from the CPU")
+    return {"literal_keys": len(THREEFRY_VECTORS), "batch_rows": 4,
+            "values_per_row": n}
+
+
+def serve_sample(cfg, model, model32, cfg32, prompts, capacity,
+                 paged_kw) -> dict:
+    """[serve sample]: the paged engine's keyed sampling on the served
+    model and the [serve paged] traffic (4 requests, 16 new, 2 slots).
+
+    (a) threefry on the card (``check_threefry``).  (b) Each method of
+    SAMPLE_METHODS on a fresh engine (after a warm-up request): launches
+    as greedy's (``check_launches``), every ``sample_rows`` call recorded
+    (the step's logits, seeds, counters, role and tokens) and the tokens
+    of the rows that emit one (decode rows, and each slot's last row: a
+    prompt's final row; distinct requests carry distinct seeds, base +
+    rid, so a seed names a slot) equal to ``sample_rows`` on the CPU over
+    the same logits; some tokens differ from greedy's.  (c) fp32 (``model32``, the first CHECK_LAYERS
+    layers): under top_p the 4 requests in a batch and each alone on an
+    engine of its own sample the same tokens.  (d) decode ms per step of
+    each method against greedy, one engine, two requests decoding, the
+    method switched step by step in SAMPLE_ROUNDS palindromic rounds (host
+    clock; each step ends in its host transfer); then 3 decode steps of
+    each under the profiler: device activities a step."""
+    import numpy as np
+    import torch
+    import repro_torch.serve.step as step_mod
+    from repro_torch.execution import set_plan_hook
+    from repro_torch.models.lm import n_moe_layers
+    from repro_torch.sampling import SamplingConfig, sample_rows
+    from repro_torch.serve.engine import Request, ServeEngine
+    rc = served_rc()
+    V, moe_layers = cfg.vocab_size, n_moe_layers(cfg)
+    out = {"threefry": check_threefry()}
+    print(f"[serve sample] (a) threefry: the reference's words at "
+          f"{len(THREEFRY_VECTORS)} (seed, counter, role) keys equal on the "
+          f"card and the CPU; bits and uniforms of 4 x 163840 bitwise the "
+          f"CPU's")
+    greedy = None
+    for name, kw in (("greedy", {}), *SAMPLE_METHODS.items()):
+        sampling = SamplingConfig(**kw)
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                             capacity=capacity, rc=rc, sampling=sampling,
+                             **paged_kw)
+        engine.run([Request(rid=-1, prompt=prompts[0][:16], max_new=3)])
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        calls, real = [], step_mod.sample_rows
+
+        def recording(logits, cfg_, seeds, counters, role=0):
+            tok = real(logits, cfg_, seeds, counters, role=role)
+            if cfg_.method != "greedy":           # greedy is the argmax
+                calls.append((logits.detach().clone(), seeds.clone(),
+                              counters.clone(), role, tok.clone()))
+            return tok
+        step_mod.sample_rows = recording
+        try:
+            res = drive(engine, reqs)
+        finally:
+            step_mod.sample_rows = real
+            set_plan_hook(None)
+        n = res["forwards"]
+        check_launches(res["launches"], moe_layers * n, cfg.n_layers * n,
+                       "dense")
+        check_requests(reqs, V)
+        toks = [r.out for r in reqs]
+        rows = 0
+        for logits, seeds, counters, role, tok in calls:
+            # the rows whose token is emitted: decode rows (counter > 0)
+            # and each slot's last row of the step (a prompt's final row;
+            # a chunk row that is not final is drawn and discarded)
+            seeds_l, ctr_l = seeds.tolist(), counters.tolist()
+            last = {s_: i for i, s_ in enumerate(seeds_l)}
+            keep = [i for i, c in enumerate(ctr_l)
+                    if c > 0 or last[seeds_l[i]] == i]
+            idx = torch.tensor(keep, device=logits.device)
+            want = sample_rows(logits[idx].cpu(), sampling,
+                               seeds[idx].cpu(), counters[idx].cpu(),
+                               role=role)
+            if not torch.equal(tok[idx].cpu(), want):
+                raise AssertionError(f"[serve sample] {name}: a sampled "
+                                     "token differs from sample_rows on the "
+                                     "CPU")
+            rows += len(keep)
+        if name == "greedy":
+            greedy = toks
+            if calls:
+                raise AssertionError("[serve sample] greedy drew a sample")
+        elif toks == greedy:
+            raise AssertionError(f"[serve sample] {name}: every token is "
+                                 "greedy's")
+        same = sum(a == b for x, y in zip(toks, greedy) for a, b in zip(x, y))
+        out[name] = {"launches": res["launches"], "forwards": n,
+                     "checked_steps": len(calls), "checked_rows": rows,
+                     "tokens_equal_to_greedy": same}
+        print(f"[serve sample] (b) {name} ({json.dumps(kw)}): {n} forwards, "
+              f"launches {json.dumps(res['launches'])} (as greedy's: "
+              f"{res['launches'] == out['greedy']['launches']}); "
+              f"{len(calls)} sampled steps ({rows} emitting rows) equal to "
+              f"sample_rows on the CPU over the same logits; {same} of "
+              f"{sum(len(t) for t in toks)} tokens equal to greedy's")
+        del engine, calls
+        torch.cuda.empty_cache()
+
+    # (c) batch independence in fp32
+    sampling = SamplingConfig(**SAMPLE_METHODS["top_p"])
+    rc32 = rc._replace(compute_dtype=torch.float32)
+
+    def run32(ps, rids):
+        eng = ServeEngine(cfg32, model32, slots=SERVE_SLOTS,
+                          capacity=capacity, rc=rc32, sampling=sampling,
+                          **paged_kw)
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in zip(rids, ps)]
+        eng.run(reqs)
+        set_plan_hook(None)
+        return [r.out for r in reqs]
+    batched = run32(prompts, range(len(prompts)))
+    alone = [run32([p], [i])[0] for i, p in enumerate(prompts)]
+    if alone != batched:
+        raise AssertionError("[serve sample] (c) fp32 top_p: a request "
+                             "alone samples other tokens than in the batch")
+    out["fp32_alone_equals_batched"] = True
+    print(f"[serve sample] (c) fp32 ({cfg32.n_layers} layers) top_p: "
+          f"{len(prompts)} requests batched on {SERVE_SLOTS} slots and each "
+          f"alone sample the same {sum(len(t) for t in batched)} tokens")
+
+    # (d) decode ms per step in turns, then device activities a step
+    arms = {"greedy": SamplingConfig(), **{
+        n: SamplingConfig(**kw) for n, kw in SAMPLE_METHODS.items()}}
+    per_round = ("greedy", "temperature", "top_k", "top_p", "top_p",
+                 "top_k", "temperature", "greedy")
+    n_steps = SAMPLE_ROUNDS * len(per_round) + 3 * len(arms) + 4
+    tail = np.random.default_rng(2).integers(0, V, (SERVE_SLOTS, 16)).astype(
+        np.int32)
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                         capacity=16 + n_steps + 8, rc=rc, **paged_kw)
+    for i in range(SERVE_SLOTS):
+        engine.admit(Request(rid=100 + i, prompt=tail[i], max_new=n_steps))
+    for _ in range(2):
+        engine.step()
+    times = {name: [] for name in arms}
+    for _ in range(SAMPLE_ROUNDS):
+        for name in per_round:
+            engine.sampling = arms[name]
+            t0 = time.perf_counter()
+            rows = engine.step()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            if rows != SERVE_SLOTS:
+                raise AssertionError(f"[serve sample] a timed step ran "
+                                     f"{rows} rows")
+    events = {}
+    for name in arms:
+        engine.sampling = arms[name]
+        prof = profile_window(lambda: [engine.step() for _ in range(3)])
+        events[name] = prof["device_events"] / 3
+    del engine
+    torch.cuda.empty_cache()
+    med = {n: float(np.median(x)) for n, x in times.items()}
+    out["decode_ms_per_step_median"] = med
+    out["decode_ms_per_step"] = times
+    out["device_activities_per_step"] = events
+    print(f"[serve sample] (d) decode ms per step, {SAMPLE_ROUNDS} rounds x "
+          f"{per_round} on one engine (2 slots, host clock), median: "
+          + ", ".join(f"{n} {m:.3f} ({m - med['greedy']:+.3f} against "
+                      "greedy)" for n, m in med.items())
+          + "; device activities a step (profiler, 3 steps): "
+          + ", ".join(f"{n} {e:.0f} ({e - events['greedy']:+.0f})"
+                      for n, e in events.items()))
+    return out
+
+
+def spec_guard(engine, rounds: list, launches: list) -> None:
+    """From the engine's second speculative round on, run each round's
+    device part (k draft steps, the verify forward) under
+    ``set_sync_debug_mode("error")``; ``rounds`` counts the guarded rounds
+    and ``launches`` keeps each round's launches of each kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    device_part = engine.spec_device
+
+    def guarded(inp):
+        if engine.n_spec_rounds == 0:
+            return device_part(inp)
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = device_part(inp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches.append({k: v - before.get(k, 0)
+                         for k, v in ops.LAUNCHES.items()
+                         if v - before.get(k, 0)})
+        rounds.append(1)
+        return res
+    engine.spec_device = guarded
+
+
+def serve_spec(cfg, model, model32, cfg32, prompts, capacity,
+               paged_kw) -> dict:
+    """[serve spec]: speculative decoding (k = SPEC_K) on the served model
+    with two drafts: smollm-360m at full width with moonshot's vocabulary
+    (``make_draft_config``; random bf16 weights, seed 1) and the target
+    itself.
+
+    (a) bf16, in turns (plain, smollm, self, plain), each a fresh engine
+    serving two 16-token prompts SPEC_RATE_NEW new tokens each: decode
+    tokens/s from the step after both have a token to the end (host
+    clock); the launches of the whole run (B6: layers x forwards of the
+    target and of the draft; each MoE kernel: MoE layers x forwards of
+    each); from the second round on each round's device part under
+    ``spec_guard`` (no host sync) with its launches (one plan a MoE layer
+    for the verify's VERIFY_ROWS rows); acceptance; the tokens against the
+    plain engine's (printed: in bf16 a 10-row verify and a 2-row decode
+    round some logits apart).  (b) fp32 (the first CHECK_LAYERS layers;
+    the draft an fp32 copy): greedy speculative tokens bitwise the plain
+    engine's for both drafts, 2 requests x SPEC_CHECK_NEW."""
+    import numpy as np
+    import torch
+    from repro_torch.execution import set_plan_hook
+    from repro_torch.models.lm import init_params, n_moe_layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.spec import SpecEngine, make_draft_config
+    rc = served_rc()
+    V = cfg.vocab_size
+    dcfg = make_draft_config(cfg)
+    t0 = time.perf_counter()
+    dmodel = init_params(dcfg, 1, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_dparams = sum(p.numel() for p in dmodel.parameters())
+    print(f"[serve spec] draft {dcfg.name} at full width (d_model="
+          f"{dcfg.d_model}, {dcfg.n_layers} layers, heads {dcfg.n_heads}/"
+          f"{dcfg.n_kv_heads} of {dcfg.head_dim}) with {cfg.name}'s "
+          f"vocabulary ({V}): {n_dparams / 1e9:.3f} B parameters, random "
+          f"bf16, seed 1, initialised in {time.perf_counter() - t0:.1f} s; "
+          f"k = {SPEC_K}")
+    drafts = {"smollm": (dcfg, dmodel), "self": (cfg, model)}
+    spec_capacity = capacity + SPEC_K + 1
+    out = {"draft": {"name": dcfg.name, "layers": dcfg.n_layers,
+                     "params": n_dparams}, "k": SPEC_K}
+
+    def engine_for(draft, c=cfg, m=model, r=rc, cap=spec_capacity, **kw):
+        if draft is None:
+            return ServeEngine(c, m, slots=SERVE_SLOTS, capacity=cap,
+                               rc=r, **paged_kw, **kw)
+        dc, dm = draft
+        return SpecEngine(c, m, draft_cfg=dc, draft_model=dm,
+                          spec_k=SPEC_K, slots=SERVE_SLOTS, capacity=cap,
+                          rc=r, **paged_kw, **kw)
+
+    # (a) ------------------------------------------------------------------
+    from repro_torch.kernels import ops
+    tail = np.random.default_rng(3).integers(0, V, (SERVE_SLOTS, 16)).astype(
+        np.int32)
+
+    def turn(name):
+        draft = drafts.get(name.replace("_again", ""))
+        engine = engine_for(draft, cap=16 + SPEC_RATE_NEW + SPEC_K + 2)
+        rounds, per_round = [], []
+        if draft is not None:
+            spec_guard(engine, rounds, per_round)
+        reqs = [Request(rid=i, prompt=tail[i], max_new=SPEC_RATE_NEW)
+                for i in range(SERVE_SLOTS)]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for r in reqs:
+            engine.admit(r)
+        while not all(r.out for r in reqs):
+            engine.step()
+        torch.cuda.synchronize()
+        n0, t_start = sum(len(r.out) for r in reqs), time.perf_counter()
+        steps = 0
+        while engine.n_active:
+            engine.step()
+            steps += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_start
+        set_plan_hook(None)
+        launches = dict(ops.LAUNCHES)
+        check_requests(reqs, V, SPEC_RATE_NEW)
+        n = engine.n_forwards
+        nd = getattr(engine, "n_draft_forwards", 0)
+        dc = draft[0] if draft else cfg
+        moe = n_moe_layers(cfg) * n + n_moe_layers(dc) * nd
+        attn = cfg.n_layers * n + dc.n_layers * nd
+        check_launches(launches, moe, attn, "dense")
+        n_tok = sum(len(r.out) for r in reqs) - n0
+        res = {"tokens": n_tok, "s": dt, "steps": steps,
+               "tokens_per_s": n_tok / dt, "forwards": n,
+               "draft_forwards": nd, "launches": launches,
+               "out": [r.out for r in reqs]}
+        if draft is None:
+            return res
+        if len(rounds) < 2:
+            raise AssertionError(f"[serve spec] {name}: {len(rounds)} "
+                                 "guarded rounds")
+        want = {"paged_attention": cfg.n_layers + SPEC_K * dc.n_layers}
+        for k in MOE_KERNELS:
+            m_k = n_moe_layers(cfg) + SPEC_K * n_moe_layers(dc)
+            if m_k:
+                want[k] = m_k
+        for got in per_round:
+            if got != want:
+                raise AssertionError(f"[serve spec] {name}: a round "
+                                     f"launched {got}, expected {want}")
+        res.update({"rounds": engine.n_spec_rounds,
+                    "acceptance_rate": engine.acceptance_rate,
+                    "accepted": engine.n_accepted,
+                    "drafted": engine.n_drafted,
+                    "launches_per_round": per_round[0],
+                    "guarded_rounds": len(rounds)})
+        return res
+
+    turns = {name: turn(name)
+             for name in ("plain", "smollm", "self", "plain_again")}
+    plain_tok = turns["plain"]["out"]
+    for name, r in turns.items():
+        same = sum(a == b for x, y in zip(r.pop("out"), plain_tok)
+                   for a, b in zip(x, y))
+        r["tokens_equal_to_plain"] = same
+        head = (f"[serve spec] (a) {name}: {r['tokens_per_s']:.1f} decode "
+                f"tokens/s ({r['tokens']} tokens in {r['steps']} steps, "
+                f"{r['s']:.3f} s); {r['forwards']} target + "
+                f"{r['draft_forwards']} draft forwards, launches "
+                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+        if "rounds" in r:
+            head += (f"; {r['rounds']} rounds, acceptance "
+                     f"{r['acceptance_rate']:.4f} ({r['accepted']}/"
+                     f"{r['drafted']}); a round launches "
+                     f"{json.dumps(r['launches_per_round'])}: the verify's "
+                     f"{VERIFY_ROWS} rows in one plan a MoE layer; "
+                     f"{r['guarded_rounds']} rounds' draft steps and verify "
+                     f"forward under set_sync_debug_mode('error'); {same} of "
+                     f"{SERVE_SLOTS * SPEC_RATE_NEW} bf16 tokens equal to the "
+                     "plain engine's")
+        print(head)
+    plain_rate = 0.5 * (turns["plain"]["tokens_per_s"]
+                        + turns["plain_again"]["tokens_per_s"])
+    out.update(turns)
+    out["speedup"] = {d: turns[d]["tokens_per_s"] / plain_rate
+                      for d in ("smollm", "self")}
+    print(f"[serve spec] (a) decode tokens/s, speculative / plain (the mean "
+          f"of the two plain turns, {plain_rate:.1f}): smollm "
+          f"{out['speedup']['smollm']:.3f}, self "
+          f"{out['speedup']['self']:.3f}")
+
+    # (b) fp32 identity -------------------------------------------------------
+    dmodel32 = copy.deepcopy(dmodel).float()
+    rc32 = rc._replace(compute_dtype=torch.float32)
+    fp32 = {}
+    for name, draft in (("plain", None), ("smollm", (dcfg, dmodel32)),
+                        ("self", (cfg32, model32))):
+        engine = engine_for(draft, c=cfg32, m=model32, r=rc32)
+        reqs = [Request(rid=i, prompt=p, max_new=SPEC_CHECK_NEW)
+                for i, p in enumerate(prompts[:SERVE_SLOTS])]
+        engine.run(reqs)
+        set_plan_hook(None)
+        fp32[name] = [r.out for r in reqs]
+        if name != "plain":
+            if fp32[name] != fp32["plain"]:
+                raise AssertionError(f"[serve spec] (b) fp32 {name}: greedy "
+                                     "speculative tokens differ from the "
+                                     "plain engine's")
+            fp32[f"{name}_acceptance"] = engine.acceptance_rate
+        del engine
+    del dmodel32
+    torch.cuda.empty_cache()
+    out["fp32"] = {"layers": cfg32.n_layers, "identical": True,
+                   "acceptance": {k: fp32[f"{k}_acceptance"]
+                                  for k in ("smollm", "self")}}
+    print(f"[serve spec] (b) fp32 ({cfg32.n_layers} layers), "
+          f"{SERVE_SLOTS} requests x {SPEC_CHECK_NEW} new: greedy tokens of "
+          f"both drafts bitwise the plain engine's (acceptance smollm "
+          f"{fp32['smollm_acceptance']:.4f}, self "
+          f"{fp32['self_acceptance']:.4f})")
+    del drafts, dmodel
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_loadgen(cfg, model, paged_kw) -> dict:
+    """[serve loadgen]: seeded ``poisson`` and ``burst`` traces
+    (``synth_trace``, seed 0, LOADGEN_REQUESTS requests at LOADGEN_RATE
+    req/s of virtual time, prompts of 4-40 tokens, SERVE_MAX_NEW new, a
+    TTFT SLO of 0.4 s, bursts of 6: the reference launcher's trace)
+    replayed through ``ServingFrontend`` on a fresh paged engine with the
+    memory bundle on a virtual clock moved by the measured step EWMA
+    (``step_time=None``).  Launches as ``check_launches`` expects; every
+    request completes; the streamed tokens equal each request's."""
+    import torch
+    from repro_torch.execution import set_plan_hook
+    from repro_torch.models.lm import n_moe_layers
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.loadgen import (make_virtual_obs, replay,
+                                           synth_trace)
+    from repro_torch.kernels import ops
+    rc = served_rc()
+    out = {}
+    for pattern in ("poisson", "burst"):
+        trace = synth_trace(pattern, seed=0, n=LOADGEN_REQUESTS,
+                            rate=LOADGEN_RATE, vocab=cfg.vocab_size,
+                            max_new=SERVE_MAX_NEW, slo_ttft=0.4,
+                            burst_size=6, prompt_hi=40)
+        clock, obs = make_virtual_obs(enabled=True)
+        cap = max(len(e.prompt) for e in trace) + SERVE_MAX_NEW + 1
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=cap,
+                             rc=rc, obs=obs, **paged_kw)
+        streamed = {}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rec = replay(engine, trace, clock=clock, step_time=None, seed=0,
+                     pattern=pattern, on_token=lambda r, t: streamed.setdefault(
+                         r.rid, []).append(t))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        set_plan_hook(None)
+        n = engine.n_forwards
+        check_launches(dict(ops.LAUNCHES), n_moe_layers(cfg) * n,
+                       cfg.n_layers * n, "dense")
+        if rec["completed"] != LOADGEN_REQUESTS:
+            raise AssertionError(f"[serve loadgen] {pattern}: "
+                                 f"{rec['completed']} of {LOADGEN_REQUESTS} "
+                                 "completed")
+        if streamed != rec["outputs"] or not all(
+                len(t) == SERVE_MAX_NEW for t in streamed.values()):
+            raise AssertionError(f"[serve loadgen] {pattern}: the streamed "
+                                 "tokens differ from the requests'")
+        ewma = rec["config"]["step_calibration"]["measured_step_ewma_s"]
+        rec.pop("outputs")
+        out[pattern] = {**rec, "wall_s": wall, "forwards": n}
+        print(f"[serve loadgen] {pattern}: {rec['completed']}/"
+              f"{rec['offered']} completed in {rec['steps']} steps "
+              f"({n} forwards, wall {wall:.3f} s); virtual makespan "
+              f"{rec['makespan_s']:.3f} s; TTFT p50 "
+              f"{rec['ttft_p50_s'] * 1e3:.2f} ms, p99 "
+              f"{rec['ttft_p99_s'] * 1e3:.2f} ms; TPOT p50 "
+              f"{rec['tpot_p50_s'] * 1e3:.2f} ms, p99 "
+              f"{rec['tpot_p99_s'] * 1e3:.2f} ms; goodput "
+              f"{rec['goodput_rps']:.3f} req/s (SLO TTFT 0.4 s: "
+              f"{rec['slo_good']} met, attainment "
+              f"{rec['slo_attainment']:.3f}); throughput "
+              f"{rec['throughput_rps']:.3f} req/s; calibrated step EWMA "
+              f"{ewma * 1e3:.3f} ms; streamed tokens equal every request's")
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def served_rc():
+    """The served engines' run config: bf16 compute, ``dynamic``."""
+    import torch
+    from repro_torch.models.lm import RunConfig
+    return RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
 
 
 def serve_deepseek(rng) -> dict:
@@ -3190,7 +3726,8 @@ def main() -> None:
     timings = {}                      # (policy, T) -> per-kernel times
     qtimings = {}                     # (scheme, policy, T) -> GEMM times
     padding = []
-    for shape, policies, Ts in ((MOONSHOT, ("fixed", "dynamic"), (2, 4, 64)),
+    for shape, policies, Ts in ((MOONSHOT, ("fixed", "dynamic"),
+                                 (2, 4, VERIFY_ROWS, 64)),
                                 (MIXTRAL, ("fixed", "dynamic"), (512,))):
         for policy in policies:
             for dtype in (torch.bfloat16, torch.float32):
@@ -3198,7 +3735,7 @@ def main() -> None:
                     c = Case(shape, T, dtype, seed=T, policy=policy)
                     check_case(c, errs)
                     if shape is MOONSHOT and dtype == torch.bfloat16:
-                        if T in (SERVE_SLOTS, 64):
+                        if T in (SERVE_SLOTS, VERIFY_ROWS, 64):
                             timings[policy, T] = time_case(c)
                         padding.append(padding_share(c))
                     if shape is MOONSHOT and (policy, T) in QUANT_SHAPES:
@@ -3554,6 +4091,24 @@ def main() -> None:
     print(json.dumps({"serve_obs": obs_summary}))
     elapsed("serving moonshot, observability and preemption")
 
+    # [serve sample], [serve spec] and [serve loadgen] on the same model and
+    # traffic; their fp32 checks on an fp32 copy of its first CHECK_LAYERS
+    # layers
+    model32 = copy.deepcopy(truncated(model, n_check)).float()
+    sample_summary = serve_sample(cfg, model, model32, cfg_check, prompts,
+                                  capacity, paged_kw)
+    print(json.dumps({"serve_sample": sample_summary}))
+    elapsed("serving moonshot, sampling")
+    spec_summary = serve_spec(cfg, model, model32, cfg_check, prompts,
+                              capacity, paged_kw)
+    print(json.dumps({"serve_spec": spec_summary}))
+    del model32
+    torch.cuda.empty_cache()
+    elapsed("serving moonshot, speculative decoding")
+    loadgen_summary = serve_loadgen(cfg, model, paged_kw)
+    print(json.dumps({"serve_loadgen": loadgen_summary}))
+    elapsed("serving moonshot, load generator")
+
     # 6. serving, contiguous + fixed -------------------------------------
     rc_c = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="fixed")
     reqs_c = [Request(rid=i, prompt=rng.integers(
@@ -3830,6 +4385,16 @@ def main() -> None:
                          "(kv_limit 100 and 77, blocks of 16)",
                 "n_split": paged_t["decode"]["n_split"],
                 "chunk_B64": {k: paged_t["chunk"][k] for k in pkeys},
+                f"verify_B{VERIFY_ROWS}": {
+                    "shape": f"moonshot bf16 speculative verify, {SPEC_K + 1} "
+                             "rows a slot from kv_limit 100 and 77, nb 8",
+                    **{k: paged_t["verify"][k] for k in pkeys}},
+                "launches_spec": {d: spec_summary[d]["launches"][name]
+                                  for d in ("smollm", "self")},
+                "launches_run_spec": "[serve spec] (a) bf16 turns, 2 "
+                                     "requests x 24 new (target 4 layers; "
+                                     "draft smollm-360m 32 layers or the "
+                                     "target)",
                 "long_context_B2": {
                     "shape": "moonshot bf16, kv_limit 8191 and 6143, nb 512",
                     **{k: paged_t["long"][k] for k in pkeys}},
@@ -3883,9 +4448,14 @@ def main() -> None:
                 "launches_contiguous": contig["launches"][name],
                 "prefill_T64": {k: timings["dynamic", 64][name][k]
                                 for k in keys},
+                f"verify_T{VERIFY_ROWS}": {
+                    k: timings["dynamic", VERIFY_ROWS][name][k]
+                    for k in keys},
+                "launches_spec": {d: spec_summary[d]["launches"][name]
+                                  for d in ("smollm", "self")},
                 "fixed": {f"T{T}": {k: timings["fixed", T][name][k]
                                     for k in keys}
-                          for T in (SERVE_SLOTS, 64)},
+                          for T in (SERVE_SLOTS, VERIFY_ROWS, 64)},
                 "deepseek": {f"{policy}_T{T}": {
                     k: ds_timings[policy, T][name][k] for k in keys}
                     for policy, T in sorted(ds_timings)},

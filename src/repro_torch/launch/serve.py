@@ -35,9 +35,26 @@ queue wait and end-to-end latency (mean, p50, p99 over the completed
 requests) and the paged cache's stats.  ``--trace [PATH]`` writes the
 step timeline as a Chrome trace, ``--metrics-out [PATH]`` the metrics
 snapshot with the latency table as JSON, ``--device-trace DIR`` a
-``torch.profiler`` trace of the run (kernels and device times)."""
+``torch.profiler`` trace of the run (kernels and device times).
+
+Sampling and speculation: ``--sampling {greedy,temperature,top_k,top_p}``
+with ``--temperature``, ``--top-k``, ``--top-p`` draws each token under a
+key of the request's seed (``--seed`` + rid: ``--seed`` also seeds the
+weights and prompts), its output index and a role; ``--spec-draft ARCH``
+serves speculatively (the paged engine only) with that draft (random
+weights from ``--seed`` + 1, the target's vocabulary, reduced alongside
+``--reduce``) proposing ``--spec-k`` tokens a slot a round.  Front end:
+``--stream`` serves through ``ServingFrontend`` and prints each token as
+the step's transfer delivers it; ``--loadgen PATTERN`` (poisson, burst,
+shared_prefix, longtail) replays a seeded arrival trace (24 requests at
+8 req/s of virtual time, ``--smoke`` 12) through it on a virtual clock,
+advanced 0.05 s a step or, with ``--calibrate``, by the measured step
+time's EWMA, and writes the goodput record to
+``results/serve/loadgen_<arch>[_smoke].json``."""
 import argparse
 import contextlib
+import json
+import pathlib
 import time
 
 import numpy as np
@@ -55,8 +72,13 @@ def main(argv=None):
     from repro_torch.obs import (NOOP, Observability, device_trace,
                                  drop_summary, latency_summary)
     from repro_torch.scheduling import available_policies
+    from repro_torch.sampling import SamplingConfig, available_samplers
     from repro_torch.serve.admission import available_admission_policies
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.loadgen import (PATTERNS, make_virtual_obs,
+                                           replay, synth_trace)
+    from repro_torch.spec import SpecEngine, make_draft_config
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
@@ -68,7 +90,10 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the random weights and prompts, and is the "
+                         "sampling seed base: request i draws from stream "
+                         "seed + i (stochastic methods only)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-block", type=int, default=16,
                     help="KV block size of the paged engine; 0 = contiguous")
@@ -100,6 +125,36 @@ def main(argv=None):
                     help="engine-step budget for the whole run; requests "
                          "still unfinished when it runs out are reported "
                          "(partial output kept)")
+    ap.add_argument("--sampling", default="greedy",
+                    choices=available_samplers(),
+                    help="token pick: greedy (the argmax) or a keyed draw "
+                         "on the device (one host transfer a step still)")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k cut for --sampling top_k (0 = none)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass for --sampling top_p (1.0 = none)")
+    ap.add_argument("--spec-draft", default=None, metavar="ARCH",
+                    choices=ARCH_NAMES,
+                    help="speculative decoding with this draft architecture "
+                         "(e.g. smollm-360m; the target's vocabulary, reduced "
+                         "alongside --reduce); paged engine only")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed a slot a round (the target "
+                         "verifies k + 1 positions a slot in one forward)")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve through the open-stream front end and print "
+                         "each token as the step's transfer delivers it")
+    ap.add_argument("--loadgen", default=None, metavar="PATTERN",
+                    choices=PATTERNS,
+                    help="replay a seeded arrival trace on virtual time "
+                         "through the front end; writes results/serve/"
+                         "loadgen_<arch>[_smoke].json")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --loadgen: a 12-request trace")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="with --loadgen: advance the virtual clock by the "
+                         "measured step time's EWMA instead of 0.05 s")
     ap.add_argument("--trace", nargs="?", const="results/trace/serve.json",
                     default=None, metavar="PATH",
                     help="write a Chrome-trace JSON of the step timeline "
@@ -135,34 +190,96 @@ def main(argv=None):
                     slo_tpot=args.slo_tpot)
             for i in range(args.requests)]
     capacity = max(len(r.prompt) for r in reqs) + args.max_new + 1
+    trace = None
+    if args.loadgen:
+        trace = synth_trace(args.loadgen, seed=0,
+                            n=12 if args.smoke else 24, rate=8.0,
+                            vocab=cfg.vocab_size, max_new=args.max_new,
+                            slo_ttft=(0.4 if args.slo_ttft is None
+                                      else args.slo_ttft),
+                            slo_tpot=args.slo_tpot, burst_size=6,
+                            prompt_hi=40)
+        capacity = max(len(e.prompt) for e in trace) + args.max_new + 1
     rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
                    paged_attn=args.paged_attn, quant=quant,
                    moe_stats=bool(cfg.is_moe))
-    obs = (Observability.memory()
-           if (args.trace or args.metrics_out or args.device_trace)
-           else NOOP)
-    engine = ServeEngine(cfg, model, slots=args.slots, capacity=capacity,
-                         rc=rc, admission=args.admission,
-                         kv_block_size=args.kv_block,
-                         prefill_chunk=args.prefill_chunk, obs=obs,
-                         device=args.device)
+    clock = None
+    if args.loadgen:
+        clock, obs = make_virtual_obs(enabled=True)
+    else:
+        obs = (Observability.memory()
+               if (args.trace or args.metrics_out or args.device_trace)
+               else NOOP)
+    sampling = SamplingConfig(method=args.sampling,
+                              temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p,
+                              seed=args.seed)
+    kw = dict(slots=args.slots, capacity=capacity, rc=rc,
+              admission=args.admission, kv_block_size=args.kv_block,
+              prefill_chunk=args.prefill_chunk, obs=obs, sampling=sampling,
+              device=args.device)
+    if args.spec_draft:
+        dcfg = make_draft_config(cfg, args.spec_draft, reduce=args.reduce)
+        dmodel = init_params(dcfg, args.seed + 1, param_dtype=dt,
+                             device=args.device)
+        engine = SpecEngine(cfg, model, draft_cfg=dcfg, draft_model=dmodel,
+                            spec_k=args.spec_k, **kw)
+        print(f"speculative decoding: draft {dcfg.name} ({dcfg.n_layers} "
+              f"layers) proposes k={args.spec_k} tokens a slot a round; the "
+              f"target verifies {args.spec_k + 1} positions a slot in one "
+              "forward")
+    else:
+        engine = ServeEngine(cfg, model, **kw)
     cache = (f"paged KV cache (blocks of {args.kv_block}, prefill chunks of "
              f"{engine.prefill_chunk}, {args.paged_attn} read)"
              if engine.paged else "contiguous KV cache")
     width = "reduced width" if args.reduce else "full width"
     print(f"{cfg.name}: {cfg.n_layers} layers at {width}, {args.dtype}, "
           f"{cache}, {args.policy} schedule, cuda executor, "
-          f"{args.admission} admission, {args.slots} slots x {capacity} "
-          f"tokens")
+          f"{args.admission} admission, {args.sampling} sampling, "
+          f"{args.slots} slots x {capacity} tokens")
     if cfg.is_moe:
         print(f"routed experts: {quant} scheme, "
               f"{routed_expert_bytes(model)} bytes stored ({dense_bytes} "
               f"dense {args.dtype})")
+    if args.loadgen:
+        rec = replay(engine, trace, clock=clock,
+                     step_time=None if args.calibrate else 0.05, seed=0,
+                     pattern=args.loadgen,
+                     max_steps=min(args.max_steps, 1024))
+        rec.pop("outputs", None)
+        out_path = pathlib.Path("results/serve")
+        out_path.mkdir(parents=True, exist_ok=True)
+        out_path = out_path / (f"loadgen_{args.arch}"
+                               f"{'_smoke' if args.smoke else ''}.json")
+        out_path.write_text(json.dumps(
+            {"arch": args.arch, "reduced": args.reduce,
+             "virtual_time": True, "step_time_mode": rec["step_time_mode"],
+             "records": [rec]}, indent=1))
+        print(f"loadgen {args.loadgen}: {rec['completed']}/"
+              f"{rec['n_requests']} completed, goodput "
+              f"{rec['goodput_rps']:.3f} req/s, attainment "
+              f"{rec['slo_attainment']:.2f}, preempted {rec['preempted']}, "
+              f"resumed {rec['resumed']}, TTFT p50 {rec['ttft_p50_s']} s, "
+              f"step {rec['step_time_s']} s ({rec['step_time_mode']})")
+        print(f"loadgen record -> {out_path}")
+        return rec
     bracket = (device_trace(args.device_trace) if args.device_trace
                else contextlib.nullcontext())
     t0 = time.perf_counter()
     with bracket:
-        done = engine.run(reqs, max_steps=args.max_steps)
+        if args.stream:
+            fe = ServingFrontend(engine)
+            reqs = [fe.submit(r.prompt, max_new=r.max_new, rid=r.rid,
+                              slo_ttft=r.slo_ttft, slo_tpot=r.slo_tpot,
+                              on_token=lambda req, tok: print(
+                                  f"  stream rid={req.rid} "
+                                  f"tok[{len(req.out) - 1}]={tok}"))
+                    for r in reqs]
+            fe.drain(max_steps=args.max_steps)
+            done = [r for r in reqs if r.done]
+        else:
+            done = engine.run(reqs, max_steps=args.max_steps)
     dt_s = time.perf_counter() - t0
     for r in reqs:
         tag = "" if r.done else "  [INCOMPLETE: step budget exhausted]"
@@ -178,6 +295,11 @@ def main(argv=None):
           f"{engine.n_forwards} forwards in {dt_s:.3f} s on "
           f"{engine.device}; {engine.n_preempted} preempted, "
           f"{engine.n_resumed} resumed")
+    if isinstance(engine, SpecEngine):
+        print(f"speculation: {engine.n_spec_rounds} rounds, "
+              f"{engine.n_accepted}/{engine.n_drafted} drafts accepted "
+              f"(rate {engine.acceptance_rate:.2f}); {engine.n_forwards} "
+              f"target + {engine.n_draft_forwards} draft forwards")
     # completion percentiles over completed requests only: censored
     # (dropped or preempted) stats are rolled up by drop_summary
     lat = latency_summary([r for r in reqs if r.done])

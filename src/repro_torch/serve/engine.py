@@ -1,4 +1,4 @@
-"""Continuous-batching greedy engine over a paged KV cache, or over one
+"""Continuous-batching engine over a paged KV cache, or over one
 contiguous cache (counterpart of ``repro.serve.engine.ServeEngine``).
 
 **Paged** (the default wherever ``paged_supported``; ``kv_block_size=None``
@@ -40,7 +40,8 @@ its slot mid-flight: the paged engine parks its block table under its rid
 (a resume re-attaches it and recomputes nothing; if pool pressure
 reclaimed the park, the resume replays prompt + ``out[:-1]``), the
 contiguous engine drops its cache row (the resume replays).  Greedy
-decoding makes a resumed request's tokens those of an uninterrupted run.
+decoding, and keyed sampling, make a resumed request's tokens those of an
+uninterrupted run.
 
 **Observability.**  The engine takes an ``Observability`` bundle
 (``repro_torch.obs``; null sinks by default): every step is bracketed into
@@ -54,7 +55,11 @@ All of it is host-side, over values already on the host: no device work
 is added, so greedy tokens and the kernels' launch counts are the same
 with observability on or off.  Per-request latency (``lat/*`` in
 ``Request.stats``: queue wait, TTFT, TPOT, E2E) is always on.  Sampling
-is greedy only (other methods raise: ROADMAP.md queue A)."""
+follows ``sampling`` (a ``SamplingConfig``; greedy by default): the
+stochastic methods draw each token on the device under a key of the
+request's seed (``Request.seed``, else the config's base + rid), its
+output index and a role, so a request's tokens do not depend on its batch
+or its slot, and the engine still makes one transfer a step."""
 from __future__ import annotations
 
 import dataclasses
@@ -69,6 +74,7 @@ from repro_torch.execution.base import set_plan_hook
 from repro_torch.models.lm import LM, RunConfig, init_cache, swap_cache_slots
 from repro_torch.obs import NOOP, RequestTimeline
 from repro_torch.quantization import quantize_model, routed_expert_bytes
+from repro_torch.sampling import SamplingConfig, get_sampler
 from repro_torch.serve.admission import get_admission
 from repro_torch.serve.kv_cache import PagedKVCache, paged_supported
 from repro_torch.serve.step import paged_step, slot_decode, slot_prefill
@@ -89,6 +95,9 @@ class Request:
     # active requests that blew them; every other policy ignores them
     slo_ttft: Optional[float] = None
     slo_tpot: Optional[float] = None
+    # the request's sampling seed; None derives one from the engine's
+    # SamplingConfig base + rid.  Greedy ignores it
+    seed: Optional[int] = None
     # set at retirement: the final step's plan aux (``lb_loss``,
     # ``router_z`` and, with ``rc.moe_stats``, ``sched/*``, summed over the
     # MoE layers), ``serve/decode_batch`` (decode rows of that step),
@@ -107,6 +116,10 @@ class PagedBatch(NamedTuple):
     pos: torch.Tensor               # (T,) int32
     tables: torch.Tensor            # (T, blocks_per_slot) int32
     eos: torch.Tensor               # (T,) int32, -1 = none
+    # sampling only (None under greedy): each row's request seed and the
+    # output index it produces (a chunk row's draw is discarded)
+    seeds: Optional[torch.Tensor] = None
+    counters: Optional[torch.Tensor] = None
 
 
 class ServeEngine:
@@ -115,10 +128,10 @@ class ServeEngine:
                  admission: str = "fcfs",
                  kv_block_size: Optional[int] = None,
                  prefix_cache: bool = True, prefill_chunk: int = 32,
-                 obs=None, sampling: str = "greedy", device="cuda"):
-        if sampling != "greedy":
-            raise ValueError(f"sampling {sampling!r}: the port's engine is "
-                             "greedy only")
+                 obs=None, sampling: Optional[SamplingConfig] = None,
+                 device="cuda"):
+        self.sampling = sampling or SamplingConfig()
+        get_sampler(self.sampling.method)         # an unknown method raises
         self._admission_name = admission
         self._admission = get_admission(admission)
         # null sinks by default: every span/counter call is a no-op
@@ -228,6 +241,24 @@ class ServeEngine:
         if self.on_token is not None:
             self.on_token(req, tok)
 
+    def _req_seed(self, req: Request) -> int:
+        """The request's sampling seed: its own, or the engine's base +
+        rid, so that the requests of a batch draw distinct streams."""
+        return req.seed if req.seed is not None \
+            else self.sampling.seed + req.rid
+
+    def draw_keys(self, reqs, counts):
+        """(seeds, counters) on the device for rows of ``reqs``: each row's
+        request seed and the output index ``counts`` says it produces;
+        (None, None) under greedy, whose steps never read them (no copy
+        is made)."""
+        if self.sampling.method == "greedy":
+            return None, None
+        return (torch.as_tensor([self._req_seed(r) for r in reqs],
+                                dtype=torch.int64, device=self.device),
+                torch.as_tensor(counts, dtype=torch.int64,
+                                device=self.device))
+
     def _admit(self, req: Request, t_admit: float) -> None:
         s = self.n_active
         # a resumed request keeps its timeline (TTFT, queue wait and E2E
@@ -276,10 +307,12 @@ class ServeEngine:
                                  f"fit slot capacity {self.capacity}")
             toks = torch.as_tensor(seq.astype(np.int64),
                                    device=self.device)[None]
+            seeds, counters = self.draw_keys([req], [0])
             with self.obs.tracer.span("serve/prefill", rid=req.rid,
                                       prompt_tokens=len(seq)):
                 tok, self.cache, aux = slot_prefill(
                     self.model, self.cfg, self.rc, self.cache, toks, s,
+                    seeds=seeds, counters=counters, sampling=self.sampling,
                     obs=self.obs, shapes=self._step_shapes)
                 self.n_forwards += 1
                 first = int(tok[0])              # the prefill's transfer
@@ -342,6 +375,10 @@ class ServeEngine:
         dev = self.device
         eos = [-1 if k != "decode" or self.active[s].eos is None
                else self.active[s].eos for s, _, _, k in rows]
+        seeds, counters = self.draw_keys(
+            [self.active[s] for s, *_ in rows],
+            [len(self.active[s].out) if k == "decode" else 0
+             for s, _, _, k in rows])
         return PagedBatch(
             rows=rows,
             tokens=torch.as_tensor([[t] for _, t, _, _ in rows],
@@ -350,7 +387,8 @@ class ServeEngine:
                                 dtype=torch.int32, device=dev),
             tables=torch.as_tensor(self.kv.table_rows([s for s, *_ in rows]),
                                    dtype=torch.int32, device=dev),
-            eos=torch.as_tensor(eos, dtype=torch.int32, device=dev))
+            eos=torch.as_tensor(eos, dtype=torch.int32, device=dev),
+            seeds=seeds, counters=counters)
 
     def _step_paged(self) -> int:
         n = self.n_active
@@ -365,7 +403,9 @@ class ServeEngine:
                 tok, eos_hit, self.kv.pools, aux = paged_step(
                     self.model, self.cfg, self.rc, self.kv.pools,
                     batch.tokens, batch.pos, batch.tables, batch.eos,
-                    obs=obs, shapes=self._step_shapes)
+                    seeds=batch.seeds, counters=batch.counters,
+                    sampling=self.sampling, obs=obs,
+                    shapes=self._step_shapes)
                 self.n_forwards += 1
             with obs.tracer.span("serve/host_sync"):     # the one transfer
                 host = torch.stack([tok, eos_hit.to(torch.int32)]
@@ -439,10 +479,14 @@ class ServeEngine:
                 eos = torch.as_tensor([-1 if r.eos is None else r.eos
                                        for r in reqs],
                                       dtype=torch.int32, device=dev)
+                seeds, counters = self.draw_keys(
+                    reqs, [len(r.out) for r in reqs])
             with obs.tracer.span("serve/forward", tokens=n):
                 tok, eos_hit, self.cache, aux = slot_decode(
                     self.model, self.cfg, self.rc, self.cache, last, pos,
-                    eos, obs=obs, shapes=self._step_shapes)
+                    eos, seeds=seeds, counters=counters,
+                    sampling=self.sampling, obs=obs,
+                    shapes=self._step_shapes)
                 self.n_forwards += 1
             with obs.tracer.span("serve/host_sync"):     # the one transfer
                 host = torch.stack([tok, eos_hit.to(torch.int32)]
@@ -634,7 +678,10 @@ class ServeEngine:
              "schedule_policy": self.rc.schedule_policy,
              "quant": self.rc.quant, "kv_block_size": self.kv_block_size,
              "prefill_chunk": self.prefill_chunk if self.paged else 0,
-             "paged_attn": self.rc.paged_attn, "sampling": "greedy"}
+             "paged_attn": self.rc.paged_attn,
+             "sampling": self.sampling.method,
+             "temperature": self.sampling.temperature,
+             "sampling_seed": self.sampling.seed}
         if seed is not None:
             d["seed"] = seed
         return d

@@ -30,8 +30,8 @@ allocation cannot fail.
 table under its rid with its refcounts kept, so its KV survives for a
 host-side resume (``resume_slot``).  Under pool pressure ``_alloc_block``
 reclaims the least recently parked table before it evicts a cached block;
-that request's resume then replays its tokens.  Truncation (speculation)
-is not ported yet.
+that request's resume then replays its tokens.  ``truncate_slot`` rolls a
+slot back to a shorter length (speculative decoding's rollback).
 
 Pool events (allocations, evictions, prefix probes, compactions, parks)
 feed the ``kv/*`` counters and instants of an ``Observability`` bundle
@@ -255,6 +255,33 @@ class PagedKVCache:
                 self._index_mutated()
             i += 1
         self._chain[slot] = (i, digest)
+
+    def truncate_slot(self, slot: int, n_tokens: int) -> int:
+        """Roll ``slot`` back to its first ``n_tokens`` positions, the
+        speculative rollback: host bookkeeping only.  Whole blocks past
+        ``ceil(n_tokens / block_size)`` are released (a refcount-0 block
+        with a hash goes to the cached-free pool, as at retirement).  The
+        kept tail block may hold stale rows past ``n_tokens``: reads mask
+        them by each row's kv_limit and the next write there overwrites
+        them.  A chain cursor past the cut is dropped (digests chain
+        forward only), so the slot registers no more blocks.  Returns the
+        number of blocks freed."""
+        keep = 0 if n_tokens <= 0 else min(-(-n_tokens // self.block_size),
+                                           self.blocks_per_slot)
+        na = int(self.n_alloc[slot])
+        if keep >= na:
+            return 0
+        self._release_blocks(self.tables[slot, keep:na], na - keep)
+        self.tables[slot, keep:na] = 0
+        self.n_alloc[slot] = keep
+        ch = self._chain.get(slot)
+        if ch is not None and ch[0] > keep:
+            del self._chain[slot]
+        freed = na - keep
+        self._metrics.inc("kv/blocks_truncated", freed)
+        self._tracer.instant("kv/truncate", slot=slot, n_tokens=n_tokens,
+                             freed=freed)
+        return freed
 
     # -- release / park / views ----------------------------------------
     def release_slot(self, slot: int) -> None:

@@ -8,8 +8,11 @@ ties, all-equal rows and -inf logits, and the combine bitwise, at one to
 both policies and on quantized weights, the contiguous and paged
 engines' launch counts (dense and int8 experts; MLA), the MLA engine's
 gather read where its KV blocks are wider than the kernel takes, the GQA
-kernel at the dense family's attention shapes, and a reduced gemma2
-engine's fused read against its gather read.
+kernel at the dense family's attention shapes, a reduced gemma2
+engine's fused read against its gather read, and sampling and
+speculation: threefry bits and sampled tokens on the card equal to the
+CPU's, the speculative verify's launch counts, and a speculative round
+without a host sync.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA device
 is present; the fixture decides, never the module's import.  Run on the
@@ -1497,3 +1500,118 @@ def test_train_step_launches_under_remat(cuda, policy):
     torch.testing.assert_close(got[True][0], got[False][0])
     for a, b in zip(got[True][1], got[False][1]):
         torch.testing.assert_close(a, b)
+
+
+@pytest.mark.gpu
+def test_threefry_and_sampled_tokens_on_the_card_equal_the_cpu(cuda):
+    """Integer threefry is exact: keys, bits and uniforms on the card are
+    bitwise the CPU's; the sampled tokens for the same logits too (a draw
+    flips only on a near-tie the one-ulp ``log`` difference could
+    decide, which these logits do not hold)."""
+    from repro_torch.sampling import (SamplingConfig, row_key, sample_rows,
+                                      uniform_rows)
+    from repro_torch.sampling import threefry
+    seeds = torch.tensor([0, 7, -3, 2 ** 31 - 1], dtype=torch.int64)
+    ctr = torch.tensor([0, 5, 70000, 12], dtype=torch.int64)
+    for role in range(4):
+        kc = row_key(seeds, ctr, role)
+        kg = row_key(seeds.to(cuda), ctr.to(cuda), role)
+        for a, b in zip(kc, kg):
+            assert torch.equal(a, b.cpu())
+        assert torch.equal(threefry.random_bits(kc, 163840),
+                           threefry.random_bits(kg, 163840).cpu())
+        assert torch.equal(threefry.uniform(kc, 4099),
+                           threefry.uniform(kg, 4099).cpu())
+    assert torch.equal(uniform_rows(seeds, ctr, 5),
+                       uniform_rows(seeds.to(cuda), ctr.to(cuda), 5).cpu())
+    logits = torch.randn(4, 4096, generator=torch.Generator().manual_seed(0))
+    for kw in (dict(method="temperature", temperature=0.8),
+               dict(method="top_k", top_k=50, temperature=0.8),
+               dict(method="top_p", top_p=0.9, temperature=0.8)):
+        cfg = SamplingConfig(**kw)
+        got = sample_rows(logits.to(cuda), cfg, seeds.to(cuda),
+                          ctr.to(cuda))
+        assert torch.equal(got.cpu(), sample_rows(logits, cfg, seeds, ctr))
+
+
+def _spec_engine(cuda, k=3, sampling=None):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params
+    from repro_torch.spec import SpecEngine, make_draft_config
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=3)
+    dcfg = make_draft_config(cfg, reduce=True)
+    eng = SpecEngine(cfg, init_params(cfg, 0), draft_cfg=dcfg,
+                     draft_model=init_params(dcfg, 1), spec_k=k, slots=2,
+                     capacity=96, kv_block_size=16, prefill_chunk=32,
+                     rc=RunConfig(schedule_policy="dynamic"),
+                     sampling=sampling)
+    return cfg, dcfg, eng
+
+
+@pytest.mark.gpu
+def test_spec_verify_launch_counts(cuda):
+    """Every step of a speculative run (reduced moonshot, 3 layers: 2 MoE;
+    reduced smollm draft, fused reads): the GQA kernel once a layer a
+    forward, target and draft, and each MoE kernel once a MoE layer a
+    target forward: one plan for the whole verify sweep; the tokens are
+    the plain engine's."""
+    from repro_torch.models.lm import n_moe_layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, dcfg, eng = _spec_engine(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 9)]
+    reqs = [Request(rid=i, prompt=p, max_new=12)
+            for i, p in enumerate(prompts)]
+    pending = eng.enqueue(reqs)
+    while pending or eng.n_active:
+        eng.schedule(pending)
+        f0, d0 = eng.n_forwards, eng.n_draft_forwards
+        ops.reset_launches()
+        eng.step()
+        df, dd = eng.n_forwards - f0, eng.n_draft_forwards - d0
+        launches = dict(ops.LAUNCHES)
+        assert launches.pop("paged_attention") \
+            == cfg.n_layers * df + dcfg.n_layers * dd, ops.LAUNCHES
+        for name in ("router_topk", "permute", "fused_gate_up",
+                     "grouped_gemm", "unpermute"):
+            assert launches.pop(name) == n_moe_layers(cfg) * df, name
+        assert all(n == 0 for n in launches.values()), ops.LAUNCHES
+    assert eng.n_spec_rounds > 0 and all(r.done for r in reqs)
+    base = ServeEngine(cfg, eng.model, slots=2, capacity=96,
+                       kv_block_size=16, prefill_chunk=32, rc=eng.rc)
+    breqs = [Request(rid=i, prompt=p, max_new=12)
+             for i, p in enumerate(prompts)]
+    base.run(breqs)
+    assert [r.out for r in breqs] == [r.out for r in reqs]
+
+
+@pytest.mark.gpu
+def test_spec_round_makes_no_host_sync(cuda):
+    """The k draft steps and the verify forward of a round run under
+    ``set_sync_debug_mode("error")``: the round's one transfer is the
+    emit, after them; greedy and ``top_p``."""
+    from repro_torch.sampling import SamplingConfig
+    from repro_torch.serve.engine import Request
+    for sampling in (None, SamplingConfig(method="top_p", top_p=0.9,
+                                          temperature=0.8)):
+        cfg, _, eng = _spec_engine(cuda, sampling=sampling)
+        device_part = eng.spec_device
+        guarded = []
+
+        def spec_device(inp):
+            if eng.n_spec_rounds == 0:
+                return device_part(inp)          # the first round warms up
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = device_part(inp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            guarded.append(1)
+            return out
+        eng.spec_device = spec_device
+        reqs = [Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32) + 1,
+                        max_new=16) for i in range(2)]
+        eng.run(reqs)
+        assert all(r.done for r in reqs) and len(guarded) >= 2

@@ -73,6 +73,38 @@ def seeded_params(jcfg):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+class StepClock:
+    """A clock that moves only at a step's start: ``stepped`` makes the
+    bundle advance it by 1 s just after the straggler monitor reads the
+    step's start (by ``slow`` s in step ``jump_at``).  Every engine step
+    then lasts exactly 1 s (or ``slow``) on the port and on the reference
+    alike, whatever the host's load, so the flagged steps are the same on
+    both."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def stepped(obs, clock, jump_at=None, slow=10.0):
+    """``obs`` (built on ``clock``) with its step bracket moving ``clock``
+    as ``StepClock`` says."""
+    begin = obs.step_begin
+
+    def step_begin(step):
+        begin(step)
+        clock.t += slow if step == jump_at else 1.0
+    obs.step_begin = step_begin
+    return obs
+
+
+def stepped_memory(factory, jump_at=None):
+    clock = StepClock()
+    return stepped(factory.memory(clock=clock), clock, jump_at)
+
+
 class VirtualClock:
     """Deterministic injectable clock: advances ``dt`` per read."""
 
@@ -287,12 +319,13 @@ def _run(tcfg, model, *, obs=None, kv_block_size=None, rc=None, n=4):
 @pytest.fixture(scope="module")
 def reference_runs(pair):
     """The reference engine on the same requests, paged and contiguous,
-    with the memory bundle: {kv_block_size: (requests, engine, obs)}."""
+    with the memory bundle on a ``StepClock``: {kv_block_size: (requests,
+    engine, obs)}."""
     jcfg, _, params, _ = pair
     runs = {}
     try:
         for kvb in (None, 0):
-            obs = JaxObservability.memory()
+            obs = stepped_memory(JaxObservability)
             eng = JaxServeEngine(jcfg, params, slots=2, capacity=32,
                                  rc=JAX_RC, kv_block_size=kvb,
                                  prefill_chunk=4, obs=obs)
@@ -383,8 +416,11 @@ def test_latency_summary_shape(pair, reference_runs):
 
 @pytest.mark.parametrize("kv_block", [None, 0], ids=["paged", "contiguous"])
 def test_engine_metrics_and_trace_absorbed(pair, reference_runs, kv_block):
+    """Both bundles run on a ``StepClock``: on the wall clock a step the
+    host happened to slow down was flagged on one side only and the
+    counter names differed (``serve/slow_steps``)."""
     _, tcfg, _, model = pair
-    obs = Observability.memory()
+    obs = stepped_memory(Observability)
     reqs, eng = _run(tcfg, model, obs=obs, kv_block_size=kv_block)
     _, jeng, jobs = reference_runs[kv_block]
     m = obs.metrics
@@ -416,6 +452,36 @@ def test_engine_metrics_and_trace_absorbed(pair, reference_runs, kv_block):
     assert v["events"] > 0
     # the straggler monitor saw every engine step
     assert len(obs.straggler.window) == m.counter_value("serve/steps")
+
+
+@pytest.mark.parametrize("kv_block", [None, 0], ids=["paged", "contiguous"])
+def test_forced_slow_step_flagged_alike(pair, kv_block):
+    """Step 4 lasts 10 s on a ``StepClock`` (every other step 1 s): the
+    port and the reference both count one ``serve/slow_steps`` and leave
+    the same ``slow_step`` instant."""
+    jcfg, tcfg, params, model = pair
+    obs = stepped_memory(Observability, jump_at=4)
+    _run(tcfg, model, obs=obs, kv_block_size=kv_block)
+    jobs = stepped_memory(JaxObservability, jump_at=4)
+    try:
+        JaxServeEngine(jcfg, params, slots=2, capacity=32, rc=JAX_RC,
+                       kv_block_size=kv_block, prefill_chunk=4,
+                       obs=jobs).run([JaxRequest(rid=i, prompt=p, max_new=m)
+                                      for i, p, m in _proto()],
+                                     max_steps=256)
+    finally:
+        jax_set_plan_hook(None)
+    for m in (obs.metrics, jobs.metrics):
+        assert m.counter_value("serve/slow_steps") == 1
+        assert m.counter_value("serve/steps") > 4
+
+    def flags(o):
+        return [(e["ts"], e["args"]) for e in o.tracer.events
+                if e["name"] == "slow_step"]
+    assert flags(obs) == flags(jobs)
+    (_, args), = flags(obs)
+    assert args == {"scope": "serve", "step": 4, "duration_s": 10.0,
+                    "slowdown": 10.0}
 
 
 def test_recompile_and_plan_trace_events(pair, reference_runs):

@@ -148,8 +148,8 @@ def test_engine_serves_paged_dynamic_and_refuses_the_rest():
     """The engine serves blocks of 16 and the dynamic policy with the plan
     stats on by default (paged wherever the model allows it);
     kv_block_size=0 keeps the contiguous engine; every registered admission
-    policy builds; non-greedy sampling, an unknown admission policy and a
-    missing card raise."""
+    policy builds, and so does a sampling config; an unknown sampling
+    method, an unknown admission policy and a missing card raise."""
     tcfg = reduced(get_config("moonshot-v1-16b-a3b"), layers=2)
     from repro_torch.models.lm import init_params
     model = init_params(tcfg, 0, device="cpu")
@@ -165,8 +165,12 @@ def test_engine_serves_paged_dynamic_and_refuses_the_rest():
     assert len(done) == 1 and len(done[0].out) == 2
     eng = ServeEngine(tcfg, model, kv_block_size=0, device="cpu")
     assert not eng.paged and eng.kv is None
-    with pytest.raises(ValueError, match="greedy"):
-        ServeEngine(tcfg, model, sampling="top_p", device="cpu")
+    from repro_torch.sampling import SamplingConfig
+    assert ServeEngine(tcfg, model, sampling=SamplingConfig(method="top_p"),
+                       device="cpu").describe()["sampling"] == "top_p"
+    with pytest.raises(ValueError, match="unknown sampling method"):
+        ServeEngine(tcfg, model, sampling=SamplingConfig(method="nope"),
+                    device="cpu")
     for policy in ("fcfs", "sjf", "prefix_hit", "slo"):
         assert ServeEngine(tcfg, model, admission=policy,
                            device="cpu").describe()["admission"] == policy
