@@ -3,13 +3,18 @@ and the combine (B4), of this checkout against those of another source
 tree, on one NVIDIA GPU.
 
     python3 chip_gemm_ab.py --other DIR [--replays N] [--arms dense,quant,route]
+        [--bf16-bitwise]
 
 DIR is the root of another checkout whose ``src/repro_torch/csrc`` has the
 weight-format C interface of the GEMMs (``moe_grouped_gemm`` and
 ``moe_fused_gate_up``, as since the int8 and int4 formats came in), with or
-without the schedule's ``seg_start`` and the work lists' scratch (read from
-DIR's ``grouped_gemm.cu``), e.g. the parent commit unpacked with ``git
-archive``.  Both trees' sources are compiled with the same nvcc flags.
+without the schedule's ``seg_start`` and the work lists' scratch, and with
+or without the tile shape (``tile_rows``, ``block_n``; the other tree is
+called at its default), each read from DIR's ``grouped_gemm.cu``, e.g. the
+parent commit unpacked with ``git archive``.  Both trees' sources are
+compiled with the same nvcc flags, and each tree's nvcc seconds (in all,
+and per source: one process each, in parallel) are printed.  This tree
+runs at its default tiles (``autotune`` off).
 
 Arms.  ``dense``: moonshot-v1-16b-a3b's MoE layer (E=64, k=6, d=2048,
 f=1408) at decode T=2 (dynamic and fixed), prefill T=64 (dynamic) and
@@ -35,7 +40,9 @@ between the trees and holds this tree within the bf16 tolerance of the
 plain version; then it times both in turns (other, this, this, other):
 device time per call from CUDA-graph replays between CUDA events.  Prints
 one JSON line per shape and a last line ``{"ok": true, ...}``; exits
-non-zero on an fp32 difference or a bf16 output out of tolerance."""
+non-zero on an fp32 difference or a bf16 output out of tolerance, and with
+``--bf16-bitwise`` on any bf16 difference between the trees (for a change
+that leaves the default bf16 kernels' arithmetic as it was)."""
 import argparse
 import ctypes
 import json
@@ -43,6 +50,7 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
@@ -73,22 +81,35 @@ ROUTE_TS = (2, 64, 4096)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)     # chip_smoke.py's bf16 TOL
 def build_other(csrc: pathlib.Path, flags):
     """Compile the other tree's kernels (one nvcc per source, in parallel)
-    into a shared library under build/ab/ and load it; returns it and
-    whether its GEMMs take seg_start and the work lists' scratch."""
+    into a shared library under build/ab/ and load it; returns it, whether
+    its GEMMs take seg_start and the work lists' scratch, whether they take
+    a tile shape, and each source's nvcc seconds."""
     from repro_torch.kernels import _build
     nvcc = _build._nvcc()
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    seconds = {}
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs, objs = [], []
+        t0 = time.perf_counter()
         for src in sorted(csrc.glob("*.cu")):
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            procs.append(subprocess.Popen(
+            log = open(pathlib.Path(tmp) / (src.stem + ".log"), "w+")
+            procs.append((src.name, log, subprocess.Popen(
                 [nvcc, *flags, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for p in procs:
-            out, _ = p.communicate()
+                stdout=log, stderr=subprocess.STDOUT, text=True)))
+        running = list(procs)
+        while running:
+            for item in list(running):
+                if item[2].poll() is not None:
+                    seconds[item[0]] = time.perf_counter() - t0
+                    running.remove(item)
+            time.sleep(0.05)
+        for name, log, p in procs:
+            log.seek(0)
+            out = log.read()
+            log.close()
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on the other tree:\n{out}")
         lib_path = out_dir / "libmoe_kernels_other.so"
@@ -97,10 +118,12 @@ def build_other(csrc: pathlib.Path, flags):
     lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
     src = (csrc / "grouped_gemm.cu").read_text()
-    lists = "seg_start" in src[src.index("MOE_API int moe_grouped_gemm("):]
+    src = src[src.index("MOE_API int moe_grouped_gemm("):]
+    lists, tiles = "seg_start" in src, "tile_rows" in src
     if lists:
-        lib.moe_grouped_gemm.argtypes = [P] * 9 + [I] * 9 + [P]
-        lib.moe_fused_gate_up.argtypes = [P] * 10 + [I] * 9 + [P]
+        extra = [I, I] if tiles else []
+        lib.moe_grouped_gemm.argtypes = [P] * 9 + [I] * 9 + [P] + extra
+        lib.moe_fused_gate_up.argtypes = [P] * 10 + [I] * 9 + [P] + extra
     else:
         lib.moe_grouped_gemm.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.moe_fused_gate_up.argtypes = [P] * 8 + [I] * 8 + [P]
@@ -110,7 +133,7 @@ def build_other(csrc: pathlib.Path, flags):
     for fn in (lib.moe_grouped_gemm, lib.moe_fused_gate_up,
                lib.moe_router_topk, lib.moe_unpermute):
         fn.restype = ctypes.c_int
-    return lib, lists
+    return lib, lists, tiles, seconds
 
 
 def device_ms(fn, per_graph: int = 10, replays: int = 20) -> float:
@@ -294,6 +317,8 @@ def main() -> None:
     ap.add_argument("--replays", type=int, default=20)
     ap.add_argument("--arms", default="dense,quant",
                     help="comma-separated arms: dense, quant, route")
+    ap.add_argument("--bf16-bitwise", action="store_true",
+                    help="exit on any bf16 difference between the trees")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -301,13 +326,21 @@ def main() -> None:
         sys.exit("chip_gemm_ab: CUDA is not available")
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import expert_tiles as _tiles
+    from repro_torch.kernels.grouped_gemm import TILE_SHAPES, W_FORMATS
+    t0 = time.perf_counter()
     this = _build.library()
-    other, other_lists = build_other(args.other / "src" / "repro_torch"
-                                     / "csrc", _build.NVCC_FLAGS)
+    this_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    other, other_lists, other_tiles, other_seconds = build_other(
+        args.other / "src" / "repro_torch" / "csrc", _build.NVCC_FLAGS)
+    other_s = time.perf_counter() - t0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
+    print(json.dumps({"nvcc_s": {
+        "this": {"all": this_s, **_build.build_seconds},
+        "other": {"all": other_s, **other_seconds}}}), flush=True)
     arms = args.arms.split(",")
     if "route" in arms:
         route_arm(other, smi, args.replays)
@@ -326,6 +359,11 @@ def main() -> None:
             gq, gs, fmt, s_e, s_n = c_operands(wg)
             uq, us, _, _, _ = c_operands(wu)
             dq, ds, _, d_e, d_n = c_operands(wd)
+            # the other tree at its default tile shape, if it takes one
+            t_fgu = list(TILE_SHAPES["fused_gate_up", W_FORMATS[fmt]][0]) \
+                if other_tiles else []
+            t_gg = list(TILE_SHAPES["grouped_gemm", W_FORMATS[fmt]][0]) \
+                if other_tiles else []
 
             def other_fgu():
                 stream = torch.cuda.current_stream().cuda_stream
@@ -335,7 +373,7 @@ def main() -> None:
                         ptr(gs), ptr(us), sched.seg_start.data_ptr(),
                         be.data_ptr(), ba.data_ptr(), buf.data_ptr(),
                         o_fgu.data_ptr(), cap, K, F, E, M, code, fmt, s_e,
-                        s_n, stream)
+                        s_n, stream, *t_fgu)
                 else:
                     err = other.moe_fused_gate_up(
                         xp.data_ptr(), gq.data_ptr(), uq.data_ptr(),
@@ -353,7 +391,7 @@ def main() -> None:
                         sched.seg_start.data_ptr(), be.data_ptr(),
                         ba.data_ptr(), scale.data_ptr(), buf.data_ptr(),
                         o_gg.data_ptr(), cap, F, D, E, M, code, fmt, d_e,
-                        d_n, stream)
+                        d_n, stream, *t_gg)
                 else:
                     err = other.moe_grouped_gemm(
                         h.data_ptr(), dq.data_ptr(), ptr(ds), be.data_ptr(),
@@ -385,6 +423,9 @@ def main() -> None:
                 row[f"{name}_bitwise_equal"] = bool(torch.equal(out_a, out_b))
                 if dtype == torch.float32 and diff != 0:
                     sys.exit(f"chip_gemm_ab: {name} {row} differs in fp32: "
+                             f"max abs {diff}")
+                if args.bf16_bitwise and diff != 0:
+                    sys.exit(f"chip_gemm_ab: {name} {row} differs in bf16: "
                              f"max abs {diff}")
                 if dtype == torch.bfloat16:
                     want = plains[name]().float()

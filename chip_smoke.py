@@ -125,7 +125,20 @@ result line):
    in fp32 through the first 4 layers (rtol = atol = 1e-3), and in bf16
    through the dense layer 0 and the head (rtol = atol = 5e-2).  Then a
    prefill window (two chunk steps) and five decode steps run under
-   torch.profiler.  [serve obs] on the same model and prompts: the
+   torch.profiler.  [tune]: B1 and B2 swept over every tile shape they
+   take (``repro_torch.tuning.tune_moe_layer``; CUDA-graph replays, three
+   rounds in turns) at moonshot's and deepseek-v2's T=2 (``dynamic``, with
+   the sub-block floor) and T=4096 (``fixed``) in dense bf16, and at
+   moonshot's T=2 on int8 weights: every key's records printed, the winner
+   at or below the default on the same measurement, every tile's output
+   bitwise the default's; then [serve paged]'s requests on two fresh
+   engines, ``RunConfig(autotune=False)`` and ``True`` (the swept cache in
+   a temporary ``$REPRO_TORCH_TUNE_CACHE`` over the packaged defaults):
+   greedy tokens and per-kernel launches equal, tune cache hits nonzero,
+   two tuned decode steps' forwards under ``set_sync_debug_mode("error")``,
+   host ms per decode step of each printed; the kernel report's B1 and B2
+   carry the tiles held and each swept key's winner (``tile``).  [serve
+   obs] on the same model and prompts: the
    memory observability bundle against the null one and ``moe_stats`` on
    against off (tokens and launches equal; the trace validated with the
    reference's span names; counters; TTFT/TPOT/queue/E2E p50/p99; decode
@@ -313,6 +326,13 @@ MLA_ATTN = dict(Hkv=1, G=128, D=512, D2=64, bs=16)
 DEEPSEEK = dict(E=160, k=6, d=5120, f=1536, M=128, gating="softmax",
                 norm_topk=False, routed_scale=16.0)
 DEEPSEEK_LAYERS, DEEPSEEK_CHECK_LAYERS = 4, 2
+# [tune]: the tile sweeps of B1 and B2 (arch, shape, T, policy; dense bf16,
+# and int8 at TUNE_INT8), recorded into a temporary tune cache
+TUNE_SWEEPS = (("moonshot-v1-16b-a3b", MOONSHOT, SERVE_SLOTS, "dynamic"),
+               ("moonshot-v1-16b-a3b", MOONSHOT, 4096, "fixed"),
+               ("deepseek-v2-236b", DEEPSEEK, SERVE_SLOTS, "dynamic"),
+               ("deepseek-v2-236b", DEEPSEEK, 4096, "fixed"))
+TUNE_INT8 = ("moonshot-v1-16b-a3b", MOONSHOT, SERVE_SLOTS, "dynamic")
 # the routers held and timed alone, beside moonshot's and deepseek-v2's
 # (which run in every Case): mixtral-8x7b's E=8, and deepseek-v3's
 # (configs/paper.py: E=256, k=8, sigmoid) with DeepSeek-V3's
@@ -2337,9 +2357,9 @@ def serve_obs(cfg, model, prompts, capacity, paged_kw) -> dict:
     names = {e.get("name", "") for e in json.loads(
         path.read_text())["traceEvents"]
         if "kernel" in str(e.get("cat", "")).lower()}
-    want = {"B1 grouped_gemm": ("fwd_hopper_kernel<false>",
+    want = {"B1 grouped_gemm": ("fwd_hopper_kernel<false,",
                                 "fwd_hopper_kernelILb0E"),
-            "B2 fused_gate_up": ("fwd_hopper_kernel<true>",
+            "B2 fused_gate_up": ("fwd_hopper_kernel<true,",
                                  "fwd_hopper_kernelILb1E"),
             "B6 paged_attention": ("paged_attention_split_kernel",)}
     missing = [k for k, subs in want.items()
@@ -2832,6 +2852,168 @@ def serve_loadgen(cfg, model, paged_kw) -> dict:
         del engine
         torch.cuda.empty_cache()
     return out
+
+
+def tune_sweeps() -> dict:
+    """[tune] (a): B1 and B2 swept over their tile shapes
+    (``repro_torch.tuning.tune_moe_layer``) at ``TUNE_SWEEPS`` in dense
+    bf16 and at ``TUNE_INT8`` on int8 weights, the sub-block floor at the
+    ``dynamic`` shapes, into a fresh ``TuneCache``.  Fails unless every
+    winner is at or below the default tile on the same measurement and
+    every candidate's output is bitwise the default's (no shape splits
+    K).  Returns the cache and each key's records."""
+    import torch
+    from repro_torch import tuning
+    cache = tuning.TuneCache(device=torch.cuda.get_device_name(0))
+    keys = {}
+    for (arch, shape, T, policy), scheme in (
+            [(t, "dense") for t in TUNE_SWEEPS] + [(TUNE_INT8, "int8")]):
+        for res in tuning.tune_moe_layer(
+                E=shape["E"], top_k=shape["k"], d_model=shape["d"],
+                d_ffn=shape["f"], tokens=T, scheme=scheme, reps=3,
+                cache=cache, policy=policy, schedule_block_m=shape["M"],
+                block_m=(shape["M"] if policy == "dynamic"
+                         and scheme == "dense" else None)):
+            w, dflt = res["winner"], res["default"]
+            if w["us"] > dflt["us"]:
+                raise AssertionError(f"[tune] {res['key']}: winner "
+                                     f"{w['us']} us over the default's "
+                                     f"{dflt['us']}")
+            bad = [r for r in res["records"] if not r.get("bitwise", True)]
+            if bad:
+                raise AssertionError(
+                    f"[tune] {res['key']}: tiles "
+                    f"{[(r['block_m'], r['block_n']) for r in bad]} not "
+                    f"bitwise the default's (max abs diff "
+                    f"{max(r['max_abs_diff'] for r in bad):.3e})")
+            tile = ("block_m_min" if res["kernel"] == "sub_block"
+                    else "block_m")
+            print(f"[tune] {arch} T={T} {policy} {res['kernel']} {scheme} "
+                  f"[{res['key']}]: " + "; ".join(
+                      (f"floor {r['block_m_min']} (sub-block "
+                       f"{r['sub_block']})" if tile == "block_m_min" else
+                       f"({r['block_m']}, {r['block_n']})")
+                      + f" {r['us']:.2f} us (spread {r['spread']:.3f})"
+                      + (" default" if r["is_default"] else "")
+                      + (" WINNER" if r is w else "")
+                      for r in res["records"])
+                  + ("" if res["kernel"] == "sub_block" else
+                     "; every tile bitwise the default's"))
+            keys[res["key"]] = {
+                "arch": arch, "T": T, "policy": policy, "scheme": scheme,
+                "records": res["records"],
+                "winner": {k: w[k] for k in w if k in (
+                    "block_m", "block_n", "block_m_min", "sub_block", "us")},
+                "default_us": dflt["us"]}
+    return {"cache": cache, "keys": keys}
+
+
+def serve_tuned(cfg, model, prompts, capacity, paged_kw, cache) -> dict:
+    """[tune] (b): [serve paged]'s moonshot requests on two fresh paged
+    engines, ``autotune`` off then on, the tuned one reading ``cache``
+    through a temporary ``$REPRO_TORCH_TUNE_CACHE`` (over the packaged
+    defaults).  Fails unless the greedy tokens and the per-kernel launches
+    are equal, the tune cache is hit, and two tuned decode steps' forwards
+    (``paged_step``: the engine's host transfers stay outside) run under
+    ``set_sync_debug_mode("error")``.  Prints each run's host ms per decode
+    step and the tiles the tuned run's keys name."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import tuning
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+    tmp = ROOT / "build" / "tune_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    cache.save(tmp / "cache.json")
+    old = os.environ.get(tuning.cache.ENV_CACHE)
+    os.environ[tuning.cache.ENV_CACHE] = str(tmp / "cache.json")
+    tuning.reset_cache()
+    warm = np.random.default_rng(26).integers(0, cfg.vocab_size,
+                                              32).astype(np.int32)
+    out = {}
+    try:
+        for arm, autotune in (("untuned", False), ("tuned", True)):
+            engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                                 capacity=capacity,
+                                 rc=served_rc()._replace(autotune=autotune),
+                                 **paged_kw)
+            engine.run([Request(rid=-1, prompt=warm, max_new=3)])
+            reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                    for i, p in enumerate(prompts)]
+            tuning.reset_stats()
+            res = drive(engine, reqs)
+            stats = dict(tuning.STATS)
+            for i in range(SERVE_SLOTS):          # two tuned decode steps
+                engine.admit(Request(rid=100 + i, prompt=prompts[i][:24],
+                                     max_new=8))
+            engine.step()                         # the prompt step(s)
+            while engine.last_step[1]:
+                engine.step()
+            # the step's forward (the engine's host transfers stay outside)
+            real = engine_mod.paged_step
+
+            def guarded(*a, **kw):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return real(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            engine_mod.paged_step = guarded
+            try:
+                for _ in range(2):
+                    engine.step()
+                    if engine.last_step != (SERVE_SLOTS, 0):
+                        raise AssertionError(f"[tune] {engine.last_step}: "
+                                             "not a decode step")
+            finally:
+                engine_mod.paged_step = real
+            out[arm] = {"tokens": [list(map(int, r.out)) for r in reqs],
+                        "launches": res["launches"], "stats": stats,
+                        "decode_ms": [t * 1e3 for t in res["decode_steps"]],
+                        "forwards": res["forwards"]}
+            del engine
+            torch.cuda.empty_cache()
+        moe, d = cfg.moe, cfg.d_model
+        mine = (f"fused_gate_up|E{moe.n_experts}|K{d}|N{moe.d_ff_expert}|",
+                f"grouped_gemm|E{moe.n_experts}|K{moe.d_ff_expert}|N{d}|")
+        used = {k: (r["block_m"], r["block_n"])
+                for k, r in tuning.get_cache().entries.items()
+                if k.startswith(mine) and "|bfloat16|dense|" in k}
+    finally:
+        if old is None:
+            os.environ.pop(tuning.cache.ENV_CACHE, None)
+        else:
+            os.environ[tuning.cache.ENV_CACHE] = old
+        tuning.reset_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    u, t = out["untuned"], out["tuned"]
+    if t["tokens"] != u["tokens"]:
+        raise AssertionError(f"[tune] tuned greedy tokens {t['tokens']} != "
+                             f"untuned {u['tokens']}")
+    if t["launches"] != u["launches"]:
+        raise AssertionError(f"[tune] tuned launches {t['launches']} != "
+                             f"untuned {u['launches']}")
+    if t["stats"]["hits"] <= 0 or u["stats"]["lookups"] != 0:
+        raise AssertionError(f"[tune] tune cache lookups: tuned "
+                             f"{t['stats']}, untuned {u['stats']}")
+    med = {a: float(np.median(out[a]["decode_ms"])) for a in out}
+    print(f"[tune] served moonshot ({cfg.n_layers} layers, paged, dynamic): "
+          f"greedy tokens and launches of the tuned run equal to the "
+          f"untuned run's ({json.dumps(t['launches'])}); tune cache "
+          f"{t['stats']['lookups']} lookups, {t['stats']['hits']} hits over "
+          f"{t['forwards']} forwards; two tuned decode steps' forwards "
+          f"under set_sync_debug_mode('error'); host ms per decode step, median "
+          f"of {len(t['decode_ms'])}: tuned {med['tuned']:.2f}, untuned "
+          f"{med['untuned']:.2f}")
+    print("[tune] moonshot's bf16 dense keys in the tuned run's cache: "
+          + "; ".join(f"{k.split('|')[0]} {k.split('|')[4]} -> {v}"
+                      for k, v in sorted(used.items())))
+    return {"stats": t["stats"], "launches": t["launches"],
+            "decode_ms_median": med, "tiles": {k: list(v)
+                                               for k, v in used.items()}}
 
 
 def served_rc():
@@ -4085,6 +4267,17 @@ def main() -> None:
     del engine
     torch.cuda.empty_cache()
 
+    # [tune]: B1 and B2 swept over their tile shapes, then [serve paged]'s
+    # requests served with autotune on from the swept cache
+    tune = tune_sweeps()
+    tune["serve"] = serve_tuned(cfg, model, prompts, capacity, paged_kw,
+                                tune.pop("cache"))
+    print(json.dumps({"tune": {"serve": tune["serve"],
+                               "keys": {k: {x: v[x] for x in (
+                                   "winner", "default_us")}
+                                   for k, v in tune["keys"].items()}}}))
+    elapsed("tune")
+
     # [serve obs]: observability, admission policies and preemption on the
     # same model and prompts
     obs_summary = serve_obs(cfg, model, prompts, capacity, paged_kw)
@@ -4290,6 +4483,7 @@ def main() -> None:
                                 "prefill_long": long_prefill}}))
 
     # 10. report -----------------------------------------------------------
+    from repro_torch.kernels.grouped_gemm import TILE_SHAPES
     keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     report = []
@@ -4478,6 +4672,14 @@ def main() -> None:
                 extra["capacity_factor"] = {
                     f"{arch}_T{T}": tm[name]
                     for (arch, T), tm in cap_t.items()}
+                # every time above is at the default tile; [tune] held
+                # every tile bitwise the default's and timed each
+                shapes = TILE_SHAPES[name, "dense"]
+                extra["tile"] = {
+                    "timed_at": list(shapes[0]),
+                    "held": [list(t) for t in shapes],
+                    "swept": {k: v["winner"] for k, v in tune["keys"].items()
+                              if k.startswith(name + "|")}}
         entry.update({k: d[k] for k in keys})
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})

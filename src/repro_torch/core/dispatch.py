@@ -29,6 +29,9 @@ class MoEDispatchConfig(NamedTuple):
     capacity_factor: float = 2.0     # the capacity_factor policy's headroom
     block_m_min: int = 8             # the dynamic policy's sub-block floor
     emit_stats: bool = False         # sched/* ScheduleStats in the aux
+    autotune: bool = False           # cuda executor: B1/B2 tile shapes and
+                                     # the dynamic floor from the tune
+                                     # cache (repro_torch.tuning)
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,

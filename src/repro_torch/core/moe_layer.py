@@ -19,7 +19,8 @@ def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
                     schedule_policy: str = "fixed",
                     capacity_factor: Optional[float] = None,
                     block_m_min: int = 8,
-                    emit_stats: bool = False) -> MoEDispatchConfig:
+                    emit_stats: bool = False,
+                    autotune: bool = False) -> MoEDispatchConfig:
     """``capacity_factor`` None takes the architecture's
     (``moe.capacity_factor``)."""
     return MoEDispatchConfig(
@@ -30,7 +31,7 @@ def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
         schedule_policy=schedule_policy,
         capacity_factor=(moe.capacity_factor if capacity_factor is None
                          else capacity_factor),
-        block_m_min=block_m_min, emit_stats=emit_stats)
+        block_m_min=block_m_min, emit_stats=emit_stats, autotune=autotune)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):

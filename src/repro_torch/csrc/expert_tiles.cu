@@ -2,16 +2,17 @@
 // from the block schedule, so that no host sync is needed:
 //
 //   runs[e]  = [first row, end row) of expert e's active schedule blocks;
-//   tiles[i] = (e, row0, rows): the TILE_ROWS-row slices of each expert's
+//   tiles[i] = (e, row0, rows): the tile_rows-row slices of each expert's
 //              run, in expert order, then (-1, row0, rows) slices of every
 //              span of rows that no run covers, in row order (the kernels
 //              write zeros there);
 //   count    = the number of tiles.
 //
 // B7 reads the runs (each dW tile reduces its expert's run); B1^T and the
-// forward's B1 and B2 walk the tiles (each output tile covers at most 256
-// rows of one expert), so on the dynamic policy's 8-row blocks a heavy
-// expert's weights are read once per 256 rows, not once per 8-row block.
+// forward's B1 and B2 walk the tiles (each output tile covers at most
+// tile_rows rows of one expert: 256 for B1^T, 256 or 128 as the caller of
+// B1 and B2 chose), so on the dynamic policy's 8-row blocks a heavy
+// expert's weights are read once per tile, not once per 8-row block.
 //
 // The schedule's contract (every ported policy): each expert's active
 // blocks are one contiguous run starting at block seg_start[e] / block_m.
@@ -33,8 +34,8 @@
 //
 // max_tiles (hopper_gemm.cuh): the runs and the gaps are at most 2E + 1
 // disjoint spans of `capacity` rows in all, and n spans of a_i rows take
-// sum ceil(a_i / 256) <= ceil(capacity / 256) + n - 1 tiles, so at most
-// ceil(capacity / 256) + 2E.  The kernel never writes past that bound, and
+// sum ceil(a_i / R) <= ceil(capacity / R) + n - 1 tiles of R = tile_rows
+// rows, so at most ceil(capacity / R) + 2E.  The kernel never writes past that bound, and
 // the count is clamped to it (a schedule that breaks the contract gets a
 // short list, never an out-of-bounds write).
 //
@@ -89,7 +90,7 @@ expert_tiles_kernel(const int* __restrict__ seg_start,
                     const int* __restrict__ block_expert,
                     const int* __restrict__ block_active, int n_blocks,
                     int block_m, int n_experts, int capacity,
-                    WorkLists lists, int with_tiles) {
+                    WorkLists lists, int with_tiles, int tile_rows) {
   __shared__ int s_start[MAX_EXPERTS], s_end[MAX_EXPERTS];
   __shared__ int s_off[MAX_EXPERTS + 1];       // run tiles before expert e
   __shared__ int s_lo[MAX_EXPERTS], s_hi[MAX_EXPERTS];   // runs, row order
@@ -118,7 +119,7 @@ expert_tiles_kernel(const int* __restrict__ seg_start,
     lists.runs[tid] = make_int2(start, end);
     s_start[tid] = start;
     s_end[tid] = end;
-    n = (end - start + TILE_ROWS - 1) / TILE_ROWS;
+    n = (end - start + tile_rows - 1) / tile_rows;
   }
   if (!with_tiles) return;
   int total;
@@ -144,34 +145,34 @@ expert_tiles_kernel(const int* __restrict__ seg_start,
   int gn = 0;
   if (tid < R) {
     const int lo = tid > 0 ? s_hi[tid - 1] : 0;
-    gn = s_lo[tid] > lo ? (s_lo[tid] - lo + TILE_ROWS - 1) / TILE_ROWS : 0;
+    gn = s_lo[tid] > lo ? (s_lo[tid] - lo + tile_rows - 1) / tile_rows : 0;
   }
   int inner;
   const int gv = block_inclusive_sum(gn, s_warp, &inner);
   if (tid < R) s_goff[tid + 1] = gv;
   if (tid == 0) s_goff[0] = 0;
   __syncthreads();
-  const int most = max_tiles(capacity, E);
+  const int most = max_tiles(capacity, E, tile_rows);
   for (int i = tid; i < total && i < most; i += TILE_THREADS) {
     const int e = last_at_or_below(s_off, E, i);
-    const int row0 = s_start[e] + (i - s_off[e]) * TILE_ROWS;
-    lists.tiles[i] = make_int4(e, row0, min(TILE_ROWS, s_end[e] - row0), 0);
+    const int row0 = s_start[e] + (i - s_off[e]) * tile_rows;
+    lists.tiles[i] = make_int4(e, row0, min(tile_rows, s_end[e] - row0), 0);
   }
   for (int i = tid; i < inner && total + i < most; i += TILE_THREADS) {
     const int j = last_at_or_below(s_goff, R, i);
-    const int row0 = (j > 0 ? s_hi[j - 1] : 0) + (i - s_goff[j]) * TILE_ROWS;
+    const int row0 = (j > 0 ? s_hi[j - 1] : 0) + (i - s_goff[j]) * tile_rows;
     lists.tiles[total + i] =
-        make_int4(-1, row0, min(TILE_ROWS, s_lo[j] - row0), 0);
+        make_int4(-1, row0, min(tile_rows, s_lo[j] - row0), 0);
   }
   // the tail: the rows past the last run
   const int tail = R > 0 ? s_hi[R - 1] : 0;
   const int n_tail =
-      capacity > tail ? (capacity - tail + TILE_ROWS - 1) / TILE_ROWS : 0;
+      capacity > tail ? (capacity - tail + tile_rows - 1) / tile_rows : 0;
   for (int z = tid; z < n_tail && total + inner + z < most;
        z += TILE_THREADS) {
-    const int row0 = tail + z * TILE_ROWS;
+    const int row0 = tail + z * tile_rows;
     lists.tiles[total + inner + z] =
-        make_int4(-1, row0, min(TILE_ROWS, capacity - row0), 0);
+        make_int4(-1, row0, min(tile_rows, capacity - row0), 0);
   }
   if (tid == 0) *lists.count = min(total + inner + n_tail, most);
 }
@@ -179,12 +180,14 @@ expert_tiles_kernel(const int* __restrict__ seg_start,
 int launch_expert_tiles(const int* seg_start, const int* block_expert,
                         const int* block_active, int n_blocks, int block_m,
                         int n_experts, int capacity, WorkLists lists,
-                        bool with_tiles, cudaStream_t stream) {
-  if (n_experts <= 0 || n_experts > MAX_EXPERTS || block_m <= 0)
+                        bool with_tiles, cudaStream_t stream,
+                        int tile_rows) {
+  if (n_experts <= 0 || n_experts > MAX_EXPERTS || block_m <= 0
+      || tile_rows <= 0 || tile_rows % 8 != 0)
     return (int)cudaErrorInvalidValue;
   expert_tiles_kernel<<<1, TILE_THREADS, 0, stream>>>(
       seg_start, block_expert, block_active, n_blocks, block_m, n_experts,
-      capacity, lists, with_tiles ? 1 : 0);
+      capacity, lists, with_tiles ? 1 : 0, tile_rows);
   return moe_last_error();
 }
 
@@ -192,16 +195,17 @@ int launch_expert_tiles(const int* seg_start, const int* block_expert,
 
 // The work lists alone (for the tests: held against expert_tiles_plain):
 // the schedule's (E,) seg_start and (capacity / block_m,) block arrays ->
-// scratch, laid out as hopper_gemm.cuh's work_lists says.
+// scratch, laid out as hopper_gemm.cuh's work_lists says for tiles of at
+// most tile_rows rows.
 MOE_API int moe_expert_tiles(const void* seg_start, const void* block_expert,
                              const void* block_active, void* scratch,
                              int capacity, int n_experts, int block_m,
-                             void* stream) {
+                             void* stream, int tile_rows) {
   if (block_m <= 0 || capacity % block_m != 0)
     return (int)cudaErrorInvalidValue;
   return hopper::launch_expert_tiles(
       (const int*)seg_start, (const int*)block_expert,
       (const int*)block_active, capacity / block_m, block_m, n_experts,
-      capacity, hopper::work_lists(scratch, capacity, n_experts), true,
-      (cudaStream_t)stream);
+      capacity, hopper::work_lists(scratch, capacity, n_experts, tile_rows),
+      true, (cudaStream_t)stream, tile_rows);
 }

@@ -28,8 +28,10 @@
 
 // x (capacity, K), w_gate and w_up (E, K, N) in x's dtype or their
 // int8/int4 payloads with their scales, the schedule's (E,) seg_start and
-// block arrays, the work lists' scratch (bf16 only) -> out
-// (capacity, N), every element written.
+// block arrays, the work lists' scratch (bf16 only), the bf16 kernels'
+// tile shape (tile_rows, block_n): dense (256, 64) by default, or (128,
+// 64), (128, 128); int8/int4 (256 or 128, 128) -> out (capacity, N), every
+// element written.
 MOE_API int moe_fused_gate_up(const void* x, const void* w_gate,
                               const void* w_up, const void* wg_scale,
                               const void* wu_scale, const void* seg_start,
@@ -37,10 +39,11 @@ MOE_API int moe_fused_gate_up(const void* x, const void* w_gate,
                               const void* block_active, void* scratch,
                               void* out, int capacity, int K, int N,
                               int n_experts, int block_m, int dtype,
-                              int w_format, int s_e, int s_n, void* stream) {
+                              int w_format, int s_e, int s_n, void* stream,
+                              int tile_rows, int block_n) {
   return moe_gemm::launch<true>(x, w_gate, w_up, wg_scale, wu_scale,
                                 seg_start, block_expert, block_active,
                                 nullptr, scratch, out, capacity, K, N,
                                 n_experts, block_m, dtype, w_format, s_e, s_n,
-                                stream);
+                                stream, tile_rows, block_n);
 }

@@ -35,17 +35,21 @@
 // x (capacity, K) of dtype `dtype` (MoeDtype), w (E, K, N) in x's dtype or
 // its int8/int4 payload with w_scale, the schedule's (E,) seg_start and
 // (capacity / block_m,) block arrays, row_scale (capacity,) f32 or null,
-// the work lists' scratch (hopper_gemm.cuh work_lists; bf16 only)
-// -> out (capacity, N), every element written.
+// the work lists' scratch (hopper_gemm.cuh work_lists; bf16 only), the
+// bf16 kernels' tile shape (tile_rows, block_n): dense (256, 128) by
+// default, or (256, 64), (128, 128), (128, 256); int8/int4 (256 or 128,
+// 128) -> out (capacity, N), every element written.
 MOE_API int moe_grouped_gemm(const void* x, const void* w,
                              const void* w_scale, const void* seg_start,
                              const void* block_expert,
                              const void* block_active, const void* row_scale,
                              void* scratch, void* out, int capacity, int K,
                              int N, int n_experts, int block_m, int dtype,
-                             int w_format, int s_e, int s_n, void* stream) {
+                             int w_format, int s_e, int s_n, void* stream,
+                             int tile_rows, int block_n) {
   return moe_gemm::launch<false>(x, w, nullptr, w_scale, nullptr, seg_start,
                                  block_expert, block_active, row_scale,
                                  scratch, out, capacity, K, N, n_experts,
-                                 block_m, dtype, w_format, s_e, s_n, stream);
+                                 block_m, dtype, w_format, s_e, s_n, stream,
+                                 tile_rows, block_n);
 }

@@ -274,7 +274,9 @@ inline void launch_f32(dim3 grid, cudaStream_t s, int rows, const float* x,
 // (grouped_gemm_hopper.cuh on dense weights, grouped_gemm_hopper_quant.cuh
 // on int8/int4 ones) over the work lists that expert_tiles.cu builds into
 // `scratch` from seg_start and the block arrays: both must be given; fp32
-// reads neither.
+// reads neither.  (tile_rows, block_n) is the Hopper kernels' tile shape:
+// on dense weights one of launch_hopper_shape's set, on int8/int4 ones
+// (256 or 128, QBN); any other is refused.  fp32's one tile reads neither.
 template <bool FUSED>
 inline int launch(const void* x, const void* w0, const void* w1,
                   const void* scale0, const void* scale1,
@@ -282,7 +284,8 @@ inline int launch(const void* x, const void* w0, const void* w1,
                   const void* block_active, const void* row_scale,
                   void* scratch, void* out, int capacity, int K, int N,
                   int n_experts, int block_m, int dtype, int w_format,
-                  int s_e, int s_n, void* stream) {
+                  int s_e, int s_n, void* stream, int tile_rows,
+                  int block_n) {
   if (capacity == 0 || N == 0) return moe_last_error();
   if (block_m <= 0 || block_m % 8 != 0 || capacity % block_m != 0
       || K % 16 != 0 || N % 16 != 0
@@ -298,26 +301,29 @@ inline int launch(const void* x, const void* w0, const void* w1,
   const float* s0 = (const float*)scale0;
   const float* s1 = (const float*)scale1;
   if (dtype == kBF16) {
-    if (seg_start == nullptr || scratch == nullptr || n_experts <= 0)
+    if (seg_start == nullptr || scratch == nullptr || n_experts <= 0
+        || (tile_rows != 256 && tile_rows != 128)
+        || (w_format != kDense && block_n != moe_fwd::QBN))
       return (int)cudaErrorInvalidValue;
     if (K == 0)
       return (int)cudaMemsetAsync(out, 0, (size_t)capacity * N * 2, s);
     const hopper::WorkLists lists =
-        hopper::work_lists(scratch, capacity, n_experts);
+        hopper::work_lists(scratch, capacity, n_experts, tile_rows);
     const int err = hopper::launch_expert_tiles(
         (const int*)seg_start, be, ba, capacity / block_m, block_m,
-        n_experts, capacity, lists, true, s);
+        n_experts, capacity, lists, true, s, tile_rows);
     if (err != 0) return err;
     if (w_format == kInt8)
       return moe_fwd::launch_quant<FUSED, kInt8>(
           x, w0, w1, s0, s1, s_e, s_n, rs, lists, out, capacity, K, N,
-          n_experts, s);
+          n_experts, tile_rows, s);
     if (w_format == kInt4)
       return moe_fwd::launch_quant<FUSED, kInt4>(
           x, w0, w1, s0, s1, s_e, s_n, rs, lists, out, capacity, K, N,
-          n_experts, s);
-    return moe_fwd::launch_hopper<FUSED>(x, w0, w1, rs, lists, out,
-                                         capacity, K, N, n_experts, s);
+          n_experts, tile_rows, s);
+    return moe_fwd::launch_hopper_shape<FUSED>(x, w0, w1, rs, lists, out,
+                                               capacity, K, N, n_experts,
+                                               tile_rows, block_n, s);
   }
   // tile height: the largest of 128, 16, 8 that divides block_m
   const int rows = block_m % 128 == 0 ? 128 : (block_m % 16 == 0 ? 16 : 8);

@@ -11,12 +11,12 @@
 // bf16, exact zeros on every row past the active blocks.
 //
 // Work items (as grouped_gemm_t.cu's): from expert_tiles.cu's list, built
-// on the device from the schedule, (expert e, a slice of at most 256 rows
-// of e's run of rows, one column tile of the output), walked expert-major
-// by persistent blocks, then the zero tiles past the active blocks.  A
-// weight tile is read once for all of a slice's rows, so an expert's
-// weights cross device memory once per 256 rows on either policy, not once
-// per schedule block (the dynamic policy's 8-row blocks).  Rows of a slice
+// on the device from the schedule, (expert e, a slice of at most TR rows
+// of e's run of rows, one column tile of BN output columns), walked
+// expert-major by persistent blocks, then the zero tiles past the active
+// blocks.  A weight tile is read once for all of a slice's rows, so an
+// expert's weights cross device memory once per TR rows on either policy,
+// not once per schedule block (the dynamic policy's 8-row blocks).  Rows of a slice
 // past its run belong to the next expert: they are loaded and computed,
 // never stored (runs end on multiples of 8, so the last 64-row slab of a
 // run is stored in 8-row boxes).  Zero tiles load nothing: each consumer
@@ -27,17 +27,24 @@
 // read MN-major (N contiguous), as TMA brings in 64 K-rows x 64 N-columns
 // through a 3-D tensor map over (N, K, E) (K rows past K and columns past N
 // read zeros), with wgmma's transpose flag: no transposed copy of the
-// weights.  B1's stage holds W's 128 columns [n0, n0 + 128); B2's holds
-// Wg's 64 columns [n0, n0 + 64) then Wu's same 64, so one m64n128k16
-// product computes gate and up of 64 output columns together from one A
-// stage (the paper's fusion, §3.3): in the fragment, gate's value of an
-// output column sits 32 registers before up's.
+// weights.  B1's stage holds W's BN columns [n0, n0 + BN); B2's holds Wg's
+// BN columns [n0, n0 + BN) then Wu's same BN, so one m64n(2 BN)k16 product
+// computes gate and up of BN output columns together from one A stage (the
+// paper's fusion, §3.3): in the fragment, gate's value of an output column
+// sits BN / 2 registers before up's.
 //
-// Tiles: up to 256 rows x 128 product columns (B1: 128 output columns, B2:
-// 64).  Over 128 rows each consumer warpgroup takes 128 rows with two
-// m64n128 accumulators (128 registers a thread, within the 232 setmaxnreg
-// gives), otherwise one 64-row slab; a warpgroup whose slab lies past the
-// slice (a slice of at most 64 rows: decode) issues no products.
+// Tile shapes (the template parameters TR, BN: rows a slice, output
+// columns an item), chosen per call from the instantiated set below
+// (kernels/grouped_gemm.py TILE_SHAPES; the tune cache picks one per shape
+// key, repro_torch/tuning).  The product columns of an item, PC = BN (B1)
+// or 2 BN (B2), are 64, 128 or 256: one wgmma m64nPCk16.  With TR = 256,
+// over 128 rows each consumer warpgroup takes 128 rows with two m64nPC
+// accumulators (PC <= 128: at most 128 registers a thread, within the 232
+// setmaxnreg gives), otherwise one 64-row slab; with TR = 128 one slab of
+// 64 rows and one accumulator (up to m64n256: 128 registers).  A
+// warpgroup whose slab lies past the slice (a slice of at most 64 rows:
+// decode) issues no products.  No shape splits K: each output element is
+// the same sequence of k16 products in any of them.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -48,15 +55,35 @@ using hopper::BK;
 using hopper::SUB;
 using bf16 = __nv_bfloat16;
 
-template <bool FUSED>
+// The instantiated tile shapes (TR, BN); the first of each is the default
+// (kernels/grouped_gemm.py TILE_SHAPES holds the same lists)
+//   B1: (256, 128), (256, 64), (128, 128), (128, 256)
+//   B2: (256, 64), (128, 64), (128, 128)
+// B2 at (256, 128) would need two m64n256 accumulators: 256 registers.
+template <bool FUSED, int TR_, int BN_>
 struct FwdStage {
-  static constexpr int BN = FUSED ? 64 : 128;       // output columns an item
-  static constexpr int A_BYTES = 4 * SUB;            // up to 256 rows x 64 K
-  static constexpr int B_BYTES = 2 * SUB;            // 64 K x 128 columns
+  static constexpr int TR = TR_;                     // rows a slice
+  static constexpr int BN = BN_;                     // output columns an item
+  static constexpr int PC = FUSED ? 2 * BN : BN;     // product columns
+  static constexpr int NF = PC / 2;                  // accumulator registers
+  static constexpr int A_BYTES = (TR / 64) * SUB;    // up to TR rows x 64 K
+  static constexpr int B_BYTES = (PC / 64) * SUB;    // 64 K x PC columns
   static constexpr int BYTES = A_BYTES + B_BYTES;
   static constexpr int EPI_WG = 64 * BN * 2;         // one bf16 slab
   using R = hopper::Ring<BYTES, 2 * EPI_WG>;
+  static_assert(TR == 256 || TR == 128, "slices of 256 or 128 rows");
+  static_assert(PC == 64 || PC == 128 || PC == 256, "m64n64/128/256");
+  static_assert(TR == 128 || PC <= 128, "two accumulators within 232 regs");
 };
+
+// d (64 x PC fp32) += A (64 x 16, K-major) B (16 x PC, MN-major)
+template <int PC>
+__device__ __forceinline__ void wgmma_fwd(float (&d)[PC / 2], uint64_t da,
+                                          uint64_t db) {
+  if constexpr (PC == 64) hopper::wgmma_m64n64k16<0, 1>(d, da, db);
+  else if constexpr (PC == 128) hopper::wgmma_m64n128k16<0, 1>(d, da, db);
+  else hopper::wgmma_m64n256k16<0, 1>(d, da, db);
+}
 
 // silu(g) * u with the special-function unit's exp and reciprocal: a few
 // fp32 ulps from an IEEE expf and division, below bf16's rounding
@@ -76,13 +103,13 @@ __device__ __forceinline__ int a_rows(int rows) {
 // 2 wg and 2 wg + 1 into acc0 and acc1, NACC = 1 slab wg into acc0; `on`
 // false (the warpgroup's slab is past the slice) waits for and releases
 // each stage without products
-template <int NACC, int S, bool FUSED>
-__device__ __forceinline__ void mainloop(float (&acc0)[64], float (&acc1)[64],
+template <int NACC, int S, class St>
+__device__ __forceinline__ void mainloop(float (&acc0)[St::NF],
+                                         float (&acc1)[St::NF],
                                          hopper::PipeState& p, uint32_t ring,
                                          uint32_t full, uint32_t empty,
                                          int n_k, int wg, bool on) {
   using namespace hopper;
-  using St = FwdStage<FUSED>;
   if (!on) {
     for (int kt = 0; kt < n_k; ++kt) {
       mbar_wait(full + 8 * p.stage, p.phase);
@@ -101,27 +128,26 @@ __device__ __forceinline__ void mainloop(float (&acc0)[64], float (&acc1)[64],
     const uint32_t a = st + (NACC == 2 ? 2 * wg : wg) * SUB;
     const uint32_t b = st + St::A_BYTES;
     fence_acc(acc0);
-    if (NACC == 2) fence_acc(acc1);
+    if constexpr (NACC == 2) fence_acc(acc1);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
       const uint64_t db = make_desc(b + 2048 * ks, SUB, 1024);
-      wgmma_m64n128k16<0, 1>(acc0, make_desc(a + 32 * ks, 16, 1024), db);
-      if (NACC == 2)
-        wgmma_m64n128k16<0, 1>(acc1, make_desc(a + SUB + 32 * ks, 16, 1024),
-                               db);
+      wgmma_fwd<St::PC>(acc0, make_desc(a + 32 * ks, 16, 1024), db);
+      if constexpr (NACC == 2)
+        wgmma_fwd<St::PC>(acc1, make_desc(a + SUB + 32 * ks, 16, 1024), db);
     }
     wgmma_commit();
     wgmma_wait<1>();                     // the previous stage has been read
     fence_acc(acc0);
-    if (NACC == 2) fence_acc(acc1);
+    if constexpr (NACC == 2) fence_acc(acc1);
     if (prev >= 0) mbar_arrive(empty + 8 * prev);
     prev = p.stage;
     p.advance<S>();
   }
   wgmma_wait<0>();
   fence_acc(acc0);
-  if (NACC == 2) fence_acc(acc1);
+  if constexpr (NACC == 2) fence_acc(acc1);
   if (prev >= 0) mbar_arrive(empty + 8 * prev);
 }
 
@@ -149,20 +175,20 @@ __device__ __forceinline__ void store_staged(const CUtensorMap* out64,
 // rows of the output, rows > 0; uniform in the warpgroup): B1 scales each
 // row by row_scale (read for the stored rows only), B2 forms silu(g) * u;
 // then one rounding to bf16 into epi and the slab's stores.
-template <bool FUSED>
-__device__ __forceinline__ void store_slab(float (&d)[64],
+template <bool FUSED, class St>
+__device__ __forceinline__ void store_slab(float (&d)[St::NF],
                                            const float* __restrict__ row_scale,
                                            const CUtensorMap* out64,
                                            const CUtensorMap* out8,
                                            unsigned char* epi, int wg, int n0,
                                            int r0, int rows) {
   using namespace hopper;
-  constexpr int BN = FwdStage<FUSED>::BN;
+  constexpr int BN = St::BN;
   epilogue_begin(wg);
   if constexpr (FUSED) {
-    float h[32];
+    float h[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) h[j] = silu_mul_sfu(d[j], d[j + 32]);
+    for (int j = 0; j < BN / 2; ++j) h[j] = silu_mul_sfu(d[j], d[j + BN / 2]);
     stage_tile<bf16>(h, epi);
   } else {
     if (row_scale != nullptr) {
@@ -171,7 +197,7 @@ __device__ __forceinline__ void store_slab(float (&d)[64],
       const float s0 = r < rows ? row_scale[r0 + r] : 0.f;
       const float s1 = r + 8 < rows ? row_scale[r0 + r + 8] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < BN / 8; ++i) {
         d[4 * i] *= s0;
         d[4 * i + 1] *= s0;
         d[4 * i + 2] *= s1;
@@ -214,8 +240,9 @@ __device__ __forceinline__ void store_zeros(const CUtensorMap* out64,
 }
 
 // The kernel of B1 (FUSED false: w1 unused, row_scale or nullptr) and B2
-// (FUSED true: w0 the gate, w1 the up weight, no row_scale)
-template <bool FUSED>
+// (FUSED true: w0 the gate, w1 the up weight, no row_scale), at tile shape
+// (TR, BN)
+template <bool FUSED, int TR, int BN_>
 __global__ void __launch_bounds__(hopper::THREADS, 1)
 fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
                   const __grid_constant__ CUtensorMap x128,
@@ -228,7 +255,7 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
                   const int* __restrict__ n_tiles,
                   const float* __restrict__ row_scale, int K, int N) {
   using namespace hopper;
-  using St = FwdStage<FUSED>;
+  using St = FwdStage<FUSED, TR, BN_>;
   constexpr int S = St::R::STAGES, STAGE = St::BYTES, BN = St::BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -249,7 +276,8 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
   if (wg == 2) {                                   // producer
     reg_dealloc<40>();
     if (threadIdx.x != 2 * 128) return;
-    tma_prefetch(&x256); tma_prefetch(&x128); tma_prefetch(&x64);
+    if (TR > 128) tma_prefetch(&x256);
+    tma_prefetch(&x128); tma_prefetch(&x64);
     tma_prefetch(&w0);
     if (FUSED) tma_prefetch(&w1);
     PipeState p;
@@ -266,10 +294,14 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
         const uint32_t a = ring + p.stage * STAGE, b = a + St::A_BYTES;
         mbar_expect_tx(fb, bytes);
         tma_load_2d(a, amap, fb, kt * BK, tile.y);
-        // B1: W's columns n0 and n0 + 64; B2: Wg's and Wu's columns n0
-        tma_load_3d(b, &w0, fb, n0, kt * BK, tile.x);
-        tma_load_3d(b + SUB, FUSED ? &w1 : &w0, fb, FUSED ? n0 : n0 + 64,
-                    kt * BK, tile.x);
+        // B1: W's columns n0, n0 + 64, ...; B2: Wg's, then Wu's
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) {
+          tma_load_3d(b + j * SUB, &w0, fb, n0 + 64 * j, kt * BK, tile.x);
+          if (FUSED)
+            tma_load_3d(b + (BN / 64 + j) * SUB, &w1, fb, n0 + 64 * j,
+                        kt * BK, tile.x);
+        }
         p.advance<S>();
       }
     }
@@ -286,36 +318,45 @@ fwd_hopper_kernel(const __grid_constant__ CUtensorMap x256,
         continue;
       }
       zeros_staged = false;
-      const bool two = tile.z > 128;
+      const bool two = TR > 128 && tile.z > 128;
       // this warpgroup's rows: 128 w + [0, 128) of the tile, or 64 w + [0, 64)
       const int r0 = (two ? 128 : 64) * wg;
-      float acc0[64], acc1[64];
+      float acc0[St::NF], acc1[TR > 128 ? St::NF : 1];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-      if (two)
-        mainloop<2, S, FUSED>(acc0, acc1, p, ring, full, empty, n_k, wg,
-                              true);
-      else
-        mainloop<1, S, FUSED>(acc0, acc1, p, ring, full, empty, n_k, wg,
-                              r0 < tile.z);
+      for (int i = 0; i < St::NF; ++i) acc0[i] = 0.f;
+      if constexpr (TR > 128) {
+#pragma unroll
+        for (int i = 0; i < St::NF; ++i) acc1[i] = 0.f;
+        if (two)
+          mainloop<2, S, St>(acc0, acc1, p, ring, full, empty, n_k, wg, true);
+        else
+          mainloop<1, S, St>(acc0, acc1, p, ring, full, empty, n_k, wg,
+                             r0 < tile.z);
+      } else {
+        mainloop<1, S, St>(acc0, acc0, p, ring, full, empty, n_k, wg,
+                           r0 < tile.z);
+      }
       if (r0 < tile.z)
-        store_slab<FUSED>(acc0, row_scale, &out64, &out8, epi, wg, n0,
-                          tile.y + r0, min(64, tile.z - r0));
-      if (two && r0 + 64 < tile.z)
-        store_slab<FUSED>(acc1, row_scale, &out64, &out8, epi, wg, n0,
-                          tile.y + r0 + 64, min(64, tile.z - r0 - 64));
+        store_slab<FUSED, St>(acc0, row_scale, &out64, &out8, epi, wg, n0,
+                              tile.y + r0, min(64, tile.z - r0));
+      if constexpr (TR > 128) {
+        if (two && r0 + 64 < tile.z)
+          store_slab<FUSED, St>(acc1, row_scale, &out64, &out8, epi, wg, n0,
+                                tile.y + r0 + 64, min(64, tile.z - r0 - 64));
+      }
     }
     if (threadIdx.x % 128 == 0) bulk_wait<false>();
   }
 }
 
 // x (capacity, K), the (E, K, N) weight(s) w0 (and w1 when FUSED), the
-// work lists (built) -> out (capacity, N), every element written
-template <bool FUSED>
+// work lists (built for tiles of TR rows) -> out (capacity, N), every
+// element written
+template <bool FUSED, int TR, int BN>
 int launch_hopper(const void* x, const void* w0, const void* w1,
                   const float* row_scale, hopper::WorkLists lists, void* out,
                   int capacity, int K, int N, int E, cudaStream_t s) {
-  using St = FwdStage<FUSED>;
+  using St = FwdStage<FUSED, TR, BN>;
   CUtensorMap x256, x128, x64, wm0, wm1, out64, out8;
   const uint64_t dx[2] = {(uint64_t)K, (uint64_t)capacity};
   const uint64_t sx[1] = {(uint64_t)K * 2};
@@ -336,9 +377,10 @@ int launch_hopper(const void* x, const void* w0, const void* w1,
       || !hopper::tensor_map(&out8, out, 2, dout, sout, bout8))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = St::R::SMEM;
-  const int most = hopper::max_tiles(capacity, E) * ((N + St::BN - 1) / St::BN);
+  const int most =
+      hopper::max_tiles(capacity, E, TR) * ((N + St::BN - 1) / St::BN);
   const int grid = most < moe_num_sms() ? most : moe_num_sms();
-  auto* kernel = fwd_hopper_kernel<FUSED>;
+  auto* kernel = fwd_hopper_kernel<FUSED, TR, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal surfaces as the launch's error
@@ -346,6 +388,31 @@ int launch_hopper(const void* x, const void* w0, const void* w1,
                                              out8, lists.tiles, lists.count,
                                              row_scale, K, N);
   return moe_last_error();
+}
+
+// The Hopper kernel at tile shape (tile_rows, block_n), one of the
+// instantiated set; any other shape is refused (cudaErrorInvalidValue)
+template <bool FUSED>
+int launch_hopper_shape(const void* x, const void* w0, const void* w1,
+                        const float* row_scale, hopper::WorkLists lists,
+                        void* out, int capacity, int K, int N, int E,
+                        int tile_rows, int block_n, cudaStream_t s) {
+#define MOE_FWD_SHAPE(TR, BN)                                                \
+  if (tile_rows == TR && block_n == BN)                                      \
+    return launch_hopper<FUSED, TR, BN>(x, w0, w1, row_scale, lists, out,    \
+                                        capacity, K, N, E, s);
+  if constexpr (FUSED) {
+    MOE_FWD_SHAPE(256, 64)
+    MOE_FWD_SHAPE(128, 64)
+    MOE_FWD_SHAPE(128, 128)
+  } else {
+    MOE_FWD_SHAPE(256, 128)
+    MOE_FWD_SHAPE(256, 64)
+    MOE_FWD_SHAPE(128, 128)
+    MOE_FWD_SHAPE(128, 256)
+  }
+#undef MOE_FWD_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace moe_fwd

@@ -27,9 +27,12 @@
 // are adjacent bytes and one transposed ldmatrix of 16-bit elements hands
 // each thread exactly the bytes its fragment needs.
 //
-// Work items: (expert tile of up to TILE_ROWS rows, 128 output columns),
+// Work items: (expert tile of up to tile_rows rows, 128 output columns),
 // walked as the dense kernel walks them, each in passes of at most 128
-// rows (a tile past 128 rows reads its weights once per pass).  Consumer
+// rows (a tile past 128 rows reads its weights once per pass).  The row
+// tile, 256 (the default) or 128, is the work lists' (expert_tiles.cu): it
+// changes how the passes are dealt to the persistent blocks, never a
+// pass, so the output is the same at either.  Consumer
 // warpgroup wg takes output columns [64 wg, 64 wg + 64) of the item, of
 // both weights for B2 (so gate and up of a column meet in one thread).  A
 // stage (one 64-deep K slice) holds x's rows (K-major, by TMA with the
@@ -503,13 +506,14 @@ fwd_quant_kernel(const __grid_constant__ CUtensorMap x128,
 }
 
 // x (capacity, K) bf16, the payload(s) q0 (and q1 when FUSED) with their
-// scales, the work lists (built) -> out (capacity, N), every element
-// written
+// scales, the work lists (built for tiles of tile_rows rows) -> out
+// (capacity, N), every element written
 template <bool FUSED, int FMT>
 int launch_quant(const void* x, const void* q0, const void* q1,
                  const float* s0, const float* s1, int s_e, int s_n,
                  const float* row_scale, hopper::WorkLists lists, void* out,
-                 int capacity, int K, int N, int E, cudaStream_t s) {
+                 int capacity, int K, int N, int E, int tile_rows,
+                 cudaStream_t s) {
   using St = QuantStage<FUSED, FMT>;
   CUtensorMap x128, x64, x32, x16, qm0, qm1, out64, out8;
   const uint64_t dx[2] = {(uint64_t)K, (uint64_t)capacity};
@@ -537,7 +541,8 @@ int launch_quant(const void* x, const void* q0, const void* q1,
   // the ring, the epilogue tiles, the barriers, then 2 x 128 row scales
   constexpr int smem = St::R::SMEM + 2 * 128 * 4;
   static_assert(smem <= 232448, "shared memory");
-  const int most = hopper::max_tiles(capacity, E) * ((N + QBN - 1) / QBN);
+  const int most =
+      hopper::max_tiles(capacity, E, tile_rows) * ((N + QBN - 1) / QBN);
   const int grid = most < moe_num_sms() ? most : moe_num_sms();
   auto* kernel = fwd_quant_kernel<FUSED, FMT>;
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -21,6 +21,7 @@ import torch
 from repro_torch.scheduling import (BlockSchedule, build_schedule,
                                     combine_scale_rows,
                                     policy_config_kwargs, schedule_stats)
+from repro_torch.tuning.cache import dtype_name, lookup_block_sizes
 
 
 class DispatchPlan(NamedTuple):
@@ -50,8 +51,25 @@ def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg):
     return {"lb_loss": lb, "router_z": z}
 
 
-def plan_schedule(indices: torch.Tensor, cfg) -> BlockSchedule:
+def plan_schedule(indices: torch.Tensor, cfg,
+                  dtype: Optional[torch.dtype] = None) -> BlockSchedule:
+    """The configured policy's schedule for this batch's routing.
+
+    Under ``cfg.autotune`` a policy consuming ``block_m_min`` (the dynamic
+    policy's sub-block floor) gets it from a swept ``sub_block`` record
+    for this routing shape, when one exists, as the reference's
+    ``plan_schedule`` does.  The key's M is the routed rows T·k, and its
+    dtype the activations' (``dtype``; float32 when None, the only dtype
+    the reference's lookup reads: ROADMAP C9)."""
     kw = policy_config_kwargs(cfg.schedule_policy, cfg)
+    if cfg.autotune and "block_m_min" in kw:
+        rec = lookup_block_sizes(
+            "sub_block", M=indices.numel(), K=cfg.block_m, N=0,
+            E=cfg.n_experts,
+            dtype="float32" if dtype is None else dtype_name(dtype),
+            executor=cfg.executor)
+        if rec is not None and "block_m_min" in rec:
+            kw["block_m_min"] = int(rec["block_m_min"])
     return build_schedule(indices, cfg.n_experts, cfg.block_m,
                           policy=cfg.schedule_policy, **kw)
 
@@ -159,7 +177,7 @@ def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
     aux = router_aux_losses(logits, indices, cfg)
-    sched = plan_schedule(indices, cfg)
+    sched = plan_schedule(indices, cfg, x.dtype)
     combine = combine_scale_rows(sched, weights) if cfg.fold_combine else None
     if cfg.emit_stats:
         aux.update({f"sched/{k}": v for k, v

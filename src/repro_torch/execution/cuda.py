@@ -12,6 +12,9 @@ Quantized expert weights pass through ``prepare_weights`` untouched: the
 GEMM kernels take the compressed payload and its per-channel scales and
 dequantize each weight tile on chip, so no dense stack is ever built.
 
+``cfg.autotune`` makes every B1 and B2 call, the unfused arm's too, run the
+tune cache's tile shape for its shape key (``ops.grouped_gemm``).
+
 Each phase goes through ``kernels.autograd``: where an input needs a
 gradient (training), the backward runs on the kernels as well (B1 with its
 weight read transposed for dX, B7 for every expert weight gradient);
@@ -39,14 +42,17 @@ class CudaExecutor(Executor):
         return ag.permute(x, sched)
 
     def expert_ffn(self, xp, w, sched, cfg, row_scale=None):
+        at = cfg.autotune
         if cfg.fuse_gate_up:
-            h = ag.fused_gate_up(xp, w["w_gate"], w["w_up"], sched)
+            h = ag.fused_gate_up(xp, w["w_gate"], w["w_up"], sched,
+                                 autotune=at)
         else:
-            g = ag.grouped_gemm(xp, w["w_gate"], sched)
-            u = ag.grouped_gemm(xp, w["w_up"], sched)
+            g = ag.grouped_gemm(xp, w["w_gate"], sched, autotune=at)
+            u = ag.grouped_gemm(xp, w["w_up"], sched, autotune=at)
             gf = g.float()
             h = ((gf * torch.sigmoid(gf)) * u.float()).to(xp.dtype)
-        return ag.grouped_gemm(h, w["w_down"], sched, row_scale=row_scale)
+        return ag.grouped_gemm(h, w["w_down"], sched, row_scale=row_scale,
+                               autotune=at)
 
     def unpermute(self, y, sched, weights, cfg):
         return ag.unpermute(y, sched, weights)

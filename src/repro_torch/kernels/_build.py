@@ -51,11 +51,11 @@ _SIGNATURES = {
     "moe_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "moe_permute": [_P, _P, _P, _I, _I, _P],
     "moe_unpermute": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "moe_grouped_gemm": [_P] * 9 + [_I] * 9 + [_P],
-    "moe_fused_gate_up": [_P] * 10 + [_I] * 9 + [_P],
+    "moe_grouped_gemm": [_P] * 9 + [_I] * 9 + [_P, _I, _I],
+    "moe_fused_gate_up": [_P] * 10 + [_I] * 9 + [_P, _I, _I],
     "moe_grouped_gemm_t": [_P] * 7 + [_I] * 6 + [_P],
     "moe_grouped_wgrad": [_P] * 7 + [_I] * 7 + [_P],
-    "moe_expert_tiles": [_P] * 4 + [_I] * 3 + [_P],
+    "moe_expert_tiles": [_P] * 4 + [_I] * 3 + [_P, _I],
     "moe_paged_attention": [_P] * 9 + [_F] + [_I] * 13 + [_F, _I, _P],
     "moe_paged_attention_mla": [_P] * 10 + [_F] + [_I] * 13 + [_F, _I, _P],
     "moe_launch_floor": [_P],

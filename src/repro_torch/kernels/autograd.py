@@ -18,6 +18,11 @@ kernel and whose backward is built from the kernels too.
   ``dg = dh u silu'(g)`` and ``du = dh silu(g)`` in fp32; ``dWg = B7(x,
   dg)``, ``dWu = B7(x, du)``, ``dx = B1^T(dg, Wg) + B1^T(du, Wu)``.
 
+``autotune`` (B1 and B2) picks the forward's tile shape from the tune
+cache; the backward's kernels run at their own tiles and build their own
+work lists (B1^T and B7 at 256 rows), so a tuned forward hands them
+nothing cut at another row tile.
+
 Each wrapper below calls ``ops`` directly when no input needs a gradient
 (under ``torch.no_grad``, or with frozen weights), so serving launches
 exactly what it launched before.  Quantized expert stacks have no
@@ -131,10 +136,11 @@ class _Unpermute(torch.autograd.Function):
 
 class _GroupedGemm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, row_scale, sched):
+    def forward(ctx, x, w, row_scale, sched, autotune):
         ctx.sched = sched
         ctx.save_for_backward(x, w, row_scale)
-        return ops.grouped_gemm(x, w, sched, row_scale=row_scale)
+        return ops.grouped_gemm(x, w, sched, row_scale=row_scale,
+                                autotune=autotune)
 
     @staticmethod
     def backward(ctx, dout):
@@ -156,15 +162,15 @@ class _GroupedGemm(torch.autograd.Function):
                 else (dout.float() * rs[:, None]).to(dout.dtype)
             dw = ops.grouped_wgrad(x, dy, sched, w.shape[0],
                                    out_dtype=w.dtype)
-        return dx, dw, drs, None
+        return dx, dw, drs, None, None
 
 
 class _FusedGateUp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w_gate, w_up, sched):
+    def forward(ctx, x, w_gate, w_up, sched, autotune):
         ctx.sched = sched
         ctx.save_for_backward(x, w_gate, w_up)
-        return ops.fused_gate_up(x, w_gate, w_up, sched)
+        return ops.fused_gate_up(x, w_gate, w_up, sched, autotune=autotune)
 
     @staticmethod
     def backward(ctx, dh):
@@ -186,7 +192,7 @@ class _FusedGateUp(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             dwu = ops.grouped_wgrad(x, du, sched, wu.shape[0],
                                     out_dtype=wu.dtype)
-        return dx, dwg, dwu, None
+        return dx, dwg, dwu, None, None
 
 
 def router_topk(logits: torch.Tensor, *, top_k: int, gating: str = "softmax",
@@ -211,16 +217,18 @@ def unpermute(y: torch.Tensor, sched: BlockSchedule,
 
 
 def grouped_gemm(x: torch.Tensor, w, sched: BlockSchedule,
-                 row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_scale: Optional[torch.Tensor] = None, *,
+                 autotune: bool = False) -> torch.Tensor:
     if not _needs_grad(x, w, row_scale):
-        return ops.grouped_gemm(x, w, sched, row_scale=row_scale)
+        return ops.grouped_gemm(x, w, sched, row_scale=row_scale,
+                                autotune=autotune)
     _dense(w)
-    return _GroupedGemm.apply(x, w, row_scale, sched)
+    return _GroupedGemm.apply(x, w, row_scale, sched, autotune)
 
 
-def fused_gate_up(x: torch.Tensor, w_gate, w_up,
-                  sched: BlockSchedule) -> torch.Tensor:
+def fused_gate_up(x: torch.Tensor, w_gate, w_up, sched: BlockSchedule, *,
+                  autotune: bool = False) -> torch.Tensor:
     if not _needs_grad(x, w_gate, w_up):
-        return ops.fused_gate_up(x, w_gate, w_up, sched)
+        return ops.fused_gate_up(x, w_gate, w_up, sched, autotune=autotune)
     _dense(w_gate, w_up)
-    return _FusedGateUp.apply(x, w_gate, w_up, sched)
+    return _FusedGateUp.apply(x, w_gate, w_up, sched, autotune)

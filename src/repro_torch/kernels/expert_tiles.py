@@ -7,12 +7,16 @@ each expert's run of rows and the tiles over those runs.
 * ``runs`` (E, 2) int32: ``[first row, end row)`` of expert e's active
   blocks, from block ``seg_start[e] // block_m`` to the last consecutive
   active block of e; ``[start, start)`` for an expert with none.
-* ``tiles`` (n, 3) int32: ``(e, row0, rows)``, the ``TILE_ROWS``-row slices
-  of each run in expert order, then ``(-1, row0, rows)`` slices of every
-  span of rows that no run covers, in row order (the kernels store zeros
-  there).  Every row of the schedule is in exactly one tile and no tile
-  spans two experts or two spans; ``n`` is at most
-  ``max_tiles(capacity, E)``.
+* ``tiles`` (n, 3) int32: ``(e, row0, rows)``, the ``tile_rows``-row
+  slices of each run in expert order, then ``(-1, row0, rows)`` slices of
+  every span of rows that no run covers, in row order (the kernels store
+  zeros there).  Every row of the schedule is in exactly one tile and no
+  tile spans two experts or two spans; ``n`` is at most
+  ``max_tiles(capacity, E, tile_rows)``.
+
+``tile_rows`` is ``TILE_ROWS`` (256) for the backward's B7 and B1^T, which
+build their own lists, and the row tile chosen for the forward's B1 and B2
+(256 or 128, ``grouped_gemm.TILE_SHAPES``).
 
 The schedule's contract (every ported policy): each expert's active blocks
 are one run starting at block ``seg_start[e] // block_m``, and the runs are
@@ -30,17 +34,18 @@ TILE_ROWS = 256          # hopper_gemm.cuh TILE_ROWS
 MAX_EXPERTS = 1024       # one thread of expert_tiles_kernel per expert
 
 
-def max_tiles(capacity: int, n_experts: int) -> int:
+def max_tiles(capacity: int, n_experts: int,
+              tile_rows: int = TILE_ROWS) -> int:
     """The most tiles a schedule of ``capacity`` rows can give
     (hopper_gemm.cuh ``max_tiles``): the runs and the uncovered spans are
     at most 2E + 1 disjoint spans of ``capacity`` rows, and n spans take at
-    most ``ceil(capacity / TILE_ROWS) + n - 1`` tiles."""
-    return -(-capacity // TILE_ROWS) + 2 * n_experts
+    most ``ceil(capacity / tile_rows) + n - 1`` tiles."""
+    return -(-capacity // tile_rows) + 2 * n_experts
 
 
 def expert_tiles_plain(seg_start: torch.Tensor, block_expert: torch.Tensor,
                        block_active: torch.Tensor, *, block_m: int,
-                       capacity: int):
+                       capacity: int, tile_rows: int = TILE_ROWS):
     """(runs (E, 2), tiles (n, 3)) int32, as the kernel builds them."""
     E, nb = seg_start.numel(), block_expert.numel()
     be = block_expert.long()
@@ -61,37 +66,40 @@ def expert_tiles_plain(seg_start: torch.Tensor, block_expert: torch.Tensor,
     runs = torch.stack([start, end], 1).to(torch.int32)
     tiles = []
     for e, (s, t) in enumerate(runs.tolist()):
-        tiles += [(e, r, min(TILE_ROWS, t - r))
-                  for r in range(s, t, TILE_ROWS)]
+        tiles += [(e, r, min(tile_rows, t - r))
+                  for r in range(s, t, tile_rows)]
     # the spans no run covers: the gaps between the runs in row order
     lo = 0
     for s, t in sorted((s, t) for s, t in runs.tolist() if t > s) \
             + [(capacity, capacity)]:
-        tiles += [(-1, r, min(TILE_ROWS, s - r))
-                  for r in range(lo, s, TILE_ROWS)]
+        tiles += [(-1, r, min(tile_rows, s - r))
+                  for r in range(lo, s, tile_rows)]
         lo = t
-    tiles = tiles[:max_tiles(capacity, E)]      # the kernel's clamp
+    tiles = tiles[:max_tiles(capacity, E, tile_rows)]   # the kernel's clamp
     return runs, torch.tensor(tiles, dtype=torch.int32).reshape(-1, 3)
 
 
-def scratch(capacity: int, n_experts: int, device) -> torch.Tensor:
+def scratch(capacity: int, n_experts: int, device,
+            tile_rows: int = TILE_ROWS) -> torch.Tensor:
     """The kernels' int32 scratch for the lists (hopper_gemm.cuh
     ``work_lists``: the tiles as int4, the runs as int2, the count)."""
     _build.require(0 < n_experts <= MAX_EXPERTS,
                    f"the Hopper GEMMs take 1 to {MAX_EXPERTS} "
                    f"experts, not {n_experts}")
-    words = 4 * max_tiles(capacity, n_experts) + 2 * n_experts + 4
+    words = 4 * max_tiles(capacity, n_experts, tile_rows) + 2 * n_experts + 4
     return torch.empty(words, dtype=torch.int32, device=device)
 
 
 def expert_tiles(seg_start: torch.Tensor, block_expert: torch.Tensor,
-                 block_active: torch.Tensor, *, block_m: int, capacity: int):
+                 block_active: torch.Tensor, *, block_m: int, capacity: int,
+                 tile_rows: int = TILE_ROWS):
     """CPU tensors run the plain version; CUDA tensors the kernel, whose
     lists are read back (the count on the host: for the tests, never on
     the training path, where the GEMMs read the lists on the device)."""
     if not _build.on_cuda(seg_start, block_expert, block_active):
         return expert_tiles_plain(seg_start, block_expert, block_active,
-                                  block_m=block_m, capacity=capacity)
+                                  block_m=block_m, capacity=capacity,
+                                  tile_rows=tile_rows)
     E = seg_start.numel()
     nb = capacity // block_m
     for t, n in ((block_expert, nb), (block_active, nb), (seg_start, E)):
@@ -99,14 +107,14 @@ def expert_tiles(seg_start: torch.Tensor, block_expert: torch.Tensor,
                        and t.is_contiguous(),
                        f"expert_tiles takes contiguous int32 schedule "
                        f"arrays ({n},)")
-    buf = scratch(capacity, E, seg_start.device)
+    buf = scratch(capacity, E, seg_start.device, tile_rows)
     lib = _build.library()
     err = lib.moe_expert_tiles(seg_start.data_ptr(), block_expert.data_ptr(),
                                block_active.data_ptr(), buf.data_ptr(),
                                capacity, E, block_m,
-                               _build.stream_ptr(seg_start.device))
+                               _build.stream_ptr(seg_start.device), tile_rows)
     _build.check(err, "expert_tiles")
-    nt = max_tiles(capacity, E)
+    nt = max_tiles(capacity, E, tile_rows)
     count = int(buf[4 * nt + 2 * E])
     runs = buf[4 * nt:4 * nt + 2 * E].reshape(E, 2)
     tiles = buf[:4 * nt].reshape(nt, 4)[:count, :3]

@@ -4,7 +4,10 @@
 schedule block, zeros for inactive blocks.  Weight formats as in
 ``grouped_gemm``: both operands in one format, with ``wg_scale`` and
 ``wu_scale`` for int8 and int4.  In bf16 a CUDA call needs the
-schedule's ``seg_start``, as ``grouped_gemm``'s does."""
+schedule's ``seg_start``, as ``grouped_gemm``'s does, and takes a tile
+shape from ``grouped_gemm.TILE_SHAPES`` (``block_n`` counts output
+columns: a dense item multiplies 2 ``block_n`` product columns, gate's and
+up's)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,8 +17,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.grouped_gemm import (_block_products, _ptr,
                                               check_gemm_operands,
-                                              launch_key, scale_args,
-                                              work_list_args)
+                                              launch_key, resolve_tile,
+                                              scale_args, work_list_args)
 
 
 def fused_gate_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
@@ -38,10 +41,15 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   block_m: int, wg_scale: Optional[torch.Tensor] = None,
                   wu_scale: Optional[torch.Tensor] = None,
                   w_format: str = "dense",
-                  seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """CPU tensors run the plain version (``seg_start`` unused); CUDA
-    tensors the kernel, which in bf16 needs the schedule's
-    ``seg_start``."""
+                  seg_start: Optional[torch.Tensor] = None,
+                  tile_rows: Optional[int] = None,
+                  block_n: Optional[int] = None) -> torch.Tensor:
+    """CPU tensors run the plain version (``seg_start`` and the tile shape
+    unused, the shape checked all the same); CUDA tensors the kernel, which
+    in bf16 needs the schedule's ``seg_start`` and runs at ``(tile_rows,
+    block_n)`` (None: the default)."""
+    tile = resolve_tile("fused_gate_up", w_format, x.dtype, tile_rows,
+                        block_n)
     if not _build.on_cuda(x, w_gate, w_up, block_expert, block_active,
                           wg_scale, wu_scale, seg_start):
         return fused_gate_up_plain(x, w_gate, w_up, block_expert,
@@ -54,7 +62,7 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         x, [w_gate, w_up], block_expert, block_active, block_m, w_format,
         scales)
     seg, buf = work_list_args(x, [w_gate, w_up], seg_start,
-                              "fused_gate_up")
+                              "fused_gate_up", tile[0])
     lib = _build.library()
     out = torch.empty((cap, F), dtype=x.dtype, device=x.device)
     _, s_e, s_n = scale_args(scales)
@@ -64,7 +72,7 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         None if scales is None else wu_scale.data_ptr(), _ptr(seg),
         block_expert.data_ptr(), block_active.data_ptr(), _ptr(buf),
         out.data_ptr(), cap, K, F, w_gate.shape[0], block_m, code, fmt, s_e,
-        s_n, _build.stream_ptr(x.device))
+        s_n, _build.stream_ptr(x.device), *tile)
     key = launch_key("fused_gate_up", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1

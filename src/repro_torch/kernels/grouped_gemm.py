@@ -15,7 +15,16 @@ dtype), ``"int8"`` (w an (E, K, N) int8 payload) and ``"int4"`` (w an
 (E, N) f32 per-channel scales ``w_scale``.  Each gathered weight block is
 dequantized as ``dequant_weight_block`` does: ``(q.float() * s).to(x's
 dtype)``, so the kernel and the plain version differ only in the order of
-summation."""
+summation.
+
+Tile shapes.  The bf16 Hopper kernels take their tile shape, ``(tile_rows,
+block_n)`` (rows of an expert's run a work item covers, output columns an
+item), per call from the instantiated set ``TILE_SHAPES`` (the first of
+each is the default, the shape the kernels had before they took one); any
+other shape raises, on the CPU too.  No shape splits K, so the tile shape
+does not change the function: the plain versions ignore it.  fp32 runs one
+tile of its own (``csrc/grouped_gemm.cuh``), which reads neither, and takes
+the default alone."""
 from __future__ import annotations
 
 from typing import Optional
@@ -27,6 +36,42 @@ from repro_torch.kernels import expert_tiles as _tiles
 from repro_torch.quantization.schemes import unpack_int4
 
 W_FORMATS = ("dense", "int8", "int4")
+
+# (kernel, weight format) -> the bf16 kernels' instantiated tile shapes
+# (tile_rows, block_n), the default first: csrc/grouped_gemm_hopper.cuh's
+# launch_hopper_shape on dense weights; on int8/int4 the work lists' row
+# tile at grouped_gemm_hopper_quant.cuh's QBN = 128 columns
+TILE_SHAPES = {
+    ("grouped_gemm", "dense"): ((256, 128), (256, 64), (128, 128),
+                                (128, 256)),
+    ("fused_gate_up", "dense"): ((256, 64), (128, 64), (128, 128)),
+}
+for _k in ("grouped_gemm", "fused_gate_up"):
+    for _f in ("int8", "int4"):
+        TILE_SHAPES[_k, _f] = ((256, 128), (128, 128))
+
+
+def tile_shapes(kernel: str, w_format: str, dtype) -> tuple:
+    """The tile shapes ``kernel`` takes in ``w_format`` and ``dtype``: the
+    instantiated set in bf16, the default alone in fp32."""
+    shapes = TILE_SHAPES.get((kernel, w_format))
+    _build.require(shapes is not None,
+                   f"grouped GEMM weight format {w_format!r} not in "
+                   f"{W_FORMATS}")
+    return shapes if dtype == torch.bfloat16 else shapes[:1]
+
+
+def resolve_tile(kernel: str, w_format: str, dtype,
+                 tile_rows: Optional[int], block_n: Optional[int]):
+    """(tile_rows, block_n) with None taken from the default; raises on a
+    shape outside ``tile_shapes``."""
+    shapes = tile_shapes(kernel, w_format, dtype)
+    shape = (shapes[0][0] if tile_rows is None else int(tile_rows),
+             shapes[0][1] if block_n is None else int(block_n))
+    _build.require(shape in shapes,
+                   f"{kernel} ({w_format}, {dtype}) takes the tile shapes "
+                   f"(tile_rows, block_n) {list(shapes)}, not {shape}")
+    return shape
 
 
 def launch_key(kernel: str, w_format: str) -> str:
@@ -172,10 +217,12 @@ def check_gemm_operands(x, ws, block_expert, block_active, block_m,
     return code, cap, K, N, W_FORMATS.index(w_format)
 
 
-def work_list_args(x, ws, seg_start, kernel: str):
+def work_list_args(x, ws, seg_start, kernel: str,
+                   tile_rows: int = _tiles.TILE_ROWS):
     """(seg_start, scratch) for the C call when a Hopper kernel runs (bf16,
     on dense, int8 or int4 weights ``ws``): the schedule's seg_start, from
-    which it finds each expert's run, and the work lists' scratch.  It
+    which it finds each expert's run, and the work lists' scratch (for
+    tiles of ``tile_rows`` rows).  It
     refuses a call without seg_start, or with x or a weight (or payload)
     off a 16-byte boundary (TMA).  (None, None) in fp32, which reads
     neither."""
@@ -190,7 +237,7 @@ def work_list_args(x, ws, seg_start, kernel: str):
                    f"{kernel} takes a contiguous int32 ({E},) seg_start")
     _build.require(_build.aligned(x, *ws),
                    f"{kernel} takes x and the weights on 16-byte boundaries")
-    return seg_start, _tiles.scratch(x.shape[0], E, x.device)
+    return seg_start, _tiles.scratch(x.shape[0], E, x.device, tile_rows)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -211,10 +258,15 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                  row_scale: Optional[torch.Tensor] = None,
                  w_scale: Optional[torch.Tensor] = None,
                  w_format: str = "dense",
-                 seg_start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """CPU tensors run the plain version (``seg_start`` unused); CUDA
-    tensors the kernel, which in bf16 needs the schedule's
-    ``seg_start``."""
+                 seg_start: Optional[torch.Tensor] = None,
+                 tile_rows: Optional[int] = None,
+                 block_n: Optional[int] = None) -> torch.Tensor:
+    """CPU tensors run the plain version (``seg_start`` and the tile shape
+    unused, the shape checked all the same); CUDA tensors the kernel, which
+    in bf16 needs the schedule's ``seg_start`` and runs at ``(tile_rows,
+    block_n)`` (None: the default, ``TILE_SHAPES``)."""
+    tile = resolve_tile("grouped_gemm", w_format, x.dtype, tile_rows,
+                        block_n)
     if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
                           w_scale, seg_start):
         return grouped_gemm_plain(x, w, block_expert, block_active,
@@ -229,7 +281,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                        and row_scale.is_contiguous(),
                        f"grouped GEMM takes a contiguous float32 ({cap},) "
                        "row_scale")
-    seg, buf = work_list_args(x, [w], seg_start, "grouped_gemm")
+    seg, buf = work_list_args(x, [w], seg_start, "grouped_gemm", tile[0])
     lib = _build.library()
     out = torch.empty((cap, N), dtype=x.dtype, device=x.device)
     s_ptr, s_e, s_n = scale_args(scales)
@@ -237,7 +289,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         x.data_ptr(), w.data_ptr(), s_ptr, _ptr(seg),
         block_expert.data_ptr(), block_active.data_ptr(), _ptr(row_scale),
         _ptr(buf), out.data_ptr(), cap, K, N, w.shape[0], block_m, code, fmt,
-        s_e, s_n, _build.stream_ptr(x.device))
+        s_e, s_n, _build.stream_ptr(x.device), *tile)
     key = launch_key("grouped_gemm", w_format)
     _build.check(err, key)
     _build.LAUNCHES[key] += 1

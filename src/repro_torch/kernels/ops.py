@@ -10,7 +10,14 @@ into the payload, its (E, N) channel scales and the kernel's weight format.
 
 ``LAUNCHES`` holds one launch counter per kernel, the paged-attention
 kernel's too (the wrappers increment it where they launch);
-``reset_launches`` sets them all to 0."""
+``reset_launches`` sets them all to 0.
+
+``grouped_gemm`` and ``fused_gate_up`` take ``autotune``: True looks up
+this call's shape key in the tune cache (``repro_torch.tuning``) and runs
+the kernel at the recorded tile shape; a miss keeps the default.  The key's
+M is the routed rows T·k, ``sched.pos.numel()``, which the host knows
+without a sync (the reference keys its lookup on the schedule's capacity,
+which its sweeps never record: ROADMAP C9)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,9 +33,20 @@ from repro_torch.kernels import router_topk as _router
 from repro_torch.kernels import unpermute as _unperm
 from repro_torch.quantization import QuantTensor, get_scheme
 from repro_torch.scheduling import BlockSchedule
+from repro_torch.tuning.cache import dtype_name, lookup_block_sizes
 
 LAUNCHES = _build.LAUNCHES
 reset_launches = _build.reset_launches
+
+def _tuned_tile(kernel: str, x: torch.Tensor, sched: BlockSchedule, K: int,
+                N: int, E: int, fmt: str):
+    """(tile_rows, block_n) of this call's shape key's record, or (None,
+    None) on a miss (the kernel's default)."""
+    rec = lookup_block_sizes(kernel, M=sched.pos.numel(), K=K, N=N, E=E,
+                             dtype=dtype_name(x.dtype), scheme=fmt)
+    if rec is None:
+        return None, None
+    return rec["block_m"], rec["block_n"]
 
 
 def router_topk(logits: torch.Tensor, *, top_k: int, gating: str = "softmax",
@@ -63,28 +81,43 @@ def _weight_operands(w):
 
 
 def grouped_gemm(x: torch.Tensor, w, sched: BlockSchedule,
-                 row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``w``: an (E, K, N) tensor or a QuantTensor (in-kernel dequant)."""
+                 row_scale: Optional[torch.Tensor] = None, *,
+                 autotune: bool = False) -> torch.Tensor:
+    """``w``: an (E, K, N) tensor or a QuantTensor (in-kernel dequant).
+    ``autotune`` runs the tune cache's tile shape for this call's key."""
     wq, ws, fmt = _weight_operands(w)
+    tile_rows = block_n = None
+    if autotune:
+        K, N = x.shape[1], wq.shape[-1]
+        tile_rows, block_n = _tuned_tile("grouped_gemm", x, sched, K, N,
+                                         wq.shape[0], fmt)
     return _gg.grouped_gemm(x, wq, sched.block_expert, sched.block_active,
                             block_m=sched.block_m, row_scale=row_scale,
                             w_scale=ws, w_format=fmt,
-                            seg_start=sched.seg_start)
+                            seg_start=sched.seg_start, tile_rows=tile_rows,
+                            block_n=block_n)
 
 
 def fused_gate_up(x: torch.Tensor, w_gate, w_up,
-                  sched: BlockSchedule) -> torch.Tensor:
+                  sched: BlockSchedule, *,
+                  autotune: bool = False) -> torch.Tensor:
     """``w_gate``/``w_up``: (E, K, F) tensors or QuantTensors under one
-    scheme."""
+    scheme.  ``autotune`` as in ``grouped_gemm``."""
     wgq, wsg, fmt = _weight_operands(w_gate)
     wuq, wsu, fmt_u = _weight_operands(w_up)
     if fmt != fmt_u:
         raise ValueError(f"fused_gate_up takes both weights in one format, "
                          f"not {fmt!r} and {fmt_u!r}")
+    tile_rows = block_n = None
+    if autotune:
+        K, F = x.shape[1], wgq.shape[-1]
+        tile_rows, block_n = _tuned_tile("fused_gate_up", x, sched, K, F,
+                                         wgq.shape[0], fmt)
     return _fgu.fused_gate_up(x, wgq, wuq, sched.block_expert,
                               sched.block_active, block_m=sched.block_m,
                               wg_scale=wsg, wu_scale=wsu, w_format=fmt,
-                              seg_start=sched.seg_start)
+                              seg_start=sched.seg_start, tile_rows=tile_rows,
+                              block_n=block_n)
 
 
 def _seg_start(sched: BlockSchedule, kernel: str) -> torch.Tensor:

@@ -107,6 +107,12 @@ def main(argv=None):
                          "gather + attention")
     ap.add_argument("--quant", default=None, choices=available_schemes(),
                     help="expert-weight quantization scheme (default: none)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run B1/B2 at the tune cache's tile shapes and the "
+                         "dynamic policy at its swept floor (the packaged "
+                         "H100 cache overlaid by $REPRO_TORCH_TUNE_CACHE or "
+                         "results/tuning/cache_torch.json) instead of the "
+                         "default tiles")
     ap.add_argument("--quant-experts", action="store_true",
                     help="DEPRECATED: alias for --quant int8_expert")
     ap.add_argument("--admission", default="fcfs",
@@ -202,7 +208,7 @@ def main(argv=None):
         capacity = max(len(e.prompt) for e in trace) + args.max_new + 1
     rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
                    paged_attn=args.paged_attn, quant=quant,
-                   moe_stats=bool(cfg.is_moe))
+                   moe_stats=bool(cfg.is_moe), autotune=args.autotune)
     clock = None
     if args.loadgen:
         clock, obs = make_virtual_obs(enabled=True)

@@ -67,6 +67,9 @@ class RunConfig(NamedTuple):
     quant: str = "none"              # expert-weight QuantScheme for serving
                                      # (repro_torch.quantization registry;
                                      # the engine quantizes at load)
+    autotune: bool = False           # B1/B2 tile shapes and the dynamic
+                                     # floor from the tune cache
+                                     # (repro_torch.tuning), per shape key
     paged_attn: str = "auto"         # paged decode read path:
                                      # auto   = fused kernel iff the executor
                                      #          is cuda (which raises on a
@@ -350,7 +353,8 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                                schedule_policy=rc.schedule_policy,
                                capacity_factor=rc.capacity_factor,
                                block_m_min=rc.block_m_min,
-                               emit_stats=rc.moe_stats)
+                               emit_stats=rc.moe_stats,
+                               autotune=rc.autotune)
         o, aux = apply_moe(blk.moe.params(), h, dcfg)
     else:
         o = blk.ffn(h)

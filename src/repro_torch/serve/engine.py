@@ -679,6 +679,7 @@ class ServeEngine:
              "quant": self.rc.quant, "kv_block_size": self.kv_block_size,
              "prefill_chunk": self.prefill_chunk if self.paged else 0,
              "paged_attn": self.rc.paged_attn,
+             "autotune": self.rc.autotune,
              "sampling": self.sampling.method,
              "temperature": self.sampling.temperature,
              "sampling_seed": self.sampling.seed}

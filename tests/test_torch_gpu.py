@@ -1054,6 +1054,111 @@ def test_quantized_gemms_tiling_match_plain(cuda, scheme, policy, M, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("policy,M", TILE_SHAPES)
+@pytest.mark.parametrize("scheme", ["none", "int8_channel", "int4_packed"])
+def test_every_tile_shape_is_bitwise_the_default(cuda, scheme, policy, M):
+    """Every tile shape B1 (a distinct row_scale per row) and B2 take in
+    bf16 (``TILE_SHAPES`` of grouped_gemm.py), at K=176, N=192 and runs of
+    0-300 rows (slices of 128 and 256 rows, zero tiles): bitwise the
+    default shape's output, since no shape splits K; within TOL of the
+    plain version; every element written (NaN-poisoned allocator); the
+    work lists at 128 rows equal to the plain version's; a shape outside
+    the set raises."""
+    from repro_torch.kernels import expert_tiles as et
+    from repro_torch.kernels.grouped_gemm import TILE_SHAPES as SHAPES
+    from repro_torch.quantization import get_scheme
+    K, N = 176, 192
+    sched, x, w, wg, wu, rs = forward_pair(cuda, K, N, torch.bfloat16,
+                                           policy, M)
+    if scheme != "none":
+        w, wg, wu = (get_scheme(scheme).quantize(t) for t in (w, wg, wu))
+    (q, s, fmt), (qg, sg, _), (qu, su, _) = (
+        ops._weight_operands(t) for t in (w, wg, wu))
+    arrays = (sched.block_expert, sched.block_active)
+    kw = dict(block_m=sched.block_m, seg_start=sched.seg_start,
+              w_format=fmt)
+    calls = {
+        "grouped_gemm": (
+            lambda tile: ops._gg.grouped_gemm(
+                x, q, *arrays, row_scale=rs, w_scale=s, tile_rows=tile[0],
+                block_n=tile[1], **kw),
+            lambda: ref.grouped_gemm_ref(x, w, sched, rs)),
+        "fused_gate_up": (
+            lambda tile: ops._fgu.fused_gate_up(
+                x, qg, qu, *arrays, wg_scale=sg, wu_scale=su,
+                tile_rows=tile[0], block_n=tile[1], **kw),
+            lambda: ref.fused_gate_up_ref(x, wg, wu, sched))}
+    for name, (kern, plain) in calls.items():
+        shapes = SHAPES[name, fmt]
+        want = plain()
+        outs = []
+        for tile in shapes:
+            junk = torch.full((sched.capacity * N,), float("nan"),
+                              device=cuda, dtype=torch.bfloat16)
+            del junk
+            outs.append(kern(tile))
+        torch.cuda.synchronize()
+        for tile, out in zip(shapes, outs):
+            assert not torch.isnan(out).any(), (name, tile)
+            assert torch.equal(out, outs[0]), (name, tile)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **TOL["bfloat16"])
+        with pytest.raises(ValueError, match="tile shapes"):
+            kern((64, 128))
+    args = (sched.seg_start, sched.block_expert, sched.block_active)
+    lkw = dict(block_m=sched.block_m, capacity=sched.capacity, tile_rows=128)
+    runs, tiles = et.expert_tiles(*args, **lkw)
+    runs_p, tiles_p = et.expert_tiles_plain(*(a.cpu() for a in args), **lkw)
+    assert torch.equal(runs.cpu(), runs_p)
+    assert torch.equal(tiles.cpu(), tiles_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fixed", "dynamic"])
+def test_autotuned_moe_ffn_runs_the_cached_tile(cuda, policy, tmp_path,
+                                                monkeypatch):
+    """``autotune=True`` with a cache that names a non-default tile for
+    this call's keys: the same output bitwise as the default tiles, one
+    launch of each kernel, every lookup a hit, no host sync."""
+    from repro_torch import tuning
+    T, E, k, d, f = 64, 16, 4, 256, 192
+    logits, x, wg, wu, wd = layer(cuda, T, E, k, d, f, torch.bfloat16)
+    router = torch.randn((d, E), device=cuda)
+    c = tuning.TuneCache(device="test")
+    key = dict(M=T * k, E=E, dtype="bfloat16")
+    c.put(tuning.make_key("fused_gate_up", K=d, N=f, **key), block_m=128,
+          block_n=128, block_k=64)
+    c.put(tuning.make_key("grouped_gemm", K=f, N=d, **key), block_m=128,
+          block_n=256, block_k=64)
+    c.save(tmp_path / "cache.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "cache.json"))
+    tuning.reset_cache()
+    try:
+        cfg = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                                schedule_policy=policy)
+        y0, _ = moe_ffn(x, router, wg, wu, wd, cfg)
+        moe_ffn(x, router, wg, wu, wd, cfg._replace(autotune=True))
+        torch.cuda.synchronize()
+        tuning.reset_stats()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y1, _ = moe_ffn(x, router, wg, wu, wd,
+                            cfg._replace(autotune=True))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.equal(y0, y1)
+        assert ops.LAUNCHES["fused_gate_up"] == 1
+        assert ops.LAUNCHES["grouped_gemm"] == 1
+        # the two GEMMs, and the dynamic floor's sub_block key (a miss)
+        assert tuning.STATS["hits"] == 2
+        assert tuning.STATS["lookups"] == (3 if policy == "dynamic" else 2)
+    finally:
+        tuning.reset_cache()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("scheme", ["int8_expert", "int4_packed"])
 @pytest.mark.parametrize("T", [2, 64])
 def test_quantized_gemms_160_experts_match_plain(cuda, T, scheme):
