@@ -164,7 +164,18 @@ result line):
    loadgen]: seeded poisson and burst traces (16 requests at 8 req/s of
    virtual time) replayed through ``ServingFrontend`` with the clock
    moved by the measured step EWMA: completions, TTFT/TPOT p50/p99,
-   goodput, streamed tokens equal to each request's (``serve_loadgen``);
+   goodput, streamed tokens equal to each request's (``serve_loadgen``).  [ep]:
+   the same model's first 4 layers and requests on 2 ranks sharing the
+   card (gloo, ``spawn_ranks``), 32 of 64 experts each: fp32 greedy
+   tokens equal to the single rank's under the decode layouts
+   ``replicated``, ``sharded`` and ``sharded`` with 2 microbatches;
+   ``apply_moe_ep`` in bf16 at T=2 and 64 in every layout against
+   ``apply_moe`` within 2e-2; ``serve/ep_dropped_tokens`` under
+   ``capacity_factor`` 0.5 (block_m 8) equal to the single rank's summed
+   ``sched/dropped_rows`` and above 0; ``int8_expert`` tokens equal; each
+   rank's launches; decode ms per step against the single rank's, the
+   exchange's rows and bytes a step and each collective's host ms
+   (``serve_ep``);
 6. serving, contiguous + fixed (``kv_block_size=0``): 3 requests as before
    the paged engine existed, with the same launch, logits and profile
    checks;
@@ -404,6 +415,27 @@ QUANT_SCHEMES = ("int8_expert", "int8_channel", "int4_packed")
 QUANT_SHAPES = (("fixed", 2), ("dynamic", 2), ("fixed", 64), ("dynamic", 64))
 # the scheme that stands for each format in the kernel report
 REPORT_SCHEME = {"int8": "int8_expert", "int4": "int4_packed"}
+# [ep]: ranks sharing the card (gloo); the fp32 token arms' RunConfig
+# overrides (every paged step is a decode step, so the decode layout is the
+# layout of every MoE layer); the MoE layer held in bf16 at these T; the
+# drop check's capacity_factor headroom, requests (prompt tokens, max_new),
+# prefill chunk and dispatch block.  Its buckets are rounded up to block_m,
+# so at moonshot's 128 no serving step of a few dozen rows ever fills one:
+# the check runs the dispatch at the dynamic policy's 8-row blocks, and
+# request 0 retires in the step that carries request 1's second chunk of
+# 64 prompt rows, whose buckets of 8 rows overflow
+EP_RANKS = 2
+EP_ARMS = {"replicated": dict(ep_decode_layout="replicated"),
+           "sharded": dict(ep_decode_layout="sharded"),
+           "overlap2": dict(ep_decode_layout="sharded", ep_overlap=True,
+                            ep_microbatches=2)}
+EP_TIMED_ARMS = ("replicated", "sharded")
+EP_LAYER_TS = (2, 64)
+EP_LAYER_LAYOUTS = {"sharded": 0, "sharded_static": 0, "replicated": 0,
+                    "overlap2": 2}
+EP_COLLECTIVE_ITERS = 50
+EP_CF, EP_DROP_REQUESTS, EP_DROP_CHUNK, EP_DROP_BLOCK_M = \
+    0.5, ((8, 2), (200, 2)), 64, 8
 # the Hopper kernels (wgmma + TMA): report name -> the mangled name's stem
 # of each instantiation in the built library (the forward's kernels are
 # templates: FUSED false is B1, true B2; the quantized one's FMT 1 is int8,
@@ -2854,6 +2886,327 @@ def serve_loadgen(cfg, model, paged_kw) -> dict:
     return out
 
 
+def check_overlap_launches(launches: dict, moe: int, attn: int) -> None:
+    """The pipelined EP dispatch: each microbatch of a MoE layer runs B5,
+    B3, B2, B1 and B4 once, so the five counts are equal and at least
+    ``moe``; the GQA kernel ran ``attn`` times."""
+    runs = {launches[k] for k in MOE_KERNELS}
+    if len(runs) != 1 or min(runs) < moe \
+            or launches["paged_attention"] != attn:
+        raise AssertionError(f"[ep] overlap2 launches {launches}")
+
+
+def ep_workload(cfg, model, spec: dict, ep: bool) -> dict:
+    """[ep]'s runs on ``model`` (bf16; with ``ep`` this rank's experts,
+    under the current EP group; else whole): greedy tokens of [serve
+    paged]'s requests on fp32 copies (each of EP_ARMS, or one single-rank
+    arm), the capacity_factor drop run, an int8_expert run, decode ms per
+    step in bf16 (EP_TIMED_ARMS), and one MoE layer in bf16 at EP_LAYER_TS
+    in each layout.  Launches as ``drive`` reads them.  Returns numpy and
+    Python values only (a rank's result is pickled)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import apply_moe_ep
+    from repro_torch.core.moe_layer import apply_moe, dispatch_config
+    from repro_torch.execution import set_plan_hook
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import Request, ServeEngine
+    f32, bf16 = torch.float32, torch.bfloat16
+    paged_kw, cap = spec["paged_kw"], spec["capacity"]
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+
+    def served(eng, reqs, res):
+        if not all(r.done and len(r.out) == r.max_new for r in reqs):
+            raise AssertionError(f"[ep] requests incomplete: "
+                                 f"{[r.out for r in reqs]}")
+        return {"tokens": [list(r.out) for r in reqs],
+                "launches": res["launches"], "forwards": res["forwards"]}
+
+    out = {"fp32": {}, "decode": {}, "layer": {}}
+    dev = model.embed.device
+    paged_kw = {**paged_kw, "device": dev}
+    model32 = copy.deepcopy(model).float()
+    for arm, kw in (EP_ARMS if ep else {"single": {}}).items():
+        rc = RunConfig(compute_dtype=f32, schedule_policy="dynamic", ep=ep,
+                       **kw)
+        eng = ServeEngine(cfg, model32, slots=SERVE_SLOTS, capacity=cap,
+                          rc=rc, **paged_kw)
+        reqs = requests()
+        out["fp32"][arm] = served(eng, reqs, drive(eng, reqs))
+        del eng
+    # capacity_factor: each request's last-step drops and the EP counter
+    cfg_d = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                block_m=EP_DROP_BLOCK_M))
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), max_new=m) for i, (n, m) in enumerate(EP_DROP_REQUESTS)]
+    obs = Observability.memory()
+    eng = ServeEngine(
+        cfg_d, model32, slots=SERVE_SLOTS,
+        capacity=max(n + m for n, m in EP_DROP_REQUESTS) + 1,
+        rc=RunConfig(compute_dtype=f32, schedule_policy="capacity_factor",
+                     capacity_factor=EP_CF, moe_stats=True, ep=ep),
+        obs=obs, kv_block_size=KV_BLOCK, prefill_chunk=EP_DROP_CHUNK,
+        device=dev)
+    eng.run(reqs)
+    set_plan_hook(None)
+    counters = {c["name"]: c["value"]
+                for c in obs.metrics.snapshot()["counters"]}
+    out["drops"] = {"tokens": [list(r.out) for r in reqs],
+                    "dropped_rows": [r.stats["sched/dropped_rows"]
+                                     for r in reqs],
+                    "ep_dropped_tokens": counters.get(
+                        "serve/ep_dropped_tokens")}
+    del eng
+    # int8_expert experts, quantized by the engine at load
+    model_q = copy.deepcopy(model32)
+    del model32
+    eng = ServeEngine(cfg, model_q, slots=SERVE_SLOTS, capacity=cap,
+                      rc=RunConfig(compute_dtype=f32,
+                                   schedule_policy="dynamic",
+                                   quant="int8_expert", ep=ep), **paged_kw)
+    reqs = requests()
+    out["int8"] = served(eng, reqs, drive(eng, reqs))
+    del eng, model_q
+    torch.cuda.empty_cache()
+    if ep:
+        out["collective_ms"] = time_collectives(cfg.d_model, dev)
+    # decode ms per step, bf16, after one warm-up request
+    for arm in (EP_TIMED_ARMS if ep else ("single",)):
+        rc = RunConfig(compute_dtype=bf16, schedule_policy="dynamic", ep=ep,
+                       **EP_ARMS.get(arm, {}))
+        eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=cap,
+                          rc=rc, **paged_kw)
+        eng.run([Request(rid=-1, prompt=prompts[0][:32], max_new=3)])
+        reqs = requests()
+        res = drive(eng, reqs)
+        dec = res["decode_steps"]
+        out["decode"][arm] = {
+            **served(eng, reqs, res), "decode_steps": len(dec),
+            "decode_ms_per_step": 1e3 * float(np.mean(dec)),
+            "decode_ms_per_step_p50": 1e3 * float(np.median(dec))}
+        del eng
+    # one MoE layer in bf16, the served policy, decode rows (T, 1, d)
+    layer = next(b for b in model.layers if b.kind == "moe").moe.params()
+    dcfg = dispatch_config(cfg.moe, executor="cuda",
+                           schedule_policy="dynamic")
+    with torch.no_grad():
+        for T in EP_LAYER_TS:
+            x = torch.from_numpy(np.random.default_rng(T).standard_normal(
+                (T, 1, cfg.d_model)).astype(np.float32)).to(dev, bf16)
+            arms = EP_LAYER_LAYOUTS if ep else {"single": 0}
+            for lay, ov in arms.items():
+                y, _ = (apply_moe_ep(layer, x, dcfg, overlap=ov,
+                                     token_layout=lay.replace("overlap2",
+                                                              "sharded"))
+                        if ep else apply_moe(layer, x, dcfg))
+                out["layer"][f"T{T}/{lay}"] = y.float().cpu().numpy()
+    torch.cuda.synchronize()
+    return out
+
+
+def time_collectives(d: int, dev) -> dict:
+    """Host ms per collective of the current EP group at a decode step's
+    shapes, nothing else running: the output all_reduce of
+    ``replicated`` ((SERVE_SLOTS, d) fp32), a ``sharded`` payload
+    all_to_all ((ep, 8, d) bf16) and its all_gather ((SERVE_SLOTS / ep, 1,
+    d) bf16); the mean of EP_COLLECTIVE_ITERS after 3 warm-up calls, each
+    run ending in a synchronize."""
+    import torch
+    from repro_torch.distributed import current_ep_group
+    g = current_ep_group()
+    probes = {"all_reduce": (g.all_reduce, torch.ones(
+                  (SERVE_SLOTS, d), dtype=torch.float32, device=dev)),
+              "all_to_all": (g.all_to_all, torch.ones(
+                  (g.size, 8, d), dtype=torch.bfloat16, device=dev)),
+              "all_gather": (g.all_gather, torch.ones(
+                  (SERVE_SLOTS // g.size, 1, d), dtype=torch.bfloat16,
+                  device=dev))}
+    out = {}
+    for name, (fn, t) in probes.items():
+        for _ in range(3):
+            fn(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EP_COLLECTIVE_ITERS):
+            fn(t)
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / EP_COLLECTIVE_ITERS
+    return out
+
+
+def ep_rank(group, spec: dict) -> dict:
+    """One [ep] rank: [serve paged]'s model from the same seed at the
+    checked depth, this rank's experts kept, then ``ep_workload``."""
+    import torch
+    from repro_torch.models.lm import init_params
+    from repro_torch.weights import shard_model
+    cfg = spec["cfg"]
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16,
+                        device=group.device)
+    shard_model(model, group.rank, group.size)
+    torch.cuda.empty_cache()
+    out = ep_workload(cfg, model, spec, ep=True)
+    out.update(rank=group.rank, backend=group.backend,
+               device=str(group.device),
+               peak_bytes=torch.cuda.max_memory_allocated(group.device))
+    return out
+
+
+def serve_ep(cfg, model, prompts, capacity, paged_kw) -> dict:
+    """[ep]: [serve paged]'s model (its first CHECK_LAYERS layers) served
+    by EP_RANKS ranks on this one card (gloo), each holding E / EP_RANKS
+    experts per MoE layer, against the single-rank engine on the same
+    weights and requests: greedy fp32 tokens equal under each of EP_ARMS;
+    the MoE layer in bf16 within TOL in every layout at EP_LAYER_TS;
+    ``serve/ep_dropped_tokens`` equal to the single-rank run's summed
+    ``sched/dropped_rows`` and above 0; int8_expert tokens equal; each
+    rank's launches (B5, B3, B2, B1, B4 once per MoE layer per forward, B6
+    once per layer per forward); decode ms per step of each beside the
+    single rank's, the all_to_all rows and bytes per step
+    (``a2a_send_rows``) and the backend.  Two ranks on one card show the
+    transport's cost, not scaling."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import a2a_send_rows
+    from repro_torch.distributed import spawn_ranks
+    from repro_torch.models.lm import n_moe_layers
+    n = min(cfg.n_layers, CHECK_LAYERS)
+    cfg_ep = cfg.replace(n_layers=n)
+    n_moe = n_moe_layers(cfg_ep)
+    spec = {"cfg": cfg_ep, "capacity": capacity,
+            "prompts": [p.tolist() for p in prompts], "paged_kw": paged_kw}
+    t0 = time.perf_counter()
+    single = ep_workload(cfg_ep, truncated(model, n), spec, ep=False)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(ep_rank, EP_RANKS, "cuda:0", spec, timeout=900)
+    t2 = time.perf_counter()
+    r0 = ranks[0]
+    print(f"[ep] {EP_RANKS} ranks on {r0['device']}, backend "
+          f"{r0['backend']} (collectives take the tensors on the card); "
+          f"{cfg_ep.n_layers} layers "
+          f"({n_moe} MoE), {cfg.moe.n_experts // EP_RANKS} of "
+          f"{cfg.moe.n_experts} experts a rank; single-rank runs "
+          f"{t1 - t0:.1f} s, ranks (spawn included) {t2 - t1:.1f} s; peak "
+          f"device memory a rank " + ", ".join(
+              f"{r['peak_bytes'] / 1e9:.2f} GB" for r in ranks))
+    want = single["fp32"]["single"]["tokens"]
+    for r in ranks:
+        for arm in EP_ARMS:
+            got = r["fp32"][arm]
+            if got["tokens"] != want:
+                raise AssertionError(f"[ep] rank {r['rank']} {arm}: tokens "
+                                     f"{got['tokens']} != single rank's "
+                                     f"{want}")
+            fw, la = got["forwards"], got["launches"]
+            if arm == "overlap2":
+                check_overlap_launches(la, n_moe * fw, n * fw)
+            else:
+                check_launches(la, n_moe * fw, n * fw, "dense")
+        if r["int8"]["tokens"] != single["int8"]["tokens"]:
+            raise AssertionError(f"[ep] rank {r['rank']} int8_expert tokens "
+                                 f"differ from the single rank's")
+        check_launches(r["int8"]["launches"], n_moe * r["int8"]["forwards"],
+                       n * r["int8"]["forwards"], "int8")
+        for arm in EP_TIMED_ARMS:
+            d = r["decode"][arm]
+            check_launches(d["launches"], n_moe * d["forwards"],
+                           n * d["forwards"], "dense")
+    ov_launches = {k: r0["fp32"]["overlap2"]["launches"][k]
+                   for k in MOE_KERNELS}
+    print(f"[ep] fp32 greedy tokens of {len(want)} requests x "
+          f"{SERVE_MAX_NEW} equal the single rank's on both ranks under "
+          + ", ".join(EP_ARMS) + "; int8_expert tokens equal; launches a "
+          f"rank: {json.dumps(r0['fp32']['replicated']['launches'])} over "
+          f"{r0['fp32']['replicated']['forwards']} forwards (replicated), "
+          f"overlap2 {json.dumps(ov_launches)} over "
+          f"{r0['fp32']['overlap2']['forwards']}")
+    # drops
+    sd, rd = single["drops"], [r["drops"] for r in ranks]
+    want_drop = sum(sd["dropped_rows"])
+    for r in rd:
+        if r["tokens"] != sd["tokens"] or r["dropped_rows"] \
+                != sd["dropped_rows"] or r["ep_dropped_tokens"] != want_drop:
+            raise AssertionError(f"[ep] capacity_factor {EP_CF}: rank {r} "
+                                 f"against single {sd}")
+    if not want_drop > 0:
+        raise AssertionError("[ep] the drop check dropped nothing")
+    print(f"[ep] capacity_factor {EP_CF} (block_m {EP_DROP_BLOCK_M}, "
+          f"prefill chunks of {EP_DROP_CHUNK}, moe_stats): "
+          f"serve/ep_dropped_tokens {rd[0]['ep_dropped_tokens']:.0f} on each "
+          f"rank = the single rank's summed sched/dropped_rows "
+          f"{want_drop:.0f} (per request {sd['dropped_rows']}); tokens equal")
+    # one MoE layer in bf16
+    layer_err = {}
+    for key, y_single in single["layer"].items():
+        T = key.split("/")[0]
+        for lay in EP_LAYER_LAYOUTS:
+            ys = [r["layer"][f"{T}/{lay}"] for r in ranks]
+            if not all(np.array_equal(ys[0], y) for y in ys[1:]):
+                raise AssertionError(f"[ep] layer {T} {lay}: ranks differ")
+            torch.testing.assert_close(torch.from_numpy(ys[0]),
+                                       torch.from_numpy(y_single),
+                                       **TOL["bfloat16"])
+            layer_err[f"{T}/{lay}"] = float(np.abs(ys[0] - y_single).max())
+    print(f"[ep] one MoE layer, bf16, dynamic, apply_moe_ep vs single-rank "
+          f"apply_moe (rtol=atol={TOL['bfloat16']['atol']:g}): max_abs_err "
+          + json.dumps(layer_err))
+    # times and transport
+    E, k, d = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    rows = a2a_send_rows(SERVE_SLOTS // EP_RANKS, k, E, EP_RANKS,
+                         cfg.moe.block_m, cfg.moe.capacity_factor, "dynamic")
+    a2a = {"rows_per_destination": rows,
+           "payload_bytes_per_step": n_moe * 2 * EP_RANKS * rows * d * 2,
+           "expert_id_bytes_per_step": n_moe * EP_RANKS * rows * 4,
+           "all_gather_bytes_per_step": n_moe * SERVE_SLOTS * d * 2,
+           "replicated_all_reduce_bytes_per_step":
+               n_moe * SERVE_SLOTS * d * 4}
+    sdec = single["decode"]["single"]
+    times = {"single": sdec["decode_ms_per_step"],
+             **{arm: ranks[0]["decode"][arm]["decode_ms_per_step"]
+                for arm in EP_TIMED_ARMS}}
+    p50 = {"single": sdec["decode_ms_per_step_p50"],
+           **{arm: ranks[0]["decode"][arm]["decode_ms_per_step_p50"]
+              for arm in EP_TIMED_ARMS}}
+    print(f"[ep] decode ms per step, bf16, {SERVE_SLOTS} slots (host clock, "
+          f"each step ends in its host transfer; mean of decode-only "
+          f"steps): single rank {times['single']:.2f} "
+          f"(p50 {p50['single']:.2f}); ep={EP_RANKS} "
+          + "; ".join(f"{arm} {times[arm]:.2f} (p50 {p50[arm]:.2f})"
+                      for arm in EP_TIMED_ARMS)
+          + f"; {smi_line()}")
+    print(f"[ep] transport per decode step ({SERVE_SLOTS} rows, {n_moe} MoE "
+          f"layers, bf16): sharded: {rows} rows a destination "
+          f"(a2a_send_rows), payload all_to_all "
+          f"{a2a['payload_bytes_per_step']} bytes a rank (out and back), "
+          f"expert ids {a2a['expert_id_bytes_per_step']}, all_gather "
+          f"{a2a['all_gather_bytes_per_step']}; replicated: all_reduce "
+          f"{a2a['replicated_all_reduce_bytes_per_step']} bytes (fp32); "
+          f"collectives a decode step: replicated {n_moe}, sharded "
+          f"{5 * n_moe}; host ms per collective alone (rank 0, mean of "
+          f"{EP_COLLECTIVE_ITERS}): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in r0["collective_ms"].items()))
+    return {"collective_ms": [r["collective_ms"] for r in ranks],
+            "ranks": EP_RANKS, "layers": n, "backend": r0["backend"],
+            "decode_ms_per_step": times,
+            "decode_p50_ms": p50,
+            "transport": a2a, "layer_max_abs_err": layer_err,
+            "ep_dropped_tokens": rd[0]["ep_dropped_tokens"],
+            "launches": {arm: [r["decode"][arm]["launches"] for r in ranks]
+                         for arm in EP_TIMED_ARMS},
+            "forwards": {arm: [r["decode"][arm]["forwards"] for r in ranks]
+                         for arm in EP_TIMED_ARMS},
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "single_s": t1 - t0, "ranks_s": t2 - t1}
+
+
 def tune_sweeps() -> dict:
     """[tune] (a): B1 and B2 swept over their tile shapes
     (``repro_torch.tuning.tune_moe_layer``) at ``TUNE_SWEEPS`` in dense
@@ -4301,6 +4654,10 @@ def main() -> None:
     loadgen_summary = serve_loadgen(cfg, model, paged_kw)
     print(json.dumps({"serve_loadgen": loadgen_summary}))
     elapsed("serving moonshot, load generator")
+    # [ep]: the same model and requests on EP_RANKS ranks of this card
+    ep_summary = serve_ep(cfg, model, prompts, capacity, paged_kw)
+    print(json.dumps({"serve_ep": ep_summary}))
+    elapsed("serving moonshot, expert parallelism")
 
     # 6. serving, contiguous + fixed -------------------------------------
     rc_c = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="fixed")
@@ -4684,6 +5041,16 @@ def main() -> None:
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})
         entry.update(extra)
+        if name in MOE_KERNELS or name == "paged_attention":
+            # each [ep] rank's launches over its bf16 timed run
+            entry["launches_ep"] = {
+                f"{arm} rank {i}": la[name]
+                for arm, las in ep_summary["launches"].items()
+                for i, la in enumerate(las)}
+            entry["launches_ep_run"] = (
+                f"[ep] bf16 paged serving on {ep_summary['ranks']} ranks, "
+                f"{ep_summary['layers']} layers, forwards "
+                f"{json.dumps(ep_summary['forwards'])}")
         report.append(entry)
     print(json.dumps({"kernels": report}))
     print(smi_line())

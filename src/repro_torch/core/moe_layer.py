@@ -34,6 +34,14 @@ def dispatch_config(moe: MoEConfig, *, executor: str = "cuda",
         block_m_min=block_m_min, emit_stats=emit_stats, autotune=autotune)
 
 
+def shared_experts(sh, x2: torch.Tensor) -> torch.Tensor:
+    """The shared experts' SwiGLU on the rows of x2 (n, d), in fp32."""
+    xf = x2.float()
+    g = torch.matmul(xf, sh["w_gate"].float())
+    u = torch.matmul(xf, sh["w_up"].float())
+    return torch.matmul((g * torch.sigmoid(g)) * u, sh["w_down"].float())
+
+
 def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):
     """params: mapping with "router", "w_gate", "w_up", "w_down" (dense
     stacks or ``QuantTensor``s under one scheme) and optionally "shared"
@@ -54,10 +62,5 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEDispatchConfig):
     y, aux = moe_ffn(x2, params["router"], w["w_gate"], w["w_up"],
                      w["w_down"], cfg)
     if "shared" in params:
-        sh = params["shared"]
-        xf = x2.float()
-        g = torch.matmul(xf, sh["w_gate"].float())
-        u = torch.matmul(xf, sh["w_up"].float())
-        y_sh = torch.matmul((g * torch.sigmoid(g)) * u, sh["w_down"].float())
-        y = y + y_sh.to(y.dtype)
+        y = y + shared_experts(params["shared"], x2).to(y.dtype)
     return y.reshape(shape), aux

@@ -1,0 +1,281 @@
+"""Expert-parallel process groups over ``torch.distributed`` (counterpart of
+the multi-process half of ``repro.launch.mesh``).
+
+The reference runs one jitted program over a device mesh and ``shard_map``
+splits it per device.  The port runs one process per rank instead: every
+rank runs the same host control flow over the same requests, and the MoE
+layer's exchange (``repro_torch.core.distributed``) is the only place the
+ranks talk to each other.  This module holds what that needs:
+
+* ``init_distributed`` joins this process to a group (``--coordinator`` /
+  ``--num-processes`` / ``--process-id``, or torchrun's ``RANK``,
+  ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``);
+* ``make_ep_group`` returns the ``EPGroup`` this rank dispatches over: its
+  rank, size, process group, backend and device, and the collectives the
+  exchange uses (``all_to_all`` on dim 0, sync or async, ``all_gather``,
+  ``all_reduce`` sum and mean);
+* ``use_ep_group`` makes a group the current one for the model's MoE
+  layers (the reference's ``set_mesh``);
+* ``spawn_ranks`` starts ``n`` rank processes from one process (the
+  ``spawn`` start method) and returns each rank's result: the counterpart
+  of the reference's forced host-device mesh.
+
+**Backend rule**, printed by rank 0 when a group is made: ``nccl`` when
+each rank has a card of its own; otherwise ``gloo`` (the CPU, and several
+ranks on one card, which NCCL refuses).  The collectives take the tensors
+where they lie, on the card too (this torch's gloo takes CUDA tensors), and
+a collective that fails raises.
+
+The reference's ``make_production_mesh``, ``make_debug_mesh`` and
+``multiprocess_compute_supported`` have no counterpart: they build XLA
+device meshes, and torch's gloo runs multi-process compute on the CPU."""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+import socket
+import traceback
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import resolve_device
+
+def free_port() -> int:
+    """A TCP port that was free a moment ago (bound to port 0 and
+    released): never a fixed one, since several groups may start at once."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def placement(device, local_rank: int, local_world: int):
+    """(device, backend) of rank ``local_rank`` of ``local_world`` ranks on
+    this host: with a bare ``"cuda"`` and a card for every rank, card
+    ``local_rank`` and ``nccl``; on a named card, or with fewer cards than
+    ranks, that card (or card 0), shared, and ``gloo``; on the CPU,
+    ``gloo``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev, "gloo"
+    if dev.index is None and torch.cuda.device_count() >= local_world:
+        return torch.device("cuda", local_rank), "nccl"
+    return torch.device("cuda", dev.index or 0), "gloo"
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, *,
+                     device="cuda") -> torch.device:
+    """Join this process to the default group and return its device.
+
+    torchrun's ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``
+    (and ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``) win where set; otherwise
+    ``coordinator`` (``host:port``; process 0 binds it), ``num_processes``
+    and ``process_id``, all ranks on one host.  The backend follows the
+    rule above."""
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        init = "env://"
+    else:
+        if coordinator is None or num_processes is None or process_id is None:
+            raise ValueError("init_distributed takes coordinator, "
+                             "num_processes and process_id, or torchrun's "
+                             "RANK and WORLD_SIZE")
+        rank, world = process_id, num_processes
+        init = f"tcp://{coordinator}"
+    dev, backend = placement(device, int(env.get("LOCAL_RANK", rank)),
+                             int(env.get("LOCAL_WORLD_SIZE", world)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank)
+    return dev
+
+
+class Pending:
+    """An ``all_to_all`` in flight: ``wait()`` returns its output."""
+
+    def __init__(self, work, out: torch.Tensor):
+        self._work, self._out = work, out
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        return self._out
+
+
+class EPGroup:
+    """One expert-parallel group: ``rank`` of ``size`` ranks, the process
+    group (``None``: the default one), its backend and this rank's device,
+    and the collectives of the exchange."""
+
+    def __init__(self, rank: int, size: int, group, backend: str,
+                 device: torch.device):
+        self.rank, self.size, self.group = rank, size, group
+        self.backend, self.device = backend, device
+
+    def all_to_all(self, t: torch.Tensor, async_op: bool = False):
+        """``t`` (size, ...): chunk i goes to rank i, and chunk i of the
+        result came from rank i.  ``async_op`` returns a ``Pending``."""
+        if t.shape[0] != self.size:
+            raise ValueError(f"all_to_all takes ({self.size}, ...) chunks, "
+                             f"not {tuple(t.shape)}")
+        src = t.contiguous()
+        out = torch.empty_like(src)
+        work = dist.all_to_all_single(out, src, group=self.group,
+                                      async_op=async_op)
+        return Pending(work, out) if async_op else out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in rank order."""
+        src = t.contiguous()
+        outs = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(outs, src, group=self.group)
+        return torch.stack(outs)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``"mean"``) of every rank's ``t``, a new tensor."""
+        if op not in ("sum", "mean"):
+            raise ValueError(f"all_reduce op {op!r}: sum or mean")
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        return out / self.size if op == "mean" else out
+
+
+def make_ep_group(ep: Optional[int] = None, *, device=None,
+                  verbose: bool = True) -> EPGroup:
+    """The EP group of this rank over the default group's ranks: all of
+    them (``ep=None``), or consecutive blocks of ``ep`` (which must divide
+    the world size).  ``device`` defaults to the current CUDA device when
+    the backend is NCCL, else the CPU: ranks sharing a card pass it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_ep_group needs torch.distributed: call "
+                           "init_distributed (or run under spawn_ranks)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if ep is None else ep
+    if n < 1 or world % n:
+        raise ValueError(f"ep={n} does not divide the {world}-rank group")
+    group = None
+    if n != world:
+        for start in range(0, world, n):      # every rank makes every group
+            g = dist.new_group(list(range(start, start + n)))
+            if start <= rank < start + n:
+                group = g
+    backend = dist.get_backend(group)
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+    g = EPGroup(rank % n, n, group, backend, torch.device(device))
+    if verbose and rank == 0:
+        shared = (" (ranks share a card: NCCL refuses that)"
+                  if backend == "gloo" and g.device.type == "cuda" else "")
+        print(f"[ep] {world} rank(s), EP groups of {n}, backend {backend} on "
+              f"{g.device}{shared}", flush=True)
+    return g
+
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("ep_group",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def use_ep_group(group: EPGroup):
+    """Make ``group`` the one the model's MoE layers dispatch over."""
+    token = _CURRENT.set(group)
+    try:
+        yield group
+    finally:
+        _CURRENT.reset(token)
+
+
+def current_ep_group() -> EPGroup:
+    g = _CURRENT.get()
+    if g is None:
+        raise RuntimeError("expert parallelism needs an EP group: run inside "
+                           "use_ep_group(make_ep_group(...)) or spawn_ranks")
+    return g
+
+
+# ----------------------------------------------------------------------
+# Ranks from one process
+# ----------------------------------------------------------------------
+def _rank_main(fn, rank: int, n: int, device: str, port: int, queue,
+               args: tuple) -> None:
+    try:
+        dev, backend = placement(device, rank, n)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend,
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=n, rank=rank)
+        try:
+            group = make_ep_group(device=dev)
+            with use_ep_group(group):
+                result = fn(group, *args)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, "ok", result))
+    except BaseException:                  # reported, then the rank exits
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def spawn_ranks(fn: Callable, n: int, device="cpu", *args,
+                timeout: float = 1800.0) -> list:
+    """Run ``fn(group, *args)`` on ``n`` ranks, each a process started with
+    the ``spawn`` method, in one EP group over a free local port; returns
+    the ranks' results in rank order.
+
+    ``fn`` must be importable by module path and its result picklable (no
+    torch tensors: return numpy or Python values).  On a CUDA device the
+    kernels are built here first, so that the ranks only load them.  A
+    rank that raises or dies fails the call: the other ranks are killed
+    and the error, with the failing rank's traceback, is raised here."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import time
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, n, str(device), port, q, args),
+                         daemon=True) for r in range(n)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < n:
+            try:
+                rank, status, value = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise RuntimeError(f"rank(s) {dead} died with exit codes "
+                                       f"{[procs[r].exitcode for r in dead]}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ranks did not finish in {timeout} s")
+                continue
+            if status != "ok":
+                raise RuntimeError(f"rank {rank} of {n} failed:\n{value}")
+            results[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        q.close()
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"ranks exited with codes {bad}")
+    return [results[r] for r in range(n)]

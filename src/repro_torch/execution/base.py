@@ -31,7 +31,7 @@ class DispatchPlan(NamedTuple):
     weights: torch.Tensor                   # (T, k) f32 combine weights
     indices: torch.Tensor                   # (T, k) i32 expert assignment
     logits: torch.Tensor                    # (T, E) f32 router logits
-    schedule: BlockSchedule
+    schedule: Optional[BlockSchedule]       # None: routing only (EP paths)
     combine_scale: Optional[torch.Tensor]   # (capacity,) f32 epilogue rows
     aux: dict                               # lb/z losses (+ sched/*)
 
@@ -165,11 +165,13 @@ def set_plan_hook(hook: Optional[Callable[..., None]]):
     return prev
 
 
-def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
-                  ) -> DispatchPlan:
+def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg, *,
+                  with_schedule: bool = True) -> DispatchPlan:
     """Phase 1: route + schedule + combine rows + aux, once per batch;
     with ``cfg.emit_stats`` the aux also holds the schedule's ``sched/*``
-    telemetry (device tensors, no host read)."""
+    telemetry (device tensors, no host read).  ``with_schedule=False``
+    stops after the routing and the router losses: the expert-parallel
+    paths build their schedules over the rows each rank receives."""
     ex = get_executor(cfg.executor)
     if _PLAN_HOOK is not None:
         _PLAN_HOOK(tokens=int(x.shape[0]), executor=str(cfg.executor),
@@ -177,6 +179,9 @@ def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
     aux = router_aux_losses(logits, indices, cfg)
+    if not with_schedule:
+        return DispatchPlan(weights=weights, indices=indices, logits=logits,
+                            schedule=None, combine_scale=None, aux=aux)
     sched = plan_schedule(indices, cfg, x.dtype)
     combine = combine_scale_rows(sched, weights) if cfg.fold_combine else None
     if cfg.emit_stats:

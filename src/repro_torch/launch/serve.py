@@ -50,9 +50,31 @@ shared_prefix, longtail) replays a seeded arrival trace (24 requests at
 8 req/s of virtual time, ``--smoke`` 12) through it on a virtual clock,
 advanced 0.05 s a step or, with ``--calibrate``, by the measured step
 time's EWMA, and writes the goodput record to
-``results/serve/loadgen_<arch>[_smoke].json``."""
+``results/serve/loadgen_<arch>[_smoke].json``.
+
+Expert parallelism: ``--distributed`` serves with every MoE layer's routed
+experts split over the ranks of an EP group (``apply_moe_ep``; non-expert
+weights whole on every rank), each rank running the same engine over the
+same requests with per-host admission (``--hosts`` queues,
+``DistributedServeLoop``).  With ``--num-processes N`` (and
+``--coordinator host:port``, ``--process-id``; or torchrun's environment)
+this process is one rank of N; with one process, ``--ep-devices N`` (2 by
+default) spawns N ranks on ``--device``.  The backend is NCCL when each
+rank has a card of its own (``--device cuda`` and enough cards), else gloo
+(the CPU, or ranks sharing a card).  ``--ep-decode-layout
+{replicated,sharded}`` is the token layout of every decode-mode forward:
+on the paged engine that is every step, prompt chunks included (only the
+contiguous engine's prefill forwards take ``sharded`` whatever it says);
+``--ep-overlap`` pipelines the sharded dispatch in
+``--ep-microbatches`` microbatches.  Only rank 0 prints; a rank's failure
+fails the launch.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moonshot-v1-16b-a3b --reduce --requests 3 --max-new 3 \\
+        --distributed --ep-devices 2 --hosts 2 --device cpu"""
 import argparse
 import contextlib
+import io
 import json
 import pathlib
 import time
@@ -63,22 +85,13 @@ import torch
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
-def main(argv=None):
-    from repro_torch.configs import ARCH_NAMES, get_config, reduced
-    from repro_torch.models.lm import RunConfig, init_params
-    from repro_torch.quantization import (available_schemes,
-                                          resolve_quant_cli,
-                                          routed_expert_bytes)
-    from repro_torch.obs import (NOOP, Observability, device_trace,
-                                 drop_summary, latency_summary)
+def parse_args(argv=None):
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.quantization import available_schemes
     from repro_torch.scheduling import available_policies
-    from repro_torch.sampling import SamplingConfig, available_samplers
+    from repro_torch.sampling import available_samplers
     from repro_torch.serve.admission import available_admission_policies
-    from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.serve.frontend import ServingFrontend
-    from repro_torch.serve.loadgen import (PATTERNS, make_virtual_obs,
-                                           replay, synth_trace)
-    from repro_torch.spec import SpecEngine, make_draft_config
+    from repro_torch.serve.loadgen import PATTERNS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
@@ -173,7 +186,81 @@ def main(argv=None):
     ap.add_argument("--device-trace", default=None, metavar="DIR",
                     help="bracket the run in a torch.profiler trace (CPU "
                          "and CUDA activity) written to DIR")
-    args = ap.parse_args(argv)
+    ap.add_argument("--distributed", action="store_true",
+                    help="expert-parallel serving: the routed experts split "
+                         "over an EP group of ranks, per-host admission "
+                         "queues, one engine a rank")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="with --num-processes > 1: the rendezvous address "
+                         "(process 0 binds it)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="ranks launched separately (this process is one); "
+                         "1 spawns --ep-devices ranks from this process")
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="admission host-queue count (default: "
+                         "--num-processes)")
+    ap.add_argument("--ep-devices", type=int, default=None,
+                    help="ranks of the EP group (default: all ranks; with "
+                         "one process, 2 spawned ranks)")
+    ap.add_argument("--ep-overlap", action="store_true",
+                    help="pipeline the sharded EP dispatch (microbatch "
+                         "i+1's all_to_all overlaps microbatch i's GEMMs)")
+    ap.add_argument("--ep-microbatches", type=int, default=2)
+    ap.add_argument("--ep-decode-layout", default="replicated",
+                    choices=("replicated", "sharded"),
+                    help="EP token layout of decode-mode forwards (every "
+                         "step of the paged engine, prompt chunks too)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Serve; with ``--distributed``, on every rank of an EP group.
+    Returns rank 0's completed requests (or the load generator's
+    record)."""
+    from repro_torch.distributed import (init_distributed, make_ep_group,
+                                         spawn_ranks, use_ep_group)
+    args = parse_args(argv)
+    if not args.distributed:
+        return serve(args, args.device)
+    if args.num_processes > 1:
+        import torch.distributed as dist
+        dev = init_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        try:
+            group = make_ep_group(args.ep_devices, device=dev)
+            with use_ep_group(group):
+                return serve_rank(group, args)
+        finally:
+            dist.destroy_process_group()
+    return spawn_ranks(serve_rank, args.ep_devices or 2, args.device,
+                       args)[0]
+
+
+def serve_rank(group, args):
+    """One rank of a ``--distributed`` launch: ranks other than 0 of the
+    default group print nothing (their errors still reach stderr)."""
+    import torch.distributed as dist
+    quiet = (contextlib.redirect_stdout(io.StringIO())
+             if dist.get_rank() != 0 else contextlib.nullcontext())
+    with quiet:
+        return serve(args, group.device, group)
+
+
+def serve(args, device, group=None):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import RunConfig, init_params
+    from repro_torch.quantization import resolve_quant_cli, routed_expert_bytes
+    from repro_torch.obs import (NOOP, Observability, device_trace,
+                                 drop_summary, latency_summary)
+    from repro_torch.sampling import SamplingConfig
+    from repro_torch.serve.distributed import DistributedServeLoop
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.loadgen import (make_virtual_obs, replay,
+                                           synth_trace)
+    from repro_torch.spec import SpecEngine, make_draft_config
+
     quant = resolve_quant_cli(args.quant, args.quant_experts)
 
     cfg = get_config(args.arch)
@@ -184,10 +271,10 @@ def main(argv=None):
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     dt = DTYPES[args.dtype]
-    on_card = torch.device(args.device).type == "cuda"
+    on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
-    model = init_params(cfg, args.seed, param_dtype=dt, device=args.device)
+    model = init_params(cfg, args.seed, param_dtype=dt, device=device)
     dense_bytes = routed_expert_bytes(model)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i, prompt=rng.integers(
@@ -208,7 +295,11 @@ def main(argv=None):
         capacity = max(len(e.prompt) for e in trace) + args.max_new + 1
     rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
                    paged_attn=args.paged_attn, quant=quant,
-                   moe_stats=bool(cfg.is_moe), autotune=args.autotune)
+                   moe_stats=bool(cfg.is_moe), autotune=args.autotune,
+                   ep=bool(args.distributed and cfg.is_moe),
+                   ep_overlap=args.ep_overlap,
+                   ep_microbatches=args.ep_microbatches,
+                   ep_decode_layout=args.ep_decode_layout)
     clock = None
     if args.loadgen:
         clock, obs = make_virtual_obs(enabled=True)
@@ -223,11 +314,11 @@ def main(argv=None):
     kw = dict(slots=args.slots, capacity=capacity, rc=rc,
               admission=args.admission, kv_block_size=args.kv_block,
               prefill_chunk=args.prefill_chunk, obs=obs, sampling=sampling,
-              device=args.device)
+              device=device)
     if args.spec_draft:
         dcfg = make_draft_config(cfg, args.spec_draft, reduce=args.reduce)
         dmodel = init_params(dcfg, args.seed + 1, param_dtype=dt,
-                             device=args.device)
+                             device=device)
         engine = SpecEngine(cfg, model, draft_cfg=dcfg, draft_model=dmodel,
                             spec_k=args.spec_k, **kw)
         print(f"speculative decoding: draft {dcfg.name} ({dcfg.n_layers} "
@@ -244,6 +335,15 @@ def main(argv=None):
           f"{cache}, {args.policy} schedule, cuda executor, "
           f"{args.admission} admission, {args.sampling} sampling, "
           f"{args.slots} slots x {capacity} tokens")
+    n_hosts = args.hosts or max(1, args.num_processes)
+    if group is not None:
+        print(f"distributed serving: EP group of {group.size} ranks "
+              f"({group.backend}), {n_hosts} host queue(s), decode layout "
+              f"{args.ep_decode_layout}, overlap "
+              + (f"on ({args.ep_microbatches} microbatches)"
+                 if args.ep_overlap else "off")
+              + ("" if cfg.is_moe else "; a dense model has no experts to "
+                 "split: every rank serves it whole"))
     if cfg.is_moe:
         print(f"routed experts: {quant} scheme, "
               f"{routed_expert_bytes(model)} bytes stored ({dense_bytes} "
@@ -284,6 +384,10 @@ def main(argv=None):
                     for r in reqs]
             fe.drain(max_steps=args.max_steps)
             done = [r for r in reqs if r.done]
+        elif group is not None:
+            done = DistributedServeLoop(
+                engine, n_hosts=n_hosts, admission=args.admission).run(
+                reqs, max_steps=args.max_steps)
         else:
             done = engine.run(reqs, max_steps=args.max_steps)
     dt_s = time.perf_counter() - t0

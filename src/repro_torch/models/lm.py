@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import apply_moe_ep
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
 from repro_torch.kernels.paged_attention import fused_read_refusal
 from repro_torch.models.attention import (Attention, flash_attention,
@@ -78,6 +79,19 @@ class RunConfig(NamedTuple):
                                      # fused  = the paged-attention kernel
                                      # gather = gather_block_kv + attention
                                      #          (the oracle)
+    ep: bool = False                 # expert parallelism: MoE layers run
+                                     # apply_moe_ep over the current EP
+                                     # group (repro_torch.distributed)
+    ep_overlap: bool = False         # pipeline the sharded EP dispatch:
+                                     # microbatch i+1's all_to_all is issued
+                                     # before microbatch i's GEMMs
+    ep_microbatches: int = 2         # microbatches under ep_overlap (the
+                                     # largest divisor of T_local <= it)
+    ep_decode_layout: str = "replicated"  # EP layout of decode-mode
+                                     # forwards (every paged step, prompt
+                                     # chunks too; prefill takes sharded):
+                                     # replicated (all_reduce combine) or
+                                     # sharded (padding-free all_to_all)
 
 
 def group_structure(cfg: ModelConfig):
@@ -142,6 +156,7 @@ class MoE(nn.Module):
                                      device)
                        if moe.n_shared_experts else None)
         self._quant: dict = {}       # name -> (dtype, scheme, meta)
+        self.ep_shard = None         # (rank, ep) once shard_model ran
 
     def expert_weight(self, name: str):
         """The routed stack ``name``: a dense parameter or a QuantTensor."""
@@ -355,7 +370,15 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                                block_m_min=rc.block_m_min,
                                emit_stats=rc.moe_stats,
                                autotune=rc.autotune)
-        o, aux = apply_moe(blk.moe.params(), h, dcfg)
+        if rc.ep:
+            o, aux = apply_moe_ep(
+                blk.moe.params(), h, dcfg,
+                capacity_factor=rc.capacity_factor,
+                token_layout=(rc.ep_decode_layout if mode == "decode"
+                              else "sharded"),
+                overlap=rc.ep_microbatches if rc.ep_overlap else 0)
+        else:
+            o, aux = apply_moe(blk.moe.params(), h, dcfg)
     else:
         o = blk.ffn(h)
     if cfg.post_block_norm:

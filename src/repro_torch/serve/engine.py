@@ -27,6 +27,11 @@ Both make one host transfer per step (the tokens and their EOS flags).
 With ``rc.quant`` set to a scheme, the engine quantizes the routed experts
 of the model it is given, in place, at construction (idempotent under the
 same scheme) and records their stored bytes in ``quant_expert_bytes``.
+With ``rc.ep`` it first keeps, in place, the current EP group's rank's
+share of every MoE layer's experts (``weights.shard_model``), and at
+retirement counts each request's dropped assignments into
+``serve/ep_dropped_tokens``; every rank runs the same engine over the same
+requests (``serve/distributed.py``).
 Defaults follow the reference: the ``dynamic`` schedule policy with the
 plans' ``sched/*`` telemetry on (``moe_stats``) when no ``rc`` is given,
 ``prefill_chunk=32`` and the prefix cache on.
@@ -70,6 +75,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import current_ep_group
 from repro_torch.execution.base import set_plan_hook
 from repro_torch.models.lm import LM, RunConfig, init_cache, swap_cache_slots
 from repro_torch.obs import NOOP, RequestTimeline
@@ -78,6 +84,7 @@ from repro_torch.sampling import SamplingConfig, get_sampler
 from repro_torch.serve.admission import get_admission
 from repro_torch.serve.kv_cache import PagedKVCache, paged_supported
 from repro_torch.serve.step import paged_step, slot_decode, slot_prefill
+from repro_torch.weights import shard_model
 
 DEFAULT_KV_BLOCK = 16
 
@@ -144,6 +151,10 @@ class ServeEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.quant_expert_bytes = None
+        if self.rc.ep and cfg.is_moe:
+            # load-time transform, as quantization: this rank's experts only
+            group = current_ep_group()
+            shard_model(model, group.rank, group.size)
         if self.rc.quant != "none" and cfg.is_moe:
             # load-time transform, in place and one stack at a time; a
             # model already quantized under the scheme is left as it is
@@ -549,6 +560,10 @@ class ServeEngine:
                 m.inc("serve/slo_tpot_miss")
             m.observe_many("", {k: v for k, v in req.stats.items()
                                 if k.startswith("sched/")})
+            # under EP the drops of the exchange keep their own counter
+            if self.rc.ep and "sched/dropped_rows" in req.stats:
+                m.inc("serve/ep_dropped_tokens",
+                      int(req.stats["sched/dropped_rows"]))
 
     def _compact(self, s: int) -> None:
         """Vacate slot ``s`` keeping the active prefix contiguous (paged: a

@@ -9,7 +9,13 @@ updated parameters) onto the port's parameter names.  The stacked
 ``body`` leaves are unstacked along axis 0: group g's blocks ``b0``,
 ``b1``, ... become one layer each, in that order; every ``(in, out)``
 matrix keeps its layout, and biases, norms and post norms map by name.  A
-tree of a tied config has no ``head``, and neither has the port's model."""
+tree of a tied config has no ``head``, and neither has the port's model.
+
+``shard_experts(moe_params, rank, ep)`` and ``shard_model(model, rank,
+ep)`` keep rank ``rank``'s ``E // ep`` routed experts of every MoE layer
+(the expert-parallel layout, ``repro_torch.core.distributed``): the dense
+stacks, or a ``QuantTensor``'s payload and scales, sliced on the expert
+axis; the router and the shared experts stay whole."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import LM, group_structure, init_params
+from repro_torch.quantization import EXPERT_MATS, QuantTensor
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -83,4 +90,60 @@ def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
                              f"shape {tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(torch.from_numpy(arr).to(param.dtype))
+    return model
+
+
+def _expert_slice(E: int, rank: int, ep: int) -> slice:
+    if ep < 1 or E % ep:
+        raise ValueError(f"n_experts={E} must divide over EP group size {ep}")
+    if not 0 <= rank < ep:
+        raise ValueError(f"rank {rank} outside an EP group of {ep}")
+    n = E // ep
+    return slice(rank * n, (rank + 1) * n)
+
+
+def _shard_stack(w, sl: slice):
+    """Experts ``sl`` of one routed stack, as a copy (the rest is freed)."""
+    if isinstance(w, QuantTensor):
+        return QuantTensor(w.q[sl].clone(), w.s[sl].clone(), w.dtype,
+                           w.scheme, w.meta)
+    return w[sl].clone()
+
+
+def shard_experts(moe_params: dict, rank: int, ep: int) -> dict:
+    """A copy of a MoE param mapping holding rank ``rank``'s experts of
+    every routed stack (the reference's per-leaf ``P(axis, ...)`` specs);
+    the router and ``shared`` pass through.  Raises unless ``ep`` divides
+    the expert count."""
+    sl = _expert_slice(moe_params["router"].shape[1], rank, ep)
+    out = dict(moe_params)
+    for name in EXPERT_MATS:
+        out[name] = _shard_stack(moe_params[name], sl)
+    return out
+
+
+@torch.no_grad()
+def shard_model(model: LM, rank: int, ep: int) -> LM:
+    """Keep rank ``rank``'s experts in every MoE layer of ``model``, in
+    place, one stack at a time; returns the model.  A model already sharded
+    the same way is left as it is; another sharding raises."""
+    for blk in model.layers:
+        moe = getattr(blk, "moe", None)
+        if moe is None:
+            continue
+        done = getattr(moe, "ep_shard", None)
+        if done is not None:
+            if done != (rank, ep):
+                raise ValueError(f"experts already sharded as (rank, ep) = "
+                                 f"{done}, not {(rank, ep)}")
+            continue
+        sl = _expert_slice(moe.router.shape[1], rank, ep)
+        for name in EXPERT_MATS:
+            w = _shard_stack(moe.expert_weight(name), sl)
+            if isinstance(w, QuantTensor):
+                moe.set_expert_weight(name, w)
+            else:
+                setattr(moe, name, torch.nn.Parameter(
+                    w, requires_grad=moe.router.requires_grad))
+        moe.ep_shard = (rank, ep)
     return model

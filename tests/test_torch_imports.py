@@ -25,7 +25,10 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 assert {"repro_torch.obs", "repro_torch.obs.trace",
-        "repro_torch.serve.admission"} <= set(names), names
+        "repro_torch.serve.admission", "repro_torch.distributed",
+        "repro_torch.distributed.group", "repro_torch.core.distributed",
+        "repro_torch.serve.distributed",
+        "repro_torch.launch.mp_serve_smoke"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -51,6 +54,22 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 def test_source_has_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.distributed", "repro_torch.core.distributed",
+    "repro_torch.serve.distributed"])
+def test_ep_module_alone_loads_no_jax_and_no_reference(module):
+    """Each expert-parallel module, imported first and alone."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = (f"import sys, {module}\n"
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or "
+             "m.startswith('repro.'))\n"
+             "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_scan_catches_what_it_must():
