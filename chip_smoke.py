@@ -233,7 +233,18 @@ result line):
    directory's free space (too little fails the phase), the checkpoint's
    bytes and the host copy, write and restore times printed; the
    supervised runs carry a memory observability bundle, whose
-   ``train/step`` and ``train/checkpoint`` spans must be there;
+   ``train/step`` and ``train/checkpoint`` spans must be there.  [train
+   sharded]: the same 4-layer model on 2 gloo ranks sharing the card, on
+   grids (data x model) 2x1 (FSDP + DP) and 1x2 (EP + SP): one fp32 step of
+   batch 2 x seq 128 against the single rank's on the same weights and
+   batch (the loss and every parameter after the step within 1e-4; the
+   single rank's parameters written to ``build/ckpt_sharded`` and read back
+   by each rank as its blocks, then removed), each rank's launches (per MoE
+   layer as one rank's step); then bf16 with remat, batch 8 x seq 512, one
+   warm step and 3 timed: step ms beside [train]'s single rank, peak
+   memory a rank, the bytes of a rank's parameter and moment blocks, and
+   the collectives a step with the bytes they gather, reduce-scatter,
+   all-reduce and exchange;
 10. the dense family, once training's models are freed.  [serve gemma2]:
    gemma2-9b at full width and all 42 layers (9.24 B parameters, random
    bf16 weights, seed 0) on [serve paged]'s traffic, through the paged
@@ -385,6 +396,21 @@ PLAIN_ITERS = {False: (5, 3), True: (1, 1)}
 # by [train resume] (1 dense + 1 MoE), its steps, failure and saves
 CAPACITY_FACTORS, CAPACITY_FACTOR = (1.25, 0.5), 1.25
 RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
+# [train sharded]: the grids (data, model) of the 2 ranks on the card, each
+# with its timed bf16 steps after the warm one (the 2x1 grid's steps are set
+# by gloo's host transport, so one is enough); the fp32 check's batch and
+# optimizer (eps 1e-3: each update a smooth function of its gradient, slope
+# at most lr / eps, so the gradients' agreement bounds the parameters'; at
+# 1e-8 a gradient within rounding of zero can flip its element's whole
+# update); its tolerances: the loss, every parameter after the step, and the
+# gradient norm, relative (the clip to norm 1 and Adam's first step divide
+# out a gradient's scale, so a gradient wrong by a uniform factor shows in
+# the norm alone)
+SHARDED_RANKS, SHARDED_GRIDS = 2, ((2, 1, 1), (1, 2, 3))
+SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ = 2, 128
+SHARDED_CHECK_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10,
+                         weight_decay=0.0)
+SHARDED_LOSS_TOL, SHARDED_PARAM_TOL, SHARDED_GNORM_RTOL = 1e-4, 1e-6, 1e-5
 SOURCES = {
     "router_topk": ("src/repro_torch/csrc/router_topk.cu",
                     "src/repro/kernels/router_topk.py:60"),
@@ -4205,6 +4231,251 @@ def train_resume() -> dict:
     return res
 
 
+def sharded_rank(group, spec: dict) -> dict:
+    """One [train sharded] rank: for each grid of SHARDED_GRIDS, the fp32
+    check step on this rank's blocks (the single rank's parameters after
+    its step read back from ``spec["ckpt"]`` as this rank's blocks), then
+    the bf16 arm with remat: the warm step through the training loop
+    (``train.loop.train(grid=)``, the launcher's path: a fresh state from
+    the seed, the batch cut by ``local_batch``), and on its state the
+    timed steps.  Returns numpy and Python values."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import device_batch, local_batch, make_batch
+    from repro_torch.distributed.group import (COLLECTIVES, make_grid,
+                                               reset_collectives)
+    from repro_torch.distributed.sharding import batch_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg, dev = spec["cfg"], group.device
+    n_moe = n_moe_layers(cfg)
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend,
+           "check": {}, "loop": {}, "timed": {}}
+
+    def batch(grid, b, seq, i):
+        return device_batch(local_batch(
+            make_batch(cfg, b, seq, step=i, seed=1), grid,
+            batch_specs(cfg, grid, "train", b)), dev)
+
+    for data, model, n in SHARDED_GRIDS:
+        name = f"{data}x{model}"
+        grid = make_grid(data, model, device=dev, verbose=group.rank == 0)
+        # the fp32 check
+        rc = RunConfig(compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
+        state = init_train_state(cfg, 0, rc, device=dev, grid=grid)
+        torch.cuda.empty_cache()
+        step = make_train_step(cfg, rc, OptConfig(**SHARDED_CHECK_OPT),
+                               grid=grid)
+        b = batch(grid, SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ, 0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check_train_launches(launches, n_moe)
+        blocks = dict(state["params"].named_parameters())
+        specs = state["params"].shard_specs
+        want = {"params": {n: torch.empty_like(p) for n, p in blocks.items()}}
+        CheckpointManager(spec["ckpt"]).restore(
+            want, 0, shardings={f"params/{n}": sp for n, sp in specs.items()},
+            grid=grid)
+        errs = {n: float((p.detach() - want["params"][n]).abs().max())
+                for n, p in blocks.items()}
+        worst = max(errs, key=errs.get)
+        out["check"][name] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "max_abs_err": errs[worst], "worst": worst, "launches": launches,
+            "tokens": int(b["tokens"].numel())}
+        shard_bytes = 3 * sum(p.numel() * 4 for p in blocks.values())
+        del state, step, blocks, want, b
+        torch.cuda.empty_cache()
+        # bf16, remat: the warm step through the loop, on one rank's data
+        # stream (seed 0's batches: make_batch's seed 1)
+        rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                       remat=True)
+        opt = OptConfig(total_steps=n + 1, warmup_steps=1)
+        ops.reset_launches()
+        warm = train(cfg, rc, opt, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     seed=0, log_every=1, device=dev, grid=grid,
+                     log=lambda line: print(f"[train sharded] grid {name} "
+                                            f"loop: {line}", flush=True))
+        torch.cuda.synchronize()
+        check_train_launches(dict(ops.LAUNCHES), n_moe, remat=True)
+        out["loop"][name] = {"history": warm["history"],
+                             "launches": dict(ops.LAUNCHES)}
+        state = warm.pop("state")
+        del warm
+        step = make_train_step(cfg, rc, opt, grid=grid)
+        bs = [batch(grid, TRAIN_BATCH, TRAIN_SEQ, 1 + i) for i in range(n)]
+        grid.world.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_collectives()
+        ops.reset_launches()
+        rows = []
+        for i in range(n):
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            state, m = step(state, bs[i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check_train_launches({k: ops.LAUNCHES[k] - before[k]
+                                  for k in ops.LAUNCHES}, n_moe, remat=True)
+            row = {"ms": ms, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"])}
+            if not all(np.isfinite(v) for v in row.values()):
+                raise AssertionError(f"[train sharded] {name} step {i}: "
+                                     f"not finite: {row}")
+            rows.append(row)
+        out["timed"][name] = {
+            "steps": rows, "ms_median": float(np.median([r["ms"]
+                                                         for r in rows])),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "shard_bytes": shard_bytes,
+            "launches_per_step": {k: v // n for k, v in ops.LAUNCHES.items()},
+            "collectives_per_step": {op: {"calls": c / n, "bytes": b / n,
+                                          "host_s": sec / n}
+                                     for op, (c, b, sec)
+                                     in COLLECTIVES.items()},
+            "tokens": int(bs[0]["tokens"].numel())}
+        del state, step, bs
+        torch.cuda.empty_cache()
+        grid.world.barrier()
+    return out
+
+
+def train_sharded(single_ms: dict) -> dict:
+    """[train sharded]: moonshot at full width cut to TRAIN_LAYERS layers on
+    SHARDED_RANKS gloo ranks sharing this card, each grid of SHARDED_GRIDS.
+    The single rank's fp32 check step runs here first (30 GB of state),
+    its parameters are written whole to build/ckpt_sharded and freed, then
+    the ranks start (``sharded_rank``).  ``single_ms``: [train]'s
+    single-rank step ms, printed beside the grids'."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.distributed import spawn_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=TRAIN_LAYERS)
+    n_moe = n_moe_layers(cfg)
+    t0 = time.perf_counter()
+    rc = RunConfig(compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
+    state = init_train_state(cfg, 0, rc, device="cuda")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step = make_train_step(cfg, rc, OptConfig(**SHARDED_CHECK_OPT))
+    b = device_batch(make_batch(cfg, SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ,
+                                step=0, seed=1), "cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    single_launches = dict(ops.LAUNCHES)
+    check_train_launches(single_launches, n_moe)
+    single = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    root = ROOT / "build" / "ckpt_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(str(root), keep_last=1, async_save=False)
+    mgr.save(0, {"params": dict(state["params"].named_parameters())})
+    saved = dict(mgr.stats)
+    del state, step, b, m, mgr                 # and its page-locked staging
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"[train sharded] {cfg.name} at full width, {cfg.n_layers} layers "
+          f"(1 dense + {n_moe} MoE), {n_params / 1e9:.3f} B parameters "
+          f"({12 * n_params / 1e9:.2f} GB of fp32 parameters and moments); "
+          f"single rank's fp32 check step (batch {SHARDED_CHECK_BATCH} x seq "
+          f"{SHARDED_CHECK_SEQ}, lr {SHARDED_CHECK_OPT['lr']:g}, eps "
+          f"{SHARDED_CHECK_OPT['eps']:g}): loss {single['loss']:.6f}, "
+          f"grad_norm {single['grad_norm']:.6f}; its parameters written "
+          f"whole ({saved['bytes'] / 1e9:.2f} GB, write "
+          f"{saved['write_s']:.2f} s); {t1 - t0:.1f} s")
+    spec = {"cfg": cfg, "ckpt": str(root)}
+    try:
+        ranks = spawn_ranks(sharded_rank, SHARDED_RANKS, "cuda:0", spec,
+                            timeout=900)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t2 = time.perf_counter()
+    out = {"n_params": n_params, "single": single,
+           "single_launches": single_launches, "ranks_s": t2 - t1,
+           "grids": {}}
+    for data, model, _ in SHARDED_GRIDS:
+        name = f"{data}x{model}"
+        checks = [r["check"][name] for r in ranks]
+        for r, c in zip(ranks, checks):
+            gn_rel = abs(c["grad_norm"] - single["grad_norm"]) \
+                / single["grad_norm"]
+            if abs(c["loss"] - single["loss"]) > SHARDED_LOSS_TOL \
+                    or c["max_abs_err"] > SHARDED_PARAM_TOL \
+                    or not gn_rel <= SHARDED_GNORM_RTOL:
+                raise AssertionError(
+                    f"[train sharded] {name} rank {r['rank']}: loss "
+                    f"{c['loss']} against the single rank's "
+                    f"{single['loss']}, grad_norm {c['grad_norm']} against "
+                    f"{single['grad_norm']} (relative {gn_rel:.3e}), "
+                    f"parameters after the step max_abs_err "
+                    f"{c['max_abs_err']:.3e} ({c['worst']})")
+            if c["loss"] != checks[0]["loss"]:
+                raise AssertionError(f"[train sharded] {name}: the ranks' "
+                                     f"losses differ")
+        timed = [r["timed"][name] for r in ranks]
+        out["grids"][name] = {"check": checks, "timed": timed,
+                              "loop": ranks[0]["loop"][name]}
+        t = timed[0]
+        coll = t["collectives_per_step"]
+        print(f"[train sharded] grid {name} (data x model) fp32 check: loss "
+              f"{checks[0]['loss']:.6f} (single rank {single['loss']:.6f}, "
+              f"diff {abs(checks[0]['loss'] - single['loss']):.2e}, "
+              f"tolerance {SHARDED_LOSS_TOL:g}); grad_norm "
+              + ", ".join(f"{c['grad_norm']:.6f}" for c in checks)
+              + f" (single rank {single['grad_norm']:.6f}, relative "
+              f"tolerance {SHARDED_GNORM_RTOL:g}); every parameter after the "
+              f"step within "
+              + ", ".join(f"{c['max_abs_err']:.2e} ({c['worst']})"
+                          for c in checks)
+              + f" of the single rank's (rank 0, 1; tolerance "
+              f"{SHARDED_PARAM_TOL:g}); launches a rank "
+              f"{json.dumps({k: v for k, v in checks[0]['launches'].items() if v})}"
+              f", as one rank's step "
+              f"({checks[0]['tokens']} tokens a rank)")
+        warm = ranks[0]["loop"][name]["history"][-1]
+        print(f"[train sharded] grid {name} bf16, remat, batch {TRAIN_BATCH}"
+              f" x seq {TRAIN_SEQ} ({t['tokens']} tokens a rank): warm step "
+              f"through train(grid=) loss {warm['loss']:.4f}, launches "
+              f"as one rank's; timed step ms "
+              + ", ".join(f"rank {i} " + "/".join(f"{r['ms']:.1f}"
+                                                  for r in tt["steps"])
+                          for i, tt in enumerate(timed))
+              + f" (median rank 0 {t['ms_median']:.1f}); single rank [train] "
+              f"{single_ms['train']:.1f} (fixed, no remat), [train capacity "
+              f"remat] {single_ms['train_capacity_remat']:.1f}; peak memory "
+              f"a rank " + ", ".join(f"{tt['peak_bytes'] / 1e9:.2f} GB"
+                                     for tt in timed)
+              + f"; parameter and moment blocks a rank "
+              + ", ".join(f"{tt['shard_bytes'] / 1e9:.3f} GB"
+                          for tt in timed)
+              + f" (of {12 * n_params / 1e9:.3f} GB whole); collectives a "
+              f"step, rank 0 (calls, GB of the whole tensors, host s inside "
+              f"them): " + ", ".join(
+                  f"{op} {v['calls']:.0f}, {v['bytes'] / 1e9:.3f} GB, "
+                  f"{v['host_s']:.2f} s" for op, v in sorted(coll.items()))
+              + "; launches a step "
+              f"{json.dumps({k: v for k, v in t['launches_per_step'].items() if v})}; "
+              f"{smi_line()}")
+    out["backend"] = ranks[0]["backend"]
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4814,6 +5085,13 @@ def main() -> None:
     resume = train_resume()
     print(json.dumps({"train_resume": resume}))
     elapsed("training resume")
+    # [train sharded]: the 4-layer model on 2 ranks of this card, grids 2x1
+    # and 1x2
+    sharded = train_sharded({
+        "train": train["step_ms_median_after_first"],
+        "train_capacity_remat": train_cap["step_ms_median_after_first"]})
+    print(json.dumps({"train_sharded": sharded}))
+    elapsed("training sharded")
 
     # 10. the dense family: gemma2-9b served at full width and depth, its
     # 8,192-token prefill; the chunked attention against the whole-score
@@ -5041,6 +5319,16 @@ def main() -> None:
         entry.update({"library": d["library"],
                       "library_null_reason": d["library_null_reason"]})
         entry.update(extra)
+        if name in MOE_KERNELS or name in _build.BACKWARD_KERNELS:
+            # each [train sharded] rank's launches over one timed step
+            entry["launches_train_sharded"] = {
+                f"{g} rank {i}": t["launches_per_step"][name]
+                for g, d in sharded["grids"].items()
+                for i, t in enumerate(d["timed"])}
+            entry["launches_train_sharded_run"] = (
+                f"[train sharded] one bf16 step with remat, {TRAIN_LAYERS} "
+                f"layers, on each rank of the grids "
+                + ", ".join(sharded["grids"]))
         if name in MOE_KERNELS or name == "paged_attention":
             # each [ep] rank's launches over its bf16 timed run
             entry["launches_ep"] = {

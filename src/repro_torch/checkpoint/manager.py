@@ -30,8 +30,14 @@
 
 ``restore`` copies each leaf into the target's tensor, on that tensor's
 own device, in place.  ``stats`` holds the bytes and the seconds of the
-last save's host copy and write and of the last restore.  Elastic
-re-sharding onto another mesh waits for the port's sharded training."""
+last save's host copy and write and of the last restore.
+
+On a grid of ranks (``shardings``: the state's specs by leaf name, and
+the ``grid``) a checkpoint still holds full arrays, as the reference's
+do: ``save`` gathers each leaf from every rank's block, one leaf at a
+time, and rank 0 alone stages and writes; ``restore`` reads on each rank
+only its block of each full leaf (memory-mapped), on any grid: the
+reference's elastic restore."""
 from __future__ import annotations
 
 import json
@@ -89,32 +95,51 @@ class CheckpointManager:
         self._host: Dict[str, torch.Tensor] = {}    # staging, reused
         self.stats: Dict[str, float] = {}
 
-    def _staging(self, leaves: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
-        """A host buffer per leaf, page-locked for a device leaf; kept from
-        the last call when its shape and dtype still match."""
-        for name, t in leaves.items():
+    def _staging(self, leaves: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+        """A host buffer per leaf ``{name: (shape, dtype, pinned)}``,
+        page-locked for a device leaf; kept from the last call when its
+        shape and dtype still match."""
+        for name, (shape, dtype, pinned) in leaves.items():
             buf = self._host.get(name)
-            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                self._host[name] = torch.empty(t.shape, dtype=t.dtype,
-                                               pin_memory=t.is_cuda)
+            if buf is None or buf.shape != shape or buf.dtype != dtype:
+                self._host[name] = torch.empty(shape, dtype=dtype,
+                                               pin_memory=pinned)
         return {name: self._host[name] for name in leaves}
 
     # ------------------------------------------------------------------
-    def save(self, step: int, state: Any) -> None:
+    def save(self, step: int, state: Any, shardings: Optional[dict] = None,
+             grid=None) -> None:
         """Copy ``state`` to host memory now, write it (in the background
-        when async)."""
+        when async).  With ``shardings`` ({leaf name: spec}; a leaf absent
+        is whole on every rank) each leaf is gathered whole on ``grid``
+        first, one at a time, and only rank 0 stages and writes; every
+        rank must call."""
+        from repro_torch.distributed.sharding import full_shape, unshard
         self.wait()        # one write in flight; it reads the staging
         t0 = time.perf_counter()
         leaves = flatten_state(state)
-        staging = self._staging(leaves)
+        specs = {n: (shardings or {}).get(n, ()) for n in leaves}
+        shapes = {n: (tuple(t.shape) if shardings is None
+                      else full_shape(t.shape, specs[n], grid))
+                  for n, t in leaves.items()}
+        writer = shardings is None or grid.rank == 0
+        if writer:
+            staging = self._staging({n: (torch.Size(shapes[n]), t.dtype,
+                                         t.is_cuda)
+                                     for n, t in leaves.items()})
         for name, t in leaves.items():
-            staging[name].copy_(t.detach(), non_blocking=t.is_cuda)
+            src = t.detach() if shardings is None \
+                else unshard(t.detach(), specs[name], grid)
+            if writer:
+                staging[name].copy_(src, non_blocking=src.is_cuda)
+            del src
+        if not writer:
+            return
         for dev in {t.device for t in leaves.values() if t.is_cuda}:
             torch.cuda.current_stream(dev).synchronize()
         host = {n: _words(b) for n, b in staging.items()}
-        meta = [{"name": n, "shape": list(t.shape), "dtype": _dtype_name(t)}
-                for n, t in leaves.items()]
+        meta = [{"name": n, "shape": list(shapes[n]),
+                 "dtype": _dtype_name(t)} for n, t in leaves.items()]
         self.stats.update(bytes=sum(a.nbytes for a in host.values()),
                           host_copy_s=time.perf_counter() - t0)
         if self._pool is None:
@@ -165,9 +190,14 @@ class CheckpointManager:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
-    def restore(self, target: Any, step: Optional[int] = None) -> Any:
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Optional[dict] = None, grid=None) -> Any:
         """Load checkpoint ``step`` (default: the latest) into ``target``'s
-        tensors in place, each on its own device; returns ``target``."""
+        tensors in place, each on its own device; returns ``target``.
+        With ``shardings`` ({leaf name: spec}) ``target`` holds this rank's
+        blocks on ``grid``, and each rank reads only its block of each full
+        leaf: onto any grid (elastic)."""
+        from repro_torch.distributed.sharding import block_slices, full_shape
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -183,20 +213,25 @@ class CheckpointManager:
                 f"STRUCTURES differ (e.g. a quantized checkpoint restored "
                 f"into a dense target, or vice versa; build the target "
                 f"with the same quantization scheme it was saved under)")
+        specs = {n: (shardings or {}).get(n, ()) for n in leaves}
         for m, (name, t) in zip(meta, leaves.items()):
-            if tuple(m["shape"]) != tuple(t.shape) \
-                    or m["dtype"] != _dtype_name(t):
+            shape = (tuple(t.shape) if shardings is None
+                     else full_shape(t.shape, specs[name], grid))
+            if tuple(m["shape"]) != shape or m["dtype"] != _dtype_name(t):
                 raise ValueError(
                     f"leaf {name}: checkpoint {m['dtype']} {m['shape']} != "
-                    f"target {_dtype_name(t)} {list(t.shape)}")
+                    f"target {_dtype_name(t)} {list(shape)}")
         t0 = time.perf_counter()
         self.wait()                       # the staging may be in a write
-        staging = self._staging(leaves)
+        staging = self._staging({n: (t.shape, t.dtype, t.is_cuda)
+                                 for n, t in leaves.items()})
 
         def read_leaf(i_name):
             i, name = i_name
-            _words(staging[name])[...] = np.load(path / f"leaf_{i}.npy",
-                                                 mmap_mode="r")
+            full = np.load(path / f"leaf_{i}.npy", mmap_mode="r")
+            where = (Ellipsis if shardings is None
+                     else block_slices(full.shape, specs[name], grid))
+            _words(staging[name])[...] = full[where]
         with ThreadPoolExecutor(max_workers=_IO_THREADS) as io:
             list(io.map(read_leaf, enumerate(leaves)))
         with torch.no_grad():

@@ -44,8 +44,19 @@ token order, row for row the single-device policy's.  ``sched/*`` stats,
 with ``cfg.emit_stats``, are sums over the group.
 
 Send sizes come from T, k, E and ep on the host: nothing here reads the
-device to size a buffer.  Training through the exchange (autograd) is not
-ported yet and raises."""
+device to size a buffer.
+
+Training runs through the ``sharded`` layout: each exchange is an autograd
+Function whose backward is the all_to_all with the counts reversed, and
+the rank-local phases are the executor's, whose kernels' backward runs B1
+with its weight read transposed and B7 (``kernels/autograd.py``).
+``apply_moe_ep_local`` is the sharded training path's entry: it takes this
+rank's own tokens (under sequence parallelism they are already local) and
+returns their outputs, with the router losses and the capacity policy's
+drops decided over the whole batch (``token_group``).  ``apply_moe_ep`` on
+the global x runs under autograd too, every rank getting the whole
+gradient of its replicated inputs; its other layouts stay inference-only
+and raise there."""
 from __future__ import annotations
 
 from typing import Optional
@@ -67,6 +78,95 @@ from repro_torch.scheduling import (BlockSchedule, ScheduleStats,
 # block_m rounding: that is the whole point).
 _SEND_ALIGN = 8
 _I32 = torch.int32
+
+
+def _needs_grad(params, x) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        isinstance(v, torch.Tensor) and v.requires_grad
+        for v in params.values()))
+
+
+class _Exchange(torch.autograd.Function):
+    """The payload all_to_all: chunk i to rank i.  Its backward sends each
+    received chunk's gradient back where the chunk came from: the
+    all_to_all with the counts reversed (every chunk here has the same
+    ``a2a_send_rows`` rows, so the same call)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_to_all(grad.contiguous()), None
+
+
+def _exchange(t: torch.Tensor, group: EPGroup) -> torch.Tensor:
+    return _Exchange.apply(t, group) if t.requires_grad \
+        else group.all_to_all(t)
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean over the group of a per-rank value every rank then holds;
+    each rank backpropagates that replicated mean, so a rank's own value
+    gets 1/size of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.size = group.size
+        return group.all_reduce(t, "mean")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity on a replicated tensor that each rank uses on its own part
+    of the work: the gradient is the sum of the ranks' parts."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous()), None
+
+
+class _Split(torch.autograd.Function):
+    """Rank r's block of a replicated tensor on ``dim``; the backward
+    all-gathers every rank's block gradient, so each rank holds the whole
+    gradient of its replicated copy."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = t.shape[dim] // group.size
+        return t.narrow(dim, group.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = ctx.group.all_gather(grad.contiguous())
+        return torch.cat(parts.unbind(), dim=ctx.dim), None, None
+
+
+class _Join(torch.autograd.Function):
+    """Every rank's block, joined on ``dim`` (the inverse of ``_Split``);
+    the backward keeps this rank's block of the replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        parts = group.all_gather(t)
+        return torch.cat(parts.unbind(), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.group.size
+        return grad.narrow(ctx.dim, ctx.group.rank * n, n), None, None
 
 
 def _resolve_capacity_factor(cfg: MoEDispatchConfig,
@@ -132,7 +232,9 @@ def _rank_plan(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup):
     consumes."""
     plan = plan_dispatch(x_loc, params["router"], cfg, with_schedule=False)
     keys = list(plan.aux)
-    mean = group.all_reduce(torch.stack([plan.aux[k] for k in keys]), "mean")
+    stacked = torch.stack([plan.aux[k] for k in keys])
+    mean = (_MeanOver.apply(stacked, group) if stacked.requires_grad
+            else group.all_reduce(stacked, "mean"))
     return plan._replace(aux=dict(zip(keys, mean.unbind())))
 
 
@@ -281,8 +383,16 @@ def _sharded_combine_phase(back, state):
 
 
 def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
-                      capacity_factor: float, n_micro: int = 1, gtok=None):
+                      capacity_factor: float, n_micro: int = 1, gtok=None,
+                      token_group: Optional[EPGroup] = None):
     """Per-rank body of ``token_layout='sharded'``.  x_loc: (T_local, d).
+
+    ``token_group`` (default: the EP group) holds every rank whose tokens
+    make up the batch: the capacity policy's buckets are sized over its
+    token count and its drops ranked over its tokens in global order
+    (``gtok``).  Given, the router losses are those of that whole batch
+    (``router_aux_losses``); without it they are the EP group's mean of
+    per-rank losses, as the reference's EP layer takes them.
 
     ``n_micro > 1`` pipelines the dispatch: microbatch i+1's all_to_alls
     are issued (``async_op``) before microbatch i's GEMMs and waited on
@@ -296,19 +406,30 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
     if E % ep:
         raise ValueError(f"n_experts={E} must divide over EP group size {ep}")
     Tl = x_loc.shape[0]
+    grad = _needs_grad(params, x_loc)
+    if grad and n_micro > 1:
+        raise NotImplementedError("the pipelined EP dispatch (overlap > 1) "
+                                  "is inference-only; train with overlap 0")
     while Tl % n_micro:
         n_micro -= 1                       # largest divisor <= requested
     c = Tl // n_micro
     chunks = [x_loc[i * c:(i + 1) * c] for i in range(n_micro)]
-    plans = [_rank_plan(params, ch, cfg, group) for ch in chunks]
+    if token_group is None:
+        plans = [_rank_plan(params, ch, cfg, group) for ch in chunks]
+        token_group = group
+    else:
+        plans = [plan_dispatch(ch, params["router"], cfg,
+                               with_schedule=False, aux_group=token_group)
+                 for ch in chunks]
 
     cap_global = None
     if cfg.schedule_policy == "capacity_factor":
-        cap_global = expert_capacity(Tl * ep, k, E, M, capacity_factor)
+        cap_global = expert_capacity(Tl * token_group.size, k, E, M,
+                                     capacity_factor)
         flat_full = torch.cat([p.indices.reshape(-1).to(_I32)
                                for p in plans])
         keep_full = _capacity_keep(flat_full, gtok, Tl, k, E, cap_global,
-                                   group)
+                                   token_group)
         keeps = [keep_full[i * c * k:(i + 1) * c * k] for i in range(n_micro)]
     else:
         keeps = [torch.ones((c * k,), dtype=torch.bool, device=x_loc.device)
@@ -326,7 +447,7 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
                 group.all_to_all(sends[i][1], async_op=True))
 
     outs, auxes = [], []
-    recv = None if n_micro > 1 else (group.all_to_all(sends[0][0]),
+    recv = None if n_micro > 1 else (_exchange(sends[0][0], group),
                                      group.all_to_all(sends[0][1]))
     nxt = issue(0) if n_micro > 1 else None
     for i in range(n_micro):
@@ -335,12 +456,12 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
             recv = (cur[0].wait(), cur[1].wait())
         st = sends[i][2]
         y, sched = _sharded_compute_phase(recv[0], recv[1], cfg, st)
-        back = group.all_to_all(y)
+        back = _exchange(y, group)
         outs.append(_sharded_combine_phase(back, st))
         aux = dict(st["plan"].aux)
         if cfg.emit_stats:
             kept = st["tkeep"].sum(dtype=_I32)
-            aux.update(_ep_stats(group, kept=kept,
+            aux.update(_ep_stats(token_group, kept=kept,
                                  dropped=st["tkeep"].numel() - kept,
                                  counts_local=st["counts_local"],
                                  sched=sched))
@@ -522,16 +643,14 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     dispatch microbatches to pipeline; 0 or 1 is the straight line.
 
     ``cfg.executor`` must be a schedule-capable backend (phase methods);
-    the shared experts run outside the exchange, on every token."""
+    the shared experts run outside the exchange, on every token.
+
+    Under autograd (``sharded`` only, ``overlap`` 0) every rank
+    backpropagates the same replicated loss, and each gets the whole
+    gradient of x and of the router (the slice's backward gathers, the
+    router's sums over the group) and its own experts' gradients."""
     capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
     group = group or current_ep_group()
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            isinstance(v, torch.Tensor) and v.requires_grad
-            for v in params.values())):
-        raise NotImplementedError(
-            "training through the expert-parallel exchange (autograd) is not "
-            "ported yet (ROADMAP A7, sharded training); serve under "
-            "torch.no_grad")
     if x.dim() != 3:
         raise ValueError(f"apply_moe_ep takes x (B, S, d), not "
                          f"{tuple(x.shape)}")
@@ -542,13 +661,26 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     ep, r = group.size, group.rank
     B, S, d = x.shape
     layout, dim = _token_split(x.shape, ep, token_layout)
+    grad = _needs_grad(params, x)
+    if grad and layout != "sharded":
+        raise NotImplementedError(
+            f"the {layout!r} EP layout is inference-only: training runs the "
+            f"padding-free 'sharded' layout (x of shape {tuple(x.shape)} "
+            f"must split over {ep} ranks); serve under torch.no_grad")
     if layout == "replicated":
         y, aux = _ep_replicated_local(params, x.reshape(-1, d), cfg, group,
                                       capacity_factor)
         y = y.reshape(B, S, d)
     else:
         n = x.shape[dim] // ep
-        x_loc = x.narrow(dim, r * n, n)
+        routed = dict(params)
+        if grad:
+            # every rank uses the replicated router on its own tokens, and
+            # gets back the whole gradient of its replicated x
+            routed["router"] = _SumGrad.apply(params["router"], group)
+            x_loc = _Split.apply(x, dim, group)
+        else:
+            x_loc = x.narrow(dim, r * n, n)
         B_l, S_l = x_loc.shape[:2]
         # global token ids in the unsharded (b, s) flatten order, so the
         # policy's drops do not depend on the split
@@ -557,15 +689,55 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
                 else r * (B_l * S_l) + idx)
         x2 = x_loc.reshape(-1, d)
         if layout == "sharded":
-            y_loc, aux = _ep_sharded_local(params, x2, cfg, group,
+            y_loc, aux = _ep_sharded_local(routed, x2, cfg, group,
                                            capacity_factor, max(1, overlap),
                                            gtok=gtok)
         else:
             y_loc, aux = _ep_sharded_static_local(params, x2, cfg, group,
                                                   capacity_factor)
-        parts = group.all_gather(y_loc.reshape(B_l, S_l, d))
-        y = torch.cat(parts.unbind(), dim=dim)
+        y_loc = y_loc.reshape(B_l, S_l, d)
+        if grad:
+            y = _Join.apply(y_loc, dim, group)
+        else:
+            parts = group.all_gather(y_loc)
+            y = torch.cat(parts.unbind(), dim=dim)
     if "shared" in params:
         y_sh = shared_experts(params["shared"], x.reshape(-1, d))
         y = y + y_sh.to(y.dtype).reshape(B, S, d)
     return y, aux
+
+
+def apply_moe_ep_local(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
+                       gtok: torch.Tensor, group: Optional[EPGroup] = None,
+                       token_group: Optional[EPGroup] = None,
+                       capacity_factor: Optional[float] = None):
+    """The EP MoE layer on this rank's own tokens: x (..., d), returns (y
+    of x's shape, aux).  The sharded training path's entry: under sequence
+    and data parallelism each rank holds its block of the batch, and
+    nothing is gathered or split here.
+
+    ``group`` (default: the current one) exchanges expert rows: ``params``
+    holds its rank's ``E // group.size`` routed experts, the whole router
+    and the shared experts.  ``token_group`` (default: ``group``) holds
+    every rank whose tokens make up the batch, each with the same token
+    count; ``gtok`` (T_local,) int gives each local row's id in the whole
+    batch's (b, s) flatten order.  Over ``token_group`` the router losses
+    are the whole batch's (``router_aux_losses``), the ``capacity_factor``
+    policy's buckets are sized over every token and its drops are decided
+    in global token order, row for row the single-device policy's;
+    ``sched/*`` are sums over ``token_group``.  The padding-free
+    ``sharded`` layout; differentiable."""
+    capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
+    group = group or current_ep_group()
+    token_group = token_group or group
+    if params_scheme(params) != "none" and _needs_grad(params, x):
+        raise NotImplementedError(
+            "quantized expert weights have no backward: train dense stacks")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    y, aux = _ep_sharded_local(params, x2, cfg, group, capacity_factor,
+                               gtok=gtok.reshape(-1),
+                               token_group=token_group)
+    if "shared" in params:
+        y = y + shared_experts(params["shared"], x2).to(y.dtype)
+    return y.reshape(shape), aux

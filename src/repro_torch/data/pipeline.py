@@ -3,7 +3,8 @@
 reference's): Markov-chain token streams in which each token may be
 followed by only ``branch`` tokens, so a model that learns shows a loss
 well below ln(vocab).  A batch is a pure function of (seed, step).
-``device_batch`` hands it to torch on an explicit device."""
+``device_batch`` hands it to torch on an explicit device, and
+``local_batch`` cuts a rank's block of it on a grid."""
 from __future__ import annotations
 
 import functools
@@ -53,3 +54,33 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                                 torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def local_batch(batch: dict, grid, specs: dict) -> dict:
+    """This rank's block of a whole batch under ``batch_specs`` on ``grid``:
+    ``tokens`` cut on the batch dim over the data axes and on the sequence
+    over 'model', and ``labels``, the next token of each local position
+    that has one (the sequence's last rank has one position fewer).  Works
+    on numpy arrays and on tensors, with or without a microbatch axis.
+
+    Every axis of more than one rank must cut the batch: a dropped one
+    would have its ranks train on the same rows twice, so it raises."""
+    toks = batch["tokens"]
+    b_ax, s_ax = specs["tokens"][-2:]
+
+    def axes(ax):
+        return () if ax is None else ((ax,) if isinstance(ax, str) else ax)
+    used = set(axes(b_ax)) | set(axes(s_ax))
+    idle = [a for a in grid.axis_names
+            if grid.sizes[a] > 1 and a not in used]
+    B, S = toks.shape[-2:]
+    if idle or S % grid.size(axes(s_ax)):
+        raise ValueError(f"a batch of {B} x {S} does not cut over the "
+                         f"{grid!r}: the batch must divide over the data "
+                         f"axes and the sequence over 'model'")
+    Bl = B // grid.size(axes(b_ax))
+    Sl = S // grid.size(axes(s_ax))
+    b0, s0 = grid.index(axes(b_ax)) * Bl, grid.index(axes(s_ax)) * Sl
+    rows = toks[..., b0:b0 + Bl, :]
+    return {"tokens": rows[..., s0:s0 + Sl],
+            "labels": rows[..., s0 + 1:s0 + Sl + 1]}

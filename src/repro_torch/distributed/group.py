@@ -1,5 +1,6 @@
-"""Expert-parallel process groups over ``torch.distributed`` (counterpart of
-the multi-process half of ``repro.launch.mesh``).
+"""Process groups over ``torch.distributed``: the expert-parallel group and
+the grid of ranks (counterpart of the multi-process half of
+``repro.launch.mesh``).
 
 The reference runs one jitted program over a device mesh and ``shard_map``
 splits it per device.  The port runs one process per rank instead: every
@@ -16,6 +17,11 @@ ranks talk to each other.  This module holds what that needs:
   ``all_reduce`` sum and mean);
 * ``use_ep_group`` makes a group the current one for the model's MoE
   layers (the reference's ``set_mesh``);
+* ``make_grid`` places this rank on a ``pod x data x model`` grid, the
+  reference's ``jax.make_mesh((pod, data, model))``: its coordinates and
+  one ``EPGroup`` per axis and per set of axes (sharded training,
+  ``repro_torch.distributed.sharding``); the groups add
+  ``reduce_scatter`` and ``barrier`` to the collectives;
 * ``spawn_ranks`` starts ``n`` rank processes from one process (the
   ``spawn`` start method) and returns each rank's result: the counterpart
   of the reference's forced host-device mesh.
@@ -33,8 +39,10 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import os
 import socket
+import time
 import traceback
 from typing import Callable, Optional
 
@@ -42,6 +50,33 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+
+# Every collective this process ran over more than one rank: op -> [calls,
+# bytes, seconds]: the bytes of the whole tensor (an all_gather's result, a
+# reduce_scatter's or all_reduce's input, an all_to_all's input) and the
+# host's seconds inside the call.  Host counters only;
+# ``reset_collectives`` zeroes them.
+COLLECTIVES: dict = {}
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+@contextlib.contextmanager
+def _counted(op: str, t: torch.Tensor):
+    t0 = time.perf_counter()
+    yield
+    c = COLLECTIVES.setdefault(op, [0, 0, 0.0])
+    c[0] += 1
+    c[1] += t.numel() * t.element_size()
+    c[2] += time.perf_counter() - t0
+
+
+# reduce_scatter_single is reduce_scatter_tensor's newer name
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
 
 def free_port() -> int:
     """A TCP port that was free a moment ago (bound to port 0 and
@@ -103,14 +138,16 @@ class Pending:
         self._work, self._out = work, out
 
     def wait(self) -> torch.Tensor:
-        self._work.wait()
+        if self._work is not None:
+            self._work.wait()
         return self._out
 
 
 class EPGroup:
-    """One expert-parallel group: ``rank`` of ``size`` ranks, the process
-    group (``None``: the default one), its backend and this rank's device,
-    and the collectives of the exchange."""
+    """One process group: ``rank`` of ``size`` ranks, the process group
+    (``None``: the default one), its backend and this rank's device, and
+    the collectives of the exchange.  A group of one rank calls no
+    collective: each one returns a copy of its input."""
 
     def __init__(self, rank: int, size: int, group, backend: str,
                  device: torch.device):
@@ -124,25 +161,57 @@ class EPGroup:
             raise ValueError(f"all_to_all takes ({self.size}, ...) chunks, "
                              f"not {tuple(t.shape)}")
         src = t.contiguous()
+        if self.size == 1:
+            out = src.clone()
+            return Pending(None, out) if async_op else out
         out = torch.empty_like(src)
-        work = dist.all_to_all_single(out, src, group=self.group,
-                                      async_op=async_op)
+        with _counted("all_to_all", src):
+            work = dist.all_to_all_single(out, src, group=self.group,
+                                          async_op=async_op)
         return Pending(work, out) if async_op else out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *t.shape): every rank's ``t`` in rank order."""
         src = t.contiguous()
+        if self.size == 1:
+            return src.clone()[None]
         outs = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(outs, src, group=self.group)
+        with _counted("all_gather", src.expand(self.size, *src.shape)):
+            dist.all_gather(outs, src, group=self.group)
         return torch.stack(outs)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The sum (or ``"mean"``) of every rank's ``t``, a new tensor."""
-        if op not in ("sum", "mean"):
-            raise ValueError(f"all_reduce op {op!r}: sum or mean")
+        """The sum (or ``"mean"``, or ``"max"``) of every rank's ``t``, a
+        new tensor."""
+        if op not in ("sum", "mean", "max"):
+            raise ValueError(f"all_reduce op {op!r}: sum, mean or max")
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        if self.size == 1:
+            return out
+        with _counted("all_reduce", out):
+            dist.all_reduce(out, op=(dist.ReduceOp.MAX if op == "max"
+                                     else dist.ReduceOp.SUM),
+                            group=self.group)
         return out / self.size if op == "mean" else out
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier(group=self.group)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of the sum over ranks of ``t``, cut into
+        ``size`` equal blocks on ``dim``."""
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter over {self.size} ranks: dim "
+                             f"{dim} of {tuple(t.shape)} does not divide")
+        if self.size == 1:
+            return t.clone()
+        src = t.movedim(dim, 0).contiguous()
+        n = src.shape[0] // self.size
+        out = src.new_empty((n,) + tuple(src.shape[1:]))
+        with _counted("reduce_scatter", src):
+            _reduce_scatter(out, src, group=self.group)
+        return out.movedim(0, dim)
 
 
 def make_ep_group(ep: Optional[int] = None, *, device=None,
@@ -175,6 +244,124 @@ def make_ep_group(ep: Optional[int] = None, *, device=None,
         print(f"[ep] {world} rank(s), EP groups of {n}, backend {backend} on "
               f"{g.device}{shared}", flush=True)
     return g
+
+
+# ----------------------------------------------------------------------
+# The grid of ranks (the reference's jax.make_mesh((pod, data, model)))
+# ----------------------------------------------------------------------
+AXES = ("pod", "data", "model")
+
+
+class Grid:
+    """This rank's place in a ``pod x data x model`` grid of ranks, with
+    rank ``(p * D + d) * M + m`` at coordinates (p, d, m): the device order
+    of the reference's ``jax.make_mesh((pod, data, model))``.
+
+    ``shape`` maps the grid's axis names to their sizes, as a mesh's does:
+    ``("data", "model")``, with ``"pod"`` first when the grid has pods.
+    ``group(axes)`` is the ``EPGroup`` of the ranks that differ from this
+    one only on ``axes`` (one per axis and per set of axes), its members in
+    rank order; ``world`` is the group of every rank."""
+
+    def __init__(self, sizes: dict, coords: dict, groups: dict, rank: int,
+                 backend: str):
+        self.sizes, self.coords, self._groups = sizes, coords, groups
+        self.rank, self.backend = rank, backend
+        names = AXES if sizes["pod"] > 1 else AXES[1:]
+        self.shape = {a: sizes[a] for a in names}
+        self.axis_names = names
+        self.world = self.group(AXES)
+
+    def group(self, axes) -> EPGroup:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self._groups[frozenset(a for a in axes if a in AXES)]
+
+    def size(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = 1
+        for a in axes:
+            n *= self.sizes[a]
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's block index over ``axes`` in their given order
+        (row-major: the first axis is the major one), as a dim sharded over
+        a tuple of mesh axes is cut."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        i = 0
+        for a in axes:
+            i = i * self.sizes[a] + self.coords[a]
+        return i
+
+    def __repr__(self):
+        dims = "x".join(str(self.sizes[a]) for a in self.axis_names)
+        return (f"Grid({dims} {' x '.join(self.axis_names)}, rank "
+                f"{self.rank} at {self.coords})")
+
+
+def make_grid(data: int, model: int, pod: int = 1, *, device=None,
+              verbose: bool = True) -> Grid:
+    """The grid of this rank over the default group, whose size must be
+    ``pod * data * model``; a grid of one rank needs no group.  Every rank
+    makes every process group, in the same order.
+
+    ``device`` defaults to the current CUDA device under NCCL, else the
+    CPU (ranks sharing a card pass it)."""
+    sizes = {"pod": pod, "data": data, "model": model}
+    n = pod * data * model
+    if min(sizes.values()) < 1:
+        raise ValueError(f"grid sizes must be >= 1, not {sizes}")
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        backend = dist.get_backend()
+    elif n == 1:
+        world, rank, backend = 1, 0, "none"
+    else:
+        raise RuntimeError("make_grid needs torch.distributed for more than "
+                           "one rank: call init_distributed (or run under "
+                           "spawn_ranks)")
+    if world != n:
+        raise ValueError(f"a {pod}x{data}x{model} grid needs {n} ranks, "
+                         f"not {world}")
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+    device = torch.device(device)
+    coords = {"model": rank % model, "data": (rank // model) % data,
+              "pod": rank // (model * data)}
+
+    def rank_of(c):
+        return (c["pod"] * data + c["data"]) * model + c["model"]
+
+    groups = {}
+    for mask in range(1, 8):
+        axes = tuple(a for i, a in enumerate(AXES) if mask >> i & 1)
+        size = 1
+        for a in axes:
+            size *= sizes[a]
+        mine = None
+        if 1 < size < world:
+            others = [a for a in AXES if a not in axes]
+            for fixed in itertools.product(*(range(sizes[a])
+                                             for a in others)):
+                members = []
+                for inner in itertools.product(*(range(sizes[a])
+                                                 for a in axes)):
+                    c = dict(zip(others, fixed))
+                    c.update(zip(axes, inner))
+                    members.append(rank_of(c))
+                g = dist.new_group(sorted(members))
+                if rank in members:
+                    mine = (sorted(members).index(rank), g)
+        idx, pg = (mine if mine is not None
+                   else ((rank if size == world else 0), None))
+        groups[frozenset(axes)] = EPGroup(idx, size, pg, backend, device)
+    grid = Grid(sizes, coords, groups, rank, backend)
+    if verbose and rank == 0:
+        dims = "x".join(str(sizes[a]) for a in grid.axis_names)
+        print(f"[grid] {dims} ({' x '.join(grid.axis_names)}), {world} "
+              f"rank(s), backend {backend} on {device}", flush=True)
+    return grid
 
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("ep_group",
@@ -236,7 +423,6 @@ def spawn_ranks(fn: Callable, n: int, device="cpu", *args,
     and the error, with the failing rank's traceback, is raised here."""
     import multiprocessing as mp
     import queue as queue_mod
-    import time
 
     dev = resolve_device(device)
     if dev.type == "cuda":

@@ -18,6 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.ctx import global_sum
 from repro_torch.scheduling import (BlockSchedule, build_schedule,
                                     combine_scale_rows,
                                     policy_config_kwargs, schedule_stats)
@@ -36,19 +37,37 @@ class DispatchPlan(NamedTuple):
     aux: dict                               # lb/z losses (+ sched/*)
 
 
-def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg):
+def router_aux_losses(logits: torch.Tensor, indices: torch.Tensor, cfg,
+                      group=None):
     """Load-balance + router-z losses.  The expert frequencies come from a
-    ``scatter_add_`` count, equal to the reference's one-hot mean."""
+    ``scatter_add_`` count, equal to the reference's one-hot mean.
+
+    ``lb = E * sum(frac * mean_prob)`` is a product of two token means, so
+    a mean of per-rank losses is not the loss of the whole batch: with
+    ``group`` (the ranks whose tokens make up the batch) the per-expert
+    counts, the probability sums, the z sum and the token count are summed
+    over the group first (``distributed.ctx.global_sum``, through which
+    the gradient flows), and every rank gets the global losses."""
     probs = torch.softmax(logits, dim=-1)
     E = cfg.n_experts
     flat = indices.reshape(-1).long()
     frac = torch.zeros(E, dtype=torch.float32, device=logits.device)
     frac = frac.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
-    frac = frac / flat.numel()
-    mean_prob = probs.mean(dim=0)
-    lb = E * torch.sum(frac * mean_prob)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return {"lb_loss": lb, "router_z": z}
+    if group is None or group.size == 1:
+        frac = frac / flat.numel()
+        mean_prob = probs.mean(dim=0)
+        lb = E * torch.sum(frac * mean_prob)
+        z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        return {"lb_loss": lb, "router_z": z}
+    T = logits.shape[0]
+    z_sum = torch.sum(torch.logsumexp(logits, dim=-1) ** 2)
+    n = torch.full((1,), float(T), dtype=torch.float32, device=logits.device)
+    tot = global_sum(torch.cat([frac, probs.sum(dim=0), z_sum[None], n]),
+                     group)
+    counts, prob_sum, z_sum, n = tot[:E], tot[E:2 * E], tot[2 * E], tot[-1]
+    lb = E * torch.sum((counts / (n * indices.shape[-1]))
+                       * (prob_sum / n))
+    return {"lb_loss": lb, "router_z": z_sum / n}
 
 
 def plan_schedule(indices: torch.Tensor, cfg,
@@ -166,19 +185,21 @@ def set_plan_hook(hook: Optional[Callable[..., None]]):
 
 
 def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg, *,
-                  with_schedule: bool = True) -> DispatchPlan:
+                  with_schedule: bool = True, aux_group=None) -> DispatchPlan:
     """Phase 1: route + schedule + combine rows + aux, once per batch;
     with ``cfg.emit_stats`` the aux also holds the schedule's ``sched/*``
     telemetry (device tensors, no host read).  ``with_schedule=False``
     stops after the routing and the router losses: the expert-parallel
-    paths build their schedules over the rows each rank receives."""
+    paths build their schedules over the rows each rank receives.
+    ``aux_group``: the router losses over that group's whole batch
+    (``router_aux_losses``)."""
     ex = get_executor(cfg.executor)
     if _PLAN_HOOK is not None:
         _PLAN_HOOK(tokens=int(x.shape[0]), executor=str(cfg.executor),
                    policy=str(cfg.schedule_policy))
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
-    aux = router_aux_losses(logits, indices, cfg)
+    aux = router_aux_losses(logits, indices, cfg, aux_group)
     if not with_schedule:
         return DispatchPlan(weights=weights, indices=indices, logits=logits,
                             schedule=None, combine_scale=None, aux=aux)

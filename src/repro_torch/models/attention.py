@@ -73,13 +73,19 @@ def _scaled_q(q: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
+                    q_offset: int = 0, kv_offset: int = 0,
                     kv_limit: Optional[torch.Tensor] = None,
-                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    return_stats: bool = False):
     """The reference's chunked online-softmax attention.  q: (B, Sq, Hq,
     D); k, v: (B, Skv, Hkv, D | Dv); kv_limit: (B,) inclusive last attended
-    key position.  Query i and key j sit at positions i and j (the
-    reference's zero offsets): ``causal`` keeps j <= i, ``window`` keeps j >
-    i - window.  Returns (B, Sq, Hq, Dv) in q's dtype.
+    key position.  Query i and key j sit at positions ``q_offset + i`` and
+    ``kv_offset + j`` (a rank's sequence block passes its global offsets):
+    ``causal`` keeps key positions <= the query's, ``window`` keeps those
+    > the query's - window.  Returns (B, Sq, Hq, Dv) in q's dtype; with
+    ``return_stats`` the unnormalised fp32 (acc (B, Hkv, G, Sq, Dv), sum
+    of exponentials l and row max m (B, Hkv, G, Sq)) instead, for
+    ``combine_stats`` over KV blocks.
 
     The reference's order of operations: q scaled in its dtype, scores in
     fp32, the softcap, the masks, ``p`` rounded to V's dtype before the PV
@@ -104,12 +110,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.permute(0, 2, 1, 3).float()
     vf = v.permute(0, 2, 1, 3).float()
     lim = None if kv_limit is None else kv_limit.reshape(B, 1, 1, 1, 1)
-    outs = []
+    outs, stats = [], []
     for q0 in range(0, Sq, qc):
         q1 = min(q0 + qc, Sq)
         n = q1 - q0
         qb = qs[:, :, :, q0:q1].reshape(B, Hkv, G * n, D)
-        qpos = torch.arange(q0, q1, device=dev)
+        p0, p1 = q_offset + q0, q_offset + q1      # the chunk's positions
+        qpos = torch.arange(p0, p1, device=dev)
         m = torch.full((B, Hkv, G, n), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, Hkv, G, n), dtype=torch.float32, device=dev)
@@ -117,18 +124,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           device=dev)
         for k0 in range(0, Skv, kc):
             k1 = min(k0 + kc, Skv)
-            if causal and k0 > q1 - 1:
+            j0, j1 = kv_offset + k0, kv_offset + k1
+            if causal and j0 > p1 - 1:
                 break                          # past every query: all masked
-            if window is not None and k1 - 1 <= q0 - window:
+            if window is not None and j1 - 1 <= p0 - window:
                 continue                       # before every query's window
             s = torch.matmul(qb, kf[:, :, k0:k1].transpose(-1, -2))
             s = softcap(s, logit_softcap).reshape(B, Hkv, G, n, k1 - k0)
             # the causal or window mask cuts this chunk somewhere
-            partial = ((causal and k1 - 1 > q0)
-                       or (window is not None and k0 <= q1 - 1 - window))
+            partial = ((causal and j1 - 1 > p0)
+                       or (window is not None and j0 <= p1 - 1 - window))
             mask = None
             if partial or lim is not None:
-                kpos = torch.arange(k0, k1, device=dev)
+                kpos = torch.arange(j0, j1, device=dev)
             if partial:
                 mask = torch.ones((n, k1 - k0), dtype=torch.bool, device=dev)
                 if causal:
@@ -151,12 +159,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               vf[:, :, k0:k1])
             acc = corr[..., None] * acc + pv.reshape(B, Hkv, G, n, Dv)
             m = m_new
+        if return_stats:
+            stats.append((acc, l, m))
+            continue
         o = torch.where(l[..., None] > 0,
                         acc / torch.clamp(l[..., None], min=1e-30),
                         torch.zeros_like(acc))
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, n, Hq, Dv)
                     .to(q.dtype))
+    if return_stats:
+        acc, l, m = (torch.cat(t, dim=3) for t in zip(*stats))
+        return acc, l, m
     return torch.cat(outs, dim=1)
+
+
+def combine_stats(acc: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                  group) -> torch.Tensor:
+    """LSE-combine partial attention stats over the ranks of ``group``
+    (flash-decode): each rank holds ``flash_attention(...,
+    return_stats=True)`` of its KV block; the result, (B, Hkv, G, Sq, Dv)
+    fp32, is attention over the whole KV.  The max runs over the group,
+    then two sums."""
+    m_g = group.all_reduce(m, "max")
+    corr = torch.exp(m - m_g)
+    l_g = group.all_reduce(l * corr)
+    acc_g = group.all_reduce(acc * corr[..., None])
+    return torch.where(l_g[..., None] > 0,
+                       acc_g / torch.clamp(l_g[..., None], min=1e-30),
+                       torch.zeros_like(acc_g))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

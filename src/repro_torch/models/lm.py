@@ -32,8 +32,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.distributed import apply_moe_ep
+from repro_torch.core.distributed import apply_moe_ep, apply_moe_ep_local
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
+from repro_torch.distributed.ctx import (block_offset, constrain,
+                                         current_rules, global_sum, token_ids)
+from repro_torch.distributed.sharding import gather_param, gather_spec
 from repro_torch.kernels.paged_attention import fused_read_refusal
 from repro_torch.models.attention import (Attention, flash_attention,
                                           paged_decode, project_qkv,
@@ -211,6 +214,11 @@ class Block(nn.Module):
                 else cfg.d_ff
             self.ffn = FFN(d, f, cfg.act, cfg.mlp_bias, gen, dtype, device)
 
+    def forward(self, x, cfg, rc, positions, mode: str = "train"):
+        """``apply_block`` on this block (so that ``torch.func.
+        functional_call`` can run it on gathered weights)."""
+        return apply_block(self, x, cfg, rc, positions=positions, mode=mode)
+
 
 class LM(nn.Module):
     """Embedding, layers, final norm and, unless ``tie_embeddings``, a
@@ -228,10 +236,32 @@ class LM(nn.Module):
             [Block(cfg, kind, gen, dtype, device) for kind in kinds])
 
 
-def head_matrix(model: LM, cfg: ModelConfig) -> torch.Tensor:
+def full_param(model: LM, cfg: ModelConfig, name: str,
+               dt=None) -> torch.Tensor:
+    """Parameter ``name`` whole: itself, or on a model sharded over a grid
+    (``weights.shard_train_state``, inside ``distributed.ctx.use_rules``)
+    gathered from every rank's block, in ``dt`` unless its consumer
+    computes in fp32 (differentiable: the backward reduce-scatters)."""
+    p = model.get_parameter(name)
+    specs = getattr(model, "shard_specs", None)
+    if specs is None:
+        return p
+    _, grid = current_rules()
+    if grid is None:
+        raise RuntimeError(f"{name} is this rank's block of a sharded "
+                           f"model: run it inside distributed.ctx.use_rules")
+    if dt is None or ".shared." in name:   # the shared experts compute in
+        dt = p.dtype                         # fp32 from fp32 weights
+    spec = gather_spec(specs[name], model.full_shapes[name], cfg)
+    return gather_param(p, spec, grid, dt)
+
+
+def head_matrix(model: LM, cfg: ModelConfig, dt=None) -> torch.Tensor:
     """The (d, V) output projection: ``embed.T`` where the config ties it,
-    else ``head``."""
-    return model.embed.t() if cfg.tie_embeddings else model.head
+    else ``head`` (whole, in ``dt`` when sharded: ``full_param``)."""
+    if cfg.tie_embeddings:
+        return full_param(model, cfg, "embed", dt).t()
+    return full_param(model, cfg, "head", dt)
 
 
 def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor, dt
@@ -239,7 +269,7 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor, dt
     """Token embeddings in ``dt``; with ``emb_scale`` times sqrt(d_model)
     rounded to ``dt`` first, as the reference's ``asarray(d ** 0.5, dt)``
     (60.0 for gemma2's 3584 in bf16)."""
-    x = model.embed[tokens].to(dt)
+    x = full_param(model, cfg, "embed", dt)[tokens].to(dt)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
@@ -370,7 +400,16 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                                block_m_min=rc.block_m_min,
                                emit_stats=rc.moe_stats,
                                autotune=rc.autotune)
-        if rc.ep:
+        _, grid = current_rules()
+        if grid is not None and grid.world.size > 1:
+            # a grid's train path: this rank's tokens, EP over 'model', the
+            # router losses and the capacity drops over the whole batch
+            o, aux = apply_moe_ep_local(
+                blk.moe.params(), h, dcfg,
+                gtok=token_ids(h.shape[0], h.shape[1], h.device),
+                group=grid.group("model"), token_group=grid.world,
+                capacity_factor=rc.capacity_factor)
+        elif rc.ep:
             o, aux = apply_moe_ep(
                 blk.moe.params(), h, dcfg,
                 capacity_factor=rc.capacity_factor,
@@ -414,8 +453,11 @@ def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
                             logit_softcap=cap, q_chunk=ONE_CHUNK,
                             kv_chunk=ONE_CHUNK)
     else:
+        # on a grid (SP) a rank's queries are its sequence block, from
+        # position m * S on, and attend to every rank's keys
+        k, v = constrain("kv_full", k), constrain("kv_full", v)
         o = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                            logit_softcap=cap,
+                            logit_softcap=cap, q_offset=block_offset(1, S),
                             q_chunk=rc.q_chunk or ONE_CHUNK,
                             kv_chunk=rc.kv_chunk or ONE_CHUNK)
         if cache is not None:
@@ -483,26 +525,51 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     reference's per-group ``jax.checkpoint(nothing_saveable)``); the layer
     draws no random numbers, so no RNG state is kept for the replay
     (``preserve_rng_state=False``).  With ``rc.moe_stats`` the ``sched/*``
-    keys start at fp32 zeros, as the reference's scan carry does."""
-    x = embed_tokens(model, cfg, batch["tokens"], rc.compute_dtype)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    keys start at fp32 zeros, as the reference's scan carry does.
+
+    On a model sharded over a grid (inside ``use_rules``) ``tokens`` is
+    this rank's (B/D, S/M) block, at positions from ``m * S/M`` on, and
+    each layer gathers its own weights inside itself (``_grid_layer``):
+    under remat inside the recomputed function, so no gathered weight
+    outlives its layer."""
+    dt = rc.compute_dtype
+    x = embed_tokens(model, cfg, batch["tokens"], dt)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device) \
+        + block_offset(1, S)
     aux_acc: dict = {}
     if rc.moe_stats and n_moe_layers(cfg):
         aux_acc = {f"sched/{k}": torch.zeros((), dtype=torch.float32,
                                              device=x.device)
                    for k in ScheduleStats._fields}
-    for blk in model.layers:
+    sharded = getattr(model, "shard_specs", None) is not None
+    for i, blk in enumerate(model.layers):
+        if sharded:
+            fn, args = _grid_layer, (model, i)
+        else:
+            fn, args = apply_block, (blk,)
         if rc.remat:
-            x, aux = checkpoint(apply_block, blk, x, cfg, rc,
-                                positions=positions, mode="train",
-                                use_reentrant=False,
+            x, aux = checkpoint(fn, *args, x, cfg, rc, positions=positions,
+                                mode="train", use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            x, aux = apply_block(blk, x, cfg, rc, positions=positions,
-                                 mode="train")
+            x, aux = fn(*args, x, cfg, rc, positions=positions, mode="train")
         for key, val in aux.items():
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     return model.final_norm(x), None, aux_acc
+
+
+def _grid_layer(model: LM, i: int, x, cfg: ModelConfig, rc: RunConfig, *,
+                positions, mode: str):
+    """Layer ``i`` of a sharded model on this rank's block: its weights
+    gathered from every rank's block (``full_param``: the compute dtype,
+    expert stacks over 'data' only), then ``apply_block`` on them."""
+    pre = f"layers.{i}."
+    blk = model.layers[i]
+    full = {n: full_param(model, cfg, pre + n, rc.compute_dtype)
+            for n, _ in blk.named_parameters()}
+    return torch.func.functional_call(blk, full, (x, cfg, rc, positions),
+                                      {"mode": mode})
 
 
 @torch.no_grad()
@@ -576,14 +643,23 @@ def chunked_ce(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
 def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     """Next-token CE over ``batch["tokens"]`` (B, S), plus the MoE layers'
     aux losses (0.01 load balance, 1e-4 router z).  Returns (loss,
-    metrics), every value a device tensor."""
+    metrics), every value a device tensor.
+
+    On a grid (inside ``use_rules``) ``batch`` is this rank's block, with
+    ``labels``: the next token of each local position that has one
+    (``data.pipeline.local_batch``; the sequence's last rank has one
+    position fewer).  ``chunked_ce`` sums over the local rows, and the loss
+    is the sum over every rank over the count over every rank."""
     h, _, aux = forward(model, cfg, rc, batch, mode="train")
-    w_head = head_matrix(model, cfg).to(h.dtype)
-    labels = batch["tokens"][:, 1:]
+    w_head = head_matrix(model, cfg, h.dtype).to(h.dtype)
+    _, grid = current_rules()
+    labels = batch["labels"] if grid is not None else batch["tokens"][:, 1:]
     valid = torch.ones_like(labels, dtype=torch.bool)
-    tot, n = chunked_ce(h[:, :-1], w_head, labels, valid,
+    tot, n = chunked_ce(h[:, :labels.shape[1]], w_head, labels, valid,
                         chunk=rc.loss_chunk,
                         final_cap=cfg.final_logit_softcap)
+    if grid is not None:
+        tot, n = global_sum(tot, grid.world), grid.world.all_reduce(n)
     loss = tot / torch.clamp(n, min=1)
     metrics = {"ce": loss, "tokens": n.float()}
     if aux:

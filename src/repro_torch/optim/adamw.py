@@ -53,17 +53,39 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def sharded_global_norm(grads: dict, specs: dict, grid) -> torch.Tensor:
+    """The global norm of a gradient held as blocks on ``grid``: every
+    element counted once.  A block is counted on the ranks at coordinate 0
+    of each axis it is replicated over (a norm scale or the router only on
+    rank 0), and the squared sums are added over every rank."""
+    from repro_torch.distributed.sharding import replicated_axes
+    mine = [g for n, g in grads.items()
+            if all(grid.coords[a] == 0
+                   for a in replicated_axes(specs[n], grid))]
+    sq = sum(torch.sum(torch.square(t.float())) for t in mine)
+    if not torch.is_tensor(sq):
+        sq = torch.zeros((), device=next(iter(grads.values())).device)
+    return torch.sqrt(grid.world.all_reduce(sq))
+
+
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig):
+def apply_updates(params: dict, grads: dict, state: dict, cfg: OptConfig, *,
+                  grid=None, specs: dict = None):
     """One AdamW step, in place on ``params`` (fp32 master weights) and
-    ``state``.  Returns (params, state, {"grad_norm", "lr"})."""
+    ``state``.  Returns (params, state, {"grad_norm", "lr"}).
+
+    On a grid, ``params``, ``grads`` and the moments are this rank's
+    blocks under ``specs``: the clipping norm is the whole gradient's
+    (``sharded_global_norm``), and every other step is elementwise on the
+    block."""
     low = [n for n, p in params.items() if p.dtype != torch.float32]
     if low:
         raise ValueError(f"apply_updates keeps fp32 master weights; "
                          f"{low[0]!r} is {params[low[0]].dtype} (train with "
                          f"RunConfig.param_dtype=torch.float32)")
     step = state["step"] + 1
-    gnorm = global_norm(grads[n] for n in params)
+    gnorm = (global_norm(grads[n] for n in params) if grid is None else
+             sharded_global_norm({n: grads[n] for n in params}, specs, grid))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     stepf = step.float()
     lr = schedule(stepf, cfg)

@@ -3,9 +3,12 @@
 tensor, with the quantization residual carried into the next step's
 gradient so that the compressed sum stays unbiased over time.
 
-Gradients and error states are ``{name: tensor}`` mappings.  The
-reference's ``compressed_psum`` (an int8 all-gather inside ``shard_map``)
-waits for the port's sharded training."""
+Gradients and error states are ``{name: tensor}`` mappings.
+
+``compressed_psum(g, group)`` is the cross-pod reduction at a quarter of
+the bytes: quantize, all-gather the int8 payload and the scales over the
+group, dequantize and sum (the reference's ``compressed_psum`` inside
+``shard_map``; here over an ``EPGroup``, e.g. a grid's 'pod' group)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -43,3 +46,12 @@ def init_error_state(grads: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     return {n: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
             for n, g in grads.items()}
+
+
+def compressed_psum(g: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``g``, each sent as int8 and
+    one fp32 scale: ``sum_i scale_i * q_i`` in fp32."""
+    q, s = quantize(g)
+    qs = group.all_gather(q)                       # (n, ...) int8
+    ss = group.all_gather(s)                       # (n,) f32
+    return torch.tensordot(ss, qs.float(), dims=([0], [0]))

@@ -1,7 +1,9 @@
 """The training loop: data -> step -> metrics -> async checkpoints, with
 straggler monitoring, failure injection and resume on restart
-(counterpart of ``repro.train.loop``).  Elastic restore onto another mesh
-waits for the port's sharded training."""
+(counterpart of ``repro.train.loop``), on one device or, with ``grid``, on
+this rank's blocks of the state and the batch (one process a rank, every
+rank running this loop): checkpoints hold full arrays and resume onto any
+grid (elastic)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
@@ -9,7 +11,8 @@ from typing import Callable, Dict, Optional
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data.pipeline import device_batch, make_batch
+from repro_torch.data.pipeline import device_batch, local_batch, make_batch
+from repro_torch.distributed.sharding import batch_specs, opt_state_specs
 from repro_torch.models.lm import RunConfig
 from repro_torch.obs import NOOP
 from repro_torch.optim.adamw import OptConfig
@@ -23,7 +26,7 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
           keep_last: int = 3, fail_at: Optional[int] = None,
           seed: int = 0, log_every: int = 10,
           log: Callable[[str], None] = print, device="cuda",
-          obs=None) -> Dict:
+          obs=None, grid=None, compress_pod: bool = False) -> Dict:
     """Returns {"state", "history", "stragglers", "resumed_from",
     "checkpoint"}: ``history`` holds the metrics (floats) of every
     ``log_every``-th step and of the last; ``checkpoint`` the manager's
@@ -42,19 +45,39 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
     each logged step ``train/steps_logged`` and one ``train/<metric>``
     histogram sample per metric.  The ``train/step`` span measures what
     the host spends enqueueing the step (CUDA is asynchronous) unless the
-    step is logged, whose metrics are read after it."""
+    step is logged, whose metrics are read after it.
+
+    ``grid`` (``distributed.group.Grid``): every rank of it runs this loop
+    on its blocks (``train.step.make_train_step(grid=...)``); each batch
+    is cut by ``batch_specs`` (``data.pipeline.local_batch``), rank 0
+    alone logs and writes checkpoints (every rank gathers into them), and
+    a resume restores each rank's blocks from the full arrays, whatever
+    grid wrote them.  ``compress_pod``: the 'pod' axis's gradient sum as
+    int8 (``optim.compress.compressed_psum``)."""
     obs = obs or NOOP
     dev = resolve_device(device)
     manager = CheckpointManager(ckpt_dir, keep_last=keep_last) \
         if ckpt_dir else None
     injector = FailureInjector(fail_at)
     monitor = StragglerMonitor()
-    step_fn = make_train_step(cfg, rc, opt, accum_steps=accum)
-    state = init_train_state(cfg, seed, rc, device=dev)
+    step_fn = make_train_step(cfg, rc, opt, accum_steps=accum, grid=grid,
+                              compress_pod=compress_pod)
+    state = init_train_state(cfg, seed, rc, device=dev, grid=grid)
+    shardings = bspecs = None
+    if grid is not None:
+        if grid.rank != 0:
+            log = _silent
+        specs = state["params"].shard_specs
+        opt_specs = opt_state_specs(specs)
+        shardings = {f"params/{n}": sp for n, sp in specs.items()}
+        shardings.update({f"opt/{k}/{n}": sp for k in ("m", "v")
+                          for n, sp in opt_specs[k].items()})
+        bspecs = batch_specs(cfg, grid, "train", batch,
+                             microbatched=accum > 1)
     start, resumed_from = 0, None
     if manager is not None and manager.latest_step() is not None:
         resumed_from = manager.latest_step()
-        manager.restore(state, resumed_from)
+        manager.restore(state, resumed_from, shardings=shardings, grid=grid)
         start = resumed_from + 1
         log(f"[train] resumed from step {resumed_from}")
     history = []
@@ -64,8 +87,11 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
             obs.step_begin(step)
             injector.maybe_fail(step)
             with obs.tracer.span("train/data", step=step):
-                b = device_batch(make_batch(cfg, batch, seq, step=step,
-                                            accum=accum, seed=seed + 1), dev)
+                b = make_batch(cfg, batch, seq, step=step, accum=accum,
+                               seed=seed + 1)
+                if grid is not None:
+                    b = local_batch(b, grid, bspecs)
+                b = device_batch(b, dev)
             with obs.tracer.span("train/step", step=step):
                 state, metrics = step_fn(state, b)
             flag = monitor.end_step()
@@ -84,13 +110,19 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
                     f"{m.get('grad_norm', 0):.3f}")
             if manager is not None and step % save_every == 0 and step > 0:
                 with obs.tracer.span("train/checkpoint", step=step):
-                    manager.save(step, state)
+                    manager.save(step, state, shardings, grid)
     finally:
         if manager is not None:
             manager.wait()
     if manager is not None:
-        manager.save(steps - 1, state)
+        manager.save(steps - 1, state, shardings, grid)
         manager.wait()
+        if grid is not None:       # no rank reads it before rank 0 is done
+            grid.world.barrier()
     return {"state": state, "history": history,
             "stragglers": monitor.flagged, "resumed_from": resumed_from,
             "checkpoint": dict(manager.stats) if manager else None}
+
+
+def _silent(*_):
+    pass

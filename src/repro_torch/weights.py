@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import param_specs, shard
 from repro_torch.models.lm import LM, group_structure, init_params
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
 
@@ -147,3 +148,38 @@ def shard_model(model: LM, rank: int, ep: int) -> LM:
                     w, requires_grad=moe.router.requires_grad))
         moe.ep_shard = (rank, ep)
     return model
+
+
+@torch.no_grad()
+def shard_train_state(state, grid, cfg: ModelConfig) -> dict:
+    """This rank's blocks of a training state on ``grid``: ``state`` is a
+    ``train.step.train_state`` (a model carried across with
+    ``from_jax_params``, or a fresh ``init_params``, with its moments), or
+    a bare model, whose moments start at zero on the blocks.  Every
+    parameter (and moment) is replaced by its block under
+    ``param_specs(..., mode="fsdp")`` one at a time, the full tensor freed
+    as it goes; the model keeps ``shard_specs`` and ``full_shapes`` by
+    name, which the train path's gathers read.  Returns the state."""
+    from repro_torch.optim.adamw import init_opt_state
+    model = state["params"] if isinstance(state, dict) else state
+    if getattr(model, "shard_specs", None) is not None:
+        raise ValueError("the model is sharded already")
+    names = [n for n, _ in model.named_parameters()]
+    full_shapes = {n: tuple(model.get_parameter(n).shape) for n in names}
+    specs = param_specs(full_shapes, cfg, grid)
+    opt = state.get("opt") if isinstance(state, dict) else None
+    for n in names:
+        mod_name, _, leaf = n.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        p = getattr(mod, leaf)
+        setattr(mod, leaf, torch.nn.Parameter(
+            shard(p.detach(), specs[n], grid), requires_grad=p.requires_grad))
+        del p
+        if opt is not None:
+            for key in ("m", "v"):
+                opt[key][n] = shard(opt[key][n], specs[n], grid)
+    model.shard_specs, model.full_shapes = specs, full_shapes
+    if opt is None:
+        model.requires_grad_(True)
+        opt = init_opt_state(dict(model.named_parameters()))
+    return {"params": model, "opt": opt}

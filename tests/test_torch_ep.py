@@ -447,7 +447,8 @@ def test_merge_chunk_aux_equal():
 
 
 def test_ep_refusals():
-    """Outside a group, under autograd, and with ep not dividing E."""
+    """Outside a group, an inference-only layout under autograd (training
+    runs the sharded layout), and with ep not dividing E."""
     with pytest.raises(RuntimeError, match="EP group"):
         current_ep_group()
     inputs = make_inputs()
@@ -455,8 +456,10 @@ def test_ep_refusals():
     x = torch.from_numpy(inputs["main.x"]).requires_grad_()
     cfg = dispatch_config(W.moe_config("main"))
     g = EPGroup(0, 2, None, "gloo", torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        tdist.apply_moe_ep(shard_experts(params, 0, 2), x, cfg, group=g)
+    for layout in ("replicated", "sharded_static"):
+        with pytest.raises(NotImplementedError, match="inference-only"):
+            tdist.apply_moe_ep(shard_experts(params, 0, 2), x, cfg, group=g,
+                               token_layout=layout)
     with pytest.raises(ValueError, match="must divide"):
         shard_experts(params, 0, 3)
 

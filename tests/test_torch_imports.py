@@ -28,7 +28,9 @@ assert {"repro_torch.obs", "repro_torch.obs.trace",
         "repro_torch.serve.admission", "repro_torch.distributed",
         "repro_torch.distributed.group", "repro_torch.core.distributed",
         "repro_torch.serve.distributed",
-        "repro_torch.launch.mp_serve_smoke"} <= set(names), names
+        "repro_torch.launch.mp_serve_smoke",
+        "repro_torch.distributed.sharding",
+        "repro_torch.distributed.ctx"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -58,7 +60,8 @@ def test_source_has_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("module", [
     "repro_torch.distributed", "repro_torch.core.distributed",
-    "repro_torch.serve.distributed"])
+    "repro_torch.serve.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.ctx", "repro_torch.distributed.group"])
 def test_ep_module_alone_loads_no_jax_and_no_reference(module):
     """Each expert-parallel module, imported first and alone."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
