@@ -199,7 +199,12 @@ result line):
    against the gather read and the plain versions, and the first prompt's
    prefill logits against the plain versions, in fp32 through the first 2
    layers (rtol = atol = 1e-3).  Then the contiguous engine (``fixed``, 3
-   requests, neither attention kernel), and the paged engine again with
+   requests, neither attention kernel); [prefill long] deepseek-v2: the
+   chunked prefill (chunks of 512) against one chunk on 1,024 tokens (the
+   first layer's MLA attention output within ``FLASH_TOL``, the logits
+   through 2 fp32 layers within 1e-3 and 1 bf16 layer within 5e-2), then
+   one prompt of 8,192 tokens through the contiguous prefill and 16 greedy
+   decode steps (ms, peak); then the paged engine again with
    the routed experts quantized in place under ``int8_expert``, printing
    their stored bytes and the peak memory;
 9. training, built once deepseek's model is freed: ``moe_ffn`` forward
@@ -234,17 +239,29 @@ result line):
    bytes and the host copy, write and restore times printed; the
    supervised runs carry a memory observability bundle, whose
    ``train/step`` and ``train/checkpoint`` spans must be there.  [train
-   sharded]: the same 4-layer model on 2 gloo ranks sharing the card, on
+   sharded]: moonshot at full width cut to 2 layers on 2 gloo ranks
+   sharing the card, on
    grids (data x model) 2x1 (FSDP + DP) and 1x2 (EP + SP): one fp32 step of
    batch 2 x seq 128 against the single rank's on the same weights and
-   batch (the loss and every parameter after the step within 1e-4; the
+   batch (the loss within 1e-4, grad_norm within 1e-5 relative, every
+   parameter after the step within 1e-6; the
    single rank's parameters written to ``build/ckpt_sharded`` and read back
    by each rank as its blocks, then removed), each rank's launches (per MoE
    layer as one rank's step); then bf16 with remat, batch 8 x seq 512, one
-   warm step and 3 timed: step ms beside [train]'s single rank, peak
+   warm step through ``train(grid=)`` and 1 (2x1) or 3 (1x2) timed: step
+   ms beside the single rank's at the same depth, peak
    memory a rank, the bytes of a rank's parameter and moment blocks, and
    the collectives a step with the bytes they gather, reduce-scatter,
-   all-reduce and exchange;
+   all-reduce and exchange.  [train mla]: deepseek-v2-236b at full width
+   cut to 2 layers (1 dense + 1 MoE, 5.36 B fp32 parameters), bf16
+   compute, ``fixed``, batch 4 x seq 512: one forward and backward on the
+   kernels (launches per MoE layer B5 1, B3 2, B2 1, B1 3, B4 2, B1^T 3,
+   B7 3) against the plain executor (loss and every gradient within
+   ``TRAIN_CHECK_TOL["bfloat16"]``; the kernels' gradients on the host
+   meanwhile), then 3 timed forward and backward passes (ms, tokens/s,
+   peak), one under the profiler, and B7 and B1^T held and timed at its
+   T=2048 beside their bounds and ``torch._grouped_mm``; no AdamW step,
+   whose 16 bytes a parameter (85.7 GB) the card cannot hold (printed);
 10. the dense family, once training's models are freed.  [serve gemma2]:
    gemma2-9b at full width and all 42 layers (9.24 B parameters, random
    bf16 weights, seed 0) on [serve paged]'s traffic, through the paged
@@ -264,7 +281,17 @@ result line):
    requests each through the paged engine with the same launch checks.
    Then qwen2-7b at full width and all 28 layers prefills one prompt of
    32,768 tokens (the reference's prefill_32k shape, batch 1), as gemma2's
-   above.
+   above.  [train dense]: smollm-360m at full width and all 32 layers
+   (fp32 parameters and moments, bf16 compute, remat) trains 4 steps of
+   batch 8 x seq 2,048 through ``train()`` (each loss finite, no kernel
+   launched; step ms, tokens/s, peak) and one step of its first 4 layers
+   under the profiler;
+   then without remat at the largest
+   batch whose peak, extrapolated from batches 1 and 2, stays within 0.8
+   of the card (two steps: ms and peak); then one fp32 forward and
+   backward of its first 2 layers on the card against the port on the CPU
+   on the same weights and batch (loss within 1e-5, every gradient within
+   1e-4).
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -338,7 +365,8 @@ DENSE_ATTN = {"gemma2-9b": dict(Hkv=8, G=2, D=256, bs=16, softcap=50.0),
 # greedy tokens; the chunked attention against the whole-score one at
 # gemma2's local and global layers at FLASH_CHECK_S positions
 DENSE_LAYERS, DENSE_REQUESTS = 2, 2
-LONG_PROMPTS = {"gemma2-9b": 8192, "qwen2-7b": 32768}
+LONG_PROMPTS = {"gemma2-9b": 8192, "qwen2-7b": 32768,
+                "deepseek-v2-236b": 8192}
 LONG_DECODE, FLASH_CHECK_S, FLASH_CHUNK = 16, 8192, 512
 FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -348,6 +376,14 @@ MLA_ATTN = dict(Hkv=1, G=128, D=512, D2=64, bs=16)
 DEEPSEEK = dict(E=160, k=6, d=5120, f=1536, M=128, gating="softmax",
                 norm_topk=False, routed_scale=16.0)
 DEEPSEEK_LAYERS, DEEPSEEK_CHECK_LAYERS = 4, 2
+# [prefill long] deepseek-v2: the chunked prefill (chunks of FLASH_CHUNK)
+# against one chunk (q_chunk = kv_chunk = 0) on a prompt of
+# MLA_CHUNK_CHECK_S tokens, in fp32 through DEEPSEEK_CHECK_LAYERS layers
+# and in bf16 through the first (dense) layer: in bf16 the two orders of
+# summation round the attention's output apart by an ulp here and there,
+# which can flip a near-tied top-k pick of a random-weight router and
+# change that row wholesale, as in [serve paged]'s bf16 check
+MLA_CHUNK_CHECK_S = 1024
 # [tune]: the tile sweeps of B1 and B2 (arch, shape, T, policy; dense bf16,
 # and int8 at TUNE_INT8), recorded into a temporary tune cache
 TUNE_SWEEPS = (("moonshot-v1-16b-a3b", MOONSHOT, SERVE_SLOTS, "dynamic"),
@@ -383,6 +419,32 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 # stacks 3.5e-3 to 6.0e-3)
 TRAIN_CHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-3),
                    "bfloat16": dict(loss=1e-3, grad=5e-2)}
+# [train mla]: deepseek-v2 at full width cut to its shallowest depth with
+# an MoE layer (1 dense + 1 MoE: 5.36 B parameters), fp32 parameters, bf16
+# compute, fixed, one batch: the forward and backward on the kernels
+# against the plain executor (TRAIN_CHECK_TOL["bfloat16"]), then timed
+# MLA_TRAIN_REPS times.  No AdamW step: fp32 parameters, gradients and two
+# moments take 16 bytes a parameter, 85.7 GB, past the card's 80 GB
+MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_REPS = \
+    2, 4, 512, 3
+# [train dense]: smollm-360m at full width and all 32 layers through
+# train(), fp32 parameters, bf16 compute, remat; then steps without remat
+# at the largest batch whose peak, extrapolated from batches 1 and 2, stays
+# within DENSE_NOREMAT_SHARE of the card; then one fp32 forward and
+# backward of its first DENSE_CHECK_LAYERS layers on the card against the
+# port on the CPU (same weights and batch): the loss within 1e-5, every
+# gradient within 1e-4 (rtol = atol)
+DENSE_TRAIN_ARCH = "smollm-360m"
+DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS = 8, 2048, 4
+# the profiled step runs the model cut to its first DENSE_PROFILE_LAYERS
+# layers: every layer runs the same kernels, and the profiler's host
+# post-processing of all 32 layers' 46,324 activities took about 40 s of
+# host time beside an H100
+DENSE_PROFILE_LAYERS = 4
+DENSE_NOREMAT_SHARE = 0.8
+DENSE_CHECK_LAYERS, DENSE_CHECK_BATCH, DENSE_CHECK_SEQ = 2, 2, 256
+DENSE_CHECK_TOL = {"loss": dict(rtol=1e-5, atol=1e-5),
+                   "grad": dict(rtol=1e-4, atol=1e-4)}
 # the full-width model then fits one batch: TRAIN_FIT_STEPS steps on it at
 # a constant learning rate, from fresh AdamW moments; its loss must fall
 TRAIN_FIT_STEPS, TRAIN_FIT_LR = 4, 1e-5
@@ -407,6 +469,12 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
 # out a gradient's scale, so a gradient wrong by a uniform factor shows in
 # the norm alone)
 SHARDED_RANKS, SHARDED_GRIDS = 2, ((2, 1, 1), (1, 2, 3))
+# its depth: moonshot cut to 2 layers (1 dense + 1 MoE); its bf16 steps are
+# gloo's host transport (96-98 % of a step on an H100), so bytes set the
+# time, and at 4 layers the phase took 117.6-184.0 s of a run that must
+# stay near half the limit; the single rank's bf16 step at this depth is
+# timed beside it
+SHARDED_LAYERS = 2
 SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ = 2, 128
 SHARDED_CHECK_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10,
                          weight_decay=0.0)
@@ -3504,7 +3572,9 @@ def serve_deepseek(rng) -> dict:
           f"tokens, {n_check} layers, fp32, fixed) kernels vs plain "
           f"versions: max_abs_err "
           f"{(logits - logits_p).abs().max().item():.3e}")
-    del head32, logits, logits_p
+    del logits, logits_p
+    chunk_check = {"float32": mla_chunk_check(cfg_check, head32, rng)}
+    del head32
     torch.cuda.empty_cache()
 
     # contiguous + fixed -----------------------------------------------------
@@ -3522,6 +3592,13 @@ def serve_deepseek(rng) -> dict:
                                   reqs_c, cfg.n_layers)
     del engine
     torch.cuda.empty_cache()
+
+    # [prefill long]: the chunked prefill against one chunk, then one prompt
+    # of LONG_PROMPTS tokens through the contiguous prefill (chunks of 512)
+    chunk_check["bfloat16"] = mla_chunk_check(cfg.replace(n_layers=1),
+                                              truncated(model, 1), rng)
+    out["prefill_long"] = prefill_long(cfg, model, rng)
+    out["prefill_long"]["chunk_check"] = chunk_check
 
     # paged on int8_expert experts, quantized in place by the engine -------
     dense_bytes = routed_expert_bytes(model)
@@ -4111,6 +4188,427 @@ def train_full_width(layers: int, policy: str = "fixed",
     return summary
 
 
+def train_mla(errs: dict) -> dict:
+    """[train mla]: deepseek-v2-236b at full width cut to MLA_TRAIN_LAYERS
+    layers (1 dense + 1 MoE), fp32 parameters, bf16 compute, ``fixed``, one
+    batch of MLA_TRAIN_BATCH x MLA_TRAIN_SEQ: the counts set to 0, one
+    forward and backward on the kernels (each kernel's launches checked per
+    MoE layer as moonshot's step), its gradients moved to the host, then
+    the same through the plain executor: the loss and every gradient within
+    TRAIN_CHECK_TOL["bfloat16"].  Then MLA_TRAIN_REPS timed forward and
+    backward passes (ms, peak device memory), one under the profiler, and,
+    once the model is freed, B7 and B1^T held and timed at this batch's
+    T (random routing at deepseek's layer, both orientations).  No AdamW
+    step: its state at this width does not fit the card (printed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import (RunConfig, init_params, loss_fn,
+                                       n_moe_layers)
+    cfg = get_config("deepseek-v2-236b").replace(n_layers=MLA_TRAIN_LAYERS)
+    n_moe, mla, moe = n_moe_layers(cfg), cfg.mla, cfg.moe
+    B, S = MLA_TRAIN_BATCH, MLA_TRAIN_SEQ
+    tol = TRAIN_CHECK_TOL["bfloat16"]
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device="cuda").requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    card = torch.cuda.get_device_properties(0).total_memory
+    print(f"[train mla] {cfg.name} at full width (d_model={cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA q_lora {mla.q_lora_rank} / kv_lora "
+          f"{mla.kv_lora_rank} / rope {mla.qk_rope_head_dim}, dense FFN "
+          f"{moe.d_ff_dense}, {moe.n_experts} experts top-{moe.top_k} + "
+          f"{moe.n_shared_experts} shared, d_ff_expert={moe.d_ff_expert}, "
+          f"{moe.gating} gating, routed_scale {moe.routed_scale:g}, vocab="
+          f"{cfg.vocab_size}); reduced: n_layers 60 -> {cfg.n_layers} (1 "
+          f"dense + {n_moe} MoE); {n_params / 1e9:.3f} B parameters, fp32 "
+          f"({n_params * 4 / 1e9:.2f} GB), initialised in "
+          f"{time.perf_counter() - t0:.1f} s; bf16 compute, fixed, batch {B}"
+          f" x seq {S}, attention chunks of {rc.q_chunk}, loss_chunk "
+          f"{LOSS_CHUNK}; random weights, seed 0; the reference's Markov "
+          f"tokens")
+    print(f"[train mla] no AdamW step at this width: fp32 parameters "
+          f"{n_params * 4 / 1e9:.1f} GB + gradients {n_params * 4 / 1e9:.1f}"
+          f" GB + AdamW's two moments {n_params * 8 / 1e9:.1f} GB = "
+          f"{n_params * 16 / 1e9:.1f} GB ({n_params * 16 / 2 ** 30:.1f} GiB)"
+          f", past the card's {card / 1e9:.1f} GB ({card / 2 ** 30:.1f} GiB)"
+          f" before any activation; the step waits for the state sharded "
+          f"over several cards")
+    batch = device_batch(make_batch(cfg, B, S, step=0, seed=1), "cuda")
+    params = dict(model.named_parameters())
+
+    def fwd_bwd(executor: str = "cuda"):
+        loss, _ = loss_fn(model, cfg, rc._replace(executor=executor), batch)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  list(params.values()))
+
+    # the main path: every count from 0, one forward and backward
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    loss, grads = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_train_launches(launches, n_moe)
+    launches = {k: v for k, v in launches.items() if v}
+    grads = [g.to("cpu") for g in grads]       # one gradient set a card
+    torch.cuda.empty_cache()
+    loss_p, grads_p = fwd_bwd("plain")
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    if loss_err > tol["loss"]:
+        raise AssertionError(f"[train mla] loss {float(loss):.6f} on the "
+                             f"kernels, {float(loss_p):.6f} plain")
+    rel = {}
+    for name, g, gp in zip(params, grads, grads_p):
+        g = g.to(gp.device)
+        scale = gp.abs().max().item()
+        err = (g.float() - gp.float()).abs().max().item()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"[train mla] {name}: gradient not finite")
+        if err > tol["grad"] * scale:
+            raise AssertionError(f"[train mla] {name}: gradient differs by "
+                                 f"{err:.3e} (largest plain magnitude "
+                                 f"{scale:.3e})")
+        rel[name] = err / scale if scale > 0 else 0.0
+    worst = max(rel, key=rel.get)
+    del grads, grads_p, g, gp
+    torch.cuda.empty_cache()
+    print(f"[train mla] one forward + backward, kernels vs the plain "
+          f"executor (same weights and batch; the kernels' gradients on the "
+          f"host meanwhile): loss {float(loss):.6f} against "
+          f"{float(loss_p):.6f} (relative {loss_err:.3e}; tolerance "
+          f"{tol['loss']:g}); {len(params)} gradients, worst max|diff| / "
+          f"max|plain| {rel[worst]:.3e} ({worst}; tolerance {tol['grad']:g})"
+          "; per parameter: " + ", ".join(f"{n} {r:.2e}"
+                                          for n, r in rel.items()))
+    per_layer = {k: v / n_moe for k, v in launches.items()}
+    print(f"[train mla] launches per MoE layer in that forward + backward: "
+          f"B5 router_topk {per_layer.get('router_topk', 0):g}, B3 permute "
+          f"{per_layer.get('permute', 0):g}, B2 fused_gate_up "
+          f"{per_layer.get('fused_gate_up', 0):g}, B1 grouped_gemm "
+          f"{per_layer.get('grouped_gemm', 0):g}, B4 unpermute "
+          f"{per_layer.get('unpermute', 0):g}, B1^T grouped_gemm_t "
+          f"{per_layer.get('grouped_gemm_t', 0):g}, B7 grouped_wgrad "
+          f"{per_layer.get('grouped_wgrad', 0):g} ({n_moe} MoE layer)")
+    # timed forward + backward passes, the peak above nothing freed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(MLA_TRAIN_REPS):
+        t0 = time.perf_counter()
+        out = fwd_bwd()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(fwd_bwd, top=16)
+    ms = sorted(times)[len(times) // 2]
+    summary = {"layers": cfg.n_layers, "n_params": n_params, "batch": B,
+               "seq": S, "policy": "fixed", "loss": float(loss),
+               "loss_plain": float(loss_p), "loss_rel_err": loss_err,
+               "worst_rel_grad_err": rel[worst], "worst_param": worst,
+               "rel_grad_err": rel, "launches": launches,
+               "launches_per_moe_layer": per_layer, "fwd_bwd_ms": times,
+               "fwd_bwd_ms_median": ms,
+               "tokens_per_s": B * S / ms * 1e3, "resident_bytes": resident,
+               "peak_bytes": peak, "profile": prof,
+               "adamw_state_bytes": n_params * 16, "card_bytes": card}
+    print(f"[train mla] forward + backward x{MLA_TRAIN_REPS}: "
+          + ", ".join(f"{t:.1f}" for t in times) + f" ms (median {ms:.1f} "
+          f"ms, {summary['tokens_per_s']:.0f} tokens/s); peak device memory "
+          f"{peak / 1e9:.2f} GB ({resident / 1e9:.2f} GB resident before: "
+          f"the fp32 parameters and the batch)")
+    print(f"[profile train mla] one forward + backward: wall "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+          f"(share {prof['busy_share']:.3f})")
+    for name, calls, t in prof["top_device"]:
+        print(f"    device {t:9.3f} ms {calls:5d}x  {name[:70]}")
+    for name, calls, t in prof["top_cpu"]:
+        print(f"    host   {t:9.3f} ms {calls:5d}x  {name[:70]}")
+    del model, params, batch, loss, loss_p
+    torch.cuda.empty_cache()
+    # B7 and B1^T at this batch's T at deepseek's MoE layer
+    T = B * S
+    summary["backward_kernels"] = {}
+    for orient in ("gate_up", "down"):
+        c = TrainCase(DEEPSEEK, T, torch.bfloat16, seed=600, policy="fixed",
+                      orient=orient)
+        check_train_case(c, errs)
+        tm = time_train_case(c)
+        summary["backward_kernels"][orient] = tm
+        for n, t in tm.items():
+            lib = ("null: " + t["library_null_reason"]
+                   if t["library_ms"] is None
+                   else f"{t['library_ms'] * 1e3:.1f} us ({t['library']})")
+            print(f"[times train mla] {n} deepseek bf16 T={T} fixed {orient}"
+                  f" ({t['active_blocks']} active blocks of {t['block_m']}):"
+                  f" {t['ms'] * 1e3:.1f} us (eager {t['eager_ms'] * 1e3:.1f})"
+                  f", bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}; "
+                  f"bytes {t['bound_bytes_ms'] * 1e3:.2f} us for "
+                  f"{t['bytes'] / 1e6:.1f} MB, tensor-core operations "
+                  f"{t['bound_ops_ms'] * 1e3:.2f} us for "
+                  f"{t['flops'] / 1e9:.1f} GFLOP), plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, library {lib}")
+        del c
+        torch.cuda.empty_cache()
+    return summary
+
+
+def mla_chunk_check(cfg, model, rng) -> dict:
+    """deepseek-v2's prefill of one MLA_CHUNK_CHECK_S-token prompt with
+    attention chunks of FLASH_CHUNK against one chunk (``q_chunk =
+    kv_chunk = 0``), in the model's dtype: the first layer's MLA attention
+    output (``mla_block`` on the normed embeddings) within FLASH_TOL, and
+    the contiguous prefill's logits through every layer of ``model``
+    within LOGIT_TOL_FP32 (fp32) or LOGIT_TOL (bf16), the tolerances of
+    this script's other checks through layers (in fp32 the two orders of
+    summation move a logit near zero by 1.6e-5 through 2 layers here,
+    past FLASH_TOL's 1e-5); each prefill's time and peak above what was
+    resident."""
+    import torch
+    from repro_torch.models.lm import RunConfig, embed_tokens, forward
+    from repro_torch.models.mla import mla_block
+    dt = next(model.parameters()).dtype
+    name = str(dt).replace("torch.", "")
+    S = MLA_CHUNK_CHECK_S
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, S),
+                             device="cuda")[None]
+    with torch.no_grad():
+        blk = model.layers[0]
+        h = blk.norm1(embed_tokens(model, cfg, prompt, dt))
+        kw = dict(n_heads=cfg.n_heads, mla=cfg.mla,
+                  positions=torch.arange(S, device=prompt.device))
+        attn = mla_block(blk.attn, h, **kw, q_chunk=FLASH_CHUNK,
+                         kv_chunk=FLASH_CHUNK)
+        attn1 = mla_block(blk.attn, h, **kw, q_chunk=S, kv_chunk=S)
+    torch.testing.assert_close(attn.float(), attn1.float(), **FLASH_TOL[name])
+    row = {"attn_max_abs_err": (attn.float() - attn1.float()).abs().max()
+           .item()}
+    del h, attn, attn1
+    rc = RunConfig(compute_dtype=dt, q_chunk=FLASH_CHUNK,
+                   kv_chunk=FLASH_CHUNK)
+    for arm, r in (("chunked", rc), ("one_chunk",
+                                     rc._replace(q_chunk=0, kv_chunk=0))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        row[arm], _, _ = forward(model, cfg, r, {"tokens": prompt},
+                                 mode="prefill")
+        torch.cuda.synchronize()
+        row[f"{arm}_ms"] = (time.perf_counter() - t0) * 1e3
+        row[f"{arm}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    got, want = row.pop("chunked"), row.pop("one_chunk")
+    if not torch.isfinite(got).all():
+        raise AssertionError("deepseek chunked prefill: non-finite logits")
+    tol = LOGIT_TOL_FP32 if dt == torch.float32 else LOGIT_TOL
+    torch.testing.assert_close(got, want, **tol)
+    row["max_abs_err"] = (got - want).abs().max().item()
+    print(f"[prefill long] deepseek-v2 chunks of {FLASH_CHUNK} vs one chunk "
+          f"({S} tokens, {name}): layer 0's MLA attention output max_abs_err "
+          f"{row['attn_max_abs_err']:.3e} (tolerance rtol=atol="
+          f"{FLASH_TOL[name]['atol']:g}); logits through {cfg.n_layers} "
+          f"layer(s) max_abs_err {row['max_abs_err']:.3e} (|logits| max "
+          f"{want.abs().max().item():.2f}; tolerance rtol=atol="
+          f"{tol['atol']:g}); prefill {row['chunked_ms']:.1f} ms, peak "
+          f"{row['chunked_peak_bytes'] / 1e9:.3f} GB above the resident, "
+          f"against {row['one_chunk_ms']:.1f} ms, "
+          f"{row['one_chunk_peak_bytes'] / 1e9:.3f} GB in one chunk")
+    del got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_dense() -> dict:
+    """[train dense]: DENSE_TRAIN_ARCH at full width and depth (fp32
+    parameters and AdamW moments, bf16 compute, remat) through ``train()``
+    for DENSE_TRAIN_STEPS steps of DENSE_TRAIN_BATCH x DENSE_TRAIN_SEQ: each
+    step's loss (finite), the step time from the logged steps after the
+    first, tokens/s and the peak; no kernel launches (the dense path has
+    none); one step of its first DENSE_PROFILE_LAYERS layers under the
+    profiler.  Then, on the trained state,
+    the forward and backward without remat at batches 1 and 2, their peaks
+    above the state extrapolated to the largest batch within
+    DENSE_NOREMAT_SHARE of the card, and two training steps without remat
+    at that batch (time and peak).  Last, one
+    fp32 forward and backward of the first DENSE_CHECK_LAYERS layers on the
+    card against the port on the CPU (same weights and batch)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    B, S, n = DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   remat=True)
+    opt = OptConfig(total_steps=n, warmup_steps=1)
+    card = torch.cuda.get_device_properties(0).total_memory
+    stamps = []
+
+    def log(line):
+        if line.startswith("[train] step"):  # after the metrics' sync
+            stamps.append(time.perf_counter())
+        print(f"[train dense] {line}")
+    print(f"[train dense] {cfg.name} at full width and all {cfg.n_layers} "
+          f"layers (d_model={cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff={cfg.d_ff}, "
+          f"vocab={cfg.vocab_size}, tied), fp32 parameters and AdamW "
+          f"moments, bf16 compute, remat, batch {B} x seq {S}, attention "
+          f"chunks of {rc.q_chunk}, loss_chunk {LOSS_CHUNK}; {n} steps "
+          f"through train(), random weights, seed 0")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = train(cfg, rc, opt, steps=n, batch=B, seq=S, seed=0, log_every=1,
+                log=log, device="cuda")
+    torch.cuda.synchronize()
+    peak_remat = torch.cuda.max_memory_allocated()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"[train dense] a dense model launched MoE "
+                             f"kernels: {dict(ops.LAUNCHES)}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != n or not all(np.isfinite(losses)):
+        raise AssertionError(f"[train dense] losses {losses}")
+    step_ms = [float(v) for v in np.diff(stamps) * 1e3]
+    med = float(np.median(step_ms))
+    state = out["state"]
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    summary = {"arch": cfg.name, "layers": cfg.n_layers,
+               "n_params": n_params, "batch": B, "seq": S,
+               "losses": losses, "step_ms_after_first": step_ms,
+               "step_ms_median": med, "tokens_per_s": B * S / med * 1e3,
+               "peak_bytes_remat": peak_remat, "state_bytes": state_bytes}
+    print(f"[train dense] {n_params / 1e9:.3f} B parameters; steps after "
+          f"the first " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" ms (median {med:.1f} ms, {summary['tokens_per_s']:.0f} "
+          f"tokens/s); peak device memory with remat {peak_remat / 1e9:.2f} "
+          f"GB; state resident after {state_bytes / 1e9:.2f} GB")
+    # one step with remat under the profiler, of the model cut to its
+    # first DENSE_PROFILE_LAYERS layers (the same weights, fresh moments)
+    cfg_p = cfg.replace(n_layers=DENSE_PROFILE_LAYERS)
+    head = train_state(truncated(model, DENSE_PROFILE_LAYERS))
+    step_fn = make_train_step(cfg_p, rc, opt)
+    batch = device_batch(make_batch(cfg, B, S, step=n, seed=1), "cuda")
+    step_fn(head, batch)                       # its moments' first step
+    prof = profile_window(lambda: step_fn(head, batch), top=12)
+    summary["profile"] = {"layers": DENSE_PROFILE_LAYERS, **prof}
+    print(f"[profile train dense] one step with remat, the first "
+          f"{DENSE_PROFILE_LAYERS} of {cfg.n_layers} layers: wall "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+          f"(share {prof['busy_share']:.3f}), {prof['device_events']} device "
+          f"activities")
+    for name, calls, t in prof["top_device"]:
+        print(f"    device {t:9.3f} ms {calls:5d}x  {name[:70]}")
+    del head, step_fn, batch
+    # without remat: the forward + backward's peak at batches 1 and 2, a
+    # line through them, and the largest batch it keeps within the share
+    rc_n = rc._replace(remat=False)
+    params = list(model.parameters())
+
+    def fwd_bwd_peak(b: int) -> int:
+        batch = device_batch(make_batch(cfg, b, S, step=0, seed=1), "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loss_fn(model, cfg, rc_n, batch)
+        grads = torch.autograd.grad(loss, params)
+        del loss, grads
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+    p1, p2 = fwd_bwd_peak(1), fwd_bwd_peak(2)
+    per_row, fixed = p2 - p1, 2 * p1 - p2
+    room = DENSE_NOREMAT_SHARE * card - state_bytes
+    fit = max([b for b in range(1, B + 1) if fixed + b * per_row <= room],
+              default=0)
+    if fit < 1:
+        raise AssertionError(f"[train dense] no batch fits without remat "
+                             f"(batch 1: {p1 / 1e9:.2f} GB above the state)")
+    step_fn = make_train_step(cfg, rc_n, opt)
+    batch = device_batch(make_batch(cfg, fit, S, step=n, seed=1), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nr_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError("[train dense] non-finite loss, no remat")
+        nr_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_nr = torch.cuda.max_memory_allocated()
+    summary["no_remat"] = {
+        "fwd_bwd_peak_above_state_b1": p1, "fwd_bwd_peak_above_state_b2": p2,
+        "per_row_bytes": per_row, "predicted_bytes": state_bytes + fixed
+        + fit * per_row, "batch": fit, "step_ms": nr_ms,
+        "tokens_per_s": fit * S / nr_ms[-1] * 1e3, "peak_bytes": peak_nr}
+    print(f"[train dense] without remat: forward + backward peak above the "
+          f"state {p1 / 1e9:.2f} GB at batch 1, {p2 / 1e9:.2f} GB at batch "
+          f"2 ({per_row / 1e9:.2f} GB a row of {S}); the largest batch "
+          f"within {DENSE_NOREMAT_SHARE:g} of the card's {card / 1e9:.1f} GB"
+          f" is {fit} (predicted peak "
+          f"{summary['no_remat']['predicted_bytes'] / 1e9:.2f} GB): two "
+          f"steps {nr_ms[0]:.1f}, {nr_ms[1]:.1f} ms "
+          f"({summary['no_remat']['tokens_per_s']:.0f} tokens/s), peak "
+          f"device memory {peak_nr / 1e9:.2f} GB against "
+          f"{peak_remat / 1e9:.2f} GB with remat at batch {B}")
+    del out, state, model, params, batch, step_fn
+    torch.cuda.empty_cache()
+    # fp32, DENSE_CHECK_LAYERS layers: the card against the CPU
+    cfg2 = cfg.replace(n_layers=DENSE_CHECK_LAYERS)
+    model = init_params(cfg2, 1, device="cuda")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = make_batch(cfg2, DENSE_CHECK_BATCH, DENSE_CHECK_SEQ, step=0,
+                       seed=1)
+    rc32 = RunConfig(loss_chunk=LOSS_CHUNK)
+    res = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        m.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(m, cfg2, rc32, device_batch(batch, dev))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        res[dev] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                    (time.perf_counter() - t0) * 1e3)
+    (loss, grads, ms), (loss_c, grads_c, ms_c) = res["cuda"], res["cpu"]
+    torch.testing.assert_close(loss, loss_c, **DENSE_CHECK_TOL["loss"])
+    worst, worst_name = 0.0, None
+    for (name, _), g, gc in zip(model.named_parameters(), grads, grads_c):
+        torch.testing.assert_close(g, gc, **DENSE_CHECK_TOL["grad"],
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        err = (g - gc).abs().max().item()
+        if err >= worst:
+            worst, worst_name = err, name
+    summary["check_fp32"] = {"layers": DENSE_CHECK_LAYERS,
+                             "batch": DENSE_CHECK_BATCH,
+                             "seq": DENSE_CHECK_SEQ, "loss_cuda": float(loss),
+                             "loss_cpu": float(loss_c),
+                             "loss_abs_err": abs(float(loss - loss_c)),
+                             "worst_grad_abs_err": worst,
+                             "worst_param": worst_name, "cuda_ms": ms,
+                             "cpu_ms": ms_c}
+    print(f"[train dense] fp32 check, {DENSE_CHECK_LAYERS} layers, batch "
+          f"{DENSE_CHECK_BATCH} x seq {DENSE_CHECK_SEQ}, the same weights and"
+          f" batch: loss {float(loss):.7f} on the card, {float(loss_c):.7f} "
+          f"on the CPU (|diff| {abs(float(loss - loss_c)):.3e}; tolerance "
+          f"1e-5); {len(grads)} gradients, worst max|diff| {worst:.3e} "
+          f"({worst_name}; tolerance rtol=atol=1e-4)")
+    del model, cpu_model, res, grads, grads_c
+    torch.cuda.empty_cache()
+    return summary
+
+
 def train_resume() -> dict:
     """[train resume]: moonshot at full width cut to RESUME_LAYERS layers (1
     dense + 1 MoE), capacity_factor, remat, bf16 compute, batch TRAIN_BATCH
@@ -4348,13 +4846,14 @@ def sharded_rank(group, spec: dict) -> dict:
     return out
 
 
-def train_sharded(single_ms: dict) -> dict:
-    """[train sharded]: moonshot at full width cut to TRAIN_LAYERS layers on
-    SHARDED_RANKS gloo ranks sharing this card, each grid of SHARDED_GRIDS.
-    The single rank's fp32 check step runs here first (30 GB of state),
-    its parameters are written whole to build/ckpt_sharded and freed, then
-    the ranks start (``sharded_rank``).  ``single_ms``: [train]'s
-    single-rank step ms, printed beside the grids'."""
+def train_sharded() -> dict:
+    """[train sharded]: moonshot at full width cut to SHARDED_LAYERS layers
+    on SHARDED_RANKS gloo ranks sharing this card, each grid of
+    SHARDED_GRIDS.  The single rank's fp32 check step runs here first, its
+    parameters are written whole to build/ckpt_sharded and freed; then the
+    single rank's bf16 step with remat at this depth is timed (a warm step,
+    then one), printed beside the grids'; then the ranks start
+    (``sharded_rank``)."""
     import shutil
     import torch
     from repro_torch.checkpoint import CheckpointManager
@@ -4366,7 +4865,7 @@ def train_sharded(single_ms: dict) -> dict:
     from repro_torch.models.lm import RunConfig, n_moe_layers
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.step import init_train_state, make_train_step
-    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=TRAIN_LAYERS)
+    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=SHARDED_LAYERS)
     n_moe = n_moe_layers(cfg)
     t0 = time.perf_counter()
     rc = RunConfig(compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
@@ -4389,6 +4888,23 @@ def train_sharded(single_ms: dict) -> dict:
     saved = dict(mgr.stats)
     del state, step, b, m, mgr                 # and its page-locked staging
     torch.cuda.empty_cache()
+    # the single rank's bf16 step with remat at this depth: a warm one, then
+    # one timed
+    rc16 = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                     remat=True)
+    state = init_train_state(cfg, 0, rc16, device="cuda")
+    step = make_train_step(cfg, rc16, OptConfig(total_steps=3,
+                                                warmup_steps=1))
+    bs = [device_batch(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i,
+                                  seed=1), "cuda") for i in range(2)]
+    state, _ = step(state, bs[0])
+    torch.cuda.synchronize()
+    t_single = time.perf_counter()
+    state, _ = step(state, bs[1])
+    torch.cuda.synchronize()
+    single["bf16_remat_ms"] = (time.perf_counter() - t_single) * 1e3
+    del state, step, bs
+    torch.cuda.empty_cache()
     t1 = time.perf_counter()
     print(f"[train sharded] {cfg.name} at full width, {cfg.n_layers} layers "
           f"(1 dense + {n_moe} MoE), {n_params / 1e9:.3f} B parameters "
@@ -4398,7 +4914,9 @@ def train_sharded(single_ms: dict) -> dict:
           f"{SHARDED_CHECK_OPT['eps']:g}): loss {single['loss']:.6f}, "
           f"grad_norm {single['grad_norm']:.6f}; its parameters written "
           f"whole ({saved['bytes'] / 1e9:.2f} GB, write "
-          f"{saved['write_s']:.2f} s); {t1 - t0:.1f} s")
+          f"{saved['write_s']:.2f} s); its bf16 step with remat (batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) {single['bf16_remat_ms']:.1f} "
+          f"ms; {t1 - t0:.1f} s")
     spec = {"cfg": cfg, "ckpt": str(root)}
     try:
         ranks = spawn_ranks(sharded_rank, SHARDED_RANKS, "cuda:0", spec,
@@ -4456,9 +4974,8 @@ def train_sharded(single_ms: dict) -> dict:
               + ", ".join(f"rank {i} " + "/".join(f"{r['ms']:.1f}"
                                                   for r in tt["steps"])
                           for i, tt in enumerate(timed))
-              + f" (median rank 0 {t['ms_median']:.1f}); single rank [train] "
-              f"{single_ms['train']:.1f} (fixed, no remat), [train capacity "
-              f"remat] {single_ms['train_capacity_remat']:.1f}; peak memory "
+              + f" (median rank 0 {t['ms_median']:.1f}); the single rank's "
+              f"at this depth {single['bf16_remat_ms']:.1f}; peak memory "
               f"a rank " + ", ".join(f"{tt['peak_bytes'] / 1e9:.2f} GB"
                                      for tt in timed)
               + f"; parameter and moment blocks a rank "
@@ -5049,6 +5566,7 @@ def main() -> None:
 
     # 8. serving deepseek-v2-236b (MLA), once moonshot's models are freed --
     deepseek = serve_deepseek(rng)
+    deepseek_long = deepseek.pop("prefill_long")
     print(json.dumps({"serve_deepseek": deepseek}))
     elapsed("serving deepseek-v2")
 
@@ -5085,13 +5603,15 @@ def main() -> None:
     resume = train_resume()
     print(json.dumps({"train_resume": resume}))
     elapsed("training resume")
-    # [train sharded]: the 4-layer model on 2 ranks of this card, grids 2x1
-    # and 1x2
-    sharded = train_sharded({
-        "train": train["step_ms_median_after_first"],
-        "train_capacity_remat": train_cap["step_ms_median_after_first"]})
+    # [train sharded]: moonshot cut to SHARDED_LAYERS layers on 2 ranks of
+    # this card, grids 2x1 and 1x2
+    sharded = train_sharded()
     print(json.dumps({"train_sharded": sharded}))
     elapsed("training sharded")
+    # [train mla]: deepseek-v2 at full width, 2 layers, forward + backward
+    train_mla_summary = train_mla(errs)
+    print(json.dumps({"train_mla": train_mla_summary}))
+    elapsed("training deepseek-v2 (MLA)")
 
     # 10. the dense family: gemma2-9b served at full width and depth, its
     # 8,192-token prefill; the chunked attention against the whole-score
@@ -5099,7 +5619,8 @@ def main() -> None:
     # prefill at full depth
     gemma2, g_cfg, g_model = serve_gemma2(rng)
     elapsed("serving gemma2-9b")
-    long_prefill = {g_cfg.name: prefill_long(g_cfg, g_model, rng)}
+    long_prefill = {g_cfg.name: prefill_long(g_cfg, g_model, rng),
+                    "deepseek-v2-236b": deepseek_long}
     del g_model
     torch.cuda.empty_cache()
     elapsed("gemma2-9b long prefill")
@@ -5112,10 +5633,14 @@ def main() -> None:
     del q_model
     torch.cuda.empty_cache()
     elapsed("qwen2-7b long prefill")
+    # [train dense]: smollm-360m at full width and depth
+    dense_train = train_dense()
+    elapsed("training smollm-360m")
     print(json.dumps({"dense": {"serve_gemma2": gemma2,
                                 "serve_dense": dense,
                                 "flash_long": flash_long,
-                                "prefill_long": long_prefill}}))
+                                "prefill_long": long_prefill,
+                                "train_dense": dense_train}}))
 
     # 10. report -----------------------------------------------------------
     from repro_torch.kernels.grouped_gemm import TILE_SHAPES
@@ -5320,13 +5845,29 @@ def main() -> None:
                       "library_null_reason": d["library_null_reason"]})
         entry.update(extra)
         if name in MOE_KERNELS or name in _build.BACKWARD_KERNELS:
+            # [train mla]'s launches over one forward + backward
+            entry["launches_train_mla"] = train_mla_summary["launches"][name]
+            entry["launches_train_mla_run"] = (
+                f"[train mla] deepseek-v2-236b, {MLA_TRAIN_LAYERS} layers "
+                f"(1 MoE), one bf16 forward + backward, batch "
+                f"{MLA_TRAIN_BATCH} x seq {MLA_TRAIN_SEQ}")
+        if name in _build.BACKWARD_KERNELS:
+            tname = "grouped_wgrad_bf16" if name == "grouped_wgrad" else name
+            entry["deepseek_train_mla"] = {
+                "shape": f"deepseek-v2-236b bf16 training, T="
+                         f"{MLA_TRAIN_BATCH * MLA_TRAIN_SEQ}, fixed",
+                **{orient: {k: t[tname][k] for k in keys + (
+                    "bound_bytes_ms", "bound_ops_ms")}
+                   for orient, t in
+                   train_mla_summary["backward_kernels"].items()}}
+        if name in MOE_KERNELS or name in _build.BACKWARD_KERNELS:
             # each [train sharded] rank's launches over one timed step
             entry["launches_train_sharded"] = {
                 f"{g} rank {i}": t["launches_per_step"][name]
                 for g, d in sharded["grids"].items()
                 for i, t in enumerate(d["timed"])}
             entry["launches_train_sharded_run"] = (
-                f"[train sharded] one bf16 step with remat, {TRAIN_LAYERS} "
+                f"[train sharded] one bf16 step with remat, {SHARDED_LAYERS} "
                 f"layers, on each rank of the grids "
                 + ", ".join(sharded["grids"]))
         if name in MOE_KERNELS or name == "paged_attention":

@@ -2,8 +2,8 @@
 attention, and for the ``dense`` family, with global or alternating local
 and global attention (counterpart of ``repro.models.lm``): the served path
 (prefill and decode over a contiguous KV cache, and decode rows over a
-paged KV block pool) and, for multi-head attention, the training path
-(``train`` mode, ``chunked_ce``, ``loss_fn``).
+paged KV block pool) and the training path (``train`` mode,
+``chunked_ce``, ``loss_fn``).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers in the
@@ -12,8 +12,9 @@ order of ``group_structure``: ``first_dense_layers`` dense-FFN blocks
 gemma2's ``local_global`` pattern, ``attn_local`` and ``attn_global`` in
 turn.  Every ``(in, out)`` matrix keeps the reference's layout.  Prefill and
 training run the chunked ``flash_attention`` (``RunConfig.q_chunk`` /
-``kv_chunk``), with the sliding window on ``attn_local`` layers; decode
-runs one chunk and, as the reference, no window (ROADMAP C1).
+``kv_chunk``), with the sliding window on ``attn_local`` layers, and MLA's
+decompressed attention in the same chunks; decode runs one chunk and, as
+the reference, no window (ROADMAP C1).
 
 The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
 Hkv, D) tensors per layer, or with MLA one ``{"ckv", "kr"}`` pair of
@@ -376,8 +377,8 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
     dt = x.dtype
     h = blk.norm1(x)
     if cfg.mla is not None:
-        o = _mla_attention(blk.attn, h, cfg, positions=positions, mode=mode,
-                           cache=cache, cache_pos=cache_pos,
+        o = _mla_attention(blk.attn, h, cfg, rc, positions=positions,
+                           mode=mode, cache=cache, cache_pos=cache_pos,
                            block_tables=block_tables, fused=fused)
     else:
         window = cfg.local_window if blk.kind == "attn_local" else None
@@ -466,17 +467,19 @@ def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
     return torch.matmul(o.reshape(B, S, -1), p.wo.to(dt))
 
 
-def _mla_attention(p: MLA, h: torch.Tensor, cfg: ModelConfig, *, positions,
-                   mode: str, cache, cache_pos, block_tables,
-                   fused: bool) -> torch.Tensor:
+def _mla_attention(p: MLA, h: torch.Tensor, cfg: ModelConfig,
+                   rc: RunConfig, *, positions, mode: str, cache, cache_pos,
+                   block_tables, fused: bool) -> torch.Tensor:
     """MLA sub-block (the reference's ``apply_block`` MLA branch): prefill
-    decompressed, then the prompt's latent rows written; decode absorbed
-    over the contiguous rows or the pools."""
+    and train decompressed, in ``rc``'s chunks (on a grid over the gathered
+    latent), then in prefill the prompt's latent rows written; decode
+    absorbed over the contiguous rows or the pools."""
     kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, positions=positions)
     if mode == "decode":
         return mla_block(p, h, **kw, cache=cache, cache_pos=cache_pos,
                          block_tables=block_tables, paged_fused=fused)
-    o = mla_block(p, h, **kw)
+    o = mla_block(p, h, **kw, q_chunk=rc.q_chunk or ONE_CHUNK,
+                  kv_chunk=rc.kv_chunk or ONE_CHUNK)
     if cache is not None:
         prefill_mla_cache(p, h, cfg.mla, cache, positions)
     return o
@@ -489,7 +492,7 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     train:   ``batch["tokens"]`` (B, S); out = the final hidden states (B,
              S, d) in the compute dtype, causal over the whole sequence, no
              cache; autograd records it (the other modes run under
-             ``torch.no_grad``).  Multi-head attention only.
+             ``torch.no_grad``).
     prefill: ``batch["tokens"]`` (B, S); writes the prompt's K/V into rows
              [0, S) of ``cache`` (when given); out = the logits (B, V) f32
              of the last position.
@@ -505,10 +508,6 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     if mode == "train":
         if cache is not None or pos is not None or block_tables is not None:
             raise ValueError("train mode takes no cache, pos or block_tables")
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training with latent attention (MLA) is not "
-                "ported yet (ROADMAP)")
         return _forward_train(model, cfg, rc, batch)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs train, prefill and "

@@ -1,15 +1,21 @@
 """DeepSeek-V2 multi-head latent attention, MLA (counterpart of
 ``repro.models.mla``).
 
-Prefill decompresses the latent into per-head keys and values and runs
-causal attention over the prompt.  Decode keeps only the compressed latent
-``ckv`` (kv_lora_rank wide, RMS-normalised) and the shared rope key ``kr``
-per position, and attends in the absorbed form: the no-rope query is
-projected into the latent space (``q_eff``), so a score is ``q_eff . ckv +
-q_rope . kr`` and the context stays in the latent space until the final
-value projection.  The absorbed query is scaled twice in its own dtype, as
-in the reference: by ``((r + dr) / (dn + dr)) ** 0.5`` here, then by the
-attention's ``(r + dr) ** -0.5``; in bf16 each product rounds.
+Prefill and training decompress the latent into per-head keys and values
+and run the chunked causal ``flash_attention`` over the sequence, so that
+no (S, S) score exists whole.  On a grid of ranks (sequence parallel over
+'model') each rank gathers the latent (``c_kv`` and the rotated ``k_rope``,
+576 values a token) over 'model' and decompresses every position itself:
+decompression is per token, so this is the decompressed K and V of the
+whole sequence at 1/71 of their bytes.  Decode keeps only the compressed
+latent ``ckv`` (kv_lora_rank wide, RMS-normalised) and the shared rope key
+``kr`` per position, and attends in the absorbed form: the no-rope query
+is projected into the latent space (``q_eff``), so a score is ``q_eff .
+ckv + q_rope . kr`` and the context stays in the latent space until the
+final value projection.  The absorbed query is scaled twice in its own
+dtype, as in the reference: by ``((r + dr) / (dn + dr)) ** 0.5`` here,
+then by the attention's ``(r + dr) ** -0.5``; in bf16 each product
+rounds.
 
 The cache is written in place: ``{"ckv": (slots, capacity, r), "kr":
 (slots, capacity, dr)}`` rows, or the same leaves as paged block pools
@@ -26,10 +32,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.distributed.ctx import block_offset, constrain
 from repro_torch.kernels.paged_attention import (gather_block_kv,
                                                   paged_decode_attention,
                                                   scale_q)
-from repro_torch.models.attention import (attention, scatter_block_rows,
+from repro_torch.models.attention import (attention, flash_attention,
+                                          scatter_block_rows,
                                           write_decode_rows)
 from repro_torch.models.blocks import RMSNorm, apply_norm, dense_init, rope
 
@@ -91,12 +99,17 @@ def mla_block(p: MLA, x: torch.Tensor, *, n_heads: int, mla: MLAConfig,
               positions, cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
-              paged_fused: bool = False) -> torch.Tensor:
+              paged_fused: bool = False, q_chunk: int = 512,
+              kv_chunk: int = 512) -> torch.Tensor:
     """Returns the block's output (B, S, d).
 
-    Without ``cache_pos`` (prefill): decompressed causal attention over the
-    S positions; the cache is not touched (``prefill_mla_cache`` writes
-    it).  With ``cache_pos`` (B,) (decode, S = 1): this step's latent row is
+    Without ``cache_pos`` (prefill and train): decompressed causal
+    ``flash_attention`` over the S positions in chunks of ``q_chunk`` and
+    ``kv_chunk``; the cache is not touched (``prefill_mla_cache`` writes
+    it).  On a grid ``x`` is this rank's sequence block at ``positions``:
+    the latent is gathered over 'model' (``constrain("kv_full")``, whose
+    backward reduce-scatters) and the queries sit at the block's offset.
+    With ``cache_pos`` (B,) (decode, S = 1): this step's latent row is
     written in place at each row's position, into ``cache``'s (B, S, ...)
     rows, or with ``block_tables`` (B, nb) into the pools, and the row
     attends to positions <= its own in the absorbed form."""
@@ -107,12 +120,16 @@ def mla_block(p: MLA, x: torch.Tensor, *, n_heads: int, mla: MLAConfig,
     c_kv, k_rope = _latent(p, x, mla, positions)
 
     if cache_pos is None:
-        kv = torch.matmul(c_kv, p.wkv_b.to(dt)).reshape(B, S, n_heads,
+        c_kv, k_rope = constrain("kv_full", c_kv), constrain("kv_full", k_rope)
+        Skv = c_kv.shape[1]
+        kv = torch.matmul(c_kv, p.wkv_b.to(dt)).reshape(B, Skv, n_heads,
                                                         dn + dv)
         k = torch.cat([kv[..., :dn],
-                       k_rope[:, :, None, :].expand(B, S, n_heads, dr)], -1)
+                       k_rope[:, :, None, :].expand(B, Skv, n_heads, dr)], -1)
         q = torch.cat([q_nope, q_rope], -1)
-        out = attention(q, k, kv[..., dn:], causal=True)
+        out = flash_attention(q, k, kv[..., dn:], causal=True,
+                              q_offset=block_offset(1, S), q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
         return torch.matmul(out.reshape(B, S, n_heads * dv), p.wo.to(dt))
 
     kw = dict(n_heads=n_heads, mla=mla)

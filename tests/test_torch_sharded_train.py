@@ -7,8 +7,8 @@ ctx}``, the grid path of ``models/lm.py``, ``train/step.py`` and
   ``batch_specs``, ``cache_specs`` and ``activation_rules`` equal the
   reference's entry for entry on ``AbstractMesh((2, 2), ("data",
   "model"))`` and ``((2, 2, 2), ("pod", "data", "model"))``, for reduced
-  moonshot-v1-16b-a3b and qwen2-7b (the reference's stacked leading axis
-  dropped).
+  moonshot-v1-16b-a3b, qwen2-7b and deepseek-v2-236b (MLA's leaves; the
+  reference's stacked leading axis dropped).
 * The sharded step: weights from the reference's ``init_train_state``
   carried across with ``from_jax_params``; one fp32 step on grids 2x2
   (4 spawned gloo ranks), 1x2, 2x1 and 2x1x1 (two pods; 2 ranks), each
@@ -17,16 +17,19 @@ ctx}``, the grid path of ``models/lm.py``, ``train/step.py`` and
   reference's single-device jitted
   ``make_train_step`` (the reference's own sharded step cannot run under
   this jax: ROADMAP C3).  Reduced qwen2-7b (the reference test's: 2
-  layers, d_model 64, 4 heads) and reduced moonshot (3 layers) under
-  ``fixed`` and ``capacity_factor`` (1.0: its buckets drop), batch 8 x seq
-  32, ``RunConfig(q_chunk=0, kv_chunk=16, loss_chunk=16)`` and the
-  reference test's ``OptConfig``: the loss, every gradient gathered from
+  layers, d_model 64, 4 heads), reduced moonshot (3 layers) under
+  ``fixed`` and ``capacity_factor`` (1.0: its buckets drop) and reduced
+  deepseek-v2 (3 layers, MLA: the latent gathered over 'model') under
+  ``fixed``, batch 8 x seq 32, ``RunConfig(q_chunk=0, kv_chunk=16,
+  loss_chunk=16)`` and the reference test's ``OptConfig``: the loss, every gradient gathered from
   the blocks and every parameter after the step within 1e-4;
   ``lb_loss``/``router_z`` within 1e-6 (relative where they pass 1:
   router_z sums to about 12 over the MoE layers, where fp32's step is
   9.5e-7) and ``sched/dropped_rows`` equal.
   On 2x2 the gradients with remat bitwise those without; the 1x1 grid
-  bitwise the unsharded port.
+  bitwise the unsharded port.  Under SP (1x2, 2x2) the forward gathers
+  each layer's K and V, or for MLA the latent and the rope key, over
+  'model', and nothing else.
 * Elastic restore: a checkpoint written on 2x2 restored onto 1x1 and 1x2
   is bitwise the saved leaves; a run interrupted after 2 steps and resumed
   ends bitwise where an uninterrupted one does, on 2x2 and on 1x2.
@@ -89,10 +92,11 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 AUX_TOL = 1e-6
-ARCHS = ("moonshot-v1-16b-a3b", "qwen2-7b")
+ARCHS = ("moonshot-v1-16b-a3b", "qwen2-7b", "deepseek-v2-236b")
 CASES = {"qwen2-fixed": ("qwen2-7b", "fixed"),
          "moonshot-fixed": ("moonshot-v1-16b-a3b", "fixed"),
-         "moonshot-capacity": ("moonshot-v1-16b-a3b", "capacity_factor")}
+         "moonshot-capacity": ("moonshot-v1-16b-a3b", "capacity_factor"),
+         "deepseek-fixed": ("deepseek-v2-236b", "fixed")}
 GRIDS = ("1x2x2", "1x1x2", "1x2x1", "2x1x1")   # pod x data x model
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
@@ -163,6 +167,13 @@ def test_param_specs_match_reference(arch, mode, mesh):
         if arch.startswith("moonshot"):
             assert got["layers.1.moe.w_gate"] == ("model", "data", None)
             assert got["layers.1.moe.router"] == (None, None)
+    if arch.startswith("deepseek"):       # MLA's leaves
+        col, row = ((None, "model"), ("model", None)) if mode == "serve_tp" \
+            else (("data", "model"),) * 2
+        for leaf in ("wq_a", "wq_b", "wkv_a", "wkv_b"):
+            assert got[f"layers.1.attn.{leaf}"] == col, leaf
+        assert got["layers.1.attn.wo"] == row
+        assert got["layers.1.attn.kv_norm.scale"] == (None,)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -370,7 +381,7 @@ def _check_against_reference(got, ref, arch):
     for key in ("ce", "tokens"):
         np.testing.assert_allclose(got["metrics"][key], ref["metrics"][key],
                                    **TOL)
-    if arch.startswith("moonshot"):
+    if W.model_config(arch).is_moe:
         for key in ("lb_loss", "router_z"):       # 1e-6, relative past 1
             want = ref["metrics"][key]
             assert abs(got["metrics"][key] - want) \
@@ -406,6 +417,29 @@ def test_sharded_step_matches_reference(runs, reference, grid, case):
             assert other[f"{grid}/{case}"]["loss"] == got["loss"]
             assert other[f"{grid}/{case}"]["step_metrics"] \
                 == got["step_metrics"]
+
+
+@pytest.mark.parametrize("grid", ["1x2x2", "1x1x2"])
+@pytest.mark.parametrize("case", ["qwen2-fixed", "deepseek-fixed"])
+def test_sequence_parallel_gathers_keys_or_the_latent(runs, grid, case):
+    """Under SP each attention layer's forward gathers its keys' source
+    over 'model' from this rank's (B/D, S/M) block: K and V (Hkv, D) for
+    multi-head attention; for MLA the latent ``c_kv`` (kv_lora_rank) and
+    the rotated ``k_rope`` (qk_rope_head_dim), which every rank then
+    decompresses, never the decompressed K and V (H x (dn + dr + dv)
+    values a token)."""
+    _, data, model = (int(v) for v in grid.split("x"))
+    cfg = W.model_config(CASES[case][0])
+    b, s = W.BATCH // data, W.SEQ // model
+    if cfg.mla is not None:
+        m = cfg.mla
+        want = [(b, s, m.kv_lora_rank), (b, s, m.qk_rope_head_dim)]
+        decompressed = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                      + m.v_head_dim)
+        assert 4 * (m.kv_lora_rank + m.qk_rope_head_dim) <= decompressed
+    else:
+        want = [(b, s, cfg.n_kv_heads, cfg.head_dim)] * 2
+    assert runs[f"{grid}/{case}"]["gathers"] == want * cfg.n_layers
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -5,7 +5,8 @@ gloo rank, imports torch and the port only (never JAX), and returns numpy.
 spawned ranks (every rank makes every grid's groups, in the same order)
 and runs that grid's cases: a sharded fp32 step's loss, metrics, gathered
 gradients (with and without remat) and gathered parameters after the
-step; checkpoints saved, restored and resumed; ``compressed_psum`` over a
+step and the shapes of the activation blocks gathered; checkpoints saved,
+restored and resumed; ``compressed_psum`` over a
 'pod' group; ``combine_stats`` over a 'model' group; the EP layer on the
 global x under autograd.  Only rank 0 returns the gathered arrays."""
 import numpy as np
@@ -53,9 +54,13 @@ def gathered(tensors: dict, specs: dict, grid) -> dict:
             for n, t in tensors.items()}
 
 
-def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False):
+def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False,
+                  gathers=None):
     """(loss, metrics, {name: whole gradient}) of one sharded fp32
-    forward/backward, reduced as the step reduces it."""
+    forward/backward, reduced as the step reduces it.  With ``gathers`` (a
+    list) the shape of every activation block that the forward gathers
+    (``ctx.gather_dim``) is appended to it."""
+    from repro_torch.distributed import ctx
     cfg, state = sharded_state(case, grid)
     model = state["params"]
     rc = run_config(case["policy"], remat)
@@ -63,9 +68,20 @@ def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False):
         {"tokens": case["tokens"]}, grid,
         batch_specs(cfg, grid, "train", BATCH)), "cpu")
     params = dict(model.named_parameters())
-    with use_rules(grid, grid_rules(cfg, grid, batch["tokens"].shape[0])):
-        loss, metrics = loss_fn(model, cfg, rc, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+    gather_dim = ctx.gather_dim
+
+    def recorded(x, *args):
+        gathers.append(tuple(x.shape))
+        return gather_dim(x, *args)
+    if gathers is not None:
+        ctx.gather_dim = recorded
+    try:
+        with use_rules(grid, grid_rules(cfg, grid,
+                                        batch["tokens"].shape[0])):
+            loss, metrics = loss_fn(model, cfg, rc, batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        ctx.gather_dim = gather_dim
     grads = reduce_grads(dict(zip(params, grads)), model.shard_specs, grid,
                          compress_pod)
     return (float(loss.detach()),
@@ -88,11 +104,15 @@ def step_on_grid(case: dict, grid):
 
 
 def run_case(case: dict, grid, rank0: bool) -> dict:
-    """The case's loss, metrics, gradients and step; with ``case["remat"]``
-    also whether the gradients with remat are bitwise those without."""
-    loss, metrics, grads = grads_on_grid(case, grid, remat=False)
+    """The case's loss, metrics, gradients, the activation blocks its
+    forward gathered, and its step; with ``case["remat"]`` also whether the
+    gradients with remat are bitwise those without."""
+    gathers = []
+    loss, metrics, grads = grads_on_grid(case, grid, remat=False,
+                                         gathers=gathers)
     step_metrics, params = step_on_grid(case, grid)
-    out = {"loss": loss, "metrics": metrics, "step_metrics": step_metrics}
+    out = {"loss": loss, "metrics": metrics, "step_metrics": step_metrics,
+           "gathers": gathers}
     if case.get("remat"):
         _, _, grads_remat = grads_on_grid(case, grid, remat=True)
         out["remat_bitwise"] = all(np.array_equal(grads[n], grads_remat[n])
