@@ -291,7 +291,31 @@ result line):
    of the card (two steps: ms and peak); then one fp32 forward and
    backward of its first 2 layers on the card against the port on the CPU
    on the same weights and batch (loss within 1e-5, every gradient within
-   1e-4).
+   1e-4);
+11. the recurrent families, once the dense family's models are freed, each
+   at full width and depth with random bf16 weights (seed 0).  [serve
+   rwkv6]: rwkv6-1.6b (24 layers, 1.584 B parameters); [serve zamba2]:
+   zamba2-7b (81 Mamba2 layers and 14 attention applications in 95
+   blocks, 7.162 B parameters: the two shared blocks once, the last
+   attention block its own, none of the reference's unread ``body.b0``
+   blocks).  Each through ``ServeEngine`` as the launcher builds it (the
+   engine picks the contiguous cache: every slot carries its recurrent
+   state), 4 prompts of 512 tokens on 2 slots, 32 new tokens each: every
+   request completes with tokens in the vocabulary, no kernel of the port
+   launches (every launch counter stays 0: these models have no expert
+   and no paged read), a full-depth prefill and decode step give finite
+   logits; prefill ms a request, decode ms a step, tokens/s, peak memory,
+   and a profile of 5 decode steps (busy share, device activities a step).
+   Then an fp32 copy of its first layers (rwkv6: 2; zamba2: its least
+   depth, an attention block and 3 Mamba layers) on the card against the
+   same copy on the CPU, two of the prompts: prefill logits within 1e-4,
+   8 greedy tokens equal; and one slot serving two requests in turn, each
+   getting the tokens it gets alone.  For zamba2 also the prefill of a
+   2,039-token prompt (prime) against a 2,048-token one, within 1.5x of
+   each other (the SSD scan's fixed chunks: 16 a layer at either length).
+   [prefill long]: zamba2-7b prefills one prompt of 32,768 tokens (the
+   reference's prefill_32k shape, batch 1) and rwkv6-1.6b one of 8,192,
+   then 16 greedy decode steps each (ms, tokens/s, peak).
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -366,7 +390,24 @@ DENSE_ATTN = {"gemma2-9b": dict(Hkv=8, G=2, D=256, bs=16, softcap=50.0),
 # gemma2's local and global layers at FLASH_CHECK_S positions
 DENSE_LAYERS, DENSE_REQUESTS = 2, 2
 LONG_PROMPTS = {"gemma2-9b": 8192, "qwen2-7b": 32768,
-                "deepseek-v2-236b": 8192}
+                "deepseek-v2-236b": 8192, "zamba2-7b": 32768,
+                "rwkv6-1.6b": 8192}
+# the recurrent families at full width and depth, random bf16 weights from
+# seed 0: RECURRENT_REQUESTS prompts of RECURRENT_PROMPT tokens, SERVE_SLOTS
+# slots, RECURRENT_MAX_NEW new tokens each, on the contiguous engine the
+# launcher's default picks.  The fp32 copy held on the card against the
+# port on the CPU: rwkv6's first 2 layers; zamba2's first 4 blocks, its
+# least depth (n_layers 3: an attention block and 3 Mamba layers), 2 of
+# the prompts, RECURRENT_CHECK_NEW greedy tokens.  zamba2 also prefills a
+# prime-length prompt against an even one (ROADMAP C12)
+RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+RECURRENT_REQUESTS, RECURRENT_PROMPT, RECURRENT_MAX_NEW = 4, 512, 32
+RECURRENT_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 3}
+RECURRENT_CHECK_NEW = 8
+RECURRENT_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
+RECURRENT_PROFILE_STEPS = 5
+ZAMBA2_LIVE_PARAMS = 7_162_186_960       # C11: no unread body.b0 blocks
+PRIME_PROMPT, EVEN_PROMPT, PRIME_RATIO = 2039, 2048, 1.5
 LONG_DECODE, FLASH_CHECK_S, FLASH_CHUNK = 16, 8192, 512
 FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -3911,6 +3952,260 @@ def prefill_long(cfg, model, rng) -> dict:
     return out
 
 
+def recurrent_model(name: str, layers=None):
+    """A recurrent config at full width and depth (``layers`` cuts it) with
+    random bf16 weights from seed 0, on the card; prints its size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params, layer_kinds
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = layer_kinds(cfg)
+    print(f"[recurrent] {cfg.name} ({cfg.family}) at full width (d_model="
+          f"{cfg.d_model}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}"
+          + (f", RWKV heads of {cfg.rwkv.head_size}" if cfg.rwkv else "")
+          + (f", Mamba2 state {cfg.ssm.d_state} heads of "
+             f"{cfg.ssm.head_dim}, attention {cfg.n_heads} x "
+             f"{cfg.head_dim}" if cfg.ssm else "")
+          + f"); {cfg.n_layers} layers, {len(kinds)} blocks ("
+          + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+          + f"); {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f}"
+          f" GB bf16), random, seed 0, initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, n_params
+
+
+def recurrent_fp32_check(tag: str, cfg, model, prompts) -> dict:
+    """An fp32 copy of the first RECURRENT_CHECK_LAYERS[cfg.name] layers on
+    the card against the same copy on the CPU, two prompts in one batch:
+    prefill logits within RECURRENT_CHECK_TOL and RECURRENT_CHECK_NEW
+    greedy tokens equal; then slot reuse on the card: one slot serving two
+    requests in turn gives each the tokens it gets alone."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import (RunConfig, forward, init_cache,
+                                       layer_kinds)
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg_c = cfg.replace(n_layers=RECURRENT_CHECK_LAYERS[cfg.name])
+    kinds = layer_kinds(cfg_c)
+    n_blocks = len(kinds)
+    head = truncated(model, n_blocks)
+    if [b.kind for b in head.layers] != kinds:
+        raise AssertionError(f"{cfg.name}: the first {n_blocks} blocks are "
+                             f"not a {cfg_c.n_layers}-layer model's {kinds}")
+    card = copy.deepcopy(head).float()
+    cpu = copy.deepcopy(card).cpu()
+    rc = RunConfig(compute_dtype=torch.float32)
+    toks = torch.as_tensor(np.stack(prompts[:2]).astype(np.int64))
+    P, n_new = toks.shape[1], RECURRENT_CHECK_NEW
+
+    def greedy(m, dev):
+        t0 = time.perf_counter()
+        cache = init_cache(cfg_c, 2, P + n_new + 1, device=dev)
+        logits, _, _ = forward(m, cfg_c, rc, {"tokens": toks.to(dev)},
+                               mode="prefill", cache=cache)
+        first, tok = logits.cpu(), logits.argmax(-1)
+        out = [tok]
+        for i in range(n_new - 1):
+            logits, _, _ = forward(m, cfg_c, rc, {"tokens": tok[:, None]},
+                                   mode="decode", cache=cache, pos=P + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        out = torch.stack(out, 1).cpu().tolist()
+        return first, out, time.perf_counter() - t0
+    got, got_toks, card_s = greedy(card, "cuda")
+    want, want_toks, cpu_s = greedy(cpu, "cpu")
+    torch.testing.assert_close(got, want, **RECURRENT_CHECK_TOL)
+    err = (got - want).abs().max().item()
+    if got_toks != want_toks:
+        raise AssertionError(f"{cfg.name}: greedy tokens on the card "
+                             f"{got_toks} against the CPU's {want_toks}")
+    print(f"[{tag}] fp32, {cfg_c.n_layers} layers ({n_blocks} blocks), 2 "
+          f"prompts of {P} tokens: prefill logits on the card against the "
+          f"CPU max_abs_err {err:.3e} (tolerance rtol=atol="
+          f"{RECURRENT_CHECK_TOL['atol']:g}; card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s for the prefill and {n_new - 1} decode steps); "
+          f"{n_new} greedy tokens equal: {got_toks}")
+    cap = P + n_new + 1
+
+    def serve(reqs):
+        eng = ServeEngine(cfg_c, card, slots=1, capacity=cap, rc=rc)
+        if eng.paged:
+            raise AssertionError(f"{cfg.name}: the engine chose paging")
+        eng.run(reqs, max_steps=4 * n_new)
+        if not all(r.done for r in reqs):
+            raise AssertionError(f"{cfg.name}: slot reuse run incomplete")
+        return [r.out for r in reqs]
+    turns = serve([Request(rid=i, prompt=prompts[i], max_new=n_new)
+                   for i in range(2)])
+    alone = [serve([Request(rid=i, prompt=prompts[i], max_new=n_new)])[0]
+             for i in range(2)]
+    if turns != alone:
+        raise AssertionError(f"{cfg.name}: one slot serving two requests "
+                             f"in turn gave {turns}, alone {alone}")
+    print(f"[{tag}] slot reuse (fp32, one slot, two requests in turn): "
+          f"each request's {n_new} tokens equal its tokens alone")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"layers": cfg_c.n_layers, "blocks": n_blocks,
+            "prompt_tokens": P, "max_abs_err": err, "tokens": got_toks,
+            "slot_reuse_tokens": turns}
+
+
+def prime_prefill(cfg, model, rng) -> dict:
+    """Prefill ms of a PRIME_PROMPT-token prompt against an EVEN_PROMPT-token
+    one at full depth (one slot, bf16; warm once, then in turns prime, even,
+    even, prime): the SSD scan's fixed chunks take ceil(S / chunk) steps
+    at either length, so the two must be within PRIME_RATIO (the
+    reference's divisor rule would run 2,039 chunk steps a layer against
+    16)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import RunConfig, forward, init_cache
+    rc = RunConfig(compute_dtype=torch.bfloat16)
+
+    def run(S: int) -> float:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, S),
+                                 device="cuda")[None]
+        cache = init_cache(cfg, 1, S + 1, dtype=torch.bfloat16,
+                           device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = forward(model, cfg, rc, {"tokens": prompt},
+                               mode="prefill", cache=cache)
+        finite = bool(torch.isfinite(logits).all())
+        ms = (time.perf_counter() - t0) * 1e3
+        if not finite:
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits "
+                                 f"at {S} tokens")
+        return ms
+    run(EVEN_PROMPT)
+    times = {PRIME_PROMPT: [], EVEN_PROMPT: []}
+    for S in (PRIME_PROMPT, EVEN_PROMPT, EVEN_PROMPT, PRIME_PROMPT):
+        times[S].append(run(S))
+    prime, even = (float(np.mean(times[S])) for S in (PRIME_PROMPT,
+                                                      EVEN_PROMPT))
+    ratio = prime / even
+    chunk = cfg.ssm.chunk
+    print(f"[serve zamba2] prefill at full depth, bf16, one slot: "
+          f"{PRIME_PROMPT} tokens (prime; {-(-PRIME_PROMPT // chunk)} SSD "
+          f"chunks a layer) {prime:.1f} ms, {EVEN_PROMPT} tokens "
+          f"({EVEN_PROMPT // chunk} chunks) {even:.1f} ms (each the mean of "
+          f"2, in turns): ratio {ratio:.3f} (must be within {PRIME_RATIO})")
+    if not 1 / PRIME_RATIO <= ratio <= PRIME_RATIO:
+        raise AssertionError(f"{cfg.name}: prime-length prefill {prime:.1f}"
+                             f" ms against {even:.1f} ms")
+    torch.cuda.empty_cache()
+    return {"prime_tokens": PRIME_PROMPT, "even_tokens": EVEN_PROMPT,
+            "prime_ms": times[PRIME_PROMPT], "even_ms": times[EVEN_PROMPT],
+            "ratio": ratio}
+
+
+def serve_recurrent(name: str, rng) -> dict:
+    """[serve rwkv6] / [serve zamba2]: ``name`` at full width and depth,
+    random bf16 weights, through ``ServeEngine`` as the launcher builds it
+    (``kv_block_size`` left to the engine: contiguous for these), on
+    RECURRENT_REQUESTS prompts of RECURRENT_PROMPT tokens: every request
+    completes with tokens in the vocabulary, no kernel of the port runs
+    (the launch counters stay 0), a full-depth prefill and decode step
+    give finite logits; prefill ms a request, decode ms a step, tokens/s
+    and peak memory; a profile of RECURRENT_PROFILE_STEPS decode steps on
+    2 slots (busy share, device activities a step).  Then the fp32 copy's
+    card-vs-CPU and slot-reuse checks; for zamba2 the parameter count (no
+    unread body.b0 blocks) and the prime-length prefill; last [prefill
+    long] at LONG_PROMPTS[name]."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import RunConfig, forward, init_cache
+    from repro_torch.serve.engine import Request, ServeEngine
+    tag = f"serve {name.split('-')[0]}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()       # earlier phases' tensors
+    cfg, model, n_params = recurrent_model(name)
+    out = {"n_params": n_params, "blocks": len(model.layers)}
+    if name == "zamba2-7b" and n_params != ZAMBA2_LIVE_PARAMS:
+        raise AssertionError(f"zamba2-7b holds {n_params} parameters, not "
+                             f"{ZAMBA2_LIVE_PARAMS}")
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, RECURRENT_PROMPT).astype(np.int32)
+               for _ in range(RECURRENT_REQUESTS)]
+    capacity = RECURRENT_PROMPT + RECURRENT_MAX_NEW + 1
+    rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                         rc=rc)
+    if engine.paged:
+        raise AssertionError(f"{name}: the engine chose the paged cache")
+    print(f"[{tag}] contiguous engine (kv_block_size left to the engine: "
+          f"{engine.kv_block_size}), {SERVE_SLOTS} slots x {capacity} "
+          f"tokens; {RECURRENT_REQUESTS} prompts of {RECURRENT_PROMPT} "
+          f"tokens, {RECURRENT_MAX_NEW} new tokens each")
+    engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
+        np.int32), max_new=3)])                  # warm-up
+    reqs = [Request(rid=i, prompt=p, max_new=RECURRENT_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    res = drive(engine, reqs)
+    if any(res["launches"].values()):
+        raise AssertionError(f"{name}: kernels launched: "
+                             f"{json.dumps(res['launches'])}")
+    print(f"[{tag}] {res['forwards']} forwards ({len(res['admit_s'])} "
+          f"admissions, {len(res['decode_steps'])} decode steps) in "
+          f"{res['run_s']:.3f} s; no kernel of the port launched "
+          f"({len(res['launches'])} counters at 0)")
+    check_requests(reqs, V, RECURRENT_MAX_NEW)
+    summary = summarize(tag, res, reqs, cfg.n_layers)
+    summary["max_new"] = RECURRENT_MAX_NEW
+    summary["prompt_tokens"] = RECURRENT_PROMPT
+    # a full-depth prefill and decode step's logits
+    cache = init_cache(cfg, 1, capacity, dtype=torch.bfloat16,
+                       device="cuda")
+    logits, _, _ = forward(model, cfg, rc, {"tokens": torch.as_tensor(
+        prompts[0], device="cuda")[None].long()}, mode="prefill",
+        cache=cache)
+    step, _, _ = forward(model, cfg, rc, {"tokens": logits.argmax(-1)[:,
+                                                                     None]},
+                         mode="decode", cache=cache, pos=RECURRENT_PROMPT)
+    if not bool(torch.isfinite(logits).all() & torch.isfinite(step).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    del cache
+    for i in range(SERVE_SLOTS):
+        engine.admit(Request(rid=100 + i, prompt=prompts[i], max_new=16))
+    prof = profile_window(lambda: [engine.step()
+                                   for _ in range(RECURRENT_PROFILE_STEPS)])
+    engine.run([])
+    prof["device_events_per_step"] = \
+        prof["device_events"] / RECURRENT_PROFILE_STEPS
+    summary["profile_decode"] = prof
+    print(f"[profile {tag}] decode x{RECURRENT_PROFILE_STEPS}, "
+          f"{SERVE_SLOTS} slots: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_ms']:.2f} ms (share {prof['busy_share']:.3f}), "
+          f"{prof['device_events_per_step']:.0f} device activities a step")
+    for kname, calls, ms in prof["top_device"]:
+        print(f"    device {ms:9.3f} ms {calls:5d}x  {kname[:70]}")
+    for kname, calls, ms in prof["top_cpu"]:
+        print(f"    host   {ms:9.3f} ms {calls:5d}x  {kname[:70]}")
+    summary.update({"peak_bytes": torch.cuda.max_memory_allocated(),
+                    "allocated_before_load_bytes": before})
+    print(f"[{tag}] peak device memory {summary['peak_bytes'] / 1e9:.2f} GB "
+          f"(load and serving; {before / 1e9:.2f} GB of it allocated before "
+          f"the load by earlier phases)")
+    out["serve"] = summary
+    del engine
+    torch.cuda.empty_cache()
+    out["fp32_check"] = recurrent_fp32_check(tag, cfg, model, prompts)
+    if name == "zamba2-7b":
+        out["prime_prefill"] = prime_prefill(cfg, model, rng)
+    out["prefill_long"] = prefill_long(cfg, model, rng)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def moe_layer_backward_no_sync(policy: str) -> dict:
     """``moe_ffn`` forward and backward at moonshot's training shape (T =
     TRAIN_BATCH x TRAIN_SEQ, bf16 experts and activations) under
@@ -5641,6 +5936,15 @@ def main() -> None:
                                 "flash_long": flash_long,
                                 "prefill_long": long_prefill,
                                 "train_dense": dense_train}}))
+
+    # 11. the recurrent families at full width and depth: rwkv6-1.6b, then
+    # zamba2-7b, each served, held in fp32 against the CPU, and its long
+    # prefill
+    recurrent = {}
+    for name in RECURRENT_ARCHS:
+        recurrent[name] = serve_recurrent(name, rng)
+        elapsed(f"serving {name} and its long prefill")
+    print(json.dumps({"recurrent": recurrent}))
 
     # 10. report -----------------------------------------------------------
     from repro_torch.kernels.grouped_gemm import TILE_SHAPES

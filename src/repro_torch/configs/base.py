@@ -40,7 +40,7 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2 / SSD mixer (not served by the port yet)."""
+    """Mamba2 / SSD mixer."""
 
     d_state: int = 64
     head_dim: int = 64
@@ -52,7 +52,7 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class RWKVConfig:
-    """RWKV6 "Finch" time-mix (not served by the port yet)."""
+    """RWKV6 "Finch" time-mix."""
 
     head_size: int = 64
     decay_lora: int = 64

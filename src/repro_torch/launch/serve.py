@@ -1,8 +1,11 @@
 """Serving launcher: random weights from a seed, then greedy requests through
 the continuous-batching engine on the ``cuda`` executor.  By default the
-engine is paged (blocks of 16, chunked prefill, prefix cache) with the
-``dynamic`` schedule; ``--kv-block 0 --policy fixed`` gives the contiguous
-engine with the paper's ``fixed`` schedule.
+engine chooses its cache: paged (blocks of 16, chunked prefill, prefix
+cache) wherever every layer's cache is positional KV, else contiguous; the
+schedule is ``dynamic``.  ``--kv-block 0 --policy fixed`` gives the
+contiguous engine with the paper's ``fixed`` schedule, ``--kv-block N``
+the paged engine with blocks of N (which refuses a model with recurrent
+layers: "non-pageable").
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --layers 4 --requests 4 --max-new 16 \\
@@ -13,9 +16,13 @@ paged read runs the MLA form of the paged-attention kernel); ``--arch``
 ``qwen2-7b``, ``smollm-360m``, ``starcoder2-3b`` or ``gemma2-9b`` a dense
 model (GQA; gemma2's local layers take its sliding window in contiguous
 prefill, and its depth must be even: a local and a global layer a group).
-Widths are the architecture's own; ``--layers`` cuts depth (deepseek-v2 at
-4 layers holds 13.3 B parameters, 26.6 GB in bf16), ``--reduce`` takes the
-reduced (smoke) config as the reference's launcher does.  ``--quant
+``--arch rwkv6-1.6b`` (time-mix and channel-mix layers) and ``zamba2-7b``
+(Mamba2 layers and shared attention blocks) serve a recurrent model on the
+contiguous engine, each slot carrying its recurrent state.  Widths are the
+architecture's own; ``--layers`` cuts depth (deepseek-v2 at 4 layers holds
+13.3 B parameters, 26.6 GB in bf16; for zamba2 it counts the Mamba layers,
+as ``n_layers`` does, at least 3), ``--reduce`` takes the reduced (smoke)
+config as the reference's launcher does.  ``--quant
 {none,int8_expert,int8_channel,int4_packed}`` serves the routed experts
 compressed under that scheme (quantized at load, one stack at a time; the
 kernels dequantize on chip); ``--quant-experts`` is its deprecated alias
@@ -108,8 +115,11 @@ def parse_args(argv=None):
                          "sampling seed base: request i draws from stream "
                          "seed + i (stochastic methods only)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--kv-block", type=int, default=16,
-                    help="KV block size of the paged engine; 0 = contiguous")
+    ap.add_argument("--kv-block", type=int, default=None,
+                    help="KV block size of the paged engine; 0 = contiguous; "
+                         "default: the engine's choice (blocks of 16 "
+                         "wherever every layer's cache is positional KV, "
+                         "else contiguous)")
     ap.add_argument("--policy", default="dynamic",
                     choices=available_policies(), help="schedule policy")
     ap.add_argument("--prefill-chunk", type=int, default=32,
@@ -327,9 +337,16 @@ def serve(args, device, group=None):
               "forward")
     else:
         engine = ServeEngine(cfg, model, **kw)
-    cache = (f"paged KV cache (blocks of {args.kv_block}, prefill chunks of "
-             f"{engine.prefill_chunk}, {args.paged_attn} read)"
-             if engine.paged else "contiguous KV cache")
+    from repro_torch.models.lm import RECURRENT_KINDS, layer_kinds
+    kinds = layer_kinds(cfg)
+    n_rec = sum(k in RECURRENT_KINDS for k in kinds)
+    n_kv = len(kinds) - n_rec
+    cache = (f"paged KV cache (blocks of {engine.kv_block_size}, prefill "
+             f"chunks of {engine.prefill_chunk}, {args.paged_attn} read)"
+             if engine.paged else
+             "contiguous KV cache" if not n_rec else
+             f"contiguous cache ({n_rec} recurrent states"
+             + (f" and {n_kv} KV caches" if n_kv else "") + " a slot)")
     width = "reduced width" if args.reduce else "full width"
     print(f"{cfg.name}: {cfg.n_layers} layers at {width}, {args.dtype}, "
           f"{cache}, {args.policy} schedule, cuda executor, "

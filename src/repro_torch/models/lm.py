@@ -1,28 +1,48 @@
 """Language model for the ``moe`` family, with multi-head or latent (MLA)
-attention, and for the ``dense`` family, with global or alternating local
-and global attention (counterpart of ``repro.models.lm``): the served path
-(prefill and decode over a contiguous KV cache, and decode rows over a
-paged KV block pool) and the training path (``train`` mode,
-``chunked_ce``, ``loss_fn``).
+attention, for the ``dense`` family, with global or alternating local and
+global attention, and for the recurrent ``ssm`` (rwkv6) and ``hybrid``
+(zamba2: Mamba2 layers and shared attention blocks) families (counterpart
+of ``repro.models.lm``): the served path (prefill and decode over a
+contiguous cache, and decode rows over a paged KV block pool) and, for
+``moe`` and ``dense``, the training path (``train`` mode, ``chunked_ce``,
+``loss_fn``).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers in the
 order of ``group_structure``: ``first_dense_layers`` dense-FFN blocks
 (``moe_dense``) then MoE blocks (``moe``); or ``attn`` blocks; or, for
 gemma2's ``local_global`` pattern, ``attn_local`` and ``attn_global`` in
-turn.  Every ``(in, out)`` matrix keeps the reference's layout.  Prefill and
+turn; or ``rwkv`` blocks (time-mix and channel-mix); or zamba2's groups of
+a ``shared_attn`` block and ``attn_every`` ``mamba`` blocks, then a last
+``shared_attn`` block and the remaining ``mamba`` ones.  A group's
+``shared_attn`` entry is ``LM.shared[g % n_shared_attn_blocks]``, the same
+module in every group that takes it, so its parameters exist once (as
+``shared.<j>.*``); the last one is a block of its own, as in the
+reference, which builds it apart from ``shared`` (ROADMAP C11).  The
+reference also builds an attention block in every group's ``body.b0``
+slot that its forward never reads; the port does not build those.  Every
+``(in, out)`` matrix keeps the reference's layout.  Prefill and
 training run the chunked ``flash_attention`` (``RunConfig.q_chunk`` /
 ``kv_chunk``), with the sliding window on ``attn_local`` layers, and MLA's
 decompressed attention in the same chunks; decode runs one chunk and, as
 the reference, no window (ROADMAP C1).
 
-The KV cache is a list with one ``{"k", "v"}`` pair of (slots, capacity,
-Hkv, D) tensors per layer, or with MLA one ``{"ckv", "kr"}`` pair of
-(slots, capacity, kv_lora_rank) and (slots, capacity, qk_rope_head_dim)
-latent rows, updated in place (the reference returns a new cache; the port
-writes the rows it changes, which saves a copy of the cache per step).  The
-paged pool (``serve/kv_cache.py``) has the same form with (n_blocks,
-block_size) in place of (slots, capacity)."""
+The cache is a list with one flat dict per entry of ``layer_kinds``: a
+``{"k", "v"}`` pair of (slots, capacity, Hkv, D) tensors for an attention
+block (each application of a shared block has its own), or with MLA a
+``{"ckv", "kr"}`` pair of (slots, capacity, kv_lora_rank) and (slots,
+capacity, qk_rope_head_dim) latent rows; an ``rwkv`` block's
+``{"tm_shift", "tm_state", "cm_shift"}`` and a ``mamba`` block's
+``{"conv", "state"}`` (the states fp32), whose rows no position masks.
+Every leaf has the slot on axis 0, so the slot helpers and the engine's
+zeroing of a slot reach every leaf alike.  The cache is updated in place
+(the reference returns a new cache; the port writes the rows it changes,
+which saves a copy of the cache per step).  The paged pool
+(``serve/kv_cache.py``) has the KV form with (n_blocks, block_size) in
+place of (slots, capacity); the recurrent kinds have no pageable cache.
+
+The recurrent families are served only: their ``train`` mode, a grid and
+expert parallelism raise (ROADMAP A8)."""
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
@@ -46,6 +66,9 @@ from repro_torch.models.blocks import (dense_init, make_norm, normal_init,
                                        rope, softcap)
 from repro_torch.models.ffn import FFN
 from repro_torch.models.mla import MLA, mla_block, prefill_mla_cache
+from repro_torch.models.rwkv6 import (ChannelMix, TimeMix, channel_mix,
+                                      init_rwkv_cache, time_mix)
+from repro_torch.models.ssm import Mamba2, init_ssm_cache, ssm_block
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
 from repro_torch.scheduling import ScheduleStats
 
@@ -98,18 +121,40 @@ class RunConfig(NamedTuple):
                                      # sharded (padding-free all_to_all)
 
 
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+RECURRENT_KINDS = ("rwkv", "mamba")
+
+
 def group_structure(cfg: ModelConfig):
     """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds), the
     reference's for the families the port builds: ``moe`` (with or without
-    MLA; prefix ``moe_dense``, body ``moe``) and ``dense`` (body ``attn``,
+    MLA; prefix ``moe_dense``, body ``moe``), ``dense`` (body ``attn``,
     or ``attn_local``, ``attn_global`` for the ``local_global`` pattern, a
     group of two layers: an odd depth raises, where the reference would
-    drop the last layer)."""
+    drop the last layer), ``ssm`` (body ``rwkv``) and ``hybrid`` (body
+    ``shared_attn`` + ``mamba`` x ``attn_every``, (n_layers - 3) //
+    attn_every groups, suffix ``shared_attn`` + the remaining ``mamba``:
+    ``n_layers`` counts the Mamba layers, at least 3)."""
     L = cfg.n_layers
-    if cfg.family not in ("moe", "dense") or cfg.encoder_only:
+    if cfg.family not in ("moe", "dense", *RECURRENT_FAMILIES) \
+            or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.name}: the port builds the moe and dense families so far, "
-            f"not {cfg.family!r}")
+            f"{cfg.name}: the port builds the moe, dense, ssm and hybrid "
+            f"families so far, not {cfg.family!r}"
+            + (" (encoder-only)" if cfg.encoder_only else "")
+            + "; the vlm and audio families are ROADMAP A8")
+    if cfg.family == "hybrid":
+        per = cfg.attn_every
+        if L < 3:
+            raise ValueError(f"{cfg.name} ends in a shared_attn block and "
+                             f"3 mamba layers or more: n_layers (the Mamba "
+                             f"layers) must be >= 3, not {L}")
+        n_groups = (L - 3) // per
+        rem = L - n_groups * per
+        return ([], ["shared_attn"] + ["mamba"] * per, n_groups,
+                ["shared_attn"] + ["mamba"] * rem)
+    if cfg.family == "ssm":
+        return [], ["rwkv"], L, []
     if cfg.layer_pattern == "local_global":
         if L % 2:
             raise ValueError(
@@ -190,17 +235,26 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    """The reference's ``init_block`` leaves for an attention-style kind:
+    """The reference's ``init_block`` leaves: for an attention-style kind
     ``norm1``, ``norm2`` (and with ``post_block_norm`` ``post_norm1``,
     ``post_norm2``) of ``cfg.norm``, ``attn`` (multi-head with the QKV
-    biases, or MLA) and ``moe`` or ``ffn``."""
+    biases, or MLA) and ``moe`` or ``ffn``; for ``rwkv`` ``norm1``,
+    ``norm2``, ``tm`` (``TimeMix``) and ``cm`` (``ChannelMix``); for
+    ``mamba`` ``norm1`` and ``ssm`` (``Mamba2``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
         self.norm1 = make_norm(cfg.norm, d, device)
+        if kind == "mamba":
+            self.ssm = Mamba2(d, cfg.ssm, gen, dtype, device)
+            return
         self.norm2 = make_norm(cfg.norm, d, device)
+        if kind == "rwkv":
+            self.tm = TimeMix(d, cfg.rwkv, gen, dtype, device)
+            self.cm = ChannelMix(d, cfg.d_ff, gen, dtype, device)
+            return
         if cfg.post_block_norm:
             self.post_norm1 = make_norm(cfg.norm, d, device)
             self.post_norm2 = make_norm(cfg.norm, d, device)
@@ -223,18 +277,35 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Embedding, layers, final norm and, unless ``tie_embeddings``, a
-    ``head``: a tied model reads ``embed.T`` (``head_matrix``)."""
+    ``head``: a tied model reads ``embed.T`` (``head_matrix``).  The ``ssm``
+    family adds ``ln0`` after the embedding; the ``hybrid`` family holds
+    its ``n_shared_attn_blocks`` shared blocks in ``shared`` (registered
+    before ``layers``, so ``named_parameters`` names them ``shared.<j>``),
+    and each group's ``shared_attn`` entry of ``layers`` is one of them."""
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device):
         super().__init__()
         d = cfg.d_model
-        kinds = layer_kinds(cfg)          # raises before any allocation
+        prefix, body, n_groups, suffix = group_structure(cfg)  # raises first
         self.embed = normal_init(gen, (cfg.vocab_size, d), 0.02, dtype, device)
         if not cfg.tie_embeddings:
             self.head = dense_init(gen, (d, cfg.vocab_size), dtype, device)
         self.final_norm = make_norm(cfg.norm, d, device)
+        if cfg.family == "ssm":
+            self.ln0 = make_norm(cfg.norm, d, device)
+        if cfg.family == "hybrid":
+            self.shared = nn.ModuleList(
+                [Block(cfg, "shared_attn", gen, dtype, device)
+                 for _ in range(cfg.n_shared_attn_blocks)])
+
+        def block(kind: str, group: Optional[int] = None) -> Block:
+            if kind == "shared_attn" and group is not None:
+                return self.shared[group % cfg.n_shared_attn_blocks]
+            return Block(cfg, kind, gen, dtype, device)
         self.layers = nn.ModuleList(
-            [Block(cfg, kind, gen, dtype, device) for kind in kinds])
+            [block(k) for k in prefix]
+            + [block(k, g) for g in range(n_groups) for k in body]
+            + [block(k) for k in suffix])
 
 
 def full_param(model: LM, cfg: ModelConfig, name: str,
@@ -291,17 +362,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # ----------------------------------------------------------------------
 # Cache
 # ----------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               dtype=torch.float32, device="cuda") -> List[dict]:
-    dev = resolve_device(device)
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,
+                 dtype, dev) -> dict:
+    if kind == "rwkv":
+        return init_rwkv_cache(batch, cfg.d_model, cfg.rwkv, dtype, dev)
+    if kind == "mamba":
+        return init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype, dev)
     if cfg.mla is not None:
         shapes = {"ckv": (batch, capacity, cfg.mla.kv_lora_rank),
                   "kr": (batch, capacity, cfg.mla.qk_rope_head_dim)}
     else:
         shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
         shapes = {"k": shape, "v": shape}
-    return [{key: torch.zeros(shape, dtype=dtype, device=dev)
-             for key, shape in shapes.items()} for _ in range(cfg.n_layers)]
+    return {key: torch.zeros(shape, dtype=dtype, device=dev)
+            for key, shape in shapes.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype=torch.float32, device="cuda") -> List[dict]:
+    """One flat dict of zeros per entry of ``layer_kinds`` (the module
+    docstring gives each kind's keys); ``capacity`` sizes the KV rows."""
+    dev = resolve_device(device)
+    return [_block_cache(cfg, kind, batch, capacity, dtype, dev)
+            for kind in layer_kinds(cfg)]
 
 
 def slice_cache_slots(cache, start: int, n: int):
@@ -373,7 +456,11 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
     """Returns (x, aux).  Writes the block's K/V (or MLA latent) rows into
     ``cache`` in place (prefill: rows [0, S); decode: row ``cache_pos[b]``
     of slot b, or with ``block_tables`` position ``cache_pos[b]`` of row
-    b's blocks in the pool, read by the fused kernel when ``fused``)."""
+    b's blocks in the pool, read by the fused kernel when ``fused``).  An
+    ``rwkv`` or ``mamba`` block carries its state in ``cache`` (written in
+    place) and takes no positions."""
+    if blk.kind in RECURRENT_KINDS:
+        return _recurrent_block(blk, x, cfg, cache), {}
     dt = x.dtype
     h = blk.norm1(x)
     if cfg.mla is not None:
@@ -424,6 +511,33 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
     if cfg.post_block_norm:
         o = blk.post_norm2(o)
     return x + o.to(dt), aux
+
+
+def _recurrent_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Optional[dict]) -> torch.Tensor:
+    """The reference's ``rwkv`` (time-mix, then channel-mix) and ``mamba``
+    branches of ``apply_block``; the new state goes into ``cache`` in
+    place, through whatever slot view the caller holds."""
+    dt = x.dtype
+    if blk.kind == "rwkv":
+        tm = cm = None
+        if cache is not None:
+            tm = {"shift": cache["tm_shift"], "state": cache["tm_state"]}
+            cm = {"shift": cache["cm_shift"]}
+        o, tm = time_mix(blk.tm, blk.norm1(x), cfg.rwkv, cache=tm)
+        x = x + o.to(dt)
+        o, cm = channel_mix(blk.cm, blk.norm2(x), cache=cm)
+        x = x + o.to(dt)
+        new = (None if cache is None else
+               {"tm_shift": tm["shift"], "tm_state": tm["state"],
+                "cm_shift": cm["shift"]})
+    else:
+        o, new = ssm_block(blk.ssm, blk.norm1(x), cfg.ssm, cache=cache)
+        x = x + o.to(dt)
+    if cache is not None:
+        for key, t in new.items():
+            cache[key].copy_(t)
+    return x
 
 
 ONE_CHUNK = 10 ** 9          # a chunk length that covers any sequence
@@ -504,7 +618,23 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     pool and row b is one token of a serving step (a decode token or one
     token of a prompt chunk) at its own position, written and read through
     its slot's table row; logits for every row.
+
+    The recurrent families (``ssm``, ``hybrid``) run prefill and decode on
+    one device over a contiguous cache; their train mode, a grid,
+    ``rc.ep`` and ``block_tables`` raise.
     """
+    if cfg.family in RECURRENT_FAMILIES:
+        if block_tables is not None:
+            raise ValueError(f"{cfg.name}: its {cfg.family} layers have no "
+                             "positional KV cache to page (see "
+                             "serve/kv_cache.py PAGED_KINDS)")
+        refused = ("train mode" if mode == "train" else
+                   "a grid (use_rules)" if current_rules()[1] is not None
+                   else "expert parallelism (rc.ep)" if rc.ep else None)
+        if refused is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves the {cfg.family} family on "
+                f"one device; {refused} is not ported yet (ROADMAP A8)")
     if mode == "train":
         if cache is not None or pos is not None or block_tables is not None:
             raise ValueError("train mode takes no cache, pos or block_tables")
@@ -577,6 +707,8 @@ def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     fused = paged_fused(rc, cache[0] if block_tables is not None else None)
     dt = rc.compute_dtype
     x = embed_tokens(model, cfg, batch["tokens"], dt)
+    if cfg.family == "ssm":
+        x = model.ln0(x)
     B, S = x.shape[:2]
     if mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)

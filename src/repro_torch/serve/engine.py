@@ -18,10 +18,13 @@ means blocks of 16):
   blocks in the prefix index, emits tokens, retires finished requests
   top-down and compacts the active prefix.
 
-**Contiguous** (``kv_block_size=0``): admission prefills the whole prompt
-into a free slot and emits the first token; every step decodes all active
-slots in one forward; a retired slot is filled by swapping the last active
-slot's cache row into it.
+**Contiguous** (``kv_block_size=0``, and the automatic choice for a model
+with recurrent layers: rwkv6, zamba2): admission zeroes a free slot's
+cache rows (a recurrent state, unlike KV rows, has no position mask to
+hide its previous occupant), prefills the whole prompt into them and
+emits the first token; every step decodes all active slots in one
+forward; a retired slot is filled by swapping the last active slot's
+cache row into it, every leaf of it.
 
 Both make one host transfer per step (the tokens and their EOS flags).
 With ``rc.quant`` set to a scheme, the engine quantizes the routed experts

@@ -7,9 +7,15 @@ does not import JAX) and returns the port's ``LM`` holding the same
 weights; ``from_jax_tree`` maps any tree of that layout (gradients,
 updated parameters) onto the port's parameter names.  The stacked
 ``body`` leaves are unstacked along axis 0: group g's blocks ``b0``,
-``b1``, ... become one layer each, in that order; every ``(in, out)``
-matrix keeps its layout, and biases, norms and post norms map by name.  A
-tree of a tied config has no ``head``, and neither has the port's model.
+``b1``, ... become one layer each, in that order, followed by the
+``suffix`` blocks; every ``(in, out)`` matrix keeps its layout, and biases,
+norms, post norms and ``ln0`` map by name.  A tree of a tied config has no
+``head``, and neither has the port's model.  The hybrid family's
+``shared`` blocks (stacked on axis 0) become ``shared.<j>``; its groups'
+``shared_attn`` slots in ``body`` hold blocks that the reference's forward
+never reads (it reads ``shared[g % n]`` there, ROADMAP C11): the port has
+no parameter for them, and ``from_jax_params`` checks that they are
+exactly the reference leaves left over.
 
 ``shard_experts(moe_params, rank, ep)`` and ``shard_model(model, rank,
 ep)`` keep rank ``rank``'s ``E // ep`` routed experts of every MoE layer
@@ -27,47 +33,72 @@ from repro_torch.models.lm import LM, group_structure, init_params
 from repro_torch.quantization import EXPERT_MATS, QuantTensor
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def _flatten(tree, prefix: str = "") -> dict:
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v
     return out
 
 
-def _jax_layers(cfg: ModelConfig, tree: dict):
-    """One flat {dotted name: array} dict per layer, in layer order."""
-    prefix, body, n_groups, _ = group_structure(cfg)
-    layers = [_flatten(b) for b in tree.get("prefix", [])]
-    if len(layers) != len(prefix):
-        raise ValueError(f"expected {len(prefix)} prefix blocks, "
-                         f"got {len(layers)}")
-    stacked = [_flatten(tree["body"][f"b{i}"]) for i in range(len(body))]
+def _map_jax_tree(cfg: ModelConfig, tree: dict):
+    """-> ({port name: (reference leaf name, array)}, [the reference leaves
+    of the hybrid groups' unread ``shared_attn`` slots])."""
+    prefix, body, n_groups, suffix = group_structure(cfg)
+    out = {}
+    for top in ("embed", "head", "final_norm", "ln0", "shared"):
+        if top not in tree:
+            continue
+        for k, v in _flatten({top: tree[top]}).items():
+            if top == "shared":        # (n_shared_attn_blocks, ...) stacks
+                for j in range(v.shape[0]):
+                    out[f"shared.{j}.{k[len('shared.'):]}"] = (k, v[j])
+            else:
+                out[k] = (k, v)
+    i = 0
+    for part, kinds in (("prefix", prefix), ("suffix", suffix)):
+        blocks = tree.get(part, [])
+        if len(blocks) != len(kinds):
+            raise ValueError(f"expected {len(kinds)} {part} blocks, "
+                             f"got {len(blocks)}")
+    for s, blk in enumerate(tree.get("prefix", [])):
+        for k, v in _flatten(blk).items():
+            out[f"layers.{i}.{k}"] = (f"prefix.{s}.{k}", v)
+        i += 1
+    stacked = [_flatten(tree["body"][f"b{j}"]) for j in range(len(body))]
     for g in range(n_groups):
-        for blk in stacked:
-            layers.append({k: v[g] for k, v in blk.items()})
-    return layers
+        for j, kind in enumerate(body):
+            if kind != "shared_attn":  # the group reads shared[g % n]
+                for k, v in stacked[j].items():
+                    out[f"layers.{i}.{k}"] = (f"body.b{j}.{k}", v[g])
+            i += 1
+    dead = [f"body.b{j}.{k}" for j, kind in enumerate(body)
+            if kind == "shared_attn" for k in stacked[j]]
+    for s, blk in enumerate(tree.get("suffix", [])):
+        for k, v in _flatten(blk).items():
+            out[f"layers.{i}.{k}"] = (f"suffix.{s}.{k}", v)
+        i += 1
+    return out, dead
 
 
 def from_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
     """A tree of the reference's parameter layout (the parameters, their
     gradients or updated parameters; numpy leaves) as ``{name: array}``
     under the port's ``LM.named_parameters()`` names."""
-    flat = {"embed": tree["embed"]}
-    if "head" in tree:
-        flat["head"] = tree["head"]
-    flat.update({f"final_norm.{k}": v for k, v in tree["final_norm"].items()})
-    for i, layer in enumerate(_jax_layers(cfg, tree)):
-        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
-    return flat
+    return {name: arr for name, (_, arr) in _map_jax_tree(cfg, tree)[0].items()}
 
 
 def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
-    """The port's fp32 model with the reference tree's weights."""
+    """The port's fp32 model with the reference tree's weights.  Raises
+    unless every port parameter takes a reference leaf and the reference
+    leaves no port parameter takes are exactly the unread ``shared_attn``
+    slots of the hybrid family's ``body``."""
     model = init_params(cfg, 0, device=device)
-    ref = from_jax_tree(cfg, tree)
+    mapped, dead = _map_jax_tree(cfg, tree)
+    ref = {name: arr for name, (_, arr) in mapped.items()}
     names = dict(model.named_parameters())
     mine = {n for n in names if not n.startswith("layers.")}
     theirs = {n for n in ref if not n.startswith("layers.")}
@@ -84,6 +115,11 @@ def from_jax_params(cfg: ModelConfig, tree: dict, *, device="cuda") -> LM:
                 f"layer {i}: reference leaves missing from the port: "
                 f"{sorted(theirs - mine)}; port parameters with no "
                 f"reference leaf: {sorted(mine - theirs)}")
+    left = set(_flatten(tree)) - {src for src, _ in mapped.values()}
+    if left != set(dead):
+        raise ValueError(f"reference leaves that no port parameter takes: "
+                         f"{sorted(left)}; expected exactly the unread "
+                         f"shared_attn slots {sorted(dead)}")
     for name, param in names.items():
         arr = np.array(ref[name], dtype=np.float32)
         if tuple(arr.shape) != tuple(param.shape):
