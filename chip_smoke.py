@@ -248,7 +248,7 @@ result line):
    single rank's parameters written to ``build/ckpt_sharded`` and read back
    by each rank as its blocks, then removed), each rank's launches (per MoE
    layer as one rank's step); then bf16 with remat, batch 8 x seq 512, one
-   warm step through ``train(grid=)`` and 1 (2x1) or 3 (1x2) timed: step
+   warm step through ``train(grid=)`` and 1 timed: step
    ms beside the single rank's at the same depth, peak
    memory a rank, the bytes of a rank's parameter and moment blocks, and
    the collectives a step with the bytes they gather, reduce-scatter,
@@ -279,9 +279,9 @@ result line):
    within 2e-2, with the peak memory of each.  [serve dense]: qwen2-7b,
    starcoder2-3b and smollm-360m at full width, depth cut to 2, two
    requests each through the paged engine with the same launch checks.
-   Then qwen2-7b at full width and all 28 layers prefills one prompt of
-   32,768 tokens (the reference's prefill_32k shape, batch 1), as gemma2's
-   above.  [train dense]: smollm-360m at full width and all 32 layers
+   Then qwen2-7b at full width and 14 of its 28 layers (since PR 31)
+   prefills one prompt of 32,768 tokens (the reference's prefill_32k
+   shape, batch 1), as gemma2's above.  [train dense]: smollm-360m at full width and all 32 layers
    (fp32 parameters and moments, bf16 compute, remat) trains 4 steps of
    batch 8 x seq 2,048 through ``train()`` (each loss finite, no kernel
    launched; step ms, tokens/s, peak) and one step of its first 4 layers
@@ -314,8 +314,34 @@ result line):
    2,039-token prompt (prime) against a 2,048-token one, within 1.5x of
    each other (the SSD scan's fixed chunks: 16 a layer at either length).
    [prefill long]: zamba2-7b prefills one prompt of 32,768 tokens (the
-   reference's prefill_32k shape, batch 1) and rwkv6-1.6b one of 8,192,
-   then 16 greedy decode steps each (ms, tokens/s, peak).
+   reference's prefill_32k shape, batch 1) and rwkv6-1.6b one of 8,192
+   at 12 of its 24 layers (since PR 31), then 16 greedy decode steps each
+   (ms, tokens/s, peak);
+12. the vlm and audio families, no kernel of the port on their paths
+   (every launch counter stays 0).  [serve vlm]: llama-3.2-vision-11b at
+   full width and all 40 layers (8 groups of 5, a cross-attention block
+   4th in each; 9.775 B parameters, random bf16, seed 0) through
+   ``ServeEngine`` as the launcher builds it (the engine picks the
+   contiguous cache: the cross blocks hold each slot's image K/V), 4
+   prompts of 512 tokens on 2 slots, 32 new tokens each, with the zero
+   image embeddings the engine feeds: every request completes with tokens
+   in the vocabulary; prefill ms a request, decode ms a step, tokens/s,
+   peak memory and a profile of 5 decode steps.  Then a full-depth prefill
+   and decode step with random non-zero image embeddings against the same
+   with zero ones: finite logits that differ, a non-zero cross cache.  Then
+   an fp32 copy of its first group (5 layers, the cross block 4th) on the
+   card against the same copy on the CPU: two prompts of 128 tokens with
+   the same random image embeddings, prefill logits within 1e-4 and 8
+   greedy tokens equal.  [train hubert]: hubert-xlarge at full width and
+   all 48 layers (945.1 M fp32 parameters and AdamW moments, bf16 compute,
+   remat) trains 3 steps of ``make_batch``'s 8 x 1,024 masked frames
+   through ``train()`` (finite loss, step ms, peak), one step of its first
+   4 layers under the profiler, then a 2-layer fp32 forward and backward
+   on the card against the CPU (loss within 1e-5, every gradient within
+   1e-4).  [train vlm]: llama-3.2-vision-11b cut to its first group (5
+   layers, 2.141 B fp32 parameters) trains 2 steps of 4 x 512 tokens with
+   ``make_batch``'s image embeddings (bf16, remat): finite loss, step ms,
+   peak.
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -408,6 +434,36 @@ RECURRENT_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
 RECURRENT_PROFILE_STEPS = 5
 ZAMBA2_LIVE_PARAMS = 7_162_186_960       # C11: no unread body.b0 blocks
 PRIME_PROMPT, EVEN_PROMPT, PRIME_RATIO = 2039, 2048, 1.5
+# [serve vlm]: llama-3.2-vision-11b at full width and depth, random bf16
+# weights from seed 0, VLM_REQUESTS prompts of VLM_PROMPT tokens on
+# SERVE_SLOTS slots, VLM_MAX_NEW new tokens each, on the contiguous engine
+# the launcher's default picks; the engine feeds zero image embeddings (and
+# the model has no QKV bias, so every cross block adds exactly 0 there):
+# the direct prefill and decode and the fp32 check take random ones,
+# make_batch's N(0, 1) * IMAGE_SCALE.  The fp32 check: the first group
+# (cross_attn_every layers), VLM_CHECK_PROMPT tokens of two prompts,
+# VLM_CHECK_NEW greedy tokens
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "hubert-xlarge"
+VLM_PARAMS, VLM_GROUP_PARAMS = 9_775_157_248, 2_141_237_248
+AUDIO_PARAMS = 945_104_640
+VLM_REQUESTS, VLM_PROMPT, VLM_MAX_NEW = 4, 512, 32
+VLM_CHECK_PROMPT, VLM_CHECK_NEW = 128, 8
+VLM_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
+VLM_PROFILE_STEPS = 5
+IMAGE_SCALE = 0.3
+# [train hubert]: full width and depth through train(); the profiled step
+# runs its first AUDIO_PROFILE_LAYERS layers (as [train dense]); the fp32
+# check as [train dense]'s (DENSE_CHECK_TOL).  [train vlm]: the first
+# group only, VLM_TRAIN_STEPS steps
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_STEPS = 8, 1024, 3
+AUDIO_PROFILE_LAYERS = 4
+AUDIO_CHECK_LAYERS, AUDIO_CHECK_BATCH, AUDIO_CHECK_SEQ = 2, 2, 256
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 4, 512, 2
+# [prefill long]'s depth where it is cut: every layer repeats the same
+# loop (qwen2-7b's chunk pairs, rwkv6's WKV recurrence over the prompt), so
+# half the depth halves the time and keeps the prefill's own memory; whole,
+# the two took 20-31 s and 22-25 s of runs of 515-622 s (PR 31)
+LONG_LAYERS = {"qwen2-7b": 14, "rwkv6-1.6b": 12}
 LONG_DECODE, FLASH_CHECK_S, FLASH_CHUNK = 16, 8192, 512
 FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -500,8 +556,9 @@ PLAIN_ITERS = {False: (5, 3), True: (1, 1)}
 CAPACITY_FACTORS, CAPACITY_FACTOR = (1.25, 0.5), 1.25
 RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
 # [train sharded]: the grids (data, model) of the 2 ranks on the card, each
-# with its timed bf16 steps after the warm one (the 2x1 grid's steps are set
-# by gloo's host transport, so one is enough); the fp32 check's batch and
+# with its timed bf16 steps after the warm one (a grid's steps are set by
+# gloo's host transport, so one is enough: 1x2's 3 took 11-15 s of a run
+# that must stay near half the limit, PR 31); the fp32 check's batch and
 # optimizer (eps 1e-3: each update a smooth function of its gradient, slope
 # at most lr / eps, so the gradients' agreement bounds the parameters'; at
 # 1e-8 a gradient within rounding of zero can flip its element's whole
@@ -509,7 +566,7 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
 # gradient norm, relative (the clip to norm 1 and Adam's first step divide
 # out a gradient's scale, so a gradient wrong by a uniform factor shows in
 # the norm alone)
-SHARDED_RANKS, SHARDED_GRIDS = 2, ((2, 1, 1), (1, 2, 3))
+SHARDED_RANKS, SHARDED_GRIDS = 2, ((2, 1, 1), (1, 2, 1))
 # its depth: moonshot cut to 2 layers (1 dense + 1 MoE); its bf16 steps are
 # gloo's host transport (96-98 % of a step on an H100), so bytes set the
 # time, and at 4 layers the phase took 117.6-184.0 s of a run that must
@@ -711,10 +768,9 @@ def profile_window(fn, top: int = 8) -> dict:
     the device-side activity intervals (kernels, copies, sets): summing the
     per-op averages would count each kernel twice, once under its own name
     and once under the aten op that launched it.  "Command Buffer Full" is
-    a launch-queue stall on the host, not device work."""
-    import collections
+    a launch-queue stall on the host, not device work.  The rows come from
+    the profiler's raw events (``window_stats``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -723,30 +779,60 @@ def profile_window(fn, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and e.name != "Command Buffer Full"]
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in dev):
-        busy += max(0.0, stop - max(start, end))
+    return window_stats(prof.profiler.kineto_results.events(), wall, top)
+
+
+def window_stats(events, wall: float, top: int) -> dict:
+    """``profile_window``'s figures from raw profiler events (``name()``,
+    ``device_type()``, ``start_ns()``, ``duration_ns()``,
+    ``start_thread_id()``).  A host entry's self time is its duration less
+    its direct children's: the events of one thread nest by their
+    intervals.  Building the profiler's own event tree (``events()``,
+    ``key_averages()``) costs seconds of host a window of a few thousand
+    device activities; these loops cost a fraction of one."""
+    import collections
+    from torch.autograd import DeviceType
+    dev, host = [], []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if e.name() != "Command Buffer Full":
+                dev.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                            e.name()))
+        elif e.device_type() == DeviceType.CPU:
+            host.append((e.start_thread_id(), e.start_ns(), e.duration_ns(),
+                         e.name()))
+    busy, end = 0, float("-inf")
+    per_kernel = collections.defaultdict(lambda: [0, 0])
+    for start, stop, name in sorted(dev):
+        busy += max(0, stop - max(start, end))
         end = max(end, stop)
-    per_kernel = collections.defaultdict(lambda: [0, 0.0])
-    for e in dev:
-        per_kernel[e.name][0] += 1
-        per_kernel[e.name][1] += (e.time_range.end - e.time_range.start) / 1e3
+        per_kernel[name][0] += 1
+        per_kernel[name][1] += stop - start
     by_dev = sorted(per_kernel.items(), key=lambda kv: kv[1][1],
                     reverse=True)[:top]
-    host = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CPU]
-    by_cpu = sorted(host, key=lambda e: e.self_cpu_time_total,
+    per_host = collections.defaultdict(lambda: [0, 0])
+    stack = []                     # open entries: [thread, end, name, self]
+
+    def close(entry):
+        per_host[entry[2]][0] += 1
+        per_host[entry[2]][1] += entry[3]
+    for tid, start, dur, name in sorted(host, key=lambda h: (h[0], h[1],
+                                                             -h[2])):
+        while stack and (stack[-1][0] != tid or stack[-1][1] <= start):
+            close(stack.pop())
+        if stack:
+            stack[-1][3] -= dur
+        stack.append([tid, start + dur, name, dur])
+    while stack:
+        close(stack.pop())
+    by_cpu = sorted(per_host.items(), key=lambda kv: kv[1][1],
                     reverse=True)[:top]
-    return {"wall_ms": wall * 1e3, "device_ms": busy / 1e3,
-            "busy_share": busy / 1e3 / (wall * 1e3),
-            "kernel_ms": sum(v[1] for v in per_kernel.values()),
+    return {"wall_ms": wall * 1e3, "device_ms": busy / 1e6,
+            "busy_share": busy / 1e6 / (wall * 1e3),
+            "kernel_ms": sum(v[1] for v in per_kernel.values()) / 1e6,
             "device_events": len(dev),
-            "top_device": [(k[:90], n, ms) for k, (n, ms) in by_dev],
-            "top_cpu": [(e.key[:90], e.count, e.self_cpu_time_total / 1e3)
-                        for e in by_cpu]}
+            "top_device": [(k[:90], n, ns / 1e6) for k, (n, ns) in by_dev],
+            "top_cpu": [(k[:90], n, ns / 1e6) for k, (n, ns) in by_cpu]}
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -4200,10 +4286,363 @@ def serve_recurrent(name: str, rng) -> dict:
     out["fp32_check"] = recurrent_fp32_check(tag, cfg, model, prompts)
     if name == "zamba2-7b":
         out["prime_prefill"] = prime_prefill(cfg, model, rng)
-    out["prefill_long"] = prefill_long(cfg, model, rng)
+    if name in LONG_LAYERS:          # rwkv6: a block a layer
+        depth = LONG_LAYERS[name]
+        out["prefill_long"] = prefill_long(cfg.replace(n_layers=depth),
+                                           truncated(model, depth), rng)
+    else:
+        out["prefill_long"] = prefill_long(cfg, model, rng)
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def vlm_image(rng, rows: int, cfg):
+    """Random non-zero image embeddings (rows, n_image_tokens, d_model)
+    fp32 on the CPU: make_batch's N(0, 1) * IMAGE_SCALE."""
+    import numpy as np
+    import torch
+    return torch.from_numpy((rng.standard_normal(
+        (rows, cfg.n_image_tokens, cfg.d_model)) * IMAGE_SCALE
+    ).astype(np.float32))
+
+
+def vlm_image_effect(cfg, model, rc, prompt, rng) -> dict:
+    """A full-depth prefill of ``prompt`` and one decode step (the same
+    token) with random non-zero image embeddings and with zero ones: every
+    logit finite, the two runs' logits differ at prefill and at decode, and
+    the random image leaves a non-zero cross cache."""
+    import torch
+    from repro_torch.models.lm import forward, init_cache, layer_kinds
+    cross = layer_kinds(cfg).index("cross")
+    img = vlm_image(rng, 1, cfg).cuda()
+    tok = torch.as_tensor(prompt, device="cuda")[None].long()
+    runs = {}
+    for name, image in (("zero", torch.zeros_like(img)), ("random", img)):
+        cache = init_cache(cfg, 1, len(prompt) + 2, dtype=torch.bfloat16,
+                           device="cuda")
+        pre, _, _ = forward(model, cfg, rc, {"tokens": tok,
+                                             "image_embeds": image},
+                            mode="prefill", cache=cache)
+        dec, _, _ = forward(model, cfg, rc, {"tokens": tok[:, :1]},
+                            mode="decode", cache=cache, pos=len(prompt))
+        runs[name] = (pre.float(), dec.float(),
+                      float(cache[cross]["k"].abs().max()))
+        del cache
+    (pz, dz, kz), (pr, dr, kr) = runs["zero"], runs["random"]
+    if not all(bool(torch.isfinite(t).all()) for t in (pz, dz, pr, dr)):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    out = {"prefill_logits_max_abs_diff": float((pr - pz).abs().max()),
+           "decode_logits_max_abs_diff": float((dr - dz).abs().max()),
+           "cross_cache_max_abs": {"zero": kz, "random": kr}}
+    if not (out["prefill_logits_max_abs_diff"] > 0
+            and out["decode_logits_max_abs_diff"] > 0 and kr > 0 and kz == 0):
+        raise AssertionError(f"{cfg.name}: the image changed nothing: "
+                             f"{json.dumps(out)}")
+    print(f"[serve vlm] full depth, bf16, one prompt of {len(prompt)} "
+          f"tokens: random image embeddings against zero ones change the "
+          f"prefill logits by up to {out['prefill_logits_max_abs_diff']:.3f}"
+          f" and a decode step's by up to "
+          f"{out['decode_logits_max_abs_diff']:.3f}; the first cross "
+          f"block's cached image K max |k| {kr:.3f} (zero image: {kz:g}); "
+          f"every logit finite")
+    return out
+
+
+def vlm_fp32_check(cfg, model, prompts, rng) -> dict:
+    """An fp32 copy of the first group (``cross_attn_every`` layers, the
+    cross block second from the end) on the card against the same copy on
+    the CPU: VLM_CHECK_PROMPT tokens of two prompts in one batch with the
+    same random image embeddings, prefill logits within VLM_CHECK_TOL and
+    VLM_CHECK_NEW greedy tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import (RunConfig, forward, init_cache,
+                                       layer_kinds)
+    cfg_c = cfg.replace(n_layers=cfg.cross_attn_every)
+    kinds = layer_kinds(cfg_c)
+    head = truncated(model, len(kinds))
+    if [b.kind for b in head.layers] != kinds or "cross" not in kinds:
+        raise AssertionError(f"{cfg.name}: the first {len(kinds)} blocks "
+                             f"are not a group {kinds}")
+    card = copy.deepcopy(head).float()
+    cpu = copy.deepcopy(head).cpu().float()      # the same weights, exactly
+    rc = RunConfig(compute_dtype=torch.float32)
+    P, n_new = VLM_CHECK_PROMPT, VLM_CHECK_NEW
+    toks = torch.as_tensor(np.stack([p[:P] for p in prompts[:2]]
+                                    ).astype(np.int64))
+    img = vlm_image(rng, 2, cfg)
+
+    def greedy(m, dev):
+        t0 = time.perf_counter()
+        cache = init_cache(cfg_c, 2, P + n_new + 1, device=dev)
+        logits, _, _ = forward(m, cfg_c, rc, {"tokens": toks.to(dev),
+                                              "image_embeds": img.to(dev)},
+                               mode="prefill", cache=cache)
+        first, tok = logits.cpu(), logits.argmax(-1)
+        out = [tok]
+        for i in range(n_new - 1):
+            logits, _, _ = forward(m, cfg_c, rc, {"tokens": tok[:, None]},
+                                   mode="decode", cache=cache, pos=P + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        return first, torch.stack(out, 1).cpu().tolist(), \
+            time.perf_counter() - t0
+    got, got_toks, card_s = greedy(card, "cuda")
+    want, want_toks, cpu_s = greedy(cpu, "cpu")
+    torch.testing.assert_close(got, want, **VLM_CHECK_TOL)
+    err = (got - want).abs().max().item()
+    if got_toks != want_toks:
+        raise AssertionError(f"{cfg.name}: greedy tokens on the card "
+                             f"{got_toks} against the CPU's {want_toks}")
+    print(f"[serve vlm] fp32, its first group ({len(kinds)} layers: "
+          f"{', '.join(kinds)}), 2 prompts of {P} tokens and random image "
+          f"embeddings: prefill logits on the card against the CPU "
+          f"max_abs_err {err:.3e} (tolerance rtol=atol="
+          f"{VLM_CHECK_TOL['atol']:g}; card {card_s:.2f} s, CPU {cpu_s:.2f}"
+          f" s for the prefill and {n_new - 1} decode steps); {n_new} greedy "
+          f"tokens equal: {got_toks}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"layers": len(kinds), "prompt_tokens": P, "max_abs_err": err,
+            "tokens": got_toks, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def serve_vlm(rng) -> dict:
+    """[serve vlm]: llama-3.2-vision-11b at full width and depth, random
+    bf16 weights, through ``ServeEngine`` as the launcher builds it
+    (``kv_block_size`` left to the engine: contiguous, for the cross
+    blocks' image K/V), VLM_REQUESTS prompts of VLM_PROMPT tokens: every
+    request completes with tokens in the vocabulary and no kernel of the
+    port launches (the counters stay 0); prefill ms a request, decode ms a
+    step, tokens/s, peak memory, a profile of VLM_PROFILE_STEPS decode
+    steps on 2 slots.  Then ``vlm_image_effect`` and ``vlm_fp32_check``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import RunConfig, init_params, layer_kinds
+    from repro_torch.serve.engine import Request, ServeEngine
+    tag = "serve vlm"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()       # earlier phases' tensors
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = layer_kinds(cfg)
+    print(f"[{tag}] {cfg.name} ({cfg.family}) at full width (d_model="
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads"
+          f" of {cfg.head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+          f"{cfg.n_image_tokens} image tokens); {cfg.n_layers} layers ("
+          + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+          + f"); {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} "
+          f"GB bf16), random, seed 0, initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != VLM_PARAMS:
+        raise AssertionError(f"{cfg.name} holds {n_params} parameters, not "
+                             f"the reference's {VLM_PARAMS}")
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, VLM_PROMPT).astype(np.int32)
+               for _ in range(VLM_REQUESTS)]
+    capacity = VLM_PROMPT + VLM_MAX_NEW + 1
+    rc = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="dynamic")
+    engine = ServeEngine(cfg, model, slots=SERVE_SLOTS, capacity=capacity,
+                         rc=rc)
+    if engine.paged:
+        raise AssertionError(f"{cfg.name}: the engine chose the paged cache")
+    print(f"[{tag}] contiguous engine (kv_block_size left to the engine: "
+          f"{engine.kv_block_size}), {SERVE_SLOTS} slots x {capacity} "
+          f"tokens; {VLM_REQUESTS} prompts of {VLM_PROMPT} tokens, "
+          f"{VLM_MAX_NEW} new tokens each; zero image embeddings, as the "
+          f"engine feeds")
+    engine.run([Request(rid=-1, prompt=rng.integers(0, V, 32).astype(
+        np.int32), max_new=3)])                  # warm-up
+    reqs = [Request(rid=i, prompt=p, max_new=VLM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    res = drive(engine, reqs)
+    if any(res["launches"].values()):
+        raise AssertionError(f"{cfg.name}: kernels launched: "
+                             f"{json.dumps(res['launches'])}")
+    print(f"[{tag}] {res['forwards']} forwards ({len(res['admit_s'])} "
+          f"admissions, {len(res['decode_steps'])} decode steps) in "
+          f"{res['run_s']:.3f} s; no kernel of the port launched "
+          f"({len(res['launches'])} counters at 0)")
+    check_requests(reqs, V, VLM_MAX_NEW)
+    summary = summarize(tag, res, reqs, cfg.n_layers)
+    summary.update({"max_new": VLM_MAX_NEW, "prompt_tokens": VLM_PROMPT,
+                    "n_params": n_params})
+    seconds = {"load_and_serve": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    for i in range(SERVE_SLOTS):
+        engine.admit(Request(rid=100 + i, prompt=prompts[i], max_new=16))
+    prof = profile_window(lambda: [engine.step()
+                                   for _ in range(VLM_PROFILE_STEPS)])
+    engine.run([])
+    seconds["profile"] = time.perf_counter() - t1
+    prof["device_events_per_step"] = prof["device_events"] / VLM_PROFILE_STEPS
+    summary["profile_decode"] = prof
+    print(f"[profile {tag}] decode x{VLM_PROFILE_STEPS}, {SERVE_SLOTS} "
+          f"slots: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_ms']:.2f} ms (share {prof['busy_share']:.3f}), "
+          f"{prof['device_events_per_step']:.0f} device activities a step")
+    for kname, calls, ms in prof["top_device"]:
+        print(f"    device {ms:9.3f} ms {calls:5d}x  {kname[:70]}")
+    for kname, calls, ms in prof["top_cpu"]:
+        print(f"    host   {ms:9.3f} ms {calls:5d}x  {kname[:70]}")
+    summary.update({"peak_bytes": torch.cuda.max_memory_allocated(),
+                    "allocated_before_load_bytes": before})
+    print(f"[{tag}] peak device memory {summary['peak_bytes'] / 1e9:.2f} GB "
+          f"(load and serving; {before / 1e9:.2f} GB of it allocated before "
+          f"the load by earlier phases)")
+    del engine
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    summary["image_effect"] = vlm_image_effect(cfg, model, rc, prompts[0],
+                                               rng)
+    seconds["image_effect"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    summary["fp32_check"] = vlm_fp32_check(cfg, model, prompts, rng)
+    seconds["fp32_check"] = time.perf_counter() - t1
+    summary["phase_seconds"] = seconds
+    print(f"[{tag}] host seconds of the phase's parts: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def train_family(tag: str, cfg, n_params: int, batch: int, seq: int,
+                 steps: int) -> dict:
+    """``cfg`` (fp32 parameters and AdamW moments, bf16 compute, remat)
+    through ``train()`` for ``steps`` steps of ``make_batch``'s batch x seq:
+    every loss finite, no kernel of the port launched, the parameter count
+    ``n_params``; the step time from the logged steps after the first and
+    the peak.  Returns (summary, the trained model)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import train
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   remat=True)
+    opt = OptConfig(total_steps=steps, warmup_steps=1)
+    stamps = []
+
+    def log(line):
+        if line.startswith("[train] step"):  # after the metrics' sync
+            stamps.append(time.perf_counter())
+        print(f"[{tag}] {line}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train(cfg, rc, opt, steps=steps, batch=batch, seq=seq, seed=0,
+                log_every=1, log=log, device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"[{tag}] kernels launched: "
+                             f"{dict(ops.LAUNCHES)}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] losses {losses}")
+    model = out["state"]["params"]
+    n = sum(p.numel() for p in model.parameters())
+    if n != n_params:
+        raise AssertionError(f"[{tag}] {n} parameters, not the reference's "
+                             f"{n_params}")
+    step_ms = [float(v) for v in np.diff(stamps) * 1e3]
+    med = float(np.median(step_ms))
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, "n_params": n,
+               "batch": batch, "seq": seq, "losses": losses,
+               "step_ms_after_first": step_ms, "step_ms_median": med,
+               "tokens_per_s": batch * seq / med * 1e3,
+               "train_s_with_init": total_s, "peak_bytes": peak,
+               "state_bytes": torch.cuda.memory_allocated()}
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {n / 1e9:.4f} B fp32 "
+          f"parameters, bf16 compute, remat, batch {batch} x {seq}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; steps after the "
+          "first " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" ms ({summary['tokens_per_s']:.0f} tokens/s); peak device "
+          f"memory {peak / 1e9:.2f} GB; no kernel of the port launched; "
+          f"{total_s:.1f} s with the initialisation")
+    return summary, out["state"]
+
+
+def train_hubert() -> dict:
+    """[train hubert]: hubert-xlarge at full width and depth through
+    ``train_family`` (masked prediction on make_batch's frames), one step
+    of its first AUDIO_PROFILE_LAYERS layers under the profiler, then the
+    fp32 check of AUDIO_CHECK_LAYERS layers on the card against the CPU
+    (loss and every gradient within DENSE_CHECK_TOL)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = get_config(AUDIO_ARCH)
+    B, S, n = AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_STEPS
+    print(f"[train hubert] {cfg.name} at full width and all {cfg.n_layers} "
+          f"layers (d_model={cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, bidirectional, no RoPE, layernorm, gelu_mlp, "
+          f"d_ff={cfg.d_ff}, {cfg.vocab_size} codebook labels), masked "
+          f"prediction on make_batch's {B} x {S} frames; {n} steps through "
+          f"train(), random weights, seed 0")
+    summary, state = train_family("train hubert", cfg, AUDIO_PARAMS, B, S, n)
+    model = state["params"]
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   remat=True)
+    cfg_p = cfg.replace(n_layers=AUDIO_PROFILE_LAYERS)
+    head = train_state(truncated(model, AUDIO_PROFILE_LAYERS))
+    step_fn = make_train_step(cfg_p, rc, OptConfig(total_steps=n,
+                                                   warmup_steps=1))
+    batch = device_batch(make_batch(cfg, B, S, step=n, seed=1), "cuda")
+    step_fn(head, batch)                       # its moments' first step
+    prof = profile_window(lambda: step_fn(head, batch), top=12)
+    summary["profile"] = {"layers": AUDIO_PROFILE_LAYERS, **prof}
+    print(f"[profile train hubert] one step with remat, the first "
+          f"{AUDIO_PROFILE_LAYERS} of {cfg.n_layers} layers: wall "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+          f"(share {prof['busy_share']:.3f}), {prof['device_events']} device "
+          f"activities")
+    for name, calls, t in prof["top_device"]:
+        print(f"    device {t:9.3f} ms {calls:5d}x  {name[:70]}")
+    del head, step_fn, batch, state, model
+    torch.cuda.empty_cache()
+    summary["check_fp32"] = fp32_train_check(
+        "train hubert", cfg.replace(n_layers=AUDIO_CHECK_LAYERS),
+        AUDIO_CHECK_BATCH, AUDIO_CHECK_SEQ)
+    return summary
+
+
+def train_vlm() -> dict:
+    """[train vlm]: llama-3.2-vision-11b at full width cut to its first
+    group (cross_attn_every layers, the cross block included) through
+    ``train_family``: VLM_TRAIN_STEPS steps of VLM_TRAIN_BATCH x
+    VLM_TRAIN_SEQ tokens with make_batch's image embeddings."""
+    import torch
+    from repro_torch.configs import get_config
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(n_layers=full.cross_attn_every)
+    print(f"[train vlm] {cfg.name} at full width, cut from {full.n_layers} "
+          f"to {cfg.n_layers} layers (its first group, the cross block "
+          f"{cfg.n_layers - 1}th), {VLM_TRAIN_BATCH} x {VLM_TRAIN_SEQ} "
+          f"tokens and make_batch's {cfg.n_image_tokens} image embeddings a "
+          f"row; {VLM_TRAIN_STEPS} steps through train()")
+    summary, state = train_family("train vlm", cfg, VLM_GROUP_PARAMS,
+                                  VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
+                                  VLM_TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return summary
 
 
 def moe_layer_backward_no_sync(policy: str) -> dict:
@@ -4739,7 +5178,7 @@ def train_dense() -> dict:
     from repro_torch.data.pipeline import device_batch, make_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import LOSS_CHUNK
-    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    from repro_torch.models.lm import RunConfig, loss_fn
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_step, train_state
@@ -4861,22 +5300,35 @@ def train_dense() -> dict:
           f"{peak_remat / 1e9:.2f} GB with remat at batch {B}")
     del out, state, model, params, batch, step_fn
     torch.cuda.empty_cache()
-    # fp32, DENSE_CHECK_LAYERS layers: the card against the CPU
-    cfg2 = cfg.replace(n_layers=DENSE_CHECK_LAYERS)
-    model = init_params(cfg2, 1, device="cuda")
+    summary["check_fp32"] = fp32_train_check(
+        "train dense", cfg.replace(n_layers=DENSE_CHECK_LAYERS),
+        DENSE_CHECK_BATCH, DENSE_CHECK_SEQ)
+    return summary
+
+
+def fp32_train_check(tag: str, cfg, batch: int, seq: int) -> dict:
+    """One fp32 forward and backward of ``cfg`` (weights from seed 1) on the
+    card against the same weights and ``make_batch`` batch on the CPU: the
+    loss within DENSE_CHECK_TOL["loss"], every gradient within
+    DENSE_CHECK_TOL["grad"]."""
+    import torch
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    model = init_params(cfg, 1, device="cuda")
     cpu_model = copy.deepcopy(model).to("cpu")
-    batch = make_batch(cfg2, DENSE_CHECK_BATCH, DENSE_CHECK_SEQ, step=0,
-                       seed=1)
+    host = make_batch(cfg, batch, seq, step=0, seed=1)
     rc32 = RunConfig(loss_chunk=LOSS_CHUNK)
     res = {}
     for dev, m in (("cuda", model), ("cpu", cpu_model)):
         m.requires_grad_(True)
         t0 = time.perf_counter()
-        loss, _ = loss_fn(m, cfg2, rc32, device_batch(batch, dev))
+        loss, metrics = loss_fn(m, cfg, rc32, device_batch(host, dev))
         grads = torch.autograd.grad(loss, list(m.parameters()))
         res[dev] = (loss.detach().cpu(), [g.cpu() for g in grads],
-                    (time.perf_counter() - t0) * 1e3)
-    (loss, grads, ms), (loss_c, grads_c, ms_c) = res["cuda"], res["cpu"]
+                    (time.perf_counter() - t0) * 1e3,
+                    float(metrics["tokens"]))
+    (loss, grads, ms, n), (loss_c, grads_c, ms_c, _) = res["cuda"], res["cpu"]
     torch.testing.assert_close(loss, loss_c, **DENSE_CHECK_TOL["loss"])
     worst, worst_name = 0.0, None
     for (name, _), g, gc in zip(model.named_parameters(), grads, grads_c):
@@ -4885,23 +5337,21 @@ def train_dense() -> dict:
         err = (g - gc).abs().max().item()
         if err >= worst:
             worst, worst_name = err, name
-    summary["check_fp32"] = {"layers": DENSE_CHECK_LAYERS,
-                             "batch": DENSE_CHECK_BATCH,
-                             "seq": DENSE_CHECK_SEQ, "loss_cuda": float(loss),
-                             "loss_cpu": float(loss_c),
-                             "loss_abs_err": abs(float(loss - loss_c)),
-                             "worst_grad_abs_err": worst,
-                             "worst_param": worst_name, "cuda_ms": ms,
-                             "cpu_ms": ms_c}
-    print(f"[train dense] fp32 check, {DENSE_CHECK_LAYERS} layers, batch "
-          f"{DENSE_CHECK_BATCH} x seq {DENSE_CHECK_SEQ}, the same weights and"
-          f" batch: loss {float(loss):.7f} on the card, {float(loss_c):.7f} "
-          f"on the CPU (|diff| {abs(float(loss - loss_c)):.3e}; tolerance "
+    out = {"layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "loss_positions": n, "loss_cuda": float(loss),
+           "loss_cpu": float(loss_c),
+           "loss_abs_err": abs(float(loss - loss_c)),
+           "worst_grad_abs_err": worst, "worst_param": worst_name,
+           "cuda_ms": ms, "cpu_ms": ms_c}
+    print(f"[{tag}] fp32 check, {cfg.n_layers} layers, batch {batch} x seq "
+          f"{seq} ({n:.0f} positions in the loss), the same weights and "
+          f"batch: loss {float(loss):.7f} on the card, {float(loss_c):.7f} on"
+          f" the CPU (|diff| {abs(float(loss - loss_c)):.3e}; tolerance "
           f"1e-5); {len(grads)} gradients, worst max|diff| {worst:.3e} "
           f"({worst_name}; tolerance rtol=atol=1e-4)")
     del model, cpu_model, res, grads, grads_c
     torch.cuda.empty_cache()
-    return summary
+    return out
 
 
 def train_resume() -> dict:
@@ -5911,7 +6361,7 @@ def main() -> None:
     # 10. the dense family: gemma2-9b served at full width and depth, its
     # 8,192-token prefill; the chunked attention against the whole-score
     # one; qwen2, starcoder2 and smollm served; qwen2-7b's 32,768-token
-    # prefill at full depth
+    # prefill at LONG_LAYERS
     gemma2, g_cfg, g_model = serve_gemma2(rng)
     elapsed("serving gemma2-9b")
     long_prefill = {g_cfg.name: prefill_long(g_cfg, g_model, rng),
@@ -5923,7 +6373,8 @@ def main() -> None:
     elapsed("chunked attention vs whole-score")
     dense = serve_dense(rng)
     elapsed("serving qwen2, starcoder2, smollm")
-    q_cfg, q_model, _ = dense_model("qwen2-7b")
+    q_cfg, q_model, _ = dense_model("qwen2-7b",
+                                    layers=LONG_LAYERS["qwen2-7b"])
     long_prefill[q_cfg.name] = prefill_long(q_cfg, q_model, rng)
     del q_model
     torch.cuda.empty_cache()
@@ -5945,6 +6396,17 @@ def main() -> None:
         recurrent[name] = serve_recurrent(name, rng)
         elapsed(f"serving {name} and its long prefill")
     print(json.dumps({"recurrent": recurrent}))
+
+    # 12. the vlm and audio families: llama-3.2-vision-11b served at full
+    # width and depth, hubert-xlarge trained at full width and depth, the
+    # vlm's first group trained
+    vlm_audio = {"serve_vlm": serve_vlm(rng)}
+    elapsed("serving llama-3.2-vision-11b")
+    vlm_audio["train_hubert"] = train_hubert()
+    elapsed("training hubert-xlarge")
+    vlm_audio["train_vlm"] = train_vlm()
+    elapsed("training llama-3.2-vision-11b's first group")
+    print(json.dumps({"vlm_audio": vlm_audio}))
 
     # 10. report -----------------------------------------------------------
     from repro_torch.kernels.grouped_gemm import TILE_SHAPES

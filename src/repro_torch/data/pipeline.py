@@ -2,7 +2,9 @@
 ``repro.data.pipeline``, numpy for numpy, so a batch is bitwise the
 reference's): Markov-chain token streams in which each token may be
 followed by only ``branch`` tokens, so a model that learns shows a loss
-well below ln(vocab).  A batch is a pure function of (seed, step).
+well below ln(vocab), with the reference's random image embeddings for a
+vlm and its masked-prediction batch (feature frames, codebook labels and a
+mask) for an encoder.  A batch is a pure function of (seed, step).
 ``device_batch`` hands it to torch on an explicit device, and
 ``local_batch`` cuts a rank's block of it on a grid."""
 from __future__ import annotations
@@ -39,15 +41,32 @@ def markov_tokens(vocab: int, batch: int, seq: int, *, step: int,
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, *, step: int,
                accum: int = 1, seed: int = 1234) -> Dict[str, np.ndarray]:
-    """{"tokens": (batch, seq) int32}, with a leading (accum,) microbatch
-    axis when ``accum > 1``: the reference's decoder-LM batch."""
-    if cfg.encoder_only or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains decoder-only LMs so far")
+    """The reference's batch, with a leading (accum,) microbatch axis when
+    ``accum > 1``: {"tokens": (batch, seq) int32} for a decoder LM, plus
+    {"image_embeds": (batch, n_image_tokens, d_model) f32} where the config
+    has cross blocks; for an encoder {"features": (batch, seq, d_model)
+    f32, "labels": (batch, seq) int32, "mask": (batch, seq) bool}: Markov
+    labels, normal features with a 0.5 bump at ``label % d_model``, and
+    about 8 % of the frames masked."""
     lead = (accum,) if accum > 1 else ()
-    toks = markov_tokens(cfg.vocab_size, batch * accum, seq, step=step,
-                         seed=seed)
-    return {"tokens": toks.reshape(lead + (batch, seq))}
+    n = batch * accum
+    rng = np.random.default_rng((seed, step, 7))
+    if cfg.encoder_only:
+        labels = markov_tokens(cfg.vocab_size, n, seq, step=step, seed=seed)
+        feats = rng.normal(size=(n, seq, cfg.d_model)).astype(np.float32) \
+            + 0.5 * np.eye(cfg.d_model)[labels % cfg.d_model]
+        mask = rng.random((n, seq)) < 0.08
+        out = {"features": feats.astype(np.float32), "labels": labels,
+               "mask": mask}
+    else:
+        out = {"tokens": markov_tokens(cfg.vocab_size, n, seq, step=step,
+                                       seed=seed)}
+        if cfg.cross_attn_every:
+            out["image_embeds"] = rng.normal(
+                size=(n, cfg.n_image_tokens, cfg.d_model)
+            ).astype(np.float32) * 0.3
+    return {k: v.reshape(lead + (batch,) + v.shape[1:])
+            for k, v in out.items()}
 
 
 def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,

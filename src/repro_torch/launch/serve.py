@@ -276,6 +276,8 @@ def serve(args, device, group=None):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg)
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
     if not cfg.is_moe:
         quant = "none"          # no routed experts to quantize
     if args.layers is not None:
@@ -341,9 +343,12 @@ def serve(args, device, group=None):
     kinds = layer_kinds(cfg)
     n_rec = sum(k in RECURRENT_KINDS for k in kinds)
     n_kv = len(kinds) - n_rec
+    n_cross = kinds.count("cross")
     cache = (f"paged KV cache (blocks of {engine.kv_block_size}, prefill "
              f"chunks of {engine.prefill_chunk}, {args.paged_attn} read)"
              if engine.paged else
+             f"contiguous KV cache (and {n_cross} cross blocks' image K/V a "
+             f"slot, from zero image embeddings)" if n_cross else
              "contiguous KV cache" if not n_rec else
              f"contiguous cache ({n_rec} recurrent states"
              + (f" and {n_kv} KV caches" if n_kv else "") + " a slot)")

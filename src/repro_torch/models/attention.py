@@ -48,19 +48,23 @@ class Attention(nn.Module):
 
 
 def project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv_heads: int,
-                head_dim: int):
-    """x: (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D); the biases
-    are added after the products, in x's dtype."""
+                head_dim: int, xkv: Optional[torch.Tensor] = None):
+    """x: (B, S, d), the queries' source; xkv: (B, Skv, d), the keys' and
+    values' source (x itself unless given: a cross-attention block passes
+    the image embeddings) -> q (B, S, H, D), k and v (B, Skv, Hkv, D); the
+    biases are added after the products, in x's dtype."""
     dt = x.dtype
+    xkv = x if xkv is None else xkv
     B, S, _ = x.shape
+    Skv = xkv.shape[1]
     q = torch.matmul(x, p.wq.to(dt))
-    k = torch.matmul(x, p.wk.to(dt))
-    v = torch.matmul(x, p.wv.to(dt))
+    k = torch.matmul(xkv, p.wk.to(dt))
+    v = torch.matmul(xkv, p.wv.to(dt))
     if hasattr(p, "bq"):
         q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
     return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv_heads, head_dim),
-            v.reshape(B, S, n_kv_heads, head_dim))
+            k.reshape(B, Skv, n_kv_heads, head_dim),
+            v.reshape(B, Skv, n_kv_heads, head_dim))
 
 
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:
@@ -104,17 +108,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = Hq // Hkv
     qc, kc = max(1, min(q_chunk, Sq)), max(1, min(kv_chunk, Skv))
     dev = q.device
-    # (B, Hkv, G, Sq, D) and (B, Hkv, Skv, D | Dv) in fp32: every product
-    # of the dtype's values is exact there, the sums fp32
-    qs = _scaled_q(q).reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
-    kf = k.permute(0, 2, 1, 3).float()
-    vf = v.permute(0, 2, 1, 3).float()
+    # q as a (B, Hkv, G, Sq, D) view in its dtype; a query chunk of it and
+    # a KV chunk of k and v are cast to fp32 as the loops reach them (every
+    # product of the dtype's values is exact there, the sums fp32), so no
+    # fp32 copy of the whole q, k or v exists
+    qs = _scaled_q(q).reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
     lim = None if kv_limit is None else kv_limit.reshape(B, 1, 1, 1, 1)
     outs, stats = [], []
     for q0 in range(0, Sq, qc):
         q1 = min(q0 + qc, Sq)
         n = q1 - q0
-        qb = qs[:, :, :, q0:q1].reshape(B, Hkv, G * n, D)
+        qb = qs[:, :, :, q0:q1].float().reshape(B, Hkv, G * n, D)
         p0, p1 = q_offset + q0, q_offset + q1      # the chunk's positions
         qpos = torch.arange(p0, p1, device=dev)
         m = torch.full((B, Hkv, G, n), NEG_INF, dtype=torch.float32,
@@ -129,7 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 break                          # past every query: all masked
             if window is not None and j1 - 1 <= p0 - window:
                 continue                       # before every query's window
-            s = torch.matmul(qb, kf[:, :, k0:k1].transpose(-1, -2))
+            kb = k[:, k0:k1].float().permute(0, 2, 3, 1)   # (B, Hkv, D, kc)
+            s = torch.matmul(qb, kb)
             s = softcap(s, logit_softcap).reshape(B, Hkv, G, n, k1 - k0)
             # the causal or window mask cuts this chunk somewhere
             partial = ((causal and j1 - 1 > p0)
@@ -156,7 +161,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l = corr * l + p.sum(dim=-1)
             pv = torch.matmul(p.to(v.dtype).float().reshape(B, Hkv, G * n,
                                                            k1 - k0),
-                              vf[:, :, k0:k1])
+                              v[:, k0:k1].float().permute(0, 2, 1, 3))
             acc = corr[..., None] * acc + pv.reshape(B, Hkv, G, n, Dv)
             m = m_new
         if return_stats:

@@ -1,18 +1,24 @@
 """Language model for the ``moe`` family, with multi-head or latent (MLA)
 attention, for the ``dense`` family, with global or alternating local and
-global attention, and for the recurrent ``ssm`` (rwkv6) and ``hybrid``
-(zamba2: Mamba2 layers and shared attention blocks) families (counterpart
-of ``repro.models.lm``): the served path (prefill and decode over a
-contiguous cache, and decode rows over a paged KV block pool) and, for
-``moe`` and ``dense``, the training path (``train`` mode, ``chunked_ce``,
-``loss_fn``).
+global attention, for the recurrent ``ssm`` (rwkv6) and ``hybrid``
+(zamba2: Mamba2 layers and shared attention blocks) families, for the
+``vlm`` family (llama-3.2-vision: attention blocks with a cross-attention
+block to image embeddings in each group) and for the ``audio`` encoder
+(hubert: bidirectional attention over feature frames, no token embedding)
+(counterpart of ``repro.models.lm``): the served path (prefill and decode
+over a contiguous cache, and decode rows over a paged KV block pool) and,
+for every family but the recurrent ones, the training path (``train``
+mode, ``chunked_ce``, ``loss_fn``: next-token CE, or for the encoder CE
+over the masked frames).
 
 The reference stacks its body layers and scans them (``lax.scan``); here
 the model is an ``nn.Module`` with an ``nn.ModuleList`` of layers in the
 order of ``group_structure``: ``first_dense_layers`` dense-FFN blocks
 (``moe_dense``) then MoE blocks (``moe``); or ``attn`` blocks; or, for
 gemma2's ``local_global`` pattern, ``attn_local`` and ``attn_global`` in
-turn; or ``rwkv`` blocks (time-mix and channel-mix); or zamba2's groups of
+turn; or the vlm's groups of ``cross_attn_every`` blocks, ``attn`` but for
+a ``cross`` block second from the end of each; or ``rwkv`` blocks
+(time-mix and channel-mix); or zamba2's groups of
 a ``shared_attn`` block and ``attn_every`` ``mamba`` blocks, then a last
 ``shared_attn`` block and the remaining ``mamba`` ones.  A group's
 ``shared_attn`` entry is ``LM.shared[g % n_shared_attn_blocks]``, the same
@@ -25,7 +31,10 @@ slot that its forward never reads; the port does not build those.  Every
 training run the chunked ``flash_attention`` (``RunConfig.q_chunk`` /
 ``kv_chunk``), with the sliding window on ``attn_local`` layers, and MLA's
 decompressed attention in the same chunks; decode runs one chunk and, as
-the reference, no window (ROADMAP C1).
+the reference, no window (ROADMAP C1).  A ``cross`` block's queries come
+from the residual and its keys and values from ``batch["image_embeds"]``
+(no RoPE, no causal mask); prefill writes the image's K/V into the
+block's cache and decode reads them there in one chunk.
 
 The cache is a list with one flat dict per entry of ``layer_kinds``: a
 ``{"k", "v"}`` pair of (slots, capacity, Hkv, D) tensors for an attention
@@ -33,16 +42,21 @@ block (each application of a shared block has its own), or with MLA a
 ``{"ckv", "kr"}`` pair of (slots, capacity, kv_lora_rank) and (slots,
 capacity, qk_rope_head_dim) latent rows; an ``rwkv`` block's
 ``{"tm_shift", "tm_state", "cm_shift"}`` and a ``mamba`` block's
-``{"conv", "state"}`` (the states fp32), whose rows no position masks.
+``{"conv", "state"}`` (the states fp32), whose rows no position masks; a
+``cross`` block's ``{"k", "v"}`` of (slots, n_image_tokens, Hkv, D), the
+image's K/V, which no position masks either.
 Every leaf has the slot on axis 0, so the slot helpers and the engine's
 zeroing of a slot reach every leaf alike.  The cache is updated in place
 (the reference returns a new cache; the port writes the rows it changes,
 which saves a copy of the cache per step).  The paged pool
 (``serve/kv_cache.py``) has the KV form with (n_blocks, block_size) in
-place of (slots, capacity); the recurrent kinds have no pageable cache.
+place of (slots, capacity); the recurrent and ``cross`` kinds have no
+pageable cache.
 
 The recurrent families are served only: their ``train`` mode, a grid and
-expert parallelism raise (ROADMAP A8)."""
+expert parallelism raise (ROADMAP A8).  The vlm and audio families run on
+one device (a grid raises, ROADMAP A8); the encoder has no prefill or
+decode."""
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
@@ -123,26 +137,36 @@ class RunConfig(NamedTuple):
 
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 RECURRENT_KINDS = ("rwkv", "mamba")
+FAMILIES = ("moe", "dense", "vlm", "audio", *RECURRENT_FAMILIES)
 
 
 def group_structure(cfg: ModelConfig):
     """-> (prefix_kinds, body_kinds, n_groups, suffix_kinds), the
-    reference's for the families the port builds: ``moe`` (with or without
-    MLA; prefix ``moe_dense``, body ``moe``), ``dense`` (body ``attn``,
-    or ``attn_local``, ``attn_global`` for the ``local_global`` pattern, a
-    group of two layers: an odd depth raises, where the reference would
-    drop the last layer), ``ssm`` (body ``rwkv``) and ``hybrid`` (body
+    reference's: ``moe`` (with or without MLA; prefix ``moe_dense``, body
+    ``moe``), ``dense`` and ``audio`` (body ``attn``, or ``attn_local``,
+    ``attn_global`` for the ``local_global`` pattern, a group of two
+    layers: an odd depth raises, where the reference would drop the last
+    layer), ``vlm`` (body ``attn`` x ``cross_attn_every`` with ``cross`` in
+    the second place from the end, n_layers // cross_attn_every groups: a
+    depth that is not a whole number of groups raises, where the reference
+    would drop the rest), ``ssm`` (body ``rwkv``) and ``hybrid`` (body
     ``shared_attn`` + ``mamba`` x ``attn_every``, (n_layers - 3) //
     attn_every groups, suffix ``shared_attn`` + the remaining ``mamba``:
     ``n_layers`` counts the Mamba layers, at least 3)."""
     L = cfg.n_layers
-    if cfg.family not in ("moe", "dense", *RECURRENT_FAMILIES) \
-            or cfg.encoder_only:
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds the moe, dense, ssm and hybrid "
-            f"families so far, not {cfg.family!r}"
-            + (" (encoder-only)" if cfg.encoder_only else "")
-            + "; the vlm and audio families are ROADMAP A8")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"port builds {', '.join(FAMILIES)}")
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        if per < 2 or L % per:
+            raise ValueError(
+                f"{cfg.name} runs groups of cross_attn_every={per} layers "
+                f"(at least 2), a cross block second from the end of each: "
+                f"n_layers must be a multiple of it, not {L}")
+        body = ["attn"] * per
+        body[per - 2] = "cross"
+        return [], body, L // per, []
     if cfg.family == "hybrid":
         per = cfg.attn_every
         if L < 3:
@@ -236,7 +260,8 @@ class MoE(nn.Module):
 
 class Block(nn.Module):
     """The reference's ``init_block`` leaves: for an attention-style kind
-    ``norm1``, ``norm2`` (and with ``post_block_norm`` ``post_norm1``,
+    (``cross`` included, whose leaves are an ``attn`` block's) ``norm1``,
+    ``norm2`` (and with ``post_block_norm`` ``post_norm1``,
     ``post_norm2``) of ``cfg.norm``, ``attn`` (multi-head with the QKV
     biases, or MLA) and ``moe`` or ``ffn``; for ``rwkv`` ``norm1``,
     ``norm2``, ``tm`` (``TimeMix``) and ``cm`` (``ChannelMix``); for
@@ -277,7 +302,9 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Embedding, layers, final norm and, unless ``tie_embeddings``, a
-    ``head``: a tied model reads ``embed.T`` (``head_matrix``).  The ``ssm``
+    ``head``: a tied model reads ``embed.T`` (``head_matrix``).  An
+    ``encoder_only`` model has no token embedding: it holds ``mask_emb``,
+    the (d,) vector that replaces a masked frame's features.  The ``ssm``
     family adds ``ln0`` after the embedding; the ``hybrid`` family holds
     its ``n_shared_attn_blocks`` shared blocks in ``shared`` (registered
     before ``layers``, so ``named_parameters`` names them ``shared.<j>``),
@@ -287,7 +314,11 @@ class LM(nn.Module):
         super().__init__()
         d = cfg.d_model
         prefix, body, n_groups, suffix = group_structure(cfg)  # raises first
-        self.embed = normal_init(gen, (cfg.vocab_size, d), 0.02, dtype, device)
+        if cfg.encoder_only:
+            self.mask_emb = normal_init(gen, (d,), 0.02, dtype, device)
+        else:
+            self.embed = normal_init(gen, (cfg.vocab_size, d), 0.02, dtype,
+                                     device)
         if not cfg.tie_embeddings:
             self.head = dense_init(gen, (d, cfg.vocab_size), dtype, device)
         self.final_norm = make_norm(cfg.norm, d, device)
@@ -336,6 +367,19 @@ def head_matrix(model: LM, cfg: ModelConfig, dt=None) -> torch.Tensor:
     return full_param(model, cfg, "head", dt)
 
 
+def embed_inputs(model: LM, cfg: ModelConfig, batch: dict, dt
+                 ) -> torch.Tensor:
+    """The first residual in ``dt``: an encoder's ``batch["features"]``
+    (B, S, d), with ``mask_emb`` in place of each frame where
+    ``batch["mask"]`` is set; else the embedding of ``batch["tokens"]``."""
+    if not cfg.encoder_only:
+        return embed_tokens(model, cfg, batch["tokens"], dt)
+    x = batch["features"].to(dt)
+    if "mask" in batch:
+        x = torch.where(batch["mask"][..., None], model.mask_emb.to(dt), x)
+    return x
+
+
 def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor, dt
                  ) -> torch.Tensor:
     """Token embeddings in ``dt``; with ``emb_scale`` times sqrt(d_model)
@@ -368,6 +412,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,
         return init_rwkv_cache(batch, cfg.d_model, cfg.rwkv, dtype, dev)
     if kind == "mamba":
         return init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype, dev)
+    if kind == "cross":              # the image's K/V, written at prefill
+        shape = (batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if cfg.mla is not None:
         shapes = {"ckv": (batch, capacity, cfg.mla.kv_lora_rank),
                   "kr": (batch, capacity, cfg.mla.qk_rope_head_dim)}
@@ -452,18 +500,23 @@ def paged_fused(rc: RunConfig, pool: Optional[dict] = None) -> bool:
 
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                 *, positions, mode: str, cache=None, cache_pos=None,
-                block_tables=None, fused: bool = False):
+                block_tables=None, fused: bool = False, image_embeds=None):
     """Returns (x, aux).  Writes the block's K/V (or MLA latent) rows into
     ``cache`` in place (prefill: rows [0, S); decode: row ``cache_pos[b]``
     of slot b, or with ``block_tables`` position ``cache_pos[b]`` of row
     b's blocks in the pool, read by the fused kernel when ``fused``).  An
     ``rwkv`` or ``mamba`` block carries its state in ``cache`` (written in
-    place) and takes no positions."""
+    place) and takes no positions.  A ``cross`` block attends to
+    ``image_embeds`` (B, n_image_tokens, d) in train and prefill and to its
+    cached image K/V in decode."""
     if blk.kind in RECURRENT_KINDS:
         return _recurrent_block(blk, x, cfg, cache), {}
     dt = x.dtype
     h = blk.norm1(x)
-    if cfg.mla is not None:
+    if blk.kind == "cross":
+        o = _cross_attention(blk.attn, h, image_embeds, cfg, rc, mode=mode,
+                             cache=cache)
+    elif cfg.mla is not None:
         o = _mla_attention(blk.attn, h, cfg, rc, positions=positions,
                            mode=mode, cache=cache, cache_pos=cache_pos,
                            block_tables=block_tables, fused=fused)
@@ -543,6 +596,43 @@ def _recurrent_block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
 ONE_CHUNK = 10 ** 9          # a chunk length that covers any sequence
 
 
+def _cross_attention(p: Attention, h: torch.Tensor, image_embeds,
+                     cfg: ModelConfig, rc: RunConfig, *, mode: str,
+                     cache) -> torch.Tensor:
+    """Cross-attention sub-block (the reference's ``cross`` branch of
+    ``apply_block``), output projection included.  Train and prefill:
+    queries from ``h``, keys and values from ``image_embeds`` cast to h's
+    dtype, no RoPE and no causal mask, ``flash_attention`` in ``rc``'s
+    chunks with the config's logit softcap; prefill then writes the
+    image's K/V into ``cache``.  Decode (``_cross_decode``): the queries
+    alone, over the cached image K/V in one chunk, with no softcap and no
+    ``kv_limit``; it writes nothing."""
+    dt = h.dtype
+    B, S, _ = h.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if mode == "decode":
+        q = torch.matmul(h, p.wq.to(dt))
+        if hasattr(p, "bq"):
+            q = q + p.bq.to(dt)
+        o = flash_attention(q.reshape(B, S, H, D), cache["k"].to(dt),
+                            cache["v"].to(dt), causal=False,
+                            q_chunk=ONE_CHUNK, kv_chunk=ONE_CHUNK)
+    else:
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: a cross block attends to "
+                             "batch['image_embeds'] (B, n_image_tokens, "
+                             "d_model), which the batch lacks")
+        q, k, v = project_qkv(p, h, H, Hkv, D, xkv=image_embeds.to(dt))
+        o = flash_attention(q, k, v, causal=False,
+                            logit_softcap=cfg.attn_logit_softcap,
+                            q_chunk=rc.q_chunk or ONE_CHUNK,
+                            kv_chunk=rc.kv_chunk or ONE_CHUNK)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    return torch.matmul(o.reshape(B, S, -1), p.wo.to(dt))
+
+
 def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
                rc: RunConfig, *, window: Optional[int], positions, mode: str,
                cache, cache_pos, block_tables, fused: bool) -> torch.Tensor:
@@ -619,15 +709,25 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     token of a prompt chunk) at its own position, written and read through
     its slot's table row; logits for every row.
 
+    A ``vlm`` batch also holds ``image_embeds`` (B, n_image_tokens, d) for
+    train and prefill (decode reads the image's K/V from the cache).  An
+    ``encoder_only`` model's batch holds ``features`` (B, S, d) and may hold
+    ``mask`` (B, S) bool in place of ``tokens``; it runs train mode only.
+
     The recurrent families (``ssm``, ``hybrid``) run prefill and decode on
     one device over a contiguous cache; their train mode, a grid,
-    ``rc.ep`` and ``block_tables`` raise.
+    ``rc.ep`` and ``block_tables`` raise.  The ``vlm`` and ``audio``
+    families run on one device (a grid raises), and ``block_tables`` on a
+    model with ``cross`` blocks raises.
     """
+    if block_tables is not None and (cfg.family in RECURRENT_FAMILIES
+                                     or cfg.cross_attn_every):
+        unpaged = [k for k in dict.fromkeys(layer_kinds(cfg))
+                   if k in (*RECURRENT_KINDS, "cross")]
+        raise ValueError(f"{cfg.name}: its {', '.join(unpaged)} blocks have "
+                         "no positional KV cache to page (see "
+                         "serve/kv_cache.py PAGED_KINDS)")
     if cfg.family in RECURRENT_FAMILIES:
-        if block_tables is not None:
-            raise ValueError(f"{cfg.name}: its {cfg.family} layers have no "
-                             "positional KV cache to page (see "
-                             "serve/kv_cache.py PAGED_KINDS)")
         refused = ("train mode" if mode == "train" else
                    "a grid (use_rules)" if current_rules()[1] is not None
                    else "expert parallelism (rc.ep)" if rc.ep else None)
@@ -635,6 +735,13 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
             raise NotImplementedError(
                 f"{cfg.name}: the port serves the {cfg.family} family on "
                 f"one device; {refused} is not ported yet (ROADMAP A8)")
+    if cfg.family in ("vlm", "audio") and current_rules()[1] is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {cfg.family} family on one "
+            "device; a grid (use_rules) is not ported yet (ROADMAP A8)")
+    if cfg.encoder_only and mode != "train":
+        raise ValueError(f"{cfg.name} is encoder-only: no decode path (it "
+                         f"runs train mode, not {mode!r})")
     if mode == "train":
         if cache is not None or pos is not None or block_tables is not None:
             raise ValueError("train mode takes no cache, pos or block_tables")
@@ -662,10 +769,11 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     under remat inside the recomputed function, so no gathered weight
     outlives its layer."""
     dt = rc.compute_dtype
-    x = embed_tokens(model, cfg, batch["tokens"], dt)
+    x = embed_inputs(model, cfg, batch, dt)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device) \
         + block_offset(1, S)
+    img = batch.get("image_embeds")
     aux_acc: dict = {}
     if rc.moe_stats and n_moe_layers(cfg):
         aux_acc = {f"sched/{k}": torch.zeros((), dtype=torch.float32,
@@ -674,15 +782,16 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     sharded = getattr(model, "shard_specs", None) is not None
     for i, blk in enumerate(model.layers):
         if sharded:
-            fn, args = _grid_layer, (model, i)
+            fn, args, kw = _grid_layer, (model, i), {}
         else:
-            fn, args = apply_block, (blk,)
+            fn, args, kw = apply_block, (blk,), {"image_embeds": img}
         if rc.remat:
             x, aux = checkpoint(fn, *args, x, cfg, rc, positions=positions,
                                 mode="train", use_reentrant=False,
-                                preserve_rng_state=False)
+                                preserve_rng_state=False, **kw)
         else:
-            x, aux = fn(*args, x, cfg, rc, positions=positions, mode="train")
+            x, aux = fn(*args, x, cfg, rc, positions=positions, mode="train",
+                        **kw)
         for key, val in aux.items():
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     return model.final_norm(x), None, aux_acc
@@ -719,11 +828,13 @@ def _forward_serve(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         cache_pos = None
     aux_acc: dict = {}
+    img = batch.get("image_embeds")
     for i, blk in enumerate(model.layers):
         c = cache[i] if cache is not None else None
         x, aux = apply_block(blk, x, cfg, rc, positions=positions, mode=mode,
                              cache=c, cache_pos=cache_pos,
-                             block_tables=block_tables, fused=fused)
+                             block_tables=block_tables, fused=fused,
+                             image_embeds=img)
         for key, val in aux.items():
             aux_acc[key] = aux_acc[key] + val if key in aux_acc else val
     x = model.final_norm(x)
@@ -773,8 +884,10 @@ def chunked_ce(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     """Next-token CE over ``batch["tokens"]`` (B, S), plus the MoE layers'
-    aux losses (0.01 load balance, 1e-4 router z).  Returns (loss,
-    metrics), every value a device tensor.
+    aux losses (0.01 load balance, 1e-4 router z); for an encoder the
+    masked-prediction CE: every position against ``batch["labels"]``,
+    counted where ``batch["mask"]`` is set.  Returns (loss, metrics), every
+    value a device tensor.
 
     On a grid (inside ``use_rules``) ``batch`` is this rank's block, with
     ``labels``: the next token of each local position that has one
@@ -784,8 +897,12 @@ def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     h, _, aux = forward(model, cfg, rc, batch, mode="train")
     w_head = head_matrix(model, cfg, h.dtype).to(h.dtype)
     _, grid = current_rules()
-    labels = batch["labels"] if grid is not None else batch["tokens"][:, 1:]
-    valid = torch.ones_like(labels, dtype=torch.bool)
+    if cfg.encoder_only:
+        labels, valid = batch["labels"], batch["mask"]
+    else:
+        labels = batch["labels"] if grid is not None \
+            else batch["tokens"][:, 1:]
+        valid = torch.ones_like(labels, dtype=torch.bool)
     tot, n = chunked_ce(h[:, :labels.shape[1]], w_head, labels, valid,
                         chunk=rc.loss_chunk,
                         final_cap=cfg.final_logit_softcap)

@@ -19,9 +19,12 @@ means blocks of 16):
   top-down and compacts the active prefix.
 
 **Contiguous** (``kv_block_size=0``, and the automatic choice for a model
-with recurrent layers: rwkv6, zamba2): admission zeroes a free slot's
-cache rows (a recurrent state, unlike KV rows, has no position mask to
-hide its previous occupant), prefills the whole prompt into them and
+with recurrent layers, rwkv6 and zamba2, or with cross-attention blocks,
+llama-3.2-vision, whose image K/V have no positions to page): admission
+zeroes a free slot's cache rows (a recurrent state, unlike KV rows, has
+no position mask to hide its previous occupant), prefills the whole
+prompt into them (a vlm's with zero image embeddings, as the reference
+engine feeds them) and
 emits the first token; every step decodes all active slots in one
 forward; a retired slot is filled by swapping the last active slot's
 cache row into it, every leaf of it.
@@ -37,7 +40,10 @@ retirement counts each request's dropped assignments into
 requests (``serve/distributed.py``).
 Defaults follow the reference: the ``dynamic`` schedule policy with the
 plans' ``sched/*`` telemetry on (``moe_stats``) when no ``rc`` is given,
-``prefill_chunk=32`` and the prefix cache on.
+``prefill_chunk=32`` and the prefix cache on; but ``flash_attention``'s
+chunks stay ``RunConfig``'s 512 positions, where the reference's engine
+sets 64 (ROADMAP, "Differences by design").  An encoder-only model has no
+decode path and raises.
 
 **Scheduling.**  ``run`` stamps submit times (``enqueue``) and calls
 ``schedule`` before every step: the admission policy (``fcfs``, ``sjf``,
@@ -149,6 +155,9 @@ class ServeEngine:
         self._clock = self.obs.clock
         self.rc = rc or RunConfig(schedule_policy="dynamic", moe_stats=True)
         self.device = resolve_device(device)
+        if cfg.encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode path "
+                             "to serve (it trains by masked prediction)")
         if model.embed.device.type != self.device.type:
             raise ValueError(f"model on {model.embed.device}, engine on "
                              f"{self.device}")

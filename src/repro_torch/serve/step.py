@@ -52,6 +52,19 @@ from repro_torch.sampling import threefry
 GREEDY = SamplingConfig()
 
 
+def serve_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """A step's batch: ``tokens`` and, for a model with cross blocks, fp32
+    zero ``image_embeds`` of (rows, n_image_tokens, d_model), as the
+    reference engine's ``_batch`` feeds them (the engine serves no image:
+    with no QKV bias the cached image K/V are zeros)."""
+    b = {"tokens": tokens}
+    if cfg.cross_attn_every:
+        b["image_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.n_image_tokens, cfg.d_model),
+            dtype=torch.float32, device=tokens.device)
+    return b
+
+
 def _first_run(obs, shapes: Optional[set], kind: str, **static):
     """``obs.new_shape(kind, **static)`` the first time ``kind`` runs at
     ``static`` in ``shapes``; a null context otherwise."""
@@ -77,7 +90,7 @@ def slot_prefill(model: LM, cfg: ModelConfig, rc: RunConfig, cache,
         for layer in sub:
             for t in layer.values():
                 t.zero_()
-        logits, sub, aux = forward(model, cfg, rc, {"tokens": tokens},
+        logits, sub, aux = forward(model, cfg, rc, serve_batch(cfg, tokens),
                                    mode="prefill", cache=sub)
         update_cache_slots(cache, sub, slot)
         tok = sample_rows(logits, sampling, seeds, counters)
@@ -95,7 +108,7 @@ def slot_decode(model: LM, cfg: ModelConfig, rc: RunConfig, cache,
     n = tokens.shape[0]
     with _first_run(obs, shapes, "decode_step", active_slots=int(n)):
         sub = slice_cache_slots(cache, 0, n)
-        logits, sub, aux = forward(model, cfg, rc, {"tokens": tokens},
+        logits, sub, aux = forward(model, cfg, rc, serve_batch(cfg, tokens),
                                    mode="decode", cache=sub, pos=pos)
         update_cache_slots(cache, sub, 0)
         tok = sample_rows(logits, sampling, seeds, counters)

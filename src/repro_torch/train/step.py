@@ -95,8 +95,8 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig, opt: OptConfig,
     def rules(batch):
         if grid is None:
             return contextlib.nullcontext()
-        return use_rules(grid, grid_rules(cfg, grid,
-                                          batch["tokens"].shape[-2]))
+        rows = batch["tokens" if "tokens" in batch else "labels"]
+        return use_rules(grid, grid_rules(cfg, grid, rows.shape[-2]))
 
     def train_step(state: dict, batch: dict):
         model = state["params"]

@@ -9,13 +9,15 @@ updated parameters) onto the port's parameter names.  The stacked
 ``body`` leaves are unstacked along axis 0: group g's blocks ``b0``,
 ``b1``, ... become one layer each, in that order, followed by the
 ``suffix`` blocks; every ``(in, out)`` matrix keeps its layout, and biases,
-norms, post norms and ``ln0`` map by name.  A tree of a tied config has no
-``head``, and neither has the port's model.  The hybrid family's
-``shared`` blocks (stacked on axis 0) become ``shared.<j>``; its groups'
-``shared_attn`` slots in ``body`` hold blocks that the reference's forward
-never reads (it reads ``shared[g % n]`` there, ROADMAP C11): the port has
-no parameter for them, and ``from_jax_params`` checks that they are
-exactly the reference leaves left over.
+norms, post norms, ``ln0`` and an encoder's ``mask_emb`` map by name, and
+a vlm's ``cross`` blocks by the names of an ``attn`` block's leaves.  A
+tree of a tied config has no ``head``, and neither has the port's model.
+The hybrid family's ``shared`` blocks (stacked on axis 0) become
+``shared.<j>``; its groups' ``shared_attn`` slots in ``body`` hold blocks
+that the reference's forward never reads (it reads ``shared[g % n]``
+there, ROADMAP C11): the port has no parameter for them, and
+``from_jax_params`` checks that they are exactly the reference leaves
+left over.
 
 ``shard_experts(moe_params, rank, ep)`` and ``shard_model(model, rank,
 ep)`` keep rank ``rank``'s ``E // ep`` routed experts of every MoE layer
@@ -49,7 +51,7 @@ def _map_jax_tree(cfg: ModelConfig, tree: dict):
     of the hybrid groups' unread ``shared_attn`` slots])."""
     prefix, body, n_groups, suffix = group_structure(cfg)
     out = {}
-    for top in ("embed", "head", "final_norm", "ln0", "shared"):
+    for top in ("embed", "mask_emb", "head", "final_norm", "ln0", "shared"):
         if top not in tree:
             continue
         for k, v in _flatten({top: tree[top]}).items():

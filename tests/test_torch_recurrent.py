@@ -20,9 +20,9 @@ rwkv6-1.6b (``ssm``: time-mix and channel-mix layers) and zamba2-7b
   groups' ``shared_attn`` layers are the two ``shared`` modules and the
   suffix's is a third; ``from_jax_params`` refuses a tree with any other
   leaf left over; ``init_cache`` has one cache per block (95 for zamba2);
-* refusals: train mode, a grid and ``rc.ep`` on these families, the vlm
-  and audio families, a hybrid depth under 3 and a paged read of a
-  recurrent block."""
+* refusals: train mode, a grid and ``rc.ep`` on these families, a grid
+  on the vlm and audio families (whose structures are the reference's), a
+  hybrid depth under 3 and a paged read of a recurrent block."""
 import dataclasses
 
 import numpy as np
@@ -38,6 +38,7 @@ from repro.models import rwkv6 as jax_rwkv  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models.lm import RunConfig as JaxRunConfig  # noqa: E402
 from repro.models.lm import forward as jax_forward  # noqa: E402
+from repro.models.lm import group_structure as jax_group_structure  # noqa
 from repro.models.lm import init_cache as jax_init_cache  # noqa: E402
 from repro.models.lm import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_config, reduced
@@ -436,9 +437,14 @@ def test_training_grids_ep_and_other_families_raise(model_pair):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
 def test_vlm_and_audio_families_name_roadmap_a8(arch):
-    cfg = jax_get_config(arch)       # not in the port's registry yet
-    with pytest.raises(NotImplementedError, match="A8"):
-        group_structure(cfg)
+    """The port builds both families (tests/test_torch_vlm_audio.py holds
+    them against the reference); what ROADMAP A8 keeps of them, a grid,
+    raises naming it."""
+    cfg = get_config(arch)
+    assert group_structure(cfg) == jax_group_structure(jax_get_config(arch))
+    with use_rules(object(), {}):
+        with pytest.raises(NotImplementedError, match="grid.*A8"):
+            forward(None, cfg, RunConfig(), {}, mode="train")
 
 
 def test_hybrid_depth_under_three_raises():
