@@ -252,7 +252,13 @@ result line):
    ms beside the single rank's at the same depth, peak
    memory a rank, the bytes of a rank's parameter and moment blocks, and
    the collectives a step with the bytes they gather, reduce-scatter,
-   all-reduce and exchange.  [train mla]: deepseek-v2-236b at full width
+   all-reduce and exchange.  Then the same ranks hold the late families'
+   fp32 step on both grids against the single rank's, as moonshot's
+   check (loss, grad_norm, every parameter; no kernel launched): rwkv6-1.6b
+   at 2 layers and zamba2-7b at 9 (one group and the suffix), whose rules
+   split the heads over 'model', llama-3.2-vision-11b's first group and
+   hubert-xlarge at 2 layers, under sequence parallelism.  [train mla]:
+   deepseek-v2-236b at full width
    cut to 2 layers (1 dense + 1 MoE, 5.36 B fp32 parameters), bf16
    compute, ``fixed``, batch 4 x seq 512: one forward and backward on the
    kernels (launches per MoE layer B5 1, B3 2, B2 1, B1 3, B4 2, B1^T 3,
@@ -300,7 +306,7 @@ result line):
    attention block its own, none of the reference's unread ``body.b0``
    blocks).  Each through ``ServeEngine`` as the launcher builds it (the
    engine picks the contiguous cache: every slot carries its recurrent
-   state), 4 prompts of 512 tokens on 2 slots, 32 new tokens each: every
+   state), 4 prompts of 512 tokens on 2 slots, 16 new tokens each: every
    request completes with tokens in the vocabulary, no kernel of the port
    launches (every launch counter stays 0: these models have no expert
    and no paged read), a full-depth prefill and decode step give finite
@@ -323,7 +329,7 @@ result line):
    4th in each; 9.775 B parameters, random bf16, seed 0) through
    ``ServeEngine`` as the launcher builds it (the engine picks the
    contiguous cache: the cross blocks hold each slot's image K/V), 4
-   prompts of 512 tokens on 2 slots, 32 new tokens each, with the zero
+   prompts of 512 tokens on 2 slots, 16 new tokens each, with the zero
    image embeddings the engine feeds: every request completes with tokens
    in the vocabulary; prefill ms a request, decode ms a step, tokens/s,
    peak memory and a profile of 5 decode steps.  Then a full-depth prefill
@@ -341,7 +347,23 @@ result line):
    1e-4).  [train vlm]: llama-3.2-vision-11b cut to its first group (5
    layers, 2.141 B fp32 parameters) trains 2 steps of 4 x 512 tokens with
    ``make_batch``'s image embeddings (bf16, remat): finite loss, step ms,
-   peak.
+   peak;
+13. the recurrent families' training, no kernel of the port on the path
+   (every launch counter stays 0).  [train rwkv6]: rwkv6-1.6b at full
+   width and all 24 layers (1.584 B fp32 parameters and AdamW moments,
+   bf16 compute, remat) trains 2 steps of 4 x 512 tokens through
+   ``train()`` (finite loss, step ms, tokens/s, peak), one step of its
+   first 2 layers under the profiler (busy share, device activities a
+   layer and position), one forward + backward of its first 4 layers with
+   and without remat at the training batch (ms, peak above the state),
+   and a 2-layer fp32 forward + backward on the card against the CPU (loss
+   within 1e-5, every gradient within 1e-4).  [train zamba2]: zamba2-7b at
+   full width cut to 15 Mamba2 layers (both shared blocks and the suffix's
+   own; 2.016 B) trains 3 steps of 4 x 512, then the whole depth's (7.162
+   B, 28.6 GB of fp32 weights) forward + backward with remat and no
+   optimizer step at 2 x 512 (its AdamW state, 114.6 GB, waits for
+   several cards): ms and peak, or the depth it cut to; the fp32 check at
+   its least depth (3).
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -425,9 +447,12 @@ LONG_PROMPTS = {"gemma2-9b": 8192, "qwen2-7b": 32768,
 # port on the CPU: rwkv6's first 2 layers; zamba2's first 4 blocks, its
 # least depth (n_layers 3: an attention block and 3 Mamba layers), 2 of
 # the prompts, RECURRENT_CHECK_NEW greedy tokens.  zamba2 also prefills a
-# prime-length prompt against an even one (ROADMAP C12)
+# prime-length prompt against an even one (ROADMAP C12).  16 new tokens
+# since the recurrent families' training joined the run (32 before, whose
+# decode steps took 3.7 s of rwkv6's phase and 13.6 s of zamba2's): a
+# decode step's ms is the mean over the decode-only steps either way
 RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
-RECURRENT_REQUESTS, RECURRENT_PROMPT, RECURRENT_MAX_NEW = 4, 512, 32
+RECURRENT_REQUESTS, RECURRENT_PROMPT, RECURRENT_MAX_NEW = 4, 512, 16
 RECURRENT_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 3}
 RECURRENT_CHECK_NEW = 8
 RECURRENT_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -446,7 +471,7 @@ PRIME_PROMPT, EVEN_PROMPT, PRIME_RATIO = 2039, 2048, 1.5
 VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "hubert-xlarge"
 VLM_PARAMS, VLM_GROUP_PARAMS = 9_775_157_248, 2_141_237_248
 AUDIO_PARAMS = 945_104_640
-VLM_REQUESTS, VLM_PROMPT, VLM_MAX_NEW = 4, 512, 32
+VLM_REQUESTS, VLM_PROMPT, VLM_MAX_NEW = 4, 512, 16     # as the recurrent
 VLM_CHECK_PROMPT, VLM_CHECK_NEW = 128, 8
 VLM_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
 VLM_PROFILE_STEPS = 5
@@ -459,6 +484,38 @@ AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_STEPS = 8, 1024, 3
 AUDIO_PROFILE_LAYERS = 4
 AUDIO_CHECK_LAYERS, AUDIO_CHECK_BATCH, AUDIO_CHECK_SEQ = 2, 2, 256
 VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 4, 512, 2
+# [train rwkv6]: full width and depth through train() (bf16 compute on fp32
+# parameters and AdamW moments, remat); one step of its first
+# RWKV_PROFILE_LAYERS layers under the profiler; one forward + backward of
+# its first RWKV_PEAK_LAYERS layers at the training batch with and without
+# remat (the WKV loop keeps three (B, H, 64, 64) fp32 tensors a position
+# for the backward: at the training batch 3.2 GB a layer, about 77 GB for
+# 24 layers without remat; the step is launch bound, so the whole depth's
+# pair at one row took 37.6 s where 4 layers take a sixth); the fp32 check
+# of RWKV_CHECK_LAYERS layers card vs CPU (DENSE_CHECK_TOL).  2 steps: each
+# took 16.8-17.2 s on an H100, and one timed step after the first is
+# enough for a launch-bound loop
+RWKV_ARCH, ZAMBA_ARCH = "rwkv6-1.6b", "zamba2-7b"
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 4, 512, 2
+RWKV_PROFILE_LAYERS, RWKV_PEAK_LAYERS = 2, 4
+RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 2, 2, 128
+# [train zamba2]: ZAMBA_TRAIN_LAYERS Mamba2 layers (two groups and the
+# suffix: all three attention blocks applied, 2.02 B parameters, 32 GB of
+# fp32 training state) through train(); then the whole depth's forward +
+# backward with remat and no optimizer step (7.162 B parameters: 28.6 GB of
+# fp32 weights and as many of gradients; its AdamW state, 114.6 GB, waits
+# for several cards) at ZAMBA_FULL_BATCH rows, cut to the depths of
+# ZAMBA_FULL_FALLBACK where it does not fit; the fp32 check at its least
+# depth (an attention block and 3 Mamba layers)
+ZAMBA_TRAIN_LAYERS = 15
+ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, ZAMBA_TRAIN_STEPS = 4, 512, 3
+ZAMBA_FULL_BATCH, ZAMBA_FULL_FALLBACK = 2, (45, 27)
+ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ = 3, 2, 128
+# [train sharded] of the late families: (arch, depth) at full width, one
+# fp32 step on each grid of SHARDED_GRIDS against the single rank's, as
+# [train sharded]'s check (the batch, optimizer and tolerances)
+FAMILY_SHARDED = (("rwkv6-1.6b", 2), ("zamba2-7b", 9),
+                  ("llama-3.2-vision-11b", 5), ("hubert-xlarge", 2))
 # [prefill long]'s depth where it is cut: every layer repeats the same
 # loop (qwen2-7b's chunk pairs, rwkv6's WKV recurrence over the prompt), so
 # half the depth halves the time and keeps the prefill's own memory; whole,
@@ -4645,6 +4702,338 @@ def train_vlm() -> dict:
     return summary
 
 
+def meta_params(cfg) -> int:
+    """``cfg``'s parameter count, from a model on the meta device."""
+    import torch
+    from repro_torch.models.lm import LM
+    return sum(p.numel() for p in LM(cfg, None, torch.float32,
+                                     torch.device("meta")).parameters())
+
+
+def fwd_bwd_peak(cfg, model, rc, batch: dict) -> dict:
+    """One forward and backward of ``model`` (gradients of every
+    parameter, no optimizer step): its host ms (ending in a synchronise)
+    and its peak device memory above what was allocated before."""
+    import torch
+    from repro_torch.models.lm import loss_fn
+    params = [p for p in model.parameters() if p.requires_grad]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model, cfg, rc, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"ms": ms, "loss": float(loss.detach()),
+           "peak_above_bytes": torch.cuda.max_memory_allocated() - base,
+           "grad_bytes": sum(g.numel() * g.element_size() for g in grads)}
+    del loss, grads
+    return out
+
+
+def train_rwkv6() -> dict:
+    """[train rwkv6]: rwkv6-1.6b at full width and all its layers through
+    ``train_family`` (RWKV_TRAIN_STEPS steps of RWKV_TRAIN_BATCH x
+    RWKV_TRAIN_SEQ tokens, bf16 compute, remat); one step of its first
+    RWKV_PROFILE_LAYERS layers under the profiler; one forward + backward
+    of its first RWKV_PEAK_LAYERS layers at the training batch with and
+    without remat (ms, peak); the fp32 check of RWKV_CHECK_LAYERS layers
+    card vs CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = get_config(RWKV_ARCH)
+    B, S, n = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS
+    print(f"[train rwkv6] {cfg.name} at full width and all {cfg.n_layers} "
+          f"layers (d_model={cfg.d_model}, {cfg.d_model // cfg.rwkv.head_size}"
+          f" WKV heads of {cfg.rwkv.head_size}, d_ff={cfg.d_ff}, vocab="
+          f"{cfg.vocab_size}), fp32 parameters and AdamW moments, bf16 "
+          f"compute, remat, batch {B} x seq {S}; {n} steps through train(), "
+          f"random weights, seed 0; the WKV recurrence one step a position "
+          f"(no kernel of the port on this path)")
+    summary, state = train_family("train rwkv6", cfg, meta_params(cfg), B, S,
+                                  n)
+    model = state["params"]
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   remat=True)
+    cfg_p = cfg.replace(n_layers=RWKV_PROFILE_LAYERS)
+    head = train_state(truncated(model, RWKV_PROFILE_LAYERS))
+    step_fn = make_train_step(cfg_p, rc, OptConfig(total_steps=n,
+                                                   warmup_steps=1))
+    batch = device_batch(make_batch(cfg, B, S, step=n, seed=1), "cuda")
+    step_fn(head, batch)                       # its moments' first step
+    prof = profile_window(lambda: step_fn(head, batch), top=12)
+    summary["profile"] = {"layers": RWKV_PROFILE_LAYERS, **prof}
+    print(f"[profile train rwkv6] one step with remat, the first "
+          f"{RWKV_PROFILE_LAYERS} of {cfg.n_layers} layers: wall "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+          f"(share {prof['busy_share']:.3f}), {prof['device_events']} device "
+          f"activities ({prof['device_events'] / RWKV_PROFILE_LAYERS:.0f} a "
+          f"layer, {prof['device_events'] / RWKV_PROFILE_LAYERS / S:.1f} a "
+          f"layer and position)")
+    for name, calls, t in prof["top_device"]:
+        print(f"    device {t:9.3f} ms {calls:5d}x  {name[:70]}")
+    del head, step_fn, batch
+    torch.cuda.empty_cache()
+    # the first RWKV_PEAK_LAYERS layers' forward + backward with and without
+    # remat at the training batch, on the trained weights
+    cfg_k = cfg.replace(n_layers=RWKV_PEAK_LAYERS)
+    head = truncated(model, RWKV_PEAK_LAYERS)
+    batch = device_batch(make_batch(cfg, B, S, step=0, seed=1), "cuda")
+    peaks = {}
+    for remat in (True, False):
+        ops.reset_launches()
+        peaks["remat" if remat else "no_remat"] = fwd_bwd_peak(
+            cfg_k, head, rc._replace(remat=remat), batch)
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"[train rwkv6] kernels launched: "
+                                 f"{dict(ops.LAUNCHES)}")
+        torch.cuda.empty_cache()
+    summary["fwd_bwd"] = {"layers": RWKV_PEAK_LAYERS, "batch": B, "seq": S,
+                          **peaks}
+    r, nr = peaks["remat"], peaks["no_remat"]
+    print(f"[train rwkv6] one forward + backward of the first "
+          f"{RWKV_PEAK_LAYERS} of {cfg.n_layers} layers, batch {B} x seq "
+          f"{S}: with remat {r['ms']:.1f} ms, peak "
+          f"{r['peak_above_bytes'] / 1e9:.2f} GB above the state; without "
+          f"{nr['ms']:.1f} ms, peak {nr['peak_above_bytes'] / 1e9:.2f} GB "
+          f"(its gradients {r['grad_bytes'] / 1e9:.2f} GB of each); losses "
+          f"{r['loss']:.4f}, {nr['loss']:.4f}; {smi_line()}")
+    if not np.isfinite([r["loss"], nr["loss"]]).all():
+        raise AssertionError("[train rwkv6] non-finite forward + backward")
+    del state, model, head, batch
+    torch.cuda.empty_cache()
+    summary["check_fp32"] = fp32_train_check(
+        "train rwkv6", cfg.replace(n_layers=RWKV_CHECK_LAYERS),
+        RWKV_CHECK_BATCH, RWKV_CHECK_SEQ)
+    return summary
+
+
+def train_zamba2() -> dict:
+    """[train zamba2]: zamba2-7b at full width cut to ZAMBA_TRAIN_LAYERS
+    Mamba2 layers through ``train_family``; then one forward + backward of
+    the whole depth with remat and no optimizer step (fp32 weights, bf16
+    compute) at ZAMBA_FULL_BATCH rows: ms and peak, or, where it does not
+    fit, the bytes it asked for and the depth it cut to; the fp32 check of
+    ZAMBA_CHECK_LAYERS layers card vs CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, init_params, layer_kinds
+    full = get_config(ZAMBA_ARCH)
+    cfg = full.replace(n_layers=ZAMBA_TRAIN_LAYERS)
+    B, S, n = ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, ZAMBA_TRAIN_STEPS
+    kinds = layer_kinds(cfg)
+    print(f"[train zamba2] {cfg.name} at full width (d_model={cfg.d_model}, "
+          f"Mamba2 state {cfg.ssm.d_state}, heads of {cfg.ssm.head_dim}, "
+          f"attention {cfg.n_heads} x {cfg.head_dim}), cut from "
+          f"{full.n_layers} to {cfg.n_layers} Mamba2 layers ({len(kinds)} "
+          f"blocks: {kinds.count('shared_attn')} attention applications, "
+          f"both shared blocks and the suffix's own), fp32 parameters and "
+          f"AdamW moments, bf16 compute, remat, batch {B} x seq {S}; {n} "
+          f"steps through train(), random weights, seed 0")
+    summary, state = train_family("train zamba2", cfg, meta_params(cfg), B,
+                                  S, n)
+    del state
+    torch.cuda.empty_cache()
+    rc = RunConfig(compute_dtype=torch.bfloat16, loss_chunk=LOSS_CHUNK,
+                   remat=True)
+    summary["full_depth"] = {}
+    for layers in (full.n_layers,) + ZAMBA_FULL_FALLBACK:
+        c = full.replace(n_layers=layers)
+        model = None
+        resident = torch.cuda.memory_allocated()   # earlier phases' bytes
+        try:
+            model = init_params(c, 0, device="cuda")
+            model.requires_grad_(True)
+            weights = torch.cuda.memory_allocated() - resident
+            batch = device_batch(make_batch(c, ZAMBA_FULL_BATCH, S, step=0,
+                                            seed=1), "cuda")
+            ops.reset_launches()
+            res = fwd_bwd_peak(c, model, rc, batch)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[train zamba2] {layers} Mamba2 layers do not fit: "
+                  f"{str(e).splitlines()[0]}")
+            summary["full_depth"][str(layers)] = {"oom": str(e)[:300]}
+            del model
+            torch.cuda.empty_cache()
+            continue
+        if any(ops.LAUNCHES.values()) or not np.isfinite(res["loss"]):
+            raise AssertionError(f"[train zamba2] {layers} layers: loss "
+                                 f"{res['loss']}, launches "
+                                 f"{dict(ops.LAUNCHES)}")
+        n_p = sum(p.numel() for p in model.parameters())
+        res.update(layers=layers, n_params=n_p, weight_bytes=weights,
+                   resident_bytes=resident,
+                   peak_bytes=resident + weights + res["peak_above_bytes"],
+                   batch=ZAMBA_FULL_BATCH, seq=S)
+        summary["full_depth"] = res
+        print(f"[train zamba2] one forward + backward with remat and no "
+              f"optimizer step at {layers} of {full.n_layers} Mamba2 layers "
+              f"({n_p / 1e9:.3f} B fp32 parameters, {weights / 1e9:.2f} GB), "
+              f"batch {ZAMBA_FULL_BATCH} x seq {S}: {res['ms']:.1f} ms, loss "
+              f"{res['loss']:.4f}, gradients {res['grad_bytes'] / 1e9:.2f} "
+              f"GB, peak device memory {res['peak_bytes'] / 1e9:.2f} GB "
+              f"({resident / 1e9:.2f} GB of it allocated before the model by "
+              f"earlier phases); AdamW's two moments would add "
+              f"{8 * n_p / 1e9:.1f} GB; "
+              f"{smi_line()}")
+        del model, batch
+        torch.cuda.empty_cache()
+        break
+    summary["check_fp32"] = fp32_train_check(
+        "train zamba2", full.replace(n_layers=ZAMBA_CHECK_LAYERS),
+        ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ)
+    return summary
+
+
+def family_sharded(group, ckpt: str) -> dict:
+    """[train sharded]'s late families on this rank (``sharded_rank`` runs
+    it after moonshot's grids): for each of FAMILY_SHARDED, rank 0 runs the
+    single rank's fp32 check step and writes its parameters whole under
+    ``ckpt``, then both ranks run the step on each grid of SHARDED_GRIDS
+    and hold every block of their parameters after it against the written
+    ones.  Returns Python values."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, local_batch, make_batch
+    from repro_torch.distributed.group import make_grid
+    from repro_torch.distributed.sharding import batch_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    dev = group.device
+    rc = RunConfig(compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
+    opt = OptConfig(**SHARDED_CHECK_OPT)
+    out = {}
+    for arch, layers in FAMILY_SHARDED:
+        cfg = get_config(arch).replace(n_layers=layers)
+        root = str(pathlib.Path(ckpt) / arch)
+        host = make_batch(cfg, SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ,
+                          step=0, seed=1)
+        res = {"grids": {}}
+        if group.rank == 0:
+            t0 = time.perf_counter()
+            state = init_train_state(cfg, 0, rc, device=dev)
+            res["n_params"] = sum(p.numel()
+                                  for p in state["params"].parameters())
+            ops.reset_launches()
+            state, m = make_train_step(cfg, rc, opt)(
+                state, device_batch(host, dev))
+            torch.cuda.synchronize(dev)
+            res["single"] = {"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "launches": dict(ops.LAUNCHES)}
+            shutil.rmtree(root, ignore_errors=True)
+            mgr = CheckpointManager(root, keep_last=1, async_save=False)
+            mgr.save(0, {"params": dict(state["params"].named_parameters())})
+            res["single"]["write_bytes"] = mgr.stats["bytes"]
+            res["single"]["s"] = time.perf_counter() - t0
+            del state, m, mgr
+            torch.cuda.empty_cache()
+        group.barrier()
+        for data, model, _ in SHARDED_GRIDS:
+            name = f"{data}x{model}"
+            grid = make_grid(data, model, device=dev, verbose=False)
+            t0 = time.perf_counter()
+            state = init_train_state(cfg, 0, rc, device=dev, grid=grid)
+            torch.cuda.empty_cache()
+            step = make_train_step(cfg, rc, opt, grid=grid)
+            b = device_batch(local_batch(host, grid, batch_specs(
+                cfg, grid, "train", SHARDED_CHECK_BATCH), cfg), dev)
+            grid.world.barrier()
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize(dev)
+            step_ms = (time.perf_counter() - t1) * 1e3
+            blocks = dict(state["params"].named_parameters())
+            specs = state["params"].shard_specs
+            want = {"params": {n: torch.empty_like(p)
+                               for n, p in blocks.items()}}
+            CheckpointManager(root).restore(
+                want, 0, shardings={f"params/{n}": sp
+                                    for n, sp in specs.items()}, grid=grid)
+            errs = {n: float((p.detach() - want["params"][n]).abs().max())
+                    for n, p in blocks.items()}
+            worst = max(errs, key=errs.get)
+            res["grids"][name] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "max_abs_err": errs[worst], "worst": worst,
+                "launches": dict(ops.LAUNCHES), "step_ms": step_ms,
+                "s": time.perf_counter() - t0}
+            del state, step, b, blocks, want
+            torch.cuda.empty_cache()
+            grid.world.barrier()
+        if group.rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        out[arch] = res
+    return out
+
+
+def report_sharded_families(ranks: list) -> dict:
+    """[train sharded]'s late families from every rank's
+    ``family_sharded``: each grid's fp32 step within [train sharded]'s
+    tolerances of the single rank's (loss, grad_norm relative, every
+    parameter after the step), no kernel launched.  The recurrent families
+    run on the ssm rules (heads split over 'model'), the vlm and hubert
+    under sequence parallelism."""
+    out = {}
+    for arch, layers in FAMILY_SHARDED:
+        single = ranks[0][arch]["single"]
+        rows = {}
+        for data, model, _ in SHARDED_GRIDS:
+            name = f"{data}x{model}"
+            got = [r[arch]["grids"][name] for r in ranks]
+            for rank, c in enumerate(got):
+                gn_rel = abs(c["grad_norm"] - single["grad_norm"]) \
+                    / single["grad_norm"]
+                if abs(c["loss"] - single["loss"]) > SHARDED_LOSS_TOL \
+                        or c["max_abs_err"] > SHARDED_PARAM_TOL \
+                        or not gn_rel <= SHARDED_GNORM_RTOL \
+                        or any(c["launches"].values()):
+                    raise AssertionError(
+                        f"[train sharded] {arch} {name} rank {rank}: loss "
+                        f"{c['loss']} against the single rank's "
+                        f"{single['loss']}, grad_norm {c['grad_norm']} "
+                        f"against {single['grad_norm']} (relative "
+                        f"{gn_rel:.3e}), parameters after the step "
+                        f"max_abs_err {c['max_abs_err']:.3e} "
+                        f"({c['worst']}), launches {c['launches']}")
+            rows[name] = got
+            print(f"[train sharded] {arch} at full width, {layers} layers "
+                  f"({ranks[0][arch]['n_params'] / 1e9:.3f} B fp32 "
+                  f"parameters), grid {name}, fp32 step of batch "
+                  f"{SHARDED_CHECK_BATCH} x seq {SHARDED_CHECK_SEQ}: loss "
+                  f"{got[0]['loss']:.6f} (single rank {single['loss']:.6f}, "
+                  f"tolerance {SHARDED_LOSS_TOL:g}), grad_norm "
+                  + ", ".join(f"{c['grad_norm']:.6f}" for c in got)
+                  + f" (single {single['grad_norm']:.6f}, relative "
+                  f"{SHARDED_GNORM_RTOL:g}), every parameter after the step "
+                  f"within " + ", ".join(f"{c['max_abs_err']:.2e} "
+                                         f"({c['worst']})" for c in got)
+                  + f" (tolerance {SHARDED_PARAM_TOL:g}); step ms "
+                  + ", ".join(f"{c['step_ms']:.1f}" for c in got)
+                  + f"; no kernel launched; {smi_line()}")
+        out[arch] = {"layers": layers, "single": single,
+                     "n_params": ranks[0][arch]["n_params"], "grids": rows}
+    return out
+
+
 def moe_layer_backward_no_sync(policy: str) -> dict:
     """``moe_ffn`` forward and backward at moonshot's training shape (T =
     TRAIN_BATCH x TRAIN_SEQ, bf16 experts and activations) under
@@ -5306,11 +5695,27 @@ def train_dense() -> dict:
     return summary
 
 
+def unapplied(cfg, model) -> set:
+    """The names of ``model``'s parameters that no layer of ``cfg`` applies:
+    a hybrid's shared blocks past its groups' count (at n_layers 3 both of
+    zamba2's, at 9 the second); empty for every other family."""
+    from repro_torch.models.lm import group_structure
+    if cfg.family != "hybrid":
+        return set()
+    n_groups = group_structure(cfg)[2]
+    return {name for name, _ in model.named_parameters()
+            if name.startswith("shared.")
+            and int(name.split(".")[1]) >= n_groups}
+
+
 def fp32_train_check(tag: str, cfg, batch: int, seq: int) -> dict:
     """One fp32 forward and backward of ``cfg`` (weights from seed 1) on the
     card against the same weights and ``make_batch`` batch on the CPU: the
     loss within DENSE_CHECK_TOL["loss"], every gradient within
-    DENSE_CHECK_TOL["grad"]."""
+    DENSE_CHECK_TOL["grad"].  Every parameter takes a gradient on both but
+    a hybrid's shared blocks that the cut depth applies nowhere
+    (``unapplied``), which take none on either; any other difference in
+    which parameters take a gradient fails."""
     import torch
     from repro_torch.data.pipeline import device_batch, make_batch
     from repro_torch.launch.train import LOSS_CHUNK
@@ -5319,19 +5724,29 @@ def fp32_train_check(tag: str, cfg, batch: int, seq: int) -> dict:
     cpu_model = copy.deepcopy(model).to("cpu")
     host = make_batch(cfg, batch, seq, step=0, seed=1)
     rc32 = RunConfig(loss_chunk=LOSS_CHUNK)
+    expect = unapplied(cfg, model)
     res = {}
     for dev, m in (("cuda", model), ("cpu", cpu_model)):
         m.requires_grad_(True)
         t0 = time.perf_counter()
         loss, metrics = loss_fn(m, cfg, rc32, device_batch(host, dev))
-        grads = torch.autograd.grad(loss, list(m.parameters()))
-        res[dev] = (loss.detach().cpu(), [g.cpu() for g in grads],
+        names, params = zip(*m.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        none = {k for k, g in zip(names, grads) if g is None}
+        if none != expect:
+            raise AssertionError(
+                f"[{tag}] on {dev} no gradient for {sorted(none - expect)}, "
+                f"a gradient for the unapplied {sorted(expect - none)}")
+        res[dev] = (loss.detach().cpu(),
+                    {k: g.cpu() for k, g in zip(names, grads)
+                     if g is not None},
                     (time.perf_counter() - t0) * 1e3,
                     float(metrics["tokens"]))
     (loss, grads, ms, n), (loss_c, grads_c, ms_c, _) = res["cuda"], res["cpu"]
     torch.testing.assert_close(loss, loss_c, **DENSE_CHECK_TOL["loss"])
     worst, worst_name = 0.0, None
-    for (name, _), g, gc in zip(model.named_parameters(), grads, grads_c):
+    for name, g in grads.items():
+        gc = grads_c[name]
         torch.testing.assert_close(g, gc, **DENSE_CHECK_TOL["grad"],
                                    msg=lambda m, name=name: f"{name}: {m}")
         err = (g - gc).abs().max().item()
@@ -5348,7 +5763,9 @@ def fp32_train_check(tag: str, cfg, batch: int, seq: int) -> dict:
           f"batch: loss {float(loss):.7f} on the card, {float(loss_c):.7f} on"
           f" the CPU (|diff| {abs(float(loss - loss_c)):.3e}; tolerance "
           f"1e-5); {len(grads)} gradients, worst max|diff| {worst:.3e} "
-          f"({worst_name}; tolerance rtol=atol=1e-4)")
+          f"({worst_name}; tolerance rtol=atol=1e-4)"
+          + (f"; {len(expect)} parameters of unapplied shared blocks take "
+             f"none on either" if expect else ""))
     del model, cpu_model, res, grads, grads_c
     torch.cuda.empty_cache()
     return out
@@ -5503,7 +5920,7 @@ def sharded_rank(group, spec: dict) -> dict:
     def batch(grid, b, seq, i):
         return device_batch(local_batch(
             make_batch(cfg, b, seq, step=i, seed=1), grid,
-            batch_specs(cfg, grid, "train", b)), dev)
+            batch_specs(cfg, grid, "train", b), cfg), dev)
 
     for data, model, n in SHARDED_GRIDS:
         name = f"{data}x{model}"
@@ -5588,6 +6005,7 @@ def sharded_rank(group, spec: dict) -> dict:
         del state, step, bs
         torch.cuda.empty_cache()
         grid.world.barrier()
+    out["families"] = family_sharded(group, spec["families_ckpt"])
     return out
 
 
@@ -5598,7 +6016,9 @@ def train_sharded() -> dict:
     parameters are written whole to build/ckpt_sharded and freed; then the
     single rank's bf16 step with remat at this depth is timed (a warm step,
     then one), printed beside the grids'; then the ranks start
-    (``sharded_rank``)."""
+    (``sharded_rank``), and after moonshot's grids they run the late
+    families' fp32 checks (``family_sharded``, under
+    build/ckpt_sharded_families; ``report_sharded_families``)."""
     import shutil
     import torch
     from repro_torch.checkpoint import CheckpointManager
@@ -5662,12 +6082,14 @@ def train_sharded() -> dict:
           f"{saved['write_s']:.2f} s); its bf16 step with remat (batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) {single['bf16_remat_ms']:.1f} "
           f"ms; {t1 - t0:.1f} s")
-    spec = {"cfg": cfg, "ckpt": str(root)}
+    families = ROOT / "build" / "ckpt_sharded_families"
+    spec = {"cfg": cfg, "ckpt": str(root), "families_ckpt": str(families)}
     try:
         ranks = spawn_ranks(sharded_rank, SHARDED_RANKS, "cuda:0", spec,
                             timeout=900)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(families, ignore_errors=True)
     t2 = time.perf_counter()
     out = {"n_params": n_params, "single": single,
            "single_launches": single_launches, "ranks_s": t2 - t1,
@@ -5735,6 +6157,10 @@ def train_sharded() -> dict:
               f"{json.dumps({k: v for k, v in t['launches_per_step'].items() if v})}; "
               f"{smi_line()}")
     out["backend"] = ranks[0]["backend"]
+    out["families"] = report_sharded_families([r["families"]
+                                               for r in ranks])
+    print(f"[train sharded] moonshot's grids and the late families: "
+          f"{time.perf_counter() - t1:.1f} s with the ranks' start")
     return out
 
 
@@ -6407,6 +6833,15 @@ def main() -> None:
     vlm_audio["train_vlm"] = train_vlm()
     elapsed("training llama-3.2-vision-11b's first group")
     print(json.dumps({"vlm_audio": vlm_audio}))
+
+    # 13. the recurrent families trained at full width: rwkv6 at full
+    # depth, zamba2 at 15 layers and its full depth's forward + backward
+    # (the four late families' grids run inside [train sharded])
+    late = {"train_rwkv6": train_rwkv6()}
+    elapsed("training rwkv6-1.6b")
+    late["train_zamba2"] = train_zamba2()
+    elapsed("training zamba2-7b")
+    print(json.dumps({"late_training": late}))
 
     # 10. report -----------------------------------------------------------
     from repro_torch.kernels.grouped_gemm import TILE_SHAPES

@@ -58,9 +58,14 @@ _IO_THREADS = 4          # writers and readers of the leaves' files
 
 def flatten_state(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     """``{name: tensor}`` over a nest of dicts, modules and tensors; a
-    module contributes its ``state_dict`` (parameters and buffers)."""
+    module contributes its ``state_dict`` (parameters and buffers), each
+    tensor once, under its first name (a module applied at several places,
+    as a hybrid model's shared blocks, is held as ``shared.<j>`` alone, as
+    ``named_parameters`` names it)."""
     if isinstance(tree, torch.nn.Module):
-        tree = tree.state_dict(keep_vars=True)
+        seen: set = set()
+        tree = {k: v for k, v in tree.state_dict(keep_vars=True).items()
+                if not (id(v) in seen or seen.add(id(v)))}
     if isinstance(tree, torch.Tensor):
         return {prefix: tree}
     if not isinstance(tree, dict):

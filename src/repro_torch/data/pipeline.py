@@ -75,31 +75,58 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
             for k, v in batch.items()}
 
 
-def local_batch(batch: dict, grid, specs: dict) -> dict:
+# each key's own dims, after any leading microbatch axis
+_CORE_DIMS = {"tokens": 2, "features": 3, "labels": 2, "mask": 2,
+              "image_embeds": 3}
+
+
+def _axes(ax) -> tuple:
+    return () if ax is None else ((ax,) if isinstance(ax, str) else ax)
+
+
+def local_batch(batch: dict, grid, specs: dict, cfg=None) -> dict:
     """This rank's block of a whole batch under ``batch_specs`` on ``grid``:
-    ``tokens`` cut on the batch dim over the data axes and on the sequence
-    over 'model', and ``labels``, the next token of each local position
-    that has one (the sequence's last rank has one position fewer).  Works
-    on numpy arrays and on tensors, with or without a microbatch axis.
+    every key cut on each dim over the axes its spec names.  ``tokens``
+    (cut on the batch dim over the data axes and, under sequence
+    parallelism, on the sequence over 'model') also gives ``labels``, the
+    next token of each local position that has one (the sequence's last
+    rank has one position fewer); an encoder's ``features``, ``labels``
+    and ``mask`` are cut alike over (batch, sequence), and a vlm's
+    ``image_embeds`` over the batch only, whole on every 'model' rank.
+    Works on numpy arrays and on tensors, with or without a microbatch
+    axis.
 
-    Every axis of more than one rank must cut the batch: a dropped one
-    would have its ranks train on the same rows twice, so it raises."""
-    toks = batch["tokens"]
-    b_ax, s_ax = specs["tokens"][-2:]
-
-    def axes(ax):
-        return () if ax is None else ((ax,) if isinstance(ax, str) else ax)
-    used = set(axes(b_ax)) | set(axes(s_ax))
+    Every axis of more than one rank must cut the batch, but for 'model'
+    where ``cfg``'s family splits heads over it and keeps whole sequences
+    on its ranks (``ssm``, ``hybrid``: the loss counts the tokens those
+    ranks share once): a dropped one would have its ranks train on the
+    same rows twice, so it raises."""
+    key = "tokens" if "tokens" in batch else "labels"
+    lead = batch[key].ndim - _CORE_DIMS[key]
+    B, S = batch[key].shape[lead:lead + 2]
+    b_ax, s_ax = specs[key][-2:]
+    used = set(_axes(b_ax)) | set(_axes(s_ax))
+    if cfg is not None and cfg.family in ("ssm", "hybrid") and s_ax is None:
+        used.add("model")
     idle = [a for a in grid.axis_names
             if grid.sizes[a] > 1 and a not in used]
-    B, S = toks.shape[-2:]
-    if idle or S % grid.size(axes(s_ax)):
+    if idle or S % grid.size(_axes(s_ax)):
         raise ValueError(f"a batch of {B} x {S} does not cut over the "
                          f"{grid!r}: the batch must divide over the data "
                          f"axes and the sequence over 'model'")
-    Bl = B // grid.size(axes(b_ax))
-    Sl = S // grid.size(axes(s_ax))
-    b0, s0 = grid.index(axes(b_ax)) * Bl, grid.index(axes(s_ax)) * Sl
-    rows = toks[..., b0:b0 + Bl, :]
-    return {"tokens": rows[..., s0:s0 + Sl],
-            "labels": rows[..., s0 + 1:s0 + Sl + 1]}
+
+    def cut(arr, spec, dims: int, shift: int = 0):
+        index = [slice(None)] * arr.ndim
+        for i, ax in enumerate(spec[-dims:]):
+            dim = arr.ndim - dims + i
+            n = arr.shape[dim] // grid.size(_axes(ax))
+            start = grid.index(_axes(ax)) * n + (shift if i == 1 else 0)
+            index[dim] = slice(start, start + n)
+        return arr[tuple(index)]
+
+    out = {}
+    for k, arr in batch.items():
+        out[k] = cut(arr, specs[k], _CORE_DIMS[k])
+    if key == "tokens":             # the next token of each local position
+        out["labels"] = cut(batch["tokens"], specs["tokens"], 2, shift=1)
+    return out

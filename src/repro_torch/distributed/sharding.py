@@ -189,6 +189,8 @@ def cache_specs(cache, cfg: ModelConfig, mesh, batch: int):
 
     def rule(name, leaf):
         core = _shape(leaf)
+        if name.startswith(("tm_", "cm_")):        # an rwkv block's time-mix
+            name = name[3:]                        # and channel-mix leaves
         if name in ("k", "v", "ckv", "kr"):        # (B, S, ...) kv caches
             spec = (b, seq) + (None,) * (len(core) - 2)
         elif name == "state":                      # (B, H, ...) states

@@ -18,7 +18,8 @@ kernels' plain versions on the CPU.
 ``--grid DxM`` (or ``PxDxM``; the reference's ``--debug-mesh``) trains on
 a grid of ranks, one process a rank (``distributed.group.make_grid``):
 'data' carries batch DP and FSDP storage of every matrix, 'model' the
-routed experts (EP) and the sequence (SP), 'pod' extra DP
+routed experts (EP) and the sequence (SP), or for the recurrent families
+(rwkv6-1.6b, zamba2-7b) the heads, 'pod' extra DP
 (``--compress-pod`` sends its gradient sum as int8).  One process spawns
 the ranks on ``--device`` (gloo; several ranks share a card); with
 ``--distributed`` this process is one rank of a group launched outside

@@ -15,6 +15,7 @@ reassembles each row's view with ``gather_block_kv`` and runs
 ``attention``."""
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -22,7 +23,7 @@ from torch import nn
 
 from repro_torch.kernels.paged_attention import (gather_block_kv,
                                                   paged_decode_attention)
-from repro_torch.models.blocks import dense_init, frozen, softcap
+from repro_torch.models.blocks import dense_init, frozen, part, softcap
 
 NEG_INF = -1e30  # finite -inf stand-in, as in the reference
 
@@ -65,6 +66,21 @@ def project_qkv(p: Attention, x: torch.Tensor, n_heads: int, n_kv_heads: int,
     return (q.reshape(B, S, n_heads, head_dim),
             k.reshape(B, Skv, n_kv_heads, head_dim),
             v.reshape(B, Skv, n_kv_heads, head_dim))
+
+
+def head_part(p: Attention, hs: slice, kvs: slice, head_dim: int):
+    """``p``'s leaves for the query heads ``hs`` and the KV heads ``kvs``
+    (a rank's heads under tensor-parallel heads): the columns of ``wq``,
+    ``wk``, ``wv`` and their biases, the rows of ``wo``; ``project_qkv``
+    and the output projection take it in ``p``'s place."""
+    def ch(sl: slice) -> slice:
+        return slice(sl.start * head_dim, sl.stop * head_dim)
+    out = {"wq": part(p.wq, ch(hs)), "wk": part(p.wk, ch(kvs)),
+           "wv": part(p.wv, ch(kvs)), "wo": part(p.wo, ch(hs), 0)}
+    if hasattr(p, "bq"):
+        out.update(bq=part(p.bq, ch(hs)), bk=part(p.bk, ch(kvs)),
+                   bv=part(p.bv, ch(kvs)))
+    return SimpleNamespace(**out)
 
 
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 logit softcap, parameter init (counterpart of ``repro.models.blocks``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -60,24 +60,46 @@ def make_norm(kind: str, d: int, device) -> nn.Module:
     raise ValueError(f"norm {kind!r}: expected rmsnorm | layernorm")
 
 
-def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+               reduce: Optional[Callable] = None, d: Optional[int] = None
                ) -> torch.Tensor:
-    """RMSNorm, computed in fp32, cast back to x's dtype."""
+    """RMSNorm, computed in fp32, cast back to x's dtype.  With ``reduce``,
+    ``x`` holds some of the ``d`` channels the norm runs over (``scale``
+    the same ones) and ``reduce`` sums a statistic's partial sums over the
+    holders of the others (``distributed.ctx.head_sum``)."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if reduce is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) / d
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale)
     return out.to(x.dtype)
 
 
 def apply_layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
+                    eps: float = 1e-6, reduce: Optional[Callable] = None,
+                    d: Optional[int] = None) -> torch.Tensor:
     """Layernorm over the population variance, computed in fp32, cast back
-    to x's dtype."""
+    to x's dtype.  ``reduce`` and ``d`` as in ``apply_norm``."""
     xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    if reduce is None:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    else:
+        mu = reduce(torch.sum(xf, dim=-1, keepdim=True)) / d
+        var = reduce(torch.sum(torch.square(xf - mu), dim=-1,
+                               keepdim=True)) / d
     out = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
     return out.to(x.dtype)
+
+
+def part(w: torch.Tensor, sl: slice, dim: int = -1) -> torch.Tensor:
+    """Entries ``sl`` of ``w`` on ``dim`` (a rank's heads or channels under
+    tensor-parallel heads, ``distributed.ctx.head_slice``): ``w`` itself
+    where ``sl`` covers the whole dim."""
+    if sl.start == 0 and sl.stop == w.shape[dim]:
+        return w
+    return w.narrow(dim, sl.start, sl.stop - sl.start)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

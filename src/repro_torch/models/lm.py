@@ -53,10 +53,15 @@ which saves a copy of the cache per step).  The paged pool
 place of (slots, capacity); the recurrent and ``cross`` kinds have no
 pageable cache.
 
-The recurrent families are served only: their ``train`` mode, a grid and
-expert parallelism raise (ROADMAP A8).  The vlm and audio families run on
-one device (a grid raises, ROADMAP A8); the encoder has no prefill or
-decode."""
+Every family trains, on one device and on a grid of ranks (inside
+``distributed.ctx.use_rules``).  The grid's transformer rules cut each
+sequence over 'model' (sequence parallelism: a layer gathers K and V);
+the recurrent families' rules keep whole sequences on every 'model' rank
+and split the heads of the WKV recurrence, the SSD scan and the shared
+attention blocks over it instead (tensor-parallel heads,
+``distributed/ctx.py``), and ``loss_fn`` counts the tokens those ranks
+share once.  Prefill and decode run outside the grid's rules (across
+ranks only through ``rc.ep``); the encoder has no prefill or decode."""
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
@@ -70,12 +75,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.distributed import apply_moe_ep, apply_moe_ep_local
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
 from repro_torch.distributed.ctx import (block_offset, constrain,
-                                         current_rules, global_sum, token_ids)
+                                         current_rules, global_sum,
+                                         head_slice, head_sum, token_ids,
+                                         token_replicas)
 from repro_torch.distributed.sharding import gather_param, gather_spec
 from repro_torch.kernels.paged_attention import fused_read_refusal
 from repro_torch.models.attention import (Attention, flash_attention,
-                                          paged_decode, project_qkv,
-                                          write_decode_rows)
+                                          head_part, paged_decode,
+                                          project_qkv, write_decode_rows)
 from repro_torch.models.blocks import (dense_init, make_norm, normal_init,
                                        rope, softcap)
 from repro_torch.models.ffn import FFN
@@ -294,10 +301,12 @@ class Block(nn.Module):
                 else cfg.d_ff
             self.ffn = FFN(d, f, cfg.act, cfg.mlp_bias, gen, dtype, device)
 
-    def forward(self, x, cfg, rc, positions, mode: str = "train"):
+    def forward(self, x, cfg, rc, positions, mode: str = "train",
+                image_embeds=None):
         """``apply_block`` on this block (so that ``torch.func.
         functional_call`` can run it on gathered weights)."""
-        return apply_block(self, x, cfg, rc, positions=positions, mode=mode)
+        return apply_block(self, x, cfg, rc, positions=positions, mode=mode,
+                           image_embeds=image_embeds)
 
 
 class LM(nn.Module):
@@ -341,10 +350,13 @@ class LM(nn.Module):
 
 def full_param(model: LM, cfg: ModelConfig, name: str,
                dt=None) -> torch.Tensor:
-    """Parameter ``name`` whole: itself, or on a model sharded over a grid
-    (``weights.shard_train_state``, inside ``distributed.ctx.use_rules``)
-    gathered from every rank's block, in ``dt`` unless its consumer
-    computes in fp32 (differentiable: the backward reduce-scatters)."""
+    """Parameter ``name`` (as ``named_parameters`` names it) whole: itself,
+    or on a model sharded over a grid (``weights.shard_train_state``,
+    inside ``distributed.ctx.use_rules``) gathered from every rank's
+    block, in ``dt`` unless its consumer computes in fp32 (differentiable:
+    the backward reduce-scatters).  A parameter whose spec gathers nothing
+    (the vectors, fp32) comes as it is stored: its consumer casts it where
+    the one-device path does."""
     p = model.get_parameter(name)
     specs = getattr(model, "shard_specs", None)
     if specs is None:
@@ -353,9 +365,11 @@ def full_param(model: LM, cfg: ModelConfig, name: str,
     if grid is None:
         raise RuntimeError(f"{name} is this rank's block of a sharded "
                            f"model: run it inside distributed.ctx.use_rules")
-    if dt is None or ".shared." in name:   # the shared experts compute in
-        dt = p.dtype                         # fp32 from fp32 weights
     spec = gather_spec(specs[name], model.full_shapes[name], cfg)
+    # the MoE shared experts compute in fp32 from fp32 weights, and a
+    # vector that nothing gathers passes as it is stored
+    if dt is None or ".shared." in name or all(ax is None for ax in spec):
+        dt = p.dtype
     return gather_param(p, spec, grid, dt)
 
 
@@ -639,10 +653,19 @@ def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
     """Multi-head attention sub-block, output projection included.  Prefill
     and train: ``flash_attention`` in ``rc``'s chunks with ``window``.
     Decode: one chunk with query position 0, so that ``window`` is inert as
-    in the reference (C1); the paged reads take no window at all."""
+    in the reference (C1); the paged reads take no window at all.  Under
+    the recurrent families' grid rules (``qkv``: heads over 'model', the
+    hybrid's shared blocks) this rank's heads, their output's shares summed
+    over the ranks."""
     dt = h.dtype
     B, S, _ = h.shape
-    q, k, v = project_qkv(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    # under the recurrent families' rules ("qkv"), this rank's heads
+    hs = head_slice("qkv", 2, cfg.n_heads)
+    kvs = head_slice("qkv", 2, cfg.n_kv_heads)
+    if hs.stop - hs.start < cfg.n_heads:
+        p = head_part(p, hs, kvs, cfg.head_dim)
+    q, k, v = project_qkv(p, h, hs.stop - hs.start, kvs.stop - kvs.start,
+                          cfg.head_dim)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -668,7 +691,8 @@ def _attention(p: Attention, h: torch.Tensor, cfg: ModelConfig,
         if cache is not None:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
-    return torch.matmul(o.reshape(B, S, -1), p.wo.to(dt))
+    return head_sum(torch.matmul(o.reshape(B, S, -1), p.wo.to(dt)),
+                    "qkv", 2)
 
 
 def _mla_attention(p: MLA, h: torch.Tensor, cfg: ModelConfig,
@@ -714,11 +738,12 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
     ``encoder_only`` model's batch holds ``features`` (B, S, d) and may hold
     ``mask`` (B, S) bool in place of ``tokens``; it runs train mode only.
 
-    The recurrent families (``ssm``, ``hybrid``) run prefill and decode on
-    one device over a contiguous cache; their train mode, a grid,
-    ``rc.ep`` and ``block_tables`` raise.  The ``vlm`` and ``audio``
-    families run on one device (a grid raises), and ``block_tables`` on a
-    model with ``cross`` blocks raises.
+    The recurrent families (``ssm``, ``hybrid``) serve over a contiguous
+    cache; ``block_tables`` on them, or on a model with ``cross`` blocks,
+    raises.  ``rc.ep`` reaches the MoE layers only, as in the reference: on
+    a model without one it changes nothing.  Train mode runs every family
+    on one device and on a grid (inside ``use_rules``; prefill and decode
+    run on one device).
     """
     if block_tables is not None and (cfg.family in RECURRENT_FAMILIES
                                      or cfg.cross_attn_every):
@@ -727,18 +752,6 @@ def forward(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict,
         raise ValueError(f"{cfg.name}: its {', '.join(unpaged)} blocks have "
                          "no positional KV cache to page (see "
                          "serve/kv_cache.py PAGED_KINDS)")
-    if cfg.family in RECURRENT_FAMILIES:
-        refused = ("train mode" if mode == "train" else
-                   "a grid (use_rules)" if current_rules()[1] is not None
-                   else "expert parallelism (rc.ep)" if rc.ep else None)
-        if refused is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves the {cfg.family} family on "
-                f"one device; {refused} is not ported yet (ROADMAP A8)")
-    if cfg.family in ("vlm", "audio") and current_rules()[1] is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the {cfg.family} family on one "
-            "device; a grid (use_rules) is not ported yet (ROADMAP A8)")
     if cfg.encoder_only and mode != "train":
         raise ValueError(f"{cfg.name} is encoder-only: no decode path (it "
                          f"runs train mode, not {mode!r})")
@@ -761,15 +774,20 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     reference's per-group ``jax.checkpoint(nothing_saveable)``); the layer
     draws no random numbers, so no RNG state is kept for the replay
     (``preserve_rng_state=False``).  With ``rc.moe_stats`` the ``sched/*``
-    keys start at fp32 zeros, as the reference's scan carry does.
+    keys start at fp32 zeros, as the reference's scan carry does.  The
+    ``ssm`` family's ``ln0`` follows the embedding, as in every mode.
 
     On a model sharded over a grid (inside ``use_rules``) ``tokens`` is
-    this rank's (B/D, S/M) block, at positions from ``m * S/M`` on, and
-    each layer gathers its own weights inside itself (``_grid_layer``):
-    under remat inside the recomputed function, so no gathered weight
-    outlives its layer."""
+    this rank's (B/D, S/M) block, at positions from ``m * S/M`` on (under
+    the recurrent families' rules its (B/D, S) rows), and each layer
+    gathers its own weights inside itself (``_grid_layer``): under remat
+    inside the recomputed function, so no gathered weight outlives its
+    layer.  A hybrid model's shared block is gathered at each of its
+    applications, and its gradient sums over them."""
     dt = rc.compute_dtype
     x = embed_inputs(model, cfg, batch, dt)
+    if cfg.family == "ssm":
+        x = model.ln0(x)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device) \
         + block_offset(1, S)
@@ -780,11 +798,10 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
                                              device=x.device)
                    for k in ScheduleStats._fields}
     sharded = getattr(model, "shard_specs", None) is not None
+    kw = {"image_embeds": img}
     for i, blk in enumerate(model.layers):
-        if sharded:
-            fn, args, kw = _grid_layer, (model, i), {}
-        else:
-            fn, args, kw = apply_block, (blk,), {"image_embeds": img}
+        fn, args = ((_grid_layer, (model, i)) if sharded
+                    else (apply_block, (blk,)))
         if rc.remat:
             x, aux = checkpoint(fn, *args, x, cfg, rc, positions=positions,
                                 mode="train", use_reentrant=False,
@@ -798,16 +815,22 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
 
 
 def _grid_layer(model: LM, i: int, x, cfg: ModelConfig, rc: RunConfig, *,
-                positions, mode: str):
+                positions, mode: str, image_embeds=None):
     """Layer ``i`` of a sharded model on this rank's block: its weights
     gathered from every rank's block (``full_param``: the compute dtype,
-    expert stacks over 'data' only), then ``apply_block`` on them."""
-    pre = f"layers.{i}."
+    expert stacks over 'data' only), then ``apply_block`` on them.  A
+    hybrid group's shared block is registered, and sharded, as
+    ``shared.<j>``, whatever layer applies it."""
     blk = model.layers[i]
+    pre = f"layers.{i}."
+    for j, shared in enumerate(getattr(model, "shared", ())):
+        if blk is shared:
+            pre = f"shared.{j}."
     full = {n: full_param(model, cfg, pre + n, rc.compute_dtype)
             for n, _ in blk.named_parameters()}
     return torch.func.functional_call(blk, full, (x, cfg, rc, positions),
-                                      {"mode": mode})
+                                      {"mode": mode,
+                                       "image_embeds": image_embeds})
 
 
 @torch.no_grad()
@@ -892,8 +915,12 @@ def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
     On a grid (inside ``use_rules``) ``batch`` is this rank's block, with
     ``labels``: the next token of each local position that has one
     (``data.pipeline.local_batch``; the sequence's last rank has one
-    position fewer).  ``chunked_ce`` sums over the local rows, and the loss
-    is the sum over every rank over the count over every rank."""
+    position fewer), or an encoder's labels of its positions.
+    ``chunked_ce`` sums over the local rows, and the loss is the sum over
+    every rank over the count over every rank, each divided by the ranks
+    that hold the same tokens (``token_replicas``: the 'model' size under
+    the recurrent families' rules), so those ranks count their tokens once
+    between them and each passes back its share of the gradient."""
     h, _, aux = forward(model, cfg, rc, batch, mode="train")
     w_head = head_matrix(model, cfg, h.dtype).to(h.dtype)
     _, grid = current_rules()
@@ -908,6 +935,9 @@ def loss_fn(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
                         final_cap=cfg.final_logit_softcap)
     if grid is not None:
         tot, n = global_sum(tot, grid.world), grid.world.all_reduce(n)
+        rep = token_replicas()
+        if rep > 1:
+            tot, n = tot / rep, n // rep
     loss = tot / torch.clamp(n, min=1)
     metrics = {"ce": loss, "tokens": n.float()}
     if aux:

@@ -17,7 +17,16 @@ recurrence kernel are later work (ROADMAP).
 The caches are functional, as in the reference: ``time_mix`` and
 ``channel_mix`` return the new ``{"shift", "state"}`` / ``{"shift"}``;
 ``models/lm.py`` writes them into the block's flat cache (``tm_shift``,
-``tm_state``, ``cm_shift``; ``init_rwkv_cache``)."""
+``tm_state``, ``cm_shift``; ``init_rwkv_cache``).
+
+Training runs the same loop under autograd (one step a position, as the
+reference's scan).  On a grid under the family's rules (``heads4``:
+heads over 'model') ``time_mix`` computes this rank's heads: r, k, v, the
+decay and the gate from the columns of its heads, the recurrence over
+them, ``ln_x`` (a layernorm over all d channels) with its mean and
+variance summed over the ranks, and the output projection's rows of its
+channels, summed over the ranks (``distributed.ctx.head_sum``).  The
+channel mix has no hook in the reference: every rank computes it whole."""
 from __future__ import annotations
 
 from typing import Optional
@@ -27,7 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RWKVConfig
-from repro_torch.models.blocks import LayerNorm, dense_init, frozen, normal_init
+from repro_torch.distributed.ctx import head_slice, head_sum
+from repro_torch.models.blocks import (LayerNorm, apply_layernorm,
+                                       dense_init, frozen, normal_init, part)
 
 
 class TimeMix(nn.Module):
@@ -86,11 +97,14 @@ def wkv_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, n), final state)."""
     u_col = u[None, :, :, None]                              # (1, H, n, 1)
     outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B, H, n, n)
-        outs.append(torch.matmul(r[:, t, :, None, :],
+    # one view a position (unbind: under autograd one stack of the
+    # positions' gradients a tensor, where slicing would add a zero-filled
+    # (B, S, H, n) gradient a position)
+    for r_t, k_t, v_t, w_t in zip(*(x.unbind(1) for x in (r, k, v, w))):
+        kv = k_t[:, :, :, None] * v_t[:, :, None, :]         # (B, H, n, n)
+        outs.append(torch.matmul(r_t[:, :, None, :],
                                  torch.addcmul(state, u_col, kv)))
-        state = torch.addcmul(kv, w[:, t, :, :, None], state)
+        state = torch.addcmul(kv, w_t[:, :, :, None], state)
     return torch.cat(outs, dim=2).transpose(1, 2), state
 
 
@@ -98,28 +112,41 @@ def time_mix(p: TimeMix, x: torch.Tensor, rwkv: RWKVConfig, *,
              cache: Optional[dict] = None):
     """Returns (out (B, S, d) in x's dtype, new_cache).  cache: {"shift":
     (B, 1, d), "state": (B, H, n, n) fp32} or None (zeros, and no new
-    cache)."""
+    cache).  Under tensor-parallel heads (the module docstring) ``out`` is
+    the sum of every rank's heads' share, and a cache holds this rank's
+    heads."""
     B, S, d = x.shape
     dt = x.dtype
     n = rwkv.head_size
-    H = d // n
+    hs = head_slice("heads4", 2, d // n)         # this rank's heads
+    cs = slice(hs.start * n, hs.stop * n)        # and their channels
+    H = hs.stop - hs.start
     xx = _token_shift(x, cache["shift"] if cache is not None else None)
     mix = _mixer(p.mu, x, xx)
-    r = torch.matmul(mix(0), p.wr.to(dt)).reshape(B, S, H, n)
-    k = torch.matmul(mix(1), p.wk.to(dt)).reshape(B, S, H, n)
-    v = torch.matmul(mix(2), p.wv.to(dt)).reshape(B, S, H, n)
+
+    def proj(i: int, w: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(mix(i), part(w, cs).to(dt))
+    r = proj(0, p.wr).reshape(B, S, H, n)
+    k = proj(1, p.wk).reshape(B, S, H, n)
+    v = proj(2, p.wv).reshape(B, S, H, n)
     # Finch: data-dependent decay
     lora = torch.matmul(torch.tanh(torch.matmul(mix(3), p.w_lora_a.to(dt))),
-                        p.w_lora_b.to(dt))
-    w = torch.exp(-torch.exp(p.w0 + lora.float())).reshape(B, S, H, n)
-    g = F.silu(torch.matmul(mix(4), p.wg.to(dt)).float())
+                        part(p.w_lora_b, cs).to(dt))
+    w = torch.exp(-torch.exp(part(p.w0, cs) + lora.float())
+                  ).reshape(B, S, H, n)
+    g = F.silu(proj(4, p.wg).float())
     state0 = (torch.zeros((B, H, n, n), dtype=torch.float32,
                           device=x.device) if cache is None
               else cache["state"].float())
-    o, state = wkv_recurrence(r.float(), k.float(), v.float(), w, p.u,
-                              state0)
-    o = p.ln_x(o.reshape(B, S, d).to(dt)).float() * g
-    out = torch.matmul(o.to(dt), p.wo.to(dt))
+    o, state = wkv_recurrence(r.float(), k.float(), v.float(), w,
+                              part(p.u, hs, 0), state0)
+    # ln_x runs over all d channels: its statistics summed over the ranks
+    o = apply_layernorm(part(p.ln_x.scale, cs), part(p.ln_x.bias, cs),
+                        o.reshape(B, S, H * n).to(dt),
+                        reduce=lambda t: head_sum(t, "heads4", 2), d=d)
+    o = o.float() * g
+    out = torch.matmul(o.to(dt), part(p.wo, cs, 0).to(dt))
+    out = head_sum(out, "heads4", 2)
     new_cache = None
     if cache is not None:
         new_cache = {"shift": x[:, -1:].to(cache["shift"].dtype),

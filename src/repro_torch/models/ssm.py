@@ -20,7 +20,17 @@ decode step is a sequence of one position: one chunk of length 1.
 
 ``ssm_block`` returns its new cache, as the reference does; ``models/lm.py``
 writes it into the block's flat cache (``conv``, ``state``;
-``init_ssm_cache``)."""
+``init_ssm_cache``).
+
+Training runs the same scan under autograd.  On a grid under the family's
+rules (``channels3``, ``heads4``: channels and heads over 'model')
+``ssm_block`` computes this rank's heads: of ``in_proj`` the columns of
+their z and x channels and of their dt, with the B and C columns whole
+(G = 1 group, read by every head), the depthwise conv over those channels,
+the scan over its heads, the gated ``out_norm`` (an RMSNorm over all
+d_in channels) with its mean square summed over the ranks, and the
+output projection's rows of its channels, summed over the ranks
+(``distributed.ctx.head_sum``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.blocks import RMSNorm, dense_init, frozen
+from repro_torch.distributed.ctx import head_slice, head_sum
+from repro_torch.models.blocks import (RMSNorm, apply_norm, dense_init,
+                                       frozen, part)
 
 # chunks whose within-chunk products run in one pass: bounds the (G, L, L,
 # H) fp32 temporaries (235 MB each at zamba2-7b's L = 128, H = 112)
@@ -64,32 +76,52 @@ class Mamba2(nn.Module):
         self.out_proj = dense_init(gen, (d_in, d), dtype, device)
 
 
-def _split_proj(p: Mamba2, x: torch.Tensor, ssm: SSMConfig, d_model: int):
-    """in_proj, cut into z (d_in), xBC (d_in + 2 G N) and dt (H)."""
+def _split_proj(p: Mamba2, x: torch.Tensor, ssm: SSMConfig, d_model: int,
+                hs: slice):
+    """in_proj, cut into z, xBC (x, then the 2 G N columns of B and C) and
+    dt, for the heads ``hs`` (all of them: z d_in, xBC d_in + 2 G N, dt
+    H)."""
     d_in = ssm.expand * d_model
     n_heads = d_in // ssm.head_dim
     GN = ssm.n_groups * ssm.d_state
-    zxbcdt = torch.matmul(x, p.in_proj.to(x.dtype))
+    w = p.in_proj
+    if hs.stop - hs.start < n_heads:            # this rank's heads' columns
+        P = ssm.head_dim
+        c0, c1 = hs.start * P, hs.stop * P
+        w = torch.cat([w[:, c0:c1], w[:, d_in + c0:d_in + c1],
+                       w[:, 2 * d_in:2 * d_in + 2 * GN],
+                       w[:, 2 * d_in + 2 * GN + hs.start:
+                         2 * d_in + 2 * GN + hs.stop]], dim=1)
+        d_in, n_heads = c1 - c0, hs.stop - hs.start
+    zxbcdt = torch.matmul(x, w.to(x.dtype))
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:2 * d_in + 2 * GN]
     dt = zxbcdt[..., -n_heads:]
     return z, xbc, dt
 
 
-def _causal_conv(p: Mamba2, xbc: torch.Tensor,
-                 conv_state: Optional[torch.Tensor]):
+def _conv_channels(w: torch.Tensor, d_in: int, cs: slice) -> torch.Tensor:
+    """The conv weight's (or bias's) last dim for the x channels ``cs`` and
+    all of B and C."""
+    if cs.stop - cs.start == d_in:
+        return w
+    return torch.cat([w[..., cs], w[..., d_in:]], dim=-1)
+
+
+def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
+                 xbc: torch.Tensor, conv_state: Optional[torch.Tensor]):
     """Depthwise causal conv1d over the sequence, then SiLU; returns (out,
     the last K - 1 inputs: the new conv state)."""
-    K = p.conv_w.shape[0]
+    K = conv_w.shape[0]
     S = xbc.shape[1]
     pad = (torch.zeros_like(xbc[:, :K - 1]) if conv_state is None
            else conv_state.to(xbc.dtype))
     xp = torch.cat([pad, xbc], dim=1)                       # (B, S+K-1, C)
-    w = p.conv_w.to(xbc.dtype)
+    w = conv_w.to(xbc.dtype)
     out = xp[:, :S] * w[0]
     for i in range(1, K):
         out = out + xp[:, i:i + S] * w[i]
-    out = F.silu((out + p.conv_b.to(xbc.dtype)).float()).to(xbc.dtype)
+    out = F.silu((out + conv_b.to(xbc.dtype)).float()).to(xbc.dtype)
     return out, xp[:, S:]
 
 
@@ -156,27 +188,37 @@ def ssm_block(p: Mamba2, x: torch.Tensor, ssm: SSMConfig, *,
               cache: Optional[dict] = None):
     """Mamba2 mixer.  Returns (out in x's dtype, new_cache).  cache:
     {"conv": (B, K-1, C), "state": (B, H, P, N) fp32} or None (zeros, and
-    no new cache)."""
+    no new cache).  Under tensor-parallel heads (the module docstring)
+    ``out`` is the sum of every rank's heads' share, and a cache holds this
+    rank's heads."""
     B, S, d_model = x.shape
-    d_in = ssm.expand * d_model
-    H, P = d_in // ssm.head_dim, ssm.head_dim
+    d_full = ssm.expand * d_model
+    P = ssm.head_dim
+    hs = head_slice("heads4", 2, d_full // P)    # this rank's heads
+    cs = slice(hs.start * P, hs.stop * P)        # and their channels
+    H, d_in = hs.stop - hs.start, (hs.stop - hs.start) * P
     GN = ssm.n_groups * ssm.d_state
-    z, xbc, dt = _split_proj(p, x, ssm, d_model)
-    xbc, new_conv = _causal_conv(p, xbc,
-                                 cache["conv"] if cache is not None else None)
+    z, xbc, dt = _split_proj(p, x, ssm, d_model, hs)
+    xbc, new_conv = _causal_conv(
+        _conv_channels(p.conv_w, d_full, cs),
+        _conv_channels(p.conv_b, d_full, cs), xbc,
+        cache["conv"] if cache is not None else None)
     xh = xbc[..., :d_in].reshape(B, S, H, P)
     B_ = xbc[..., d_in:d_in + GN].reshape(B, S, ssm.n_groups, ssm.d_state)
     C_ = xbc[..., d_in + GN:].reshape(B, S, ssm.n_groups, ssm.d_state)
-    dt = F.softplus(dt.float() + p.dt_bias)
-    a = -torch.exp(p.a_log)
+    dt = F.softplus(dt.float() + part(p.dt_bias, hs))
+    a = -torch.exp(part(p.a_log, hs))
     y, state = ssd_chunked(xh, dt, B_, C_, a, ssm.chunk,
                            cache["state"] if cache is not None else None)
-    y = y + xh.float() * p.d_skip[:, None]
+    y = y + xh.float() * part(p.d_skip, hs)[:, None]
     y = y.reshape(B, S, d_in)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float())
-    y = p.out_norm(y.to(x.dtype))
-    out = torch.matmul(y, p.out_proj.to(x.dtype))
+    # its mean square runs over all d_in channels, summed over the ranks
+    y = apply_norm(part(p.out_norm.scale, cs), y.to(x.dtype),
+                   reduce=lambda t: head_sum(t, "heads4", 2), d=d_full)
+    out = torch.matmul(y, part(p.out_proj, cs, 0).to(x.dtype))
+    out = head_sum(out, "heads4", 2)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype),

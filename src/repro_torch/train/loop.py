@@ -90,7 +90,7 @@ def train(cfg: ModelConfig, rc: RunConfig, opt: OptConfig, *,
                 b = make_batch(cfg, batch, seq, step=step, accum=accum,
                                seed=seed + 1)
                 if grid is not None:
-                    b = local_batch(b, grid, bspecs)
+                    b = local_batch(b, grid, bspecs, cfg)
                 b = device_batch(b, dev)
             with obs.tracer.span("train/step", step=step):
                 state, metrics = step_fn(state, b)

@@ -18,7 +18,10 @@ activation rules: each layer gathers its weights and its backward
 reduce-scatters their gradients; ``reduce_grads`` then sums each
 gradient over the axes its parameter is replicated over (with
 ``compress_pod`` the 'pod' axis's sum is ``compressed_psum``), and AdamW
-runs on the blocks with the whole gradient's norm."""
+runs on the blocks with the whole gradient's norm.  Every rank's gradient
+is its share of the whole one (``distributed/ctx.py``): where the
+recurrent families' 'model' ranks hold the same tokens, ``loss_fn``
+counts them once between them, so the sums hold there too."""
 from __future__ import annotations
 
 import contextlib

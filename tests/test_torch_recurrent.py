@@ -20,9 +20,12 @@ rwkv6-1.6b (``ssm``: time-mix and channel-mix layers) and zamba2-7b
   groups' ``shared_attn`` layers are the two ``shared`` modules and the
   suffix's is a third; ``from_jax_params`` refuses a tree with any other
   leaf left over; ``init_cache`` has one cache per block (95 for zamba2);
-* refusals: train mode, a grid and ``rc.ep`` on these families, a grid
-  on the vlm and audio families (whose structures are the reference's), a
-  hybrid depth under 3 and a paged read of a recurrent block."""
+* what A8 once refused runs: train mode's hidden states within 1e-5 of
+  the reference's, ``rc.ep`` bitwise the plain prefill, a train forward
+  under a 1x1 grid's rules bitwise the plain one (here and for the vlm and
+  audio families, whose structures are the reference's); still refused:
+  a hybrid depth under 3 and a paged read of a recurrent block
+  (tests/test_torch_recurrent_train.py holds their training)."""
 import dataclasses
 
 import numpy as np
@@ -42,10 +45,13 @@ from repro.models.lm import group_structure as jax_group_structure  # noqa
 from repro.models.lm import init_cache as jax_init_cache  # noqa: E402
 from repro.models.lm import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_config, reduced
+from repro_torch.data.pipeline import make_batch
 from repro_torch.distributed.ctx import use_rules
+from repro_torch.distributed.group import make_grid
 from repro_torch.models import rwkv6, ssm
 from repro_torch.models.lm import (LM, RunConfig, forward, group_structure,
-                                   init_cache, layer_kinds)
+                                   init_cache, init_params, layer_kinds)
+from repro_torch.train.step import grid_rules
 from repro_torch.weights import _flatten, _map_jax_tree, from_jax_params
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -416,21 +422,38 @@ def test_configs_are_the_references_field_by_field(arch):
 
 
 # ----------------------------------------------------------------------
-# refusals
+# what ROADMAP A8 once refused, and what stays refused
 # ----------------------------------------------------------------------
 def test_training_grids_ep_and_other_families_raise(model_pair):
-    _, tcfg, _, _, model = model_pair
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="train mode.*A8"):
-        forward(model, tcfg, RunConfig(), toks, mode="train")
-    with pytest.raises(NotImplementedError, match="expert parallelism.*A8"):
-        forward(model, tcfg, RunConfig(ep=True), toks, mode="prefill")
-    with use_rules(object(), {}):
-        with pytest.raises(NotImplementedError, match="grid.*A8"):
-            forward(model, tcfg, RunConfig(), toks, mode="prefill")
+    """Train mode, ``rc.ep`` and a grid once raised on these families
+    (ROADMAP A8): train mode's hidden states now match the reference's,
+    ``rc.ep`` (the reference reads it in MoE layers only) leaves the
+    prefill bitwise as it was, and a train forward under a 1x1 grid's
+    rules is bitwise the plain one.  A paged read of a recurrent block
+    still raises."""
+    jcfg, tcfg, _, params, model = model_pair
+    toks = np.random.default_rng(11).integers(
+        0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks).long()}
+    want = jax.jit(lambda p, b: jax_forward(p, jcfg, JaxRunConfig(), b,
+                                            mode="train")[0])(
+        params, {"tokens": toks})
+    with torch.no_grad():
+        hidden = forward(model, tcfg, RunConfig(), batch, mode="train")[0]
+        close(hidden, want, TOL)
+        plain = forward(model, tcfg, RunConfig(), batch, mode="prefill",
+                        cache=init_cache(tcfg, 2, 16, device="cpu"))[0]
+        ep = forward(model, tcfg, RunConfig(ep=True), batch, mode="prefill",
+                     cache=init_cache(tcfg, 2, 16, device="cpu"))[0]
+        assert torch.equal(ep, plain)
+        grid = make_grid(1, 1, verbose=False)
+        with use_rules(grid, grid_rules(tcfg, grid, 2)):
+            on_grid = forward(model, tcfg, RunConfig(), batch,
+                              mode="train")[0]
+        assert torch.equal(on_grid, hidden)
     cache = init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="no positional KV cache to page"):
-        forward(model, tcfg, RunConfig(), {"tokens": toks["tokens"][:, :1]},
+        forward(model, tcfg, RunConfig(), {"tokens": batch["tokens"][:1, :1]},
                 mode="decode", cache=cache, pos=torch.zeros(1),
                 block_tables=torch.zeros((1, 1), dtype=torch.int32))
 
@@ -438,13 +461,21 @@ def test_training_grids_ep_and_other_families_raise(model_pair):
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
 def test_vlm_and_audio_families_name_roadmap_a8(arch):
     """The port builds both families (tests/test_torch_vlm_audio.py holds
-    them against the reference); what ROADMAP A8 keeps of them, a grid,
-    raises naming it."""
+    them against the reference, tests/test_torch_family_grid.py on grids
+    of ranks); what ROADMAP A8 kept of them, a grid, runs: a train forward
+    under a 1x1 grid's rules is bitwise the plain one."""
     cfg = get_config(arch)
     assert group_structure(cfg) == jax_group_structure(jax_get_config(arch))
-    with use_rules(object(), {}):
-        with pytest.raises(NotImplementedError, match="grid.*A8"):
-            forward(None, cfg, RunConfig(), {}, mode="train")
+    tcfg = reduced(cfg)
+    model = init_params(tcfg, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        tcfg, 2, 8, step=0).items()}
+    grid = make_grid(1, 1, verbose=False)
+    with torch.no_grad():
+        want = forward(model, tcfg, RunConfig(), batch, mode="train")[0]
+        with use_rules(grid, grid_rules(tcfg, grid, 2)):
+            got = forward(model, tcfg, RunConfig(), batch, mode="train")[0]
+    assert torch.equal(got, want)
 
 
 def test_hybrid_depth_under_three_raises():

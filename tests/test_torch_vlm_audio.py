@@ -21,7 +21,7 @@ trained by masked prediction).
   the slot helpers reach the cross cache; a cross block's decode takes no
   logit softcap, as the reference's (ROADMAP C15);
 * ``make_batch``: the arrays equal the reference's;
-* refusals: a grid, ``block_tables`` on a cross model, an encoder's
+* refusals: ``block_tables`` on a cross model, an encoder's
   prefill, ``ServeEngine`` and the serve launcher on an encoder, a vlm
   depth that is not whole groups, a cross block with no image;
 * the train launcher on both reduced configs.
@@ -52,7 +52,6 @@ from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import make_batch
-from repro_torch.distributed.ctx import use_rules
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
 from repro_torch.models.lm import (LM, RunConfig, forward, group_structure,
@@ -402,9 +401,6 @@ def test_make_batch_equals_reference(arch, accum):
 def test_refusals(pair):
     arch, _, tcfg, _, model, batch = pair
     tb = port_batch(batch)
-    with use_rules(object(), {}):
-        with pytest.raises(NotImplementedError, match="grid.*A8"):
-            forward(model, tcfg, PORT_RC, tb, mode="train")
     if arch == AUDIO:
         with pytest.raises(ValueError, match="encoder-only: no decode path"):
             forward(model, tcfg, PORT_RC, tb, mode="prefill",

@@ -1,11 +1,14 @@
-"""Rank body of tests/test_torch_sharded_train.py: runs in each spawned
-gloo rank, imports torch and the port only (never JAX), and returns numpy.
+"""Rank body of tests/test_torch_sharded_train.py and
+tests/test_torch_family_grid.py: runs in each spawned gloo rank, imports
+torch and the port only (never JAX), and returns numpy.
 
 ``rank_main(group, spec)`` makes each grid of ``spec["grids"]`` over the
 spawned ranks (every rank makes every grid's groups, in the same order)
 and runs that grid's cases: a sharded fp32 step's loss, metrics, gathered
 gradients (with and without remat) and gathered parameters after the
-step and the shapes of the activation blocks gathered; checkpoints saved,
+step and the shapes of the activation blocks gathered (and, with
+``case["heads"]``, of the WKV recurrence's and the SSD scan's inputs);
+checkpoints saved,
 restored and resumed; ``compressed_psum`` over a
 'pod' group; ``combine_stats`` over a 'model' group; the EP layer on the
 global x under autograd.  Only rank 0 returns the gathered arrays."""
@@ -31,10 +34,17 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, weight_decay=0.0)
 CF = 1.0                       # the capacity_factor case's headroom: drops
 
 
+# the late families' reduced depths: rwkv6 and the vlm and audio encoder
+# as reduced (2 layers; the vlm's one group holds its cross block), zamba2
+# with 2 groups, so that both shared blocks and the suffix's own run
+FAMILY_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 7, "llama-3.2-vision-11b": 2,
+                 "hubert-xlarge": 2}
+
+
 def model_config(arch: str):
     if arch == "qwen2-7b":     # the reference's sharded-step test
         return reduced(get_config(arch), layers=2, d_model=64, n_heads=4)
-    return reduced(get_config(arch), layers=3)
+    return reduced(get_config(arch), layers=FAMILY_LAYERS.get(arch, 3))
 
 
 def run_config(policy: str, remat: bool = False) -> RunConfig:
@@ -49,39 +59,62 @@ def sharded_state(case: dict, grid):
     return cfg, shard_train_state(train_state(model), grid, cfg)
 
 
+def case_batch(case: dict, grid, cfg) -> dict:
+    """This rank's block of the case's whole batch (``case["batch"]``, or
+    its ``tokens``)."""
+    whole = case.get("batch") or {"tokens": case["tokens"]}
+    rows = whole["tokens" if "tokens" in whole else "labels"].shape[0]
+    return device_batch(local_batch(whole, grid, batch_specs(
+        cfg, grid, "train", rows), cfg), "cpu")
+
+
 def gathered(tensors: dict, specs: dict, grid) -> dict:
     return {n: unshard(t.detach(), specs[n], grid).numpy()
             for n, t in tensors.items()}
 
 
 def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False,
-                  gathers=None):
+                  gathers=None, heads=None):
     """(loss, metrics, {name: whole gradient}) of one sharded fp32
     forward/backward, reduced as the step reduces it.  With ``gathers`` (a
     list) the shape of every activation block that the forward gathers
-    (``ctx.gather_dim``) is appended to it."""
+    (``ctx.gather_dim``) is appended to it; with ``heads`` (a list) the
+    shapes of r, k, v, w and u at each WKV recurrence and of x, dt, B, C
+    and a at each SSD scan, named."""
     from repro_torch.distributed import ctx
+    from repro_torch.models import rwkv6, ssm
     cfg, state = sharded_state(case, grid)
     model = state["params"]
     rc = run_config(case["policy"], remat)
-    batch = device_batch(local_batch(
-        {"tokens": case["tokens"]}, grid,
-        batch_specs(cfg, grid, "train", BATCH)), "cpu")
+    batch = case_batch(case, grid, cfg)
     params = dict(model.named_parameters())
-    gather_dim = ctx.gather_dim
+    patched = [(ctx, "gather_dim"), (rwkv6, "wkv_recurrence"),
+               (ssm, "ssd_chunked")]
+    saved = [getattr(mod, name) for mod, name in patched]
 
     def recorded(x, *args):
         gathers.append(tuple(x.shape))
-        return gather_dim(x, *args)
+        return saved[0](x, *args)
+
+    def wkv(*args):
+        heads.append(("wkv", [tuple(a.shape) for a in args[:5]]))
+        return saved[1](*args)
+
+    def ssd(*args):
+        heads.append(("ssd", [tuple(a.shape) for a in args[:5]]))
+        return saved[2](*args)
     if gathers is not None:
         ctx.gather_dim = recorded
+    if heads is not None:
+        rwkv6.wkv_recurrence, ssm.ssd_chunked = wkv, ssd
+    rows = batch["tokens" if "tokens" in batch else "labels"].shape[0]
     try:
-        with use_rules(grid, grid_rules(cfg, grid,
-                                        batch["tokens"].shape[0])):
+        with use_rules(grid, grid_rules(cfg, grid, rows)):
             loss, metrics = loss_fn(model, cfg, rc, batch)
             grads = torch.autograd.grad(loss, list(params.values()))
     finally:
-        ctx.gather_dim = gather_dim
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
     grads = reduce_grads(dict(zip(params, grads)), model.shard_specs, grid,
                          compress_pod)
     return (float(loss.detach()),
@@ -91,11 +124,9 @@ def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False,
 
 def step_on_grid(case: dict, grid):
     cfg, state = sharded_state(case, grid)
-    batch = device_batch(local_batch(
-        {"tokens": case["tokens"]}, grid,
-        batch_specs(cfg, grid, "train", BATCH)), "cpu")
+    batch = case_batch(case, grid, cfg)
     step = make_train_step(cfg, run_config(case["policy"]),
-                           OptConfig(**OPT), grid=grid)
+                           OptConfig(**case.get("opt", OPT)), grid=grid)
     state, metrics = step(state, batch)
     model = state["params"]
     return ({k: float(v) for k, v in metrics.items()},
@@ -107,12 +138,12 @@ def run_case(case: dict, grid, rank0: bool) -> dict:
     """The case's loss, metrics, gradients, the activation blocks its
     forward gathered, and its step; with ``case["remat"]`` also whether the
     gradients with remat are bitwise those without."""
-    gathers = []
+    gathers, heads = [], ([] if case.get("heads") else None)
     loss, metrics, grads = grads_on_grid(case, grid, remat=False,
-                                         gathers=gathers)
+                                         gathers=gathers, heads=heads)
     step_metrics, params = step_on_grid(case, grid)
     out = {"loss": loss, "metrics": metrics, "step_metrics": step_metrics,
-           "gathers": gathers}
+           "gathers": gathers, "heads": heads}
     if case.get("remat"):
         _, _, grads_remat = grads_on_grid(case, grid, remat=True)
         out["remat_bitwise"] = all(np.array_equal(grads[n], grads_remat[n])
@@ -125,21 +156,23 @@ def run_case(case: dict, grid, rank0: bool) -> dict:
 # ----------------------------------------------------------------------
 # Checkpoints
 # ----------------------------------------------------------------------
-def train_run(grid, ckpt_dir: str, steps: int):
+def train_run(grid, ckpt_dir: str, steps: int,
+              arch: str = "moonshot-v1-16b-a3b", batch: int = BATCH):
     from repro_torch.train.loop import train
-    cfg = model_config("moonshot-v1-16b-a3b")
+    cfg = model_config(arch)
     return train(cfg, run_config("fixed"), OptConfig(**OPT), steps=steps,
-                 batch=BATCH, seq=SEQ, ckpt_dir=ckpt_dir, save_every=100,
+                 batch=batch, seq=SEQ, ckpt_dir=ckpt_dir, save_every=100,
                  log=lambda *_: None, device="cpu", grid=grid)
 
 
-def restored_leaves(grid, ckpt_dir: str, step: int) -> dict:
+def restored_leaves(grid, ckpt_dir: str, step: int,
+                    arch: str = "moonshot-v1-16b-a3b") -> dict:
     """The checkpoint of ``step`` restored onto this grid's blocks, then
     gathered whole."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import flatten_state
     from repro_torch.train.step import init_train_state
-    cfg = model_config("moonshot-v1-16b-a3b")
+    cfg = model_config(arch)
     state = init_train_state(cfg, 7, run_config("fixed"), device="cpu",
                              grid=grid)
     specs = state["params"].shard_specs
@@ -155,14 +188,17 @@ def restored_leaves(grid, ckpt_dir: str, step: int) -> dict:
 
 def run_ckpt(grid, job: dict, rank0: bool) -> dict:
     out = {}
+    arch = job.get("arch", "moonshot-v1-16b-a3b")
+    if "save" in job:               # one step, saved at its end
+        train_run(grid, job["save"], 1, arch, job.get("batch", BATCH))
     if "resume" in job:             # interrupted at 2 steps, then resumed
         d = job["resume"]
-        train_run(grid, d + "/split", 2)
-        out["resumed_from"] = train_run(grid, d + "/split", 3)[
+        train_run(grid, d + "/split", 2, arch)
+        out["resumed_from"] = train_run(grid, d + "/split", 3, arch)[
             "resumed_from"]
-        train_run(grid, d + "/whole", 3)
+        train_run(grid, d + "/whole", 3, arch)
     if "restore" in job:
-        leaves = restored_leaves(grid, job["restore"], job["step"])
+        leaves = restored_leaves(grid, job["restore"], job["step"], arch)
         if rank0:
             out["leaves"] = leaves
     return out
@@ -217,6 +253,18 @@ def run_ep_grad(grid, job: dict) -> dict:
             "dx": x.grad.numpy()}
 
 
+def run_launcher(group, argv: list, rank0: bool) -> str:
+    """The train launcher's rank body (``--grid``) on this group's ranks;
+    rank 0's standard output."""
+    import contextlib
+    import io
+    from repro_torch.launch.train import parse_args, train_rank
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_rank(group, parse_args(argv))
+    return buf.getvalue() if rank0 else ""
+
+
 def rank_main(group, spec: dict) -> dict:
     torch.set_num_threads(1)
     out = {}
@@ -237,6 +285,8 @@ def rank_main(group, spec: dict) -> dict:
                 res = run_combine(grid, job)
             elif kind == "compress":        # the 'pod' sum as int8
                 res = grads_on_grid(job, grid, False, compress_pod=True)[2]
+            elif kind == "launch":
+                res = run_launcher(group, job["argv"], rank0)
             else:
                 res = run_ep_grad(grid, job)
             out[f"{gname}/{name}"] = res
