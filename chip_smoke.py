@@ -364,6 +364,25 @@ result line):
    optimizer step at 2 x 512 (its AdamW state, 114.6 GB, waits for
    several cards): ms and peak, or the depth it cut to; the fp32 check at
    its least depth (3).
+14. analysis: the dry run (``repro_torch.launch.dryrun``: one step on fake
+   tensors, FLOPs and bytes reckoned on the host, each case in a process
+   of its own started after the last timed phase, ``analysis_prediction``)
+   of [train mla] (deepseek-v2, 2 layers, forward + backward), [train
+   zamba2]'s full depth (forward + backward), [train rwkv6] (24 layers
+   with AdamW) and [serve paged]'s model (moonshot, 4 layers, a decode
+   step) beside the bytes those phases measured: parameters (and
+   gradients, and rwkv6's AdamW moments, made here) equal to the
+   allocator's count (as many tensors, each rounded to 512 B, at most an
+   unsplit 1 MiB remainder each past 1 MiB), the predicted peak beside the
+   measured one with their ratio; the fit verdicts against 80 GB
+   (deepseek-v2's 2 layers with AdamW and zamba2's full depth with AdamW
+   do not fit, zamba2's full-depth forward + backward fits); the roofline
+   share of every timed decode and training step (``analysis.flops.
+   step_work`` on one card over the H100's 989 TFLOP/s and 3.35 TB/s: a
+   decode step's routed experts and row contexts as the timed steps had
+   them, quantized experts at their stored bytes, no capacity padding)
+   beside the card's name and power limit; ``examples/torch/
+   quickstart.py`` on the card in a subprocess, exit 0.
 
 ``[elapsed]`` lines give the seconds since the start at the end of each
 phase.  The last lines are the kernel report ``{"kernels": [...]}``, the
@@ -377,8 +396,12 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+# the H100 data sheet's rates, kept once, in the port's roofline
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS as BF16_FLOP_PER_S  # noqa: E402
+from repro_torch.analysis.roofline import bound_ms  # noqa: E402
 MOONSHOT = dict(E=64, k=6, d=2048, f=1408, M=128, gating="sigmoid",
                 norm_topk=True, routed_scale=2.446)
 MIXTRAL = dict(E=8, k=2, d=4096, f=14336, M=128, gating="softmax",
@@ -890,12 +913,6 @@ def window_stats(events, wall: float, top: int) -> dict:
             "device_events": len(dev),
             "top_device": [(k[:90], n, ns / 1e6) for k, (n, ns) in by_dev],
             "top_cpu": [(k[:90], n, ns / 1e6) for k, (n, ns) in by_cpu]}
-
-
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def router_work(T: int, E: int, k: int):
@@ -2148,36 +2165,66 @@ def drive(engine, reqs) -> dict:
     """Serve ``reqs`` first-come first-served with the launch counters set
     to 0 just before and read just after; host-clock times of each
     admission and of each step (each step ends in its host transfer),
-    split into steps that carried prompt rows and decode-only steps."""
+    split into steps that carried prompt rows and decode-only steps.
+
+    For [analysis]'s bounds it also keeps, of each decode-only step, the
+    positions each row attends over (host values) and, of a MoE model, the
+    experts its router chose in each MoE layer: a wrapper around
+    ``plan_dispatch`` keeps each plan's top-k indices (a reference to a
+    device tensor: one Python call and one append a MoE layer, no device
+    work, no host read), counted after the run."""
     import torch
+    import repro_torch.core.dispatch as dispatch
     from repro_torch.kernels import ops
     pending = list(reqs)
     forwards0 = engine.n_forwards
     admit_s, prompt_steps, decode_steps = [], [], []
     decode_tokens = 0
+    context, plans, step_plans = [], [], []
+    plan_dispatch = dispatch.plan_dispatch
+
+    def logged(*a, **kw):
+        plan = plan_dispatch(*a, **kw)
+        plans.append(plan.indices)
+        return plan
+    if engine.cfg.is_moe:
+        dispatch.plan_dispatch = logged
     torch.cuda.synchronize()
     ops.reset_launches()
     t_run = time.perf_counter()
-    while pending or engine.n_active:
-        while pending and engine.n_active < engine.slots:
+    try:
+        while pending or engine.n_active:
+            while pending and engine.n_active < engine.slots:
+                t0 = time.perf_counter()
+                engine.admit(pending.pop(0))
+                admit_s.append(time.perf_counter() - t0)
+            ctx = [len(r.prompt) + len(r.out) for r in engine.active
+                   if r is not None]
+            n_plans = len(plans)
             t0 = time.perf_counter()
-            engine.admit(pending.pop(0))
-            admit_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        engine.step()
-        dt = time.perf_counter() - t0
-        n_decode, n_prompt = engine.last_step
-        if n_prompt:
-            prompt_steps.append(dt)
-        else:
-            decode_steps.append(dt)
-            decode_tokens += n_decode
-    torch.cuda.synchronize()
+            engine.step()
+            dt = time.perf_counter() - t0
+            n_decode, n_prompt = engine.last_step
+            if n_prompt:
+                prompt_steps.append(dt)
+            else:
+                decode_steps.append(dt)
+                decode_tokens += n_decode
+                context.append(ctx)
+                step_plans.append(plans[n_plans:])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        dispatch.plan_dispatch = plan_dispatch
+    # the distinct experts each decode step's router chose, over its layers
+    routed = [sum(int(torch.unique(i).numel()) for i in step)
+              for step in step_plans] if engine.cfg.is_moe else None
     return {"launches": dict(ops.LAUNCHES),
             "forwards": engine.n_forwards - forwards0,
-            "run_s": time.perf_counter() - t_run, "admit_s": admit_s,
+            "run_s": run_s, "admit_s": admit_s,
             "prompt_steps": prompt_steps, "decode_steps": decode_steps,
-            "decode_tokens": decode_tokens}
+            "decode_tokens": decode_tokens, "decode_context": context,
+            "decode_routed_experts": routed}
 
 
 def check_launches(launches: dict, moe: int, attn: int, fmt: str,
@@ -2258,6 +2305,8 @@ def summarize(tag: str, res: dict, reqs, layers: int) -> dict:
            "decode_ms_per_step": 1e3 * float(np.mean(dec)),
            "decode_ms_per_step_p50": 1e3 * float(np.median(dec)),
            "decode_steps": len(dec),
+           "decode_context": res.get("decode_context"),
+           "decode_routed_experts": res.get("decode_routed_experts"),
            "decode_tokens_per_s": res["decode_tokens"] / sum(dec),
            "generated_tokens_per_s": sum(len(r.out) for r in reqs)
            / res["run_s"]}
@@ -4596,6 +4645,7 @@ def train_family(tag: str, cfg, n_params: int, batch: int, seq: int,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.perf_counter()
     out = train(cfg, rc, opt, steps=steps, batch=batch, seq=seq, seed=0,
@@ -4621,6 +4671,7 @@ def train_family(tag: str, cfg, n_params: int, batch: int, seq: int,
                "step_ms_after_first": step_ms, "step_ms_median": med,
                "tokens_per_s": batch * seq / med * 1e3,
                "train_s_with_init": total_s, "peak_bytes": peak,
+               "resident_before_bytes": before,
                "state_bytes": torch.cuda.memory_allocated()}
     print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {n / 1e9:.4f} B fp32 "
           f"parameters, bf16 compute, remat, batch {batch} x {seq}: losses "
@@ -4725,9 +4776,13 @@ def fwd_bwd_peak(cfg, model, rc, batch: dict) -> dict:
     grads = torch.autograd.grad(loss, params)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    out = {"ms": ms, "loss": float(loss.detach()),
+    loss = loss.detach()
+    out = {"ms": ms, "loss": float(loss),
            "peak_above_bytes": torch.cuda.max_memory_allocated() - base,
-           "grad_bytes": sum(g.numel() * g.element_size() for g in grads)}
+           "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
+           # what stays allocated: the gradients and the scalar loss
+           "grad_alloc_bytes": torch.cuda.memory_allocated() - base,
+           "grad_tensors": len(grads)}
     del loss, grads
     return out
 
@@ -4874,6 +4929,7 @@ def train_zamba2() -> dict:
                                  f"{dict(ops.LAUNCHES)}")
         n_p = sum(p.numel() for p in model.parameters())
         res.update(layers=layers, n_params=n_p, weight_bytes=weights,
+                   weight_tensors=len(list(model.parameters())),
                    resident_bytes=resident,
                    peak_bytes=resident + weights + res["peak_above_bytes"],
                    batch=ZAMBA_FULL_BATCH, seq=S)
@@ -5338,8 +5394,10 @@ def train_mla(errs: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     model = init_params(cfg, 0, device="cuda").requires_grad_(True)
     torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated() - before
     n_params = sum(p.numel() for p in model.parameters())
     card = torch.cuda.get_device_properties(0).total_memory
     print(f"[train mla] {cfg.name} at full width (d_model={cfg.d_model}, "
@@ -5439,6 +5497,8 @@ def train_mla(errs: dict) -> dict:
                "launches_per_moe_layer": per_layer, "fwd_bwd_ms": times,
                "fwd_bwd_ms_median": ms,
                "tokens_per_s": B * S / ms * 1e3, "resident_bytes": resident,
+               "weight_bytes": weight_bytes, "weight_tensors": len(params),
+               "resident_before_bytes": before,
                "peak_bytes": peak, "profile": prof,
                "adamw_state_bytes": n_params * 16, "card_bytes": card}
     print(f"[train mla] forward + backward x{MLA_TRAIN_REPS}: "
@@ -6164,6 +6224,416 @@ def train_sharded() -> dict:
     return out
 
 
+# [analysis]: the dry run (repro_torch.launch.dryrun, fake tensors, on the
+# host) of the measured paths.  Each case: arch, depth (None: the whole),
+# kind, batch x seq, remat, and whether AdamW's state and step are in it.
+# The serving case's seq is [serve paged]'s capacity (analysis_prediction
+# rebuilds it from the same seeded prompts)
+ANALYSIS_CASES = {
+    "train mla": dict(arch="deepseek-v2-236b", layers=MLA_TRAIN_LAYERS,
+                      kind="train", batch=MLA_TRAIN_BATCH,
+                      seq=MLA_TRAIN_SEQ, remat=False, optimizer=False),
+    "train mla with AdamW": dict(arch="deepseek-v2-236b",
+                                 layers=MLA_TRAIN_LAYERS, kind="train",
+                                 batch=MLA_TRAIN_BATCH, seq=MLA_TRAIN_SEQ,
+                                 remat=False, optimizer=True),
+    "train zamba2 full depth": dict(arch="zamba2-7b", layers=None,
+                                    kind="train", batch=ZAMBA_FULL_BATCH,
+                                    seq=ZAMBA_TRAIN_SEQ, remat=True,
+                                    optimizer=False),
+    "train zamba2 full depth with AdamW": dict(
+        arch="zamba2-7b", layers=None, kind="train", batch=ZAMBA_FULL_BATCH,
+        seq=ZAMBA_TRAIN_SEQ, remat=True, optimizer=True),
+    "train rwkv6": dict(arch="rwkv6-1.6b", layers=None, kind="train",
+                        batch=RWKV_TRAIN_BATCH, seq=RWKV_TRAIN_SEQ,
+                        remat=True, optimizer=True),
+    "serve paged": dict(arch="moonshot-v1-16b-a3b", layers=None,  # --layers
+                        kind="decode", batch=SERVE_SLOTS, seq=None,
+                        remat=False, optimizer=False),
+}
+# the verdicts the dry run must give against one card's 80 GB
+FIT_VERDICTS = {"train mla with AdamW": False,
+                "train zamba2 full depth with AdamW": False,
+                "train zamba2 full depth": True}
+ANALYSIS_DIR = ROOT / "build" / "analysis"
+
+
+def analysis_prediction(tag: str, out_path: str,
+                        layers: int = TRAIN_LAYERS) -> None:
+    """Run ANALYSIS_CASES[tag] through the dry run and write its record to
+    ``out_path``: one case in a process of its own (``start_analysis``),
+    on fake tensors, so nothing here allocates."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig
+    torch.set_num_threads(1)
+    case = ANALYSIS_CASES[tag]
+    cfg = get_config(case["arch"])
+    serve = case["kind"] == "decode"
+    depth = layers if serve else case["layers"]
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    rc = RunConfig(compute_dtype=torch.bfloat16,
+                   param_dtype=torch.bfloat16 if serve else torch.float32,
+                   loss_chunk=LOSS_CHUNK, remat=case["remat"],
+                   schedule_policy="dynamic" if serve else "fixed")
+    seq = case["seq"]
+    if serve:             # [serve paged]'s capacity, from the same prompts
+        seq = max(48, *(len(p) for p in shared_prefix_prompts(
+            np.random.default_rng(0), cfg.vocab_size))) + SERVE_MAX_NEW + 1
+    t0 = time.perf_counter()
+    rec = run_cell(case["arch"], ShapeConfig(tag, seq, case["batch"],
+                                             case["kind"]), "1x1",
+                   cfg=cfg, rc=rc, accum=1, optimizer=case["optimizer"])
+    if rec["status"] == "ok":
+        rec.pop("traceback", None)
+    rec["host_s"] = time.perf_counter() - t0
+    rec["case"] = dict(case, layers=cfg.n_layers, seq=seq)
+    pathlib.Path(out_path).write_text(json.dumps(rec, indent=1))
+
+
+def start_analysis(layers: int) -> dict:
+    """Each ``analysis_prediction`` in a process of its own, all at once,
+    started after the last timed phase (the dry run is host work: beside a
+    timed phase it would load the host that phase's steps wait on); each
+    is killed at exit if it still runs.  {tag: (process, record, log)}."""
+    import atexit
+    import os
+    ANALYSIS_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    jobs = {}
+    for i, tag in enumerate(ANALYSIS_CASES):
+        out = ANALYSIS_DIR / f"prediction{i}.json"
+        if out.exists():
+            out.unlink()
+        log = open(ANALYSIS_DIR / f"prediction{i}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"analysis_prediction({tag!r}, {str(out)!r}, {layers})"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        atexit.register(proc.kill)
+        jobs[tag] = (proc, out, log)
+    return jobs
+
+
+def wait_analysis(jobs: dict, timeout: float = 600) -> dict:
+    """The dry run's records, {tag: record}; fails the phase if a case
+    did not end in ``timeout`` s, exited with an error or is not ok."""
+    t_end = time.perf_counter() + timeout
+    pred = {}
+    for tag, (proc, path, log) in jobs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"[analysis] the dry run of {tag} did not end in "
+                 f"{timeout:.0f} s")
+        log.close()
+        if rc != 0 or not path.exists():
+            tail = pathlib.Path(log.name).read_text()[-3000:]
+            fail(f"[analysis] the dry run of {tag} exited with {rc}:\n{tail}")
+        pred[tag] = json.loads(path.read_text())
+    bad = [t for t, r in pred.items() if r["status"] != "ok"]
+    if bad:
+        fail("[analysis] dry run not ok: " + "; ".join(
+            f"{t}: {pred[t].get('error')} at {pred[t].get('where')}"
+            for t in bad))
+    return pred
+
+
+def _alloc_check(tag: str, what: str, alloc: dict, measured: int,
+                 n_tensors: int, extra: int = 0) -> None:
+    """The allocator's count ``measured`` of ``n_tensors`` tensors against
+    the dry run's ``alloc`` (``argument_alloc`` of a group) and ``extra``
+    tensors of one 512-byte block each (the loss beside the gradients):
+    as many tensors, and at least their bytes rounded to 512 B, at most
+    that and an unsplit remainder of 1 MiB for each tensor past 1 MiB
+    (the caching allocator splits a larger remainder off)."""
+    from repro_torch.launch.dryrun import ALLOC_BLOCK, ALLOC_SMALL
+    predicted = alloc["alloc_bytes"] + extra * ALLOC_BLOCK
+    slack = alloc["large"] * ALLOC_SMALL
+    diff = measured - predicted
+    want = alloc["tensors"] + extra
+    ok = n_tensors == want and 0 <= diff <= slack
+    print(f"[analysis memory] {tag}: {what}: {want} tensors predicted, "
+          f"{predicted:,} bytes at 512-B rounding; the allocator's "
+          f"{n_tensors} tensors, {measured:,} bytes ({diff:+,}; up to "
+          f"{slack:,} of unsplit remainders for {alloc['large']} tensors "
+          f"past 1 MiB): "
+          + ("equal within the rounding" if ok else "DIFFERENT"))
+    if not ok:
+        fail(f"[analysis] {tag}: {what}: {n_tensors} tensors of {measured} "
+             f"bytes on the card, {want} of {predicted} predicted")
+
+
+def _peak_line(tag: str, rec: dict, peak: int, resident: int,
+               smi: str) -> float:
+    """The predicted peak beside the phase's own: its peak less what the
+    earlier phases left allocated when it began (``resident``)."""
+    m = rec["memory"]
+    pred = m["argument_bytes"] + m["temp_bytes"]
+    ratio = pred / (peak - resident)
+    print(f"[analysis memory] {tag}: predicted peak {pred / 1e9:.2f} GB "
+          f"({m['argument_bytes'] / 1e9:.2f} GB of arguments "
+          + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in
+                      m["argument_parts"].items())
+          + f"; {m['temp_bytes'] / 1e9:.2f} GB above them), measured "
+          f"{(peak - resident) / 1e9:.2f} GB ({peak / 1e9:.2f} GB, of it "
+          f"{resident / 1e9:.2f} GB left allocated by earlier phases): ratio "
+          f"{ratio:.3f}; dry run {rec['compile_s']} s on the host; {smi}")
+    return ratio
+
+
+def quant_bounds_4096(smi: str) -> dict:
+    """The bounds of B1 and B2 on int8 and int4 experts at moonshot's MoE
+    layer at T = 4096 tokens (the training shape's forward, bf16), on
+    both schedules: the compressed-byte bound ``QuantCase.work`` gives the
+    T=2 and T=64 rows, from this run's routing; nothing is timed."""
+    import torch
+    out = {}
+    T = TRAIN_BATCH * TRAIN_SEQ
+    for policy in ("fixed", "dynamic"):
+        c = Case(MOONSHOT, T, torch.bfloat16, seed=T, policy=policy)
+        for fmt, scheme in REPORT_SCHEME.items():
+            qc = QuantCase(c, scheme)
+            for name in ("fused_gate_up", "grouped_gemm"):
+                n_bytes, flops = qc.work(name)
+                b_ms, by = bound_ms(n_bytes, flops)
+                out[f"{name}_{fmt} {policy}"] = {
+                    "bound_ms": b_ms, "bound_by": by, "bytes": n_bytes,
+                    "flops": flops}
+                print(f"[analysis bound] {name} {fmt} ({scheme}) moonshot "
+                      f"bf16 T={T} {policy}: bound {b_ms * 1e3:.2f} us "
+                      f"({by}; {n_bytes / 1e6:.2f} MB, {flops / 1e9:.1f} "
+                      f"GFLOP); {smi}")
+            del qc
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed_steps(s: dict) -> list:
+    """Every decode step and training step the phases timed, from their
+    summaries: tag, arch, layers, kind, batch, seq, remat, the median ms;
+    of a served one each decode step's row contexts and routed experts,
+    and a quantized one's stored bytes of its routed experts."""
+    rows = []
+    serve_kv = s["capacity"]
+
+    def row(tag, arch, layers, kind, B, S, remat, ms, summ=None):
+        summ = summ or {}
+        rows.append(dict(tag=tag, arch=arch, layers=layers, kind=kind,
+                         batch=B, seq=S, remat=remat, ms=ms,
+                         context=summ.get("decode_context"),
+                         routed=summ.get("decode_routed_experts"),
+                         expert_bytes=summ.get("expert_bytes")))
+    for tag, arch, summ in (
+            [("serve paged", "moonshot-v1-16b-a3b", s["paged"]),
+             ("serve contiguous", "moonshot-v1-16b-a3b", s["contiguous"])]
+            + [(f"serve paged {k}", "moonshot-v1-16b-a3b", v)
+               for k, v in s["quant"].items()]
+            + [(f"serve deepseek {k}", "deepseek-v2-236b", v)
+               for k, v in s["deepseek"].items()]
+            + [(f"serve gemma2 {k}", "gemma2-9b", v)
+               for k, v in s["gemma2"].items()]
+            + [(f"serve {k}", k, v) for k, v in s["dense"].items()]):
+        if isinstance(summ, dict) and "decode_ms_per_step_p50" in summ:
+            row(tag, arch, summ["layers"], "decode", SERVE_SLOTS, serve_kv,
+                False, summ["decode_ms_per_step_p50"], summ)
+    for arch, summ in list((k, v["serve"]) for k, v in
+                           s["recurrent"].items()) + [
+            (VLM_ARCH, s["serve_vlm"])]:
+        row(f"serve {arch}", arch, summ["layers"], "decode", SERVE_SLOTS,
+            summ["prompt_tokens"] + summ["max_new"], False,
+            summ["decode_ms_per_step_p50"], summ)
+    for tag, summ, remat in (("train", s["train"], False),
+                             ("train capacity remat", s["train_cap"], True)):
+        row(tag, "moonshot-v1-16b-a3b", TRAIN_LAYERS, "train", TRAIN_BATCH,
+            TRAIN_SEQ, remat, summ["step_ms_median_after_first"])
+    for tag, summ in (("train dense", s["train_dense"]),
+                      ("train hubert", s["train_hubert"]),
+                      ("train vlm", s["train_vlm"]),
+                      ("train rwkv6", s["train_rwkv6"]),
+                      ("train zamba2", s["train_zamba2"])):
+        row(tag, summ.get("arch", DENSE_TRAIN_ARCH), summ.get("layers"),
+            "train", summ.get("batch", DENSE_TRAIN_BATCH),
+            summ.get("seq", DENSE_TRAIN_SEQ), True, summ["step_ms_median"])
+    return rows
+
+
+def step_bound(r: dict, smi: str) -> dict:
+    """The bound of a timed step (``analysis.flops.step_work`` on one
+    card over the H100's rates): a training step's at its shape; a decode
+    step's for each timed decode step, at its rows' contexts and the
+    experts its router chose (a quantized model's at their stored bytes),
+    and the median of those beside the median ms."""
+    import numpy as np
+    from repro_torch.analysis.flops import step_work
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.lm import n_moe_layers
+    cfg = get_config(r["arch"])
+    cfg = cfg.replace(n_layers=r["layers"]) if r["layers"] else cfg
+    steps = [dict(context=None, routed=None)]
+    if r["kind"] == "decode" and r["context"]:
+        routed = r["routed"] or [None] * len(r["context"])
+        steps = [dict(context=c, routed=n)
+                 for c, n in zip(r["context"], routed)]
+    eb = None
+    if r["expert_bytes"]:
+        eb = r["expert_bytes"] / (n_moe_layers(cfg) * cfg.moe.n_experts)
+    works = [step_work(cfg, ShapeConfig(r["tag"], r["seq"], r["batch"],
+                                        r["kind"]), remat=r["remat"],
+                       expert_bytes=eb, **st) for st in steps]
+    bounds = [bound_ms(w.hbm_bytes, w.flops) for w in works]
+    i = int(np.argsort([b for b, _ in bounds])[(len(bounds) - 1) // 2])
+    w, (b_ms, by) = works[i], bounds[i]
+    out = {"tag": r["tag"], "arch": r["arch"], "layers": cfg.n_layers,
+           "kind": r["kind"], "batch": r["batch"], "seq": r["seq"],
+           "ms": r["ms"], "bound_ms": b_ms, "bound_by": by,
+           "share": b_ms / r["ms"], "flops": w.flops,
+           "hbm_bytes": w.hbm_bytes, "bytes_by_part": w.parts,
+           "decode_steps": len(steps) if r["context"] else None,
+           "routed_experts": steps[i]["routed"],
+           "context": steps[i]["context"], "expert_bytes": eb}
+    what = (f"{r['kind']} {r['batch']} x {r['seq']}" if not r["context"]
+            else f"decode, the median bound of {len(steps)} timed steps: "
+            f"rows at {steps[i]['context']} positions"
+            + (f", {steps[i]['routed']} routed experts over "
+               f"{n_moe_layers(cfg)} MoE layers" if steps[i]["routed"]
+               else "")
+            + (f" at {eb / 1e6:.2f} MB stored each" if eb else ""))
+    print(f"[analysis roofline] {r['tag']}: {r['arch']}, {cfg.n_layers} "
+          f"layers, {what}: bound {b_ms:.3f} ms ({by}; "
+          f"{w.flops / 1e12:.3f} TFLOP over "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+          f"{w.hbm_bytes / 1e9:.3f} GB over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in w.parts.items())
+          + f"), measured {r['ms']:.3f} ms: share {out['share']:.4f}; "
+          f"{smi}")
+    return out
+
+
+def analysis(layers: int, s: dict) -> dict:
+    """[analysis]: the dry run's predictions against what the phases
+    measured, the fit verdicts, the roofline shares, the quickstart.  The
+    dry run starts here, after every timed phase; the card's own work of
+    the phase runs while it does."""
+    import os
+
+    import torch
+    from repro_torch.analysis.roofline import HBM_PER_CHIP
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    t0 = time.perf_counter()
+    jobs = start_analysis(layers)
+    smi = smi_line()
+    out = {}
+    # rwkv6's fp32 parameters and AdamW moments, made here on the card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0 = torch.cuda.memory_allocated()
+    model = init_params(get_config("rwkv6-1.6b"), 0, device="cuda")
+    a1 = torch.cuda.memory_allocated()
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params)
+    a2 = torch.cuda.memory_allocated()
+    rwkv_made = (a1 - a0, len(params), a2 - a1, len(params) * 2 + 1)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    out["roofline"] = [step_bound(r, smi) for r in timed_steps(s)]
+    out["quant_bounds_4096"] = quant_bounds_4096(smi)
+    # the quickstart example on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t1 = time.perf_counter()
+    q = subprocess.run([sys.executable, "examples/torch/quickstart.py"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    tail = (q.stdout + q.stderr).strip().splitlines()[-3:]
+    print(f"[analysis example] examples/torch/quickstart.py exit {q.returncode}"
+          f" in {time.perf_counter() - t1:.1f} s: " + " | ".join(tail))
+    if q.returncode != 0:
+        fail(f"[analysis] quickstart exited with {q.returncode}:\n"
+             + (q.stdout + q.stderr)[-3000:])
+    out["quickstart_exit"] = q.returncode
+    t2 = time.perf_counter()
+    pred = wait_analysis(jobs)
+    print(f"[analysis] the dry run's {len(pred)} cases ran on the host after "
+          f"the timed phases, at once ({max(r['host_s'] for r in pred.values()):.1f}"
+          f" s the longest, {sum(r['host_s'] for r in pred.values()):.1f} s "
+          f"in all; waited {time.perf_counter() - t2:.1f} s of the phase's "
+          f"{time.perf_counter() - t0:.1f} s); bytes and FLOPs reckoned on "
+          f"fake tensors, not measured on the card")
+    out["predictions"] = {t: {k: r[k] for k in ("case", "memory", "cost",
+                                                "host_s")}
+                          for t, r in pred.items()}
+    for r in out["predictions"].values():
+        r["cost"] = {k: v for k, v in r["cost"].items() if k != "flops_by_op"}
+    # parameters, gradients, optimizer state: the allocator's count
+    mla, zf, served = s["train_mla"], s["zamba2_full"], s["served"]
+    full = pred["train zamba2 full depth"]["case"]["layers"]
+    if zf.get("layers") != full:
+        fail(f"[analysis] [train zamba2] did not run its full depth "
+             f"({full} layers) though the dry run says it fits: "
+             f"{json.dumps(zf)[:300]}")
+
+    def alloc(tag, part):
+        return pred[tag]["memory"]["argument_alloc"][part]
+    _alloc_check("train mla", "fp32 parameters", alloc("train mla", "params"),
+                 mla["weight_bytes"], mla["weight_tensors"])
+    _alloc_check("train zamba2 full depth", "fp32 parameters",
+                 alloc("train zamba2 full depth", "params"),
+                 zf["weight_bytes"], zf["weight_tensors"])
+    # every parameter takes a gradient of its own dtype and size, and the
+    # scalar loss stays allocated beside them
+    _alloc_check("train zamba2 full depth", "gradients",
+                 alloc("train zamba2 full depth", "params"),
+                 zf["grad_alloc_bytes"], zf["grad_tensors"] + 1, extra=1)
+    _alloc_check("serve paged", "bf16 parameters",
+                 alloc("serve paged", "params"), served["weight_bytes"],
+                 served["weight_tensors"])
+    _alloc_check("train rwkv6", "fp32 parameters",
+                 alloc("train rwkv6", "params"), rwkv_made[0], rwkv_made[1])
+    _alloc_check("train rwkv6", "AdamW moments and step",
+                 alloc("train rwkv6", "opt"), rwkv_made[2], rwkv_made[3])
+    # the predicted peak beside the measured one
+    rwk = s["train_rwkv6"]
+    out["peak_ratio"] = {
+        "train mla": _peak_line("train mla", pred["train mla"],
+                                mla["peak_bytes"],
+                                mla["resident_before_bytes"], smi),
+        "train zamba2 full depth": _peak_line(
+            "train zamba2 full depth", pred["train zamba2 full depth"],
+            zf["peak_bytes"], zf["resident_bytes"], smi),
+        "train rwkv6": _peak_line("train rwkv6", pred["train rwkv6"],
+                                  rwk["peak_bytes"],
+                                  rwk["resident_before_bytes"], smi),
+        "serve paged": _peak_line("serve paged", pred["serve paged"],
+                                  served["peak_bytes"],
+                                  served["resident_before_bytes"], smi)}
+    # fit verdicts
+    out["fits"] = {}
+    for tag, want in FIT_VERDICTS.items():
+        m = pred[tag]["memory"]
+        peak = m["argument_bytes"] + m["temp_bytes"]
+        fits = peak <= HBM_PER_CHIP
+        out["fits"][tag] = fits
+        print(f"[analysis fit] {tag}: predicted peak {peak / 1e9:.2f} GB "
+              f"({m['argument_bytes'] / 1e9:.2f} GB of parameters, state "
+              f"and batch): " + ("fits" if fits else "does not fit")
+              + f" {HBM_PER_CHIP / 1e9:.0f} GB")
+        if fits != want:
+            fail(f"[analysis] {tag}: the dry run says "
+                 f"{'fits' if fits else 'does not fit'}, expected "
+                 f"{'fits' if want else 'does not fit'}")
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6505,8 +6975,12 @@ def main() -> None:
           f"reduced: n_layers 48 -> {layers} (1 dense + "
           f"{n_moe_layers(cfg)} MoE); random bf16 weights, seed 0")
     t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     model = init_params(cfg, 0, param_dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
+    served = {"weight_bytes": torch.cuda.memory_allocated() - before,
+              "weight_tensors": len(list(model.parameters())),
+              "resident_before_bytes": before}
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[serve] {n_params / 1e9:.3f} B parameters "
           f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
@@ -6526,7 +7000,10 @@ def main() -> None:
           f"{SHARED_PREFIX}")
     reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
             for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
     paged = serve_and_check("serve paged", engine, reqs, rng)
+    served.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                  capacity=capacity)
     hit = sum(r.stats["serve/prefix_hit_tokens"] for r in reqs)
     if hit <= 0:
         raise AssertionError("the prefix cache never hit")
@@ -6842,6 +7319,23 @@ def main() -> None:
     late["train_zamba2"] = train_zamba2()
     elapsed("training zamba2-7b")
     print(json.dumps({"late_training": late}))
+
+    # 14. analysis: the dry run's predictions against the measured bytes,
+    # the fit verdicts, the roofline shares, the quickstart example
+    analysis_summary = analysis(layers, {
+        "train_mla": train_mla_summary,
+        "zamba2_full": late["train_zamba2"]["full_depth"],
+        "served": served, "capacity": capacity, "paged": paged_summary,
+        "contiguous": contig_summary, "quant": quant, "deepseek": deepseek,
+        "gemma2": gemma2, "dense": dense, "recurrent": recurrent,
+        "serve_vlm": vlm_audio["serve_vlm"], "train": train,
+        "train_cap": train_cap, "train_dense": dense_train,
+        "train_hubert": vlm_audio["train_hubert"],
+        "train_vlm": vlm_audio["train_vlm"],
+        "train_rwkv6": late["train_rwkv6"],
+        "train_zamba2": late["train_zamba2"]})
+    print(json.dumps({"analysis": analysis_summary}))
+    elapsed("analysis")
 
     # 10. report -----------------------------------------------------------
     from repro_torch.kernels.grouped_gemm import TILE_SHAPES

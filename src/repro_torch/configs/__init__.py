@@ -4,8 +4,10 @@ family: qwen2-7b, smollm-360m, starcoder2-3b and gemma2-9b, the recurrent
 ones: rwkv6-1.6b (``ssm``) and zamba2-7b (``hybrid``), llama-3.2-vision-11b
 (``vlm``: cross-attention to image embeddings) and hubert-xlarge
 (``audio``: an encoder trained by masked prediction)."""
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      RWKVConfig, SSMConfig, reduced)
+from repro_torch.configs.base import (SHAPE_BY_NAME, SHAPES, MLAConfig,
+                                      ModelConfig, MoEConfig, RWKVConfig,
+                                      ShapeConfig, SSMConfig,
+                                      cell_is_runnable, reduced)
 from repro_torch.configs import (deepseek_v2_236b, gemma2_9b, hubert_xlarge,
                                  llama_3_2_vision_11b, moonshot_v1_16b_a3b,
                                  qwen2_7b, rwkv6_1_6b, smollm_360m,
@@ -27,6 +29,7 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig",
+    "ShapeConfig", "SHAPES", "SHAPE_BY_NAME", "cell_is_runnable",
     "reduced", "REGISTRY", "ARCH_NAMES", "get_config",
     "PAPER_CONFIGS", "TOKEN_SWEEP", "PaperMoE",
 ]

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -114,8 +114,51 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe is not None
 
+    @property
+    def has_decode(self) -> bool:
+        """Encoder-only architectures have no autoregressive decode step."""
+        return not self.encoder_only
+
+    @property
+    def supports_500k(self) -> bool:
+        """Sub-quadratic archs only (SSM / hybrid / linear attention)."""
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ----------------------------------------------------------------------
+# The input shapes of the architecture x shape grid (seq_len,
+# global_batch, kind): the reference's, cell for cell
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_is_runnable(cfg: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, reason-if-not) for an (arch x shape) cell."""
+    if shape.kind == "decode" and not cfg.has_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_500k:
+        return False, ("524k decode needs sub-quadratic attention "
+                       "(full-attn arch)")
+    return True, ""
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128,

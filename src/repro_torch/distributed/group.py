@@ -54,23 +54,36 @@ from repro_torch import resolve_device
 # Every collective this process ran over more than one rank: op -> [calls,
 # bytes, seconds]: the bytes of the whole tensor (an all_gather's result, a
 # reduce_scatter's or all_reduce's input, an all_to_all's input) and the
-# host's seconds inside the call.  Host counters only;
-# ``reset_collectives`` zeroes them.
+# host's seconds inside the call; and (op, group size) -> [calls, bytes]
+# in ``COLLECTIVE_GROUPS``, which ``analysis.collectives`` turns into link
+# bytes.  Host counters only; ``reset_collectives`` zeroes them.
 COLLECTIVES: dict = {}
+COLLECTIVE_GROUPS: dict = {}
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_GROUPS.clear()
+
+
+def count_collective(op: str, nbytes: int, g: int,
+                     seconds: float = 0.0) -> None:
+    """Add one collective of ``nbytes`` over ``g`` ranks to the counters."""
+    c = COLLECTIVES.setdefault(op, [0, 0, 0.0])
+    c[0] += 1
+    c[1] += nbytes
+    c[2] += seconds
+    cg = COLLECTIVE_GROUPS.setdefault((op, g), [0, 0])
+    cg[0] += 1
+    cg[1] += nbytes
 
 
 @contextlib.contextmanager
-def _counted(op: str, t: torch.Tensor):
+def _counted(op: str, t: torch.Tensor, g: int):
     t0 = time.perf_counter()
     yield
-    c = COLLECTIVES.setdefault(op, [0, 0, 0.0])
-    c[0] += 1
-    c[1] += t.numel() * t.element_size()
-    c[2] += time.perf_counter() - t0
+    count_collective(op, t.numel() * t.element_size(), g,
+                     time.perf_counter() - t0)
 
 
 # reduce_scatter_single is reduce_scatter_tensor's newer name
@@ -165,7 +178,7 @@ class EPGroup:
             out = src.clone()
             return Pending(None, out) if async_op else out
         out = torch.empty_like(src)
-        with _counted("all_to_all", src):
+        with _counted("all_to_all", src, self.size):
             work = dist.all_to_all_single(out, src, group=self.group,
                                           async_op=async_op)
         return Pending(work, out) if async_op else out
@@ -176,7 +189,8 @@ class EPGroup:
         if self.size == 1:
             return src.clone()[None]
         outs = [torch.empty_like(src) for _ in range(self.size)]
-        with _counted("all_gather", src.expand(self.size, *src.shape)):
+        with _counted("all_gather", src.expand(self.size, *src.shape),
+                      self.size):
             dist.all_gather(outs, src, group=self.group)
         return torch.stack(outs)
 
@@ -188,7 +202,7 @@ class EPGroup:
         out = t.clone()
         if self.size == 1:
             return out
-        with _counted("all_reduce", out):
+        with _counted("all_reduce", out, self.size):
             dist.all_reduce(out, op=(dist.ReduceOp.MAX if op == "max"
                                      else dist.ReduceOp.SUM),
                             group=self.group)
@@ -209,7 +223,7 @@ class EPGroup:
         src = t.movedim(dim, 0).contiguous()
         n = src.shape[0] // self.size
         out = src.new_empty((n,) + tuple(src.shape[1:]))
-        with _counted("reduce_scatter", src):
+        with _counted("reduce_scatter", src, self.size):
             _reduce_scatter(out, src, group=self.group)
         return out.movedim(0, dim)
 
@@ -362,6 +376,78 @@ def make_grid(data: int, model: int, pod: int = 1, *, device=None,
         print(f"[grid] {dims} ({' x '.join(grid.axis_names)}), {world} "
               f"rank(s), backend {backend} on {device}", flush=True)
     return grid
+
+
+class DryGroup(EPGroup):
+    """A group whose collectives move nothing: each returns a new tensor of
+    its result's shape and dtype (its values undefined) and records (op,
+    bytes, group size) in the counters, as a real group of ``size`` ranks
+    would; a group of one rank returns copies, as ``EPGroup`` does.  The dry run
+    (``launch/dryrun.py``) runs one rank's step on fake tensors over a
+    grid of these; no process group exists."""
+
+    def __init__(self, rank: int, size: int, device):
+        super().__init__(rank, size, None, "dry", torch.device(device))
+
+    def all_to_all(self, t: torch.Tensor, async_op: bool = False):
+        if self.size == 1:
+            return super().all_to_all(t, async_op)
+        if t.shape[0] != self.size:
+            raise ValueError(f"all_to_all takes ({self.size}, ...) chunks, "
+                             f"not {tuple(t.shape)}")
+        count_collective("all_to_all", t.numel() * t.element_size(),
+                         self.size)
+        out = torch.empty_like(t, memory_format=torch.contiguous_format)
+        return Pending(None, out) if async_op else out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return super().all_gather(t)
+        count_collective("all_gather",
+                         self.size * t.numel() * t.element_size(), self.size)
+        return t.new_empty((self.size,) + tuple(t.shape))
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if self.size == 1:
+            return super().all_reduce(t, op)
+        if op not in ("sum", "mean", "max"):
+            raise ValueError(f"all_reduce op {op!r}: sum, mean or max")
+        count_collective("all_reduce", t.numel() * t.element_size(),
+                         self.size)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def barrier(self) -> None:
+        pass
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return super().reduce_scatter(t, dim)
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter over {self.size} ranks: dim "
+                             f"{dim} of {tuple(t.shape)} does not divide")
+        count_collective("reduce_scatter", t.numel() * t.element_size(),
+                         self.size)
+        shape = list(t.shape)
+        shape[dim] //= self.size
+        return t.new_empty(shape)
+
+
+def dry_grid(data: int, model: int, pod: int = 1, *,
+             device="cpu") -> Grid:
+    """Rank 0 of a ``pod x data x model`` grid of ``DryGroup``s:
+    ``make_grid``'s groups (one a set of axes), with no process group
+    behind them.  Every rank runs the same step, so the dry run takes
+    rank 0's."""
+    sizes = {"pod": pod, "data": data, "model": model}
+    coords = {"pod": 0, "data": 0, "model": 0}
+    groups = {}
+    for mask in range(1, 8):
+        axes = tuple(a for i, a in enumerate(AXES) if mask >> i & 1)
+        size = 1
+        for a in axes:
+            size *= sizes[a]
+        groups[frozenset(axes)] = DryGroup(0, size, device)
+    return Grid(sizes, coords, groups, 0, "dry")
 
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("ep_group",

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 from repro_torch.kernels.grouped_gemm import (_block_products, _ptr,
                                               check_gemm_operands,
                                               launch_key, resolve_tile,
@@ -50,6 +50,8 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     block_n)`` (None: the default)."""
     tile = resolve_tile("fused_gate_up", w_format, x.dtype, tile_rows,
                         block_n)
+    if shapes.is_fake(x, w_gate, w_up):
+        return shapes.fused_gate_up_shape(x, w_gate, w_up, w_gate.shape[-1])
     if not _build.on_cuda(x, w_gate, w_up, block_expert, block_active,
                           wg_scale, wu_scale, seg_start):
         return fused_gate_up_plain(x, w_gate, w_up, block_expert,

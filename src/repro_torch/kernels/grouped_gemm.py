@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 from repro_torch.kernels import expert_tiles as _tiles
 from repro_torch.quantization.schemes import unpack_int4
 
@@ -267,6 +267,8 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     block_n)`` (None: the default, ``TILE_SHAPES``)."""
     tile = resolve_tile("grouped_gemm", w_format, x.dtype, tile_rows,
                         block_n)
+    if shapes.is_fake(x, w):
+        return shapes.grouped_gemm_shape(x, w, w.shape[-1])
     if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
                           w_scale, seg_start):
         return grouped_gemm_plain(x, w, block_expert, block_active,
@@ -304,6 +306,8 @@ def grouped_gemm_t(x: torch.Tensor, w: torch.Tensor, seg_start: torch.Tensor,
     tensors the kernel: in bf16 a Hopper kernel over tiles of each expert's
     run of rows (from ``seg_start``, see ``expert_tiles``), in fp32 B1's
     template with the weight read transposed in place."""
+    if shapes.is_fake(x, w):
+        return shapes.grouped_gemm_t_shape(x, w)
     if not _build.on_cuda(x, w, seg_start, block_expert, block_active):
         return grouped_gemm_t_plain(x, w, block_expert, block_active,
                                     block_m=block_m)

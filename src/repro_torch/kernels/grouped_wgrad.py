@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 from repro_torch.kernels import expert_tiles as _tiles
 from repro_torch.kernels.grouped_gemm import active_block_chunks
 
@@ -39,6 +39,8 @@ def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, seg_start: torch.Tensor,
     """CPU tensors run the plain version, rounded to ``out_dtype``; CUDA
     tensors the kernel, which reduces each expert's run of blocks from
     ``seg_start[e] // block_m`` (the schedule's per-expert base row)."""
+    if shapes.is_fake(x, dy):
+        return shapes.grouped_wgrad_shape(x, dy, n_experts, out_dtype)
     if not _build.on_cuda(x, dy, seg_start, block_expert, block_active):
         return grouped_wgrad_plain(x, dy, block_expert, block_active,
                                    block_m=block_m,

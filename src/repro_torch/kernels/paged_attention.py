@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 NEG_INF = -1e30          # finite -inf stand-in, as in the reference
 # the GQA kernel (csrc/paged_attention.cu): a block of up to GQA_WARPS
@@ -290,6 +290,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"logit_softcap must be positive, not "
                          f"{logit_softcap}")
     B, Hkv, G, D = q.shape
+    if shapes.is_fake(q, k_pool, v_pool, tables):
+        return shapes.paged_attention_shape(q, k_pool, v_pool, tables, q2,
+                                            k2_pool)
     lim = _row_vector(kv_limit, B, q.device)
     qp = None if q_pos is None else _row_vector(q_pos, B, q.device)
     kw = dict(scale=scale, q_pos=qp, causal=causal, window=window,

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 
 def permute_plain(x: torch.Tensor, src_tok: torch.Tensor) -> torch.Tensor:
@@ -17,6 +17,8 @@ def permute_plain(x: torch.Tensor, src_tok: torch.Tensor) -> torch.Tensor:
 
 def permute(x: torch.Tensor, src_tok: torch.Tensor) -> torch.Tensor:
     """CPU tensors run the plain version; CUDA tensors the kernel."""
+    if shapes.is_fake(x, src_tok):
+        return shapes.permute_shape(x, src_tok)
     if not _build.on_cuda(x, src_tok):
         return permute_plain(x, src_tok)
     _build.require(x.dim() == 2 and x.is_contiguous(),

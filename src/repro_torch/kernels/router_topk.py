@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 
 def _gate(logits: torch.Tensor, gating: str) -> torch.Tensor:
@@ -111,6 +111,8 @@ def router_topk(logits: torch.Tensor, *, top_k: int, gating: str = "softmax",
                 norm_topk: bool = False, routed_scale: float = 1.0):
     """logits: (T, E) f32 -> (weights (T, k) f32, indices (T, k) i32).
     CPU tensors run the plain version; CUDA tensors the kernel."""
+    if shapes.is_fake(logits):
+        return shapes.router_topk_shape(logits, top_k)
     if not _build.on_cuda(logits):
         return router_topk_plain(logits, top_k, gating=gating,
                                  norm_topk=norm_topk,

@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 
 def unpermute_plain(y: torch.Tensor, pos: torch.Tensor,
@@ -30,6 +30,8 @@ def unpermute_plain(y: torch.Tensor, pos: torch.Tensor,
 def unpermute(y: torch.Tensor, pos: torch.Tensor,
               weights: Optional[torch.Tensor]) -> torch.Tensor:
     """CPU tensors run the plain version; CUDA tensors the kernel."""
+    if shapes.is_fake(y, pos, weights):
+        return shapes.unpermute_shape(y, pos, weights)
     if not _build.on_cuda(y, pos, weights):
         return unpermute_plain(y, pos, weights)
     code = _build.dtype_code(y.dtype)

@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import RWKVConfig
 from repro_torch.distributed.ctx import head_slice, head_sum
+from repro_torch.kernels import shapes
 from repro_torch.models.blocks import (LayerNorm, apply_layernorm,
                                        dense_init, frozen, normal_init, part)
 
@@ -94,7 +95,11 @@ def wkv_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
     """The WKV6 recurrence, one step at a time, in fp32.  r, k, v, w: (B,
     S, H, n) fp32; u: (H, n); state: (B, H, n, n) fp32.  Returns (o (B, S,
-    H, n), final state)."""
+    H, n), final state).  Fake or meta tensors (the dry run) take the
+    shape-only op of ``kernels/shapes.py``."""
+    if shapes.is_fake(r, state):
+        o, state = shapes.wkv_recurrence_shape(r, k, v, w, u, state)
+        return o, state
     u_col = u[None, :, :, None]                              # (1, H, n, 1)
     outs = []
     # one view a position (unbind: under autograd one stack of the

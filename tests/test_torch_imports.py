@@ -3,7 +3,8 @@
 A subprocess imports every module of ``repro_torch`` and checks that
 ``jax`` and every ``repro`` / ``repro.*`` module stay out of
 ``sys.modules``; a static scan checks the port's sources and
-``chip_smoke.py`` for such imports (whole module names, so ``repro_torch``
+``chip_smoke.py`` and the port's examples (``examples/torch``) for such
+imports (whole module names, so ``repro_torch``
 passes)."""
 import os
 import pathlib
@@ -52,6 +53,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + [p.relative_to(ROOT).as_posix()
+       for p in (ROOT / "examples" / "torch").glob("*.py")]
     + ["chip_smoke.py"]))
 def test_source_has_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()

@@ -177,13 +177,17 @@ def test_unpermute_plain_matches_reference(T, E, k, d, f, M, folded, dtype):
 
 def test_wrappers_refuse_devices_they_do_not_serve():
     """A CPU tensor runs the plain version and a CUDA tensor the kernel;
-    anything else raises instead of running elsewhere."""
+    fake or meta tensors take the shape-only path (the dry run's); a mix
+    raises instead of running elsewhere."""
     x = torch.zeros((4, 16), device="meta")
     src = torch.zeros((8,), dtype=torch.int32, device="meta")
+    sched = build_fixed_schedule(torch.zeros((4, 1), dtype=torch.int32), 2,
+                                 8)
     with pytest.raises(ValueError):
-        tops.permute(x, build_fixed_schedule(
-            torch.zeros((4, 1), dtype=torch.int32), 2, 8)._replace(
-                src_tok=src))
+        tops.permute(x, sched._replace(src_tok=src.new_zeros(
+            (8,), device="cpu")))
+    out = tops.permute(x, sched._replace(src_tok=src))
+    assert out.is_meta and tuple(out.shape) == (8, 16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
