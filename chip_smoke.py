@@ -238,7 +238,17 @@ result line):
    directory's free space (too little fails the phase), the checkpoint's
    bytes and the host copy, write and restore times printed; the
    supervised runs carry a memory observability bundle, whose
-   ``train/step`` and ``train/checkpoint`` spans must be there.  [train
+   ``train/step`` and ``train/checkpoint`` spans must be there.  [serve
+   ckpt]: that checkpoint, before it is removed, served by the serve
+   launcher (``repro_torch.launch.serve.main`` with ``--ckpt-dir``, its
+   ``params/*`` read and cast, 4 requests of 16 new tokens on 2 slots of
+   the paged ``dynamic`` engine) in fp32, in bf16 and in bf16 with
+   ``--quant int8_expert``: greedy tokens identical to an engine over the
+   uninterrupted run's final parameters (cast to bf16, then quantized by
+   ``quantize_model``) on the same requests, B1-B6 each launched by the
+   launcher's runs (the int8 GEMMs by the last); the bytes read, the
+   restore seconds, the bf16 engine's decode ms a step, and the int8
+   model's bytes on the card (held in [analysis]).  [train
    sharded]: moonshot at full width cut to 2 layers on 2 gloo ranks
    sharing the card, on
    grids (data x model) 2x1 (FSDP + DP) and 1x2 (EP + SP): one fp32 step of
@@ -369,8 +379,10 @@ result line):
    of its own started after the last timed phase, ``analysis_prediction``)
    of [train mla] (deepseek-v2, 2 layers, forward + backward), [train
    zamba2]'s full depth (forward + backward), [train rwkv6] (24 layers
-   with AdamW) and [serve paged]'s model (moonshot, 4 layers, a decode
-   step) beside the bytes those phases measured: parameters (and
+   with AdamW), [serve paged]'s model (moonshot, 4 layers, a decode
+   step) and [serve ckpt]'s int8 model (moonshot, 2 layers, a decode step
+   with ``quant="int8_expert"``) beside the bytes those phases measured:
+   parameters (and
    gradients, and rwkv6's AdamW moments, made here) equal to the
    allocator's count (as many tensors, each rounded to 512 B, at most an
    unsplit 1 MiB remainder each past 1 MiB), the predicted peak beside the
@@ -391,6 +403,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 import copy
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -635,6 +648,7 @@ PLAIN_ITERS = {False: (5, 3), True: (1, 1)}
 # by [train resume] (1 dense + 1 MoE), its steps, failure and saves
 CAPACITY_FACTORS, CAPACITY_FACTOR = (1.25, 0.5), 1.25
 RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL_AT, RESUME_SAVE_EVERY = 2, 4, 3, 2
+RESUME_CKPT = ROOT / "build" / "ckpt_smoke"     # [serve ckpt] reads it
 # [train sharded]: the grids (data, model) of the 2 ranks on the card, each
 # with its timed bf16 steps after the warm one (a grid's steps are set by
 # gloo's host transport, so one is enough: 1x2's 3 took 11-15 s of a run
@@ -5879,7 +5893,7 @@ def train_resume() -> dict:
                 f"{(clean[n] - again[n]).abs().max().item():.3e})"
                 for n in diff))
     del again
-    root = ROOT / "build" / "ckpt_smoke"
+    root = RESUME_CKPT
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     free = shutil.disk_usage(root).free
@@ -5921,7 +5935,6 @@ def train_resume() -> dict:
             + ", ".join(f"{n} (max |diff| "
                         f"{(clean[n] - resumed[n]).abs().max().item():.3e})"
                         for n in diff))
-    shutil.rmtree(root, ignore_errors=True)
     spans = collections.Counter(e["name"] for e in obs.tracer.events)
     if not spans["train/step"] or not spans["train/checkpoint"]:
         raise AssertionError(f"[train resume] the memory bundle's spans: "
@@ -5946,9 +5959,148 @@ def train_resume() -> dict:
           f"{stats['write_s']:.2f} s ({res['write_GB_per_s']:.2f} GB/s); "
           f"restore {stats['restore_s']:.2f} s; the supervised runs "
           f"{wall:.1f} s")
-    del clean, resumed
+    del resumed
     torch.cuda.empty_cache()
-    return res
+    return res, clean
+
+
+def model_from_params(cfg, params: dict, dtype):
+    """``cfg``'s model at ``dtype`` on the card (laid out on the meta
+    device, allocated uninitialised) holding ``params`` ({name: tensor}),
+    each cast to its parameter's dtype.  A function of its own, so that no
+    name outlives the call holding one of its parameters."""
+    import torch
+    from repro_torch.models.lm import LM
+    model = LM(cfg, None, dtype, torch.device("meta")).to_empty(
+        device="cuda")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    return model
+
+
+def serve_ckpt(clean: dict, smi: str) -> dict:
+    """[serve ckpt]: [train resume]'s checkpoint (``RESUME_CKPT``, its last
+    step, fp32 parameters and AdamW moments) served by the launcher with
+    ``--ckpt-dir`` in fp32, bf16 and bf16 under ``--quant int8_expert``;
+    each run's greedy tokens must equal an engine's over ``clean`` (the
+    uninterrupted run's final parameters, {name: fp32 tensor}) cast to the
+    run's dtype (and quantized by ``quantize_model``), built as the
+    launcher builds its engine, on the same requests.  The launch counters
+    are read over the launcher's runs alone.  Returns the bytes read, the
+    restore seconds, the bf16 engine's decode ms a step (``drive``), the
+    launches and the int8 model's bytes on the card."""
+    import contextlib
+    import gc
+    import io
+    import re
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.quantization import quantize_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("moonshot-v1-16b-a3b").replace(n_layers=RESUME_LAYERS)
+    arms = (("fp32", "none"), ("bf16", "none"), ("bf16", "int8_expert"))
+    launches = {k: 0 for k in ops.LAUNCHES}
+    out = {"layers": RESUME_LAYERS, "arms": {}}
+    print(f"[serve ckpt] {RESUME_CKPT.relative_to(ROOT)} served by "
+          f"repro_torch.launch.serve --ckpt-dir: {cfg.name} at full width, "
+          f"{RESUME_LAYERS} layers, {SERVE_REQUESTS} requests x "
+          f"{SERVE_MAX_NEW} new on {SERVE_SLOTS} slots, paged dynamic engine")
+    for dtype, quant in arms:
+        tag = dtype + ("" if quant == "none" else f" {quant}")
+        # the engine's model over the same parameters, built first, with
+        # nothing of an earlier run left (the allocator's count below is
+        # this model's alone)
+        dt = launcher.DTYPES[dtype]
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model = model_from_params(cfg, clean, dt)
+        if quant != "none":
+            quantize_model(model, quant)
+        torch.cuda.synchronize()
+        weight_bytes = torch.cuda.memory_allocated() - before
+        weight_tensors = len(list(model.parameters())) \
+            + len(list(model.buffers()))
+        argv = ["--arch", cfg.name, "--layers", str(RESUME_LAYERS),
+                "--ckpt-dir", str(RESUME_CKPT), "--dtype", dtype,
+                "--requests", str(SERVE_REQUESTS), "--max-new",
+                str(SERVE_MAX_NEW), "--slots", str(SERVE_SLOTS)]
+        if quant != "none":
+            argv += ["--quant", quant]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            done = launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        run_launches = dict(ops.LAUNCHES)
+        log = text.getvalue()
+        m = re.search(r"step (\d+), (\d+) bytes of params/\* read in "
+                      r"([\d.]+) s", log)
+        if m is None or int(m.group(1)) != RESUME_STEPS - 1:
+            raise AssertionError(f"[serve ckpt] {tag}: the launcher did not "
+                                 f"restore step {RESUME_STEPS - 1}:\n"
+                                 + log[-2000:])
+        done = sorted(done, key=lambda r: r.rid)
+        if len(done) != SERVE_REQUESTS:
+            raise AssertionError(f"[serve ckpt] {tag}: {len(done)} of "
+                                 f"{SERVE_REQUESTS} requests completed")
+        reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=SERVE_MAX_NEW)
+                for r in done]
+        capacity = max(len(r.prompt) for r in reqs) + SERVE_MAX_NEW + 1
+        rc = RunConfig(compute_dtype=dt, schedule_policy="dynamic",
+                       quant=quant, moe_stats=True)
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                             capacity=capacity, rc=rc, device="cuda")
+        res = drive(engine, reqs)
+        want, got = [r.out for r in reqs], [r.out for r in done]
+        if want != got:
+            raise AssertionError(f"[serve ckpt] {tag}: the launcher's tokens "
+                                 f"{got} != the engine's over the final "
+                                 f"parameters {want}")
+        dec = res["decode_steps"]
+        arm = {"restored_step": int(m.group(1)),
+               "bytes_read": int(m.group(2)),
+               "restore_s": float(m.group(3)), "launcher_s": wall,
+               "launches": run_launches, "tokens": got,
+               "engine_forwards": res["forwards"],
+               "decode_ms_per_step_p50": 1e3 * float(np.median(dec)),
+               "decode_steps": len(dec)}
+        if quant != "none":
+            arm.update(weight_bytes=weight_bytes,
+                       weight_tensors=weight_tensors)
+        out["arms"][tag] = arm
+        print(f"[serve ckpt] {tag}: step {arm['restored_step']} restored, "
+              f"{arm['bytes_read']} bytes of params/* read in "
+              f"{arm['restore_s']:.3f} s; the launcher's run "
+              f"{wall:.1f} s; tokens identical to the engine's over the "
+              f"final parameters ({sum(len(t) for t in got)} tokens, "
+              f"{len(got)} requests); the engine's decode "
+              f"{arm['decode_ms_per_step_p50']:.2f} ms a step (median of "
+              f"{len(dec)}); launches {json.dumps(run_launches)}; {smi}")
+        del model, engine, res, done
+        torch.cuda.empty_cache()
+    n_moe = n_moe_layers(cfg)
+    need = MOE_KERNELS + ("paged_attention", "grouped_gemm_int8",
+                          "fused_gate_up_int8")
+    zero = [k for k in need if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"[serve ckpt] never launched: {zero} "
+                             f"({json.dumps(launches)})")
+    out["launches"] = launches
+    print(f"[serve ckpt] launches over the three runs ({n_moe} MoE layer, "
+          f"{cfg.n_layers} paged reads a forward): "
+          + json.dumps({k: v for k, v in launches.items() if v}))
+    return out
 
 
 def sharded_rank(group, spec: dict) -> dict:
@@ -6250,6 +6402,12 @@ ANALYSIS_CASES = {
     "serve paged": dict(arch="moonshot-v1-16b-a3b", layers=None,  # --layers
                         kind="decode", batch=SERVE_SLOTS, seq=None,
                         remat=False, optimizer=False),
+    # [serve ckpt]'s int8 model: the launcher's prompts are at most 64
+    # tokens (its parameter bytes do not depend on the cache's length)
+    "serve ckpt int8": dict(arch="moonshot-v1-16b-a3b", layers=RESUME_LAYERS,
+                            kind="decode", batch=SERVE_SLOTS,
+                            seq=64 + SERVE_MAX_NEW + 1, remat=False,
+                            optimizer=False, quant="int8_expert"),
 }
 # the verdicts the dry run must give against one card's 80 GB
 FIT_VERDICTS = {"train mla with AdamW": False,
@@ -6273,7 +6431,7 @@ def analysis_prediction(tag: str, out_path: str,
     case = ANALYSIS_CASES[tag]
     cfg = get_config(case["arch"])
     serve = case["kind"] == "decode"
-    depth = layers if serve else case["layers"]
+    depth = layers if serve and case["layers"] is None else case["layers"]
     if depth is not None:
         cfg = cfg.replace(n_layers=depth)
     rc = RunConfig(compute_dtype=torch.bfloat16,
@@ -6281,13 +6439,14 @@ def analysis_prediction(tag: str, out_path: str,
                    loss_chunk=LOSS_CHUNK, remat=case["remat"],
                    schedule_policy="dynamic" if serve else "fixed")
     seq = case["seq"]
-    if serve:             # [serve paged]'s capacity, from the same prompts
+    if seq is None:       # [serve paged]'s capacity, from the same prompts
         seq = max(48, *(len(p) for p in shared_prefix_prompts(
             np.random.default_rng(0), cfg.vocab_size))) + SERVE_MAX_NEW + 1
     t0 = time.perf_counter()
     rec = run_cell(case["arch"], ShapeConfig(tag, seq, case["batch"],
                                              case["kind"]), "1x1",
-                   cfg=cfg, rc=rc, accum=1, optimizer=case["optimizer"])
+                   cfg=cfg, rc=rc, accum=1, optimizer=case["optimizer"],
+                   quant=case.get("quant", "none"))
     if rec["status"] == "ok":
         rec.pop("traceback", None)
     rec["host_s"] = time.perf_counter() - t0
@@ -6597,6 +6756,11 @@ def analysis(layers: int, s: dict) -> dict:
     _alloc_check("serve paged", "bf16 parameters",
                  alloc("serve paged", "params"), served["weight_bytes"],
                  served["weight_tensors"])
+    # the engine's quantize_model on the fake parameters and on the card
+    q8 = s["serve_ckpt"]["arms"]["bf16 int8_expert"]
+    _alloc_check("serve ckpt int8", "bf16 parameters, int8_expert experts",
+                 alloc("serve ckpt int8", "params"), q8["weight_bytes"],
+                 q8["weight_tensors"])
     _alloc_check("train rwkv6", "fp32 parameters",
                  alloc("train rwkv6", "params"), rwkv_made[0], rwkv_made[1])
     _alloc_check("train rwkv6", "AdamW moments and step",
@@ -7248,9 +7412,19 @@ def main() -> None:
           f"step " + ", ".join(f"{d:.4f}" for d in drop))
     print(json.dumps({"train_capacity_remat": train_cap}))
     elapsed("training, capacity_factor and remat")
-    resume = train_resume()
+    resume, clean = train_resume()
     print(json.dumps({"train_resume": resume}))
     elapsed("training resume")
+    # [serve ckpt]: the checkpoint [train resume] wrote, served by the
+    # launcher, then removed
+    try:
+        serve_ckpt_summary = serve_ckpt(clean, smi)
+    finally:
+        del clean
+        shutil.rmtree(RESUME_CKPT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"serve_ckpt": serve_ckpt_summary}))
+    elapsed("serving the training checkpoint")
     # [train sharded]: moonshot cut to SHARDED_LAYERS layers on 2 ranks of
     # this card, grids 2x1 and 1x2
     sharded = train_sharded()
@@ -7323,7 +7497,7 @@ def main() -> None:
     # 14. analysis: the dry run's predictions against the measured bytes,
     # the fit verdicts, the roofline shares, the quickstart example
     analysis_summary = analysis(layers, {
-        "train_mla": train_mla_summary,
+        "train_mla": train_mla_summary, "serve_ckpt": serve_ckpt_summary,
         "zamba2_full": late["train_zamba2"]["full_depth"],
         "served": served, "capacity": capacity, "paged": paged_summary,
         "contiguous": contig_summary, "quant": quant, "deepseek": deepseek,
@@ -7565,6 +7739,16 @@ def main() -> None:
                 f"[train sharded] one bf16 step with remat, {SHARDED_LAYERS} "
                 f"layers, on each rank of the grids "
                 + ", ".join(sharded["grids"]))
+        if name in MOE_KERNELS or name in ("paged_attention",
+                                           "grouped_gemm_int8",
+                                           "fused_gate_up_int8"):
+            # [serve ckpt]: the launcher's three runs over the checkpoint
+            entry["launches_serve_ckpt"] = serve_ckpt_summary[
+                "launches"][name]
+            entry["launches_serve_ckpt_run"] = (
+                f"[serve ckpt] the serve launcher over [train resume]'s "
+                f"checkpoint, {RESUME_LAYERS} layers, fp32, bf16 and bf16 "
+                f"int8_expert, {SERVE_REQUESTS} requests x {SERVE_MAX_NEW}")
         if name in MOE_KERNELS or name == "paged_attention":
             # each [ep] rank's launches over its bf16 timed run
             entry["launches_ep"] = {

@@ -8,8 +8,12 @@ directory passed in (``results_dir``): ``sched/*.json`` (skew study),
 ``tuning/cache.json`` (kernel tuning), and the dry run's records
 (``launch/dryrun.py``, by default under ``results/torch/dryrun``) for the
 dry-run and roofline tables.  The tables are the reference's, string for
-string on the same records; the reference's TPU-round sections (its
-``perf_rows`` and their verdicts, its TPU constants) are not carried over.
+string on the same records.  ``perf_rows`` is the reference's variant
+table (a dry run's ``--variant`` records against the untagged record of
+the same cell); its seconds are at the link rate of the baseline's grid
+(``roofline.link_rate``), which past one host is the reference's 50 GB/s
+a card.  The reference's TPU-round verdicts and TPU constants are not
+carried over.
 
     PYTHONPATH=src python -m repro_torch.analysis.report \
         [--results results/torch] [--dryrun results/torch/dryrun]
@@ -20,6 +24,7 @@ import json
 import pathlib
 
 from repro_torch.analysis.roofline import (CARD, analyze_cell, card_line,
+                                           grid_chips, link_rate,
                                            load_results, markdown_table)
 
 
@@ -295,6 +300,64 @@ def fit_table(recs) -> str:
     return "\n".join(rows)
 
 
+def _record(r) -> dict:
+    """A dry-run record, or the one a path names."""
+    return r if isinstance(r, dict) else json.loads(
+        pathlib.Path(r).read_text())
+
+
+def _ratio(v: float, base: float) -> str:
+    return f"{v / base:.2f}x" if base else "—"
+
+
+def perf_rows(records, baseline, label: str) -> str:
+    """The reference's variant table: ``records`` are ``(record, verdict)``
+    pairs (a record or the path of one), each row its link bytes of the
+    collectives and its temporary bytes beside the ``baseline``'s and the
+    verdict.  The heading gives the baseline's link bytes in seconds at its
+    grid's link rate; a ratio over a baseline of 0 bytes (one card, no
+    collective) is "—"."""
+    base = _record(baseline)
+    bc = base["collectives"]["total_bytes"]
+    bt = base["memory"]["temp_bytes"]
+    rate = link_rate(base.get("chips") or grid_chips(_grid(base)))[0]
+    out = [f"**{label}** — baseline: collective "
+           f"{bc / 1e9:.1f} GB/dev/step ({bc / rate:.2f} s), temp "
+           f"{bt / 1e9:.1f} GB/dev", "",
+           "| variant | collective GB | Δ coll | temp GB | Δ temp | verdict |",
+           "|---|---|---|---|---|---|"]
+    for r, verdict in records:
+        d = _record(r)
+        c = d["collectives"]["total_bytes"]
+        t = d["memory"]["temp_bytes"]
+        out.append(f"| {d.get('variant', 'baseline')} | {c / 1e9:.1f} | "
+                   f"{_ratio(c, bc)} | {t / 1e9:.1f} | {_ratio(t, bt)} | "
+                   f"{verdict} |")
+    return "\n".join(out)
+
+
+def variant_tables(recs) -> list:
+    """``perf_rows`` of every cell whose ok records include variants, each
+    against the cell's untagged ok record; a variant's verdict is what it
+    changed (its capacity factor, its quantization)."""
+    base = {(r["arch"], r["shape"], _grid(r)): r for r in recs
+            if r.get("status") == "ok" and not r.get("variant")}
+    cells: dict = {}
+    for r in recs:
+        key = (r["arch"], r["shape"], _grid(r))
+        if r.get("status") == "ok" and r.get("variant") and key in base:
+            cells.setdefault(key, []).append(r)
+    tables = []
+    for key in sorted(cells):
+        rows = [(r, ", ".join(f"{k} {r[k]}" for k in ("capacity_factor",
+                                                      "quant") if k in r)
+                 or "—") for r in sorted(cells[key],
+                                         key=lambda r: r["variant"])]
+        tables.append(perf_rows(rows, base[key],
+                                f"{key[0]} x {key[1]}, grid {key[2]}"))
+    return tables
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -304,7 +367,8 @@ def main():
     ap.add_argument("--dryrun", default="results/torch/dryrun",
                     help="directory of the dry run's records")
     args = ap.parse_args()
-    dr = load_results(args.dryrun)
+    loaded = load_results(args.dryrun)
+    dr = [r for r in loaded if not r.get("variant")]
     ok = [r for r in dr if r.get("status") == "ok"]
     rl = [analyze_cell(r) for r in ok]
     grids = sorted({r.mesh for r in rl}, key=lambda g: (len(g), g))
@@ -324,6 +388,9 @@ def main():
         print(f"## Roofline, grid {g}\n\n" + markdown_table(sorted(
             (r for r in rl if r.mesh == g),
             key=lambda r: (r.arch, r.shape))) + "\n")
+    variants = variant_tables(loaded)
+    if variants:
+        print("## Variants\n\n" + "\n\n".join(variants) + "\n")
 
 
 if __name__ == "__main__":

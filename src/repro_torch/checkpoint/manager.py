@@ -29,8 +29,11 @@
   raises the reference's structure-mismatch error.
 
 ``restore`` copies each leaf into the target's tensor, on that tensor's
-own device, in place.  ``stats`` holds the bytes and the seconds of the
-last save's host copy and write and of the last restore.
+own device, in place.  ``restore_params`` reads a part of a checkpoint
+(by default a training state's ``params/*``, skipping ``opt/*``) into a
+model of another dtype, each leaf cast to its target's: what a server
+loads from a trainer's checkpoint.  ``stats`` holds the bytes and the
+seconds of the last save's host copy and write and of the last restore.
 
 On a grid of ranks (``shardings``: the state's specs by leaf name, and
 the ``grid``) a checkpoint still holds full arrays, as the reference's
@@ -195,6 +198,42 @@ class CheckpointManager:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
+    def _manifest(self, step: Optional[int]):
+        """(checkpoint directory, its leaves' metadata) of ``step``
+        (default: the latest)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = self.dir / f"ckpt_{step:08d}"
+        with open(path / "manifest.json") as f:
+            return path, json.load(f)["leaves"]
+
+    def _read(self, path: pathlib.Path, leaves: Dict[str, torch.Tensor],
+              files: Dict[str, int], dtypes: Dict[str, torch.dtype],
+              where=None) -> int:
+        """Read leaf file ``files[name]`` of ``path`` into each of
+        ``leaves``' tensors in place, through a host buffer of
+        ``dtypes[name]`` (the file's; ``copy_`` casts to the tensor's),
+        memory-mapped on a few threads; ``where(name, shape)`` picks this
+        rank's block of the full array (default: all of it).  Returns the
+        bytes staged."""
+        self.wait()                       # the staging may be in a write
+        staging = self._staging({n: (t.shape, dtypes[n], t.is_cuda)
+                                 for n, t in leaves.items()})
+
+        def read_leaf(name):
+            full = np.load(path / f"leaf_{files[name]}.npy", mmap_mode="r")
+            block = Ellipsis if where is None else where(name, full.shape)
+            _words(staging[name])[...] = full[block]
+        with ThreadPoolExecutor(max_workers=_IO_THREADS) as io:
+            list(io.map(read_leaf, leaves))
+        with torch.no_grad():
+            for name, t in leaves.items():
+                t.copy_(staging[name], non_blocking=t.is_cuda)
+        for dev in {t.device for t in leaves.values() if t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        return sum(b.numel() * b.element_size() for b in staging.values())
+
     def restore(self, target: Any, step: Optional[int] = None,
                 shardings: Optional[dict] = None, grid=None) -> Any:
         """Load checkpoint ``step`` (default: the latest) into ``target``'s
@@ -203,12 +242,7 @@ class CheckpointManager:
         blocks on ``grid``, and each rank reads only its block of each full
         leaf: onto any grid (elastic)."""
         from repro_torch.distributed.sharding import block_slices, full_shape
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        path = self.dir / f"ckpt_{step:08d}"
-        with open(path / "manifest.json") as f:
-            meta = json.load(f)["leaves"]
+        path, meta = self._manifest(step)
         leaves = flatten_state(target)
         if len(meta) != len(leaves) \
                 or [m["name"] for m in meta] != list(leaves):
@@ -227,22 +261,59 @@ class CheckpointManager:
                     f"leaf {name}: checkpoint {m['dtype']} {m['shape']} != "
                     f"target {_dtype_name(t)} {list(shape)}")
         t0 = time.perf_counter()
-        self.wait()                       # the staging may be in a write
-        staging = self._staging({n: (t.shape, t.dtype, t.is_cuda)
-                                 for n, t in leaves.items()})
-
-        def read_leaf(i_name):
-            i, name = i_name
-            full = np.load(path / f"leaf_{i}.npy", mmap_mode="r")
-            where = (Ellipsis if shardings is None
-                     else block_slices(full.shape, specs[name], grid))
-            _words(staging[name])[...] = full[where]
-        with ThreadPoolExecutor(max_workers=_IO_THREADS) as io:
-            list(io.map(read_leaf, enumerate(leaves)))
-        with torch.no_grad():
-            for name, t in leaves.items():
-                t.copy_(staging[name], non_blocking=t.is_cuda)
-        for dev in {t.device for t in leaves.values() if t.is_cuda}:
-            torch.cuda.current_stream(dev).synchronize()
+        self._read(path, leaves, {n: i for i, n in enumerate(leaves)},
+                   {n: t.dtype for n, t in leaves.items()},
+                   None if shardings is None else
+                   lambda name, shape: block_slices(shape, specs[name], grid))
         self.stats["restore_s"] = time.perf_counter() - t0
+        return target
+
+    def restore_params(self, target: Any, step: Optional[int] = None,
+                       prefix: str = "params") -> Any:
+        """Load the leaves named ``<prefix>/<name>`` of checkpoint ``step``
+        (default: the latest) into ``target``'s tensors in place and skip
+        the rest (a training state's ``opt/*``).  Every leaf of the target
+        must be in the checkpoint and every leaf under ``prefix`` in the
+        target: either kind of stray is named in the error.  Shapes must
+        match; each leaf is cast to its target's dtype on the way in (fp32
+        master weights into a bf16 server; the same dtype bitwise), floating
+        dtypes only.  A grid's checkpoint holds full arrays, so this loads
+        it onto one device.  ``stats`` gets the bytes read
+        (``restore_bytes``), the seconds and the step."""
+        path, meta = self._manifest(step)
+        head = prefix + "/"
+        stored = {m["name"][len(head):]: (i, m) for i, m in enumerate(meta)
+                  if m["name"].startswith(head)}
+        leaves = flatten_state(target)
+        missing = [n for n in leaves if n not in stored]
+        extra = [n for n in stored if n not in leaves]
+        if missing or extra:
+            raise ValueError(
+                f"checkpoint {path.name} under {head}*: "
+                + "; ".join(f"{what} {len(names)} leaves ("
+                            + ", ".join(names[:6])
+                            + (", ..." if len(names) > 6 else "") + ")"
+                            for what, names in (
+                                ("the target has, the checkpoint lacks,",
+                                 missing),
+                                ("the checkpoint has, the target lacks,",
+                                 extra)) if names))
+        dtypes = {}
+        for name, t in leaves.items():
+            m = stored[name][1]
+            src = getattr(torch, m["dtype"])
+            if tuple(m["shape"]) != tuple(t.shape):
+                raise ValueError(f"leaf {head}{name}: checkpoint "
+                                 f"{m['shape']} != target {list(t.shape)}")
+            if src != t.dtype and not (src.is_floating_point
+                                       and t.dtype.is_floating_point):
+                raise ValueError(f"leaf {head}{name}: checkpoint {m['dtype']}"
+                                 f" cannot be cast to {_dtype_name(t)}")
+            dtypes[name] = src
+        t0 = time.perf_counter()
+        n_bytes = self._read(path, leaves,
+                             {n: stored[n][0] for n in leaves}, dtypes)
+        self.stats.update(restore_s=time.perf_counter() - t0,
+                          restore_step=int(path.name.split("_")[1]),
+                          restore_bytes=n_bytes)
         return target

@@ -51,7 +51,8 @@ def fused_gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     tile = resolve_tile("fused_gate_up", w_format, x.dtype, tile_rows,
                         block_n)
     if shapes.is_fake(x, w_gate, w_up):
-        return shapes.fused_gate_up_shape(x, w_gate, w_up, w_gate.shape[-1])
+        return shapes.fused_gate_up_shape(x, w_gate, w_up, wg_scale,
+                                          wu_scale, w_format)
     if not _build.on_cuda(x, w_gate, w_up, block_expert, block_active,
                           wg_scale, wu_scale, seg_start):
         return fused_gate_up_plain(x, w_gate, w_up, block_expert,

@@ -268,7 +268,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     tile = resolve_tile("grouped_gemm", w_format, x.dtype, tile_rows,
                         block_n)
     if shapes.is_fake(x, w):
-        return shapes.grouped_gemm_shape(x, w, w.shape[-1])
+        return shapes.grouped_gemm_shape(x, w, w_scale, w_format)
     if not _build.on_cuda(x, w, block_expert, block_active, row_scale,
                           w_scale, seg_start):
         return grouped_gemm_plain(x, w, block_expert, block_active,

@@ -8,7 +8,8 @@ here instead of its plain version or its kernel.  Each op is a
 implementation gives every output's shape and dtype and computes nothing,
 and whose flop formula (``torch.utils.flop_counter``) gives the FLOPs the
 kernel does: for B1, B2, B1ᵀ and B7, ``2 * rows * K * N`` over every row
-of the schedule's static capacity, padding included (the schedule's
+of the schedule's static capacity, padding included, B1 and B2 on dense,
+int8 or int4 weights alike (the schedule's
 waste, which ``analysis/flops.py``'s dispatch FLOPs model); for B6 its
 score and value products over every position of the rows' tables; none
 for B3, B4, B5, which do no matrix product.  ``FlopCounterMode`` then
@@ -91,38 +92,67 @@ def _(y, pos, weights):
     return y.new_empty((pos.shape[0], y.shape[1]))
 
 
-# ---------------------------------------------------------------- B1
+# ---------------------------------------------------------------- B1, B2
+# The weights come as the kernels take them: a dense (E, K, N) stack, or
+# a quantized payload ((E, K, N) int8, or (E, K/2, N) nibble pairs for
+# int4) with its (E, N) fp32 scales and ``w_format``; the FLOPs are the
+# dense product's over every scheduled row whatever the format.
+_PACKED_ROWS = {"dense": 1, "int8": 1, "int4": 2}
+
+
+def _check_weight(name: str, x, w, w_scale, w_format: str) -> None:
+    if w_format not in _PACKED_ROWS:
+        raise ValueError(f"{name}: unknown weight format {w_format!r}")
+    K = x.shape[1]
+    if w.dim() != 3 or w.shape[1] * _PACKED_ROWS[w_format] != K:
+        raise ValueError(f"{name}: {w_format} weights {tuple(w.shape)} "
+                         f"for rows of {K}")
+    if (w_scale is None) != (w_format == "dense"):
+        raise ValueError(f"{name}: {w_format} weights "
+                         + ("take no scales" if w_format == "dense"
+                            else "need their (E, N) scales"))
+    if w_scale is not None and tuple(w_scale.shape) != (w.shape[0],
+                                                        w.shape[2]):
+        raise ValueError(f"{name}: scales {tuple(w_scale.shape)} for "
+                         f"weights {tuple(w.shape)}")
+
+
 @custom_op("repro_torch::grouped_gemm_shape", mutates_args=())
 def grouped_gemm_shape(x: torch.Tensor, w: torch.Tensor,
-                       n_out: int) -> torch.Tensor:
+                       w_scale: Optional[torch.Tensor],
+                       w_format: str) -> torch.Tensor:
     _eager("grouped_gemm_shape")
 
 
 @grouped_gemm_shape.register_fake
-def _(x, w, n_out):
-    return x.new_empty((x.shape[0], n_out))
+def _(x, w, w_scale, w_format):
+    _check_weight("grouped_gemm", x, w, w_scale, w_format)
+    return x.new_empty((x.shape[0], w.shape[2]))
 
 
 @register_flop_formula(torch.ops.repro_torch.grouped_gemm_shape)
-def _(x_shape, w_shape, n_out, *args, **kwargs) -> int:
-    return 2 * x_shape[0] * x_shape[1] * n_out
+def _(x_shape, w_shape, *args, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[2]
 
 
-# ---------------------------------------------------------------- B2
 @custom_op("repro_torch::fused_gate_up_shape", mutates_args=())
 def fused_gate_up_shape(x: torch.Tensor, w_gate: torch.Tensor,
-                        w_up: torch.Tensor, n_out: int) -> torch.Tensor:
+                        w_up: torch.Tensor, wg_scale: Optional[torch.Tensor],
+                        wu_scale: Optional[torch.Tensor],
+                        w_format: str) -> torch.Tensor:
     _eager("fused_gate_up_shape")
 
 
 @fused_gate_up_shape.register_fake
-def _(x, w_gate, w_up, n_out):
-    return x.new_empty((x.shape[0], n_out))
+def _(x, w_gate, w_up, wg_scale, wu_scale, w_format):
+    for w, ws in ((w_gate, wg_scale), (w_up, wu_scale)):
+        _check_weight("fused_gate_up", x, w, ws, w_format)
+    return x.new_empty((x.shape[0], w_gate.shape[2]))
 
 
 @register_flop_formula(torch.ops.repro_torch.fused_gate_up_shape)
-def _(x_shape, wg_shape, wu_shape, n_out, *args, **kwargs) -> int:
-    return 2 * x_shape[0] * x_shape[1] * 2 * n_out
+def _(x_shape, wg_shape, *args, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * 2 * wg_shape[2]
 
 
 # ---------------------------------------------------------------- B1ᵀ

@@ -30,9 +30,23 @@ H100, ``2x4`` the eight cards of one host, ``16x16`` and ``2x16x16``
 (``--multi-pod``) the reference's meshes as logical grids, for comparing
 FLOPs and bytes.
 
+Variants (the reference's flags, ``run_cell``'s arguments):
+``--capacity-factor CF`` runs the MoE layers on the ``capacity_factor``
+policy at headroom CF; ``--quant SCHEME`` (``--quant-experts``: its alias
+for ``int8_expert``) quantizes the routed experts of a serving cell in the
+fake parameters (``quantization.quantize_model``, as the engine does at
+load; the kernels' shape-only ops take the payload and its scales), and a
+train cell under it is ``skip``; ``--variant TAG`` goes into the record
+and its file name (``<arch>.<shape>.<grid>.<TAG>.json``), which
+``analysis/report.py``'s ``perf_rows`` sets against the untagged record
+of the same cell.  The reference's ``--executor`` is not ported: the port
+has one executor, ``cuda``.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --grid 2x4
   python -m repro_torch.launch.dryrun --all [--grid 1x1 --grid 2x4] [--jobs 4]
+  python -m repro_torch.launch.dryrun --arch deepseek-v2-236b \\
+      --shape decode_32k --grid 2x4 --quant int8_expert --variant int8
 """
 from __future__ import annotations
 
@@ -239,20 +253,29 @@ def run_step(ci, grid) -> dict:
 
 
 def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
-             accum=None, cfg=None, rc=None, optimizer: bool = True) -> dict:
+             accum=None, cfg=None, rc=None, optimizer: bool = True,
+             capacity_factor=None, quant: str = "none",
+             variant: str = "") -> dict:
     """The record of one cell: ``skip`` where ``cell_is_runnable`` says
     so, ``ok`` with the step's numbers, or ``error`` with where it
     stopped.  ``shape_name`` names one of ``SHAPES`` (or is a
     ``ShapeConfig``); ``cfg`` replaces the arch's config (a reduced one),
     ``rc`` the dry run's ``RunConfig``; ``optimizer=False`` runs a train
-    cell as one forward and backward (``specs.cell_inputs``)."""
+    cell as one forward and backward (``specs.cell_inputs``).
+
+    The variants: ``capacity_factor`` runs the MoE layers on the
+    ``capacity_factor`` policy at that headroom (the only policy with a
+    capacity; it also sizes the static EP layout of a decode cell on a
+    grid); ``quant`` compresses a serving cell's routed experts under that
+    scheme (a train cell is ``skip``: the port trains no quantized
+    experts); ``variant`` tags the record (and ``main``'s file name)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.analysis.roofline import grid_chips, link_rate
     from repro_torch.configs import (SHAPE_BY_NAME, cell_is_runnable,
                                      get_config)
     from repro_torch.distributed.group import dry_grid
-    from repro_torch.launch.specs import cell_inputs
+    from repro_torch.launch.specs import cell_inputs, dryrun_runconfig
 
     shape = (SHAPE_BY_NAME[shape_name] if isinstance(shape_name, str)
              else shape_name)
@@ -260,11 +283,27 @@ def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
     chips = grid_chips(grid_spec)
     rec: dict = {"arch": arch, "shape": shape.name, "mesh": grid_spec,
                  "grid": grid_spec, "chips": chips, "rank": 0}
+    if variant:
+        rec["variant"] = variant
+    sizes = parse_grid(grid_spec)
+    if capacity_factor is not None or quant != "none":
+        rc = rc or dryrun_runconfig(cfg, shape, ep=sizes["model"] > 1)
+        if capacity_factor is not None:
+            rc = rc._replace(schedule_policy="capacity_factor",
+                             capacity_factor=capacity_factor)
+            rec["capacity_factor"] = capacity_factor
+        if quant != "none":
+            rc = rc._replace(quant=quant)
+    if rc is not None and rc.quant != "none":
+        rec["quant"] = rc.quant
     ok, why = cell_is_runnable(cfg, shape)
+    if ok and rc is not None and rc.quant != "none" \
+            and shape.kind == "train":
+        ok, why = False, (f"quant {rc.quant}: the port trains no quantized "
+                          "experts (serving cells only)")
     if not ok:
         rec.update(status="skip", reason=why)
         return rec
-    sizes = parse_grid(grid_spec)
     grid = dry_grid(sizes["data"], sizes["model"], sizes["pod"])
     rec["links"] = link_rate(chips)[1]       # past one host: an assumption
     t0 = time.perf_counter()
@@ -291,15 +330,30 @@ def all_cells():
     return [(a, s.name) for a in ARCH_NAMES for s in SHAPES]
 
 
-def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float) -> int:
+def cell_file(arch: str, shape: str, grid: str, variant: str = "") -> str:
+    """A record's file name: ``<arch>.<shape>.<grid>[.<variant>].json``."""
+    return f"{arch}.{shape}.{grid}" + (f".{variant}" if variant else "") \
+        + ".json"
+
+
+def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float,
+           variant: dict) -> int:
     """Every cell on every grid, each in a subprocess (fault isolation, a
     fresh fake mode; its errors in ``<cell>.log`` beside its record, kept
-    where it failed), ``jobs`` at a time; cells already ``ok`` or ``skip``
-    are not run again.  Returns the count that ended neither."""
+    where it failed), ``jobs`` at a time, each with ``variant``'s flags;
+    cells already ``ok`` or ``skip`` are not run again.  Returns the count
+    that ended neither."""
+    flags = []
+    if variant["capacity_factor"] is not None:
+        flags += ["--capacity-factor", str(variant["capacity_factor"])]
+    if variant["quant"] != "none":
+        flags += ["--quant", variant["quant"]]
+    if variant["variant"]:
+        flags += ["--variant", variant["variant"]]
     todo = []
     for arch, shape in all_cells():
         for g in grids:
-            dest = out / f"{arch}.{shape}.{g}.json"
+            dest = out / cell_file(arch, shape, g, variant["variant"])
             if dest.exists() and json.loads(dest.read_text()).get(
                     "status") in ("ok", "skip"):
                 print(f"[done   ] {arch}.{shape}.{g}", flush=True)
@@ -338,7 +392,8 @@ def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float) -> int:
             reap(block=True)
         arch, shape, g, dest = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--grid", g, "--out", str(out)]
+               arch, "--shape", shape, "--grid", g, "--out", str(out)] \
+            + flags
         with open(dest.with_suffix(".log"), "w") as log:
             running.append((cell, subprocess.Popen(
                 cmd, stdout=subprocess.DEVNULL, stderr=log), time.time()))
@@ -348,6 +403,7 @@ def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float) -> int:
 
 
 def main() -> int:
+    from repro_torch.quantization import available_schemes, resolve_quant_cli
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
@@ -362,8 +418,21 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=1800.0,
                     help="--all: seconds a cell may take")
     ap.add_argument("--accum", type=int, default=None)
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="the MoE layers on the capacity_factor policy at "
+                         "this headroom")
+    ap.add_argument("--quant", default=None, choices=available_schemes(),
+                    help="expert-weight quantization scheme of the serving "
+                         "cells (a train cell is skipped); default: none")
+    ap.add_argument("--quant-experts", action="store_true",
+                    help="DEPRECATED: alias for --quant int8_expert")
+    ap.add_argument("--variant", default="",
+                    help="tag of the record, appended to its file name")
     ap.add_argument("--out", default=str(RESULT_DIR))
     args = ap.parse_args()
+    quant = resolve_quant_cli(args.quant, args.quant_experts)
+    variant = dict(capacity_factor=args.capacity_factor, quant=quant,
+                   variant=args.variant)
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     grids = args.grid or (list(DEFAULT_GRIDS) if args.all else ["1x1"])
@@ -371,14 +440,15 @@ def main() -> int:
         grids = ["2x16x16"]
 
     if args.all:
-        return 1 if _sweep(out, grids, args.jobs, args.timeout) else 0
+        return 1 if _sweep(out, grids, args.jobs, args.timeout,
+                           variant) else 0
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     rc = 0
     for g in grids:
-        rec = run_cell(args.arch, args.shape, g, accum=args.accum)
-        dest = out / f"{args.arch}.{args.shape}.{g}.json"
+        rec = run_cell(args.arch, args.shape, g, accum=args.accum, **variant)
+        dest = out / cell_file(args.arch, args.shape, g, args.variant)
         dest.write_text(json.dumps(rec, indent=2))
         print(json.dumps({k: v for k, v in rec.items()
                           if k not in ("traceback", "collectives")},

@@ -1,15 +1,31 @@
-"""Serving launcher: random weights from a seed, then greedy requests through
+"""Serving launcher: random weights from a seed, or with ``--ckpt-dir DIR``
+the parameters of DIR's latest checkpoint (a training state written by
+``launch/train.py --ckpt-dir DIR`` on one device or on any grid: its
+``params/*``, each cast to ``--dtype``), then greedy requests through
 the continuous-batching engine on the ``cuda`` executor.  By default the
 engine chooses its cache: paged (blocks of 16, chunked prefill, prefix
-cache) wherever every layer's cache is positional KV, else contiguous; the
-schedule is ``dynamic``.  ``--kv-block 0 --policy fixed`` gives the
-contiguous engine with the paper's ``fixed`` schedule, ``--kv-block N``
-the paged engine with blocks of N (which refuses a model with recurrent
-layers: "non-pageable").
+cache; ``--no-prefix-cache`` turns the last off) wherever every layer's
+cache is positional KV, else contiguous; the schedule is ``dynamic``.
+``--kv-block 0 --policy fixed`` gives the contiguous engine with the
+paper's ``fixed`` schedule, ``--kv-block N`` the paged engine with blocks
+of N (which refuses a model with recurrent layers: "non-pageable");
+``--kv-block-size`` and ``--schedule-policy`` are the reference
+launcher's spellings of the two.  ``--capacity`` sets a slot's tokens
+(default: the longest prompt + ``--max-new`` + 1; less than the longest
+prompt + ``--max-new`` is refused).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --layers 4 --requests 4 --max-new 16 \\
         --slots 2 --dtype bf16 --seed 0
+
+Train, then serve what training wrote (here on the CPU):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch moonshot-v1-16b-a3b --reduce --steps 4 \\
+        --ckpt-dir build/ckpt_cpu --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moonshot-v1-16b-a3b --reduce --ckpt-dir build/ckpt_cpu \\
+        --dtype fp32 --device cpu
 
 ``--arch deepseek-v2-236b`` serves the MLA model (latent KV cache; the
 paged read runs the MLA form of the paged-attention kernel); ``--arch``
@@ -49,15 +65,17 @@ with ``--temperature``, ``--top-k``, ``--top-p`` draws each token under a
 key of the request's seed (``--seed`` + rid: ``--seed`` also seeds the
 weights and prompts), its output index and a role; ``--spec-draft ARCH``
 serves speculatively (the paged engine only) with that draft (random
-weights from ``--seed`` + 1, the target's vocabulary, reduced alongside
-``--reduce``) proposing ``--spec-k`` tokens a slot a round.  Front end:
+weights from ``--seed`` + 1, under ``--ckpt-dir`` too; the target's
+vocabulary, reduced alongside ``--reduce``) proposing ``--spec-k`` tokens
+a slot a round.  Front end:
 ``--stream`` serves through ``ServingFrontend`` and prints each token as
 the step's transfer delivers it; ``--loadgen PATTERN`` (poisson, burst,
 shared_prefix, longtail) replays a seeded arrival trace (24 requests at
 8 req/s of virtual time, ``--smoke`` 12) through it on a virtual clock,
 advanced 0.05 s a step or, with ``--calibrate``, by the measured step
-time's EWMA, and writes the goodput record to
-``results/serve/loadgen_<arch>[_smoke].json``.
+time's EWMA, and writes the goodput record (with the paged cache's
+stats) to ``results/serve/loadgen_<arch>[_smoke].json``; ``main`` returns
+it with each request's tokens (``outputs``).
 
 Expert parallelism: ``--distributed`` serves with every MoE layer's routed
 experts split over the ranks of an EP group (``apply_moe_ep``; non-expert
@@ -115,13 +133,29 @@ def parse_args(argv=None):
                          "sampling seed base: request i draws from stream "
                          "seed + i (stochastic methods only)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--kv-block", type=int, default=None,
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="serve the parameters of DIR's latest checkpoint "
+                         "(a training state's params/*, cast to --dtype) "
+                         "instead of random weights")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="per-slot KV capacity in tokens (default: the "
+                         "longest prompt + --max-new + 1); a value below the "
+                         "longest prompt + --max-new is refused")
+    ap.add_argument("--kv-block", "--kv-block-size", dest="kv_block",
+                    type=int, default=None,
                     help="KV block size of the paged engine; 0 = contiguous; "
                          "default: the engine's choice (blocks of 16 "
                          "wherever every layer's cache is positional KV, "
                          "else contiguous)")
-    ap.add_argument("--policy", default="dynamic",
-                    choices=available_policies(), help="schedule policy")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="share cached full prompt blocks across requests "
+                         "(paged engine; default on)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
+    ap.add_argument("--policy", "--schedule-policy", dest="policy",
+                    default="dynamic", choices=available_policies(),
+                    help="schedule policy")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt tokens per slot per paged step")
     ap.add_argument("--paged-attn", default="auto",
@@ -257,6 +291,29 @@ def serve_rank(group, args):
         return serve(args, group.device, group)
 
 
+def load_checkpoint(cfg, ckpt_dir: str, dtype, device):
+    """The model of ``cfg`` at ``dtype`` holding the parameters of
+    ``ckpt_dir``'s latest checkpoint (``params/*`` of a training state,
+    written on one device or on any grid), each cast to its parameter's
+    dtype.  The model is laid out on the meta device and allocated
+    uninitialised on ``device``: no random draw.  Prints the step, the
+    bytes read and the seconds."""
+    from repro_torch import resolve_device
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.lm import LM
+    if not pathlib.Path(ckpt_dir).is_dir():
+        raise SystemExit(f"--ckpt-dir {ckpt_dir}: no such directory")
+    dev = resolve_device(device)
+    model = LM(cfg, None, dtype, torch.device("meta")).to_empty(device=dev)
+    mgr = CheckpointManager(ckpt_dir, async_save=False)
+    mgr.restore_params(model)
+    st = mgr.stats
+    print(f"checkpoint {ckpt_dir}: step {st['restore_step']}, "
+          f"{st['restore_bytes']} bytes of params/* read in "
+          f"{st['restore_s']:.3f} s, cast to {str(dtype).split('.')[-1]}")
+    return model
+
+
 def serve(args, device, group=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.lm import RunConfig, init_params
@@ -283,18 +340,13 @@ def serve(args, device, group=None):
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     dt = DTYPES[args.dtype]
-    on_card = torch.device(device).type == "cuda"
-    if on_card and torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-    model = init_params(cfg, args.seed, param_dtype=dt, device=device)
-    dense_bytes = routed_expert_bytes(model)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i, prompt=rng.integers(
                 0, cfg.vocab_size, int(rng.integers(16, 65))).astype(np.int32),
                     max_new=args.max_new, slo_ttft=args.slo_ttft,
                     slo_tpot=args.slo_tpot)
             for i in range(args.requests)]
-    capacity = max(len(r.prompt) for r in reqs) + args.max_new + 1
+    prompts = [r.prompt for r in reqs]
     trace = None
     if args.loadgen:
         trace = synth_trace(args.loadgen, seed=0,
@@ -304,7 +356,20 @@ def serve(args, device, group=None):
                                       else args.slo_ttft),
                             slo_tpot=args.slo_tpot, burst_size=6,
                             prompt_hi=40)
-        capacity = max(len(e.prompt) for e in trace) + args.max_new + 1
+        prompts = [e.prompt for e in trace]
+    need = max(len(p) for p in prompts) + args.max_new
+    capacity = need + 1 if args.capacity is None else args.capacity
+    if capacity < need:
+        raise SystemExit(f"--capacity {capacity} cannot hold the longest "
+                         f"prompt and --max-new: {need} tokens a slot")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    if args.ckpt_dir:
+        model = load_checkpoint(cfg, args.ckpt_dir, dt, device)
+    else:
+        model = init_params(cfg, args.seed, param_dtype=dt, device=device)
+    dense_bytes = routed_expert_bytes(model)
     rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
                    paged_attn=args.paged_attn, quant=quant,
                    moe_stats=bool(cfg.is_moe), autotune=args.autotune,
@@ -325,6 +390,7 @@ def serve(args, device, group=None):
                               seed=args.seed)
     kw = dict(slots=args.slots, capacity=capacity, rc=rc,
               admission=args.admission, kv_block_size=args.kv_block,
+              prefix_cache=args.prefix_cache,
               prefill_chunk=args.prefill_chunk, obs=obs, sampling=sampling,
               device=device)
     if args.spec_draft:
@@ -345,7 +411,8 @@ def serve(args, device, group=None):
     n_kv = len(kinds) - n_rec
     n_cross = kinds.count("cross")
     cache = (f"paged KV cache (blocks of {engine.kv_block_size}, prefill "
-             f"chunks of {engine.prefill_chunk}, {args.paged_attn} read)"
+             f"chunks of {engine.prefill_chunk}, {args.paged_attn} read, "
+             f"prefix cache {'on' if args.prefix_cache else 'off'})"
              if engine.paged else
              f"contiguous KV cache (and {n_cross} cross blocks' image K/V a "
              f"slot, from zero image embeddings)" if n_cross else
@@ -375,7 +442,9 @@ def serve(args, device, group=None):
                      step_time=None if args.calibrate else 0.05, seed=0,
                      pattern=args.loadgen,
                      max_steps=min(args.max_steps, 1024))
-        rec.pop("outputs", None)
+        outputs = rec.pop("outputs", None)
+        if engine.paged:
+            rec["kv_stats"] = engine.kv.stats()
         out_path = pathlib.Path("results/serve")
         out_path.mkdir(parents=True, exist_ok=True)
         out_path = out_path / (f"loadgen_{args.arch}"
@@ -390,8 +459,10 @@ def serve(args, device, group=None):
               f"{rec['slo_attainment']:.2f}, preempted {rec['preempted']}, "
               f"resumed {rec['resumed']}, TTFT p50 {rec['ttft_p50_s']} s, "
               f"step {rec['step_time_s']} s ({rec['step_time_mode']})")
+        if engine.paged:
+            print(f"paged-cache stats: {rec['kv_stats']}")
         print(f"loadgen record -> {out_path}")
-        return rec
+        return dict(rec, outputs=outputs)
     bracket = (device_trace(args.device_trace) if args.device_trace
                else contextlib.nullcontext())
     t0 = time.perf_counter()

@@ -13,7 +13,9 @@ this rank's block on the grid, and the step function over them.
   ``make_train_step(accum_steps=..., grid=...)``.
 - prefill / decode: the served path as the launcher's ``--distributed``
   runs it: every rank holds the non-expert weights whole and its
-  ``E / model`` experts (``weights.shard_model``), serves its share of the
+  ``E / model`` experts (``weights.shard_model``; under ``rc.quant`` then
+  compressed by ``quantization.quantize_model``, as the engine does at
+  load, on the fake tensors too), serves its share of the
   batch (the rows over the data axes) with the MoE layers over the
   'model' group (``rc.ep``), over a contiguous cache of ``seq_len``
   positions a row; decode writes and reads position ``seq_len - 1``.
@@ -162,6 +164,11 @@ def cell_inputs(arch: str, shape: ShapeConfig, grid,
         from repro_torch.weights import shard_model
         shard_model(model, grid.coords["model"], M)
         meta["layout"] = "ep_serve"
+    if rc.quant != "none" and cfg.is_moe:
+        # the engine's load-time transform, after the EP split as there
+        from repro_torch.quantization import quantize_model
+        quantize_model(model, rc.quant)
+        meta["quant"] = rc.quant
     B = _serve_rows(grid, shape.global_batch)
     whole = fake_batch(cfg, shape, device=device)
     batch = {k: v[:B] for k, v in whole.items()}

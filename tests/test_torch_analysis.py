@@ -1,7 +1,8 @@
 """The port's analysis (``repro_torch.analysis``) against the reference's
 ``repro.analysis``: the cost model cell for cell, the roofline's FLOP and
 byte fields, the ring link-byte formulas and loop multipliers, and the
-report's tables string for string over the same records.  Nothing here
+report's tables (``perf_rows``, the variant table, too) string for
+string over the same records.  Nothing here
 computes on a device; the reference's modules are pure Python."""
 import dataclasses
 import json
@@ -396,3 +397,56 @@ def test_fit_table():
     assert rows[0].startswith("| deepseek-v2-236b | decode_32k | 2x16x16 "
                               "| 70.00 | 1.00 | 71.00 | Y |")
     assert rows[1].endswith("| 3.20 | 12.50 | 15.70 | Y |")
+
+
+def _variant_records(tmp_path):
+    """A baseline and a variant record of one cell at 16x16, written as
+    files (the reference reads them by path)."""
+    import json
+    base = {"arch": "deepseek-v2-236b", "shape": "decode_32k",
+            "mesh": "16x16", "grid": "16x16", "chips": 256, "status": "ok",
+            "compile_s": 1.0,
+            "memory": {"argument_bytes": 7e9, "temp_bytes": 12.34e9},
+            "cost": {"flops": 1e12},
+            "collectives": {"total_bytes": 56.78e9}}
+    var = dict(base, variant="int8", quant="int8_expert",
+               memory={"argument_bytes": 4e9, "temp_bytes": 9.87e9},
+               collectives={"total_bytes": 16.5e9})
+    paths = []
+    for name, rec in (("base", base), ("var", var)):
+        p = tmp_path / f"{name}.json"
+        p.write_text(json.dumps(rec))
+        paths.append(p)
+    return paths, base, var
+
+
+def test_perf_rows_string_equal_reference(tmp_path):
+    """The variant table over the same two records is the reference's,
+    string for string (its seconds at 256 cards' link rate, which is the
+    reference's 50 GB/s); the port takes records or paths."""
+    (base_p, var_p), base, var = _variant_records(tmp_path)
+    rows = [(str(var_p), "kept"), (str(base_p), "same")]
+    ref = ref_report.perf_rows(rows, str(base_p), "Cell 3: deepseek")
+    assert report.perf_rows(rows, str(base_p), "Cell 3: deepseek") == ref
+    assert report.perf_rows([(var, "kept"), (base, "same")], base,
+                            "Cell 3: deepseek") == ref
+    assert "| int8 | 16.5 | 0.29x | 9.9 | 0.80x | kept |" in ref
+
+
+def test_report_main_prints_the_variant_tables(tmp_path, monkeypatch,
+                                              capsys):
+    import sys
+    (base_p, var_p), base, var = _variant_records(tmp_path)
+    var_p.rename(tmp_path / "deepseek-v2-236b.decode_32k.16x16.int8.json")
+    base_p.rename(tmp_path / "deepseek-v2-236b.decode_32k.16x16.json")
+    monkeypatch.setattr(sys, "argv", ["report", "--results",
+                                      str(tmp_path / "none"), "--dryrun",
+                                      str(tmp_path)])
+    report.main()
+    out = capsys.readouterr().out
+    assert "## Variants" in out
+    assert "**deepseek-v2-236b x decode_32k, grid 16x16** — baseline: " \
+           "collective 56.8 GB/dev/step (1.14 s), temp 12.3 GB/dev" in out
+    assert "| int8 | 16.5 | 0.29x | 9.9 | 0.80x | quant int8_expert |" in out
+    # the dry-run table lists the cell once: the variant is not a cell
+    assert out.count("| deepseek-v2-236b | decode_32k | 16x16 | ok |") == 1

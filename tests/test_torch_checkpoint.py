@@ -21,6 +21,11 @@ resume after a failure, gradient compression and remat (counterparts of
   gradients with ``remat=True``; each MoE layer's forward kernels run once
   more in the backward.
 * The launcher with ``--ckpt-dir``: a second run resumes.
+* ``restore_params``: a 2-step training checkpoint's ``params/*`` into a
+  bf16 model are the saved fp32 parameters cast by ``.to``, bitwise (fp32
+  bitwise too), ``opt/*`` skipped; a deeper or a quantized target names
+  the leaves it lacks or the checkpoint lacks; the strict ``restore``
+  still refuses another dtype and another structure.
 """
 import json
 
@@ -234,3 +239,71 @@ def test_launcher_resumes_from_its_checkpoint_dir(tmp_path, capsys):
     assert "remat False" in capsys.readouterr().out      # --reduce: no remat
     assert sorted(p.name for p in tmp_path.iterdir()) \
         == ["ckpt_00000002", "ckpt_00000004"]
+
+
+@pytest.fixture(scope="module")
+def trained_ckpt(tmp_path_factory):
+    """A 2-step training checkpoint of reduced moonshot (fp32 master
+    weights and AdamW moments) and the trained model."""
+    root = tmp_path_factory.mktemp("train_ckpt")
+    out = train(cfg2(), RunConfig(loss_chunk=LOSS_CHUNK),
+                adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                steps=2, batch=2, seq=16, ckpt_dir=str(root),
+                log=lambda s: None, device="cpu")
+    return root, out["state"]["params"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_restore_params_of_a_training_checkpoint(trained_ckpt, dtype):
+    """``params/*`` of a training state into a model of another dtype:
+    each leaf is the saved fp32 parameter cast by ``.to``, bitwise (fp32
+    itself bitwise); ``opt/*`` is skipped."""
+    root, trained = trained_ckpt
+    manifest = json.loads((root / "ckpt_00000001" / "manifest.json")
+                          .read_text())
+    assert any(m["name"].startswith("opt/") for m in manifest["leaves"])
+    model = init_params(cfg2(), 5, param_dtype=dtype, device="cpu")
+    m = CheckpointManager(str(root))
+    assert m.restore_params(model) is model
+    assert m.stats["restore_step"] == 1
+    saved = dict(trained.named_parameters())
+    assert m.stats["restore_bytes"] == sum(
+        p.numel() * 4 for p in saved.values())
+    cast = 0
+    for name, p in model.named_parameters():
+        want = saved[name].detach().to(p.dtype)  # fp32 vectors stay fp32
+        cast += p.dtype == dtype
+        assert torch.equal(p, want), name
+    assert cast >= 8          # every matrix in ``dtype``
+
+
+@pytest.mark.parametrize("target", ["deeper", "quantized"])
+def test_restore_params_names_a_missing_leaf(trained_ckpt, target):
+    root, _ = trained_ckpt
+    cfg = cfg2()
+    if target == "deeper":
+        model = init_params(cfg.replace(n_layers=3), 0, device="cpu")
+        match = r"the target has, the checkpoint lacks, \d+ leaves " \
+                r"\(layers\.2\."
+    else:
+        model = quantize_model(init_params(cfg, 0, device="cpu"),
+                               "int8_expert")
+        match = (r"the target has, the checkpoint lacks, 6 leaves "
+                 r"\(layers\.1\.moe\.w_gate_q.*the checkpoint has, the "
+                 r"target lacks, 3 leaves \(layers\.1\.moe\.w_gate")
+    with pytest.raises(ValueError, match=match):
+        CheckpointManager(str(root)).restore_params(model)
+
+
+def test_strict_restore_stays_strict(trained_ckpt):
+    """The whole-state ``restore`` still takes the exact structure and
+    dtypes: a bf16 model of the trainer's state is refused."""
+    root, trained = trained_ckpt
+    from repro_torch.train.step import train_state
+    m = CheckpointManager(str(root))
+    state = train_state(init_params(cfg2(), 0, param_dtype=torch.bfloat16,
+                                    device="cpu"))
+    with pytest.raises(ValueError, match="checkpoint float32"):
+        m.restore(state)
+    with pytest.raises(ValueError, match="STRUCTURES differ"):
+        m.restore({"params": init_params(cfg2(), 0, device="cpu")})

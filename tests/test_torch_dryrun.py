@@ -5,7 +5,12 @@ kernels' shape-only ops counting every scheduled row where the plain
 versions compute only active blocks), the same argument bytes as the real
 tensors hold, and, on a 2x2 grid, the same collectives (op, bytes, group
 size) as a real gloo step's counters.  The kernels' shape-only ops give
-their plain versions' shapes and dtypes.  No JAX here."""
+their plain versions' shapes and dtypes.  The variants: a decode cell
+under int8 or int4 experts holds a real quantized model's parameter bytes
+(``quantize_model`` runs on fake tensors), a train cell under ``quant``
+is ``skip``, ``capacity_factor`` moves the FLOPs by what ``cell_cost``
+predicts, and ``--variant`` tags the record and its file.  No JAX
+here."""
 import contextlib
 
 import pytest
@@ -289,3 +294,119 @@ def test_paged_attention_shape_only_op(mla):
     assert (tuple(out.shape), out.dtype) == (tuple(real.shape), real.dtype)
     d_score = D + (D2 or 0)
     assert fc.get_total_flops() == 2 * B * Hkv * G * nb * bs * (d_score + Dv)
+
+
+# ----------------------------------------------------------------------
+# The variants: --quant, --capacity-factor, --variant
+# ----------------------------------------------------------------------
+def _stored_bytes(model) -> int:
+    return sum(t.untyped_storage().nbytes()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+@pytest.mark.parametrize("scheme", ["int8_expert", "int4_packed"])
+def test_quantized_decode_cell_holds_the_quantized_models_bytes(scheme):
+    """A decode cell under ``quant``: the fake parameters are quantized as
+    the engine quantizes at load, so their bytes are a real CPU model's
+    after ``quantize_model``; B1 and B2 take the payload and count the
+    dense product's FLOPs over the same schedule."""
+    from repro_torch.models.lm import init_params
+    from repro_torch.quantization import quantize_model
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    dense = dryrun.run_cell("moonshot-v1-16b-a3b", DECODE, cfg=cfg)
+    rec = dryrun.run_cell("moonshot-v1-16b-a3b", DECODE, cfg=cfg,
+                          quant=scheme)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["quant"] == rec["meta"]["quant"] == scheme
+    real = quantize_model(init_params(cfg, 0, param_dtype=torch.bfloat16,
+                                      device="cpu"), scheme)
+    assert rec["memory"]["argument_parts"]["params"] == _stored_bytes(real)
+    assert rec["memory"]["argument_parts"]["params"] \
+        < dense["memory"]["argument_parts"]["params"]
+    assert rec["cost"]["flops"] == dense["cost"]["flops"]
+    for op in ("grouped_gemm_shape", "fused_gate_up_shape"):
+        assert rec["cost"]["flops_by_op"][f"repro_torch.{op}"] > 0
+
+
+def test_quantized_shape_ops_check_the_payload():
+    """The shape-only B1 takes an int4 payload of K/2 rows and its scales,
+    and refuses a payload that does not fit the rows."""
+    mode = FakeTensorMode()
+    with mode:
+        x = torch.empty((16, 32), dtype=torch.bfloat16)
+        w4 = torch.empty((4, 16, 24), dtype=torch.int8)
+        s = torch.empty((4, 24))
+        assert shapes.grouped_gemm_shape(x, w4, s, "int4").shape == (16, 24)
+        with pytest.raises(ValueError, match="int8 weights"):
+            shapes.grouped_gemm_shape(x, w4, s, "int8")
+        with pytest.raises(ValueError, match="need their"):
+            shapes.grouped_gemm_shape(x, w4, None, "int4")
+
+
+def test_quant_train_cell_is_skip():
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    rec = dryrun.run_cell("moonshot-v1-16b-a3b", TRAIN, cfg=cfg,
+                          quant="int8_expert")
+    assert rec["status"] == "skip"
+    assert "trains no quantized experts" in rec["reason"]
+
+
+def test_capacity_factor_moves_dispatch_flops_as_cell_cost_predicts():
+    """The ``capacity_factor`` policy at 1.0 and 2.0 on a prefill of 1024
+    tokens (reduced moonshot: E 8, top-2, blocks of 8, so every expert's
+    capacity is 256 or 512 rows, tile-aligned and past cell_cost's floor
+    of 128): the fake step's FLOPs move by exactly what ``cell_cost``'s
+    static-capacity padding term moves by."""
+    from repro_torch.analysis.flops import cell_cost
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    shape = ShapeConfig("prefill_1k", 1024, 1, "prefill")
+    got, want = {}, {}
+    for cf in (1.0, 2.0):
+        rec = dryrun.run_cell("moonshot-v1-16b-a3b", shape, cfg=cfg,
+                              capacity_factor=cf)
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["capacity_factor"] == cf
+        got[cf] = rec["cost"]["flops"]
+        want[cf] = cell_cost(cfg, shape, chips=1, ep=1,
+                             capacity_factor=cf).dispatch_flops
+    assert got[2.0] - got[1.0] == want[2.0] - want[1.0] > 0
+
+
+def test_variant_flags_tag_the_record_and_its_file(tmp_path, monkeypatch):
+    """``--variant`` goes into the record and the file name; ``--quant``
+    (``--quant-experts`` its alias) makes a train cell ``skip``."""
+    import json
+    import sys
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "qwen2-7b", "--shape", "train_4k",
+        "--quant-experts", "--variant", "int8", "--out", str(tmp_path)])
+    with pytest.warns(DeprecationWarning):
+        assert dryrun.main() == 0
+    path = tmp_path / "qwen2-7b.train_4k.1x1.int8.json"
+    rec = json.loads(path.read_text())
+    assert rec["variant"] == "int8" and rec["quant"] == "int8_expert"
+    assert rec["status"] == "skip"
+    assert dryrun.cell_file("a", "s", "2x4") == "a.s.2x4.json"
+
+
+@pytest.mark.parametrize("scheme", ["int8_expert", "int8_channel",
+                                    "int4_packed"])
+def test_quantize_model_runs_on_fake_tensors(scheme):
+    """``quantize_model`` under ``FakeTensorMode``: the fake model's routed
+    experts are ``QuantTensor``s whose payloads and scales have a real
+    quantized model's shapes and dtypes."""
+    from repro_torch.models.lm import init_params
+    from repro_torch.quantization import QuantTensor, quantize_model
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    real = quantize_model(init_params(cfg, 0, param_dtype=torch.bfloat16,
+                                      device="cpu"), scheme)
+    with FakeTensorMode():
+        fake = quantize_model(init_params(cfg, 0, param_dtype=torch.bfloat16,
+                                          device="cpu"), scheme)
+    want = {n: (tuple(t.shape), t.dtype) for n, t in real.named_buffers()}
+    got = {n: (tuple(t.shape), t.dtype) for n, t in fake.named_buffers()}
+    assert got == want and len(got) == 6
+    assert all(shapes.is_fake(t) for _, t in fake.named_buffers())
+    w = fake.layers[1].moe.expert_weight("w_gate")
+    assert isinstance(w, QuantTensor) and w.scheme == scheme
+    assert w.shape == real.layers[1].moe.expert_weight("w_gate").shape

@@ -12,7 +12,12 @@ The JAX side uses ``executor="xla"`` for speed: JAX's own tests hold xla ==
 pallas (tests/test_execution.py, rtol = atol = 2e-4), and the port's
 kernels are held against the pallas executor in test_torch_dispatch.py and
 test_torch_model.py.  One small paged case runs the reference's fused
-Pallas read in interpret mode."""
+Pallas read in interpret mode.
+
+The launcher's switches: ``--no-prefix-cache`` serves the shared-prefix
+trace with no prefix hit and the same tokens, a ``--capacity`` below the
+longest prompt + ``--max-new`` ends the run, and a reference command line
+(``--kv-block-size``, ``--schedule-policy``, ``--prefix-cache``) runs."""
 import numpy as np
 import pytest
 import torch
@@ -202,3 +207,49 @@ def test_launcher_serves_on_cpu_when_asked(capsys, monkeypatch):
         assert len(done) == 3 and all(len(r.out) == 2 for r in done)
         out = capsys.readouterr().out
         assert "3/3 requests completed" in out and kind in out, out
+
+
+def test_launcher_no_prefix_cache_same_tokens_no_hits(tmp_path, monkeypatch):
+    """``--no-prefix-cache``: the shared-prefix trace served with no prompt
+    block taken from the cache (the pool's prefix-hit tokens 0, against
+    some with the cache on) and the same tokens."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--arch", "smollm-360m", "--reduce", "--dtype", "fp32",
+            "--device", "cpu", "--max-new", "3", "--loadgen",
+            "shared_prefix", "--smoke"]
+    on = launch_main(argv)
+    off = launch_main(argv + ["--no-prefix-cache"])
+    assert on["kv_stats"]["prefix_hit_tokens"] > 0
+    assert off["kv_stats"]["prefix_hit_tokens"] == 0
+    assert off["completed"] == on["completed"] == 12
+    assert off["outputs"] == on["outputs"]
+
+
+def test_launcher_capacity_flag(capsys):
+    argv = ["--arch", "smollm-360m", "--reduce", "--requests", "2",
+            "--max-new", "4", "--dtype", "fp32", "--device", "cpu"]
+    done = launch_main(argv + ["--capacity", "100"])
+    assert len(done) == 2 and "2 slots x 100 tokens" in \
+        capsys.readouterr().out
+    need = max(len(r.prompt) for r in done) + 4
+    launch_main(argv + ["--capacity", str(need)])
+    with pytest.raises(SystemExit, match=f"--capacity {need - 1} cannot "
+                                         f"hold .*: {need} tokens"):
+        launch_main(argv + ["--capacity", str(need - 1)])
+
+
+def test_launcher_takes_a_reference_command_line(capsys):
+    """The reference launcher's spellings (``--kv-block-size``,
+    ``--schedule-policy``, ``--prefix-cache``, ``--capacity``) run
+    unchanged; its ``--executor`` is not ported."""
+    ref_argv = ["--arch", "moonshot-v1-16b-a3b", "--reduce", "--requests",
+                "3", "--max-new", "3", "--quant", "int8_expert", "--slots",
+                "2", "--capacity", "128", "--kv-block-size", "16",
+                "--schedule-policy", "fixed", "--prefix-cache",
+                "--prefill-chunk", "32"]
+    done = launch_main(ref_argv + ["--dtype", "fp32", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert len(done) == 3 and "fixed schedule" in out
+    assert "blocks of 16" in out and "2 slots x 128 tokens" in out
+    with pytest.raises(SystemExit):
+        launch_main(ref_argv + ["--executor", "xla"])

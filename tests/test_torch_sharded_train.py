@@ -32,7 +32,9 @@ ctx}``, the grid path of ``models/lm.py``, ``train/step.py`` and
   'model', and nothing else.
 * Elastic restore: a checkpoint written on 2x2 restored onto 1x1 and 1x2
   is bitwise the saved leaves; a run interrupted after 2 steps and resumed
-  ends bitwise where an uninterrupted one does, on 2x2 and on 1x2.
+  ends bitwise where an uninterrupted one does, on 2x2 and on 1x2.  The
+  2x2 checkpoint served on one device by the serve launcher: the
+  unsharded restore's prefill logits bitwise, and its engine's tokens.
 * ``compressed_psum`` over a 'pod' group of 4: ``rel < 2e-2`` of the plain
   sum, within 1e-6 of the reference's ``quantize`` arithmetic; the step's
   'pod' reduction through it (``compress_pod``) within ``rel < 2e-2``.
@@ -517,6 +519,41 @@ def test_resumed_run_is_bitwise_the_uninterrupted_one(runs, grid):
     assert set(split) == set(whole)
     for name in whole:
         assert np.array_equal(split[name], whole[name]), name
+
+
+def test_grid_checkpoint_serves_on_one_device(runs):
+    """The 2x2 grid's checkpoint (full arrays: rank 0 gathered them) loaded
+    by the serve launcher on one CPU device: its prefill logits are those
+    of the unsharded model restored whole from the same step, bitwise, and
+    the launcher's tokens those of an engine over that model."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.lm import RunConfig, forward
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.step import init_train_state
+    split = str(runs["tmp"] / "g22" / "split")
+    cfg = W.model_config("moonshot-v1-16b-a3b")
+    served = serve_launcher.load_checkpoint(cfg, split, torch.float32, "cpu")
+    state = init_train_state(cfg, 7, W.run_config("fixed"), device="cpu")
+    CheckpointManager(split).restore(state, 2)       # the latest
+    whole = state["params"]
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 24)))
+    rc = RunConfig(schedule_policy="dynamic")
+    with torch.no_grad():
+        got = forward(served, cfg, rc, {"tokens": toks})[0]
+        want = forward(whole, cfg, rc, {"tokens": toks})[0]
+    assert torch.equal(got, want)
+    done = serve_launcher.main(
+        ["--arch", "moonshot-v1-16b-a3b", "--reduce", "--layers", "3",
+         "--ckpt-dir", split, "--dtype", "fp32", "--device", "cpu",
+         "--requests", "2", "--max-new", "4"])
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=4) for r in done]
+    ServeEngine(cfg, whole, slots=2, device="cpu",
+                capacity=max(len(r.prompt) for r in reqs) + 5,
+                rc=RunConfig(schedule_policy="dynamic", moe_stats=True)
+                ).run(reqs)
+    assert [r.out for r in reqs] == [r.out for r in done]
 
 
 # ----------------------------------------------------------------------
