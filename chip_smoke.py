@@ -175,7 +175,27 @@ result line):
    ``sched/dropped_rows`` and above 0; ``int8_expert`` tokens equal; each
    rank's launches; decode ms per step against the single rank's, the
    exchange's rows and bytes a step and each collective's host ms
-   (``serve_ep``);
+   (``serve_ep``).  [executors]: the port's three executors (``cuda``, the
+   kernels; ``blocks``, the block schedule in plain PyTorch products;
+   ``dense``, every expert on every token): the paper's four MoE layers
+   (``configs/paper.py``) at full width in bf16, fixed schedule, at
+   ``EXEC_TS`` tokens, on the arms of its Tables 2-4 (``cuda`` fused,
+   ``cuda`` unfused with the combine in ``unpermute``, ``blocks``,
+   ``dense`` where E <= 64), each under ``set_sync_debug_mode("error")``
+   and held against a dense fp32 oracle on the same routing (the largest
+   difference within the bf16 tolerance of the oracle's largest
+   magnitude), eager ms (median of ``EXEC_ITERS`` calls between CUDA
+   events), device ms (a CUDA graph of one call, replayed) and peak bytes
+   each, B1-B6 launched only by the ``cuda`` arms;
+   the serve launcher with ``--executor blocks``, ``dense`` and ``cuda`` at
+   the served depth in fp32 on the ``fixed`` schedule (greedy tokens
+   identical, no kernel launched but by ``cuda``, which launches what
+   [serve paged] does), then [serve paged]'s traffic in bf16 on each
+   executor on ``fixed`` (decode ms per step); one
+   fp32 forward + backward of moonshot at 2 layers on ``blocks`` and
+   ``dense`` against ``cuda`` (the loss within 1e-5 relative, every
+   gradient within 1e-4 of its largest magnitude; no kernel launched off
+   ``cuda``) (``executors_phase``);
 6. serving, contiguous + fixed (``kv_block_size=0``): 3 requests as before
    the paged engine existed, with the same launch, logits and profile
    checks;
@@ -722,6 +742,39 @@ EP_LAYER_LAYOUTS = {"sharded": 0, "sharded_static": 0, "replicated": 0,
 EP_COLLECTIVE_ITERS = 50
 EP_CF, EP_DROP_REQUESTS, EP_DROP_CHUNK, EP_DROP_BLOCK_M = \
     0.5, ((8, 2), (200, 2)), 64, 8
+# [executors]: tokens of each paper layer (configs/paper.py; T=32 and 512
+# at least, mixtral-8x7b at 512 being Table 4's cell), the largest E of
+# the dense arm (the reference's benchmarks/e2e_latency.py leaves
+# deepseek-v3 out of it), each arm's MoEDispatchConfig overrides, the timed
+# calls an arm (median), the weights' seed, the fp32 weight bytes a chunk
+# of the oracle; the trained check's depth, batch and sequence
+EXEC_TS = {"mixtral-8x7b": (32, 128, 512, 2048),
+           "mixtral-8x22b": (32, 512), "qwen2-moe-57b": (32, 128, 512),
+           "deepseek-v3": (32, 512)}
+EXEC_DENSE_MAX_E = 64
+EXEC_ARMS = {"cuda fused": dict(executor="cuda"),
+             "cuda unfused": dict(executor="cuda", fuse_gate_up=False,
+                                  fold_combine=False),
+             "blocks": dict(executor="blocks"),
+             "dense": dict(executor="dense")}
+EXEC_ITERS, EXEC_SEED, EXEC_ORACLE_BYTES = 5, 7, 4e9
+# an arm's output against the fp32 oracle: max|y - oracle| within the bf16
+# tolerance (tests/test_kernels.py:31-33) of max|oracle|, the form of the
+# reference's whole-layer check against its dense oracle
+# (tests/test_differential.py:118-124).  Elementwise it cannot hold: each
+# grouped arm rounds h and every expert's weighted contribution to bf16
+# before B4 sums them (the reference's executors too), and at deepseek-v3's
+# k=8 unnormalised sigmoid weights a cancelling sum of such contributions
+# missed rtol=atol=2e-2 by 0.0027 (3 of 229,376 elements; its max 0.0227
+# at an element of 0.0037, an H100 run)
+EXEC_REL_TOL = TOL["bfloat16"]["rtol"]
+EXEC_TRAIN_LAYERS, EXEC_TRAIN_BATCH, EXEC_TRAIN_SEQ = 2, 2, 128
+# the served runs' schedule: blocks loops over every block of it, and the
+# dynamic policy's 8-row sub-blocks over moonshot's 128-row envelope give
+# 1,040 blocks a GEMM at decode (1,575.1 ms a bf16 step against 25.1 on
+# cuda, an H100 run); the fixed policy's 128-row blocks give 65
+EXEC_SERVE_POLICY = "fixed"
+EXEC_TRAIN_TOL = dict(loss=1e-5, grad=1e-4)
 # the Hopper kernels (wgmma + TMA): report name -> the mangled name's stem
 # of each instantiation in the built library (the forward's kernels are
 # templates: FUSED false is B1, true B2; the quantized one's FMT 1 is int8,
@@ -2121,10 +2174,7 @@ def register_plain_executor():
         def prepare_weights(self, w, cfg):
             return w        # the plain GEMMs dequantize gathered blocks
 
-        def route(self, logits, cfg):
-            return ref.router_ref(logits, cfg.top_k, gating=cfg.gating,
-                                  norm_topk=cfg.norm_topk,
-                                  routed_scale=cfg.routed_scale)
+        # route: the base Executor's, the plain router
 
         def permute(self, x, sched, cfg):
             return ref.permute_ref(x, sched)
@@ -6376,6 +6426,354 @@ def train_sharded() -> dict:
     return out
 
 
+def median_ms(fn, iters: int, warm: int = 1) -> float:
+    """Median over ``iters`` calls of ``fn``, each between two CUDA events
+    (after ``warm`` calls): the device's time where it is busy throughout,
+    else the host's time to issue the call."""
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def oracle_fp32(x, wg, wu, wd, weights, indices,
+                budget: float = EXEC_ORACLE_BYTES):
+    """The MoE layer in fp32 on every expert, a chunk of experts at a time
+    (at most ``budget`` bytes of fp32 weights a chunk, so deepseek-v3's
+    256 experts fit), each expert's output weighted by the routing's
+    combine weight for it (0 where it was not picked).  This script's
+    own, apart from the port's ``moe_ffn_dense_ref``."""
+    import torch
+    E, d, f = wg.shape
+    step = max(1, int(budget // (3 * d * f * 4)))
+    xf = x.float()
+    combine = torch.zeros((x.shape[0], E), dtype=torch.float32,
+                          device=x.device).scatter_add_(
+        1, indices.long(), weights.float())
+    y = torch.zeros((x.shape[0], wd.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    for e0 in range(0, E, step):
+        sl = slice(e0, min(E, e0 + step))
+        g = torch.einsum("td,edf->tef", xf, wg[sl].float())
+        u = torch.einsum("td,edf->tef", xf, wu[sl].float())
+        h = (g * torch.sigmoid(g)) * u * combine[:, sl, None]
+        y += torch.einsum("tef,efd->td", h, wd[sl].float())
+    return y
+
+
+def executor_layers() -> dict:
+    """[executors]' layer cells: every paper layer at EXEC_TS on each arm
+    of EXEC_ARMS.  Each arm: one warm call, one call under
+    ``set_sync_debug_mode("error")`` held against ``oracle_fp32`` on the
+    routing of the plan (``EXEC_REL_TOL``), its peak bytes above what was
+    resident, its launches (B1-B6 only on ``cuda``), its eager ms (host
+    issue included) and its device ms (``device_ms``: one call in a CUDA
+    graph, replayed)."""
+    import torch
+    from repro_torch.configs import PAPER_CONFIGS
+    from repro_torch.core.dispatch import MoEDispatchConfig, moe_ffn
+    from repro_torch.execution import plan_dispatch
+    from repro_torch.kernels import ops
+    out = {}
+    gen = torch.Generator(device="cuda")
+    for name, Ts in EXEC_TS.items():
+        pc = PAPER_CONFIGS[name]
+        E, k, d, f = pc.n_experts, pc.top_k, pc.d_model, pc.d_ffn
+        gen.manual_seed(EXEC_SEED)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(torch.bfloat16)
+        wg = randn(E, d, f, scale=d ** -0.5)
+        wu = randn(E, d, f, scale=d ** -0.5)
+        wd = randn(E, f, d, scale=f ** -0.5)
+        router = torch.randn((d, E), generator=gen, device="cuda") \
+            * d ** -0.5
+        base = MoEDispatchConfig(n_experts=E, top_k=k, block_m=128,
+                                 gating=pc.gating, schedule_policy="fixed")
+        for T in Ts:
+            x = randn(T, d)
+            plan = plan_dispatch(x, router, base._replace(executor="dense"))
+            want = oracle_fp32(x, wg, wu, wd, plan.weights, plan.indices)
+            used = int(torch.unique(plan.indices).numel())
+            b_ms, b_by = bound_ms(used * 3 * d * f * 2 + 2 * T * d * 2,
+                                  2 * 3 * T * k * d * f)
+            cell = {"bound_ms": b_ms, "bound_by": b_by, "experts_used": used,
+                    "oracle_max_abs": want.abs().max().item(), "arms": {}}
+            for arm, kw in EXEC_ARMS.items():
+                if arm == "dense" and E > EXEC_DENSE_MAX_E:
+                    continue
+                cfg = base._replace(**kw)
+
+                def call():
+                    return moe_ffn(x, router, wg, wu, wd, cfg)[0]
+                call()
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    y = call()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - resident
+                launched = {n: c for n, c in ops.LAUNCHES.items() if c}
+                if (cfg.executor == "cuda") != bool(launched):
+                    raise AssertionError(f"[executors] {name} T={T} {arm}: "
+                                         f"launches {launched}")
+                err = (y.float() - want).abs().max().item()
+                rel = err / cell["oracle_max_abs"]
+                if not torch.isfinite(y).all() or rel > EXEC_REL_TOL:
+                    raise AssertionError(
+                        f"[executors] {name} T={T} {arm}: max|y - oracle| "
+                        f"{err:.3e} is {rel:.3e} of max|oracle| "
+                        f"{cell['oracle_max_abs']:.3e} (tolerance "
+                        f"{EXEC_REL_TOL:g})")
+                del y
+                ms = median_ms(call, EXEC_ITERS)
+                graph = device_ms(call, per_graph=1, replays=EXEC_ITERS)
+                cell["arms"][arm] = {"ms": ms, "graph_ms": graph,
+                                     "peak_bytes": peak,
+                                     "max_abs_err": err, "rel_err": rel,
+                                     "launches": launched}
+                print(f"[executors] {name} (E={E} k={k} d={d} f={f}) T={T} "
+                      f"{arm}: {ms:.3f} ms eager (median of {EXEC_ITERS} "
+                      f"calls between CUDA events), {graph:.3f} ms device "
+                      f"(a CUDA graph of one call, mean of {EXEC_ITERS} "
+                      f"replays), peak {peak} bytes above the resident, "
+                      f"max_abs_err vs the fp32 oracle {err:.3e} ({rel:.2e} "
+                      f"of its largest magnitude), no host sync, launches "
+                      f"{json.dumps(launched)}")
+            print(f"[executors] {name} T={T}: bound {b_ms:.3f} ms "
+                  f"({b_by}; {used} experts' bf16 weights); device ms "
+                  + ", ".join(f"{arm} {v['graph_ms'] / b_ms:.1f}x" for arm, v
+                              in cell["arms"].items()) + " of the bound")
+            out[f"{name} T={T}"] = cell
+            del x, plan, want
+        del wg, wu, wd, router
+        torch.cuda.empty_cache()
+    return out
+
+
+def executor_launcher(cfg, layers: int) -> dict:
+    """The serve launcher (``launch/serve.py``'s ``main``) at the served
+    depth in fp32 on EXEC_SERVE_POLICY with ``--executor`` blocks, dense
+    and cuda (its own seeded prompts, [serve paged]'s shape): its startup
+    line names each, the greedy tokens are identical, B1-B6 launch only
+    under cuda, as many times as [serve paged]'s check wants of its
+    forwards."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.lm import n_moe_layers
+    argv = ["--arch", cfg.name, "--layers", str(layers), "--requests",
+            str(SERVE_REQUESTS), "--max-new", str(SERVE_MAX_NEW), "--slots",
+            str(SERVE_SLOTS), "--dtype", "fp32", "--seed", "0", "--policy",
+            EXEC_SERVE_POLICY]
+    out = {}
+    for ex in ("blocks", "dense", "cuda"):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            done = serve_main(argv + ["--executor", ex])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        log = buf.getvalue()
+        startup = next(line for line in log.splitlines()
+                       if " layers at " in line)
+        if f"{ex} executor" not in startup:
+            raise AssertionError(f"[executors] launcher --executor {ex}: "
+                                 f"{startup}")
+        forwards = int(re.search(r"(\d+) forwards in", log).group(1))
+        if ex == "cuda":
+            check_launches(launches, n_moe_layers(cfg) * forwards,
+                           cfg.n_layers * forwards, "dense")
+        elif any(launches.values()):
+            raise AssertionError(f"[executors] launcher --executor {ex} "
+                                 f"launched {launches}")
+        toks = [list(r.out) for r in sorted(done, key=lambda r: r.rid)]
+        out[ex] = {"tokens": toks, "forwards": forwards,
+                   "seconds": seconds,
+                   "launches": {n: c for n, c in launches.items() if c}}
+        print(f"[executors serve] launcher --executor {ex}, fp32: "
+              f"{len(done)} requests, {forwards} forwards in {seconds:.1f} s "
+              f"(model init included); launches "
+              f"{json.dumps(out[ex]['launches'])}; startup: {startup}")
+    if not out["blocks"]["tokens"] == out["dense"]["tokens"] \
+            == out["cuda"]["tokens"]:
+        raise AssertionError(f"[executors serve] fp32 tokens differ: "
+                             f"{ {ex: v['tokens'] for ex, v in out.items()} }")
+    print(f"[executors serve] fp32 greedy tokens of {SERVE_REQUESTS} "
+          f"requests x {SERVE_MAX_NEW} identical on blocks, dense and cuda")
+    return out
+
+
+def executor_decode(cfg, model, prompts, capacity, paged_kw) -> dict:
+    """[serve paged]'s traffic on [serve paged]'s bf16 model through the
+    paged engine on each executor, on EXEC_SERVE_POLICY (one warm-up
+    request, then ``drive``):
+    decode ms per step (median of the decode-only steps, host clock), B1-B6
+    only under cuda."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import RunConfig, n_moe_layers
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(1)
+    out = {}
+    for ex in ("cuda", "blocks", "dense"):
+        rc = RunConfig(compute_dtype=torch.bfloat16,
+                       schedule_policy=EXEC_SERVE_POLICY, executor=ex)
+        engine = ServeEngine(cfg, model, slots=SERVE_SLOTS,
+                             capacity=capacity, rc=rc, **paged_kw)
+        engine.run([Request(rid=-1, prompt=rng.integers(
+            0, cfg.vocab_size, 32).astype(np.int32), max_new=3)])
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        res = drive(engine, reqs)
+        n = res["forwards"]
+        if ex == "cuda":
+            check_launches(res["launches"], n_moe_layers(cfg) * n,
+                           cfg.n_layers * n, "dense")
+        elif any(res["launches"].values()):
+            raise AssertionError(f"[executors decode] {ex} launched "
+                                 f"{res['launches']}")
+        check_requests(reqs, cfg.vocab_size)
+        steps = sorted(res["decode_steps"])
+        ms = steps[len(steps) // 2] * 1e3
+        out[ex] = {"decode_ms_per_step": ms, "decode_steps": len(steps),
+                   "forwards": n, "tokens": [list(r.out) for r in reqs],
+                   "launches": {k: c for k, c in res["launches"].items()
+                                if c}}
+        print(f"[executors decode] {ex}, bf16, paged, {EXEC_SERVE_POLICY}, "
+              f"{SERVE_SLOTS} slots: "
+              f"decode {ms:.3f} ms per step (median of {len(steps)} "
+              f"decode-only steps, host clock), {n} forwards, launches "
+              f"{json.dumps(out[ex]['launches'])}")
+        del engine
+        torch.cuda.empty_cache()
+    for ex in ("blocks", "dense"):
+        same = out[ex]["tokens"] == out["cuda"]["tokens"]
+        print(f"[executors decode] bf16 tokens of {ex} equal to cuda's: "
+              f"{same} (not required: bf16 rounds in other orders)")
+    return out
+
+
+def executor_training() -> dict:
+    """One fp32 forward + backward of moonshot at full width cut to
+    EXEC_TRAIN_LAYERS layers, batch EXEC_TRAIN_BATCH x EXEC_TRAIN_SEQ,
+    ``fixed``, on blocks and dense against cuda: the loss within
+    EXEC_TRAIN_TOL's relative ``loss``, each gradient within its ``grad``
+    times the largest magnitude of cuda's; no kernel launched off cuda.
+    One untimed cuda pass first: the process's first backward took 11.8 s
+    more than the next (an H100 run)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_batch, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import LOSS_CHUNK
+    from repro_torch.models.lm import RunConfig, init_params, loss_fn
+    tol = EXEC_TRAIN_TOL
+    cfg = get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=EXEC_TRAIN_LAYERS)
+    model = init_params(cfg, 0, device="cuda").requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = device_batch(make_batch(cfg, EXEC_TRAIN_BATCH, EXEC_TRAIN_SEQ,
+                                    step=0, seed=1), "cuda")
+    rc = RunConfig(loss_chunk=LOSS_CHUNK)
+    torch.autograd.grad(loss_fn(model, cfg, rc, batch)[0],
+                        list(params.values()))
+    runs, out = {}, {}
+    for ex in ("cuda", "blocks", "dense"):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, cfg, rc._replace(executor=ex), batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in ops.LAUNCHES.items() if c}
+        if (ex == "cuda") != bool(launched):
+            raise AssertionError(f"[executors train] {ex}: launches "
+                                 f"{launched}")
+        runs[ex] = (loss.detach(), grads)
+        out[ex] = {"loss": float(loss.detach()),
+                   "seconds": time.perf_counter() - t0,
+                   "peak_bytes": torch.cuda.max_memory_allocated()
+                   - resident, "launches": launched}
+        del loss
+    loss_c, grads_c = runs["cuda"]
+    for ex in ("blocks", "dense"):
+        loss, grads = runs[ex]
+        loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+        if loss_err > tol["loss"]:
+            raise AssertionError(f"[executors train] {ex} loss "
+                                 f"{float(loss):.7f}, cuda "
+                                 f"{float(loss_c):.7f}")
+        worst, worst_name = 0.0, None
+        for name, g, gc in zip(params, grads, grads_c):
+            scale = gc.abs().max().item()
+            err = (g - gc).abs().max().item()
+            if not torch.isfinite(g).all() or err > tol["grad"] * scale:
+                raise AssertionError(f"[executors train] {ex} {name}: "
+                                     f"max|diff| {err:.3e}, largest cuda "
+                                     f"magnitude {scale:.3e}")
+            rel = err / scale if scale > 0 else 0.0
+            if rel >= worst:
+                worst, worst_name = rel, name
+        out[ex].update(loss_rel_err=loss_err, worst_rel_grad_err=worst,
+                       worst_param=worst_name)
+    for ex, r in out.items():
+        print(f"[executors train] {cfg.name} full width, {cfg.n_layers} "
+              f"layers, fp32, fixed, batch {EXEC_TRAIN_BATCH} x seq "
+              f"{EXEC_TRAIN_SEQ}, {ex}: loss {r['loss']:.7f}, forward + "
+              f"backward {r['seconds'] * 1e3:.1f} ms (host clock, one "
+              f"call), peak {r['peak_bytes']} bytes above the resident, "
+              f"launches {json.dumps(r['launches'])}"
+              + ("" if ex == "cuda" else
+                 f"; vs cuda: loss {r['loss_rel_err']:.3e} relative "
+                 f"(tolerance {tol['loss']:g}), worst gradient "
+                 f"{r['worst_rel_grad_err']:.3e} of its largest magnitude "
+                 f"({r['worst_param']}; tolerance {tol['grad']:g})"))
+    del model, params, runs, grads_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def executors_phase(cfg, model, prompts, capacity, paged_kw,
+                    layers: int) -> dict:
+    """[executors]: the layer cells, the launcher, [serve paged]'s traffic
+    and the training check on the three executors (see the module
+    docstring), under the card's name and power limit."""
+    t0 = time.perf_counter()
+    print(f"[executors] the port's executors (cuda, blocks, dense) on "
+          f"{smi_line()}")
+    out = {"layers": executor_layers()}
+    out["launcher"] = executor_launcher(cfg, layers)
+    out["decode"] = executor_decode(cfg, model, prompts, capacity, paged_kw)
+    out["train"] = executor_training()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[executors] {out['seconds']:.1f} s")
+    return out
+
+
 # [analysis]: the dry run (repro_torch.launch.dryrun, fake tensors, on the
 # host) of the measured paths.  Each case: arch, depth (None: the whole),
 # kind, batch x seq, remat, and whether AdamW's state and step are in it.
@@ -7258,6 +7656,12 @@ def main() -> None:
     ep_summary = serve_ep(cfg, model, prompts, capacity, paged_kw)
     print(json.dumps({"serve_ep": ep_summary}))
     elapsed("serving moonshot, expert parallelism")
+    # [executors]: the three executors on the paper's layers, the launcher,
+    # the same traffic, and one training step
+    exec_summary = executors_phase(cfg, model, prompts, capacity, paged_kw,
+                                   layers)
+    print(json.dumps({"executors": exec_summary}))
+    elapsed("executors")
 
     # 6. serving, contiguous + fixed -------------------------------------
     rc_c = RunConfig(compute_dtype=torch.bfloat16, schedule_policy="fixed")

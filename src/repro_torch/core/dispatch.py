@@ -5,14 +5,16 @@ of ``repro.core.dispatch``):
       -> fused gate+up grouped GEMM -> down grouped GEMM (folded combine)
       -> unpermute
 
-``moe_ffn`` is ``plan_dispatch`` + ``execute`` on ``cfg.executor``."""
+``moe_ffn`` is ``plan_dispatch`` + ``execute`` on ``cfg.executor``: ``cuda``
+(the kernels, the default), ``blocks`` or ``dense`` (``repro_torch.
+execution``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.execution import execute, plan_dispatch
+from repro_torch.execution import execute, get_executor, plan_dispatch
 
 
 class MoEDispatchConfig(NamedTuple):
@@ -32,6 +34,15 @@ class MoEDispatchConfig(NamedTuple):
     autotune: bool = False           # cuda executor: B1/B2 tile shapes and
                                      # the dynamic floor from the tune
                                      # cache (repro_torch.tuning)
+
+
+def route(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEDispatchConfig):
+    """The router projection (an fp32 ``torch.matmul``) and the executor's
+    gating/top-k.  Returns (weights (T, k) f32, indices (T, k) i32, logits
+    (T, E) f32)."""
+    logits = torch.matmul(x.float(), w_router.float())
+    weights, indices = get_executor(cfg.executor).route(logits, cfg)
+    return weights, indices, logits
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,

@@ -169,6 +169,17 @@ class _Join(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.group.rank * n, n), None, None
 
 
+def require_phases(cfg: MoEDispatchConfig) -> None:
+    """Refuse an executor without phase methods: every EP layout runs
+    ``permute`` / ``expert_ffn`` / ``unpermute`` on a rank-local
+    schedule, which the schedule-free ``dense`` oracle has not."""
+    if not get_executor(cfg.executor).needs_schedule:
+        raise ValueError(
+            f"executor {cfg.executor!r} has no schedule and no phase "
+            "methods, which expert parallelism composes; run EP on a "
+            "schedule-capable executor: 'blocks' or 'cuda'")
+
+
 def _resolve_capacity_factor(cfg: MoEDispatchConfig,
                              capacity_factor: Optional[float]) -> float:
     """The resolution order of the EP capacity headroom: an explicit
@@ -642,13 +653,16 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     each rank's output slice is all-gathered.  ``overlap`` (sharded only):
     dispatch microbatches to pipeline; 0 or 1 is the straight line.
 
-    ``cfg.executor`` must be a schedule-capable backend (phase methods);
-    the shared experts run outside the exchange, on every token.
+    ``cfg.executor`` must be a schedule-capable backend with phase
+    methods, ``blocks`` or ``cuda`` (``require_phases``); the ``dense``
+    oracle raises.  The shared experts run outside the exchange, on every
+    token.
 
     Under autograd (``sharded`` only, ``overlap`` 0) every rank
     backpropagates the same replicated loss, and each gets the whole
     gradient of x and of the router (the slice's backward gathers, the
     router's sums over the group) and its own experts' gradients."""
+    require_phases(cfg)
     capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
     group = group or current_ep_group()
     if x.dim() != 3:
@@ -726,7 +740,9 @@ def apply_moe_ep_local(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     policy's buckets are sized over every token and its drops are decided
     in global token order, row for row the single-device policy's;
     ``sched/*`` are sums over ``token_group``.  The padding-free
-    ``sharded`` layout; differentiable."""
+    ``sharded`` layout; differentiable.  ``cfg.executor`` as for
+    ``apply_moe_ep``."""
+    require_phases(cfg)
     capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
     group = group or current_ep_group()
     token_group = token_group or group

@@ -5,8 +5,12 @@
   (an fp32 ``torch.matmul``, outside any kernel, as the reference leaves it
   to XLA), the executor's gating/top-k, the configured ``BlockSchedule``, the
   combine-scale rows and the router aux losses, once per batch.
-* **Execute**: an ``Executor`` turns a plan into the layer output through
-  its phase methods (``permute`` / ``expert_ffn`` / ``unpermute``).
+* **Execute**: an ``Executor`` turns a plan into the layer output, through
+  its phase methods (``permute`` / ``expert_ffn`` / ``unpermute``: what
+  the EP paths compose rank-locally) or, for a backend with no permuted
+  layout (``dense``), through its whole-plan ``run`` alone.  A plan is
+  backend-independent: ``execute(plan, ..., executor=)`` runs one plan on
+  another backend.
 
 Nothing here synchronises the host with the card: no ``.item()``, no
 ``.nonzero()``, no boolean-mask indexing, no ``one_hot`` (which validates
@@ -32,7 +36,9 @@ class DispatchPlan(NamedTuple):
     weights: torch.Tensor                   # (T, k) f32 combine weights
     indices: torch.Tensor                   # (T, k) i32 expert assignment
     logits: torch.Tensor                    # (T, E) f32 router logits
-    schedule: Optional[BlockSchedule]       # None: routing only (EP paths)
+    schedule: Optional[BlockSchedule]       # None: routing only (the EP
+                                            # paths, a schedule-free
+                                            # executor)
     combine_scale: Optional[torch.Tensor]   # (capacity,) f32 epilogue rows
     aux: dict                               # lb/z losses (+ sched/*)
 
@@ -102,9 +108,15 @@ class Executor:
     ``supports_scheme`` says which registered schemes the backend takes,
     and ``prepare_weights``, called once per plan execution, adapts the
     mapping.  The default materializes QuantTensors to dense stacks; a
-    backend that dequantizes inside its kernels passes them through."""
+    backend that dequantizes inside its kernels, or per gathered block,
+    passes them through.
+
+    ``needs_schedule``: whether a plan for this backend carries a
+    ``BlockSchedule`` (``plan_dispatch``'s default); the schedule-free
+    ``dense`` oracle has none, and no phase methods."""
 
     name: str = "?"
+    needs_schedule: bool = True
 
     def supports_scheme(self, scheme: str) -> bool:
         from repro_torch.quantization import available_schemes
@@ -116,8 +128,12 @@ class Executor:
                 for k, v in w.items()}
 
     def route(self, logits: torch.Tensor, cfg):
-        """(T, E) f32 logits -> (weights (T, k) f32, indices (T, k) i32)."""
-        raise NotImplementedError(f"executor {self.name!r} has no route")
+        """(T, E) f32 logits -> (weights (T, k) f32, indices (T, k) i32):
+        the plain router, unless the backend has a kernel of its own."""
+        from repro_torch.kernels import ref
+        return ref.router_ref(logits, cfg.top_k, gating=cfg.gating,
+                              norm_topk=cfg.norm_topk,
+                              routed_scale=cfg.routed_scale)
 
     def permute(self, x, sched: BlockSchedule, cfg):
         raise NotImplementedError(f"executor {self.name!r} has no permute")
@@ -132,6 +148,12 @@ class Executor:
     def run(self, x, w: dict, plan: DispatchPlan, cfg):
         """x: (T, d) -> y: (T, d) under the plan's routing + schedule."""
         sched = plan.schedule
+        if sched is None:
+            raise ValueError(
+                f"executor {self.name!r} needs a schedule, but this plan "
+                "carries none (built with with_schedule=False or by a "
+                "needs_schedule=False executor): rebuild it with "
+                "plan_dispatch(..., with_schedule=True)")
         w = self.prepare_weights(w, cfg)
         xp = self.permute(x, sched, cfg)
         scale = plan.combine_scale if cfg.fold_combine else None
@@ -152,7 +174,10 @@ def register_executor(name: str) -> Callable[[type], type]:
     return deco
 
 
-def get_executor(name: str) -> Executor:
+def get_executor(name) -> Executor:
+    """The registered backend ``name`` (an ``Executor`` passes through)."""
+    if isinstance(name, Executor):
+        return name
     try:
         return _EXECUTORS[name]
     except KeyError:
@@ -162,6 +187,18 @@ def get_executor(name: str) -> Executor:
 
 def available_executors():
     return sorted(_EXECUTORS)
+
+
+# the reference's executor names -> the port's counterparts: its Pallas
+# kernels are the port's CUDA kernels, its ``xla`` scan the ``blocks`` loop
+REFERENCE_SPELLINGS = {"pallas": "cuda", "xla": "blocks"}
+
+
+def executor_cli_name(name: str) -> str:
+    """A launcher's ``--executor`` value: a registry name, or one of the
+    reference's spellings (``pallas``, ``xla``) mapped to the port's.
+    ``get_executor`` itself takes registry names only."""
+    return REFERENCE_SPELLINGS.get(name, name)
 
 
 # ----------------------------------------------------------------------
@@ -185,12 +222,15 @@ def set_plan_hook(hook: Optional[Callable[..., None]]):
 
 
 def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg, *,
-                  with_schedule: bool = True, aux_group=None) -> DispatchPlan:
+                  with_schedule: Optional[bool] = None,
+                  aux_group=None) -> DispatchPlan:
     """Phase 1: route + schedule + combine rows + aux, once per batch;
     with ``cfg.emit_stats`` the aux also holds the schedule's ``sched/*``
-    telemetry (device tensors, no host read).  ``with_schedule=False``
-    stops after the routing and the router losses: the expert-parallel
-    paths build their schedules over the rows each rank receives.
+    telemetry (device tensors, no host read).  ``with_schedule`` None
+    builds the schedule where ``cfg.executor`` needs one; ``False`` stops
+    after the routing and the router losses (the expert-parallel paths
+    build their schedules over the rows each rank receives), ``True``
+    builds it for any executor.
     ``aux_group``: the router losses over that group's whole batch
     (``router_aux_losses``)."""
     ex = get_executor(cfg.executor)
@@ -200,6 +240,8 @@ def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg, *,
     logits = torch.matmul(x.float(), w_router.float())
     weights, indices = ex.route(logits, cfg)
     aux = router_aux_losses(logits, indices, cfg, aux_group)
+    if with_schedule is None:
+        with_schedule = ex.needs_schedule
     if not with_schedule:
         return DispatchPlan(weights=weights, indices=indices, logits=logits,
                             schedule=None, combine_scale=None, aux=aux)
@@ -212,7 +254,10 @@ def plan_dispatch(x: torch.Tensor, w_router: torch.Tensor, cfg, *,
                         schedule=sched, combine_scale=combine, aux=aux)
 
 
-def execute(plan: DispatchPlan, x: torch.Tensor, w: dict, cfg
-            ) -> torch.Tensor:
-    """Phase 2: run a plan through ``cfg.executor``."""
-    return get_executor(cfg.executor).run(x, w, plan, cfg)
+def execute(plan: DispatchPlan, x: torch.Tensor, w: dict, cfg,
+            executor=None) -> torch.Tensor:
+    """Phase 2: run a plan through a backend.  ``executor`` (a name or an
+    instance) defaults to ``cfg.executor``; another name re-executes the
+    same plan on that backend."""
+    ex = get_executor(cfg.executor if executor is None else executor)
+    return ex.run(x, w, plan, cfg)

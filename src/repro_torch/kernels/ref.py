@@ -68,3 +68,26 @@ def grouped_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
     return grouped_wgrad_plain(x, dy, sched.block_expert, sched.block_active,
                                block_m=sched.block_m,
                                n_experts=n_experts).to(out_dtype)
+
+
+def moe_ffn_dense_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor,
+                      weights: torch.Tensor,
+                      indices: torch.Tensor) -> torch.Tensor:
+    """Every expert on every token, combined with the routing mask: y_t =
+    sum_j w_tj * FFN_{e_tj}(x_t), in fp32, returned in x's dtype (the
+    paper's "PyTorch reference" baseline; O(T*E*ffn) compute).  x: (T, d);
+    w_gate/w_up: (E, d, f); w_down: (E, f, d); weights/indices: (T, k).
+
+    The (T, k, E) mask compares ``indices`` with an ``arange`` of the
+    experts: ``F.one_hot`` checks its index range on the host, which on
+    the card waits for the device."""
+    xf = x.float()
+    g = torch.einsum("td,edf->tef", xf, w_gate.float())
+    u = torch.einsum("td,edf->tef", xf, w_up.float())
+    h = (g * torch.sigmoid(g)) * u
+    y_all = torch.einsum("tef,efd->ted", h, w_down.float())       # (T, E, d)
+    experts = torch.arange(w_gate.shape[0], device=indices.device)
+    mask = (indices.long()[..., None] == experts).float()         # (T, k, E)
+    combine = torch.einsum("tk,tke->te", weights.float(), mask)
+    return torch.einsum("te,ted->td", combine, y_all).to(x.dtype)

@@ -39,14 +39,22 @@ load; the kernels' shape-only ops take the payload and its scales), and a
 train cell under it is ``skip``; ``--variant TAG`` goes into the record
 and its file name (``<arch>.<shape>.<grid>.<TAG>.json``), which
 ``analysis/report.py``'s ``perf_rows`` sets against the untagged record
-of the same cell.  The reference's ``--executor`` is not ported: the port
-has one executor, ``cuda``.
+of the same cell.  ``--executor NAME`` (the reference's flag; its
+spellings ``pallas`` and ``xla`` name ``cuda`` and ``blocks``) runs the
+MoE layers on that executor instead of ``cuda``, and the record keeps
+its name: under ``dense`` the FLOP counter sees every expert on every
+token, under ``blocks`` the products of every scheduled block.  ``dense``
+has no phases for expert parallelism: its cells that would run EP (a
+serving cell with a 'model' axis past 1, a train cell on more than one
+rank) are ``skip``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --grid 2x4
   python -m repro_torch.launch.dryrun --all [--grid 1x1 --grid 2x4] [--jobs 4]
   python -m repro_torch.launch.dryrun --arch deepseek-v2-236b \\
       --shape decode_32k --grid 2x4 --quant int8_expert --variant int8
+  python -m repro_torch.launch.dryrun --arch moonshot-v1-16b-a3b \\
+      --shape decode_32k --executor dense --variant dense
 """
 from __future__ import annotations
 
@@ -255,7 +263,7 @@ def run_step(ci, grid) -> dict:
 def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
              accum=None, cfg=None, rc=None, optimizer: bool = True,
              capacity_factor=None, quant: str = "none",
-             variant: str = "") -> dict:
+             executor=None, variant: str = "") -> dict:
     """The record of one cell: ``skip`` where ``cell_is_runnable`` says
     so, ``ok`` with the step's numbers, or ``error`` with where it
     stopped.  ``shape_name`` names one of ``SHAPES`` (or is a
@@ -268,13 +276,16 @@ def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
     capacity; it also sizes the static EP layout of a decode cell on a
     grid); ``quant`` compresses a serving cell's routed experts under that
     scheme (a train cell is ``skip``: the port trains no quantized
-    experts); ``variant`` tags the record (and ``main``'s file name)."""
+    experts); ``executor`` runs the MoE layers on that registered
+    executor (a schedule-free one skips the cells that would run EP);
+    ``variant`` tags the record (and ``main``'s file name)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.analysis.roofline import grid_chips, link_rate
     from repro_torch.configs import (SHAPE_BY_NAME, cell_is_runnable,
                                      get_config)
     from repro_torch.distributed.group import dry_grid
+    from repro_torch.execution import get_executor
     from repro_torch.launch.specs import cell_inputs, dryrun_runconfig
 
     shape = (SHAPE_BY_NAME[shape_name] if isinstance(shape_name, str)
@@ -286,8 +297,12 @@ def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
     if variant:
         rec["variant"] = variant
     sizes = parse_grid(grid_spec)
-    if capacity_factor is not None or quant != "none":
+    if capacity_factor is not None or quant != "none" \
+            or executor is not None:
         rc = rc or dryrun_runconfig(cfg, shape, ep=sizes["model"] > 1)
+        if executor is not None:
+            rc = rc._replace(executor=executor)
+            rec["executor"] = executor
         if capacity_factor is not None:
             rc = rc._replace(schedule_policy="capacity_factor",
                              capacity_factor=capacity_factor)
@@ -301,6 +316,12 @@ def run_cell(arch: str, shape_name, grid_spec: str = "1x1", *,
             and shape.kind == "train":
         ok, why = False, (f"quant {rc.quant}: the port trains no quantized "
                           "experts (serving cells only)")
+    if ok and rc is not None and cfg.is_moe \
+            and not get_executor(rc.executor).needs_schedule \
+            and (sizes["model"] > 1
+                 or (shape.kind == "train" and chips > 1)):
+        ok, why = False, (f"executor {rc.executor}: no schedule, so no "
+                          "expert parallelism (blocks or cuda)")
     if not ok:
         rec.update(status="skip", reason=why)
         return rec
@@ -348,6 +369,8 @@ def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float,
         flags += ["--capacity-factor", str(variant["capacity_factor"])]
     if variant["quant"] != "none":
         flags += ["--quant", variant["quant"]]
+    if variant["executor"] is not None:
+        flags += ["--executor", variant["executor"]]
     if variant["variant"]:
         flags += ["--variant", variant["variant"]]
     todo = []
@@ -403,6 +426,7 @@ def _sweep(out: pathlib.Path, grids, jobs: int, timeout: float,
 
 
 def main() -> int:
+    from repro_torch.execution import available_executors, executor_cli_name
     from repro_torch.quantization import available_schemes, resolve_quant_cli
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -426,13 +450,17 @@ def main() -> int:
                          "cells (a train cell is skipped); default: none")
     ap.add_argument("--quant-experts", action="store_true",
                     help="DEPRECATED: alias for --quant int8_expert")
+    ap.add_argument("--executor", default=None, type=executor_cli_name,
+                    choices=available_executors(),
+                    help="MoE executor of every cell (default: cuda; the "
+                         "reference's pallas and xla name cuda and blocks)")
     ap.add_argument("--variant", default="",
                     help="tag of the record, appended to its file name")
     ap.add_argument("--out", default=str(RESULT_DIR))
     args = ap.parse_args()
     quant = resolve_quant_cli(args.quant, args.quant_experts)
     variant = dict(capacity_factor=args.capacity_factor, quant=quant,
-                   variant=args.variant)
+                   executor=args.executor, variant=args.variant)
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     grids = args.grid or (list(DEFAULT_GRIDS) if args.all else ["1x1"])

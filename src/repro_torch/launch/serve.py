@@ -2,7 +2,11 @@
 the parameters of DIR's latest checkpoint (a training state written by
 ``launch/train.py --ckpt-dir DIR`` on one device or on any grid: its
 ``params/*``, each cast to ``--dtype``), then greedy requests through
-the continuous-batching engine on the ``cuda`` executor.  By default the
+the continuous-batching engine on ``--executor`` (``cuda``, the kernels,
+by default; ``blocks``, the block schedule in plain PyTorch products; or
+``dense``, every expert on every token: the paper's PyTorch baseline; the
+reference's spellings ``pallas`` and ``xla`` name ``cuda`` and
+``blocks``).  By default the
 engine chooses its cache: paged (blocks of 16, chunked prefill, prefix
 cache; ``--no-prefix-cache`` turns the last off) wherever every layer's
 cache is positional KV, else contiguous; the schedule is ``dynamic``.
@@ -92,7 +96,8 @@ on the paged engine that is every step, prompt chunks included (only the
 contiguous engine's prefill forwards take ``sharded`` whatever it says);
 ``--ep-overlap`` pipelines the sharded dispatch in
 ``--ep-microbatches`` microbatches.  Only rank 0 prints; a rank's failure
-fails the launch.
+fails the launch.  ``--executor dense`` has no phases to split over
+ranks, and ``--distributed`` refuses it before anything is loaded.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --reduce --requests 3 --max-new 3 \\
@@ -112,6 +117,7 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 def parse_args(argv=None):
     from repro_torch.configs import ARCH_NAMES
+    from repro_torch.execution import available_executors, executor_cli_name
     from repro_torch.quantization import available_schemes
     from repro_torch.scheduling import available_policies
     from repro_torch.sampling import available_samplers
@@ -164,6 +170,11 @@ def parse_args(argv=None):
                          "gather + attention")
     ap.add_argument("--quant", default=None, choices=available_schemes(),
                     help="expert-weight quantization scheme (default: none)")
+    ap.add_argument("--executor", default="cuda", type=executor_cli_name,
+                    choices=available_executors(),
+                    help="MoE executor (repro_torch.execution registry; "
+                         "the reference's pallas and xla name cuda and "
+                         "blocks)")
     ap.add_argument("--autotune", action="store_true",
                     help="run B1/B2 at the tune cache's tile shapes and the "
                          "dynamic policy at its swept floor (the packaged "
@@ -264,9 +275,14 @@ def main(argv=None):
     record)."""
     from repro_torch.distributed import (init_distributed, make_ep_group,
                                          spawn_ranks, use_ep_group)
+    from repro_torch.execution import get_executor
     args = parse_args(argv)
     if not args.distributed:
         return serve(args, args.device)
+    if not get_executor(args.executor).needs_schedule:
+        raise SystemExit(f"--executor {args.executor} has no schedule to "
+                         "split over EP ranks: --distributed runs on blocks "
+                         "or cuda")
     if args.num_processes > 1:
         import torch.distributed as dist
         dev = init_distributed(args.coordinator, args.num_processes,
@@ -370,7 +386,8 @@ def serve(args, device, group=None):
     else:
         model = init_params(cfg, args.seed, param_dtype=dt, device=device)
     dense_bytes = routed_expert_bytes(model)
-    rc = RunConfig(compute_dtype=dt, schedule_policy=args.policy,
+    rc = RunConfig(compute_dtype=dt, executor=args.executor,
+                   schedule_policy=args.policy,
                    paged_attn=args.paged_attn, quant=quant,
                    moe_stats=bool(cfg.is_moe), autotune=args.autotune,
                    ep=bool(args.distributed and cfg.is_moe),
@@ -421,7 +438,7 @@ def serve(args, device, group=None):
              + (f" and {n_kv} KV caches" if n_kv else "") + " a slot)")
     width = "reduced width" if args.reduce else "full width"
     print(f"{cfg.name}: {cfg.n_layers} layers at {width}, {args.dtype}, "
-          f"{cache}, {args.policy} schedule, cuda executor, "
+          f"{cache}, {args.policy} schedule, {args.executor} executor, "
           f"{args.admission} admission, {args.sampling} sampling, "
           f"{args.slots} slots x {capacity} tokens")
     n_hosts = args.hosts or max(1, args.num_processes)

@@ -22,7 +22,8 @@ this rank's block on the grid, and the step function over them.
 - the encoder's forward (hubert at ``prefill_32k``): the train-mode
   forward's hidden states under ``torch.no_grad``.
 
-``dryrun_runconfig`` follows the reference's: bf16 compute, remat for
+``dryrun_runconfig`` follows the reference's, on the ``cuda`` executor
+(``launch/dryrun.py``'s ``--executor`` replaces it): bf16 compute, remat for
 train, chunks of 1024 / 1024 (queries whole but for the recurrent
 families), ``loss_chunk`` 512, capacity factor 2.0, EP on for a MoE model
 on a grid whose 'model' axis has more than one rank, decode's EP layout

@@ -79,6 +79,7 @@ from repro_torch.distributed.ctx import (block_offset, constrain,
                                          head_slice, head_sum, token_ids,
                                          token_replicas)
 from repro_torch.distributed.sharding import gather_param, gather_spec
+from repro_torch.execution import get_executor
 from repro_torch.kernels.paged_attention import fused_read_refusal
 from repro_torch.models.attention import (Attention, flash_attention,
                                           head_part, paged_decode,
@@ -100,7 +101,8 @@ class RunConfig(NamedTuple):
     (the serving engine defaults to ``dynamic``)."""
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32   # master weights: fp32 only
-    executor: str = "cuda"
+    executor: str = "cuda"           # cuda | blocks | dense
+                                     # (repro_torch.execution registry)
     schedule_policy: str = "fixed"   # fixed | capacity_factor | dynamic
     capacity_factor: float = 2.0     # the capacity_factor policy's headroom
     fuse_gate_up: bool = True
@@ -113,6 +115,7 @@ class RunConfig(NamedTuple):
     remat: bool = False              # train: recompute each layer in the
                                      # backward (torch.utils.checkpoint)
     moe_stats: bool = False          # sched/* ScheduleStats in the aux
+                                     # (executors with a schedule only)
     quant: str = "none"              # expert-weight QuantScheme for serving
                                      # (repro_torch.quantization registry;
                                      # the engine quantizes at load)
@@ -512,6 +515,13 @@ def paged_fused(rc: RunConfig, pool: Optional[dict] = None) -> bool:
     return True
 
 
+def moe_stats_active(rc: RunConfig) -> bool:
+    """Plan telemetry (``sched/*``) flows only where a schedule exists:
+    ``rc.moe_stats`` on an executor that builds one (the ``dense`` oracle
+    has none), as the reference's ``_moe_stats_active``."""
+    return rc.moe_stats and get_executor(rc.executor).needs_schedule
+
+
 def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                 *, positions, mode: str, cache=None, cache_pos=None,
                 block_tables=None, fused: bool = False, image_embeds=None):
@@ -553,7 +563,7 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                                schedule_policy=rc.schedule_policy,
                                capacity_factor=rc.capacity_factor,
                                block_m_min=rc.block_m_min,
-                               emit_stats=rc.moe_stats,
+                               emit_stats=moe_stats_active(rc),
                                autotune=rc.autotune)
         _, grid = current_rules()
         if grid is not None and grid.world.size > 1:
@@ -793,7 +803,7 @@ def _forward_train(model: LM, cfg: ModelConfig, rc: RunConfig, batch: dict):
         + block_offset(1, S)
     img = batch.get("image_embeds")
     aux_acc: dict = {}
-    if rc.moe_stats and n_moe_layers(cfg):
+    if moe_stats_active(rc) and n_moe_layers(cfg):
         aux_acc = {f"sched/{k}": torch.zeros((), dtype=torch.float32,
                                              device=x.device)
                    for k in ScheduleStats._fields}

@@ -17,7 +17,8 @@ Pallas read in interpret mode.
 The launcher's switches: ``--no-prefix-cache`` serves the shared-prefix
 trace with no prefix hit and the same tokens, a ``--capacity`` below the
 longest prompt + ``--max-new`` ends the run, and a reference command line
-(``--kv-block-size``, ``--schedule-policy``, ``--prefix-cache``) runs."""
+(``--kv-block-size``, ``--schedule-policy``, ``--prefix-cache``,
+``--executor xla``) runs."""
 import numpy as np
 import pytest
 import torch
@@ -241,7 +242,8 @@ def test_launcher_capacity_flag(capsys):
 def test_launcher_takes_a_reference_command_line(capsys):
     """The reference launcher's spellings (``--kv-block-size``,
     ``--schedule-policy``, ``--prefix-cache``, ``--capacity``) run
-    unchanged; its ``--executor`` is not ported."""
+    unchanged, its ``--executor xla`` too, on ``blocks``, the port's
+    name for it."""
     ref_argv = ["--arch", "moonshot-v1-16b-a3b", "--reduce", "--requests",
                 "3", "--max-new", "3", "--quant", "int8_expert", "--slots",
                 "2", "--capacity", "128", "--kv-block-size", "16",
@@ -251,5 +253,8 @@ def test_launcher_takes_a_reference_command_line(capsys):
     out = capsys.readouterr().out
     assert len(done) == 3 and "fixed schedule" in out
     assert "blocks of 16" in out and "2 slots x 128 tokens" in out
-    with pytest.raises(SystemExit):
-        launch_main(ref_argv + ["--executor", "xla"])
+    assert "cuda executor" in out
+    done = launch_main(ref_argv + ["--executor", "xla", "--dtype", "fp32",
+                                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert len(done) == 3 and "fixed schedule, blocks executor" in out

@@ -41,7 +41,7 @@ def torch_params(inputs: dict, shape: str) -> dict:
 def case_config(case: dict):
     """(moe config, dispatch config, apply_moe_ep kwargs) of a case."""
     moe = moe_config(case["shape"])
-    dcfg = dispatch_config(moe, executor="cuda",
+    dcfg = dispatch_config(moe, executor=case.get("executor", "cuda"),
                            schedule_policy=case["policy"], emit_stats=True)
     kw = dict(token_layout=case["layout"], overlap=case.get("overlap", 0))
     if case.get("capacity_factor") is not None:
