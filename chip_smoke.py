@@ -175,7 +175,16 @@ result line):
    ``sched/dropped_rows`` and above 0; ``int8_expert`` tokens equal; each
    rank's launches; decode ms per step against the single rank's, the
    exchange's rows and bytes a step and each collective's host ms
-   (``serve_ep``).  [executors]: the port's three executors (``cuda``, the
+   (``serve_ep``); [ep grad]: the first MoE layer in fp32 under autograd
+   on the cuda executor in each layout (x (2, 64, d)) and the ragged
+   fallback (x (3, 5, d): replicated), forward and backward of
+   ``sum(y * dy)``: dx, the router's, the shared experts' and each
+   rank's own experts' gradients within 1e-3 of their largest magnitude
+   of the single rank's (``sharded_static``, which drops by its own
+   buckets, of the plain executor's in the same layout), dx bitwise alike
+   on the ranks, B1ᵀ and B7 launched in every arm, fwd + bwd ms (median
+   of 3) beside the single rank's (``ep_grad_arms``,
+   ``report_ep_grads``).  [executors]: the port's three executors (``cuda``, the
    kernels; ``blocks``, the block schedule in plain PyTorch products;
    ``dense``, every expert on every token): the paper's four MoE layers
    (``configs/paper.py``) at full width in bf16, fixed schedule, at
@@ -277,7 +286,10 @@ result line):
    parameter after the step within 1e-6; the
    single rank's parameters written to ``build/ckpt_sharded`` and read back
    by each rank as its blocks, then removed), each rank's launches (per MoE
-   layer as one rank's step); then bf16 with remat, batch 8 x seq 512, one
+   layer as one rank's step); on 1x2, before that step, its loss and
+   gradient blocks with ``ep_overlap`` (2 microbatches) within
+   ``TRAIN_CHECK_TOL["float32"]`` of those without (``overlap_check``);
+   then bf16 with remat, batch 8 x seq 512, one
    warm step through ``train(grid=)`` and 1 timed: step
    ms beside the single rank's at the same depth, peak
    memory a rank, the bytes of a rank's parameter and moment blocks, and
@@ -740,6 +752,19 @@ EP_LAYER_TS = (2, 64)
 EP_LAYER_LAYOUTS = {"sharded": 0, "sharded_static": 0, "replicated": 0,
                     "overlap2": 2}
 EP_COLLECTIVE_ITERS = 50
+# [ep] under autograd: the first MoE layer in fp32 on the cuda executor,
+# forward and backward of sum(y * dy) in each of EP_LAYER_LAYOUTS on a
+# sequence-split x and in the ragged fallback (neither B nor S divides over
+# EP_RANKS: replicated); every gradient against the single rank's
+# apply_moe backward on the card (sharded_static, whose buckets drop,
+# against the same layout on the plain executor) within
+# TRAIN_CHECK_TOL["float32"]["grad"] of its largest magnitude; then
+# EP_GRAD_REPS timed passes (host clock, median)
+EP_GRAD_SHAPES = {"seq": (2, 64), "ragged": (3, 5)}
+EP_GRAD_ARMS = {**{lay: ("seq", lay.replace("overlap2", "sharded"), ov)
+                   for lay, ov in EP_LAYER_LAYOUTS.items()},
+                "ragged": ("ragged", "sharded", 0)}
+EP_GRAD_POLICY, EP_GRAD_REPS = "dynamic", 3
 EP_CF, EP_DROP_REQUESTS, EP_DROP_CHUNK, EP_DROP_BLOCK_M = \
     0.5, ((8, 2), (200, 2)), 64, 8
 # [executors]: tokens of each paper layer (configs/paper.py; T=32 and 512
@@ -3432,21 +3457,177 @@ def time_collectives(d: int, dev) -> dict:
     return out
 
 
+def moe_layer_fp32(model) -> dict:
+    """fp32 copies of the first MoE layer's parameters, ``shared`` flat as
+    ``shared.<leaf>``."""
+    moe = next(b for b in model.layers if b.kind == "moe").moe.params()
+    out = {k: v.detach().float().clone() for k, v in moe.items()
+           if k != "shared"}
+    out.update({f"shared.{k}": v.detach().float().clone()
+                for k, v in moe.get("shared", {}).items()})
+    return out
+
+
+def moe_grads(cfg, flat: dict, x, dy, executor: str, ep_kw=None):
+    """One forward and backward of ``sum(y * dy)`` through the MoE layer
+    ``flat`` (``moe_layer_fp32``'s form; with ``ep_kw`` ``apply_moe_ep``
+    over the current EP group, else ``apply_moe``): {"x" or a leaf:
+    gradient}."""
+    import torch
+    from repro_torch.core.distributed import apply_moe_ep
+    from repro_torch.core.moe_layer import apply_moe, dispatch_config
+    leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
+    p = {k: v for k, v in leaves.items() if not k.startswith("shared.")}
+    shared = {k[len("shared."):]: v for k, v in leaves.items()
+              if k.startswith("shared.")}
+    if shared:
+        p["shared"] = shared
+    xg = x.detach().requires_grad_()
+    dcfg = dispatch_config(cfg.moe, executor=executor,
+                           schedule_policy=EP_GRAD_POLICY)
+    y, _ = (apply_moe_ep(p, xg, dcfg, **ep_kw) if ep_kw is not None
+            else apply_moe(p, xg, dcfg))
+    wrt = {"x": xg, **leaves}
+    return dict(zip(wrt, torch.autograd.grad((y * dy).sum(),
+                                             list(wrt.values()))))
+
+
+def ep_grad_arms(cfg, full: dict, local: dict, group) -> dict:
+    """[ep] under autograd on this rank (EP_GRAD_ARMS): each arm's
+    gradients against the single rank's ``apply_moe`` backward over
+    ``full`` (this rank's slice of the routed stacks), or for
+    ``sharded_static`` against the same layout on the plain executor; each
+    leaf's error relative to its largest magnitude, B1ᵀ and B7 launches
+    of the arm's first pass, EP_GRAD_REPS timed passes of the arm and of
+    the single rank's layer, and dx (bitwise alike on every rank)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import _token_split
+    from repro_torch.execution import available_executors
+    from repro_torch.kernels import ops
+    from repro_torch.weights import EXPERT_MATS
+    if "plain" not in available_executors():
+        register_plain_executor()
+    dev, d = group.device, cfg.d_model
+    n = cfg.moe.n_experts // group.size
+    own = slice(group.rank * n, (group.rank + 1) * n)
+
+    def timed(fn):
+        ms = []
+        for _ in range(EP_GRAD_REPS):
+            group.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    inputs, single = {}, {}
+    for name, (B, S) in EP_GRAD_SHAPES.items():
+        rng = np.random.default_rng(B * 1000 + S)
+        x, dy = (torch.from_numpy(rng.standard_normal((B, S, d)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        inputs[name] = (x, dy)
+        single[name] = (moe_grads(cfg, full, x, dy, "cuda"), timed(
+            lambda: moe_grads(cfg, full, x, dy, "cuda")))
+    out = {}
+    for arm, (shape, lay, ov) in EP_GRAD_ARMS.items():
+        x, dy = inputs[shape]
+        kw = dict(token_layout=lay, overlap=ov, group=group)
+        if lay == "sharded_static":
+            want, whole = moe_grads(cfg, local, x, dy, "plain", kw), False
+        else:
+            want, whole = single[shape][0], True
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = moe_grads(cfg, local, x, dy, "cuda", kw)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        errs = {}
+        for k, w in want.items():
+            if whole and k in EXPERT_MATS:
+                w = w[own]
+            errs[k] = float((got[k] - w).abs().max() / w.abs().max())
+        out[arm] = {"shape": EP_GRAD_SHAPES[shape], "layout": lay,
+                    "runs_as": _token_split(x.shape, group.size, lay)[0],
+                    "overlap": ov, "errs": errs, "launches": launches,
+                    "held_against": "plain" if not whole else "single",
+                    "ms": timed(lambda: moe_grads(cfg, local, x, dy, "cuda",
+                                                  kw)),
+                    "single_ms": single[shape][1],
+                    "dx": got["x"].cpu().numpy()}
+    return out
+
+
 def ep_rank(group, spec: dict) -> dict:
     """One [ep] rank: [serve paged]'s model from the same seed at the
-    checked depth, this rank's experts kept, then ``ep_workload``."""
+    checked depth, this rank's experts kept, then ``ep_workload``, then
+    the first MoE layer under autograd (``ep_grad_arms``)."""
     import torch
     from repro_torch.models.lm import init_params
     from repro_torch.weights import shard_model
     cfg = spec["cfg"]
     model = init_params(cfg, 0, param_dtype=torch.bfloat16,
                         device=group.device)
+    full = moe_layer_fp32(model)
     shard_model(model, group.rank, group.size)
+    local = moe_layer_fp32(model)
     torch.cuda.empty_cache()
     out = ep_workload(cfg, model, spec, ep=True)
+    out["grad"] = ep_grad_arms(cfg, full, local, group)
+    del full, local
+    torch.cuda.empty_cache()
     out.update(rank=group.rank, backend=group.backend,
                device=str(group.device),
                peak_bytes=torch.cuda.max_memory_allocated(group.device))
+    return out
+
+
+def report_ep_grads(ranks: list) -> dict:
+    """[ep] under autograd: every rank's dx bitwise alike, every leaf's
+    gradient within TRAIN_CHECK_TOL["float32"]["grad"] of its largest
+    magnitude, B1ᵀ and B7 launched in every arm; prints each arm's worst
+    errors, launches and fwd + bwd ms (median of EP_GRAD_REPS, rank 0)."""
+    import numpy as np
+    tol = TRAIN_CHECK_TOL["float32"]["grad"]
+    out = {}
+    for arm in EP_GRAD_ARMS:
+        rs = [r["grad"][arm] for r in ranks]
+        if not all(np.array_equal(rs[0]["dx"], g["dx"]) for g in rs[1:]):
+            raise AssertionError(f"[ep grad] {arm}: dx differs between "
+                                 f"ranks")
+        errs = {k: max(g["errs"][k] for g in rs) for k in rs[0]["errs"]}
+        bad = {k: e for k, e in errs.items() if not e <= tol}
+        launches = [{k: g["launches"][k]
+                     for k in ("grouped_gemm_t", "grouped_wgrad")}
+                    for g in rs]
+        if bad or not all(v > 0 for la in launches for v in la.values()):
+            raise AssertionError(f"[ep grad] {arm}: errors {bad} past {tol:g}"
+                                 f" or launches {launches}")
+        g0 = rs[0]
+        out[arm] = {"shape": g0["shape"], "layout": g0["layout"],
+                    "runs_as": g0["runs_as"], "overlap": g0["overlap"],
+                    "held_against": g0["held_against"], "errs": errs,
+                    "launches": launches, "ms": g0["ms"],
+                    "ms_median": float(np.median(g0["ms"])),
+                    "single_ms_median": float(np.median(g0["single_ms"]))}
+        B, S = g0["shape"]
+        against = ("the plain executor in the same layout"
+                   if g0["held_against"] == "plain" else "the single rank")
+        print(f"[ep grad] {arm}: x ({B}, {S}, d), layout {g0['layout']} "
+              f"(runs as {g0['runs_as']}), overlap {g0['overlap']}, fp32 "
+              f"{EP_GRAD_POLICY}, held against {against}: worst relative "
+              f"error (rtol {tol:g}) dx "
+              f"{errs['x']:.2e}, router {errs['router']:.2e}, shared "
+              + "/".join(f"{errs[k]:.2e}" for k in errs
+                         if k.startswith("shared."))
+              + ", own experts " + "/".join(
+                  f"{errs[k]:.2e}" for k in ("w_gate", "w_up", "w_down"))
+              + f"; B1t/B7 launches a rank {launches}; fwd + bwd ms "
+              f"(rank 0, host clock, median of {EP_GRAD_REPS}) "
+              f"{out[arm]['ms_median']:.2f}, single rank "
+              f"{out[arm]['single_ms_median']:.2f}; {smi_line()}")
     return out
 
 
@@ -3584,9 +3765,10 @@ def serve_ep(cfg, model, prompts, capacity, paged_kw) -> dict:
           f"{5 * n_moe}; host ms per collective alone (rank 0, mean of "
           f"{EP_COLLECTIVE_ITERS}): " + ", ".join(
               f"{k} {v:.3f}" for k, v in r0["collective_ms"].items()))
+    grad = report_ep_grads(ranks)
     return {"collective_ms": [r["collective_ms"] for r in ranks],
             "ranks": EP_RANKS, "layers": n, "backend": r0["backend"],
-            "decode_ms_per_step": times,
+            "grad": grad, "decode_ms_per_step": times,
             "decode_p50_ms": p50,
             "transport": a2a, "layer_max_abs_err": layer_err,
             "ep_dropped_tokens": rd[0]["ep_dropped_tokens"],
@@ -6153,6 +6335,39 @@ def serve_ckpt(clean: dict, smi: str) -> dict:
     return out
 
 
+def grid_grads(cfg, rc, model, batch: dict, grid):
+    """The loss and this rank's gradient blocks, reduced as the step
+    reduces them, of one forward and backward on ``grid``."""
+    import torch
+    from repro_torch.distributed.ctx import use_rules
+    from repro_torch.models.lm import loss_fn
+    from repro_torch.train.step import grid_rules, reduce_grads
+    params = dict(model.named_parameters())
+    with use_rules(grid, grid_rules(cfg, grid, batch["tokens"].shape[0])):
+        loss, _ = loss_fn(model, cfg, rc, batch)
+        gs = torch.autograd.grad(loss, list(params.values()),
+                                 allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(params.items(), gs)}
+    return float(loss.detach()), reduce_grads(grads, model.shard_specs, grid)
+
+
+def overlap_check(cfg, rc, model, batch: dict, grid) -> dict:
+    """[train sharded] on a grid with a 'model' axis: the fp32 check
+    step's loss and gradient blocks with ``RunConfig.ep_overlap`` (2
+    microbatches) against those without, on this rank; each gradient's
+    error relative to its largest magnitude."""
+    loss0, g0 = grid_grads(cfg, rc, model, batch, grid)
+    loss1, g1 = grid_grads(cfg, rc._replace(ep_overlap=True,
+                                            ep_microbatches=2),
+                           model, batch, grid)
+    errs = {n: float((g1[n] - g0[n]).abs().max()
+                     / g0[n].abs().max().clamp_min(1e-30)) for n in g0}
+    worst = max(errs, key=errs.get)
+    return {"loss_off": loss0, "loss_on": loss1, "grad_err": errs[worst],
+            "worst": worst}
+
+
 def sharded_rank(group, spec: dict) -> dict:
     """One [train sharded] rank: for each grid of SHARDED_GRIDS, the fp32
     check step on this rank's blocks (the single rank's parameters after
@@ -6194,6 +6409,8 @@ def sharded_rank(group, spec: dict) -> dict:
         step = make_train_step(cfg, rc, OptConfig(**SHARDED_CHECK_OPT),
                                grid=grid)
         b = batch(grid, SHARDED_CHECK_BATCH, SHARDED_CHECK_SEQ, 0)
+        if model > 1:
+            out["overlap"] = overlap_check(cfg, rc, state["params"], b, grid)
         torch.cuda.synchronize()
         ops.reset_launches()
         state, m = step(state, b)
@@ -6418,6 +6635,22 @@ def train_sharded() -> dict:
               + "; launches a step "
               f"{json.dumps({k: v for k, v in t['launches_per_step'].items() if v})}; "
               f"{smi_line()}")
+    tol = TRAIN_CHECK_TOL["float32"]
+    ov = [r["overlap"] for r in ranks]
+    for r, o in zip(ranks, ov):
+        if not (abs(o["loss_on"] - o["loss_off"]) <= tol["loss"]
+                * abs(o["loss_off"]) and o["grad_err"] <= tol["grad"]):
+            raise AssertionError(f"[train sharded] ep_overlap rank "
+                                 f"{r['rank']}: {o}")
+    out["overlap"] = ov
+    grid_name = next(f"{d}x{m}" for d, m, _ in SHARDED_GRIDS if m > 1)
+    print(f"[train sharded] grid {grid_name} fp32 check step with "
+          f"ep_overlap (2 microbatches) against without: loss "
+          f"{ov[0]['loss_on']:.6f} vs {ov[0]['loss_off']:.6f} (relative "
+          f"tolerance {tol['loss']:g}); worst gradient error relative to its "
+          f"largest magnitude a rank " + ", ".join(
+              f"{o['grad_err']:.2e} ({o['worst']})" for o in ov)
+          + f" (tolerance {tol['grad']:g})")
     out["backend"] = ranks[0]["backend"]
     out["families"] = report_sharded_families([r["families"]
                                                for r in ranks])

@@ -46,17 +46,21 @@ with ``cfg.emit_stats``, are sums over the group.
 Send sizes come from T, k, E and ep on the host: nothing here reads the
 device to size a buffer.
 
-Training runs through the ``sharded`` layout: each exchange is an autograd
-Function whose backward is the all_to_all with the counts reversed, and
-the rank-local phases are the executor's, whose kernels' backward runs B1
-with its weight read transposed and B7 (``kernels/autograd.py``).
+Every layout trains, as the reference's differentiates: each payload
+exchange is an autograd Function whose backward is the all_to_all with
+the counts reversed (under ``overlap`` too: each microbatch's exchange
+stays in flight over the previous microbatch's GEMMs, and the waited
+result enters the graph through ``_Landed``); the replicated layout's sum
+of partial outputs has the identity for its backward.  The rank-local
+phases are the executor's, whose kernels' backward runs B1 with its
+weight read transposed and B7 (``kernels/autograd.py``).
 ``apply_moe_ep_local`` is the sharded training path's entry: it takes this
 rank's own tokens (under sequence parallelism they are already local) and
 returns their outputs, with the router losses and the capacity policy's
 drops decided over the whole batch (``token_group``).  ``apply_moe_ep`` on
-the global x runs under autograd too, every rank getting the whole
-gradient of its replicated inputs; its other layouts stay inference-only
-and raise there."""
+the global x runs under autograd in every layout, every rank getting the
+whole gradient of its replicated inputs.  Quantized experts have no
+backward and raise there."""
 from __future__ import annotations
 
 from typing import Optional
@@ -105,6 +109,53 @@ class _Exchange(torch.autograd.Function):
 def _exchange(t: torch.Tensor, group: EPGroup) -> torch.Tensor:
     return _Exchange.apply(t, group) if t.requires_grad \
         else group.all_to_all(t)
+
+
+class _Landed(torch.autograd.Function):
+    """The result of a payload all_to_all issued earlier (``async_op``),
+    waited on here and put in the graph after ``send``, the tensor that
+    went out: the forward's exchange stays in flight until the wait, and
+    the backward is ``_Exchange``'s, the all_to_all with the counts
+    reversed."""
+
+    @staticmethod
+    def forward(ctx, send, pending, group):
+        ctx.group = group
+        return pending.wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_to_all(grad.contiguous()), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over the group of each rank's partial output; every rank
+    backpropagates the same replicated loss, so each rank's part takes
+    that gradient whole: the identity."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return group.all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CountOnce(torch.autograd.Function):
+    """Identity on a value every rank computes alike from replicated
+    inputs that reached it through ``_SumGrad``: their backward sums the
+    ranks' gradients, so each rank passes on 1/size of this one's and the
+    sum counts it once."""
+
+    @staticmethod
+    def forward(ctx, t, size):
+        ctx.size = size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
 
 
 class _MeanOver(torch.autograd.Function):
@@ -178,6 +229,15 @@ def require_phases(cfg: MoEDispatchConfig) -> None:
             f"executor {cfg.executor!r} has no schedule and no phase "
             "methods, which expert parallelism composes; run EP on a "
             "schedule-capable executor: 'blocks' or 'cuda'")
+
+
+def _refuse_quant_grad(params, x) -> None:
+    """Quantized expert stacks have no backward (nor have the
+    reference's int8 leaves): refuse them under autograd in every
+    layout."""
+    if params_scheme(params) != "none" and _needs_grad(params, x):
+        raise NotImplementedError(
+            "quantized expert weights have no backward: train dense stacks")
 
 
 def _resolve_capacity_factor(cfg: MoEDispatchConfig,
@@ -408,30 +468,35 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
     ``n_micro > 1`` pipelines the dispatch: microbatch i+1's all_to_alls
     are issued (``async_op``) before microbatch i's GEMMs and waited on
     just before its own compute, so the transport can overlap the expert
-    compute (X-MoE double buffering).  ``n_micro == 1`` is the straight
-    line send -> all_to_all -> compute -> all_to_all -> combine.  Routing
-    and the capacity policy's drop set are decided over the whole batch
-    before chunking, so the pipelined path keeps the same drops."""
+    compute (X-MoE double buffering); under autograd each waited payload
+    enters the graph through ``_Landed``.  ``n_micro == 1`` is the
+    straight line send -> all_to_all -> compute -> all_to_all -> combine.
+    The capacity policy's drop set is decided over the whole batch before
+    chunking, so the pipelined path keeps the same drops and gradients.
+    Without ``token_group`` each microbatch is routed on its own and the
+    router losses are the microbatches' mean, as the reference's; with it
+    one plan routes the whole batch and its losses are the whole batch's,
+    so a pipelined training step takes the same losses as a straight
+    one."""
     ep = group.size
     E, k, M = cfg.n_experts, cfg.top_k, cfg.block_m
     if E % ep:
         raise ValueError(f"n_experts={E} must divide over EP group size {ep}")
     Tl = x_loc.shape[0]
-    grad = _needs_grad(params, x_loc)
-    if grad and n_micro > 1:
-        raise NotImplementedError("the pipelined EP dispatch (overlap > 1) "
-                                  "is inference-only; train with overlap 0")
     while Tl % n_micro:
         n_micro -= 1                       # largest divisor <= requested
     c = Tl // n_micro
     chunks = [x_loc[i * c:(i + 1) * c] for i in range(n_micro)]
+    whole = None
     if token_group is None:
         plans = [_rank_plan(params, ch, cfg, group) for ch in chunks]
         token_group = group
     else:
-        plans = [plan_dispatch(ch, params["router"], cfg,
-                               with_schedule=False, aux_group=token_group)
-                 for ch in chunks]
+        whole = plan_dispatch(x_loc, params["router"], cfg,
+                              with_schedule=False, aux_group=token_group)
+        plans = [whole._replace(indices=whole.indices[i * c:(i + 1) * c],
+                                weights=whole.weights[i * c:(i + 1) * c])
+                 for i in range(n_micro)]
 
     cap_global = None
     if cfg.schedule_policy == "capacity_factor":
@@ -454,7 +519,7 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
         sends.append((send, e_send, st))
 
     def issue(i):
-        return (group.all_to_all(sends[i][0], async_op=True),
+        return (group.all_to_all(sends[i][0].detach(), async_op=True),
                 group.all_to_all(sends[i][1], async_op=True))
 
     outs, auxes = [], []
@@ -464,7 +529,8 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
     for i in range(n_micro):
         if n_micro > 1:
             cur, nxt = nxt, (issue(i + 1) if i + 1 < n_micro else None)
-            recv = (cur[0].wait(), cur[1].wait())
+            recv = (_Landed.apply(sends[i][0], cur[0], group),
+                    cur[1].wait())
         st = sends[i][2]
         y, sched = _sharded_compute_phase(recv[0], recv[1], cfg, st)
         back = _exchange(y, group)
@@ -478,7 +544,10 @@ def _ep_sharded_local(params, x_loc, cfg: MoEDispatchConfig, group: EPGroup,
                                  sched=sched))
         auxes.append(aux)
     out = torch.cat(outs, dim=0) if n_micro > 1 else outs[0]
-    return out.to(x_loc.dtype), _merge_chunk_aux(auxes)
+    aux = _merge_chunk_aux(auxes)
+    if whole is not None:
+        aux.update(whole.aux)
+    return out.to(x_loc.dtype), aux
 
 
 def _merge_chunk_aux(auxes):
@@ -537,7 +606,7 @@ def _ep_sharded_static_local(params, x_loc, cfg: MoEDispatchConfig,
         dest, E * cap)).long(), x_loc[src_rows])
     # (E*cap, d) -> (ep, E_local*cap, d) -> all_to_all -> regrouped
     # (E_local, ep*cap, d): contiguous per local expert, groups of ep*cap
-    recv = group.all_to_all(send[:E * cap].reshape(ep, E_local * cap, d))
+    recv = _exchange(send[:E * cap].reshape(ep, E_local * cap, d), group)
     recv = recv.reshape(ep, E_local, cap, d).transpose(0, 1) \
         .reshape(E_local * ep * cap, d)
 
@@ -547,7 +616,7 @@ def _ep_sharded_static_local(params, x_loc, cfg: MoEDispatchConfig,
     y = ex.expert_ffn(recv, local_w, sched, cfg)
     y = y.reshape(E_local, ep, cap, d).transpose(0, 1) \
         .reshape(ep, E_local * cap, d)
-    y = group.all_to_all(y).reshape(E * cap, d)
+    y = _exchange(y, group).reshape(E * cap, d)
 
     gathered = y[torch.clamp(dest, max=E * cap - 1).long()]  # (Tl*k, d)
     w_eff = torch.where(keep, plan.weights.reshape(-1),
@@ -568,7 +637,10 @@ def _ep_sharded_static_local(params, x_loc, cfg: MoEDispatchConfig,
 def _ep_replicated_local(params, x_loc, cfg: MoEDispatchConfig,
                          group: EPGroup, capacity_factor: float):
     """Per-rank body of ``token_layout='replicated'`` (decode): x_loc is
-    every token."""
+    every token.  Under autograd x_loc and the router come through
+    ``_SumGrad``, the partial outputs' sum is ``_SumOver`` and the router
+    losses ``_CountOnce``, so every rank ends with the whole gradient of
+    x and of the router, the router losses' counted once."""
     ep = group.size
     E, M = cfg.n_experts, cfg.block_m
     E_local = E // ep
@@ -577,6 +649,8 @@ def _ep_replicated_local(params, x_loc, cfg: MoEDispatchConfig,
     # every rank routes every token with the same router, so the router
     # losses are the group's already: no mean to take
     plan = plan_dispatch(x_loc, params["router"], cfg, with_schedule=False)
+    plan = plan._replace(aux={k: _CountOnce.apply(v, ep)
+                              for k, v in plan.aux.items()})
     idx = plan.indices
     mine = (idx >= base) & (idx < base + E_local)
     # assignments of experts this rank does not own -> the sentinel E_local
@@ -602,7 +676,7 @@ def _ep_replicated_local(params, x_loc, cfg: MoEDispatchConfig,
     local_w = ex.prepare_weights(expert_weights(params, x_loc.dtype), cfg)
     y = ex.expert_ffn(xp, local_w, sched, cfg, row_scale=scale)
     out = ex.unpermute(y, sched, None, cfg)
-    out = group.all_reduce(out.float())
+    out = _SumOver.apply(out.float(), group)
     aux = dict(plan.aux)
     if cfg.emit_stats:
         flat_mine = mine.reshape(-1)
@@ -658,10 +732,12 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     oracle raises.  The shared experts run outside the exchange, on every
     token.
 
-    Under autograd (``sharded`` only, ``overlap`` 0) every rank
+    Under autograd, in every layout and ``overlap``, every rank
     backpropagates the same replicated loss, and each gets the whole
     gradient of x and of the router (the slice's backward gathers, the
-    router's sums over the group) and its own experts' gradients."""
+    router's sums over the group) and its own experts' gradients; the
+    router losses' gradient counts once.  The ragged fallback trains as
+    ``replicated``.  Quantized experts raise there."""
     require_phases(cfg)
     capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
     group = group or current_ep_group()
@@ -672,26 +748,25 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     if not get_executor(cfg.executor).supports_scheme(scheme):
         raise ValueError(f"executor {cfg.executor!r} does not support quant "
                          f"scheme {scheme!r} under EP")
+    _refuse_quant_grad(params, x)
     ep, r = group.size, group.rank
     B, S, d = x.shape
     layout, dim = _token_split(x.shape, ep, token_layout)
     grad = _needs_grad(params, x)
-    if grad and layout != "sharded":
-        raise NotImplementedError(
-            f"the {layout!r} EP layout is inference-only: training runs the "
-            f"padding-free 'sharded' layout (x of shape {tuple(x.shape)} "
-            f"must split over {ep} ranks); serve under torch.no_grad")
+    routed = dict(params)
+    if grad:
+        # every rank uses the replicated router on its own tokens (or its
+        # own experts' share of every token), and gets back the whole
+        # gradient of the router and of its replicated x
+        routed["router"] = _SumGrad.apply(params["router"], group)
     if layout == "replicated":
-        y, aux = _ep_replicated_local(params, x.reshape(-1, d), cfg, group,
-                                      capacity_factor)
+        x_rep = _SumGrad.apply(x, group) if grad else x
+        y, aux = _ep_replicated_local(routed, x_rep.reshape(-1, d), cfg,
+                                      group, capacity_factor)
         y = y.reshape(B, S, d)
     else:
         n = x.shape[dim] // ep
-        routed = dict(params)
         if grad:
-            # every rank uses the replicated router on its own tokens, and
-            # gets back the whole gradient of its replicated x
-            routed["router"] = _SumGrad.apply(params["router"], group)
             x_loc = _Split.apply(x, dim, group)
         else:
             x_loc = x.narrow(dim, r * n, n)
@@ -707,7 +782,7 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
                                            capacity_factor, max(1, overlap),
                                            gtok=gtok)
         else:
-            y_loc, aux = _ep_sharded_static_local(params, x2, cfg, group,
+            y_loc, aux = _ep_sharded_static_local(routed, x2, cfg, group,
                                                   capacity_factor)
         y_loc = y_loc.reshape(B_l, S_l, d)
         if grad:
@@ -724,7 +799,8 @@ def apply_moe_ep(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
 def apply_moe_ep_local(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
                        gtok: torch.Tensor, group: Optional[EPGroup] = None,
                        token_group: Optional[EPGroup] = None,
-                       capacity_factor: Optional[float] = None):
+                       capacity_factor: Optional[float] = None,
+                       overlap: int = 0):
     """The EP MoE layer on this rank's own tokens: x (..., d), returns (y
     of x's shape, aux).  The sharded training path's entry: under sequence
     and data parallelism each rank holds its block of the batch, and
@@ -740,19 +816,18 @@ def apply_moe_ep_local(params, x: torch.Tensor, cfg: MoEDispatchConfig, *,
     policy's buckets are sized over every token and its drops are decided
     in global token order, row for row the single-device policy's;
     ``sched/*`` are sums over ``token_group``.  The padding-free
-    ``sharded`` layout; differentiable.  ``cfg.executor`` as for
-    ``apply_moe_ep``."""
+    ``sharded`` layout; differentiable.  ``overlap``: dispatch
+    microbatches to pipeline, as for ``apply_moe_ep``; the router losses
+    stay the whole batch's.  ``cfg.executor`` as for ``apply_moe_ep``."""
     require_phases(cfg)
     capacity_factor = _resolve_capacity_factor(cfg, capacity_factor)
     group = group or current_ep_group()
     token_group = token_group or group
-    if params_scheme(params) != "none" and _needs_grad(params, x):
-        raise NotImplementedError(
-            "quantized expert weights have no backward: train dense stacks")
+    _refuse_quant_grad(params, x)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     y, aux = _ep_sharded_local(params, x2, cfg, group, capacity_factor,
-                               gtok=gtok.reshape(-1),
+                               max(1, overlap), gtok=gtok.reshape(-1),
                                token_group=token_group)
     if "shared" in params:
         y = y + shared_experts(params["shared"], x2).to(y.dtype)

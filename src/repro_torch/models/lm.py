@@ -573,7 +573,8 @@ def apply_block(blk: Block, x: torch.Tensor, cfg: ModelConfig, rc: RunConfig,
                 blk.moe.params(), h, dcfg,
                 gtok=token_ids(h.shape[0], h.shape[1], h.device),
                 group=grid.group("model"), token_group=grid.world,
-                capacity_factor=rc.capacity_factor)
+                capacity_factor=rc.capacity_factor,
+                overlap=rc.ep_microbatches if rc.ep_overlap else 0)
         elif rc.ep:
             o, aux = apply_moe_ep(
                 blk.moe.params(), h, dcfg,

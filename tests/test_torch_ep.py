@@ -19,6 +19,15 @@ launcher's ``--distributed``) against the reference's, on the CPU.
   reference's 2e-4, ``sched/*`` counts equal and ratios within 1e-6,
   ``lb_loss`` / ``router_z`` within 1e-6, every rank's output bitwise the
   same; and against the port's single-device ``apply_moe``.
+* Under autograd, every layout the reference differentiates (``sharded``
+  with ``overlap`` 0 and 2, ``replicated``, ``sharded_static``, the ragged
+  (3, 5) x that falls back to ``replicated``, the drop case under
+  ``replicated``) x policy, on ``cuda`` (the plain versions here) and on
+  ``blocks`` under ``capacity_factor``: the gradients of
+  ``sum(y * dy)``, ``lb_loss`` and ``router_z`` apart, with respect to
+  x, the router, the shared experts and each rank's own experts, within
+  1e-4 of the reference's ``jax.vjp`` on ``xla``; dx bitwise the same on
+  every rank.  Quantized experts under autograd raise in every layout.
 * Serving: ``partition_requests`` and ``DistributedServeLoop`` against the
   reference's; a 2-rank EP engine on reduced moonshot in fp32 on
   ``capacity_factor`` 0.5 with ``moe_stats``: greedy tokens, each
@@ -53,6 +62,7 @@ from repro_torch.core import distributed as tdist
 from repro_torch.core.moe_layer import apply_moe, dispatch_config
 from repro_torch.distributed import EPGroup, current_ep_group, spawn_ranks
 from repro_torch.models.lm import RunConfig, init_params
+from repro_torch.quantization import quantize_moe_params
 from repro_torch.serve.distributed import (DistributedServeLoop,
                                            partition_requests)
 from repro_torch.serve.engine import Request, ServeEngine
@@ -95,24 +105,55 @@ def _cases() -> dict:
             cases[f"{scheme}-{lay}"] = dict(shape="main", policy="fixed",
                                             layout=lay, scheme=scheme,
                                             capacity_factor=8.0)
+    # under autograd: every layout the reference differentiates, each
+    # policy on cuda, capacity_factor on blocks too (held against the same
+    # reference run), and the drop case under replicated
+    for pol in ("fixed", "dynamic", "capacity_factor"):
+        for lay, kw in GRAD_LAYOUTS.items():
+            cases[f"grad-{pol}-{lay}"] = dict(shape="main", policy=pol,
+                                              grad=True, **kw)
+            if pol == "capacity_factor":
+                cases[f"grad-blocks-{pol}-{lay}"] = dict(
+                    shape="main", policy=pol, grad=True, executor="blocks",
+                    ref=f"grad-{pol}-{lay}", **kw)
+    cases["grad-drop-cf0.25-replicated"] = dict(
+        shape="drop", policy="capacity_factor", layout="replicated",
+        capacity_factor=0.25, grad=True)
+    # a forward case with a gradient twin is held against the twin's
+    # reference run, which returns y and aux too: one compile, not two
+    for name, case in cases.items():
+        twin = "grad-" + name.removeprefix("main-")
+        if twin in cases:
+            case["ref"] = twin
     return cases
 
 
+# the gradient cases' layouts; "ragged" is the (3, 5) x on "main"'s
+# weights, which neither B nor S splits over ep 2 or 4: replicated
+GRAD_LAYOUTS = {"sharded": dict(layout="sharded"),
+                "overlap2": dict(layout="sharded", overlap=2),
+                "replicated": dict(layout="replicated"),
+                "sharded_static": dict(layout="sharded_static"),
+                "ragged": dict(layout="sharded", x="ragged")}
 CASES = _cases()
 X_SHAPES = {"main": (4, 32, 16), "drop": (1, 64, 8)}   # (B, S, d)
+RAGGED = (3, 5, 16)
+TERMS = ("out", "lb_loss", "router_z")
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def make_inputs() -> dict:
     """Seeded numpy weights (the reference's init scales) and x of both
-    MoE shapes, flat ``"<shape>.<leaf>"`` keys."""
+    MoE shapes, flat ``"<shape>.<leaf>"`` keys; then the ragged x
+    (``"ragged.x"``) and each x's output cotangent (``"<name>.dy"``)."""
     rng = np.random.default_rng(0)
     out = {}
+
+    def normal(*shp, scale):
+        return (rng.standard_normal(shp) * scale).astype(np.float32)
     for shape, (B, S, d) in X_SHAPES.items():
         m = W.moe_config(shape)
         E, f = m.n_experts, m.d_ff_expert
-
-        def normal(*shp, scale):
-            return (rng.standard_normal(shp) * scale).astype(np.float32)
         out[f"{shape}.router"] = normal(d, E, scale=d ** -0.5)
         out[f"{shape}.w_gate"] = normal(E, d, f, scale=d ** -0.5)
         out[f"{shape}.w_up"] = normal(E, d, f, scale=d ** -0.5)
@@ -123,6 +164,9 @@ def make_inputs() -> dict:
             out[f"{shape}.shared.w_up"] = normal(d, fs, scale=d ** -0.5)
             out[f"{shape}.shared.w_down"] = normal(fs, d, scale=fs ** -0.5)
         out[f"{shape}.x"] = normal(B, S, d, scale=1.0)
+    out["ragged.x"] = normal(*RAGGED, scale=1.0)
+    for name, shp in {**X_SHAPES, "ragged": RAGGED}.items():
+        out[f"{name}.dy"] = normal(*shp, scale=1.0)
     return out
 
 
@@ -153,11 +197,11 @@ from repro.serve.engine import Request, ServeEngine
 
 spec = json.load(open(sys.argv[1]))
 inputs = dict(np.load(spec["inputs"]))
-ys, auxes = {}, {}
+ys, auxes, grads = {}, {}, {}
 
 def params_of(shape):
     p = {k[len(shape) + 1:]: jnp.asarray(v) for k, v in inputs.items()
-         if k.startswith(shape + ".") and not k.endswith(".x")}
+         if k.startswith(shape + ".") and not k.endswith((".x", ".dy"))}
     out = {k: v for k, v in p.items() if not k.startswith("shared.")}
     sh = {k[7:]: v for k, v in p.items() if k.startswith("shared.")}
     if sh:
@@ -167,6 +211,8 @@ def params_of(shape):
 for ep in spec["worlds"]:
     mesh = make_debug_mesh(data=1, model=ep)
     for name, case in spec["cases"].items():
+        if "ref" in case:                  # another case's reference run
+            continue
         moe = MoEConfig(**spec["shapes"][case["shape"]])
         dcfg = dispatch_config(moe, executor="xla",
                                schedule_policy=case["policy"],
@@ -178,10 +224,35 @@ for ep in spec["worlds"]:
                   overlap=case.get("overlap", 0))
         if case.get("capacity_factor") is not None:
             kw["capacity_factor"] = case["capacity_factor"]
-        x = jnp.asarray(inputs[case["shape"] + ".x"])
-        with set_mesh(mesh):
-            y, aux = jax.jit(lambda p, x: apply_moe_ep(p, x, dcfg, **kw))(
-                params, x)
+        xname = case.get("x", case["shape"])
+        x = jnp.asarray(inputs[xname + ".x"])
+        if case.get("grad"):
+            # the vjp of each term of sum(y * dy) + lb_loss + router_z
+            dy = jnp.asarray(inputs[xname + ".dy"])
+
+            def terms(p, x):
+                y, aux = apply_moe_ep(p, x, dcfg, **kw)
+                return ((jnp.sum(y * dy), aux["lb_loss"], aux["router_z"]),
+                        (y, aux))
+
+            def run(p, x):
+                out, vjp, (y, aux) = jax.vjp(terms, p, x, has_aux=True)
+                return y, aux, jax.vmap(lambda c: vjp((c[0], c[1], c[2])))(
+                    jnp.eye(3, dtype=jnp.float32))
+            with set_mesh(mesh):
+                y, aux, (gp3, gx3) = jax.jit(run)(params, x)
+            for t, term in enumerate(("out", "lb_loss", "router_z")):
+                gp, gx = jax.tree.map(lambda a: a[t], (gp3, gx3))
+                flat = {"x": gx, **{k: v for k, v in gp.items()
+                                    if k != "shared"},
+                        **{"shared." + k: v
+                           for k, v in gp.get("shared", {}).items()}}
+                for leaf, g in flat.items():
+                    grads[f"{ep}/{name}/{term}/{leaf}"] = np.asarray(g)
+        else:
+            with set_mesh(mesh):
+                y, aux = jax.jit(lambda p, x: apply_moe_ep(p, x, dcfg,
+                                                           **kw))(params, x)
         ys[f"{ep}/{name}"] = np.asarray(y)
         auxes[f"{ep}/{name}"] = {k: float(v) for k, v in aux.items()}
 
@@ -203,6 +274,7 @@ engine = {"done": len(done), "out": [list(map(int, r.out)) for r in reqs],
                            for r in reqs],
           "ep_dropped_tokens": counters.get("serve/ep_dropped_tokens")}
 np.savez(spec["out"] + ".npz", **ys)
+np.savez(spec["out"] + "_grads.npz", **grads)
 json.dump({"aux": auxes, "engine": engine}, open(spec["out"] + ".json", "w"))
 print("OK")
 """
@@ -251,7 +323,12 @@ def runs(tmp_path_factory):
             ref.communicate()
     assert ref.returncode == 0, log
     meta = json.loads((tmp / "ref.json").read_text())
-    out["ref"] = (dict(np.load(tmp / "ref.npz")), meta["aux"], meta["engine"])
+    grads = {}
+    for key, g in np.load(tmp / "ref_grads.npz").items():
+        case, term, leaf = key.rsplit("/", 2)
+        grads.setdefault(case, {}).setdefault(term, {})[leaf] = g
+    out["ref"] = (dict(np.load(tmp / "ref.npz")), meta["aux"], meta["engine"],
+                  grads)
     out["inputs"] = inputs
     return out
 
@@ -268,16 +345,16 @@ def _check_aux(aux, ref, tag):
 @pytest.mark.parametrize("ep", WORLDS)
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_apply_moe_ep_matches_reference(runs, name, ep):
-    ys, auxes, _ = runs["ref"]
+    ys, auxes, _, _ = runs["ref"]
     res = runs[ep]
-    y, aux = res[0]["moe"][name]
+    y, aux = res[0]["moe"][name][:2]
     for r, other in enumerate(res[1:], 1):     # the same global y everywhere
         np.testing.assert_array_equal(other["moe"][name][0], y,
                                       err_msg=f"rank {r}")
         assert other["moe"][name][1] == aux, r
-    np.testing.assert_allclose(y, ys[f"{ep}/{name}"], **OUT_TOL,
-                               err_msg=name)
-    _check_aux(aux, auxes[f"{ep}/{name}"], name)
+    key = f"{ep}/{CASES[name].get('ref', name)}"
+    np.testing.assert_allclose(y, ys[key], **OUT_TOL, err_msg=name)
+    _check_aux(aux, auxes[key], name)
     if name == "drop-cf0.25-sharded":
         assert aux["sched/dropped_rows"] > 0, "cf=0.25 must drop"
 
@@ -286,7 +363,7 @@ def test_apply_moe_ep_matches_reference(runs, name, ep):
 @pytest.mark.parametrize("name", sorted(
     n for n, c in CASES.items()
     if c["layout"] != "sharded_static" and c["shape"] == "main"
-    and not c.get("scheme")))
+    and not c.get("scheme") and not c.get("grad")))
 def test_apply_moe_ep_matches_single_device(runs, name, ep):
     """Every policy's EP output and drop set equal the port's single-device
     ``apply_moe`` (``sharded_static`` ignores the policy: not held)."""
@@ -303,11 +380,44 @@ def test_apply_moe_ep_matches_single_device(runs, name, ep):
         assert aux["sched/dropped_rows"] > 0, "cf=0.5 must drop"
 
 
+@pytest.mark.parametrize("ep", WORLDS)
+@pytest.mark.parametrize("name", sorted(n for n, c in CASES.items()
+                                        if c.get("grad")))
+def test_apply_moe_ep_grads_match_reference(runs, name, ep):
+    """Each term of ``sum(y * dy) + lb_loss + router_z`` apart (a wrong
+    count of the router losses' gradient hides in the sum): the gradient
+    of x, the router and the shared experts on every rank, and of each
+    rank's own experts, against the reference's; dx bitwise the same on
+    every rank."""
+    case = CASES[name]
+    want = runs["ref"][3][f"{ep}/{case.get('ref', name)}"]
+    E = W.moe_config(case["shape"]).n_experts
+    n = E // ep
+    dx0 = {t: runs[ep][0]["moe"][name][2][t]["x"] for t in TERMS}
+    for r, res in enumerate(runs[ep]):
+        grads = res["moe"][name][2]
+        for term in TERMS:
+            np.testing.assert_array_equal(grads[term]["x"], dx0[term],
+                                          err_msg=f"rank {r} {term}")
+            for leaf, ref in want[term].items():
+                if leaf in ("w_gate", "w_up", "w_down"):   # routed stacks
+                    ref = ref[r * n:(r + 1) * n]
+                got = grads[term].get(leaf, np.zeros_like(ref))
+                np.testing.assert_allclose(
+                    got, ref, **GRAD_TOL, err_msg=f"rank {r} {term} {leaf}")
+    # every term reaches x and the router by more than the tolerance, so a
+    # gradient counted twice (or not at all) shows
+    for term in TERMS:
+        for leaf in ("x", "router"):
+            assert np.abs(want[term][leaf]).max() > 3 * GRAD_TOL["atol"], \
+                (term, leaf)
+
+
 def test_ep_engine_matches_reference_engine(runs):
     """2 gloo ranks, reduced moonshot in fp32, capacity_factor 0.5: greedy
     tokens, each request's sched/dropped_rows and the
     serve/ep_dropped_tokens counter equal the reference's EP engine."""
-    _, _, ref = runs["ref"]
+    ref = runs["ref"][2]
     got = [r["engine"] for r in runs[2]]
     assert got[0] == got[1]                      # both ranks agree
     got = got[0]
@@ -447,21 +557,28 @@ def test_merge_chunk_aux_equal():
 
 
 def test_ep_refusals():
-    """Outside a group, an inference-only layout under autograd (training
-    runs the sharded layout), and with ep not dividing E."""
+    """Outside a group, quantized experts under autograd in every layout
+    (the ragged fallback's too, and the grid path's entry), and with ep
+    not dividing E."""
     with pytest.raises(RuntimeError, match="EP group"):
         current_ep_group()
     inputs = make_inputs()
-    params = W.torch_params(inputs, "main")
-    x = torch.from_numpy(inputs["main.x"]).requires_grad_()
+    params = shard_experts(quantize_moe_params(
+        W.torch_params(inputs, "main"), "int8_expert"), 0, 2)
     cfg = dispatch_config(W.moe_config("main"))
     g = EPGroup(0, 2, None, "gloo", torch.device("cpu"))
-    for layout in ("replicated", "sharded_static"):
-        with pytest.raises(NotImplementedError, match="inference-only"):
-            tdist.apply_moe_ep(shard_experts(params, 0, 2), x, cfg, group=g,
-                               token_layout=layout)
+    for xname in ("main", "ragged"):
+        x = torch.from_numpy(inputs[f"{xname}.x"]).requires_grad_()
+        for layout in ("sharded", "sharded_static", "replicated"):
+            with pytest.raises(NotImplementedError, match="no backward"):
+                tdist.apply_moe_ep(params, x, cfg, group=g,
+                                   token_layout=layout)
+    x = torch.from_numpy(inputs["main.x"]).requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tdist.apply_moe_ep_local(params, x, cfg, group=g,
+                                 gtok=torch.arange(x.shape[0] * x.shape[1]))
     with pytest.raises(ValueError, match="must divide"):
-        shard_experts(params, 0, 3)
+        shard_experts(W.torch_params(inputs, "main"), 0, 3)
 
 
 # ----------------------------------------------------------------------

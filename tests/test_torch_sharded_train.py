@@ -42,6 +42,9 @@ ctx}``, the grid path of ``models/lm.py``, ``train/step.py`` and
   kv_offset=, return_stats=True)``: within 3e-5 of full attention;
   ``flash_attention``'s ``q_offset``/``kv_offset`` against the
   reference's on one device.
+* ``RunConfig(ep_overlap=True)`` on 1x2 (reduced moonshot,
+  ``capacity_factor``): the same checks against the same single-device
+  step.
 * ``apply_moe_ep`` on the global x under autograd (2 ranks): output,
   router losses and the gradients of x, the router and each rank's experts
   against the single-device layer with the EP layer's loss.
@@ -103,6 +106,9 @@ GRIDS = ("1x2x2", "1x1x2", "1x2x1", "2x1x1")   # pod x data x model
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 EP_MOE = dict(n_experts=8, top_k=2, d_ff_expert=32, block_m=8)
+# the pipelined EP dispatch (RunConfig.ep_overlap, 2 microbatches) on the
+# 1x2 grid: the same step as without it
+OVERLAP_CASE = "moonshot-capacity-overlap"
 
 
 def jax_config(arch):
@@ -342,6 +348,7 @@ def rank_runs(inputs: dict, tmp: pathlib.Path) -> dict:
                             **ep_job()),
               ep_capacity=dict(kind="ep", policy="capacity_factor",
                                capacity_factor=0.5, **ep_job()))
+    sp[OVERLAP_CASE] = dict(cases["moonshot-capacity"], overlap=True)
     pod = {"moonshot-fixed": cases["moonshot-fixed"],
            "compress": dict(cases["moonshot-fixed"], kind="compress")}
     two = {"grids": [("1x1x2", sp), ("1x2x1", dict(cases)),
@@ -419,6 +426,20 @@ def test_sharded_step_matches_reference(runs, reference, grid, case):
             assert other[f"{grid}/{case}"]["loss"] == got["loss"]
             assert other[f"{grid}/{case}"]["step_metrics"] \
                 == got["step_metrics"]
+
+
+def test_ep_overlap_step_matches_reference(runs, reference):
+    """``ep_overlap`` on the 1x2 grid: each rank's 128 tokens go out in 2
+    pipelined microbatches, routed, and the capacity drops decided, over
+    the whole batch first, so the step is the reference's single-device
+    one (which has no EP to pipeline)."""
+    got = runs[f"1x1x2/{OVERLAP_CASE}"]
+    _check_against_reference(got, reference["moonshot-capacity"],
+                             "moonshot-v1-16b-a3b")
+    assert got["metrics"]["sched/dropped_rows"] > 0
+    for other in runs["others"]:
+        if f"1x1x2/{OVERLAP_CASE}" in other:
+            assert other[f"1x1x2/{OVERLAP_CASE}"]["loss"] == got["loss"]
 
 
 @pytest.mark.parametrize("grid", ["1x2x2", "1x1x2"])

@@ -4,7 +4,8 @@ imports torch and the port only (never JAX), and returns numpy.
 ``rank_main(group, inputs, cases, engine)`` runs every expert-parallel MoE
 case of ``cases`` on this rank's share of the experts, and, when
 ``engine`` is given, the 2-rank serving case; it returns
-``{"moe": {case: (y, aux)}, "engine": {...}}``."""
+``{"moe": {case: (y, aux) or, for a ``grad`` case, (y, aux, grads)},
+"engine": {...}}``."""
 import numpy as np
 import torch
 
@@ -29,7 +30,7 @@ def moe_config(shape: str) -> MoEConfig:
 def torch_params(inputs: dict, shape: str) -> dict:
     p = {k[len(shape) + 1:]: torch.from_numpy(np.array(v))
          for k, v in inputs.items()
-         if k.startswith(shape + ".") and k != shape + ".x"}
+         if k.startswith(shape + ".") and not k.endswith((".x", ".dy"))}
     out = {k: v for k, v in p.items() if not k.startswith("shared.")}
     shared = {k[len("shared."):]: v for k, v in p.items()
               if k.startswith("shared.")}
@@ -53,16 +54,55 @@ def aux_numpy(aux: dict) -> dict:
     return {k: float(v) for k, v in aux.items()}
 
 
+def leaves(params: dict, prefix: str = "") -> dict:
+    """{name: tensor} of a MoE param mapping, ``shared`` as
+    ``shared.<leaf>``."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def trainable(params: dict) -> dict:
+    """A copy of ``params`` whose every tensor is a leaf needing a
+    gradient."""
+    return {k: (trainable(v) if isinstance(v, dict)
+                else v.detach().clone().requires_grad_())
+            for k, v in params.items()}
+
+
 def run_moe(group, inputs: dict, case: dict):
+    """(y, aux), and for a ``grad`` case the gradients of each term of the
+    loss ``sum(y * dy) + lb_loss + router_z`` apart: ``{term: {"x" or a
+    leaf of this rank's params: gradient}}``."""
     _, dcfg, kw = case_config(case)
     params = torch_params(inputs, case["shape"])
     if case.get("scheme"):
         params = quantize_moe_params(params, case["scheme"])
     local = shard_experts(params, group.rank, group.size)
-    x = torch.from_numpy(np.array(inputs[case["shape"] + ".x"]))
-    with torch.no_grad():
-        y, aux = apply_moe_ep(local, x, dcfg, group=group, **kw)
-    return y.numpy(), aux_numpy(aux)
+    xname = case.get("x", case["shape"])
+    x = torch.from_numpy(np.array(inputs[xname + ".x"]))
+    if not case.get("grad"):
+        with torch.no_grad():
+            y, aux = apply_moe_ep(local, x, dcfg, group=group, **kw)
+        return y.numpy(), aux_numpy(aux)
+    local = trainable(local)
+    x.requires_grad_()
+    wrt = {"x": x, **leaves(local)}
+    y, aux = apply_moe_ep(local, x, dcfg, group=group, **kw)
+    dy = torch.from_numpy(np.array(inputs[xname + ".dy"]))
+    terms = {"out": (y * dy).sum(), "lb_loss": aux["lb_loss"],
+             "router_z": aux["router_z"]}
+    grads = {}
+    for term, t in terms.items():
+        gs = torch.autograd.grad(t, list(wrt.values()), retain_graph=True,
+                                 allow_unused=True)
+        grads[term] = {n: g.numpy() for n, g in zip(wrt, gs)
+                       if g is not None}
+    return y.detach().numpy(), aux_numpy(aux), grads
 
 
 def run_engine(group, spec: dict) -> dict:

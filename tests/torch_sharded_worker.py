@@ -47,10 +47,12 @@ def model_config(arch: str):
     return reduced(get_config(arch), layers=FAMILY_LAYERS.get(arch, 3))
 
 
-def run_config(policy: str, remat: bool = False) -> RunConfig:
+def run_config(policy: str, remat: bool = False,
+               overlap: bool = False) -> RunConfig:
+    """``overlap``: the pipelined EP dispatch, 2 microbatches."""
     return RunConfig(q_chunk=0, kv_chunk=16, loss_chunk=16, remat=remat,
                      schedule_policy=policy, capacity_factor=CF,
-                     moe_stats=True)
+                     moe_stats=True, ep_overlap=overlap, ep_microbatches=2)
 
 
 def sharded_state(case: dict, grid):
@@ -85,7 +87,7 @@ def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False,
     from repro_torch.models import rwkv6, ssm
     cfg, state = sharded_state(case, grid)
     model = state["params"]
-    rc = run_config(case["policy"], remat)
+    rc = run_config(case["policy"], remat, case.get("overlap", False))
     batch = case_batch(case, grid, cfg)
     params = dict(model.named_parameters())
     patched = [(ctx, "gather_dim"), (rwkv6, "wkv_recurrence"),
@@ -125,7 +127,8 @@ def grads_on_grid(case: dict, grid, remat: bool, compress_pod=False,
 def step_on_grid(case: dict, grid):
     cfg, state = sharded_state(case, grid)
     batch = case_batch(case, grid, cfg)
-    step = make_train_step(cfg, run_config(case["policy"]),
+    step = make_train_step(cfg, run_config(case["policy"],
+                                           overlap=case.get("overlap", False)),
                            OptConfig(**case.get("opt", OPT)), grid=grid)
     state, metrics = step(state, batch)
     model = state["params"]
